@@ -1,0 +1,434 @@
+#!/usr/bin/env python3
+"""Chip smoke of the PyTorch/CUDA port (sptag_tpu_torch) on one CUDA card.
+
+Run from the repository root:
+
+    python3 chip_smoke.py
+
+It builds the CUDA kernels from ``sptag_tpu_torch/csrc`` (first use), drives
+the port's BKT dense main path through its public entry points at the
+repository's headline size, checks what comes out, and compares every
+kernel with its plain PyTorch version.  Each phase prints one JSON line;
+any failure exits non-zero.  Without a CUDA card, or outside the
+repository, it exits non-zero and prints no result.
+
+Phases, in the order they run:
+
+0. environment: ``nvidia-smi`` name and power limit, versions, sm_90 check;
+1. build the kernels;
+3. f32 headline: BKT Float L2, BuildGraph=0, BKTKmeansK=32, MaxCheck=2048,
+   n=200,000 x d=128 (seed 7); 4,096 queries in batches of 1,024 through
+   ``probe_block_dots``; then the same queries in one grouped call
+   (DenseQueryGroup=8) through ``group_block_dots``;
+4. int8 grouped: BKT Int8 cosine, n=50,000, 2,048 queries with
+   DenseQueryGroup=32, DenseUnionFactor=4 through ``group_block_dots``;
+   then ungrouped through ``probe_block_dots``;
+5. persistence: save_index, load_index, the first 1,024 queries again;
+2. every kernel against its plain version on the card, on the main path's
+   own blocks and block ids (run last, so its launches stay out of the
+   main path's counts), with its time, the plain version's, one PyTorch
+   call's (``library_ms``) and the card's bound for the same work;
+6. where a search batch's time goes: ``torch.profiler`` device time by
+   kernel for one batch of each configuration, against its untraced time.
+
+Launch counts are zeroed just before phase 3 and read just after phase 5.
+Each query set is searched ``PASSES`` times over for its batch times; the
+QPS and batch percentiles are smoke readings of that window, not a
+benchmark.
+"""
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, float32 outside
+# the tensor cores, int8 tensor-core ops
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"f32": 67e12, "i8": 1979e12}
+K = 10
+PASSES = 16          # timed passes over each query set
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def make_dataset(n=200_000, d=128, nq=1000, seed=7, dtype=np.float32):
+    """The repository benchmark's clustered corpus (bench.py make_dataset)."""
+    rng = np.random.default_rng(seed)
+    n_clusters = 256
+    centers = rng.standard_normal((n_clusters, d)).astype(np.float32) * 4.0
+    assign = rng.integers(0, n_clusters, n)
+    data = centers[assign] + rng.standard_normal((n, d)).astype(np.float32)
+    queries = (centers[rng.integers(0, n_clusters, nq)]
+               + rng.standard_normal((nq, d)).astype(np.float32))
+    if dtype == np.int8:
+        def toi8(x):
+            x = x / np.maximum(np.linalg.norm(x, axis=1, keepdims=True),
+                               1e-9)
+            return np.clip(np.round(x * 127.0), -128, 127).astype(np.int8)
+        return toi8(data), toi8(queries)
+    return data, queries
+
+
+def recall_at_k(ids: np.ndarray, truth: np.ndarray, k: int = K) -> float:
+    return float(np.mean([len(set(a[:k].tolist()) & set(t[:k].tolist())) / k
+                          for a, t in zip(ids, truth)]))
+
+
+def exact_truth(dist_ops, rows: torch.Tensor, queries: torch.Tensor,
+                cosine_base: int = 0) -> np.ndarray:
+    """Exact top-K on the card: chunked matrix product + stable top-k.
+    L2 in float32; integer cosine as exact ``base^2 - dot`` (float64)."""
+    out = []
+    if cosine_base:
+        xr = rows.double()
+    else:
+        xr = rows.float()
+        xn = (xr * xr).sum(1)
+    for lo in range(0, queries.shape[0], 512):
+        q = queries[lo:lo + 512]
+        if cosine_base:
+            d = cosine_base * cosine_base - q.double() @ xr.T
+        else:
+            qf = q.float()
+            d = (qf * qf).sum(1)[:, None] + xn[None, :] - 2.0 * (qf @ xr.T)
+        out.append(dist_ops.smallest_k(d, K)[1].cpu().numpy())
+    return np.concatenate(out)
+
+
+def timed_batches(index, queries, batch, passes: int = PASSES):
+    """Search `queries` in batches, `passes` times over; the ids of the
+    first pass and every batch's wall time."""
+    ids, times = [], []
+    for rep in range(passes):
+        for lo in range(0, len(queries), batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, i = index.search_batch(queries[lo:lo + batch], K)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if rep == 0:
+                ids.append(i)
+    return np.concatenate(ids), times
+
+
+def batch_stats(times, batch):
+    """Smoke readings over the timed batches, not a benchmark."""
+    ms = sorted(t * 1e3 for t in times)
+    return {"batches": len(ms), "qps": batch * len(ms) / sum(times),
+            "batch_ms_p50": statistics.median(ms),
+            "batch_ms_p99": float(np.percentile(ms, 99))}
+
+
+def median_ms(fn, reps: int = 30) -> float:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b))
+    return statistics.median(ts)
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke needs a CUDA "
+             "card")
+    here = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(here, "sptag_tpu_torch")):
+        fail("run from a checkout of the repository (sptag_tpu_torch/ "
+             "is missing)")
+    import sptag_tpu_torch as pt
+    from sptag_tpu_torch import _build
+    from sptag_tpu_torch.algo import dense
+    from sptag_tpu_torch.ops import block_dots
+    from sptag_tpu_torch.ops import distance as dist_ops
+
+    # ---- phase 0: environment ---------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
+    print(card, flush=True)
+    cap = torch.cuda.get_device_capability(0)
+    emit({"phase": 0, "nvidia_smi": card, "torch": torch.__version__,
+          "cuda": torch.version.cuda, "capability": list(cap),
+          "device": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count()})
+    if tuple(cap) != (9, 0):
+        fail(f"needs compute capability 9.0 (Hopper), got {cap}")
+    dev = torch.device("cuda")
+
+    # ---- phase 1: build -----------------------------------------------------
+    t0 = time.perf_counter()
+    so, nvcc_s = _build.build("block_dots")
+    block_dots.library()
+    log = _build.build_log.get("block_dots", "")
+    emit({"phase": 1, "library": os.path.relpath(so, here),
+          "build_s": time.perf_counter() - t0, "nvcc_s": nvcc_s,
+          "ptxas": [ln.strip() for ln in log.splitlines()
+                    if "registers" in ln or "spill" in ln]})
+
+    # ---- main path ----------------------------------------------------------
+    block_dots.reset_launch_counts()
+
+    # phase 3: f32 headline
+    data, queries = make_dataset(n=200_000, nq=4096, seed=7)
+    idx = pt.create_instance("BKT", "Float")
+    for name, value in [("DistCalcMethod", "L2"), ("BuildGraph", "0"),
+                        ("BKTNumber", "1"), ("BKTKmeansK", "32"),
+                        ("MaxCheck", "2048")]:
+        if not idx.set_parameter(name, value):
+            fail(f"set_parameter {name}")
+    t0 = time.perf_counter()
+    idx.build(data)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx.search_batch(queries[:1024], K)            # materializes the layout
+    first_s = time.perf_counter() - t0
+    before = block_dots.probe_f32_launches
+    ids_f32, times = timed_batches(idx, queries, 1024)
+    probe_runs = block_dots.probe_f32_launches - before
+    sf = idx._get_dense()
+    truth_f32 = exact_truth(dist_ops, torch.from_numpy(data).to(dev),
+                            torch.from_numpy(queries).to(dev))
+    recall = recall_at_k(ids_f32, truth_f32)
+    emit({"phase": 3, "n": len(data), "d": data.shape[1], "build_s": build_s,
+          "first_batch_s": first_s, **batch_stats(times, 1024),
+          "recall_at_10": recall, "P": sf.cluster_size,
+          "C": sf.num_clusters, "probe_launches": probe_runs})
+    if probe_runs < 4:
+        fail(f"probe_block_dots launched {probe_runs} < 4 times")
+    if recall < 0.95:
+        fail(f"f32 recall@10 {recall} < 0.95")
+
+    idx.set_parameter("DenseQueryGroup", "8")
+    idx.search_batch(queries, K)                   # first grouped call
+    before = block_dots.group_f32_launches
+    ids_g, times_g = timed_batches(idx, queries, len(queries))
+    g_f32 = idx.last_effective_group
+    recall_g = recall_at_k(ids_g, truth_f32)
+    emit({"phase": "3b", "group": g_f32, **batch_stats(times_g, len(queries)),
+          "recall_at_10": recall_g,
+          "group_launches": block_dots.group_f32_launches - before})
+    idx.set_parameter("DenseQueryGroup", "0")
+    if g_f32 != 8 or recall_g < 0.95:
+        fail(f"f32 grouped: group {g_f32}, recall {recall_g}")
+
+    # phase 4: int8 grouped
+    data8, queries8 = make_dataset(n=50_000, nq=2048, seed=7, dtype=np.int8)
+    idx8 = pt.create_instance("BKT", "Int8")
+    for name, value in [("DistCalcMethod", "Cosine"), ("BuildGraph", "0"),
+                        ("BKTNumber", "1"), ("BKTKmeansK", "32"),
+                        ("MaxCheck", "2048"), ("DenseQueryGroup", "32"),
+                        ("DenseUnionFactor", "4")]:
+        if not idx8.set_parameter(name, value):
+            fail(f"set_parameter {name}")
+    t0 = time.perf_counter()
+    idx8.build(data8)
+    build8_s = time.perf_counter() - t0
+    idx8.search_batch(queries8, K)                 # materializes the layout
+    before = block_dots.group_i8_launches
+    ids8, times8 = timed_batches(idx8, queries8, len(queries8))
+    group_runs = block_dots.group_i8_launches - before
+    g_i8 = idx8.last_effective_group
+    s8 = idx8._get_dense()
+    truth8 = exact_truth(dist_ops, torch.from_numpy(idx8._host).to(dev),
+                         torch.from_numpy(idx8._prepare_query(queries8))
+                         .to(dev), cosine_base=127)
+    recall8 = recall_at_k(ids8, truth8)
+    idx8.set_parameter("DenseQueryGroup", "0")
+    idx8.search_batch(queries8[:1024], K)          # first ungrouped call
+    before = block_dots.probe_i8_launches
+    ids8p, times8p = timed_batches(idx8, queries8, 1024)
+    recall8p = recall_at_k(ids8p, truth8)
+    emit({"phase": 4, "n": len(data8), "build_s": build8_s, "group": g_i8,
+          **batch_stats(times8, len(queries8)), "recall_at_10": recall8,
+          "group_launches": group_runs, "P": s8.cluster_size,
+          "C": s8.num_clusters, "ungrouped": {
+              **batch_stats(times8p, 1024),
+              "recall_at_10": recall8p,
+              "probe_launches": block_dots.probe_i8_launches - before}})
+    if g_i8 != 32 or group_runs < 2:
+        fail(f"int8 grouped: group {g_i8}, launches {group_runs}")
+    if recall8 < 0.97:
+        fail(f"int8 recall@10 {recall8} < 0.97")
+
+    # phase 5: persistence
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = os.path.join(tmp, "bkt_f32")
+        t0 = time.perf_counter()
+        if idx.save_index(folder) != pt.ErrorCode.Success:
+            fail("save_index")
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = pt.load_index(folder)
+        load_s = time.perf_counter() - t0
+        _, ids_l = loaded.search_batch(queries[:1024], K)
+    same = bool(np.array_equal(ids_l, ids_f32[:1024]))
+    emit({"phase": 5, "save_s": save_s, "load_s": load_s, "ids_equal": same})
+    if not same:
+        fail("ids differ after save -> load")
+    launches = block_dots.launch_counts()
+    emit({"phase": "main_path_launches", **launches})
+    missing = [k for k, v in launches.items() if v < 1]
+    if missing:
+        fail(f"kernels not launched on the main path: {missing}")
+
+    # ---- phase 2: kernels against their plain versions ---------------------
+    q32 = torch.from_numpy(idx._prepare_query(queries[:1024])).to(dev)
+    q8 = torch.from_numpy(idx8._prepare_query(queries8[:1024])).to(dev)
+
+    def nprobe_of(s):
+        return int(np.clip(-(-2048 // s.cluster_size), 1, s.num_clusters))
+
+    def probe_inputs(s, q):
+        _, topc = dense.probe_choice(q, s.centroids, s.cent_sq,
+                                     int(s.metric), nprobe_of(s))
+        return q, topc.to(torch.int32).contiguous()
+
+    def group_inputs(s, q, G, uf):
+        npb = nprobe_of(s)
+        U = min(uf * npb, s.num_clusters, G * npb)
+        order, _, union = dense.group_union(
+            q, s.centroids, s.cent_sq, q.shape[0], npb, U, G, int(s.metric))
+        return (q[order].contiguous(),
+                torch.clamp_min(union, 0).to(torch.int32).contiguous())
+
+    rows = []
+    cases = [
+        ("probe_block_dots", "f32", sf, probe_inputs(sf, q32)),
+        ("probe_block_dots", "i8", s8, probe_inputs(s8, q8)),
+        ("group_block_dots", "i8", s8, group_inputs(s8, q8, 32, 4)),
+        ("group_block_dots", "f32", sf, group_inputs(sf, q32, 8, 2)),
+    ]
+    for kind, t, s, (q, ids) in cases:
+        blocks = s.data_perm
+        fn = getattr(block_dots, kind)
+        ref = getattr(block_dots, kind + "_reference")
+        got = fn(blocks, q, ids)
+        want = ref(blocks, q, ids)
+        torch.cuda.synchronize()
+        err = (got.double() - want.double()).abs()
+        if t == "i8":
+            ok = bool(err.max().item() == 0)
+        else:
+            # |kernel - plain| <= 1e-5 * sum_d |q_d x_d|, per element
+            scale = ref(blocks.abs(), q.abs(), ids).double()
+            ok = bool((err <= 1e-5 * scale + 1e-30).all())
+        C, P, D = blocks.shape
+        es = blocks.element_size()
+        Q = q.shape[0]
+        distinct = int(torch.unique(ids).numel())
+        if kind == "probe_block_dots":
+            npb = ids.shape[1]
+            shape = {"Q": Q, "nprobe": npb, "P": P, "D": D, "C": C}
+            nbytes = (distinct * P * D * es + Q * D * es + ids.numel() * 4
+                      + Q * npb * P * 4)
+            ops = 2.0 * Q * npb * P * D
+            lib = ("qd,qjpd->qjp", q, blocks[ids.long()])
+        else:
+            NG, U = ids.shape
+            G = Q // NG
+            shape = {"NG": NG, "U": U, "G": G, "P": P, "D": D, "C": C}
+            nbytes = (distinct * P * D * es + Q * D * es + ids.numel() * 4
+                      + NG * U * G * P * 4)
+            ops = 2.0 * NG * U * G * P * D
+            lib = ("gqd,gupd->guqp", q.reshape(NG, G, D), blocks[ids.long()])
+        bytes_ms = nbytes / HBM_BYTES_S * 1e3
+        ops_ms = ops / PEAK_OPS_S[t] * 1e3
+        kernel_ms = median_ms(lambda: fn(blocks, q, ids))
+        plain_ms = median_ms(lambda: ref(blocks, q, ids))
+        # the library yardstick: one float32 einsum over the pre-gathered
+        # blocks (gather and casts outside the timing).  For int8 it is
+        # exact: every partial sum is an integer of magnitude at most
+        # 128^2 * D = 2^21 < 2^24
+        eq, a, b = lib
+        if t == "i8":
+            a, b = a.float(), b.float()
+        library_ms = median_ms(lambda: torch.einsum(eq, a, b))
+        lib_err = float((torch.einsum(eq, a, b).double()
+                         - want.double()).abs().max().item())
+        del lib, a, b
+        row = {"name": f"{kind}_{t}", "route": "cuda",
+               "source": "sptag_tpu_torch/csrc/block_dots.cu",
+               "replaces": ("sptag_tpu/ops/pallas_kernels.py:151"
+                            if kind == "probe_block_dots"
+                            else "sptag_tpu/ops/pallas_kernels.py:214"),
+               "launches": launches[f"{kind}_{t}"],
+               "max_abs_err": float(err.max().item()), "ms": kernel_ms,
+               "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "library_ms": library_ms}
+        emit({"phase": 2, **row, "shape": shape, "distinct_blocks": distinct,
+              "bytes": nbytes, "ops": ops, "within_tolerance": ok,
+              "library_max_abs_err": lib_err})
+        if not ok:
+            fail(f"{kind} {t}: kernel disagrees with its plain version "
+                 f"(max |err| {row['max_abs_err']})")
+        rows.append(row)
+
+    # ---- phase 6: where a search batch's time goes ---------------------------
+    # device time from the profiler's CUDA rows (kernels and copies); the
+    # idle share is against the untraced batch time of phases 3/4
+    from torch.profiler import ProfilerActivity, profile
+
+    def breakdown(label, run, untraced_ms):
+        run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        dev_rows = [e for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in dev_rows) / 1e3
+        top = sorted(dev_rows, key=lambda e: -e.self_device_time_total)[:8]
+        emit({"phase": 6, "call": label, "untraced_ms": untraced_ms,
+              "device_ms": busy_ms or None,
+              "device_idle_share": (1.0 - busy_ms / untraced_ms
+                                    if busy_ms else None),
+              "top_device": [[e.key[:80], e.self_device_time_total / 1e3,
+                              e.count] for e in top]})
+
+    breakdown("f32 per-query, 1024 queries",
+              lambda: idx.search_batch(queries[:1024], K),
+              batch_stats(times, 1024)["batch_ms_p50"])
+    idx.set_parameter("DenseQueryGroup", "8")
+    breakdown("f32 grouped G=8, 4096 queries",
+              lambda: idx.search_batch(queries, K),
+              batch_stats(times_g, len(queries))["batch_ms_p50"])
+    idx8.set_parameter("DenseQueryGroup", "32")
+    breakdown("int8 grouped G=32, 2048 queries",
+              lambda: idx8.search_batch(queries8, K),
+              batch_stats(times8, len(queries8))["batch_ms_p50"])
+
+    print(card, flush=True)
+    emit({"kernels": rows})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
+if __name__ == "__main__":
+    main()

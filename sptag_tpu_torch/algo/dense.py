@@ -1,0 +1,566 @@
+"""Dense tree-partition search (port of ``sptag_tpu/algo/dense.py``).
+
+The BKT forest's first tree is cut into subtrees of about
+``DenseClusterSize`` samples; the corpus is re-laid out cluster-contiguously
+as one (C, P, D) block tensor on the device (P = padded cluster size,
+padding rows carry id -1 and squared norm 0).  A query batch scores every
+block mean with one (Q, C) matrix product, takes its ``nprobe =
+ceil(MaxCheck / P)`` nearest blocks, scores every row of them with the
+hand-written block-dot kernels (ops/block_dots.py) and keeps a masked top-k.
+With ``DenseQueryGroup`` the batch is sorted by nearest block, split into
+groups, and each group scores the union of its members' probes.
+
+Everything that decides which candidates a query sees or how ties fall is
+kept from the JAX package: the P alignment, the grouping rules (adaptive
+cap, G <= U clamp, the dtype floor on G), the chunk sizing from
+``_GATHER_BUDGET``, the query-bucket padding, the metric algebra, the
+replica de-duplication, and ``lax.top_k``'s lowest-index-first tie rule
+(stable sorts throughout).  The chunks run as a Python loop.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from sptag_tpu_torch.core.index import not_ported
+from sptag_tpu_torch.core.types import DistCalcMethod
+from sptag_tpu_torch.device import DeviceLike, resolve_device
+from sptag_tpu_torch.ops import block_dots
+from sptag_tpu_torch.ops import distance as dist_ops
+from sptag_tpu_torch.utils import query_bucket, round_up
+
+log = logging.getLogger(__name__)
+
+# float32-exact, so comparisons against float32 tensors are exact too
+MAX_DIST = float(np.float32(3.4e38))
+
+# score-buffer budget per chunk (bytes): Q * nprobe * P * D * 4
+_GATHER_BUDGET = 1 << 30
+
+
+def partition_from_tree(tree, n: int, target_size: int
+                        ) -> Tuple[np.ndarray, List[np.ndarray]]:
+    """Cut the first BKT tree into subtrees of <= target_size samples.
+
+    Returns (cut-node center sample ids (C,), C member id arrays — every
+    sample id in [0, n) appears in exactly one cluster)."""
+    nodes = tree.nodes
+    cid = nodes["centerid"].astype(np.int64)
+    cs = nodes["childStart"].astype(np.int64)
+    ce = nodes["childEnd"].astype(np.int64)
+    start = int(tree.tree_starts[0])
+    end = int(tree.tree_starts[1]) if len(tree.tree_starts) > 1 \
+        else len(nodes)
+
+    def children(ni: int) -> range:
+        # leaf: cs == -1 and ce <= 0; a duplicate node negates childStart
+        if cs[ni] >= 0:
+            return range(int(cs[ni]), int(ce[ni]))
+        if cs[ni] < -1 or (cs[ni] == -1 and ce[ni] > 0):
+            return range(int(-cs[ni]), int(ce[ni]))
+        return range(0)
+
+    def sample_of(ni: int) -> int:
+        # the root's centerid is the build-time sample count, not a sample
+        if ni == start:
+            return -1
+        c = int(cid[ni])
+        return c if 0 <= c < n else -1
+
+    # bottom-up subtree sample counts (children follow their parents)
+    counts = np.zeros(end - start, np.int64)
+    for ni in range(end - 1, start - 1, -1):
+        c = 1 if sample_of(ni) >= 0 else 0
+        for ch in children(ni):
+            c += counts[ch - start]
+        counts[ni - start] = c
+
+    # top-down BFS: a node becomes a cluster root once its subtree fits
+    roots: List[int] = []
+    loose: List[int] = []          # interior-node center samples above cuts
+    frontier = [start]
+    while frontier:
+        nxt: List[int] = []
+        for ni in frontier:
+            if counts[ni - start] == 0:
+                continue
+            kids = children(ni)
+            if counts[ni - start] <= target_size or len(kids) == 0:
+                roots.append(ni)
+            else:
+                nxt.extend(kids)
+                if sample_of(ni) >= 0:
+                    loose.append(sample_of(ni))
+        frontier = nxt
+
+    clusters: List[np.ndarray] = []
+    centers: List[int] = []
+    for r in roots:
+        members: List[int] = []
+        stack = [r]
+        while stack:
+            ni = stack.pop()
+            if sample_of(ni) >= 0:
+                members.append(sample_of(ni))
+            stack.extend(children(ni))
+        if members:
+            clusters.append(np.asarray(members, np.int64))
+            centers.append(sample_of(r) if sample_of(r) >= 0 else members[0])
+    # center samples of nodes above the cut join the smallest cluster
+    for s in loose:
+        smallest = min(range(len(clusters)), key=lambda i: len(clusters[i]))
+        clusters[smallest] = np.append(clusters[smallest], s)
+
+    return _pack_clusters(clusters, centers, target_size)
+
+
+def _pack_clusters(clusters: List[np.ndarray], centers: List[int],
+                   target_size: int
+                   ) -> Tuple[np.ndarray, List[np.ndarray]]:
+    """Greedily merge adjacent (tree-sibling) small clusters into near-full
+    blocks; a merged block keeps the center of its largest constituent."""
+    packed_c: List[np.ndarray] = []
+    packed_id: List[int] = []
+    cur: List[np.ndarray] = []
+    cur_center, cur_best, cur_n = -1, -1, 0
+    for ci in range(len(clusters)):
+        sz = len(clusters[ci])
+        if cur_n and cur_n + sz > target_size:
+            packed_c.append(np.concatenate(cur))
+            packed_id.append(cur_center)
+            cur, cur_center, cur_best, cur_n = [], -1, -1, 0
+        cur.append(clusters[ci])
+        if sz > cur_best:
+            cur_best, cur_center = sz, centers[ci]
+        cur_n += sz
+    if cur_n:
+        packed_c.append(np.concatenate(cur))
+        packed_id.append(cur_center)
+    return np.asarray(packed_id, np.int64), packed_c
+
+
+def _sorted_dup_mask(ids: torch.Tensor) -> torch.Tensor:
+    """(Q, X) ids -> (Q, X) bool: True at every repeat of an id after its
+    first occurrence (``sptag_tpu/algo/engine.py::_sorted_dup_mask``)."""
+    order = torch.argsort(ids, dim=1, stable=True)
+    sorted_ids = torch.gather(ids, 1, order)
+    dup_sorted = torch.cat(
+        [torch.zeros_like(sorted_ids[:, :1], dtype=torch.bool),
+         sorted_ids[:, 1:] == sorted_ids[:, :-1]], dim=1)
+    return torch.empty_like(dup_sorted).scatter_(1, order, dup_sorted)
+
+
+def _finalize_topk(nd: torch.Tensor, ids: torch.Tensor,
+                   deleted: torch.Tensor, dedup: bool, k: int,
+                   extra_dead: Optional[torch.Tensor] = None):
+    """Tombstone/sentinel masking, optional replica de-duplication, masked
+    top-k (lowest index first among ties), -1 id sentinel."""
+    dead = deleted[torch.clamp_min(ids, 0).long()] | (ids < 0)
+    if extra_dead is not None:
+        dead = dead | extra_dead
+    nd = torch.where(dead, MAX_DIST, nd)
+    if dedup:
+        # replicated rows appear in several probed blocks with identical
+        # distances: keep one occurrence
+        nd = torch.where(_sorted_dup_mask(torch.where(ids >= 0, ids, -1))
+                         & (ids >= 0), MAX_DIST, nd)
+    out_d, pos = dist_ops.smallest_k(nd, min(k, nd.shape[1]))
+    out_ids = torch.gather(ids, 1, pos)
+    out_ids = torch.where(out_d < MAX_DIST, out_ids, -1)
+    return out_d, out_ids.to(torch.int32)
+
+
+def _kernel_ok(data_perm: torch.Tensor, queries: torch.Tensor) -> bool:
+    """The block-dot kernels take float32 blocks, or int8 blocks with int8
+    queries; other value types score through a gather, as the JAX package's
+    XLA path does."""
+    return (data_perm.dtype == torch.float32
+            or (data_perm.dtype == torch.int8
+                and queries.dtype == torch.int8))
+
+
+def probe_choice(queries, centroids, cent_sq, metric: int, nprobe: int):
+    """(Q, D) queries -> (ascending block-mean distances, block ids), both
+    (Q, nprobe).  Block means are float32 even for integer corpora, so they
+    are scored with float queries."""
+    d0 = dist_ops.pairwise_distance(queries.to(torch.float32), centroids,
+                                    DistCalcMethod(metric), x_sqnorm=cent_sq)
+    return dist_ops.smallest_k(d0, nprobe)
+
+
+def _dense_search_kernel(data_perm, member_ids, member_sq, centroids,
+                         cent_sq, deleted, queries, k: int, nprobe: int,
+                         metric: int, base: int, dedup: bool = False):
+    """(Q, C) block scores -> top-nprobe blocks -> (Q, nprobe*P) candidate
+    scores -> masked top-k."""
+    Q = queries.shape[0]
+    C, P, D = data_perm.shape
+    _, topc = probe_choice(queries, centroids, cent_sq, metric, nprobe)
+    ids = member_ids[topc].reshape(Q, nprobe * P)
+    sq = member_sq[topc].reshape(Q, nprobe * P)
+    if _kernel_ok(data_perm, queries):
+        q_in = queries if data_perm.dtype == torch.int8 \
+            else queries.to(torch.float32)
+        dot = block_dots.probe_block_dots(
+            data_perm, q_in.contiguous(), topc.to(torch.int32).contiguous()
+        ).reshape(Q, nprobe * P).to(torch.float32)
+        if int(metric) == int(DistCalcMethod.Cosine):
+            nd = float(base) * float(base) - dot
+        else:
+            qf = queries.to(torch.float32)
+            qn = (qf * qf).sum(-1)[:, None]
+            nd = torch.clamp_min(qn + sq - 2.0 * dot, 0.0)
+    else:
+        vecs = data_perm[topc].reshape(Q, nprobe * P, D)
+        nd = dist_ops.batched_gathered_distance(
+            queries, vecs, DistCalcMethod(metric), base, sq)
+    return _finalize_topk(nd, ids, deleted, dedup, k)
+
+
+def _segmented_min(vals: torch.Tensor, first: torch.Tensor) -> torch.Tensor:
+    """Per row, the minimum of each run (`first` marks run starts),
+    broadcast over the run — at a run's last element it equals the JAX
+    package's segmented inclusive min-scan."""
+    run = torch.cumsum(first.to(torch.int64), dim=1) - 1
+    mins = torch.full_like(vals, float("inf")).scatter_reduce(
+        1, run, vals, reduce="amin", include_self=True)
+    return torch.gather(mins, 1, run)
+
+
+def group_union(queries, centroids, cent_sq, nq_valid: int, nprobe: int,
+                U: int, G: int, metric: int):
+    """Sort a chunk's queries by nearest block and rank each group's union
+    of probed blocks.  Returns (order, inverse order, union (NG, U) with -1
+    for empty slots).
+
+    The union ranks blocks by probe RANK first, with the block's distance
+    position within its query's own probe spread as tie-break; with G <= U
+    every query's top-1 block survives the top-U cut.  Queries from
+    `nq_valid` on are padding: they sort last and claim no union slots."""
+    Q = queries.shape[0]
+    C = centroids.shape[0]
+    NG = Q // G
+    dev = queries.device
+    dc, topc = probe_choice(queries, centroids, cent_sq, metric, nprobe)
+    valid = torch.arange(Q, device=dev) < nq_valid
+    order = torch.argsort(torch.where(valid, topc[:, 0], C), stable=True)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(Q, device=dev)
+    topc_s = topc[order].reshape(NG, G * nprobe)
+    rel = dc - dc[:, :1]
+    tie = rel / (rel[:, -1:] + 1e-20) * 0.999
+    comp = torch.arange(nprobe, dtype=torch.float32, device=dev)[None, :] \
+        + tie
+    comp = torch.where(valid[:, None], comp, MAX_DIST)
+    topd_s = comp[order].reshape(NG, G * nprobe)
+
+    # distinct union blocks per group ranked by their best score: sort by
+    # block id, min over each run, keep each run's last element
+    o2 = torch.argsort(topc_s, dim=1, stable=True)
+    bid = torch.gather(topc_s, 1, o2)
+    bd = torch.gather(topd_s, 1, o2)
+    change = bid[:, 1:] != bid[:, :-1]
+    ones = torch.ones((NG, 1), dtype=torch.bool, device=dev)
+    mn = _segmented_min(bd, torch.cat([ones, change], dim=1))
+    rank_d = torch.where(torch.cat([change, ones], dim=1), mn, MAX_DIST)
+    rvals, upos = dist_ops.smallest_k(rank_d, U)
+    union = torch.where(rvals < MAX_DIST, torch.gather(bid, 1, upos), -1)
+    return order, inv, union
+
+
+def _dense_search_grouped_kernel(data_perm, member_ids, member_sq, centroids,
+                                 cent_sq, deleted, queries, nq_valid: int,
+                                 k: int, nprobe: int, U: int, G: int,
+                                 metric: int, base: int,
+                                 dedup: bool = False):
+    """Query-grouped probing: every query of a group is scored against the
+    group's U-block union as (G, D) x (D, P) products; results come back in
+    the caller's query order."""
+    Q = queries.shape[0]
+    C, P, D = data_perm.shape
+    NG = Q // G
+    order, inv, union = group_union(queries, centroids, cent_sq, nq_valid,
+                                    nprobe, U, G, metric)
+    qs = queries[order]
+    qsf = qs.to(torch.float32)
+    union_safe = torch.clamp_min(union, 0).to(torch.int32)
+    ids_u = member_ids[union_safe]                           # (NG, U, P)
+    sq_u = member_sq[union_safe]
+    if _kernel_ok(data_perm, queries):
+        q_in = qs if data_perm.dtype == torch.int8 else qsf
+        dot = block_dots.group_block_dots(
+            data_perm, q_in.contiguous(), union_safe.contiguous()
+        ).to(torch.float32).permute(0, 2, 1, 3)              # (NG, G, U, P)
+    else:
+        vecs = data_perm[union_safe]                         # (NG, U, P, D)
+        if dist_ops.exact_int_dot(queries.dtype):
+            dot = dist_ops.int_contract(
+                "gqd,gupd->gqup", qs.reshape(NG, G, D), vecs
+            ).to(torch.float32)
+        else:
+            # int16 included: float32 accumulation, as the JAX package
+            dot = torch.einsum("gqd,gupd->gqup", qsf.reshape(NG, G, D),
+                               vecs.to(torch.float32))
+    if int(metric) == int(DistCalcMethod.Cosine):
+        nd = float(base) * float(base) - dot
+    else:
+        qn = (qsf * qsf).sum(-1).reshape(NG, G, 1, 1)
+        nd = torch.clamp_min(qn + sq_u[:, None, :, :] - 2.0 * dot, 0.0)
+    ids = ids_u[:, None, :, :].expand(NG, G, U, P).reshape(Q, U * P)
+    pad_blocks = (union < 0)[:, None, :, None].expand(NG, G, U, P) \
+        .reshape(Q, U * P)
+    out_d, out_ids = _finalize_topk(nd.reshape(Q, U * P), ids, deleted,
+                                    dedup, k, extra_dead=pad_blocks)
+    return out_d[inv], out_ids[inv]
+
+
+def replicate_clusters(data: np.ndarray, clusters: List[np.ndarray],
+                       replicas: int, metric: DistCalcMethod,
+                       device: torch.device, chunk: int = 8192
+                       ) -> List[np.ndarray]:
+    """Closure assignment: append every row to its `replicas - 1` nearest
+    OTHER blocks by block-mean distance, each block taking at most
+    ``len(block) * (replicas - 1)`` of its closest such rows."""
+    if replicas <= 1:
+        return clusters
+    means = np.stack([data[c].astype(np.float32).mean(axis=0)
+                      for c in clusters])
+    own = np.full(data.shape[0], -1, np.int64)
+    for ci, c in enumerate(clusters):
+        own[c] = ci
+    extra = min(replicas - 1, len(clusters) - 1)
+    means_d = torch.from_numpy(means).to(device)
+    msq_d = torch.from_numpy((means ** 2).sum(1, dtype=np.float32)).to(device)
+    chunk_rows, chunk_blocks, chunk_dists = [], [], []
+    for off in range(0, data.shape[0], chunk):
+        rows = np.arange(off, min(off + chunk, data.shape[0]))
+        rows = rows[own[rows] >= 0]
+        if not len(rows):
+            continue
+        q = torch.from_numpy(data[rows].astype(np.float32)).to(device)
+        if metric == DistCalcMethod.Cosine:
+            d = -(q @ means_d.T)
+        else:
+            d = ((q * q).sum(1)[:, None] + msq_d[None, :]
+                 - 2.0 * (q @ means_d.T))
+        d[torch.arange(len(rows), device=device),
+          torch.from_numpy(own[rows]).to(device)] = float("inf")
+        dtop, top = dist_ops.smallest_k(d, extra)
+        chunk_rows.append(np.repeat(rows, extra))
+        chunk_blocks.append(top.cpu().numpy().ravel())
+        chunk_dists.append(dtop.cpu().numpy().ravel())
+    if not chunk_rows:
+        return clusters
+    all_rows = np.concatenate(chunk_rows)
+    all_blocks = np.concatenate(chunk_blocks)
+    all_dists = np.concatenate(chunk_dists)
+    order = np.argsort(all_blocks, kind="stable")
+    all_rows, all_blocks, all_dists = (
+        all_rows[order], all_blocks[order], all_dists[order])
+    starts = np.searchsorted(all_blocks, np.arange(len(clusters) + 1))
+    out = []
+    for ci, c in enumerate(clusters):
+        lo, hi = starts[ci], starts[ci + 1]
+        cap = len(c) * (replicas - 1)
+        rows_b, dists_b = all_rows[lo:hi], all_dists[lo:hi]
+        if len(rows_b) > cap:              # keep the closest boundary rows
+            keep = np.argpartition(dists_b, cap - 1)[:cap] if cap else []
+            rows_b = rows_b[keep]
+        out.append(np.concatenate([c, rows_b.astype(np.int64)])
+                   if len(rows_b) else c)
+    return out
+
+
+class DenseTreeSearcher:
+    """Device snapshot of the cluster-contiguous layout.
+
+    Probes are ranked by block MEANS.  With `replicas` > 1 the blocks hold
+    closure-assigned duplicate rows and the search de-duplicates ids before
+    its final top-k."""
+
+    @staticmethod
+    def build_layout(data: np.ndarray, clusters: List[np.ndarray],
+                     metric: DistCalcMethod, replicas: int = 1,
+                     device: DeviceLike = None) -> dict:
+        """Host (numpy) layout: packed blocks, member ids, squared norms,
+        block-mean centroids — the JAX package's ``build_layout`` dict."""
+        clusters = replicate_clusters(
+            data, clusters, max(1, replicas), DistCalcMethod(metric),
+            resolve_device(device))
+        C = len(clusters)
+        p_align = 32 if np.dtype(data.dtype) == np.int8 else 8
+        P = round_up(max(len(c) for c in clusters), p_align)
+        D = data.shape[1]
+        perm = np.zeros((C, P, D), data.dtype)
+        mids = np.full((C, P), -1, np.int32)
+        for i, members in enumerate(clusters):
+            perm[i, :len(members)] = data[members]
+            mids[i, :len(members)] = members
+        flat = perm.reshape(C * P, D)
+        if np.issubdtype(perm.dtype, np.integer):
+            sq = (flat.astype(np.int64) ** 2).sum(1).astype(np.float32)
+        else:
+            sq = (flat.astype(np.float32) ** 2).sum(1, dtype=np.float32)
+        means = np.stack([data[members].astype(np.float32).mean(axis=0)
+                          for members in clusters])
+        cent_sq = (means ** 2).sum(1, dtype=np.float32)
+        return dict(perm=perm, ids=mids, sq=sq.reshape(C, P), cent=means,
+                    cent_sq=cent_sq, cluster_size=P, num_clusters=C)
+
+    def __init__(self, data: np.ndarray, clusters: List[np.ndarray],
+                 deleted: Optional[np.ndarray], metric: DistCalcMethod,
+                 base: int, replicas: int = 1,
+                 device: DeviceLike = None):
+        device = resolve_device(device)
+        lay = self.build_layout(data, clusters, metric, replicas, device)
+        self._place(lay, data.shape[0], deleted, metric, base, replicas,
+                    device)
+
+    @classmethod
+    def from_layout(cls, lay: dict, deleted: Optional[np.ndarray],
+                    metric: DistCalcMethod, base: int, replicas: int = 1,
+                    device: DeviceLike = None) -> "DenseTreeSearcher":
+        """A searcher over an existing ``build_layout`` dict — either
+        package's; the corpus size comes from the tombstone mask (or the
+        largest member id when there is none)."""
+        self = cls.__new__(cls)
+        n = len(deleted) if deleted is not None \
+            else int(np.asarray(lay["ids"]).max()) + 1
+        self._place(lay, n, deleted, metric, base, replicas,
+                    resolve_device(device))
+        return self
+
+    def _place(self, lay, n, deleted, metric, base, replicas, device):
+        self.metric = DistCalcMethod(metric)
+        self.base = int(base)
+        self.n = int(n)
+        self.replicas = max(1, int(replicas))
+        self.device = device
+        self.cluster_size = int(lay["cluster_size"])
+        self.num_clusters = int(lay["num_clusters"])
+
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+        self.data_perm = put(lay["perm"])
+        self.member_ids = put(np.asarray(lay["ids"], np.int32))
+        self.member_sq = put(np.asarray(lay["sq"], np.float32))
+        self.centroids = put(np.asarray(lay["cent"], np.float32))
+        self.cent_sq = put(np.asarray(lay["cent_sq"], np.float32))
+        self.set_deleted(np.zeros(self.n, bool) if deleted is None
+                         else deleted)
+        self.last_effective_group = 0     # set by search(); diagnostic only
+        self._demotions = set()
+
+    def set_deleted(self, deleted: np.ndarray) -> None:
+        """Swap only the tombstone mask."""
+        self.deleted = torch.from_numpy(
+            np.ascontiguousarray(deleted[:self.n], bool)).to(self.device)
+
+    def _group_floor(self) -> int:
+        """Smallest query-group size that keeps grouping on (8 float, 32
+        int8).  The CUDA kernel has no such limit, but the JAX package
+        applies it on every platform, so it decides which path runs."""
+        return 32 if self.data_perm.dtype == torch.int8 else 8
+
+    def search(self, queries: np.ndarray, k: int, max_check: int = 2048,
+               group: int = 0, union_factor: int = 2, binned: str = "off"
+               ) -> Tuple[np.ndarray, np.ndarray]:
+        """(Q, D) host queries -> ((Q, k) float32 dists, (Q, k) int32 ids)
+        as numpy, MAX_DIST / -1 padded."""
+        if binned != "off":
+            raise not_ported(f"BinnedTopK={binned}", "ops/topk_bins.py")
+        queries = np.asarray(queries)
+        if queries.ndim == 1:
+            queries = queries[None, :]
+        nq, D = queries.shape
+        P = self.cluster_size
+        nprobe = int(np.clip(-(-max_check // P), 1, self.num_clusters))
+        G = int(group) if group and group > 1 else 0
+        if G and (G & (G - 1)):
+            raise ValueError(f"DenseQueryGroup must be a power of two: {G}")
+        if G:
+            # adaptive cap: shrink the group to ~4 blocks' worth of queries
+            per_block = max(1, nq // max(self.num_clusters, 1))
+            cap = 1 << max(1, (4 * per_block).bit_length() - 1)
+            G = min(G, max(cap, 2))
+        U = (min(max(int(union_factor), 1) * nprobe, self.num_clusters)
+             if G else 0)
+        if G:
+            # G <= U keeps every query's top-1 block inside the union
+            G = min(G, 1 << (U.bit_length() - 1))
+            if G < self._group_floor():
+                G = 0
+            # a group's union holds at most G*nprobe distinct blocks
+            U = min(U, G * nprobe) if G else U
+        # a union covering every block is a full scan: ungrouped is cheaper
+        if G and U >= self.num_clusters and nprobe >= self.num_clusters:
+            G = 0
+        self.last_effective_group = G
+        if group and int(group) > 1 and G != int(group):
+            key = (int(group), G)
+            if key not in self._demotions:
+                self._demotions.add(key)
+                log.info("dense grouped probing: requested group=%s -> "
+                         "effective %s (nq=%d, clusters=%d, nprobe=%d, U=%s)",
+                         group, G or "off", nq, self.num_clusters, nprobe,
+                         U or "-")
+        k_eff = min(k, (U if G else nprobe) * P, self.n)
+        bytes_q = ((U * P * D * 4 + G - 1) // G if G
+                   else nprobe * P * D * 4)
+        chunk = max(1, min(_GATHER_BUDGET // bytes_q, 1024))
+        if G:
+            chunk = max(G, (chunk // G) * G)    # groups must tile the chunk
+        return self._search_impl(queries, nq, k, k_eff, nprobe, chunk, D,
+                                 G, U)
+
+    def _run_chunk(self, q: np.ndarray, nq_valid: int, k_eff: int,
+                   nprobe: int, G: int, U: int):
+        qd = torch.from_numpy(np.ascontiguousarray(q)).to(self.device)
+        args = (self.data_perm, self.member_ids, self.member_sq,
+                self.centroids, self.cent_sq, self.deleted, qd)
+        dedup = self.replicas > 1
+        if G > 1:
+            d, ids = _dense_search_grouped_kernel(
+                *args, nq_valid, k_eff, nprobe, U, G, int(self.metric),
+                self.base, dedup)
+        else:
+            d, ids = _dense_search_kernel(
+                *args, k_eff, nprobe, int(self.metric), self.base, dedup)
+        return d.cpu().numpy(), ids.cpu().numpy()
+
+    def _search_impl(self, queries, nq, k, k_eff, nprobe, chunk, D, G, U):
+        out_d = np.full((nq, k), np.float32(MAX_DIST), np.float32)
+        out_i = np.full((nq, k), -1, np.int32)
+        if nq <= chunk:
+            q_pad = query_bucket(nq, chunk)
+            g_eff = min(G, q_pad) if G else 0     # buckets are powers of 2
+            if g_eff < self._group_floor():
+                g_eff = 0
+            if g_eff != G:
+                self.last_effective_group = g_eff
+            q = queries
+            if q_pad != nq:
+                q = np.concatenate([q, np.zeros((q_pad - nq, D), q.dtype)])
+            d, ids = self._run_chunk(q, nq, k_eff, nprobe, g_eff, U)
+            out_d[:, :d.shape[1]] = d[:nq]
+            out_i[:, :ids.shape[1]] = ids[:nq]
+            return out_d, out_i
+        m = -(-nq // chunk)
+        q = queries
+        if m * chunk != nq:
+            q = np.concatenate([q, np.zeros((m * chunk - nq, D), q.dtype)])
+        g_chunk = min(G, chunk) if G > 1 else 0
+        for i in range(m):
+            lo = i * chunk
+            d, ids = self._run_chunk(q[lo:lo + chunk],
+                                     int(np.clip(nq - lo, 0, chunk)), k_eff,
+                                     nprobe, g_chunk, U)
+            hi = min(lo + chunk, nq)
+            out_d[lo:hi, :d.shape[1]] = d[:hi - lo]
+            out_i[lo:hi, :ids.shape[1]] = ids[:hi - lo]
+        return out_d, out_i

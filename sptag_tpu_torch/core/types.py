@@ -1,0 +1,154 @@
+"""Core enums and value-type helpers (copy of ``sptag_tpu/core/types.py``).
+
+Parity: the X-macro generated enums of SPTAG (AnnService/inc/Core/
+Common.h:57-160, DefinitionList.h:1-63) — `DistCalcMethod
+{L2, Cosine}`, `VectorValueType {Int8, UInt8, Int16, Float}`, `IndexAlgoType
+{BKT, KDT}`, `ErrorCode`. String forms must round-trip identically because they
+are persisted in `indexloader.ini` and parsed back by
+`Helper::Convert::ConvertStringTo<T>`.
+"""
+
+from __future__ import annotations
+
+import enum
+
+import numpy as np
+
+
+class ErrorCode(enum.IntEnum):
+    """Mirrors SPTAG::ErrorCode (reference inc/Core/Common.h:57-90)."""
+
+    Success = 0
+    Fail = 1
+    FailedOpenFile = 2
+    FailedCreateFile = 3
+    ParamNotFound = 4
+    FailedParseValue = 5
+    MemoryOverFlow = 6
+    LackOfInputs = 7
+    VectorNotFound = 8
+    EmptyIndex = 9
+    EmptyData = 10
+    DimensionSizeMismatch = 11
+
+
+class DistCalcMethod(enum.IntEnum):
+    """Distance metric (reference inc/Core/DefinitionList.h DistCalcMethod)."""
+
+    L2 = 0
+    Cosine = 1
+    Undefined = 2
+
+
+class VectorValueType(enum.IntEnum):
+    """Element type of stored vectors (reference DefinitionList.h)."""
+
+    Int8 = 0
+    UInt8 = 1
+    Int16 = 2
+    Float = 3
+    Undefined = 4
+
+
+class IndexAlgoType(enum.IntEnum):
+    """Index algorithm (reference DefinitionList.h). FLAT (exact
+    brute force) is this project's addition."""
+
+    BKT = 0
+    KDT = 1
+    FLAT = 8
+    Undefined = 9
+
+
+_VALUE_TYPE_TO_DTYPE = {
+    VectorValueType.Int8: np.dtype(np.int8),
+    VectorValueType.UInt8: np.dtype(np.uint8),
+    VectorValueType.Int16: np.dtype(np.int16),
+    VectorValueType.Float: np.dtype(np.float32),
+}
+
+_DTYPE_TO_VALUE_TYPE = {v: k for k, v in _VALUE_TYPE_TO_DTYPE.items()}
+
+# "base" used for cosine scaling: integer vectors are normalized to length
+# `base` at ingest so cosine distance becomes base^2 - dot.  Constants must
+# match the reference kernels exactly: 127^2=16129 (int8,
+# reference DistanceUtils.h:452), 255^2=65025 (uint8, :492),
+# 32767^2=1073676289 (int16, :533), 1 (float, :579); selection rule
+# Utils::GetBase (reference inc/Core/Common/CommonUtils.h:145-151).
+_VALUE_TYPE_TO_BASE = {
+    VectorValueType.Int8: 127,
+    VectorValueType.UInt8: 255,
+    VectorValueType.Int16: 32767,
+    VectorValueType.Float: 1,
+}
+
+
+def dtype_of(value_type: VectorValueType) -> np.dtype:
+    return _VALUE_TYPE_TO_DTYPE[VectorValueType(value_type)]
+
+
+def value_type_of(dtype) -> VectorValueType:
+    dt = np.dtype(dtype)
+    if dt == np.dtype(np.float64):
+        dt = np.dtype(np.float32)
+    try:
+        return _DTYPE_TO_VALUE_TYPE[dt]
+    except KeyError:
+        raise ValueError(f"unsupported vector dtype: {dt}") from None
+
+
+def base_of(value_type: VectorValueType) -> int:
+    return _VALUE_TYPE_TO_BASE[VectorValueType(value_type)]
+
+
+def value_type_size(value_type: VectorValueType) -> int:
+    """Parity: GetValueTypeSize (reference inc/Core/Common.h:142)."""
+    return dtype_of(value_type).itemsize
+
+
+# --- string conversion parity (Helper::Convert, reference
+# inc/Helper/StringConvert.h): enums print as their bare member name. ---
+
+_ENUM_TYPES = {
+    "DistCalcMethod": DistCalcMethod,
+    "VectorValueType": VectorValueType,
+    "IndexAlgoType": IndexAlgoType,
+}
+
+
+def enum_to_string(value: enum.IntEnum) -> str:
+    return value.name
+
+def enum_from_string(cls, text: str):
+    text_l = text.strip().lower()
+    for member in cls:
+        if member.name.lower() == text_l:
+            return member
+    raise ValueError(f"cannot parse {text!r} as {cls.__name__}")
+
+
+def convert_to_string(value) -> str:
+    """Typed value -> string, matching Helper::Convert::ConvertToString."""
+    if isinstance(value, enum.IntEnum):
+        return value.name
+    if isinstance(value, bool):
+        return "1" if value else "0"
+    if isinstance(value, float):
+        # C++ operator<< default precision-6 formatting for floats.
+        return f"{value:g}"
+    return str(value)
+
+
+def convert_string_to(text: str, py_type):
+    """String -> typed value, matching Helper::Convert::ConvertStringTo<T>."""
+    if isinstance(py_type, type) and issubclass(py_type, enum.IntEnum):
+        return enum_from_string(py_type, text)
+    if py_type is bool:
+        return text.strip() in ("1", "true", "True")
+    if py_type is int:
+        return int(text.strip(), 0)
+    if py_type is float:
+        return float(text.strip())
+    if py_type is str:
+        return text
+    raise TypeError(f"unsupported conversion target {py_type}")

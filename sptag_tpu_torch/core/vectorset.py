@@ -1,0 +1,97 @@
+"""VectorSet and MetadataSet (port of ``sptag_tpu/core/vectorset.py``).
+
+Host-side numpy containers, as in the JAX package; the folder metadata
+files keep SPTAG's layout: ``metadata.bin`` is the raw concatenation of
+the payloads, ``metadataIndex.bin`` an int32 count followed by (count + 1)
+uint64 byte offsets (MetadataSet.cpp:22-35).
+"""
+
+from __future__ import annotations
+
+import struct
+from typing import Iterable, List, Optional, Sequence
+
+import numpy as np
+
+from sptag_tpu_torch.core.types import VectorValueType, dtype_of, value_type_of
+from sptag_tpu_torch.io import format as fmt
+
+
+class VectorSet:
+    """A (count, dim) matrix of vectors of one VectorValueType."""
+
+    def __init__(self, data: np.ndarray,
+                 value_type: Optional[VectorValueType] = None):
+        data = np.ascontiguousarray(data)
+        if data.ndim != 2:
+            raise ValueError("VectorSet expects a 2-D array")
+        if value_type is None:
+            value_type = value_type_of(data.dtype)
+        self._value_type = VectorValueType(value_type)
+        self._data = data.astype(dtype_of(self._value_type), copy=False)
+
+    @property
+    def data(self) -> np.ndarray:
+        return self._data
+
+    @property
+    def value_type(self) -> VectorValueType:
+        return self._value_type
+
+    @property
+    def count(self) -> int:
+        return self._data.shape[0]
+
+    @property
+    def dimension(self) -> int:
+        return self._data.shape[1]
+
+
+def metas_for(metadata: Optional["MetadataSet"],
+              ids) -> Optional[List[bytes]]:
+    """Result metadata for one query's id row: b"" for -1 padding, None
+    when there is no store."""
+    if metadata is None:
+        return None
+    return [metadata.get_metadata(int(v)) if v >= 0 else b"" for v in ids]
+
+
+class MetadataSet:
+    """Per-vector opaque byte payloads."""
+
+    def __init__(self, metas: Optional[Iterable[bytes]] = None):
+        self._metas: List[bytes] = [bytes(m) for m in metas] if metas else []
+
+    @classmethod
+    def from_lines(cls, blob: bytes, offsets: Sequence[int]) -> "MetadataSet":
+        return cls(bytes(blob[offsets[i]:offsets[i + 1]])
+                   for i in range(len(offsets) - 1))
+
+    @property
+    def count(self) -> int:
+        return len(self._metas)
+
+    def get_metadata(self, i: int) -> bytes:
+        if i < 0 or i >= len(self._metas):
+            return b""
+        return self._metas[i]
+
+    def save(self, meta_path_or_stream, index_path_or_stream) -> None:
+        blob = b"".join(self._metas)
+        offsets = np.zeros(len(self._metas) + 1, dtype=np.uint64)
+        np.cumsum([len(m) for m in self._metas], out=offsets[1:])
+        with fmt.open_write(meta_path_or_stream) as f:
+            f.write(blob)
+        with fmt.open_write(index_path_or_stream) as f:
+            f.write(struct.pack("<i", len(self._metas)) + offsets.tobytes())
+
+    @classmethod
+    def load(cls, meta_path_or_stream, index_path_or_stream) -> "MetadataSet":
+        with fmt.open_read(index_path_or_stream) as f:
+            idx = f.read()
+        (count,) = struct.unpack_from("<i", idx, 0)
+        offsets = np.frombuffer(idx, dtype=np.uint64, count=count + 1,
+                                offset=4).astype(np.int64)
+        with fmt.open_read(meta_path_or_stream) as f:
+            blob = f.read()
+        return cls.from_lines(blob, offsets.tolist())

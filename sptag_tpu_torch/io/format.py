@@ -1,0 +1,105 @@
+"""SPTAG-binary-compatible persistence primitives (port of
+``sptag_tpu/io/format.py``; the bytes are identical).
+
+* ``vectors.bin``: int32 rows, int32 cols, row-major data (Dataset.h:144-158).
+* ``graph.bin``: int32 rows, int32 neighborhoodSize, rows of int32 neighbor
+  ids, -1 padded (NeighborhoodGraph.h:376-386).
+* ``tree.bin`` (BKT): int32 treeNumber, int32 treeStart[treeNumber], int32
+  nodeCount, nodes of {int32 centerid, childStart, childEnd}
+  (BKTree.h:219-229).
+* ``deletes.bin``: int32 deletedCount, then a Dataset<int8> of shape (N, 1)
+  holding 1 for a deleted row and -1 for a live one (Labelset.h:39-52).
+
+All integers are little-endian.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Tuple
+
+import numpy as np
+
+BKT_NODE_DTYPE = np.dtype(
+    [("centerid", "<i4"), ("childStart", "<i4"), ("childEnd", "<i4")])
+
+
+@contextlib.contextmanager
+def open_write(path_or_stream):
+    from sptag_tpu_torch.io import atomic
+
+    with atomic.checked_open(path_or_stream, "wb") as f:
+        yield f
+
+
+@contextlib.contextmanager
+def open_read(path_or_stream):
+    if hasattr(path_or_stream, "read"):
+        yield path_or_stream
+    else:
+        with open(path_or_stream, "rb") as f:
+            yield f
+
+
+def write_matrix(path_or_stream, array: np.ndarray) -> None:
+    array = np.ascontiguousarray(array)
+    rows, cols = array.shape
+    with open_write(path_or_stream) as f:
+        f.write(np.int32(rows).tobytes())
+        f.write(np.int32(cols).tobytes())
+        f.write(array.tobytes())
+
+
+def read_matrix(path_or_stream, dtype) -> np.ndarray:
+    dtype = np.dtype(dtype)
+    with open_read(path_or_stream) as f:
+        header = f.read(8)
+        rows = int(np.frombuffer(header, "<i4", 1, 0)[0])
+        cols = int(np.frombuffer(header, "<i4", 1, 4)[0])
+        payload = f.read(rows * cols * dtype.itemsize)
+    return np.frombuffer(payload, dtype=dtype).reshape(rows, cols).copy()
+
+
+def write_graph(path_or_stream, graph: np.ndarray) -> None:
+    write_matrix(path_or_stream, graph.astype("<i4", copy=False))
+
+
+def read_graph(path_or_stream) -> np.ndarray:
+    return read_matrix(path_or_stream, "<i4")
+
+
+def write_deletes(path_or_stream, mask: np.ndarray) -> None:
+    """mask: (N,) bool tombstone flags; live rows store -1, deleted 1."""
+    m = mask.astype(bool).reshape(-1, 1)
+    flags = np.where(m, np.int8(1), np.int8(-1))
+    with open_write(path_or_stream) as f:
+        f.write(np.int32(int(m.sum())).tobytes())
+        write_matrix(f, np.ascontiguousarray(flags))
+
+
+def read_deletes(path_or_stream) -> np.ndarray:
+    with open_read(path_or_stream) as f:
+        f.read(4)  # deleted count; recomputed from the flags
+        flags = read_matrix(f, np.int8)
+    return flags.reshape(-1) == 1
+
+
+def write_tree_forest(path_or_stream, tree_starts: np.ndarray,
+                      nodes: np.ndarray) -> None:
+    tree_starts = np.ascontiguousarray(tree_starts, dtype="<i4")
+    with open_write(path_or_stream) as f:
+        f.write(np.int32(len(tree_starts)).tobytes())
+        f.write(tree_starts.tobytes())
+        f.write(np.int32(len(nodes)).tobytes())
+        f.write(np.ascontiguousarray(nodes).tobytes())
+
+
+def read_tree_forest(path_or_stream,
+                     node_dtype) -> Tuple[np.ndarray, np.ndarray]:
+    with open_read(path_or_stream) as f:
+        tree_number = int(np.frombuffer(f.read(4), "<i4")[0])
+        tree_starts = np.frombuffer(f.read(4 * tree_number), "<i4").copy()
+        node_count = int(np.frombuffer(f.read(4), "<i4")[0])
+        nodes = np.frombuffer(f.read(node_count * node_dtype.itemsize),
+                              dtype=node_dtype).copy()
+    return tree_starts, nodes

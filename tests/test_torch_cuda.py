@@ -1,0 +1,156 @@
+"""Tests of the PyTorch port that need a CUDA card.
+
+They carry the ``cuda`` marker and skip without a card.  This file imports
+neither jax nor sptag_tpu, so it also runs where only the port is
+installed; on the card, from the repository root:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+(``--noconftest``: tests/conftest.py configures jax for the JAX package's
+suite.)  Tolerances: float32 kernel dots against the plain versions within
+rtol 1e-5, atol 1e-4 on unit-normal data; int8 exactly equal; searches on
+the card against the same index on the CPU: int8 exact, float32 distances
+within rtol 1e-5 and ids equal wherever a rank's distance is separated
+from its neighbours by more than that.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import sptag_tpu_torch as tsp
+from sptag_tpu_torch.ops import block_dots
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the card: python -m pytest "
+                    "--noconftest -m cuda tests/test_torch_cuda.py)")
+    return torch.device("cuda")
+
+
+def _tensors(gen, C, P, D, Q, int8, dev):
+    if int8:
+        blocks = torch.randint(-128, 128, (C, P, D), generator=gen)
+        queries = torch.randint(-128, 128, (Q, D), generator=gen)
+        blocks, queries = blocks.to(torch.int8), queries.to(torch.int8)
+    else:
+        blocks = torch.randn((C, P, D), generator=gen)
+        queries = torch.randn((Q, D), generator=gen)
+    return blocks.to(dev), queries.to(dev)
+
+
+def _same(got, want, int8):
+    if int8:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+# (C, P, D, Q, nprobe): 16-byte vector path and the scalar path (D % 4,
+# ragged P)
+PROBE = [(7, 32, 128, 4, 3), (5, 13, 128, 6, 2), (9, 40, 16, 5, 4),
+         (4, 33, 130, 3, 2), (3, 7, 20, 9, 3)]
+# (C, P, D, NG, U, G): every query-tile size (G <= 8, <= 16, > 16, > 32)
+GROUP = [(9, 32, 128, 4, 5, 8), (5, 13, 128, 2, 3, 32), (6, 40, 16, 3, 4, 4),
+         (6, 300, 130, 2, 3, 40), (4, 70, 18, 5, 2, 16), (3, 64, 128, 1, 2, 64),
+         (4, 9, 12, 3, 3, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_kernels_match_plain_versions(cuda, int8):
+    gen = torch.Generator().manual_seed(0)
+    block_dots.reset_launch_counts()
+    for C, P, D, Q, nprobe in PROBE:
+        blocks, queries = _tensors(gen, C, P, D, Q, int8, cuda)
+        topc = torch.randint(0, C, (Q, nprobe), generator=gen).to(
+            torch.int32).to(cuda)
+        _same(block_dots.probe_block_dots(blocks, queries, topc),
+              block_dots.probe_block_dots_reference(blocks, queries, topc),
+              int8)
+    for C, P, D, NG, U, G in GROUP:
+        blocks, queries = _tensors(gen, C, P, D, NG * G, int8, cuda)
+        union = torch.randint(0, C, (NG, U), generator=gen).to(
+            torch.int32).to(cuda)
+        _same(block_dots.group_block_dots(blocks, queries, union),
+              block_dots.group_block_dots_reference(blocks, queries, union),
+              int8)
+    torch.cuda.synchronize()
+    t = "i8" if int8 else "f32"
+    counts = block_dots.launch_counts()
+    assert counts[f"probe_block_dots_{t}"] == len(PROBE)
+    assert counts[f"group_block_dots_{t}"] == len(GROUP)
+
+
+@pytest.mark.cuda
+def test_out_of_range_block_ids_score_zero(cuda):
+    blocks = torch.ones((2, 8, 32), device=cuda)
+    queries = torch.ones((4, 32), device=cuda)
+    ids = torch.tensor([[0, 5], [-1, 1], [1, 2], [0, 0]], dtype=torch.int32,
+                       device=cuda)
+    out = block_dots.probe_block_dots(blocks, queries, ids).cpu()
+    assert out[0, 0].eq(32).all() and out[0, 1].eq(0).all()
+    assert out[1, 0].eq(0).all() and out[2, 1].eq(0).all()
+
+
+@pytest.mark.cuda
+def test_wrapper_rejects_non_contiguous_cuda_tensors(cuda):
+    blocks = torch.randn((3, 8, 32), device=cuda)
+    queries = torch.randn((32, 4), device=cuda).T
+    ids = torch.zeros((4, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        block_dots.probe_block_dots(blocks, queries, ids)
+
+
+def _corpus(n, d, nq, seed, int8=False):
+    rng = np.random.default_rng(seed)
+    cent = rng.standard_normal((24, d)).astype(np.float32) * 4.0
+    data = (cent[rng.integers(0, 24, n)]
+            + rng.standard_normal((n, d)).astype(np.float32))
+    q = (cent[rng.integers(0, 24, nq)]
+         + rng.standard_normal((nq, d)).astype(np.float32))
+    if int8:
+        def toi8(x):
+            x = x / np.linalg.norm(x, axis=1, keepdims=True)
+            return np.clip(np.round(x * 127), -128, 127).astype(np.int8)
+        return toi8(data), toi8(q)
+    return data, q
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vt,group", [("Float", 0), ("Float", 8),
+                                      ("Int8", 0), ("Int8", 32)])
+def test_card_search_matches_cpu_search(cuda, tmp_path, vt, group):
+    """Build on the card, save, load on the CPU: both searches agree, and
+    the card's search went through the kernels."""
+    data, q = _corpus(4000, 128, 1024, seed=8, int8=vt == "Int8")
+    idx = tsp.create_instance("BKT", vt)
+    for name, value in [("DistCalcMethod", "L2" if vt == "Float"
+                         else "Cosine"), ("BuildGraph", "0"),
+                        ("DenseClusterSize", "64"), ("MaxCheck", "512"),
+                        ("DenseQueryGroup", str(group)),
+                        ("DenseUnionFactor", "4")]:
+        assert idx.set_parameter(name, value)
+    idx.build(data)
+    block_dots.reset_launch_counts()
+    d_gpu, i_gpu = idx.search_batch(q, 10)
+    assert idx.last_effective_group == group
+    kind = "group" if group else "probe"
+    t = "i8" if vt == "Int8" else "f32"
+    assert block_dots.launch_counts()[f"{kind}_block_dots_{t}"] >= 1
+    folder = str(tmp_path / vt)
+    idx.save_index(folder)
+    d_cpu, i_cpu = tsp.load_index(folder, device="cpu").search_batch(q, 10)
+    if vt == "Int8":
+        np.testing.assert_array_equal(i_gpu, i_cpu)
+        np.testing.assert_array_equal(d_gpu, d_cpu)
+        return
+    np.testing.assert_allclose(d_gpu, d_cpu, rtol=1e-5, atol=1e-4)
+    scale = np.maximum(np.abs(d_cpu), 1e-30)
+    gap = np.abs(np.diff(d_cpu, axis=1)) > 1e-5 * scale[:, 1:]
+    sep = np.ones_like(d_cpu, dtype=bool)
+    sep[:, 1:] &= gap
+    sep[:, :-1] &= gap
+    np.testing.assert_array_equal(i_gpu[sep], i_cpu[sep])
