@@ -19,7 +19,8 @@ Phases, in the order they run:
 3. f32 headline: BKT Float L2, BuildGraph=0, BKTKmeansK=32, MaxCheck=2048,
    n=200,000 x d=128 (seed 7); 4,096 queries in batches of 1,024 through
    ``probe_block_dots``; then the same queries in one grouped call
-   (DenseQueryGroup=8) through ``group_block_dots``;
+   (DenseQueryGroup=8) through ``group_block_dots``; recall@10 held to
+   ``F32_RECALL`` within ``RECALL_SLACK``;
 4. int8 grouped: BKT Int8 cosine, n=50,000, 2,048 queries with
    DenseQueryGroup=32, DenseUnionFactor=4 through ``group_block_dots``;
    then ungrouped through ``probe_block_dots``;
@@ -27,14 +28,23 @@ Phases, in the order they run:
 2. every kernel against its plain version on the card, on the main path's
    own blocks and block ids (run last, so its launches stay out of the
    main path's counts), with its time, the plain version's, one PyTorch
-   call's (``library_ms``) and the card's bound for the same work;
+   call's (``library_ms``) and the card's bound for the same work; the f32
+   rows also count the blocks the block-major kernel reads
+   (``block_reads``: tiles of at most ``TILE_ENTRIES`` entries, from the
+   ids on the host and from the CUDA prep's tile table) beside the distinct
+   blocks and a probe-major design's reads;
 6. where a search batch's time goes: ``torch.profiler`` device time by
    kernel for one batch of each configuration, against its untraced time.
 
 Launch counts are zeroed just before phase 3 and read just after phase 5.
 Each query set is searched ``PASSES`` times over for its batch times; the
 QPS and batch percentiles are smoke readings of that window, not a
-benchmark.
+benchmark.  Phase 2's ``ms``, ``plain_ms`` and ``library_ms`` are each the
+median of single calls between two CUDA events, the caller's host time up
+to the launch included.  Its rows also give ``ms_back_to_back`` and
+``library_ms_back_to_back``, the time per call of ``BACK_TO_BACK`` calls
+queued between two events (host time hidden where the card is the slower),
+and ``host_ms``, the wrapper's host time per call in such a run.
 """
 
 import json
@@ -54,6 +64,11 @@ HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {"f32": 67e12, "i8": 1979e12}
 K = 10
 PASSES = 16          # timed passes over each query set
+# recall@10 of the f32 headline (per-query, grouped G=8) on the H100 with
+# the earlier probe-major and group-major kernels; the block-major kernel
+# must not move it by more than RECALL_SLACK
+F32_RECALL = {"per_query": 0.9675, "grouped": 0.9554}
+RECALL_SLACK = 0.002
 
 
 def emit(obj) -> None:
@@ -133,7 +148,12 @@ def batch_stats(times, batch):
             "batch_ms_p99": float(np.percentile(ms, 99))}
 
 
-def median_ms(fn, reps: int = 30) -> float:
+BACK_TO_BACK = 10
+
+
+def median_ms(fn, reps: int = 30, calls: int = 1) -> float:
+    """Median over `reps` event pairs of the time per call, `calls` calls
+    queued between the two events (1: a single call)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -142,10 +162,25 @@ def median_ms(fn, reps: int = 30) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(calls):
+            fn()
         b.record()
         b.synchronize()
-        ts.append(a.elapsed_time(b))
+        ts.append(a.elapsed_time(b) / calls)
+    return statistics.median(ts)
+
+
+def host_ms(fn, reps: int = 30, calls: int = BACK_TO_BACK) -> float:
+    """Median over `reps` runs of the host's wall time per call of `calls`
+    calls queued without waiting for the card."""
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        ts.append((time.perf_counter() - t0) / calls * 1e3)
+        torch.cuda.synchronize()
     return statistics.median(ts)
 
 
@@ -219,8 +254,9 @@ def main() -> None:
           "C": sf.num_clusters, "probe_launches": probe_runs})
     if probe_runs < 4:
         fail(f"probe_block_dots launched {probe_runs} < 4 times")
-    if recall < 0.95:
-        fail(f"f32 recall@10 {recall} < 0.95")
+    if recall < 0.95 or abs(recall - F32_RECALL["per_query"]) > RECALL_SLACK:
+        fail(f"f32 recall@10 {recall}: below 0.95 or more than "
+             f"{RECALL_SLACK} from {F32_RECALL['per_query']}")
 
     idx.set_parameter("DenseQueryGroup", "8")
     idx.search_batch(queries, K)                   # first grouped call
@@ -232,8 +268,10 @@ def main() -> None:
           "recall_at_10": recall_g,
           "group_launches": block_dots.group_f32_launches - before})
     idx.set_parameter("DenseQueryGroup", "0")
-    if g_f32 != 8 or recall_g < 0.95:
-        fail(f"f32 grouped: group {g_f32}, recall {recall_g}")
+    if g_f32 != 8 or recall_g < 0.95 \
+            or abs(recall_g - F32_RECALL["grouped"]) > RECALL_SLACK:
+        fail(f"f32 grouped: group {g_f32}, recall {recall_g} (held to "
+             f"{F32_RECALL['grouped']} +- {RECALL_SLACK})")
 
     # phase 4: int8 grouped
     data8, queries8 = make_dataset(n=50_000, nq=2048, seed=7, dtype=np.int8)
@@ -340,6 +378,24 @@ def main() -> None:
         es = blocks.element_size()
         Q = q.shape[0]
         distinct = int(torch.unique(ids).numel())
+        reads = {}
+        if t == "f32":
+            # blocks the block-major kernel reads: one per tile of at most
+            # TILE_ENTRIES entries, from the ids on the host and from the
+            # tile table the CUDA prep built on the card
+            G = Q // ids.shape[0] if kind == "group_block_dots" else 1
+            E = ids.numel() * G
+            _, host_tiles = block_dots.block_major_prep_reference(
+                ids.cpu(), G, C)
+            _, dev_tiles, ntiles = block_dots.block_major_prep(ids, G, C)
+            dev_tiles = dev_tiles[:int(ntiles.item())].cpu()
+            reads = {"block_reads": int((host_tiles[:, 0] < C).sum()),
+                     "block_reads_kernel": int((dev_tiles[:, 0] < C).sum()),
+                     "old_design_reads": ids.numel(), "entries": E,
+                     "tile_entries": block_dots.TILE_ENTRIES}
+            if reads["block_reads"] != reads["block_reads_kernel"] or \
+                    reads["block_reads"] > distinct + E / block_dots.TILE_ENTRIES:
+                fail(f"{kind} f32 reads {reads} blocks, distinct {distinct}")
         if kind == "probe_block_dots":
             npb = ids.shape[1]
             shape = {"Q": Q, "nprobe": npb, "P": P, "D": D, "C": C}
@@ -358,6 +414,9 @@ def main() -> None:
         bytes_ms = nbytes / HBM_BYTES_S * 1e3
         ops_ms = ops / PEAK_OPS_S[t] * 1e3
         kernel_ms = median_ms(lambda: fn(blocks, q, ids))
+        timing = {"ms_back_to_back": median_ms(lambda: fn(blocks, q, ids),
+                                               calls=BACK_TO_BACK),
+                  "host_ms": host_ms(lambda: fn(blocks, q, ids))}
         plain_ms = median_ms(lambda: ref(blocks, q, ids))
         # the library yardstick: one float32 einsum over the pre-gathered
         # blocks (gather and casts outside the timing).  For int8 it is
@@ -367,6 +426,8 @@ def main() -> None:
         if t == "i8":
             a, b = a.float(), b.float()
         library_ms = median_ms(lambda: torch.einsum(eq, a, b))
+        timing["library_ms_back_to_back"] = median_ms(
+            lambda: torch.einsum(eq, a, b), calls=BACK_TO_BACK)
         lib_err = float((torch.einsum(eq, a, b).double()
                          - want.double()).abs().max().item())
         del lib, a, b
@@ -380,7 +441,8 @@ def main() -> None:
                "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                "library_ms": library_ms}
-        emit({"phase": 2, **row, "shape": shape, "distinct_blocks": distinct,
+        emit({"phase": 2, **row, **timing,
+              "shape": shape, "distinct_blocks": distinct, **reads,
               "bytes": nbytes, "ops": ops, "within_tolerance": ok,
               "library_max_abs_err": lib_err})
         if not ok:

@@ -6,7 +6,10 @@ mode, as tests/test_pallas.py does.  Tolerances: float32 dots within
 rtol 1e-5, atol 1e-4 on unit-normal data (as test_pallas.py); int8 dots
 exactly equal.  The CUDA kernels themselves run only on the card:
 tests/test_torch_cuda.py compares them with the plain versions there, and
-``python3 chip_smoke.py`` does the same at the main path's shapes.
+``python3 chip_smoke.py`` does the same at the main path's shapes.  The
+block-major float32 kernel's host-side arithmetic (the entry-list prep, the
+tile bound, the entry -> query row / output row map) is checked here
+against numpy and against the plain versions.
 """
 
 import numpy as np
@@ -14,6 +17,7 @@ import pytest
 import torch
 
 from sptag_tpu.ops import pallas_kernels
+from sptag_tpu_torch import _build
 from sptag_tpu_torch.ops import block_dots
 
 
@@ -37,8 +41,10 @@ def _compare(got, want, int8):
                                    rtol=1e-5, atol=1e-4)
 
 
-# (C, P, D, Q, nprobe): aligned, ragged P (not a multiple of 8), D=16
-PROBE_SHAPES = [(7, 32, 128, 4, 3), (5, 13, 128, 6, 2), (9, 40, 16, 5, 4)]
+# (C, P, D, Q, nprobe): aligned, ragged P (not a multiple of 8), D=16,
+# ragged P and D (P=300, D=130; D=20)
+PROBE_SHAPES = [(7, 32, 128, 4, 3), (5, 13, 128, 6, 2), (9, 40, 16, 5, 4),
+                (4, 300, 130, 3, 2), (3, 7, 20, 9, 3)]
 
 
 @pytest.mark.parametrize("int8", [False, True])
@@ -56,9 +62,10 @@ def test_probe_block_dots_matches_pallas(C, P, D, Q, nprobe, int8):
     _compare(got, want, int8)
 
 
-# (C, P, D, NG, U, G)
+# (C, P, D, NG, U, G): G=1 and G=64 too
 GROUP_SHAPES = [(9, 32, 128, 4, 5, 8), (5, 13, 128, 2, 3, 32),
-                (6, 40, 16, 3, 4, 4)]
+                (6, 40, 16, 3, 4, 4), (3, 64, 128, 1, 2, 64),
+                (4, 9, 12, 3, 3, 1)]
 
 
 @pytest.mark.parametrize("int8", [False, True])
@@ -125,3 +132,149 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad):
         return
     with pytest.raises((TypeError, ValueError)):
         block_dots.probe_block_dots(blocks, queries, ids)
+
+
+# ---- block-major float32: the prep and the entry map ---------------------
+
+NT = block_dots.TILE_ENTRIES
+
+
+def _prep_ids(case, rng):
+    """(ids (rows, cols) int32, G, C) for one prep case."""
+    if case == "probe":
+        return rng.integers(0, 40, (96, 8)).astype(np.int32), 1, 40
+    if case == "group":
+        return rng.integers(0, 30, (16, 12)).astype(np.int32), 8, 30
+    if case == "hot":                       # one block past NT entries
+        ids = rng.integers(0, 9, (200, 3)).astype(np.int32)
+        ids[:, 0] = 4
+        return ids, 1, 9
+    if case == "one_block":
+        return np.full((70, 4), 2, np.int32), 1, 5
+    if case == "out_of_range":
+        return rng.integers(-4, 14, (50, 6)).astype(np.int32), 2, 10
+    if case == "wide_c":                    # C far above the blocks used
+        ids = rng.integers(0, 6, (40, 4)).astype(np.int32)
+        ids[0, 0] = 19_999
+        return ids, 3, 20_000
+    raise AssertionError(case)
+
+
+def _numpy_prep(ids, G, C):
+    """Per-bucket entry sets and entry counts, straight from the ids."""
+    b = ids.reshape(-1).astype(np.int64)
+    b = np.where((b >= 0) & (b < C), b, C)
+    bucket = np.repeat(b, G)
+    sets = {int(k): set(np.flatnonzero(bucket == k).tolist())
+            for k in np.unique(bucket)}
+    return sets, len(bucket)
+
+
+@pytest.mark.parametrize("case", ["probe", "group", "hot", "one_block",
+                                  "out_of_range", "wide_c"])
+def test_block_major_prep_reference_matches_numpy(case):
+    rng = np.random.default_rng(len(case))
+    ids, G, C = _prep_ids(case, rng)
+    sets, E = _numpy_prep(ids, G, C)
+    order, tiles = block_dots.block_major_prep_reference(
+        torch.from_numpy(ids), G, C)
+    order, tiles = order.numpy(), tiles.numpy()
+    assert order.dtype == np.int32 and sorted(order.tolist()) == list(range(E))
+    got = {}
+    pos = 0
+    for b, first, count in tiles.tolist():
+        assert first == pos and 1 <= count <= NT     # tiles tile the order
+        got.setdefault(b, set()).update(order[first:first + count].tolist())
+        pos += count
+    assert pos == E and got == sets
+    want_tiles = sum(-(-len(v) // NT) for v in sets.values())
+    assert len(tiles) == want_tiles
+    assert list(tiles[:, 0]) == sorted(tiles[:, 0])
+    assert len(tiles) <= block_dots.tile_bound(E, C) \
+        == min(E, -(-E // NT) + C)
+    valid = [len(v) for k, v in sets.items() if k < C]
+    assert (tiles[:, 0] < C).sum() <= len(valid) + E / NT
+
+
+@pytest.mark.parametrize("C,counts", [
+    (3, [NT + 1, NT + 1, NT + 1, NT + 1]),   # every bucket just past a tile
+    (5, [1, 1, 1, 1, 1, 1]),                 # one entry per bucket
+    (2, [3 * NT, 0, 5]),                     # one hot block, out of range
+    (7, [0] * 7 + [NT]),                     # everything out of range
+])
+def test_tile_bound_holds_at_its_worst(C, counts):
+    ids = np.repeat(np.arange(len(counts), dtype=np.int32), counts)
+    ids = np.where(ids < C, ids, -1).astype(np.int32)[:, None]
+    _, tiles = block_dots.block_major_prep_reference(
+        torch.from_numpy(ids), 1, C)
+    assert len(tiles) == sum(-(-c // NT) for c in counts)
+    assert len(tiles) <= block_dots.tile_bound(len(ids), C)
+
+
+def _block_major_emulation(blocks, queries, ids, U, G):
+    """The float32 kernel's work order in plain torch: tile by tile, entry
+    e scores query row (e // G // U) * G + e % G against its tile's block
+    and lands in output row e."""
+    C, P, D = blocks.shape
+    E = ids.numel() * G
+    order, tiles = block_dots.block_major_prep_reference(ids, G, C)
+    out = torch.full((E, P), float("nan"))
+    for b, first, count in tiles.tolist():
+        e = order[first:first + count].long()
+        if b >= C:
+            out[e] = 0.0
+            continue
+        q = queries[(e // G // U) * G + e % G]
+        out[e] = q @ blocks[b].T
+    return out
+
+
+@pytest.mark.parametrize("kind", ["probe", "group"])
+def test_block_major_entry_map_reproduces_the_plain_versions(kind):
+    rng = np.random.default_rng(5)
+    C, P, D = 6, 12, 20
+    blocks = torch.from_numpy(rng.standard_normal((C, P, D))
+                              .astype(np.float32))
+    if kind == "probe":
+        Q, nprobe = 70, 3
+        ids = torch.from_numpy(rng.integers(-1, C + 1, (Q, nprobe))
+                               .astype(np.int32))
+        queries = torch.from_numpy(rng.standard_normal((Q, D))
+                                   .astype(np.float32))
+        got = _block_major_emulation(blocks, queries, ids, nprobe, 1)
+        want = block_dots.probe_block_dots_reference(
+            blocks, queries, ids.clamp(0, C - 1))
+        dead = ((ids < 0) | (ids >= C))[:, :, None].expand(Q, nprobe, P)
+    else:
+        NG, U, G = 4, 5, 9
+        ids = torch.from_numpy(rng.integers(-1, C + 1, (NG, U))
+                               .astype(np.int32))
+        queries = torch.from_numpy(rng.standard_normal((NG * G, D))
+                                   .astype(np.float32))
+        got = _block_major_emulation(blocks, queries, ids, U, G)
+        want = block_dots.group_block_dots_reference(
+            blocks, queries, ids.clamp(0, C - 1))
+        dead = ((ids < 0) | (ids >= C))[:, :, None, None].expand(NG, U, G, P)
+    want = torch.where(dead, 0.0, want)
+    torch.testing.assert_close(got.reshape(want.shape), want,
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_block_major_prep_on_the_cpu_is_the_plain_version():
+    ids = torch.tensor([[3, 1], [1, 7], [0, 1]], dtype=torch.int32)
+    order, tiles, ntiles = block_dots.block_major_prep(ids, 2, 4)
+    ref_order, ref_tiles = block_dots.block_major_prep_reference(ids, 2, 4)
+    assert torch.equal(order, ref_order) and torch.equal(tiles, ref_tiles)
+    assert int(ntiles[0]) == len(tiles) == 4         # buckets 0, 1, 3, C
+    with pytest.raises(TypeError):
+        block_dots.block_major_prep(ids.long(), 2, 4)
+
+
+def test_library_key_follows_the_source(tmp_path, monkeypatch):
+    """Editing a kernel source must not reuse a stale library."""
+    monkeypatch.setattr(_build, "CSRC_DIR", str(tmp_path))
+    (tmp_path / "k.cu").write_text("#define X 1\n")
+    first = _build.library_path("k")
+    assert _build.library_path("k") == first
+    (tmp_path / "k.cu").write_text("#define X 2\n")
+    assert _build.library_path("k") != first

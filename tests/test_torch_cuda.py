@@ -84,6 +84,124 @@ def test_kernels_match_plain_versions(cuda, int8):
     assert counts[f"group_block_dots_{t}"] == len(GROUP)
 
 
+# float32 block-major cases: (kind, C, P, D, rows, cols, G, ids), where
+# rows x cols are the id matrix (Q x nprobe, or NG x U) and `ids` says how
+# they are drawn
+F32_CASES = [
+    ("probe", 5, 32, 128, 150, 2, 1, "hot"),      # > TILE_ENTRIES on a block
+    ("group", 6, 40, 64, 12, 4, 8, "hot"),
+    ("probe", 4, 24, 32, 70, 3, 1, "one_block"),  # every entry on one block
+    ("group", 4, 24, 32, 3, 4, 8, "one_block"),
+    ("probe", 6, 16, 64, 40, 4, 1, "out_of_range"),
+    ("group", 6, 16, 64, 5, 4, 8, "out_of_range"),
+    ("probe", 3000, 8, 16, 64, 4, 1, "wide_c"),   # C far above blocks used
+    ("group", 12_000, 2, 8, 8, 3, 4, "wide_c"),   # counters past smem
+    ("group", 6, 40, 32, 5, 3, 1, "uniform"),     # G = 1
+    ("group", 5, 64, 128, 2, 3, 64, "uniform"),   # G = 64
+    ("probe", 4, 300, 130, 6, 2, 1, "uniform"),   # ragged P and D
+    ("group", 4, 300, 130, 2, 3, 8, "uniform"),
+    ("probe", 5, 33, 20, 9, 3, 1, "uniform"),     # D = 20
+    ("group", 5, 33, 20, 3, 2, 16, "uniform"),
+]
+
+
+def _f32_case_ids(gen, C, rows, cols, draw):
+    ids = torch.randint(0, min(C, 6), (rows, cols), generator=gen)
+    if draw == "hot":
+        ids[:, 0] = 1
+    elif draw == "one_block":
+        ids[:] = C - 1
+    elif draw == "out_of_range":
+        ids = torch.randint(-3, C + 3, (rows, cols), generator=gen)
+    elif draw == "wide_c":
+        ids[0, 0] = C - 1
+    elif draw == "uniform":
+        ids = torch.randint(0, C, (rows, cols), generator=gen)
+    return ids.to(torch.int32)
+
+
+def _f32_case(gen, case, dev):
+    kind, C, P, D, rows, cols, G, draw = case
+    ids = _f32_case_ids(gen, C, rows, cols, draw).to(dev)
+    blocks, queries = _tensors(gen, C, P, D, rows * G, False, dev)
+    return kind, blocks, queries, ids
+
+
+def _f32_plain(kind, blocks, queries, ids):
+    """The plain version, with out-of-range ids scoring zero."""
+    C = blocks.shape[0]
+    ref = getattr(block_dots, f"{kind}_block_dots_reference")
+    want = ref(blocks, queries, ids.clamp(0, C - 1))
+    dead = (ids < 0) | (ids >= C)
+    dead = dead.reshape(dead.shape + (1,) * (want.dim() - dead.dim()))
+    return torch.where(dead, 0.0, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", F32_CASES,
+                         ids=[f"{c[0]}-{c[-1]}-C{c[1]}-P{c[2]}-D{c[3]}-G{c[6]}"
+                              for c in F32_CASES])
+def test_block_major_f32_kernel_matches_plain_version(cuda, case):
+    gen = torch.Generator().manual_seed(1)
+    kind, blocks, queries, ids = _f32_case(gen, case, cuda)
+    fn = getattr(block_dots, f"{kind}_block_dots")
+    _same(fn(blocks, queries, ids), _f32_plain(kind, blocks, queries, ids),
+          False)
+    # a query matrix 4 bytes off 16-byte alignment takes the 4-byte loads
+    flat = torch.empty(queries.numel() + 1, device=cuda)
+    skew = flat[1:].view(queries.shape)
+    skew.copy_(queries)
+    _same(fn(blocks, skew, ids), _f32_plain(kind, blocks, queries, ids),
+          False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", F32_CASES[:8],
+                         ids=[f"{c[0]}-{c[-1]}" for c in F32_CASES[:8]])
+def test_cuda_prep_matches_plain_prep_per_block(cuda, case):
+    """The CUDA prep against the plain one: the same tile table and, per
+    block, the same set of entries (the order inside a block is free)."""
+    gen = torch.Generator().manual_seed(2)
+    kind, blocks, queries, ids = _f32_case(gen, case, cuda)
+    C = blocks.shape[0]
+    G = queries.shape[0] // ids.shape[0] if kind == "group" else 1
+    order, tiles, ntiles = block_dots.block_major_prep(ids, G, C)
+    n = int(ntiles.item())
+    assert n <= tiles.shape[0] == block_dots.tile_bound(ids.numel() * G, C)
+    tiles, order = tiles[:n].cpu(), order.cpu()
+    ref_order, ref_tiles = block_dots.block_major_prep_reference(
+        ids.cpu(), G, C)
+    assert torch.equal(tiles, ref_tiles)
+    got, want = {}, {}
+    for b, first, count in tiles.tolist():
+        got.setdefault(b, set()).update(order[first:first + count].tolist())
+        want.setdefault(b, set()).update(
+            ref_order[first:first + count].tolist())
+    assert got == want
+
+
+@pytest.mark.cuda
+def test_f32_wrappers_never_wait_for_the_card(cuda):
+    gen = torch.Generator().manual_seed(3)
+    blocks, queries = _tensors(gen, 9, 64, 128, 32, False, cuda)
+    topc = torch.randint(0, 9, (32, 4), generator=gen).to(torch.int32).to(
+        cuda)
+    union = torch.randint(0, 9, (4, 5), generator=gen).to(torch.int32).to(
+        cuda)
+    block_dots.library()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a = block_dots.probe_block_dots(blocks, queries, topc)
+        b = block_dots.group_block_dots(blocks, queries, union)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    _same(a, block_dots.probe_block_dots_reference(blocks, queries, topc),
+          False)
+    _same(b, block_dots.group_block_dots_reference(blocks, queries, union),
+          False)
+
+
 @pytest.mark.cuda
 def test_out_of_range_block_ids_score_zero(cuda):
     blocks = torch.ones((2, 8, 32), device=cuda)
