@@ -15,289 +15,21 @@
 //   out     float32 for float32 blocks, exact int32 for int8 blocks.
 // A block id outside [0, C) scores as an all-zero block (no memory access).
 //
-// float32 runs block-major (both functions): entry e is output row e; it
+// Both functions, both types, run block-major: entry e is output row e; it
 // scores query row (e / G / U) * G + e % G against block ids[e / G] (the
 // probe function is G = 1, U = nprobe).  One single-CTA prep kernel sorts
 // the entries by block id (counting sort) and cuts each block's list into
 // tiles of at most kNT entries; one CTA per tile streams its block through
-// shared memory once and multiplies it with the tile's query rows in
-// float32 FFMA.  int8 keeps the probe-major / group-major dp4a kernels
-// below.
+// shared memory once and multiplies it with the tile's query rows: float32
+// in FFMA, int8 on the tensor cores (mma.sync s8 x s8 -> s32, exact).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-
 // ---------------------------------------------------------------------------
-// int8 probe_block_dots: one CTA per (query, probe) pair.  The query row
-// sits in shared memory; each warp streams rows of the probed block with
-// 16-byte loads, `lanes_per_row` lanes per row, and reduces with
-// __shfl_xor_sync.
-// ---------------------------------------------------------------------------
-
-template <typename T> struct Vec16;
-template <> struct Vec16<int8_t> {
-  using V = int4;
-  using Acc = int;
-  static constexpr int kElems = 16;
-  static __device__ __forceinline__ int dot(int4 a, int4 b, int acc) {
-    acc = __dp4a(a.x, b.x, acc);
-    acc = __dp4a(a.y, b.y, acc);
-    acc = __dp4a(a.z, b.z, acc);
-    acc = __dp4a(a.w, b.w, acc);
-    return acc;
-  }
-};
-
-__device__ __forceinline__ int mac1(int8_t a, int8_t b, int acc) {
-  return acc + int(a) * int(b);
-}
-
-// D * sizeof(T) is a multiple of 16 and every pointer is 16-byte aligned.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-probe_vec_kernel(const T* __restrict__ blocks, const T* __restrict__ queries,
-                 const int* __restrict__ topc,
-                 typename Vec16<T>::Acc* __restrict__ out,
-                 int C, int P, int D, int nprobe, int lanes_per_row) {
-  using V = typename Vec16<T>::V;
-  using Acc = typename Vec16<T>::Acc;
-  extern __shared__ int4 smem[];
-  V* qs = reinterpret_cast<V*>(smem);
-
-  const int nv = D / Vec16<T>::kElems;           // 16-byte vectors per row
-  const long long pair = blockIdx.x;
-  const long long q = pair / nprobe;
-  const V* qrow = reinterpret_cast<const V*>(queries + q * D);
-  for (int v = threadIdx.x; v < nv; v += blockDim.x) qs[v] = qrow[v];
-  __syncthreads();
-
-  Acc* o = out + pair * P;
-  const int b = topc[pair];
-  if (b < 0 || b >= C) {
-    for (int r = threadIdx.x; r < P; r += blockDim.x) o[r] = Acc(0);
-    return;
-  }
-  const V* blk = reinterpret_cast<const V*>(blocks + (long long)b * P * D);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int rows_per_warp = 32 / lanes_per_row;
-  const int sub = lane / lanes_per_row;
-  const int sl = lane % lanes_per_row;
-  const int step = (blockDim.x >> 5) * rows_per_warp;
-  // r0 is uniform across the warp, so every lane reaches the shuffles
-  for (int r0 = warp * rows_per_warp; r0 < P; r0 += step) {
-    const int r = r0 + sub;
-    Acc acc = Acc(0);
-    if (r < P) {
-      const V* row = blk + (long long)r * nv;
-      for (int v = sl; v < nv; v += lanes_per_row)
-        acc = Vec16<T>::dot(__ldg(row + v), qs[v], acc);
-    }
-    for (int off = lanes_per_row >> 1; off > 0; off >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (r < P && sl == 0) o[r] = acc;
-  }
-}
-
-// Any D, any alignment: one warp per row, one element per lane per step.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-probe_scalar_kernel(const T* __restrict__ blocks,
-                    const T* __restrict__ queries,
-                    const int* __restrict__ topc,
-                    typename Vec16<T>::Acc* __restrict__ out,
-                    int C, int P, int D, int nprobe) {
-  using Acc = typename Vec16<T>::Acc;
-  extern __shared__ int4 smem[];
-  T* qs = reinterpret_cast<T*>(smem);
-
-  const long long pair = blockIdx.x;
-  const long long q = pair / nprobe;
-  for (int d = threadIdx.x; d < D; d += blockDim.x) qs[d] = queries[q * D + d];
-  __syncthreads();
-
-  Acc* o = out + pair * P;
-  const int b = topc[pair];
-  if (b < 0 || b >= C) {
-    for (int r = threadIdx.x; r < P; r += blockDim.x) o[r] = Acc(0);
-    return;
-  }
-  const int lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
-  for (int r = threadIdx.x >> 5; r < P; r += nwarps) {
-    const T* row = blocks + ((long long)b * P + r) * D;
-    Acc acc = Acc(0);
-    for (int d = lane; d < D; d += 32) acc = mac1(row[d], qs[d], acc);
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) o[r] = acc;
-  }
-}
-
-template <typename T>
-int launch_probe(const void* blocks, const void* queries, const void* topc,
-                 void* out, int C, int P, int D, int Q, int nprobe, int vec,
-                 void* stream) {
-  using Acc = typename Vec16<T>::Acc;
-  const long long pairs = (long long)Q * nprobe;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec) {
-    const int nv = D / Vec16<T>::kElems;
-    int lanes = 32;
-    while (lanes > 1 && lanes > nv) lanes >>= 1;
-    const size_t smem = (size_t)nv * 16;
-    probe_vec_kernel<T><<<(unsigned)pairs, kThreads, smem, s>>>(
-        static_cast<const T*>(blocks), static_cast<const T*>(queries),
-        static_cast<const int*>(topc), static_cast<Acc*>(out), C, P, D,
-        nprobe, lanes);
-  } else {
-    const size_t smem = ((size_t)D * sizeof(T) + 15) / 16 * 16;
-    probe_scalar_kernel<T><<<(unsigned)pairs, kThreads, smem, s>>>(
-        static_cast<const T*>(blocks), static_cast<const T*>(queries),
-        static_cast<const int*>(topc), static_cast<Acc*>(out), C, P, D,
-        nprobe);
-  }
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// int8 group_block_dots: one CTA per (group g, union slot j), a small GEMM
-// (G, D) x (D, P).  Tiles of GT query rows and PT block rows, kKT 32-bit
-// words deep, are staged in shared memory (row stride kKT + 1 words against
-// bank conflicts); a (GT/2) x (256/(GT/2)) thread grid keeps a 2 x 4
-// accumulator tile per thread in registers, so PT = 4 * 256/(GT/2).  GT is
-// the smallest of 8, 16, 32 that holds the group, so small groups do not
-// compute on padding rows.  A word is four int8 packed for __dp4a.
-// ---------------------------------------------------------------------------
-
-constexpr int kKT = 32;
-
-template <typename T> struct Word;
-template <> struct Word<int8_t> {
-  using W = int;
-  using Acc = int;
-  static __host__ __device__ int per_row(int D) { return (D + 3) / 4; }
-  // vec: D % 4 == 0 and 4-byte aligned rows; otherwise bytes past D are 0
-  static __device__ __forceinline__ int load(const int8_t* row, int w, int D,
-                                             int vec) {
-    if (vec) return __ldg(reinterpret_cast<const int*>(row) + w);
-    int packed = 0;
-    for (int i = 0; i < 4; ++i) {
-      const int d = 4 * w + i;
-      const int byte = d < D ? (int)(uint8_t)row[d] : 0;
-      packed |= byte << (8 * i);
-    }
-    return packed;
-  }
-  static __device__ __forceinline__ int mac(int a, int b, int acc) {
-    return __dp4a(a, b, acc);
-  }
-};
-
-template <typename T, int GT>
-__global__ void __launch_bounds__(kThreads)
-group_kernel(const T* __restrict__ blocks, const T* __restrict__ queries,
-             const int* __restrict__ uni, typename Word<T>::Acc* __restrict__ out,
-             int C, int P, int D, int U, int G, int vec) {
-  using W = typename Word<T>::W;
-  using Acc = typename Word<T>::Acc;
-  constexpr int TY = GT / 2;                 // thread rows, 2 queries each
-  constexpr int TX = kThreads / TY;          // thread columns, 4 rows each
-  constexpr int PT = 4 * TX;
-  __shared__ W qs[GT][kKT + 1];
-  __shared__ W bs[PT][kKT + 1];
-
-  const long long slot = blockIdx.x;              // g * U + j
-  const long long g = slot / U;
-  const int b = uni[slot];
-  const bool valid = b >= 0 && b < C;
-  const int kw = Word<T>::per_row(D);
-  const int tx = threadIdx.x % TX;
-  const int ty = threadIdx.x / TX;
-  const T* qbase = queries + g * G * D;
-  const T* bbase = blocks + (long long)(valid ? b : 0) * P * D;
-  Acc* obase = out + slot * G * P;
-
-  for (int g0 = 0; g0 < G; g0 += GT) {
-    for (int r0 = 0; r0 < P; r0 += PT) {
-      Acc acc[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = Acc(0);
-
-      for (int k0 = 0; k0 < kw; k0 += kKT) {
-        __syncthreads();
-        for (int i = threadIdx.x; i < GT * kKT; i += blockDim.x) {
-          const int rr = i / kKT, ww = i % kKT;
-          const int gq = g0 + rr, w = k0 + ww;
-          qs[rr][ww] = (gq < G && w < kw)
-                           ? Word<T>::load(qbase + (long long)gq * D, w, D, vec)
-                           : W(0);
-        }
-        for (int i = threadIdx.x; i < PT * kKT; i += blockDim.x) {
-          const int rr = i / kKT, ww = i % kKT;
-          const int r = r0 + rr, w = k0 + ww;
-          bs[rr][ww] = (valid && r < P && w < kw)
-                           ? Word<T>::load(bbase + (long long)r * D, w, D, vec)
-                           : W(0);
-        }
-        __syncthreads();
-#pragma unroll 8
-        for (int w = 0; w < kKT; ++w) {
-          const W a0 = qs[ty][w];
-          const W a1 = qs[ty + TY][w];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const W bv = bs[tx + TX * j][w];
-            acc[0][j] = Word<T>::mac(a0, bv, acc[0][j]);
-            acc[1][j] = Word<T>::mac(a1, bv, acc[1][j]);
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int gq = g0 + ty + TY * i;
-        if (gq >= G) continue;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int r = r0 + tx + TX * j;
-          if (r < P) obase[(long long)gq * P + r] = acc[i][j];
-        }
-      }
-    }
-  }
-}
-
-template <typename T>
-int launch_group(const void* blocks, const void* queries, const void* uni,
-                 void* out, int C, int P, int D, int NG, int U, int G, int vec,
-                 void* stream) {
-  using Acc = typename Word<T>::Acc;
-  const unsigned slots = (unsigned)((long long)NG * U);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const T* bl = static_cast<const T*>(blocks);
-  const T* qu = static_cast<const T*>(queries);
-  const int* un = static_cast<const int*>(uni);
-  Acc* o = static_cast<Acc*>(out);
-  if (G <= 8)
-    group_kernel<T, 8><<<slots, kThreads, 0, s>>>(bl, qu, un, o, C, P, D, U,
-                                                   G, vec);
-  else if (G <= 16)
-    group_kernel<T, 16><<<slots, kThreads, 0, s>>>(bl, qu, un, o, C, P, D, U,
-                                                    G, vec);
-  else
-    group_kernel<T, 32><<<slots, kThreads, 0, s>>>(bl, qu, un, o, C, P, D, U,
-                                                    G, vec);
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// float32, block-major.
+// The entry-list prep, shared by both types.
 //
 // Scratch (int32, 16-byte aligned, from the wrapper): [0] tile count,
 // [4, 4 + 4*bound) the tile table as int4 (block, first entry, entry count,
@@ -426,7 +158,8 @@ block_major_prep_kernel(const int* __restrict__ ids, int E, int G, int C,
     place(s, slot_bucket(ids, s, C));
 }
 
-// Scoring: one CTA per tile.  Thread t owns block row r0 + t of each
+// ---------------------------------------------------------------------------
+// float32 scoring: one CTA per tile.  Thread t owns block row r0 + t of each
 // kSR-row pass and every entry of the tile (n <= kNT dots in registers).
 // Block rows and the tile's query rows stream through a kStages-deep
 // cp.async ring in shared memory, kBK floats of K per stage (zero-padded
@@ -670,6 +403,238 @@ block_major_f32_kernel(const float* __restrict__ blocks,
   }
 }
 
+// ---------------------------------------------------------------------------
+// int8 scoring: one CTA per tile, on the tensor cores.  Replaces
+// sptag_tpu/ops/pallas_kernels.py:151 (probe_block_dots) and :214
+// (group_block_dots) for int8, whose product runs on the TPU's s8 x s8 ->
+// s32 matrix unit.
+//
+// A tile is an (M = n <= kNT entries) x (N = P block rows) x (K = D) int8
+// product.  Warp w owns block rows 32w .. 32w + 31 of each kSR-row pass:
+// two m16 x four n8 accumulator tiles, 32 s32 a thread, fed by
+// mma.sync.m16n8k32.row.col.s32.s8.s8.s32 — A the entries' query rows, B the
+// block rows, whose row-major (P, D) layout is the .col operand.  A tile of
+// at most 16 entries computes one m16 tile.  Block rows and the tile's query
+// rows stream through a kI8Stages-deep cp.async ring, kI8K bytes of K per
+// stage, zero-filled past D; rows sit kI8LD = kI8K + 16 bytes apart, so the 8
+// rows behind one 32-bit fragment load hit distinct banks.  Each CTA waits on
+// a chain of dependent loads (tile, entry list, query rows, block rows) and
+// does little else, so the ring's first kI8Stages - 1 stages, all of K at
+// D = 128, go out at once: one wait per pass.  At the end of a pass the
+// accumulators are staged through the ring as (entry, row) int32 and each
+// entry's dots go out as whole 128-byte lines of 16-byte stores; the ring
+// alone sets the shared memory, kI8MinBlocks CTAs a SM.  Without 16-byte
+// alignment or D % 16 == 0 (`vec` = 0) the stages are filled with byte
+// loads packed into 32-bit words.
+//
+// Exact: every product and partial sum is an integer of magnitude at most
+// 128^2 * D < 2^31 for D < 2^17 (the wrapper checks D), so the s32 sums
+// (plain, not .satfinite) equal the plain version's in any order.
+//
+// Bound on the H100: bytes.  At the main path's shapes (P = 256, D = 128,
+// C = 252) the probe call moves at most 8.3 MB of distinct blocks and 8.4 MB
+// of int32 output (16.8 MB, 5.0 us at 3.35 TB/s), the group call 8.3 MB and
+// 33.5 MB (42 MB, 12.5 us).  Their 0.54 / 2.15 GOP take 0.3 / 1.1 us at the
+// 1,979 TOP/s int8 tensor-core peak.  mma.sync and not wgmma: the product is
+// far from the limit even at mma.sync's lower rate, and wgmma's 64-row
+// tiles would compute mostly padding at M <= 32.
+// ---------------------------------------------------------------------------
+// 64 bytes of K a stage and 3 stages, 3 CTAs a SM (80 registers): of
+// 32 / 64 / 128 bytes and 2 / 3 stages this ran the main path's grouped
+// call fastest on the H100; 4 CTAs a SM spill at 64 registers and ran slower
+constexpr int kI8K = 64;                            // bytes of K per stage
+constexpr int kI8LD = kI8K + 16;                    // shared row stride
+constexpr int kI8Stages = 3;
+constexpr int kI8MinBlocks = 3;                     // CTAs a SM
+constexpr int kI8StageBytes = (kSR + kNT) * kI8LD;  // block rows, query rows
+constexpr int kI8Smem = kI8Stages * kI8StageBytes;
+constexpr int kI8LDO = kSR + 8;                     // staged output row, int32
+static_assert(kI8K % 32 == 0, "whole k32 steps per stage");
+static_assert(kNT * kI8LDO * 4 <= kI8Smem, "the staged output fits the ring");
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], const int (&a)[4], int b0,
+                                       int b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ int lds32(const int8_t* p) {
+  return *reinterpret_cast<const int*>(p);
+}
+
+// Stage kI8K bytes of K, from column k0, of `rows` rows into `dst` (kI8LD
+// bytes apart).  Row r comes from row(r), or is zero where row(r) is null;
+// K past D is zero.  `any` is a valid address for the zero-fill copies.
+template <typename Row>
+__device__ __forceinline__ void stage_i8(int8_t* dst, int rows, Row row,
+                                         int k0, int D, int vec,
+                                         const int8_t* any) {
+  if (vec) {
+    constexpr int kV = kI8K / 16;                   // 16-byte copies a row
+    for (int c = threadIdx.x; c < kV * rows; c += kSR) {
+      const int r = c / kV, col = (c % kV) * 16, d = k0 + col;
+      const int8_t* src = row(r);
+      const bool ok = src != nullptr && d < D;
+      cp_async16(dst + r * kI8LD + col, ok ? src + d : any, ok);
+    }
+  } else {
+    constexpr int kW = kI8K / 4;                    // 32-bit words a row
+    for (int c = threadIdx.x; c < kW * rows; c += kSR) {
+      const int r = c / kW, w = c % kW, d = k0 + 4 * w;
+      const int8_t* src = row(r);
+      unsigned word = 0;
+      if (src != nullptr)
+        for (int i = 0; i < 4 && d + i < D; ++i)
+          word |= (unsigned)(uint8_t)src[d + i] << (8 * i);
+      *reinterpret_cast<unsigned*>(dst + r * kI8LD + 4 * w) = word;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kSR, kI8MinBlocks)
+block_major_i8_kernel(const int8_t* __restrict__ blocks,
+                      const int8_t* __restrict__ queries,
+                      const int* __restrict__ hdr,
+                      const int4* __restrict__ tiles,
+                      const int* __restrict__ sorted, int* __restrict__ out,
+                      int C, int P, int D, int U, int G, int vec) {
+  static_assert(kSR == 8 * 32 && kNT == 2 * 16,
+                "8 warps of 32 block rows, two m16 tiles of entries");
+  extern __shared__ int4 smem_i4[];
+  int8_t* sm = reinterpret_cast<int8_t*>(smem_i4);
+  __shared__ long long s_qoff[kNT];          // query row, in bytes
+  __shared__ long long s_ooff[kNT];          // output row, in int32
+
+  const int ntiles = hdr[0];
+  const int4 tile = tiles[blockIdx.x];       // read beside the count
+  if ((int)blockIdx.x >= ntiles) return;     // past the real tile count
+  const int b = tile.x, first = tile.y, n = tile.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;     // fragment row, column group
+  const bool live_block = b < C;             // else out-of-range ids: zeros
+  const bool two = n > 16;                   // the second m16 tile
+  const int8_t* bbase = blocks + (long long)(live_block ? b : 0) * P * D;
+  const int nk = max(1, (D + kI8K - 1) / kI8K);  // D = 0 stores zeros
+
+  auto load_block = [&](int r0, int k) {
+    const int8_t* src = bbase + (long long)r0 * D;
+    // rows past P are left as they are: their dots are never stored
+    stage_i8(sm + (k % kI8Stages) * kI8StageBytes, min(kSR, P - r0),
+             [&](int r) { return src + (long long)r * D; }, k * kI8K, D,
+             vec, blocks);
+  };
+  auto load_queries = [&](int k) {
+    // entries n .. 16 (or 32) are zero rows
+    stage_i8(sm + (k % kI8Stages) * kI8StageBytes + kSR * kI8LD,
+             two ? kNT : 16,
+             [&](int e) -> const int8_t* {
+               return e < n ? queries + s_qoff[e] : nullptr;
+             },
+             k * kI8K, D, vec, queries);
+  };
+
+  // the block's first stages go out before the entry list is read
+  if (live_block)
+    for (int k = 0; k < kI8Stages - 1 && k < nk; ++k) load_block(0, k);
+  if (tid < n) {
+    const int e = sorted[first + tid];
+    const int slot = e / G;
+    s_qoff[tid] = ((long long)(slot / U) * G + (e - slot * G)) * D;
+    s_ooff[tid] = (long long)e * P;
+  }
+  __syncthreads();
+  if (!live_block) {
+    for (int i = tid; i < n * P; i += kSR) out[s_ooff[i / P] + i % P] = 0;
+    return;
+  }
+
+  for (int r0 = 0; r0 < P; r0 += kSR) {
+    // the pass's first stages: group k holds stage k (on the first pass
+    // the block rows issued above all land in group 0)
+    for (int k = 0; k < kI8Stages - 1; ++k) {
+      if (r0 > 0 && k < nk) load_block(r0, k);
+      if (k < nk) load_queries(k);
+      cp_async_commit();
+    }
+    int acc[2][4][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[m][j][i] = 0;
+
+    for (int k = 0; k < nk; ++k) {
+      cp_async_wait<kI8Stages - 2>();
+      __syncthreads();
+      if (k + kI8Stages - 1 < nk) {
+        load_block(r0, k + kI8Stages - 1);
+        load_queries(k + kI8Stages - 1);
+      }
+      cp_async_commit();
+      if (r0 + 32 * warp >= P) continue;     // warp-uniform
+      const int8_t* st = sm + (k % kI8Stages) * kI8StageBytes;
+      const int8_t* qa = st + (kSR + g) * kI8LD + 4 * t;
+      const int8_t* ba = st + (32 * warp + g) * kI8LD + 4 * t;
+#pragma unroll
+      for (int kk = 0; kk < kI8K; kk += 32) {
+        int a[2][4];
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          if (m == 1 && !two) break;
+          const int8_t* q = qa + 16 * m * kI8LD + kk;
+          a[m][0] = lds32(q);
+          a[m][1] = lds32(q + 8 * kI8LD);
+          a[m][2] = lds32(q + 16);
+          a[m][3] = lds32(q + 8 * kI8LD + 16);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int8_t* bp = ba + 8 * j * kI8LD + kk;
+          const int b0 = lds32(bp), b1 = lds32(bp + 16);
+          mma_s8(acc[0][j], a[0], b0, b1);
+          if (two) mma_s8(acc[1][j], a[1], b0, b1);
+        }
+      }
+    }
+
+    // The pass's dots, staged in the ring as (entry, row) int32: fragment
+    // (m, j) holds entries 16m + g (c0, c1) and 16m + g + 8 (c2, c3) at
+    // block rows 32w + 8j + 2t, + 1.  Then each entry's row goes out as
+    // whole 128-byte lines.
+    cp_async_wait<0>();
+    __syncthreads();                         // the ring is read
+    int* so = reinterpret_cast<int*>(sm);
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      if (m == 1 && !two) break;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        int* o = so + (16 * m + g) * kI8LDO + 32 * warp + 8 * j + 2 * t;
+        *reinterpret_cast<int2*>(o) = make_int2(acc[m][j][0], acc[m][j][1]);
+        *reinterpret_cast<int2*>(o + 8 * kI8LDO) =
+            make_int2(acc[m][j][2], acc[m][j][3]);
+      }
+    }
+    __syncthreads();
+    const int rows = min(kSR, P - r0);
+    for (int e = warp; e < n; e += kSR / 32) {
+      int* dst = out + s_ooff[e] + r0;
+      const int* src = so + e * kI8LDO;
+      if ((P & 3) == 0)                      // 16-byte aligned rows
+        for (int c = 4 * lane; c < rows; c += 128)
+          *reinterpret_cast<int4*>(dst + c) =
+              *reinterpret_cast<const int4*>(src + c);
+      else
+        for (int c = lane; c < rows; c += 32) dst[c] = src[c];
+    }
+    __syncthreads();                         // before the next pass's loads
+  }
+}
+
 long long tile_bound(int E, int C) {
   const long long b = (long long)(E + kNT - 1) / kNT + C;
   return b < E ? b : E;
@@ -702,21 +667,17 @@ int launch_prep(const void* ids, const Scratch& sc, int E, int G, int C,
   return (int)cudaGetLastError();
 }
 
-// Opt a scoring kernel into its shared memory (above the 48 KB default)
-// once per device.
-template <bool kSliced, int kRows>
-int configure_score_kernel() {
-  static bool done[64] = {};
+// Opt a scoring kernel into `smem` bytes of shared memory (above the 48 KB
+// default) once per device; `done` holds that kernel's flags.
+int configure_smem(const void* kernel, int smem, bool (&done)[64]) {
   int dev = 0;
   int rc = (int)cudaGetDevice(&dev);
   if (rc != 0 || (dev < 64 && done[dev])) return rc;
-  rc = (int)cudaFuncSetAttribute(block_major_f32_kernel<kSliced, kRows>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 kScoreSmem);
+  rc = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc == 0)
     rc = (int)cudaFuncSetAttribute(
-        block_major_f32_kernel<kSliced, kRows>,
-        cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
   if (rc == 0 && dev < 64) done[dev] = true;
   return rc;
 }
@@ -725,7 +686,9 @@ template <bool kSliced, int kRows>
 int launch_score(const void* blocks, const void* queries, const Scratch& sc,
                  void* out, int C, int P, int D, int E, int U, int G,
                  int vec, cudaStream_t s) {
-  const int rc = configure_score_kernel<kSliced, kRows>();
+  static bool done[64] = {};
+  const int rc = configure_smem(
+      (const void*)block_major_f32_kernel<kSliced, kRows>, kScoreSmem, done);
   if (rc != 0) return rc;
   block_major_f32_kernel<kSliced, kRows><<<(unsigned)tile_bound(E, C),
                                            kSR / kRows, kScoreSmem, s>>>(
@@ -741,8 +704,8 @@ extern "C" {
 
 int sptag_block_major_tile_entries(void) { return kNT; }
 
-// The entry-list prep alone (the f32 entry point runs it itself): entries
-// e < E with block ids[e / G], into `scratch` laid out as above.
+// The entry-list prep alone (the scoring entry points run it themselves):
+// entries e < E with block ids[e / G], into `scratch` laid out as above.
 int sptag_block_major_prep(const void* ids, void* scratch, int E, int G,
                            int C, void* stream) {
   return launch_prep(ids, carve(scratch, E, C), E, G, C,
@@ -766,20 +729,25 @@ int sptag_block_dots_f32(const void* blocks, const void* queries,
                                                   C, P, D, E, U, G, vec, s);
 }
 
-int sptag_probe_block_dots_i8(const void* blocks, const void* queries,
-                              const void* topc, void* out, int C, int P,
-                              int D, int Q, int nprobe, int vec,
-                              void* stream) {
-  return launch_probe<int8_t>(blocks, queries, topc, out, C, P, D, Q, nprobe,
-                              vec, stream);
-}
-
-int sptag_group_block_dots_i8(const void* blocks, const void* queries,
-                              const void* uni, void* out, int C, int P,
-                              int D, int NG, int U, int G, int vec,
-                              void* stream) {
-  return launch_group<int8_t>(blocks, queries, uni, out, C, P, D, NG, U, G,
-                              vec, stream);
+// int8 probe_block_dots (G = 1, U = nprobe, E = Q * nprobe) and
+// group_block_dots (E = NG * U * G), exact int32 out: prep, then one CTA per
+// tile on the tensor cores.
+int sptag_block_dots_i8(const void* blocks, const void* queries,
+                        const void* ids, void* out, void* scratch, int C,
+                        int P, int D, int E, int U, int G, int vec,
+                        void* stream) {
+  static bool done[64] = {};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Scratch sc = carve(scratch, E, C);
+  int rc = launch_prep(ids, sc, E, G, C, s);
+  if (rc == 0)
+    rc = configure_smem((const void*)block_major_i8_kernel, kI8Smem, done);
+  if (rc != 0) return rc;
+  block_major_i8_kernel<<<(unsigned)tile_bound(E, C), kSR, kI8Smem, s>>>(
+      static_cast<const int8_t*>(blocks), static_cast<const int8_t*>(queries),
+      sc.hdr, sc.tiles, sc.sorted, static_cast<int*>(out), C, P, D, U, G,
+      vec);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

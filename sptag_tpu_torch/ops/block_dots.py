@@ -21,32 +21,26 @@ probe_block_dots
     headline (Q=1024, nprobe=8, P=256, D=128, C=894) the distinct probed
     blocks are at most 894*256*128*4 B = 117 MB, plus 0.5 MB of queries and
     8.4 MB of output: about 126 MB, so at least 38 us at 3.35 TB/s; the
-    0.54 GFLOP take 8 us at the 67 TFLOP/s float32 rate.  int8: one CTA per
-    (query, probe) pair holds the query row in shared memory and streams the
-    P x D block with coalesced 16-byte loads, several lanes per row, into
-    ``__dp4a`` with exact int32 sums, reduced with ``__shfl_xor_sync``.
-    float32: block-major (below).
+    0.54 GFLOP take 8 us at the 67 TFLOP/s float32 rate.  At the int8
+    shapes (C=252) 8.3 MB of blocks and 8.4 MB of int32 output: 16.8 MB,
+    5.0 us; the 0.54 GOP take 0.3 us at the 1,979 TOP/s int8 tensor-core
+    rate.
 
 group_block_dots
     Replaces ``sptag_tpu/ops/pallas_kernels.py::group_block_dots``
     (``pallas_call`` at line 214).  At the int8 grouped shapes (NG=32, U=32,
-    G=32, P=256, D=128, C~250) the bytes are at most 6.6 MB of blocks, 0.1
-    MB of queries and 33.6 MB of int32 output: 40 MB, 12 us at 3.35 TB/s.
-    The 2.15 GOP take 1.1 us at the 1,979 TOP/s int8 tensor-core rate, but
-    16 us on ``__dp4a`` (estimated 132 SMs x 64 dp4a/clock x 8 ops x 1.98
-    GHz = 134 TOP/s).  int8: one CTA per (group, union slot) stages the
-    (G, D) query tile (8, 16 or 32 rows, the least that holds G) and the
-    block in shared-memory row tiles and keeps a 2 x 4 accumulator tile per
-    thread in registers (dp4a).  At the f32 grouped shapes (NG=128, U=16,
-    G=8) the bound is bytes too: at most 117 MB of distinct blocks and 16.8
-    MB of output, 40 us.  float32: block-major (below).
+    G=32, P=256, D=128, C=252) the bytes are at most 8.3 MB of blocks, 0.1
+    MB of queries and 33.5 MB of int32 output: 42 MB, 12.5 us at 3.35 TB/s;
+    the 2.15 GOP take 1.1 us at the int8 tensor-core rate.  At the f32
+    grouped shapes (NG=128, U=16, G=8) at most 117 MB of distinct blocks
+    and 16.8 MB of output, 40 us.
 
-float32, both functions: block-major
+Both functions, both types: block-major
     Turned block-major, the two are one operation.  Entry e of the output
     (row e of ``(Q * nprobe, P)`` or ``(NG * U * G, P)``) scores query row
     ``(e // G // U) * G + e % G`` against block ``ids.flat[e // G]`` (the
     probe function is G = 1, U = nprobe).  A probe-major kernel reads each
-    block once per (query, probe) pair — 8,192 x 128 KB = 1.07 GB per
+    block once per (query, probe) pair — 8,192 x 128 KB = 1.07 GB per f32
     headline call, mostly from HBM because the 117 MB block set exceeds the
     50 MB L2 — so it sits at the HBM roof of its own design.  Here a
     single-CTA prep kernel sorts the entries by block id on the card (a
@@ -54,32 +48,50 @@ float32, both functions: block-major
     per id slot of G entries; out-of-range ids go to an extra bucket C that
     scores zeros) and cuts each block's list into tiles of at most
     ``TILE_ENTRIES`` entries, so a hot block (padding queries, the grouped
-    path's clamped empty slots) spreads over several CTAs.  Each CTA
-    streams its block's P rows once, and its entries' query rows beside
-    them, through a 3-stage ``cp.async`` ring in shared memory, 16 floats
-    of D per stage, into float32 FFMA: thread t owns block row t of a
-    256-row pass (rows t and t + 128 in the group kernel) and all of the
-    tile's entries in registers (a uniform branch skips entries past the
-    tile's count), and stores each entry's dots as coalesced row pieces.
-    Blocks read per call: at most (distinct blocks) + E / TILE_ENTRIES
-    instead of E or NG * U.  The grid is sized
-    on the host from the bound ``min(E, ceil(E / TILE_ENTRIES) + C)``
-    (``tile_bound``); CTAs past the real tile count exit at once, so the
-    wrapper never waits for the card.
+    path's clamped empty slots) spreads over several CTAs.  The prep does
+    not look at the blocks' type; one scoring kernel per type runs on its
+    tile table, one CTA per tile, streaming its block's P rows once, and
+    its entries' query rows beside them, through a 3-stage ``cp.async``
+    ring in shared memory, and storing each entry's dots as coalesced row
+    pieces.  Blocks read per call: at most (distinct blocks) + E /
+    TILE_ENTRIES instead of E or NG * U.  The grid is sized on the host from
+    the bound ``min(E, ceil(E / TILE_ENTRIES) + C)`` (``tile_bound``); CTAs
+    past the real tile count exit at once, so the wrapper never waits for
+    the card.  ``block_major_prep_reference`` is the plain version of the
+    prep.
+
+int8 scoring: tensor cores
+    The tile is an (entries <= 32) x (P block rows) x (D) int8 product on
+    ``mma.sync.m16n8k32`` s8 x s8 -> s32: each of 8 warps owns 32 block rows
+    of a 256-row pass (two m16 x four n8 accumulator tiles), 32 bytes of D
+    per stage, fragments read from rows padded to 48 bytes so no two of the
+    8 rows behind one load share a bank; the accumulators go out through
+    shared memory as whole 128-byte lines.  Integer sums are exact in any
+    order while |dot| < 2^31, which ``128^2 * D`` guarantees for D < 2^17
+    (the wrapper checks), so the result equals the plain version's bit for
+    bit.  Unaligned queries or blocks, or D % 16 != 0, stage with byte loads
+    instead of 16-byte copies.
+
+float32 scoring: FFMA
+    16 floats of D per stage: thread t owns block row t of a 256-row pass
+    (rows t and t + 128 in the group kernel) and all of the tile's entries
+    in registers (a uniform branch skips entries past the tile's count).
 
     Summation order.  An L2 distance ``|q|^2 + |x|^2 - 2 q.x`` cancels most
     of a dot's magnitude (dots ~2,000 for distances ~200 at the headline),
-    so float32 rounding in the dot shows in the distance, and the card's
-    search is held to the CPU's within rtol 1e-5.  The plain versions'
-    contractions on the CPU sum differently: the probe function's batched
-    matrix-vector product in SIMD partial sums (close to the exact dot), the
-    group function's matrix product in one chain per output.  So each
-    function keeps the order of the kernel it replaces: probe sums each
-    16-wide slice of D in one chain and adds the slices in ascending order
-    (as accurate as a tree of partial sums); group runs one chain over D.
-    Each output element is computed by one CTA in that fixed order, so the
-    result is deterministic although the order inside a block's entry list
-    is not.
+    so float32 rounding in the dot shows in the distance.  This kernel was
+    written while the card's search was held to the CPU's within rtol 1e-5,
+    and the plain versions' contractions on the CPU sum differently: the
+    probe function's batched matrix-vector product in SIMD partial sums
+    (close to the exact dot), the group function's matrix product in one
+    chain per output.  So each function keeps the order of the kernel it
+    replaces: probe sums each 16-wide slice of D in one chain and adds the
+    slices in ascending order (as accurate as a tree of partial sums); group
+    runs one chain over D.  (The test now bounds each distance's error by
+    1e-5 of the magnitudes of its terms, which no longer needs the CPU's
+    order.)  Each output element is computed by one CTA in that fixed
+    order, so the result is deterministic although the order inside a
+    block's entry list is not.
 
     Why FFMA and not the tensor cores: 3xTF32 ``mma.sync.m16n8k8`` (x =
     big + small, both TF32, three products) was built and measured on the
@@ -89,8 +101,7 @@ float32, both functions: block-major
     bias tenfold but still missed, and no order of tensor-core sums matches
     a one-chain CPU matrix product.  The bound is bytes: the headline's
     0.54 / 1.07 GFLOP take 8 / 16 us at the float32 FFMA rate, against 38 /
-    40 us for the bytes.  ``block_major_prep_reference`` is the plain
-    version of the prep.
+    40 us for the bytes.
 """
 
 from __future__ import annotations
@@ -102,7 +113,7 @@ import torch
 from sptag_tpu_torch import _build
 from sptag_tpu_torch.ops import distance as dist_ops
 
-#: entries (query rows) per tile of the block-major float32 kernel: the
+#: entries (query rows) per tile of the block-major kernels: the
 #: plain prep's default, replaced by the library's own tile when it loads
 TILE_ENTRIES = 32
 
@@ -114,17 +125,14 @@ group_i8_launches = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# int8: (blocks, queries, ids, out, C, P, D, [Q, nprobe | NG, U, G], vec,
-# stream); float32: (blocks, queries, ids, out, scratch, C, P, D, E, U, G,
-# vec, sliced, stream); prep: (ids, scratch, E, G, C, stream)
+# scoring: (blocks, queries, ids, out, scratch, C, P, D, E, U, G, vec,
+# [sliced: float32 only,] stream); prep: (ids, scratch, E, G, C, stream)
 _SIGNATURES = {
-    "sptag_probe_block_dots_i8": (_I, (_P,) * 4 + (_I,) * 6 + (_P,)),
-    "sptag_group_block_dots_i8": (_I, (_P,) * 4 + (_I,) * 7 + (_P,)),
     "sptag_block_dots_f32": (_I, (_P,) * 5 + (_I,) * 8 + (_P,)),
+    "sptag_block_dots_i8": (_I, (_P,) * 5 + (_I,) * 7 + (_P,)),
     "sptag_block_major_prep": (_I, (_P,) * 2 + (_I,) * 3 + (_P,)),
     "sptag_block_major_tile_entries": (_I, ()),
 }
-_SMEM_LIMIT = 48 * 1024       # the int8 probe kernel's query row in smem
 
 
 def launch_counts() -> dict:
@@ -141,13 +149,18 @@ def reset_launch_counts() -> None:
     group_f32_launches = group_i8_launches = 0
 
 
+_lib = None
+
+
 def library() -> ctypes.CDLL:
     """The built kernel library (compiled at first use); its tile size
     becomes ``TILE_ENTRIES``."""
-    global TILE_ENTRIES
-    lib = _build.load("block_dots", _SIGNATURES)
-    TILE_ENTRIES = lib.sptag_block_major_tile_entries()
-    return lib
+    global TILE_ENTRIES, _lib
+    if _lib is None:
+        lib = _build.load("block_dots", _SIGNATURES)
+        TILE_ENTRIES = lib.sptag_block_major_tile_entries()
+        _lib = lib
+    return _lib
 
 
 def tile_bound(E: int, C: int, nt: int | None = None) -> int:
@@ -186,17 +199,16 @@ def block_major_prep_reference(ids: torch.Tensor, G: int, C: int,
     return order, tiles
 
 
-def _scratch(E: int, C: int, device) -> torch.Tensor:
-    """The prep's int32 scratch: tile count (padded to 4), the int4 tile
-    table, the sorted entries, C + 1 bucket counters."""
-    return torch.empty(4 + 4 * tile_bound(E, C) + E + C + 1,
-                       dtype=torch.int32, device=device)
+def _scratch_len(E: int, C: int) -> int:
+    """int32 words of the prep's scratch: tile count (padded to 4), the
+    int4 tile table, the sorted entries, C + 1 bucket counters."""
+    return 4 + 4 * tile_bound(E, C) + E + C + 1
 
 
 def block_major_prep(ids: torch.Tensor, G: int, C: int):
     """The block-major prep on the device of `ids`: the plain version on
-    the CPU, the CUDA prep kernel on the card (which the float32 wrappers
-    run as part of their own call).  Returns (order, tiles, ntiles): on the
+    the CPU, the CUDA prep kernel on the card (which the wrappers run as
+    part of their own call).  Returns (order, tiles, ntiles): on the
     card `tiles` has ``tile_bound`` rows, of which the first ``ntiles`` (a
     one-element device tensor) are real, and the order inside a block's
     list is free."""
@@ -208,7 +220,8 @@ def block_major_prep(ids: torch.Tensor, G: int, C: int):
         return order, tiles, torch.tensor([tiles.shape[0]], dtype=torch.int32)
     lib = library()                      # sets TILE_ENTRIES for the bound
     bound = tile_bound(E, C)
-    scratch = _scratch(E, C, ids.device)
+    scratch = torch.empty(_scratch_len(E, C), dtype=torch.int32,
+                          device=ids.device)
     if E:
         with torch.cuda.device(ids.device):
             rc = lib.sptag_block_major_prep(
@@ -223,33 +236,54 @@ def block_major_prep(ids: torch.Tensor, G: int, C: int):
     return order, tiles, scratch[:1]
 
 
-def _block_dots_f32(blocks, queries, ids, out, U: int, G: int,
-                    what: str) -> None:
-    """Launch the block-major float32 kernel (prep included) into `out`;
-    the probe function (G = 1) sums each dot slice by slice, the group
-    function in one chain (module notes)."""
+def _block_dots(blocks, queries, ids, shape, U: int, G: int,
+                what: str) -> torch.Tensor:
+    """Launch the block-major kernel of the blocks' type (prep included);
+    returns the dots in `shape`.  float32: the probe function (G = 1) sums
+    each dot slice by slice, the group function in one chain (module
+    notes); int8: exact int32 on the tensor cores.  One allocation holds
+    the output and, behind it, the prep's scratch."""
     C, P, D = blocks.shape
     E = ids.numel() * G
+    is_i8 = blocks.dtype == torch.int8
+    dev = blocks.device
+    if E * P == 0:
+        return torch.empty(shape, dtype=torch.int32 if is_i8
+                           else torch.float32, device=dev)
     if E >= 2 ** 31:
         raise ValueError(f"{what}: {E} entries exceed the kernel's int32 "
                          "entry index")
-    vec = _vec_ok(D * 4, 16, blocks, queries)
-    dev = blocks.device
-    fn = library().sptag_block_dots_f32  # sets TILE_ENTRIES for the scratch
-    scratch = _scratch(E, C, dev)
+    if is_i8 and D >= 2 ** 17:
+        raise ValueError(f"{what}: D={D} int8 dots may pass 2^31; the "
+                         "kernel's int32 sums are exact for D < 2^17")
+    vec = _vec_ok(D * blocks.element_size(), 16, blocks, queries)
+    lib = library()                      # sets TILE_ENTRIES for the scratch
+    n_out = E * P
+    n_pad = -(-n_out // 4) * 4           # the scratch starts 16-byte aligned
+    buf = torch.empty(n_pad + _scratch_len(E, C), dtype=torch.int32,
+                      device=dev)
     args = (blocks.data_ptr(), queries.data_ptr(), ids.data_ptr(),
-            out.data_ptr(), scratch.data_ptr(), C, P, D, E, U, G, vec,
-            int(what == "probe_block_dots"),
-            torch.cuda.current_stream(dev).cuda_stream)
+            buf.data_ptr(), buf.data_ptr() + 4 * n_pad, C, P, D, E, U, G,
+            vec)
+    if is_i8:
+        fn = lib.sptag_block_dots_i8
+    else:
+        fn = lib.sptag_block_dots_f32
+        args += (int(what == "probe_block_dots"),)
+    # the current stream's raw handle: building a Stream object for it
+    # costs host time on every call
+    args += (torch._C._cuda_getCurrentRawStream(dev.index),)
     # the kernel launches on the current device: switch only when `dev`
     # is another one
-    if dev.index is None or dev.index == torch.cuda.current_device():
+    if dev.index == torch.cuda.current_device():
         rc = fn(*args)
     else:
         with torch.cuda.device(dev):
             rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed ({rc})")
+    out = buf[:n_out]
+    return (out if is_i8 else out.view(torch.float32)).view(shape)
 
 
 def probe_block_dots_reference(blocks: torch.Tensor, queries: torch.Tensor,
@@ -318,31 +352,13 @@ def probe_block_dots(blocks: torch.Tensor, queries: torch.Tensor,
         raise ValueError("probe_block_dots: topc rows != query rows")
     if blocks.device.type == "cpu":
         return probe_block_dots_reference(blocks, queries, topc)
-    C, P, D = blocks.shape
     Q, nprobe = topc.shape
-    is_i8 = blocks.dtype == torch.int8
-    out = torch.empty((Q, nprobe, P),
-                      dtype=torch.int32 if is_i8 else torch.float32,
-                      device=blocks.device)
-    if out.numel() == 0:
-        return out
-    if not is_i8:
-        _block_dots_f32(blocks, queries, topc, out, nprobe, 1,
-                        "probe_block_dots")
+    out = _block_dots(blocks, queries, topc, (Q, nprobe, blocks.shape[1]),
+                      nprobe, 1, "probe_block_dots")
+    if blocks.dtype == torch.int8:
+        probe_i8_launches += 1
+    else:
         probe_f32_launches += 1
-        return out
-    if D > _SMEM_LIMIT:
-        raise ValueError(f"probe_block_dots: D={D} exceeds the int8 "
-                         "kernel's shared-memory query row")
-    vec = _vec_ok(D, 16, blocks, queries)
-    with torch.cuda.device(blocks.device):
-        rc = library().sptag_probe_block_dots_i8(
-            blocks.data_ptr(), queries.data_ptr(), topc.data_ptr(),
-            out.data_ptr(), C, P, D, Q, nprobe, vec,
-            torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"probe_block_dots: CUDA launch failed ({rc})")
-    probe_i8_launches += 1
     return out
 
 
@@ -360,26 +376,11 @@ def group_block_dots(blocks: torch.Tensor, queries: torch.Tensor,
                          f"{NG} groups")
     if blocks.device.type == "cpu":
         return group_block_dots_reference(blocks, queries, union)
-    C, P, D = blocks.shape
     G = Q // NG
-    is_i8 = blocks.dtype == torch.int8
-    out = torch.empty((NG, U, G, P),
-                      dtype=torch.int32 if is_i8 else torch.float32,
-                      device=blocks.device)
-    if out.numel() == 0:
-        return out
-    if not is_i8:
-        _block_dots_f32(blocks, queries, union, out, U, G,
-                        "group_block_dots")
+    out = _block_dots(blocks, queries, union, (NG, U, G, blocks.shape[1]),
+                      U, G, "group_block_dots")
+    if blocks.dtype == torch.int8:
+        group_i8_launches += 1
+    else:
         group_f32_launches += 1
-        return out
-    vec = _vec_ok(D, 4, blocks, queries)
-    with torch.cuda.device(blocks.device):
-        rc = library().sptag_group_block_dots_i8(
-            blocks.data_ptr(), queries.data_ptr(), union.data_ptr(),
-            out.data_ptr(), C, P, D, NG, U, G, vec,
-            torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"group_block_dots: CUDA launch failed ({rc})")
-    group_i8_launches += 1
     return out

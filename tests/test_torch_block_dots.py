@@ -7,7 +7,7 @@ rtol 1e-5, atol 1e-4 on unit-normal data (as test_pallas.py); int8 dots
 exactly equal.  The CUDA kernels themselves run only on the card:
 tests/test_torch_cuda.py compares them with the plain versions there, and
 ``python3 chip_smoke.py`` does the same at the main path's shapes.  The
-block-major float32 kernel's host-side arithmetic (the entry-list prep, the
+block-major kernels' host-side arithmetic (the entry-list prep, the
 tile bound, the entry -> query row / output row map) is checked here
 against numpy and against the plain versions.
 """
@@ -134,7 +134,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad):
         block_dots.probe_block_dots(blocks, queries, ids)
 
 
-# ---- block-major float32: the prep and the entry map ---------------------
+# ---- block-major: the prep and the entry map -------------------------------
 
 NT = block_dots.TILE_ENTRIES
 
@@ -212,52 +212,85 @@ def test_tile_bound_holds_at_its_worst(C, counts):
 
 
 def _block_major_emulation(blocks, queries, ids, U, G):
-    """The float32 kernel's work order in plain torch: tile by tile, entry
-    e scores query row (e // G // U) * G + e % G against its tile's block
-    and lands in output row e."""
+    """The block-major kernels' work order in plain torch: tile by tile,
+    entry e scores query row (e // G // U) * G + e % G against its tile's
+    block and lands in output row e.  int8 dots are exact int64 products,
+    returned as int32."""
     C, P, D = blocks.shape
     E = ids.numel() * G
+    int8 = blocks.dtype == torch.int8
     order, tiles = block_dots.block_major_prep_reference(ids, G, C)
-    out = torch.full((E, P), float("nan"))
+    if int8:
+        blocks, queries = blocks.long(), queries.long()
+        out = torch.full((E, P), -2 ** 40, dtype=torch.int64)
+    else:
+        out = torch.full((E, P), float("nan"))
     for b, first, count in tiles.tolist():
         e = order[first:first + count].long()
         if b >= C:
-            out[e] = 0.0
+            out[e] = 0
             continue
         q = queries[(e // G // U) * G + e % G]
         out[e] = q @ blocks[b].T
-    return out
+    return out.to(torch.int32) if int8 else out
+
+
+def _entry_map_case(rng, kind, int8, C, P, D):
+    """(blocks, queries, ids, U, G) drawn for the probe or group map, ids
+    one past [0, C) on either side."""
+    if int8:
+        blocks = rng.integers(-128, 128, (C, P, D)).astype(np.int8)
+    else:
+        blocks = rng.standard_normal((C, P, D)).astype(np.float32)
+    rows, U, G = (70, 3, 1) if kind == "probe" else (4, 5, 9)
+    ids = rng.integers(-1, C + 1, (rows, U)).astype(np.int32)
+    Q = rows if kind == "probe" else rows * G
+    if int8:
+        queries = rng.integers(-128, 128, (Q, D)).astype(np.int8)
+    else:
+        queries = rng.standard_normal((Q, D)).astype(np.float32)
+    return (torch.from_numpy(blocks), torch.from_numpy(queries),
+            torch.from_numpy(ids), U, G)
+
+
+def _plain_with_dead_ids(kind, blocks, queries, ids):
+    """The plain version, with ids outside [0, C) scoring zero."""
+    C = blocks.shape[0]
+    ref = getattr(block_dots, f"{kind}_block_dots_reference")
+    want = ref(blocks, queries, ids.clamp(0, C - 1))
+    dead = (ids < 0) | (ids >= C)
+    dead = dead.reshape(dead.shape + (1,) * (want.dim() - dead.dim()))
+    return torch.where(dead, torch.zeros_like(want), want)
+
+
+@pytest.mark.parametrize("kind,int8", [("probe", False), ("group", False),
+                                       ("probe", True), ("group", True)],
+                         ids=["probe", "group", "probe-int8", "group-int8"])
+def test_block_major_entry_map_reproduces_the_plain_versions(kind, int8):
+    rng = np.random.default_rng(5)
+    blocks, queries, ids, U, G = _entry_map_case(rng, kind, int8, 6, 12, 20)
+    got = _block_major_emulation(blocks, queries, ids, U, G)
+    want = _plain_with_dead_ids(kind, blocks, queries, ids)
+    if int8:
+        assert torch.equal(got.reshape(want.shape), want)
+    else:
+        torch.testing.assert_close(got.reshape(want.shape), want,
+                                   rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("kind", ["probe", "group"])
-def test_block_major_entry_map_reproduces_the_plain_versions(kind):
-    rng = np.random.default_rng(5)
-    C, P, D = 6, 12, 20
-    blocks = torch.from_numpy(rng.standard_normal((C, P, D))
-                              .astype(np.float32))
-    if kind == "probe":
-        Q, nprobe = 70, 3
-        ids = torch.from_numpy(rng.integers(-1, C + 1, (Q, nprobe))
-                               .astype(np.int32))
-        queries = torch.from_numpy(rng.standard_normal((Q, D))
-                                   .astype(np.float32))
-        got = _block_major_emulation(blocks, queries, ids, nprobe, 1)
-        want = block_dots.probe_block_dots_reference(
-            blocks, queries, ids.clamp(0, C - 1))
-        dead = ((ids < 0) | (ids >= C))[:, :, None].expand(Q, nprobe, P)
-    else:
-        NG, U, G = 4, 5, 9
-        ids = torch.from_numpy(rng.integers(-1, C + 1, (NG, U))
-                               .astype(np.int32))
-        queries = torch.from_numpy(rng.standard_normal((NG * G, D))
-                                   .astype(np.float32))
-        got = _block_major_emulation(blocks, queries, ids, U, G)
-        want = block_dots.group_block_dots_reference(
-            blocks, queries, ids.clamp(0, C - 1))
-        dead = ((ids < 0) | (ids >= C))[:, :, None, None].expand(NG, U, G, P)
-    want = torch.where(dead, 0.0, want)
-    torch.testing.assert_close(got.reshape(want.shape), want,
-                               rtol=1e-5, atol=1e-5)
+def test_block_major_int8_extremes_are_exact(kind):
+    """-128 everywhere at D = 128: every dot is 128^3 = 2^21, past float16
+    and bfloat16's exact integers, through the int8 kernel's work order."""
+    rng = np.random.default_rng(6)
+    blocks, queries, ids, U, G = _entry_map_case(rng, kind, True, 4, 8, 128)
+    blocks.fill_(-128)
+    queries.fill_(-128)
+    got = _block_major_emulation(blocks, queries, ids, U, G)
+    want = _plain_with_dead_ids(kind, blocks, queries, ids)
+    assert torch.equal(got.reshape(want.shape), want)
+    live = ((ids >= 0) & (ids < 4)).repeat_interleave(G).reshape(-1)
+    assert (got[live] == 128 ** 3).all() and (got[~live] == 0).all()
 
 
 def test_block_major_prep_on_the_cpu_is_the_plain_version():

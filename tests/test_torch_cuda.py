@@ -9,9 +9,10 @@ installed; on the card, from the repository root:
 (``--noconftest``: tests/conftest.py configures jax for the JAX package's
 suite.)  Tolerances: float32 kernel dots against the plain versions within
 rtol 1e-5, atol 1e-4 on unit-normal data; int8 exactly equal; searches on
-the card against the same index on the CPU: int8 exact, float32 distances
-within rtol 1e-5 and ids equal wherever a rank's distance is separated
-from its neighbours by more than that.
+the card against the same index on the CPU: int8 exact; float32 distances
+of both within 1e-5 * (|q|^2 + |x|^2 + 2 sum |q_d x_d|) of the exact
+distance (float64), and ids equal wherever a rank's exact distance is
+separated from its neighbours' by more than their two bounds.
 """
 
 import numpy as np
@@ -48,11 +49,12 @@ def _same(got, want, int8):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
 
 
-# (C, P, D, Q, nprobe): 16-byte vector path and the scalar path (D % 4,
-# ragged P)
+# (C, P, D, Q, nprobe): 16-byte copies and the narrow loads (D % 16, ragged
+# P)
 PROBE = [(7, 32, 128, 4, 3), (5, 13, 128, 6, 2), (9, 40, 16, 5, 4),
          (4, 33, 130, 3, 2), (3, 7, 20, 9, 3)]
-# (C, P, D, NG, U, G): every query-tile size (G <= 8, <= 16, > 16, > 32)
+# (C, P, D, NG, U, G): groups of 1 to 64 entries (one m16 tile, two, a slot
+# split over tiles), ragged P and D
 GROUP = [(9, 32, 128, 4, 5, 8), (5, 13, 128, 2, 3, 32), (6, 40, 16, 3, 4, 4),
          (6, 300, 130, 2, 3, 40), (4, 70, 18, 5, 2, 16), (3, 64, 128, 1, 2, 64),
          (4, 9, 12, 3, 3, 1)]
@@ -84,10 +86,10 @@ def test_kernels_match_plain_versions(cuda, int8):
     assert counts[f"group_block_dots_{t}"] == len(GROUP)
 
 
-# float32 block-major cases: (kind, C, P, D, rows, cols, G, ids), where
-# rows x cols are the id matrix (Q x nprobe, or NG x U) and `ids` says how
-# they are drawn
-F32_CASES = [
+# block-major cases: (kind, C, P, D, rows, cols, G, ids), where rows x cols
+# are the id matrix (Q x nprobe, or NG x U) and `ids` says how they are
+# drawn
+BLOCK_MAJOR_CASES = [
     ("probe", 5, 32, 128, 150, 2, 1, "hot"),      # > TILE_ENTRIES on a block
     ("group", 6, 40, 64, 12, 4, 8, "hot"),
     ("probe", 4, 24, 32, 70, 3, 1, "one_block"),  # every entry on one block
@@ -102,10 +104,14 @@ F32_CASES = [
     ("group", 4, 300, 130, 2, 3, 8, "uniform"),
     ("probe", 5, 33, 20, 9, 3, 1, "uniform"),     # D = 20
     ("group", 5, 33, 20, 3, 2, 16, "uniform"),
+    ("group", 3, 600, 48, 2, 2, 12, "uniform"),   # three 256-row passes
+    ("probe", 4, 256, 128, 33, 8, 1, "uniform"),  # the main path's P and D
 ]
+_CASE_IDS = [f"{c[0]}-{c[-1]}-C{c[1]}-P{c[2]}-D{c[3]}-G{c[6]}"
+             for c in BLOCK_MAJOR_CASES]
 
 
-def _f32_case_ids(gen, C, rows, cols, draw):
+def _case_ids(gen, C, rows, cols, draw):
     ids = torch.randint(0, min(C, 6), (rows, cols), generator=gen)
     if draw == "hot":
         ids[:, 0] = 1
@@ -120,49 +126,53 @@ def _f32_case_ids(gen, C, rows, cols, draw):
     return ids.to(torch.int32)
 
 
-def _f32_case(gen, case, dev):
+def _case(gen, case, int8, dev):
     kind, C, P, D, rows, cols, G, draw = case
-    ids = _f32_case_ids(gen, C, rows, cols, draw).to(dev)
-    blocks, queries = _tensors(gen, C, P, D, rows * G, False, dev)
+    ids = _case_ids(gen, C, rows, cols, draw).to(dev)
+    blocks, queries = _tensors(gen, C, P, D, rows * G, int8, dev)
     return kind, blocks, queries, ids
 
 
-def _f32_plain(kind, blocks, queries, ids):
+def _plain(kind, blocks, queries, ids):
     """The plain version, with out-of-range ids scoring zero."""
     C = blocks.shape[0]
     ref = getattr(block_dots, f"{kind}_block_dots_reference")
     want = ref(blocks, queries, ids.clamp(0, C - 1))
     dead = (ids < 0) | (ids >= C)
     dead = dead.reshape(dead.shape + (1,) * (want.dim() - dead.dim()))
-    return torch.where(dead, 0.0, want)
+    return torch.where(dead, torch.zeros_like(want), want)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", F32_CASES,
-                         ids=[f"{c[0]}-{c[-1]}-C{c[1]}-P{c[2]}-D{c[3]}-G{c[6]}"
-                              for c in F32_CASES])
-def test_block_major_f32_kernel_matches_plain_version(cuda, case):
+@pytest.mark.parametrize("int8", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("case", BLOCK_MAJOR_CASES, ids=_CASE_IDS)
+def test_block_major_kernel_matches_plain_version(cuda, case, int8):
     gen = torch.Generator().manual_seed(1)
-    kind, blocks, queries, ids = _f32_case(gen, case, cuda)
+    kind, blocks, queries, ids = _case(gen, case, int8, cuda)
     fn = getattr(block_dots, f"{kind}_block_dots")
-    _same(fn(blocks, queries, ids), _f32_plain(kind, blocks, queries, ids),
-          False)
-    # a query matrix 4 bytes off 16-byte alignment takes the 4-byte loads
-    flat = torch.empty(queries.numel() + 1, device=cuda)
+    t = "i8" if int8 else "f32"
+    before = block_dots.launch_counts()[f"{kind}_block_dots_{t}"]
+    _same(fn(blocks, queries, ids), _plain(kind, blocks, queries, ids), int8)
+    # a query matrix one element off 16-byte alignment (4 bytes for f32,
+    # 1 byte for int8) takes the narrow loads
+    flat = torch.empty(queries.numel() + 1, dtype=queries.dtype, device=cuda)
     skew = flat[1:].view(queries.shape)
     skew.copy_(queries)
-    _same(fn(blocks, skew, ids), _f32_plain(kind, blocks, queries, ids),
-          False)
+    _same(fn(blocks, skew, ids), _plain(kind, blocks, queries, ids), int8)
+    assert block_dots.launch_counts()[f"{kind}_block_dots_{t}"] == before + 2
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", F32_CASES[:8],
-                         ids=[f"{c[0]}-{c[-1]}" for c in F32_CASES[:8]])
-def test_cuda_prep_matches_plain_prep_per_block(cuda, case):
+@pytest.mark.parametrize("int8", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("case", BLOCK_MAJOR_CASES[:8],
+                         ids=[f"{c[0]}-{c[-1]}" for c in BLOCK_MAJOR_CASES[:8]])
+def test_cuda_prep_matches_plain_prep_per_block(cuda, case, int8):
     """The CUDA prep against the plain one: the same tile table and, per
-    block, the same set of entries (the order inside a block is free)."""
+    block, the same set of entries (the order inside a block is free).  The
+    prep reads only the ids; both types' inputs are drawn as their wrappers
+    get them."""
     gen = torch.Generator().manual_seed(2)
-    kind, blocks, queries, ids = _f32_case(gen, case, cuda)
+    kind, blocks, queries, ids = _case(gen, case, int8, cuda)
     C = blocks.shape[0]
     G = queries.shape[0] // ids.shape[0] if kind == "group" else 1
     order, tiles, ntiles = block_dots.block_major_prep(ids, G, C)
@@ -181,9 +191,10 @@ def test_cuda_prep_matches_plain_prep_per_block(cuda, case):
 
 
 @pytest.mark.cuda
-def test_f32_wrappers_never_wait_for_the_card(cuda):
+@pytest.mark.parametrize("int8", [False, True], ids=["f32", "int8"])
+def test_wrappers_never_wait_for_the_card(cuda, int8):
     gen = torch.Generator().manual_seed(3)
-    blocks, queries = _tensors(gen, 9, 64, 128, 32, False, cuda)
+    blocks, queries = _tensors(gen, 9, 64, 128, 32, int8, cuda)
     topc = torch.randint(0, 9, (32, 4), generator=gen).to(torch.int32).to(
         cuda)
     union = torch.randint(0, 9, (4, 5), generator=gen).to(torch.int32).to(
@@ -197,15 +208,17 @@ def test_f32_wrappers_never_wait_for_the_card(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     _same(a, block_dots.probe_block_dots_reference(blocks, queries, topc),
-          False)
+          int8)
     _same(b, block_dots.group_block_dots_reference(blocks, queries, union),
-          False)
+          int8)
 
 
 @pytest.mark.cuda
-def test_out_of_range_block_ids_score_zero(cuda):
-    blocks = torch.ones((2, 8, 32), device=cuda)
-    queries = torch.ones((4, 32), device=cuda)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8],
+                         ids=["f32", "int8"])
+def test_out_of_range_block_ids_score_zero(cuda, dtype):
+    blocks = torch.ones((2, 8, 32), dtype=dtype, device=cuda)
+    queries = torch.ones((4, 32), dtype=dtype, device=cuda)
     ids = torch.tensor([[0, 5], [-1, 1], [1, 2], [0, 0]], dtype=torch.int32,
                        device=cuda)
     out = block_dots.probe_block_dots(blocks, queries, ids).cpu()
@@ -237,12 +250,26 @@ def _corpus(n, d, nq, seed, int8=False):
     return data, q
 
 
+def _l2_exact_and_bound(data, q, ids):
+    """Each returned id's L2 distance in float64, and the float32 error
+    bound 1e-5 * (|q|^2 + |x|^2 + 2 sum_d |q_d x_d|): the magnitudes of the
+    terms any summation order adds."""
+    x = data.astype(np.float64)[ids]                     # (Q, k, D)
+    qd = q.astype(np.float64)[:, None, :]
+    exact = ((qd - x) ** 2).sum(-1)
+    scale = (qd * qd).sum(-1) + (x * x).sum(-1) + 2 * np.abs(qd * x).sum(-1)
+    return exact, 1e-5 * scale
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("vt,group", [("Float", 0), ("Float", 8),
                                       ("Int8", 0), ("Int8", 32)])
 def test_card_search_matches_cpu_search(cuda, tmp_path, vt, group):
     """Build on the card, save, load on the CPU: both searches agree, and
-    the card's search went through the kernels."""
+    the card's search went through the kernels.  int8 exactly; float32
+    distances each within its error bound of the exact distance, and ids
+    equal wherever a rank's exact distance is farther from its neighbours'
+    than their bounds."""
     data, q = _corpus(4000, 128, 1024, seed=8, int8=vt == "Int8")
     idx = tsp.create_instance("BKT", vt)
     for name, value in [("DistCalcMethod", "L2" if vt == "Float"
@@ -265,10 +292,13 @@ def test_card_search_matches_cpu_search(cuda, tmp_path, vt, group):
         np.testing.assert_array_equal(i_gpu, i_cpu)
         np.testing.assert_array_equal(d_gpu, d_cpu)
         return
-    np.testing.assert_allclose(d_gpu, d_cpu, rtol=1e-5, atol=1e-4)
-    scale = np.maximum(np.abs(d_cpu), 1e-30)
-    gap = np.abs(np.diff(d_cpu, axis=1)) > 1e-5 * scale[:, 1:]
-    sep = np.ones_like(d_cpu, dtype=bool)
+    assert (i_gpu >= 0).all() and (i_cpu >= 0).all()
+    for d, i in ((d_gpu, i_gpu), (d_cpu, i_cpu)):
+        exact, bound = _l2_exact_and_bound(data, q, i)
+        assert (np.abs(d - exact) <= bound).all()
+    exact, bound = _l2_exact_and_bound(data, q, i_cpu)
+    gap = np.diff(exact, axis=1) > bound[:, 1:] + bound[:, :-1]
+    sep = np.ones_like(exact, dtype=bool)
     sep[:, 1:] &= gap
     sep[:, :-1] &= gap
     np.testing.assert_array_equal(i_gpu[sep], i_cpu[sep])
