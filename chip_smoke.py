@@ -6,9 +6,10 @@ Run from the repository root:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``sptag_tpu_torch/csrc`` (first use), drives
-the port's BKT dense main path through its public entry points at the
-repository's headline size, checks what comes out, and compares every
-kernel with its plain PyTorch version.  Each phase prints one JSON line;
+the port's BKT dense path, its BKT graph path (RNG graph build, beam walk)
+and FLAT through their public entry points at the repository's headline
+size, checks what comes out, and compares every kernel with its plain
+PyTorch version.  Each phase prints one JSON line;
 any failure exits non-zero.  Without a CUDA card, or outside the
 repository, it exits non-zero and prints no result.
 
@@ -27,19 +28,37 @@ Phases, in the order they run:
    ``INT8_RECALL`` within ``RECALL_SLACK``;
 5. persistence: save_index, load_index, the first 1,024 queries again;
 2. every kernel against its plain version on the card, on the main path's
-   own blocks and block ids (run last, so its launches stay out of the
-   main path's counts), with its time, the plain version's, one PyTorch
+   own blocks and block ids, and on the arguments of the first block-dot
+   call of each graph build (phases 7 and 7b), all run last so their
+   launches stay out of the paths' counts, with its time, the plain
+   version's, one PyTorch
    call's (``library_ms``) and the card's bound for the same work; every
    row also counts the blocks the block-major kernel reads
    (``block_reads``: tiles of at most ``TILE_ENTRIES`` entries, from the
    ids on the host and from the CUDA prep's tile table) beside the distinct
    blocks and a probe-major design's reads, and times the entry-list prep
    alone (``prep_ms_back_to_back``);
+7. f32 graph headline: the same corpus and queries, BKT with the RNG graph
+   (``BuildGraph=1``) at ``bench.py``'s graph parameters; the build's stage
+   seconds and block-dot launches, mean degree and orphans; beam search in
+   batches of 1,024 with ``BinnedTopK`` off and on, the exact walk's
+   recall@10 held inside ``BEAM_RECALL_BAND`` and the binned walk's within
+   0.01 of it; save, load, the same ids;
+7b. int8 cosine graph: the phase-4 corpus built with the graph and the
+   library's ``FinalRefineSearchMode=beam`` (the walk runs inside the
+   build), then beam search of its 2,048 queries, recall@10 held to
+   ``INT8_BEAM_RECALL_MIN``;
+8. FLAT over the phase-3 corpus: exact ids and distances against the exact
+   truth, ``ApproxTopK`` and ``BinnedTopK`` recall, and the graph index's
+   ``exact_search_batch`` against the same truth;
 6. where a search batch's time goes: ``torch.profiler`` device time by
    kernel for one batch of each configuration (f32 per-query and grouped,
-   int8 grouped and per-query), against its untraced time.
+   int8 grouped and per-query, f32 beam exact and binned), against its
+   untraced time; the beam rows per walk iteration.
 
-Launch counts are zeroed just before phase 3 and read just after phase 5.
+Launch counts are zeroed just before phase 3 and read just after phase 5,
+and zeroed again before each graph build of phases 7 and 7b and read after
+it (the beam walk and FLAT launch no hand-written kernel).
 Each query set is searched ``PASSES`` times over for its batch times; the
 QPS and batch percentiles are smoke readings of that window, not a
 benchmark.  Phase 2's ``ms``, ``plain_ms`` and ``library_ms`` are each the
@@ -51,7 +70,9 @@ queued between two events (host time hidden where the card is the slower),
 ``device_ms``, the card's own time per call from ``torch.profiler`` (the
 prep and scoring kernels of ``BACK_TO_BACK`` calls, by kernel in
 ``device_ms_by_kernel``): where the card outruns the host, back to back
-reads the host and only ``device_ms`` shows the kernels.
+reads the host and only ``device_ms`` shows the kernels.  The
+second-to-last JSON line before the card's name gives the script's own
+wall time (``wall_s``).
 """
 
 import json
@@ -64,6 +85,8 @@ import time
 
 import numpy as np
 import torch
+
+T_START = time.perf_counter()
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, float32 outside
 # the tensor cores, int8 tensor-core ops
@@ -91,6 +114,18 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+FAILED_CHECKS = []
+
+
+def check(ok: bool, msg: str) -> None:
+    """A failed check is reported at once and fails the run at its end,
+    after every phase has run (one call shows every fault)."""
+    if not ok:
+        print(f"chip_smoke: CHECK FAILED: {msg}", file=sys.stderr,
+              flush=True)
+        FAILED_CHECKS.append(msg)
+
+
 def make_dataset(n=200_000, d=128, nq=1000, seed=7, dtype=np.float32):
     """The repository benchmark's clustered corpus (bench.py make_dataset)."""
     rng = np.random.default_rng(seed)
@@ -115,10 +150,11 @@ def recall_at_k(ids: np.ndarray, truth: np.ndarray, k: int = K) -> float:
 
 
 def exact_truth(dist_ops, rows: torch.Tensor, queries: torch.Tensor,
-                cosine_base: int = 0) -> np.ndarray:
+                cosine_base: int = 0, with_dists: bool = False):
     """Exact top-K on the card: chunked matrix product + stable top-k.
-    L2 in float32; integer cosine as exact ``base^2 - dot`` (float64)."""
-    out = []
+    L2 in float32; integer cosine as exact ``base^2 - dot`` (float64).
+    The ids, or (ids, distances)."""
+    out, dists = [], []
     if cosine_base:
         xr = rows.double()
     else:
@@ -131,8 +167,35 @@ def exact_truth(dist_ops, rows: torch.Tensor, queries: torch.Tensor,
         else:
             qf = q.float()
             d = (qf * qf).sum(1)[:, None] + xn[None, :] - 2.0 * (qf @ xr.T)
-        out.append(dist_ops.smallest_k(d, K)[1].cpu().numpy())
+        v, i = dist_ops.smallest_k(d, K)
+        out.append(i.cpu().numpy())
+        dists.append(v.cpu().numpy())
+    if with_dists:
+        return np.concatenate(out), np.concatenate(dists)
     return np.concatenate(out)
+
+
+# bench.py's graph parameters (_GRAPH_PARAMS), and the BKT knobs of its
+# headline (_bkt_params)
+GRAPH_PARAMS = [("BKTNumber", "1"), ("BKTKmeansK", "32"),
+                ("TPTNumber", "8"), ("TPTLeafSize", "1000"),
+                ("NeighborhoodSize", "32"), ("CEF", "256"),
+                ("MaxCheckForRefineGraph", "512"), ("RefineIterations", "2"),
+                ("MaxCheck", "2048"), ("RefineQueryGroup", "32"),
+                ("FinalRefineSearchMode", "same")]
+BEAM_PASSES = 2      # timed passes over each beam query set
+# recall@10 of the JAX package's beam walk on the bench graph (BENCH_r07.json:
+# CPU, 512 queries, the same graph parameters): exact walk, binned walk
+JAX_BEAM_RECALL = {"off": 0.8955, "on": 0.8906}
+# the port's exact-walk recall@10 over the 4,096 queries must lie inside
+# this band.  The port draws its own k-means restarts, so its forest, its
+# refine partition, its pivots and its graph are not the JAX package's;
+# the same build over forest seeds 42 / 1 / 2 walked to 0.9230 / 0.8879 /
+# 0.9386 on the H100 (PERF.md), with the JAX package's 0.8955 inside that
+# spread.  The band is that spread widened by about 0.01 on each side
+BEAM_RECALL_BAND = (0.875, 0.945)
+# the int8 graph (phase 7b) walked to 0.9962 on the H100 (PERF.md)
+INT8_BEAM_RECALL_MIN = 0.98
 
 
 def timed_batches(index, queries, batch, passes: int = PASSES):
@@ -160,6 +223,47 @@ def batch_stats(times, batch):
 
 
 BACK_TO_BACK = 10
+
+
+def separated_ids_equal(ids, truth_ids, truth_d, tol) -> int:
+    """Count of result slots whose id differs from the truth's at a rank
+    whose truth distance is farther than `tol` from both neighbours' (a
+    near tie may fall either way under another summation order)."""
+    gap = np.diff(truth_d, axis=1) > tol
+    sep = np.ones(truth_d.shape, bool)
+    sep[:, 1:] &= gap
+    sep[:, :-1] &= gap
+    return int((ids[sep] != truth_ids[sep]).sum())
+
+
+class FirstCalls:
+    """Inside the ``with`` block, records the arguments of the first call
+    of each block-dot wrapper per value type, keyed (kernel, "f32"/"i8"),
+    so that phase 2 can hold the kernels against their plain versions at
+    the shapes a graph build gives them.  The wrappers run unchanged and
+    count their launches as always."""
+
+    KINDS = ("probe_block_dots", "group_block_dots")
+
+    def __init__(self, module):
+        self.module, self.args, self.saved = module, {}, {}
+
+    def __enter__(self):
+        for kind in self.KINDS:
+            fn = self.saved[kind] = getattr(self.module, kind)
+
+            def wrapper(blocks, queries, ids, *a, _fn=fn, _kind=kind, **kw):
+                t = "i8" if blocks.dtype == torch.int8 else "f32"
+                if (_kind, t) not in self.args:
+                    self.args[_kind, t] = (blocks, queries.clone(),
+                                           ids.clone())
+                return _fn(blocks, queries, ids, *a, **kw)
+            setattr(self.module, kind, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        for kind, fn in self.saved.items():
+            setattr(self.module, kind, fn)
 
 
 def median_ms(fn, reps: int = 30, calls: int = 1) -> float:
@@ -281,11 +385,12 @@ def main() -> None:
           "first_batch_s": first_s, **batch_stats(times, 1024),
           "recall_at_10": recall, "P": sf.cluster_size,
           "C": sf.num_clusters, "probe_launches": probe_runs})
-    if probe_runs < 4:
-        fail(f"probe_block_dots launched {probe_runs} < 4 times")
-    if recall < 0.95 or abs(recall - F32_RECALL["per_query"]) > RECALL_SLACK:
-        fail(f"f32 recall@10 {recall}: below 0.95 or more than "
-             f"{RECALL_SLACK} from {F32_RECALL['per_query']}")
+    check(probe_runs >= 4,
+          f"probe_block_dots launched {probe_runs} < 4 times")
+    check(recall >= 0.95
+          and abs(recall - F32_RECALL["per_query"]) <= RECALL_SLACK,
+          f"f32 recall@10 {recall}: below 0.95 or more than "
+          f"{RECALL_SLACK} from {F32_RECALL['per_query']}")
 
     idx.set_parameter("DenseQueryGroup", "8")
     idx.search_batch(queries, K)                   # first grouped call
@@ -297,10 +402,10 @@ def main() -> None:
           "recall_at_10": recall_g,
           "group_launches": block_dots.group_f32_launches - before})
     idx.set_parameter("DenseQueryGroup", "0")
-    if g_f32 != 8 or recall_g < 0.95 \
-            or abs(recall_g - F32_RECALL["grouped"]) > RECALL_SLACK:
-        fail(f"f32 grouped: group {g_f32}, recall {recall_g} (held to "
-             f"{F32_RECALL['grouped']} +- {RECALL_SLACK})")
+    check(g_f32 == 8 and recall_g >= 0.95
+          and abs(recall_g - F32_RECALL["grouped"]) <= RECALL_SLACK,
+          f"f32 grouped: group {g_f32}, recall {recall_g} (held to "
+          f"{F32_RECALL['grouped']} +- {RECALL_SLACK})")
 
     # phase 4: int8 grouped
     data8, queries8 = make_dataset(n=50_000, nq=2048, seed=7, dtype=np.int8)
@@ -336,12 +441,12 @@ def main() -> None:
               **batch_stats(times8p, 1024),
               "recall_at_10": recall8p,
               "probe_launches": block_dots.probe_i8_launches - before}})
-    if g_i8 != 32 or group_runs < 2:
-        fail(f"int8 grouped: group {g_i8}, launches {group_runs}")
+    check(g_i8 == 32 and group_runs >= 2,
+          f"int8 grouped: group {g_i8}, launches {group_runs}")
     for name, r in (("grouped", recall8), ("ungrouped", recall8p)):
-        if r < 0.97 or abs(r - INT8_RECALL[name]) > RECALL_SLACK:
-            fail(f"int8 {name} recall@10 {r}: below 0.97 or more than "
-                 f"{RECALL_SLACK} from {INT8_RECALL[name]}")
+        check(r >= 0.97 and abs(r - INT8_RECALL[name]) <= RECALL_SLACK,
+              f"int8 {name} recall@10 {r}: below 0.97 or more than "
+              f"{RECALL_SLACK} from {INT8_RECALL[name]}")
 
     # phase 5: persistence
     with tempfile.TemporaryDirectory() as tmp:
@@ -356,13 +461,158 @@ def main() -> None:
         _, ids_l = loaded.search_batch(queries[:1024], K)
     same = bool(np.array_equal(ids_l, ids_f32[:1024]))
     emit({"phase": 5, "save_s": save_s, "load_s": load_s, "ids_equal": same})
-    if not same:
-        fail("ids differ after save -> load")
+    check(same, "ids differ after save -> load")
     launches = block_dots.launch_counts()
     emit({"phase": "main_path_launches", **launches})
     missing = [k for k, v in launches.items() if v < 1]
-    if missing:
-        fail(f"kernels not launched on the main path: {missing}")
+    check(not missing,
+          f"kernels not launched on the main path: {missing}")
+
+    # ---- phase 7: f32 graph headline (the graph slice's main path) ----------
+    # the bench's headline index with its graph: BuildGraph=1 (default),
+    # refine searches through the dense scan's grouped kernel
+    block_dots.reset_launch_counts()
+    gidx = pt.create_instance("BKT", "Float")
+    for name, value in [("DistCalcMethod", "L2")] + GRAPH_PARAMS:
+        if not gidx.set_parameter(name, value):
+            fail(f"set_parameter {name}")
+    t0 = time.perf_counter()
+    with FirstCalls(block_dots) as first7:
+        gidx.build(data)
+        torch.cuda.synchronize()
+    gbuild_s = time.perf_counter() - t0
+    build_launches = block_dots.launch_counts()
+    graph = gidx._graph
+    indeg = np.bincount(graph[graph >= 0].ravel(), minlength=len(graph))
+    gidx.set_parameter("SearchMode", "beam")
+    beam = {}
+    for binned in ("off", "on"):
+        gidx.set_parameter("BinnedTopK", binned)
+        gidx.search_batch(queries[:1024], K)            # builds the engine
+        ids_b, times_b = timed_batches(gidx, queries, 1024, BEAM_PASSES)
+        eng = gidx._get_engine()
+        beam[binned] = {"recall_at_10": recall_at_k(ids_b, truth_f32),
+                        # the JAX package's bench sampled the first 512
+                        "recall_at_10_first_512": recall_at_k(
+                            ids_b[:512], truth_f32[:512]),
+                        **batch_stats(times_b, 1024),
+                        "iterations_last_batch": eng.last_iterations,
+                        "ids": ids_b, "times": times_b}
+    walk = eng.walk_plan(K, 2048, 16, None, 3)
+    emit({"phase": 7, "n": len(data), "d": data.shape[1],
+          "build_s": gbuild_s, "build_stages_s": gidx.build_stages,
+          "build_launches": build_launches,
+          "mean_degree": float((graph >= 0).sum(1).mean()),
+          "zero_in_degree": int((indeg == 0).sum()),
+          "pivots": int(eng.pivot_ids.shape[0]),
+          "walk_plan": dict(zip(("k_eff", "L", "B", "T", "nbp_limit"),
+                                walk)),
+          "beam": {b: {k: v for k, v in r.items() if k not in ("ids",
+                                                                "times")}
+                   for b, r in beam.items()},
+          "jax_beam_recall": JAX_BEAM_RECALL,
+          "beam_recall_band": BEAM_RECALL_BAND})
+    if build_launches["group_block_dots_f32"] \
+            + build_launches["probe_block_dots_f32"] < 1:
+        fail(f"the graph build launched no f32 block-dot kernel: "
+             f"{build_launches}")
+    r_off, r_on = beam["off"]["recall_at_10"], beam["on"]["recall_at_10"]
+    # on one folder the two packages' walks agree id for id
+    # (tests/test_torch_bkt.py); the band covers the port's own forest
+    lo, hi = BEAM_RECALL_BAND
+    check(lo <= r_off <= hi,
+          f"beam recall@10 {r_off} outside [{lo}, {hi}]")
+    check(abs(r_on - r_off) <= 0.01,
+          f"binned beam recall@10 {r_on} more than 0.01 from the exact "
+          f"walk's {r_off}")
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = os.path.join(tmp, "bkt_graph")
+        if gidx.save_index(folder) != pt.ErrorCode.Success:
+            fail("save_index (graph)")
+        _, ids_gl = pt.load_index(folder).search_batch(queries[:1024], K)
+    same = bool(np.array_equal(ids_gl, beam["on"]["ids"][:1024]))
+    emit({"phase": "7_persistence", "ids_equal": same})
+    check(same, "beam ids differ after save -> load")
+
+    # phase 7b: int8 cosine graph, the final refine pass through the walk
+    block_dots.reset_launch_counts()
+    gidx8 = pt.create_instance("BKT", "Int8")
+    for name, value in [("DistCalcMethod", "Cosine")] + GRAPH_PARAMS[:-1]:
+        if not gidx8.set_parameter(name, value):
+            fail(f"set_parameter {name}")
+    t0 = time.perf_counter()
+    with FirstCalls(block_dots) as first7b:
+        gidx8.build(data8)
+        torch.cuda.synchronize()
+    gbuild8_s = time.perf_counter() - t0
+    build8_launches = block_dots.launch_counts()
+    gidx8.set_parameter("SearchMode", "beam")
+    gidx8.search_batch(queries8[:1024], K)
+    ids8b, times8b = timed_batches(gidx8, queries8, 1024, BEAM_PASSES)
+    recall8b = recall_at_k(ids8b, truth8)
+    emit({"phase": "7b", "n": len(data8), "build_s": gbuild8_s,
+          "build_stages_s": gidx8.build_stages,
+          "build_launches": build8_launches,
+          "final_refine_search_mode": gidx8.get_parameter(
+              "FinalRefineSearchMode"),
+          "mean_degree": float((gidx8._graph >= 0).sum(1).mean()),
+          "recall_at_10": recall8b, **batch_stats(times8b, 1024)})
+    if build8_launches["group_block_dots_i8"] \
+            + build8_launches["probe_block_dots_i8"] < 1:
+        fail(f"the int8 graph build launched no int8 block-dot kernel: "
+             f"{build8_launches}")
+    check(recall8b >= INT8_BEAM_RECALL_MIN,
+          f"int8 beam recall@10 {recall8b} below {INT8_BEAM_RECALL_MIN}")
+
+    # ---- phase 8: FLAT over the phase-3 corpus ------------------------------
+    flat = pt.create_instance("FLAT", "Float")
+    flat.set_parameter("DistCalcMethod", "L2")
+    flat.build(data)
+    q1k = queries[:1024]
+    truth_ids, truth_d = exact_truth(
+        dist_ops, torch.from_numpy(data).to(dev),
+        torch.from_numpy(q1k).to(dev), with_dists=True)
+    d_flat, ids_flat, times_flat = None, None, []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d_flat, ids_flat = flat.search_batch(q1k, K)
+        torch.cuda.synchronize()
+        times_flat.append(time.perf_counter() - t0)
+    x = data.astype(np.float64)[ids_flat]
+    qd = q1k.astype(np.float64)[:, None, :]
+    exact_d = ((qd - x) ** 2).sum(-1)
+    bound = 1e-5 * ((qd * qd).sum(-1) + (x * x).sum(-1)
+                    + 2 * np.abs(qd * x).sum(-1))
+    dist_ok = bool((np.abs(d_flat - exact_d) <= bound).all())
+    id_tol = 2e-5 * float(np.abs(truth_d).max())
+    flat_diff = separated_ids_equal(ids_flat, truth_ids, truth_d, id_tol)
+    knobs = {}
+    for name, value in (("ApproxTopK", "true"), ("BinnedTopK", "on")):
+        flat.set_parameter(name, value)
+        ts = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, ids_k = flat.search_batch(q1k, K)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        knobs[name] = {"recall_at_10": recall_at_k(ids_k, truth_ids),
+                       "batch_ms_p50": statistics.median(ts) * 1e3}
+        flat.set_parameter(name, "false" if name == "ApproxTopK" else "off")
+    _, ids_gx = gidx.exact_search_batch(q1k, K)
+    graph_diff = separated_ids_equal(ids_gx, truth_ids, truth_d, id_tol)
+    emit({"phase": 8, "n": len(data), "queries": len(q1k),
+          "batch_ms_p50": statistics.median(times_flat) * 1e3,
+          "recall_at_10": recall_at_k(ids_flat, truth_ids),
+          "ids_equal_truth": bool(np.array_equal(ids_flat, truth_ids)),
+          "ids_differing_at_separated_ranks": flat_diff,
+          "distances_within_f32_bound": dist_ok, **knobs,
+          "graph_exact_search_differing_at_separated_ranks": graph_diff})
+    check(not flat_diff and dist_ok and not graph_diff,
+          f"FLAT exact search: {flat_diff} ids off the truth, distances "
+          f"within bound {dist_ok}; graph index exact search: "
+          f"{graph_diff} ids off")
 
     # ---- phase 2: kernels against their plain versions ---------------------
     q32 = torch.from_numpy(idx._prepare_query(queries[:1024])).to(dev)
@@ -385,14 +635,26 @@ def main() -> None:
                 torch.clamp_min(union, 0).to(torch.int32).contiguous())
 
     rows = []
+    # (kernel, type, path, its launches on that path, blocks, queries, ids):
+    # the dense main path's shapes, then each graph build's first call
     cases = [
-        ("probe_block_dots", "f32", sf, probe_inputs(sf, q32)),
-        ("probe_block_dots", "i8", s8, probe_inputs(s8, q8)),
-        ("group_block_dots", "i8", s8, group_inputs(s8, q8, 32, 4)),
-        ("group_block_dots", "f32", sf, group_inputs(sf, q32, 8, 2)),
+        ("probe_block_dots", "f32", "dense", launches, sf.data_perm,
+         *probe_inputs(sf, q32)),
+        ("probe_block_dots", "i8", "dense", launches, s8.data_perm,
+         *probe_inputs(s8, q8)),
+        ("group_block_dots", "i8", "dense", launches, s8.data_perm,
+         *group_inputs(s8, q8, 32, 4)),
+        ("group_block_dots", "f32", "dense", launches, sf.data_perm,
+         *group_inputs(sf, q32, 8, 2)),
     ]
-    for kind, t, s, (q, ids) in cases:
-        blocks = s.data_perm
+    for path, first, counts in (("graph_build_f32", first7, build_launches),
+                                ("graph_build_int8", first7b,
+                                 build8_launches)):
+        if not first.args:
+            fail(f"{path}: no block-dot call recorded during the build")
+        for (kind, t), args in sorted(first.args.items()):
+            cases.append((kind, t, path, counts, *args))
+    for kind, t, path, counts, blocks, q, ids in cases:
         fn = getattr(block_dots, kind)
         ref = getattr(block_dots, kind + "_reference")
         got = fn(blocks, q, ids)
@@ -421,9 +683,10 @@ def main() -> None:
                  "block_reads_kernel": int((dev_tiles[:, 0] < C).sum()),
                  "old_design_reads": ids.numel(), "entries": E,
                  "tile_entries": block_dots.TILE_ENTRIES}
-        if reads["block_reads"] != reads["block_reads_kernel"] or \
-                reads["block_reads"] > distinct + E / block_dots.TILE_ENTRIES:
-            fail(f"{kind} {t} reads {reads} blocks, distinct {distinct}")
+        check(reads["block_reads"] == reads["block_reads_kernel"]
+              and reads["block_reads"]
+              <= distinct + E / block_dots.TILE_ENTRIES,
+              f"{kind} {t} reads {reads} blocks, distinct {distinct}")
         if kind == "probe_block_dots":
             npb = ids.shape[1]
             shape = {"Q": Q, "nprobe": npb, "P": P, "D": D, "C": C}
@@ -469,18 +732,17 @@ def main() -> None:
                "replaces": ("sptag_tpu/ops/pallas_kernels.py:151"
                             if kind == "probe_block_dots"
                             else "sptag_tpu/ops/pallas_kernels.py:214"),
-               "launches": launches[f"{kind}_{t}"],
+               "path": path, "launches": counts[f"{kind}_{t}"],
                "max_abs_err": float(err.max().item()), "ms": kernel_ms,
                "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                "library_ms": library_ms}
-        emit({"phase": 2, **row, **timing,
-              "shape": shape, "distinct_blocks": distinct, **reads,
+        emit({"phase": 2, **row, **timing, "shape": shape, "distinct_blocks": distinct, **reads,
               "bytes": nbytes, "ops": ops, "within_tolerance": ok,
               "library_max_abs_err": lib_err})
-        if not ok:
-            fail(f"{kind} {t}: kernel disagrees with its plain version "
-                 f"(max |err| {row['max_abs_err']})")
+        check(ok,
+              f"{kind} {t} ({path}): kernel disagrees with its plain version "
+              f"(max |err| {row['max_abs_err']})")
         rows.append(row)
 
     # ---- phase 6: where a search batch's time goes ---------------------------
@@ -488,7 +750,7 @@ def main() -> None:
     # idle share is against the untraced batch time of phases 3/4
     from torch.profiler import ProfilerActivity, profile
 
-    def breakdown(label, run, untraced_ms):
+    def breakdown(label, run, untraced_ms, iterations=None):
         run()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -499,12 +761,24 @@ def main() -> None:
                     if e.device_type == torch.autograd.DeviceType.CUDA]
         busy_ms = sum(e.self_device_time_total for e in dev_rows) / 1e3
         top = sorted(dev_rows, key=lambda e: -e.self_device_time_total)[:8]
-        emit({"phase": 6, "call": label, "untraced_ms": untraced_ms,
-              "device_ms": busy_ms or None,
-              "device_idle_share": (1.0 - busy_ms / untraced_ms
-                                    if busy_ms else None),
-              "top_device": [[e.key[:80], e.self_device_time_total / 1e3,
-                              e.count] for e in top]})
+        row = {"phase": 6, "call": label, "untraced_ms": untraced_ms,
+               "device_ms": busy_ms or None,
+               "device_idle_share": (1.0 - busy_ms / untraced_ms
+                                     if busy_ms else None),
+               "device_launches": sum(e.count for e in dev_rows),
+               "top_device": [[e.key[:80], e.self_device_time_total / 1e3,
+                               e.count] for e in top]}
+        if iterations is not None:
+            # the walk's iterations in this call: the untraced batch time
+            # and the card's time and launches per iteration (seeding and
+            # finalize included)
+            its = iterations()
+            row.update({"walk_iterations": its,
+                        "untraced_ms_per_iteration": untraced_ms / its,
+                        "device_ms_per_iteration": busy_ms / its,
+                        "launches_per_iteration":
+                            row["device_launches"] / its})
+        emit(row)
 
     breakdown("f32 per-query, 1024 queries",
               lambda: idx.search_batch(queries[:1024], K),
@@ -521,7 +795,16 @@ def main() -> None:
     breakdown("int8 per-query, 1024 queries",
               lambda: idx8.search_batch(queries8[:1024], K),
               batch_stats(times8p, 1024)["batch_ms_p50"])
+    for binned in ("off", "on"):
+        gidx.set_parameter("BinnedTopK", binned)
+        breakdown(f"f32 beam BinnedTopK={binned}, 1024 queries",
+                  lambda: gidx.search_batch(queries[:1024], K),
+                  beam[binned]["batch_ms_p50"],
+                  iterations=lambda: gidx._get_engine().last_iterations)
 
+    if FAILED_CHECKS:
+        fail(f"{len(FAILED_CHECKS)} check(s) failed: {FAILED_CHECKS}")
+    emit({"phase": "end", "wall_s": time.perf_counter() - T_START})
     print(card, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

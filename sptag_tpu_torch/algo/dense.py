@@ -26,11 +26,11 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from sptag_tpu_torch.core.index import not_ported
 from sptag_tpu_torch.core.types import DistCalcMethod
 from sptag_tpu_torch.device import DeviceLike, resolve_device
 from sptag_tpu_torch.ops import block_dots
 from sptag_tpu_torch.ops import distance as dist_ops
+from sptag_tpu_torch.ops import topk_bins
 from sptag_tpu_torch.utils import query_bucket, round_up
 
 log = logging.getLogger(__name__)
@@ -145,7 +145,8 @@ def _pack_clusters(clusters: List[np.ndarray], centers: List[int],
 
 def _sorted_dup_mask(ids: torch.Tensor) -> torch.Tensor:
     """(Q, X) ids -> (Q, X) bool: True at every repeat of an id after its
-    first occurrence (``sptag_tpu/algo/engine.py::_sorted_dup_mask``)."""
+    first occurrence (``sptag_tpu/algo/engine.py::_sorted_dup_mask``):
+    one stable sort, the inverse order by a scatter."""
     order = torch.argsort(ids, dim=1, stable=True)
     sorted_ids = torch.gather(ids, 1, order)
     dup_sorted = torch.cat(
@@ -156,9 +157,11 @@ def _sorted_dup_mask(ids: torch.Tensor) -> torch.Tensor:
 
 def _finalize_topk(nd: torch.Tensor, ids: torch.Tensor,
                    deleted: torch.Tensor, dedup: bool, k: int,
-                   extra_dead: Optional[torch.Tensor] = None):
+                   extra_dead: Optional[torch.Tensor] = None,
+                   binned_bins: int = 0):
     """Tombstone/sentinel masking, optional replica de-duplication, masked
-    top-k (lowest index first among ties), -1 id sentinel."""
+    top-k (lowest index first among ties), -1 id sentinel.  `binned_bins`
+    > 0 selects through the bin reduction (ops/topk_bins.py, BinnedTopK)."""
     dead = deleted[torch.clamp_min(ids, 0).long()] | (ids < 0)
     if extra_dead is not None:
         dead = dead | extra_dead
@@ -168,7 +171,11 @@ def _finalize_topk(nd: torch.Tensor, ids: torch.Tensor,
         # distances: keep one occurrence
         nd = torch.where(_sorted_dup_mask(torch.where(ids >= 0, ids, -1))
                          & (ids >= 0), MAX_DIST, nd)
-    out_d, pos = dist_ops.smallest_k(nd, min(k, nd.shape[1]))
+    k_eff = min(k, nd.shape[1])
+    if binned_bins:
+        out_d, pos = topk_bins.binned_topk(nd, k_eff, binned_bins)
+    else:
+        out_d, pos = dist_ops.smallest_k(nd, k_eff)
     out_ids = torch.gather(ids, 1, pos)
     out_ids = torch.where(out_d < MAX_DIST, out_ids, -1)
     return out_d, out_ids.to(torch.int32)
@@ -194,7 +201,8 @@ def probe_choice(queries, centroids, cent_sq, metric: int, nprobe: int):
 
 def _dense_search_kernel(data_perm, member_ids, member_sq, centroids,
                          cent_sq, deleted, queries, k: int, nprobe: int,
-                         metric: int, base: int, dedup: bool = False):
+                         metric: int, base: int, dedup: bool = False,
+                         binned_bins: int = 0):
     """(Q, C) block scores -> top-nprobe blocks -> (Q, nprobe*P) candidate
     scores -> masked top-k."""
     Q = queries.shape[0]
@@ -218,7 +226,8 @@ def _dense_search_kernel(data_perm, member_ids, member_sq, centroids,
         vecs = data_perm[topc].reshape(Q, nprobe * P, D)
         nd = dist_ops.batched_gathered_distance(
             queries, vecs, DistCalcMethod(metric), base, sq)
-    return _finalize_topk(nd, ids, deleted, dedup, k)
+    return _finalize_topk(nd, ids, deleted, dedup, k,
+                          binned_bins=binned_bins)
 
 
 def _segmented_min(vals: torch.Tensor, first: torch.Tensor) -> torch.Tensor:
@@ -276,7 +285,7 @@ def _dense_search_grouped_kernel(data_perm, member_ids, member_sq, centroids,
                                  cent_sq, deleted, queries, nq_valid: int,
                                  k: int, nprobe: int, U: int, G: int,
                                  metric: int, base: int,
-                                 dedup: bool = False):
+                                 dedup: bool = False, binned_bins: int = 0):
     """Query-grouped probing: every query of a group is scored against the
     group's U-block union as (G, D) x (D, P) products; results come back in
     the caller's query order."""
@@ -314,7 +323,8 @@ def _dense_search_grouped_kernel(data_perm, member_ids, member_sq, centroids,
     pad_blocks = (union < 0)[:, None, :, None].expand(NG, G, U, P) \
         .reshape(Q, U * P)
     out_d, out_ids = _finalize_topk(nd.reshape(Q, U * P), ids, deleted,
-                                    dedup, k, extra_dead=pad_blocks)
+                                    dedup, k, extra_dead=pad_blocks,
+                                    binned_bins=binned_bins)
     return out_d[inv], out_ids[inv]
 
 
@@ -468,12 +478,13 @@ class DenseTreeSearcher:
         return 32 if self.data_perm.dtype == torch.int8 else 8
 
     def search(self, queries: np.ndarray, k: int, max_check: int = 2048,
-               group: int = 0, union_factor: int = 2, binned: str = "off"
+               group: int = 0, union_factor: int = 2, binned: str = "off",
+               recall_target: float = topk_bins.DEFAULT_RECALL_TARGET
                ) -> Tuple[np.ndarray, np.ndarray]:
         """(Q, D) host queries -> ((Q, k) float32 dists, (Q, k) int32 ids)
-        as numpy, MAX_DIST / -1 padded."""
-        if binned != "off":
-            raise not_ported(f"BinnedTopK={binned}", "ops/topk_bins.py")
+        as numpy, MAX_DIST / -1 padded.  `binned` (BinnedTopK: off / on /
+        auto) routes the final select through the bin reduction, sized by
+        `recall_target` over the scored row width."""
         queries = np.asarray(queries)
         if queries.ndim == 1:
             queries = queries[None, :]
@@ -510,16 +521,19 @@ class DenseTreeSearcher:
                          group, G or "off", nq, self.num_clusters, nprobe,
                          U or "-")
         k_eff = min(k, (U if G else nprobe) * P, self.n)
+        bins = topk_bins.resolve_bins(binned, k_eff,
+                                      (U if G else nprobe) * P,
+                                      recall_target)
         bytes_q = ((U * P * D * 4 + G - 1) // G if G
                    else nprobe * P * D * 4)
         chunk = max(1, min(_GATHER_BUDGET // bytes_q, 1024))
         if G:
             chunk = max(G, (chunk // G) * G)    # groups must tile the chunk
         return self._search_impl(queries, nq, k, k_eff, nprobe, chunk, D,
-                                 G, U)
+                                 G, U, bins)
 
     def _run_chunk(self, q: np.ndarray, nq_valid: int, k_eff: int,
-                   nprobe: int, G: int, U: int):
+                   nprobe: int, G: int, U: int, bins: int):
         qd = torch.from_numpy(np.ascontiguousarray(q)).to(self.device)
         args = (self.data_perm, self.member_ids, self.member_sq,
                 self.centroids, self.cent_sq, self.deleted, qd)
@@ -527,13 +541,15 @@ class DenseTreeSearcher:
         if G > 1:
             d, ids = _dense_search_grouped_kernel(
                 *args, nq_valid, k_eff, nprobe, U, G, int(self.metric),
-                self.base, dedup)
+                self.base, dedup, bins)
         else:
             d, ids = _dense_search_kernel(
-                *args, k_eff, nprobe, int(self.metric), self.base, dedup)
+                *args, k_eff, nprobe, int(self.metric), self.base, dedup,
+                bins)
         return d.cpu().numpy(), ids.cpu().numpy()
 
-    def _search_impl(self, queries, nq, k, k_eff, nprobe, chunk, D, G, U):
+    def _search_impl(self, queries, nq, k, k_eff, nprobe, chunk, D, G, U,
+                     bins):
         out_d = np.full((nq, k), np.float32(MAX_DIST), np.float32)
         out_i = np.full((nq, k), -1, np.int32)
         if nq <= chunk:
@@ -546,7 +562,7 @@ class DenseTreeSearcher:
             q = queries
             if q_pad != nq:
                 q = np.concatenate([q, np.zeros((q_pad - nq, D), q.dtype)])
-            d, ids = self._run_chunk(q, nq, k_eff, nprobe, g_eff, U)
+            d, ids = self._run_chunk(q, nq, k_eff, nprobe, g_eff, U, bins)
             out_d[:, :d.shape[1]] = d[:nq]
             out_i[:, :ids.shape[1]] = ids[:nq]
             return out_d, out_i
@@ -559,7 +575,7 @@ class DenseTreeSearcher:
             lo = i * chunk
             d, ids = self._run_chunk(q[lo:lo + chunk],
                                      int(np.clip(nq - lo, 0, chunk)), k_eff,
-                                     nprobe, g_chunk, U)
+                                     nprobe, g_chunk, U, bins)
             hi = min(lo + chunk, nq)
             out_d[lo:hi, :d.shape[1]] = d[:hi - lo]
             out_i[lo:hi, :ids.shape[1]] = ids[:hi - lo]

@@ -1,0 +1,450 @@
+"""Batched beam-search engine (port of ``sptag_tpu/algo/engine.py``, its
+monolithic walk).
+
+SPTAG's search pops one frontier node at a time, scores its graph
+neighbours and stops when the MaxCheck budget is spent or
+``ThresholdOfNumberOfContinuousNoBetterPropagation`` pops in a row fail to
+improve the top-k.  Here a query batch walks together:
+
+* seeding: one (Q, P) distance matrix against the pivot set collected
+  from the BKT forest; the top-L pivots fill each query's beam, the rest
+  form a sorted spare queue injected mid-walk when the frontier falls
+  behind it or stalls (SPTAG's SearchTrees refill);
+* each iteration pops the best B unexpanded beam entries at once, gathers
+  their B*m neighbours, drops those already visited, scores the rest as
+  one batched contraction and merges beam + candidates into the top-L;
+  ``ceil(MaxCheck / B)`` iterations keep the budget;
+* finalize: tombstones filtered, final top-k.
+
+The JAX package's ``lax.while_loop`` is a Python loop here.  A row whose
+``row_alive`` is false is an absorbing no-op (its pool no longer changes),
+so the loop asks the card whether any row is alive only every
+``_ALIVE_CHECK`` iterations — the one device-to-host sync of the body —
+and the results are the same.  Rows are independent, so chunking and batch
+padding do not change them either; ``chunk_size`` keeps the JAX package's
+formula all the same.
+
+The visited set is a (Q, N + 1) bool table per chunk (column N takes the
+masked candidates) instead of the JAX package's packed bitset: PyTorch has
+no scatter-OR, and setting bools needs none.  It is the same set, so the
+walk is the same.  ``BinnedTopK`` switches the pop, the merge, the seeding
+and the finalize to the bin-reduction forms (ops/topk_bins.py), with lazy
+visited marking, exactly as the JAX package's binned body.  Every
+``lax.top_k``/``argsort`` is a stable sort (lowest index first among ties).
+
+Not ported (each raises, naming its ROADMAP.md item): the bf16 shadow
+corpus (``BeamScoreDtype=bf16``), packed neighbours
+(``BeamPackedNeighbors=1``), the cascade, seeded (KDT) search and the
+segmented walk (``BeamSegmentIters``) with its slot scheduler.
+``BeamScoreDtype=auto`` is float32, as the JAX package resolves it off the
+TPU.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from sptag_tpu_torch.algo.dense import _sorted_dup_mask
+from sptag_tpu_torch.algo.flat import exact_device_scan
+from sptag_tpu_torch.core.index import not_ported
+from sptag_tpu_torch.core.types import DistCalcMethod
+from sptag_tpu_torch.device import DeviceLike, resolve_device
+from sptag_tpu_torch.ops import distance as dist_ops
+from sptag_tpu_torch.ops import topk_bins
+
+MAX_DIST = float(np.float32(3.4e38))
+
+# visited-table budget per search call in the JAX package's packed-bitset
+# bytes (N/8 per query); it sets the chunk size
+_VISITED_BUDGET = 1 << 29
+# walk iterations between two "any row alive?" reads
+_ALIVE_CHECK = 4
+
+#: ROADMAP.md item of what the walk leaves out
+SCHEDULER_ITEM = ("RNG graph build, beam walk and scheduler "
+                  "(the scheduler)")
+
+
+def beam_width_for(beam_width: int, max_check: int, L: int) -> int:
+    """Budget-scaled beam width: max_check / 32 capped at 128, never below
+    `beam_width`, never above L."""
+    return max(1, min(max(beam_width, min(max_check // 32, 128)), L))
+
+
+def beam_pool_size(k: int, max_check: int, n: int,
+                   pool_size: Optional[int] = None) -> int:
+    """Budget-scaled beam (frontier) capacity."""
+    L = pool_size or max(2 * k, min(64 + max_check // 8, 1024))
+    return min(max(L, k), n)
+
+
+def _seed_from_pivots(pivot_ids, pivot_vecs, queries, L: int, metric: int,
+                      n: int, seed_keep: int = 0):
+    """Shared-pivot seeding: the top-L pivots by distance fill the beam,
+    the rest (all, or `seed_keep` of them when binned) form the sorted
+    spare queue; every pivot is marked visited.  Returns (cand_ids,
+    cand_d, visited (Q, n + 1) bool, spare_ids, spare_d)."""
+    Q = queries.shape[0]
+    P = pivot_ids.shape[0]
+    dev = queries.device
+    d0 = dist_ops.pairwise_distance(queries, pivot_vecs,
+                                    DistCalcMethod(metric))       # (Q, P)
+    seed_ids = pivot_ids
+    if P < L:
+        d0 = torch.cat([d0, d0.new_full((Q, L - P), MAX_DIST)], dim=1)
+        seed_ids = torch.cat([pivot_ids, pivot_ids.new_full((L - P,), -1)])
+    if seed_keep > 0:
+        K = min(L + seed_keep, d0.shape[1])
+        sorted_d, cols = topk_bins.binned_topk(d0, K, topk_bins.pow2ceil(K))
+    else:
+        sorted_d, cols = dist_ops.smallest_k(d0, d0.shape[1])
+    sorted_ids = torch.where(sorted_d < MAX_DIST, seed_ids[cols], -1)
+    visited = torch.zeros((Q, n + 1), dtype=torch.bool, device=dev)
+    visited[:, pivot_ids] = True
+    return (sorted_ids[:, :L], sorted_d[:, :L], visited,
+            sorted_ids[:, L:], sorted_d[:, L:])
+
+
+class _Walk:
+    """One chunk's walk: the loop-carried state and the shared body,
+    the PyTorch form of the JAX package's ``_walk_machine``."""
+
+    def __init__(self, eng: "GraphSearchEngine", queries, cand_ids, cand_d,
+                 visited, spare_ids, spare_d, t_limit: int, k: int, L: int,
+                 B: int, nbp_limit: int, inject: int, merge_bins: int):
+        if merge_bins:
+            # the strided binning keeps the sorted beam prefix collision
+            # free only when bins >= L
+            assert merge_bins >= L, (merge_bins, L)
+        self.eng = eng
+        self.queries = queries
+        self.L, self.B, self.k_eff = L, B, min(k, L)
+        self.t_limit = t_limit
+        self.nbp_limit = nbp_limit
+        self.merge_bins = merge_bins
+        Q = queries.shape[0]
+        dev = queries.device
+        self.Ps = spare_ids.shape[1]
+        self.inject = inject
+        self.use_spares = self.Ps > 0 and inject > 0
+        self.spare_ids, self.spare_d = spare_ids, spare_d
+        # only real spare entries count as remaining work
+        self.n_spare = (spare_ids >= 0).sum(1) if self.use_spares else None
+        self.cand_ids, self.cand_d = cand_ids, cand_d
+        # expanded has a dump column at L, visited one at N
+        self.expanded = torch.cat(
+            [cand_ids < 0, torch.zeros((Q, 1), dtype=torch.bool,
+                                       device=dev)], dim=1)
+        self.visited = visited
+        self.no_better = torch.zeros(Q, dtype=torch.int64, device=dev)
+        self.ptr = torch.zeros(Q, dtype=torch.int64, device=dev)
+        self.it = 0            # every row's iteration count (one budget)
+        self._arange_L = torch.arange(L, device=dev)
+        self._arange_inject = torch.arange(max(inject, 1), device=dev)
+        self._zero_col = torch.zeros((Q, 1), dtype=torch.bool, device=dev)
+
+    def _active(self):
+        # nbp-tripped rows stay active while real spare pivots remain (the
+        # injection resets the counter), as SPTAG re-enters its trees
+        act = self.no_better < self.nbp_limit
+        if self.use_spares:
+            act = act | (self.ptr < self.n_spare)
+        return act
+
+    def row_alive(self) -> torch.Tensor:
+        """True while the next body could still change the row's pool."""
+        has_work = ((~self.expanded[:, :self.L]) & (self.cand_ids >= 0)) \
+            .any(1)
+        if self.use_spares:
+            has_work = has_work | (self.ptr < self.n_spare)
+        return self._active() & has_work & (self.it < self.t_limit)
+
+    def _pop(self, active):
+        """Best B unexpanded entries -> (sel_ok, sel_ids, best_pop_d)."""
+        L, B = self.L, self.B
+        if self.merge_bins:
+            # exact rank-select over the sorted pool: the first B eligible
+            # positions are the best B
+            elig = (~self.expanded[:, :L]) & (self.cand_d < MAX_DIST)
+            rank = torch.where(elig, torch.cumsum(elig, dim=1) - 1, B)
+            buf = torch.full((elig.shape[0], B + 1), L,
+                             device=elig.device)
+            buf.scatter_(1, rank.clamp_max(B),
+                         self._arange_L.expand_as(rank))
+            spos = buf[:, :B]                                # B: dump column
+            sel_ok = (spos < L) & active[:, None]
+            spos = torch.clamp_max(spos, L - 1)
+            sel_d = torch.where(sel_ok, torch.gather(self.cand_d, 1, spos),
+                                MAX_DIST)
+            best_pop_d = sel_d[:, 0]
+        else:
+            sel_score = torch.where(self.expanded[:, :L], MAX_DIST,
+                                    self.cand_d)
+            sel_d, spos = dist_ops.smallest_k(sel_score, B)
+            sel_ok = (sel_d < MAX_DIST) & active[:, None]
+            best_pop_d = sel_d[:, 0]
+        sel_ids = torch.where(sel_ok, torch.gather(self.cand_ids, 1, spos),
+                              -1)
+        self.expanded.scatter_(1, torch.where(sel_ok, spos, L), True)
+        return sel_ok, sel_ids, best_pop_d
+
+    def body(self) -> None:
+        eng, L = self.eng, self.L
+        N = eng.n
+        Q = self.queries.shape[0]
+        # a row past its budget is frozen exactly like an nbp-tripped one
+        active = self._active() & (self.it < self.t_limit)
+        sel_ok, sel_ids, best_pop_d = self._pop(active)
+        frontier_worse = best_pop_d > self.cand_d[:, self.k_eff - 1]
+
+        # ---- gather neighbours, drop the visited ones
+        nbrs = eng.graph[sel_ids.clamp_min(0)].to(torch.int64)   # (Q, B, m)
+        nbrs = torch.where(sel_ok[..., None], nbrs, -1)
+        flat = nbrs.reshape(Q, -1)
+        flat_safe = torch.where(flat >= 0, flat, N)
+        seen = torch.gather(self.visited, 1, flat_safe)
+        fresh = (flat >= 0) & ~seen
+        if not self.merge_bins:
+            # a node reached from two parents in one iteration: keep the
+            # first copy; mark every valid candidate visited
+            fresh = fresh & ~_sorted_dup_mask(flat_safe)
+            self.visited.scatter_(1, flat_safe, True)
+
+        # ---- score the fresh candidates (one batched contraction)
+        gather_idx = torch.where(fresh, flat, 0)
+        nd = dist_ops.batched_gathered_distance(
+            self.queries, eng.data[gather_idx], eng.metric, eng.base,
+            eng.sqnorm[gather_idx])
+        nd = torch.where(fresh, nd, MAX_DIST)
+
+        # ---- inject spare pivots when the frontier falls behind the next
+        # one, or the nbp counter would trip with budget left
+        flat_m = flat
+        trigger = None
+        if self.use_spares:
+            Ps = self.Ps
+            ptr = self.ptr
+            next_d = torch.gather(self.spare_d, 1,
+                                  ptr.clamp_max(Ps - 1)[:, None])[:, 0]
+            stalled = self.no_better + 1 >= self.nbp_limit
+            trigger = active & (ptr < self.n_spare) & (
+                (best_pop_d > next_d) | stalled)
+            idxs = ptr[:, None] + self._arange_inject[None, :self.inject]
+            ok = trigger[:, None] & (idxs < Ps)
+            safe = idxs.clamp_max(Ps - 1)
+            inj_ids = torch.where(ok, torch.gather(self.spare_ids, 1, safe),
+                                  -1)
+            inj_d = torch.where(ok & (inj_ids >= 0),
+                                torch.gather(self.spare_d, 1, safe), MAX_DIST)
+            self.ptr = torch.where(trigger, ptr + self.inject, ptr)
+            nd = torch.cat([nd, inj_d], dim=1)
+            flat_m = torch.cat([flat, inj_ids], dim=1)
+
+        # ---- merge beam + candidates, keep the top L
+        all_d = torch.cat([self.cand_d, nd], dim=1)
+        all_ids = torch.cat([self.cand_ids, flat_m], dim=1)
+        all_exp = torch.cat(
+            [self.expanded[:, :L],
+             torch.zeros((Q, all_d.shape[1] - L), dtype=torch.bool,
+                         device=all_d.device)], dim=1)
+        if self.merge_bins:
+            vals, cols = topk_bins.bin_shortlist(all_d, self.merge_bins)
+            sh_ids = torch.gather(all_ids, 1, cols)
+            sh_exp = torch.gather(all_exp, 1, cols)
+            cand_d, mpos = dist_ops.smallest_k(vals, L)
+            cand_ids = torch.gather(sh_ids, 1, mpos)
+            cand_ids = torch.where(cand_d < MAX_DIST, cand_ids, -1)
+            new_exp = torch.gather(sh_exp, 1, mpos)
+            # copies from several parents of one iteration carry equal
+            # distances: keep the better-ranked one, void the rest
+            safe_ids = torch.where(cand_ids >= 0, cand_ids, N)
+            dup = _sorted_dup_mask(safe_ids) & (cand_ids >= 0)
+            self.cand_ids = torch.where(dup, -1, cand_ids)
+            self.cand_d = torch.where(dup, MAX_DIST, cand_d)
+            self.expanded = torch.cat([new_exp | dup, self._zero_col], dim=1)
+            # lazy marking: beam entrants only
+            self.visited.scatter_(1, safe_ids, True)
+        else:
+            cand_d, mpos = dist_ops.smallest_k(all_d, L)
+            self.cand_d = cand_d
+            self.cand_ids = torch.where(cand_d < MAX_DIST,
+                                        torch.gather(all_ids, 1, mpos), -1)
+            self.expanded = torch.cat(
+                [torch.gather(all_exp, 1, mpos), self._zero_col], dim=1)
+
+        # non-live rows freeze their counter
+        nb = torch.where(active,
+                         torch.where(frontier_worse, self.no_better + 1, 0),
+                         self.no_better)
+        if trigger is not None:
+            nb = torch.where(trigger, 0, nb)     # a fresh re-seed resets it
+        self.no_better = nb
+        self.it += 1
+
+    def run(self) -> int:
+        """Walk until no row is alive; returns the iterations run."""
+        for step in range(self.t_limit):
+            if step % _ALIVE_CHECK == 0 and not bool(self.row_alive().any()):
+                return step
+            self.body()
+        return self.t_limit
+
+
+def _finalize(eng: "GraphSearchEngine", cand_ids, cand_d, k_eff: int,
+              binned_bins: int = 0):
+    """Tombstone filter and final top-k over the L-pool (binned when
+    `binned_bins` > 0)."""
+    dead = eng.deleted[cand_ids.clamp_min(0)] | (cand_ids < 0)
+    out_d = torch.where(dead, MAX_DIST, cand_d)
+    if binned_bins:
+        final_d, fpos = topk_bins.binned_topk(out_d, k_eff, binned_bins)
+    else:
+        final_d, fpos = dist_ops.smallest_k(out_d, k_eff)
+    final_ids = torch.gather(cand_ids, 1, fpos)
+    final_ids = torch.where(final_d < MAX_DIST, final_ids, -1)
+    return final_d, final_ids.to(torch.int32)
+
+
+class GraphSearchEngine:
+    """Device snapshot of {vectors, graph, tombstones, pivots} and the
+    walk over it."""
+
+    def __init__(self, data: np.ndarray, graph: np.ndarray,
+                 pivot_ids: np.ndarray, deleted: Optional[np.ndarray],
+                 metric: DistCalcMethod, base: int,
+                 score_dtype: str = "auto",
+                 packed_neighbors: bool = False,
+                 binned_topk: str = "off",
+                 recall_target: float = topk_bins.DEFAULT_RECALL_TARGET,
+                 cascade_search: bool = False,
+                 device: DeviceLike = None):
+        if str(score_dtype).lower() not in ("auto", "f32"):
+            raise not_ported(f"BeamScoreDtype={score_dtype} (the bf16 "
+                             "shadow corpus)", SCHEDULER_ITEM)
+        if packed_neighbors:
+            raise not_ported("BeamPackedNeighbors=1", SCHEDULER_ITEM)
+        if cascade_search and np.issubdtype(np.asarray(data).dtype,
+                                            np.floating):
+            raise not_ported("CascadeSearch=1", "cascade")
+        n = data.shape[0]
+        assert graph.shape[0] == n, (graph.shape, n)
+        self.device = resolve_device(device)
+        self.n = n
+        self.metric = DistCalcMethod(metric)
+        self.base = int(base)
+        self.binned_mode = topk_bins.normalize_mode(binned_topk)
+        self.recall_target = topk_bins.validate_recall_target(recall_target)
+
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+        self.data = put(data)
+        self.sqnorm = dist_ops.row_sqnorms(self.data)
+        self.graph = put(graph.astype(np.int32, copy=False))
+        self.deleted = put(np.zeros(n, bool) if deleted is None
+                           else np.asarray(deleted[:n], bool))
+        pivot_ids = np.asarray(pivot_ids, np.int64)
+        if len(pivot_ids) == 0:
+            pivot_ids = np.zeros(1, np.int64)
+        self.pivot_ids = put(pivot_ids)
+        self.pivot_vecs = self.data[self.pivot_ids]
+        #: walk iterations of the last search, summed over its chunks
+        self.last_iterations = 0
+
+    def exact_scan(self, queries: np.ndarray, k: int
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+        """Exact top-k over this snapshot's corpus (the FLAT scan on the
+        resident arrays): the oracle of `exact_search_batch`."""
+        return exact_device_scan(self.data, self.sqnorm, self.deleted,
+                                 queries, k, int(self.metric), self.base)
+
+    # ---- walk configuration -------------------------------------------------
+
+    def walk_plan(self, k: int, max_check: int, beam_width: int = 16,
+                  pool_size: Optional[int] = None, nbp_limit: int = 3
+                  ) -> Tuple[int, int, int, int, int]:
+        """(k_eff, L, B, T, limit): pool size, pops per iteration,
+        iterations, and the no-better-propagation limit (maxCheck/64 pops
+        in SPTAG, B pops per iteration here)."""
+        k_eff = min(k, self.n)
+        L = beam_pool_size(k_eff, max_check, self.n, pool_size)
+        B = beam_width_for(beam_width, max_check, L)
+        T = max(1, -(-max_check // B))
+        limit = max(nbp_limit, (max_check // 64) // B, 1)
+        return k_eff, L, B, T, limit
+
+    def chunk_size(self) -> int:
+        """Queries per chunk: the JAX package's packed-bitset budget
+        (N/8 bytes a query), at most 1,024."""
+        return max(1, min(_VISITED_BUDGET // max(self.n // 8, 1), 1024))
+
+    def merge_bins_for(self, L: int, B: int) -> int:
+        """Bin count of the binned frontier merge at pool size L (0 =
+        exact), by the shared rule topk_bins.walk_merge_bins."""
+        return topk_bins.walk_merge_bins(
+            self.binned_mode, L, L + B * int(self.graph.shape[1]))
+
+    def seed_keep_for(self, L: int) -> int:
+        """Spare-queue depth of the binned seeding (0 = exact seeding)."""
+        return topk_bins.seed_spare_keep(
+            self.binned_mode, L, max(int(self.pivot_ids.shape[0]), L))
+
+    def finalize_bins_for(self, k_eff: int, L: int) -> int:
+        """Bin count of the finalize top-k over the L-wide pool (0 =
+        exact), by the recall-target rule."""
+        if self.binned_mode == "off":
+            return 0
+        return topk_bins.resolve_bins(self.binned_mode, k_eff, L,
+                                      self.recall_target)
+
+    # ---- search -------------------------------------------------------------
+
+    def _search_chunk(self, q: np.ndarray, k_eff: int, L: int, B: int,
+                      T: int, limit: int, inject: int, mb: int, fb: int,
+                      sk: int) -> Tuple[np.ndarray, np.ndarray]:
+        queries = torch.from_numpy(np.ascontiguousarray(q)).to(self.device)
+        cand_ids, cand_d, visited, spare_ids, spare_d = _seed_from_pivots(
+            self.pivot_ids, self.pivot_vecs, queries, L, int(self.metric),
+            self.n, seed_keep=sk)
+        walk = _Walk(self, queries, cand_ids, cand_d, visited, spare_ids,
+                     spare_d, T, k_eff, L, B, limit, inject, mb)
+        self.last_iterations += walk.run()
+        d, ids = _finalize(self, walk.cand_ids, walk.cand_d, min(k_eff, L),
+                           binned_bins=fb)
+        return d.cpu().numpy(), ids.cpu().numpy()
+
+    def search(self, queries: np.ndarray, k: int, max_check: int = 2048,
+               beam_width: int = 16, pool_size: Optional[int] = None,
+               nbp_limit: int = 3, seeds: Optional[np.ndarray] = None,
+               dynamic_pivots: int = 4,
+               segment_iters: Optional[int] = None
+               ) -> Tuple[np.ndarray, np.ndarray]:
+        """Batched search -> ((Q, k) dists, (Q, k) int32 ids), ascending,
+        -1 / MAX_DIST padded.  `dynamic_pivots` spare pivots are injected
+        per mid-walk re-seed (NumberOfOtherDynamicPivots; 0 disables)."""
+        if seeds is not None:
+            raise not_ported("seeded (KDT tree-descent) beam search", "KDT")
+        if segment_iters:
+            raise not_ported("BeamSegmentIters > 0 (the segmented walk)",
+                             SCHEDULER_ITEM)
+        queries = np.asarray(queries)
+        if queries.ndim == 1:
+            queries = queries[None, :]
+        nq = queries.shape[0]
+        k_eff, L, B, T, limit = self.walk_plan(k, max_check, beam_width,
+                                               pool_size, nbp_limit)
+        plan = (k_eff, L, B, T, limit, dynamic_pivots,
+                self.merge_bins_for(L, B), self.finalize_bins_for(k_eff, L),
+                self.seed_keep_for(L))
+        chunk = self.chunk_size()
+        self.last_iterations = 0
+        out_d = np.full((nq, k), np.float32(MAX_DIST), np.float32)
+        out_i = np.full((nq, k), -1, np.int32)
+        for lo in range(0, nq, chunk):
+            d, ids = self._search_chunk(queries[lo:lo + chunk], *plan)
+            out_d[lo:lo + chunk, :d.shape[1]] = d
+            out_i[lo:lo + chunk, :ids.shape[1]] = ids
+        return out_d, out_i

@@ -38,6 +38,9 @@ from sptag_tpu_torch.io import atomic
 from sptag_tpu_torch.ops import distance as dist_ops
 from sptag_tpu_torch.utils.ini import IniReader
 
+# float32-exact padding distance of every result
+MAX_DIST = float(np.float32(3.4e38))
+
 _WAL_NAME = "wal.bin"
 _MUTATION = "mutation, WAL and delta shard"
 
@@ -76,7 +79,7 @@ def create_instance(algo: Union[IndexAlgoType, str],
     algo = IndexAlgoType(algo)
     cls = _REGISTRY.get(algo)
     if cls is None:
-        if algo in (IndexAlgoType.KDT, IndexAlgoType.FLAT):
+        if algo == IndexAlgoType.KDT:
             raise not_ported(f"the {algo.name} index", algo.name)
         raise ValueError(f"no index algorithm registered for {algo}")
     return cls(value_type, resolve_device(device))
@@ -215,6 +218,31 @@ class VectorIndex(abc.ABC):
         return self._search_batch(self._prepare_query(queries), k, max_check,
                                   search_mode)
 
+    def _exact_scan(self, queries: np.ndarray, k: int
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Exact masked scan over this index's corpus (queries already
+        prepared): the hook behind `exact_search_batch`."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no exact-scan oracle")
+
+    def exact_search_batch(self, queries: np.ndarray, k: int = 10
+                           ) -> Tuple[np.ndarray, np.ndarray]:
+        """Exact top-k over the live corpus with search_batch's contract
+        ((Q, k) dists / ids, MAX_DIST / -1 padded, deleted rows excluded),
+        whatever the search mode or approximation knobs."""
+        if self.num_samples == 0:
+            raise RuntimeError("index is empty")
+        queries = np.asarray(queries)
+        if queries.ndim == 1:
+            queries = queries[None, :]
+        if queries.shape[1] != self.feature_dim:
+            raise ValueError(
+                f"query dim {queries.shape[1]} != index dim "
+                f"{self.feature_dim}")
+        dists, ids = self._exact_scan(self._prepare_query(queries),
+                                      min(k, self.num_samples))
+        return pad_results(dists, ids, k)
+
     # ---- not in this slice ------------------------------------------------
 
     def add(self, vectors, metadata=None, with_meta_index=False):
@@ -318,6 +346,18 @@ class VectorIndex(abc.ABC):
                 if reader.get_parameter("MetaData", "MetaDataToVectorIndex",
                                         "") == "true":
                     self.build_meta_mapping()
+
+
+def pad_results(d: np.ndarray, ids: np.ndarray, k: int
+                ) -> Tuple[np.ndarray, np.ndarray]:
+    """Pad result columns out to k with MAX_DIST / -1 sentinels."""
+    if ids.shape[1] < k:
+        q = ids.shape[0]
+        d = np.concatenate(
+            [d, np.full((q, k - d.shape[1]), MAX_DIST, np.float32)], 1)
+        ids = np.concatenate(
+            [ids, np.full((q, k - ids.shape[1]), -1, np.int32)], 1)
+    return d, ids
 
 
 def _move_files_in(staged: str, folder: str) -> None:

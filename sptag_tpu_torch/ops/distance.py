@@ -13,8 +13,9 @@ Conventions are the JAX package's, which are SPTAG's (DistanceUtils.h):
 
 Integer contractions: CUDA has no integer GEMM, so they run in float64 —
 every partial sum here is an integer far below 2^53, hence exact — and
-the CPU takes int64.  Either way the result equals the JAX package's
-int32-accumulated value.
+the CPU takes int64; int8 / uint8 contractions short enough that every
+partial sum stays below 2^24 run in float32, exact as well.  Either way
+the result equals the JAX package's int32-accumulated value.
 
 Every top-k keeps ``lax.top_k``'s rule: among equal distances the lowest
 index comes first (a stable sort), which ``torch.topk`` does not promise.
@@ -50,8 +51,19 @@ def _use_int16_exact(dtype: torch.dtype, d: int) -> bool:
     return dtype == torch.int16 and d <= _INT16_EXACT_MAX_D
 
 
+# largest |a_d * b_d| of an int8 / uint8 product
+_MAX_PRODUCT = {torch.int8: 128 * 128, torch.uint8: 255 * 255}
+
+
 def int_contract(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Exact integer einsum -> int64 (see the module docstring)."""
+    """Exact integer einsum -> int64 (see the module docstring).  Where
+    every partial sum of an int8 / uint8 contraction over the last axis is
+    an integer below 2^24 (int8 up to D = 1023, uint8 up to D = 258) it
+    runs in float32, exact in any summation order."""
+    bound = _MAX_PRODUCT.get(a.dtype) if a.dtype == b.dtype else None
+    if bound and bound * a.shape[-1] < (1 << 24):
+        return torch.einsum(eq, a.to(torch.float32),
+                            b.to(torch.float32)).long()
     if a.device.type == "cpu":
         return torch.einsum(eq, a.long(), b.long())
     return torch.einsum(eq, a.double(), b.double()).long()

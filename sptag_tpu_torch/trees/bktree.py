@@ -201,6 +201,42 @@ class BKTree:
                                ids[np.clip(medoid_pos[row], 0, cnt - 1)], -1)
             results[idx] = (labels[row, :cnt], counts[row], med_ids)
 
+    # ---------------------------------------------------------------- queries
+
+    @property
+    def num_nodes(self) -> int:
+        return len(self.nodes)
+
+    def collect_pivots(self, max_pivots: int) -> np.ndarray:
+        """Breadth-first over all trees, the node centerids (sample ids)
+        top-down, each once: the shared pivot set that seeds the beam walk
+        with one (Q, n_pivots) distance matrix."""
+        out: List[int] = []
+        seen = set()
+        frontier: List[int] = list(self.tree_starts)
+        cs = self.nodes["childStart"]
+        ce = self.nodes["childEnd"]
+        cid = self.nodes["centerid"]
+        while frontier and len(out) < max_pivots:
+            nxt: List[int] = []
+            for ni in frontier:
+                start = cs[ni]
+                if start < 0:
+                    # leaf or degenerate-duplicate node: nothing to descend
+                    continue
+                for c in range(start, ce[ni]):
+                    sid = int(cid[c])
+                    if sid >= 0 and sid not in seen:
+                        seen.add(sid)
+                        out.append(sid)
+                        if len(out) >= max_pivots:
+                            break
+                    nxt.append(c)
+                if len(out) >= max_pivots:
+                    break
+            frontier = nxt
+        return np.asarray(out[:max_pivots], np.int32)
+
     # ------------------------------------------------------------ persistence
 
     def save(self, path_or_stream) -> None:

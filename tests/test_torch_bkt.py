@@ -9,11 +9,22 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 import sptag_tpu as jsp
 import sptag_tpu_torch as tsp
 from sptag_tpu_torch.state import bkt_index_from_arrays
 from test_torch_dense import assert_same_neighbors
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """Many small ops: one intra-op thread is several times faster here
+    than a pool contended by the test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 BLOBS = ("vectors.bin", "tree.bin", "graph.bin", "deletes.bin",
          "indexloader.ini", "manifest.json")
@@ -188,22 +199,123 @@ def test_search_contract_padding_and_modes():
 
 
 def test_not_ported_paths_raise_naming_the_roadmap():
+    """The library defaults (BuildGraph=1, FinalRefineSearchMode=beam)
+    build and serve beam, auto and dense with BinnedTopK; what is left out
+    raises NotImplementedError naming its ROADMAP.md item."""
     data, _ = _corpus(200, 8, 1, seed=7)
     idx = tsp.create_instance("BKT", "Float", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        idx.build(data)                        # BuildGraph=1 is the default
-    idx.set_parameter("BuildGraph", "0")
-    idx.build(data)
+    idx.set_parameter("DistCalcMethod", "L2")
+    assert idx.build(data) == tsp.ErrorCode.Success
+    assert idx._graph.shape == (200, 32) and (idx._graph >= 0).any()
+    for mode in ("beam", "auto", "dense"):
+        assert idx.search(data[3], 3, search_mode=mode).ids[0] == 3
+    idx.set_parameter("BinnedTopK", "on")
+    assert idx.search(data[4], 3, search_mode="dense").ids[0] == 4
+    assert idx.search(data[4], 3, search_mode="beam").ids[0] == 4
+    idx.set_parameter("BinnedTopK", "off")
     for call in (lambda: idx.add(data[:2]), lambda: idx.delete(data[:1]),
                  lambda: idx.refine_index(),
-                 lambda: tsp.create_instance("KDT", "Float", device="cpu"),
-                 lambda: tsp.create_instance("FLAT", "Float", device="cpu")):
+                 lambda: tsp.create_instance("KDT", "Float", device="cpu")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
-    idx.set_parameter("BinnedTopK", "on")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        idx.search(data[0], 3)
-    idx.set_parameter("BinnedTopK", "off")
+    for name, value in (("ContinuousBatching", "1"),
+                        ("BeamSegmentIters", "2"), ("BeamScoreDtype", "bf16"),
+                        ("BeamPackedNeighbors", "1"), ("CascadeSearch", "1")):
+        default = idx.get_parameter(name)
+        idx.set_parameter(name, value)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            idx.search(data[0], 3, search_mode="beam")
+        idx.set_parameter(name, default)
     idx.set_parameter("CascadeSearch", "1")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        idx.search(data[0], 3)
+        idx.search(data[0], 3, search_mode="dense")
+
+
+# ---- the RNG graph and the beam walk ----------------------------------------
+
+GRAPH_SETTINGS = [("TPTNumber", "4"), ("TPTLeafSize", "500"),
+                  ("CEF", "64"), ("MaxCheckForRefineGraph", "128"),
+                  ("NeighborhoodSize", "16"), ("BKTKmeansK", "8"),
+                  ("MaxCheck", "512"), ("RefineQueryGroup", "32")]
+
+
+def _graph_corpus(kind, n, nq, seed):
+    """Integer-valued float32 (L2) or int8 rows (cosine): every distance is
+    exact in both packages, so the walks must agree id for id."""
+    if kind == "int8":
+        return _corpus(n, 16, nq, seed, int8=True)
+    data, q = _corpus(n, 16, nq, seed)
+    if kind == "ints":
+        data, q = np.round(data * 2), np.round(q * 2)
+    return data, q
+
+
+def _graph_index(pkg, kind, final="same", **kw):
+    vt = "Int8" if kind == "int8" else "Float"
+    idx = pkg.create_instance("BKT", vt, **kw)
+    settings = GRAPH_SETTINGS + [
+        ("DistCalcMethod", "Cosine" if kind == "int8" else "L2"),
+        ("FinalRefineSearchMode", final)]
+    for name, value in settings:
+        assert idx.set_parameter(name, value)
+    return idx
+
+
+@pytest.mark.parametrize("kind", ["ints", "int8"])
+def test_jax_graph_folder_beam_and_auto_equal_jax(tmp_path, kind):
+    """A JAX-built BuildGraph=1 folder loads in the port: beam (exact and
+    binned) and auto search return the JAX package's ids and distances,
+    and the port re-saves the same bytes."""
+    data, q = _graph_corpus(kind, 1500, 96, seed=11)
+    ref = _graph_index(jsp, kind)
+    ref.build(data)
+    jdir = str(tmp_path / "jax")
+    ref.save_index(jdir)
+    got = tsp.load_index(jdir, device="cpu")
+    for binned in ("off", "on"):
+        ref.set_parameter("BinnedTopK", binned)
+        got.set_parameter("BinnedTopK", binned)
+        for mode in ("beam", "auto"):
+            d_ref, i_ref = ref.search_batch(q, 10, search_mode=mode)
+            d_got, i_got = got.search_batch(q, 10, search_mode=mode)
+            np.testing.assert_array_equal(i_got, i_ref)
+            np.testing.assert_array_equal(d_got, d_ref)
+    d_ref, i_ref = ref.exact_search_batch(q, 10)
+    d_got, i_got = got.exact_search_batch(q, 10)
+    np.testing.assert_array_equal(i_got, i_ref)
+    tdir = str(tmp_path / "port")
+    got.set_parameter("BinnedTopK", "off")
+    ref.set_parameter("BinnedTopK", "off")
+    ref.save_index(jdir)
+    got.save_index(tdir)
+    for name in BLOBS:
+        assert _read(tdir, name) == _read(jdir, name), name
+
+
+@pytest.mark.parametrize("kind", ["ints", "gauss"])
+def test_port_graph_folder_loads_in_jax(tmp_path, kind):
+    """A port-built BuildGraph=1 folder (final refine pass through the
+    walk) loads in the JAX package and beam-searches alike: id for id on
+    integer data, at least 0.99 id overlap on Gaussian data."""
+    data, q = _graph_corpus(kind, 1200, 96, seed=12)
+    mine = _graph_index(tsp, kind, final="beam", device="cpu")
+    mine.build(data)
+    assert set(mine.build_stages) == {"tree", "tpt_candidates", "prune",
+                                      "refine_pass_1", "refine_pass_2"}
+    assert (mine._graph >= 0).sum(1).min() > 0
+    folder = str(tmp_path / "idx")
+    assert mine.save_index(folder) == tsp.ErrorCode.Success
+    theirs = jsp.load_index(folder)
+    d_ref, i_ref = theirs.search_batch(q, 10, search_mode="beam")
+    d_got, i_got = mine.search_batch(q, 10, search_mode="beam")
+    if kind == "ints":
+        np.testing.assert_array_equal(i_got, i_ref)
+        np.testing.assert_array_equal(d_got, d_ref)
+    else:
+        overlap = np.mean([len(set(a) & set(b)) / 10
+                           for a, b in zip(i_got, i_ref)])
+        assert overlap >= 0.99
+    truth = np.argsort(((q[:, None, :] - data[None]) ** 2).sum(-1),
+                       axis=1, kind="stable")[:, :10]
+    recall = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(i_got, truth)])
+    assert recall >= 0.9

@@ -12,7 +12,10 @@ rtol 1e-5, atol 1e-4 on unit-normal data; int8 exactly equal; searches on
 the card against the same index on the CPU: int8 exact; float32 distances
 of both within 1e-5 * (|q|^2 + |x|^2 + 2 sum |q_d x_d|) of the exact
 distance (float64), and ids equal wherever a rank's exact distance is
-separated from its neighbours' by more than their two bounds.
+separated from its neighbours' by more than their two bounds.  The graph
+slice's tests (the walk, FLAT, the graph functions, a graph build) run
+integer-valued data, so the card must give the CPU's ids and distances
+exactly.
 """
 
 import numpy as np
@@ -302,3 +305,174 @@ def test_card_search_matches_cpu_search(cuda, tmp_path, vt, group):
     sep[:, 1:] &= gap
     sep[:, :-1] &= gap
     np.testing.assert_array_equal(i_gpu[sep], i_cpu[sep])
+
+
+# ---- the graph slice: the walk, FLAT and the graph build on the card -------
+#
+# Integer-valued float32 rows (and int8 rows) make every distance exact on
+# both devices whatever the summation order, so the card must return the
+# CPU's ids and distances exactly.
+
+def _int_rows(n, d, seed, lo=-4, hi=5):
+    return np.random.default_rng(seed).integers(lo, hi, (n, d)).astype(
+        np.float32)
+
+
+def _weak_graph(n, m, seed):
+    g = np.random.default_rng(seed).integers(-1, n, (n, m)).astype(np.int32)
+    g[:, 0] = (np.arange(n) + 1) % n
+    return g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("binned", ["off", "on"])
+@pytest.mark.parametrize("int8", [False, True], ids=["f32", "int8"])
+def test_walk_on_card_matches_cpu(cuda, monkeypatch, binned, int8):
+    from sptag_tpu_torch.algo import engine as teng
+    from sptag_tpu_torch.core.types import DistCalcMethod
+    from sptag_tpu_torch.ops.distance import normalize
+
+    n = 3000
+    data = _int_rows(n, 32, seed=1)
+    q = _int_rows(300, 32, seed=2)
+    metric, base = DistCalcMethod.L2, 1
+    if int8:
+        data = normalize(data.astype(np.int8) * 20, 127)
+        q = normalize(q.astype(np.int8) * 20, 127)
+        metric, base = DistCalcMethod.Cosine, 127
+    graph = _weak_graph(n, 16, seed=3)
+    rng = np.random.default_rng(4)
+    pivots = rng.choice(n, 400, replace=False)
+    deleted = rng.random(n) < 0.05
+    on_card = []
+    run = teng._Walk.run
+
+    def checked_run(self):
+        out = run(self)
+        on_card.append(all(t.is_cuda for t in (
+            self.queries, self.cand_ids, self.cand_d, self.visited,
+            self.expanded, self.no_better)))
+        return out
+    monkeypatch.setattr(teng._Walk, "run", checked_run)
+    res = []
+    for dev in (cuda, "cpu"):
+        eng = teng.GraphSearchEngine(data, graph, pivots, deleted, metric,
+                                     base, binned_topk=binned, device=dev)
+        res.append(eng.search(q, 10, max_check=512, dynamic_pivots=4))
+    assert on_card[0] and not on_card[1]
+    np.testing.assert_array_equal(res[0][1], res[1][1])
+    np.testing.assert_array_equal(res[0][0], res[1][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knob", [None, ("BinnedTopK", "on"),
+                                  ("ApproxTopK", "true")])
+def test_flat_on_card_matches_cpu(cuda, knob):
+    data = _int_rows(5000, 64, seed=5)
+    q = _int_rows(200, 64, seed=6)
+    res = []
+    for dev in (None, "cpu"):
+        idx = tsp.create_instance("FLAT", "Float", device=dev)
+        idx.set_parameter("DistCalcMethod", "L2")
+        if knob:
+            idx.set_parameter(*knob)
+        idx.build(data)
+        res.append(idx.search_batch(q, 10))
+        if dev is None:
+            assert idx._snapshot()[0].is_cuda
+    np.testing.assert_array_equal(res[0][1], res[1][1])
+    np.testing.assert_array_equal(res[0][0], res[1][0])
+    # Gaussian float32: each distance within its error bound of the exact
+    data, q = _corpus(5000, 128, 100, seed=7)
+    idx = tsp.create_instance("FLAT", "Float")
+    idx.set_parameter("DistCalcMethod", "L2")
+    idx.build(data)
+    d, ids = idx.search_batch(q, 10)
+    exact, bound = _l2_exact_and_bound(data, q, ids)
+    assert (np.abs(d - exact) <= bound).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric,base", [(0, 1), (1, 127)])
+def test_graph_ops_on_card_match_cpu(cuda, metric, base):
+    from sptag_tpu_torch.ops import graph as tgraph
+
+    rng = np.random.default_rng(8)
+    vecs = torch.from_numpy(_int_rows(6 * 80, 16, seed=9).reshape(6, 80, 16))
+    valid = torch.from_numpy(rng.random((6, 80)) < 0.9)
+    ids = torch.from_numpy(rng.integers(-1, 50, (40, 12)).astype(np.int32))
+    dd = torch.from_numpy(rng.integers(0, 5, (40, 12)).astype(np.float32))
+    cand = vecs[:, :40]
+    cd = tgraph.node_candidate_dists(vecs[:, 40], cand, metric, base)
+    order = torch.argsort(cd, dim=1, stable=True)
+    cand = torch.gather(cand, 1, order[..., None].expand_as(cand))
+    cd = torch.gather(cd, 1, order)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        out.append([
+            *tgraph.leaf_allpairs_topk(vecs.to(dev), valid.to(dev), 24,
+                                       metric, base),
+            *tgraph.merge_candidates(ids.to(dev), dd.to(dev),
+                                     ids.flip(1).to(dev), dd.to(dev)),
+            tgraph.rng_select(cand.to(dev), cd.to(dev), valid[:, :40].to(dev),
+                              8, metric, base)])
+    for a, b in zip(*out):
+        assert a.is_cuda
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_graph_build_on_card_uses_kernels_and_serves_like_cpu(cuda,
+                                                              tmp_path):
+    """BuildGraph=1 on the card: the dense refine passes launch the
+    block-dot kernels and the final pass walks on the card; the saved
+    folder beam-searches alike on the card and on the CPU."""
+    data = _int_rows(4000, 32, seed=10)
+    q = _int_rows(256, 32, seed=11)
+    idx = tsp.create_instance("BKT", "Float")
+    for name, value in [("DistCalcMethod", "L2"), ("TPTNumber", "4"),
+                        ("CEF", "64"), ("MaxCheckForRefineGraph", "256"),
+                        ("RefineQueryGroup", "32"), ("MaxCheck", "512"),
+                        ("SearchMode", "beam"), ("DenseClusterSize", "64")]:
+        assert idx.set_parameter(name, value)
+    block_dots.reset_launch_counts()
+    idx.build(data)
+    counts = block_dots.launch_counts()
+    assert counts["group_block_dots_f32"] + counts["probe_block_dots_f32"] \
+        >= 1, counts
+    assert idx.get_parameter("FinalRefineSearchMode") == "beam"
+    d_gpu, i_gpu = idx.search_batch(q, 10)
+    assert idx._get_engine().data.is_cuda
+    folder = str(tmp_path / "g")
+    idx.save_index(folder)
+    d_cpu, i_cpu = tsp.load_index(folder, device="cpu").search_batch(q, 10)
+    np.testing.assert_array_equal(i_gpu, i_cpu)
+    np.testing.assert_array_equal(d_gpu, d_cpu)
+    truth = np.argsort(((q[:, None, :] - data[None]) ** 2).sum(-1), axis=1,
+                       kind="stable")[:, :10]
+    d_ex, i_ex = idx.exact_search_batch(q, 10)
+    exact = ((q[:, None, :] - data[i_ex]) ** 2).sum(-1)
+    np.testing.assert_array_equal(d_ex, exact)
+    assert np.mean([len(set(a) & set(b)) / 10
+                    for a, b in zip(i_gpu, truth)]) >= 0.9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(np.int8, 1023), (np.int8, 1024),
+                                     (np.uint8, 258), (np.uint8, 259)])
+def test_int_contract_on_card_at_float32_edge(cuda, dtype, d):
+    """On the card int_contract runs float32 up to the edge and float64
+    past it: both equal the int64 product, extreme rows included."""
+    from sptag_tpu_torch.ops import distance as dist_ops
+
+    info = np.iinfo(dtype)
+    extreme = info.min if dtype == np.int8 else info.max
+    rng = np.random.default_rng(d)
+    a = rng.integers(info.min, info.max + 1, (5, d), dtype=dtype)
+    b = rng.integers(info.min, info.max + 1, (7, d), dtype=dtype)
+    a[-1], b[-1] = extreme, extreme
+    want = a.astype(np.int64) @ b.astype(np.int64).T
+    got = dist_ops.int_contract("qd,nd->qn", torch.from_numpy(a).to(cuda),
+                                torch.from_numpy(b).to(cuda))
+    assert got.device.type == "cuda" and got.dtype == torch.int64
+    np.testing.assert_array_equal(got.cpu().numpy(), want)

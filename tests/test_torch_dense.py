@@ -142,6 +142,38 @@ def test_multi_chunk_matches_jax(monkeypatch, case, group, nq, nprobe,
     assert_same_neighbors(d_ref, i_ref, d_got, i_got, exact=int8)
 
 
+@pytest.mark.parametrize("case,group,binned,target", [
+    ("f32_l2", 0, "on", 0.5),
+    ("f32_l2", 8, "auto", 0.9),
+    ("i8_cos", 0, "auto", 0.5),
+    ("i8_cos", 32, "on", 0.9),
+])
+def test_binned_epilogue_matches_jax(monkeypatch, case, group, binned,
+                                     target):
+    """BinnedTopK routes the final select through the bin reduction at the
+    recall-target size in both packages (ops/topk_bins.py)."""
+    from sptag_tpu_torch.ops import topk_bins
+
+    bins_used = []
+    real = topk_bins.binned_topk
+    monkeypatch.setattr(topk_bins, "binned_topk",
+                        lambda d, k, bins: bins_used.append(bins)
+                        or real(d, k, bins))
+    int8, metric, base, d = CASES[case]
+    data, q, clusters = _corpus(2048, d, 256, 32, seed=13, int8=int8)
+    lay = jdense.DenseTreeSearcher.build_layout(data, clusters, metric, 1)
+    ref = jdense.DenseTreeSearcher(data, np.zeros(32, np.int64), clusters,
+                                   None, metric, base)
+    got = tdense.DenseTreeSearcher.from_layout(lay, None, metric, base,
+                                               device="cpu")
+    kw = dict(max_check=8 * got.cluster_size, group=group, union_factor=4,
+              binned=binned, recall_target=target)
+    d_ref, i_ref = ref.search(q, 10, **kw)
+    d_got, i_got = got.search(q, 10, **kw)
+    assert bins_used and got.last_effective_group == group
+    assert_same_neighbors(d_ref, i_ref, d_got, i_got, exact=int8)
+
+
 def test_grouped_demotion_rules_match_jax():
     """Sparse and tiny batches demote grouping in both packages alike."""
     data, q, clusters = _corpus(2048, 16, 256, 32, seed=7, int8=True)

@@ -143,3 +143,32 @@ def test_batch_topk_matches_jax_with_ties():
     tv, ti = TD.batch_topk(torch.from_numpy(d), 25)
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+# the largest D whose int8 / uint8 contraction runs in float32, and the
+# next D up, which takes the integer path
+INT_CONTRACT_EDGES = [(np.int8, 1023), (np.int8, 1024),
+                      (np.uint8, 258), (np.uint8, 259)]
+
+
+@pytest.mark.parametrize("dtype,d", INT_CONTRACT_EDGES)
+def test_int_contract_exact_at_float32_edge(dtype, d):
+    """int_contract equals the int64 product on both sides of the float32
+    edge, on rows of the largest products (every partial sum of the last
+    row pair is D * 128^2 or D * 255^2) and on random rows."""
+    info = np.iinfo(dtype)
+    extreme = info.min if dtype == np.int8 else info.max
+    bound = int(extreme) * int(extreme)
+    edge = max(e for t, e in INT_CONTRACT_EDGES if t == dtype and
+               bound * e < (1 << 24))
+    assert (bound * d < (1 << 24)) == (d == edge)
+    rng = np.random.default_rng(d)
+    a = rng.integers(info.min, info.max + 1, (5, d), dtype=dtype)
+    b = rng.integers(info.min, info.max + 1, (7, d), dtype=dtype)
+    a[-1], b[-1] = extreme, extreme
+    want = a.astype(np.int64) @ b.astype(np.int64).T
+    got = TD.int_contract("qd,nd->qn", torch.from_numpy(a),
+                          torch.from_numpy(b))
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want[-1, -1] == bound * d

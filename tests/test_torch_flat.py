@@ -1,0 +1,138 @@
+"""The port's FLAT index (sptag_tpu_torch/algo/flat.py) against the JAX
+package's, through the public entry points and through folders.
+
+Data are integer-valued, so every distance is exact in float32 whatever
+the summation order (|dot| < 2^24): ids and distances must be equal for
+all four value types and both metrics, except float32 cosine, whose rows
+are normalized to non-integers — there distances agree within rtol 1e-5
+and ids at separated ranks (tests/test_torch_dense.py's rule).
+``ApproxTopK`` is the exact top-k in both packages off the TPU;
+``BinnedTopK=on`` bins the same rows the same way.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import sptag_tpu as jsp
+import sptag_tpu_torch as tsp
+from test_torch_dense import assert_same_neighbors
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """Many small ops: one intra-op thread is several times faster here
+    than a pool contended by the test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+TYPES = {"Float": np.float32, "Int8": np.int8, "UInt8": np.uint8,
+         "Int16": np.int16}
+
+
+def _data(vt, n, nq, d, seed):
+    rng = np.random.default_rng(seed)
+    if vt == "UInt8":
+        x = rng.integers(0, 40, (n + nq, d))
+    elif vt == "Int16":
+        x = rng.integers(-300, 300, (n + nq, d))
+    else:
+        x = rng.integers(-20, 20, (n + nq, d))
+    x = x.astype(TYPES[vt])
+    return x[:n], x[n:]
+
+
+@pytest.mark.parametrize("metric", ["L2", "Cosine"])
+@pytest.mark.parametrize("vt", list(TYPES))
+def test_flat_search_matches_jax(vt, metric):
+    data, q = _data(vt, 700, 48, 24, seed=len(vt) + len(metric))
+    ref = jsp.create_instance("FLAT", vt)
+    got = tsp.create_instance("FLAT", vt, device="cpu")
+    exact = not (vt == "Float" and metric == "Cosine")
+    for knob in (None, ("ApproxTopK", "true"), ("BinnedTopK", "on")):
+        for index in (ref, got):
+            index.set_parameter("DistCalcMethod", metric)
+            if knob:
+                index.set_parameter("ApproxTopK", "false")
+                index.set_parameter(*knob)
+            index.build(data)
+        d_ref, i_ref = ref.search_batch(q, 10)
+        d_got, i_got = got.search_batch(q, 10)
+        assert_same_neighbors(d_ref, i_ref, d_got, i_got, exact=exact)
+    d_ref, i_ref = ref.exact_search_batch(q, 10)
+    d_got, i_got = got.exact_search_batch(q, 10)
+    assert_same_neighbors(d_ref, i_ref, d_got, i_got, exact=exact)
+
+
+def test_binned_wins_over_approx_and_auto_rule():
+    data, q = _data("Float", 3000, 16, 16, seed=3)
+    for settings in ([("ApproxTopK", "true"), ("BinnedTopK", "on"),
+                      ("ApproxRecallTarget", "0.9")],
+                     [("BinnedTopK", "auto")]):
+        ref = jsp.create_instance("FLAT", "Float")
+        got = tsp.create_instance("FLAT", "Float", device="cpu")
+        for index in (ref, got):
+            index.set_parameter("DistCalcMethod", "L2")
+            for name, value in settings:
+                index.set_parameter(name, value)
+            index.build(data)
+        d_ref, i_ref = ref.search_batch(q, 32)
+        d_got, i_got = got.search_batch(q, 32)
+        assert_same_neighbors(d_ref, i_ref, d_got, i_got, exact=True)
+
+
+def test_flat_folders_interchange_and_padding(tmp_path):
+    data, q = _data("Int8", 300, 8, 16, seed=4)
+    mine = tsp.create_instance("FLAT", "Int8", device="cpu")
+    mine.set_parameter("DistCalcMethod", "L2")
+    mine.build(data)
+    tdir, jdir = str(tmp_path / "t"), str(tmp_path / "j")
+    assert mine.save_index(tdir) == tsp.ErrorCode.Success
+    theirs = jsp.load_index(tdir)
+    theirs.save_index(jdir)
+    back = tsp.load_index(jdir, device="cpu")
+    for name in ("vectors.bin", "deletes.bin", "indexloader.ini"):
+        assert open(os.path.join(tdir, name), "rb").read() == \
+            open(os.path.join(jdir, name), "rb").read(), name
+    for index in (theirs, back):
+        d, ids = index.search_batch(q, 400)       # k beyond the corpus
+        d0, ids0 = mine.search_batch(q, 400)
+        np.testing.assert_array_equal(ids, ids0)
+        np.testing.assert_array_equal(d, d0)
+    assert (ids0[:, 300:] == -1).all()
+    assert (d0[:, 300:] == np.float32(3.4e38)).all()
+    assert mine.search(data[5], 1).ids[0] == 5
+
+
+def test_flat_deletes_from_a_jax_folder(tmp_path):
+    data, q = _data("Float", 500, 16, 8, seed=5)
+    ref = jsp.create_instance("FLAT", "Float")
+    ref.set_parameter("DistCalcMethod", "L2")
+    ref.build(data)
+    for i in range(0, 500, 3):
+        ref.delete(data[i])
+    folder = str(tmp_path / "f")
+    ref.save_index(folder)
+    got = tsp.load_index(folder, device="cpu")
+    assert got.num_deleted == ref.num_deleted
+    d_ref, i_ref = ref.search_batch(q, 10)
+    d_got, i_got = got.search_batch(q, 10)
+    assert_same_neighbors(d_ref, i_ref, d_got, i_got, exact=True)
+    assert not (i_got % 3 == 0).any()
+
+
+def test_flat_not_ported_knobs_raise():
+    data, q = _data("Float", 400, 2, 8, seed=6)
+    idx = tsp.create_instance("FLAT", "Float", device="cpu")
+    idx.build(data)
+    for name, value in (("SketchPrefilter", "true"), ("CascadeSearch", "1")):
+        idx.set_parameter(name, value)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            idx.search_batch(q, 3)
+        idx.set_parameter(name, "0" if name == "CascadeSearch" else "false")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        idx.add(data[:2])
