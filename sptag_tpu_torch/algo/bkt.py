@@ -10,14 +10,28 @@ beam walk, the final pass as ``FinalRefineSearchMode`` says.
 configured width.  Search: ``SearchMode=dense`` (algo/dense.py), ``beam``
 (the graph walk, algo/engine.py) or ``auto`` (beam below
 ``AutoModeThreshold``, dense at or above it).  Folders interchange with
-the JAX package's both ways.  ``ContinuousBatching=1`` (the slot
-scheduler), mutation and build checkpoints are later slices of the port.
+the JAX package's both ways.
+
+Mutation (SPTAG AddIndex / DeleteIndex / RefineIndex): an add links its
+rows inline — one walk per added batch at ``AddCEF + 1`` with
+``MaxCheckForRefineGraph``, ``rng_select`` for the new rows, one batched
+RNG re-prune of every row that gains a reverse edge — or, with
+``DeltaShardCapacity``, lands unlinked in the delta shard, which a single
+background worker links into a copy of the graph off the lock once
+``AutoRefineThreshold`` rows wait, then swaps a new engine in under the
+lock.  ``AddCountForRebuild`` linked adds queue a background tree rebuild
+on the same worker.  Deletes swap the snapshots' tombstone masks;
+``refine_index`` compacts (id remap, new forest, one refine pass, orphan
+repair).  Readers pin the engine and the dense searcher by one local
+reference; every publish happens under the lock.  ``ContinuousBatching=1``
+(the slot scheduler) and build checkpoints are later slices of the port.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import threading
 import time
 from typing import Optional, Tuple
 
@@ -26,7 +40,8 @@ import torch
 
 from sptag_tpu_torch.algo.dense import DenseTreeSearcher, partition_from_tree
 from sptag_tpu_torch.algo.engine import SCHEDULER_ITEM, GraphSearchEngine
-from sptag_tpu_torch.core.index import (VectorIndex, not_ported, pad_results,
+from sptag_tpu_torch.core.index import (MAX_DIST, VectorIndex, grow_rows,
+                                        not_ported, pad_results,
                                         register_algo)
 from sptag_tpu_torch.core.params import BKTParams
 from sptag_tpu_torch.core.types import (DistCalcMethod, IndexAlgoType,
@@ -34,9 +49,13 @@ from sptag_tpu_torch.core.types import (DistCalcMethod, IndexAlgoType,
 from sptag_tpu_torch.graph.rng import RelativeNeighborhoodGraph
 from sptag_tpu_torch.io import atomic
 from sptag_tpu_torch.io import format as fmt
+from sptag_tpu_torch.ops import graph as graph_ops
 from sptag_tpu_torch.trees.bktree import BKTree
 
 log = logging.getLogger(__name__)
+
+# touched rows per chunk of an add's reverse-edge re-prune
+_LINK_CHUNK = 4096
 
 # knobs baked into the dense snapshot: a change rebuilds it
 _DENSE_PARAMS = frozenset({"densereplicas", "denseclustersize",
@@ -67,11 +86,28 @@ class BKTIndex(VectorIndex):
         self._host: Optional[np.ndarray] = None
         self._n = 0
         self._deleted = np.zeros(0, bool)
+        self._num_deleted = 0
         self._tree: Optional[BKTree] = None
         self._graph: Optional[np.ndarray] = None
         self._dense: Optional[DenseTreeSearcher] = None
         self._engine: Optional[GraphSearchEngine] = None
+        # the snapshots are stale (rows or structure changed) / only their
+        # tombstone masks are
+        self._dirty = True
+        self._tombstones_dirty = False
         self._refine_dense = None     # the dense searcher of a graph build
+        self._adds_since_rebuild = 0
+        # the one background worker (tree rebuild, delta refine), lazy
+        self._rebuild_pool = None
+        self._rebuild_done = threading.Event()
+        self._rebuild_done.set()      # no rebuild in flight
+        self._rebuild_pending = False
+        # bumped when row ids are remapped (build, load, compaction): an
+        # in-flight background job detects that its snapshot went stale
+        self._structure_gen = 0
+        # bumped when an engine-baked parameter changes: a background
+        # refine built under the old values must not publish
+        self._engine_param_gen = 0
         #: wall seconds of each stage of the last build (tree, then the
         #: graph's stages)
         self.build_stages = {}
@@ -87,7 +123,7 @@ class BKTIndex(VectorIndex):
 
     @property
     def num_deleted(self) -> int:
-        return int(self._deleted[:self._n].sum())
+        return self._num_deleted
 
     @property
     def feature_dim(self) -> int:
@@ -95,6 +131,13 @@ class BKTIndex(VectorIndex):
 
     def contains_sample(self, vid: int) -> bool:
         return 0 <= vid < self._n and not self._deleted[vid]
+
+    def get_sample(self, vid: int) -> np.ndarray:
+        return self._host[vid]
+
+    def _reserve(self, extra: int) -> None:
+        self._host, self._deleted = grow_rows(self._host, self._deleted,
+                                              self._n, extra)
 
     def set_parameter(self, name: str, value: str) -> bool:
         ok = super().set_parameter(name, value)
@@ -105,6 +148,7 @@ class BKTIndex(VectorIndex):
                     self._dense = None
                 if low in _ENGINE_PARAMS:
                     self._engine = None
+                    self._engine_param_gen += 1
         return ok
 
     def _new_tree(self) -> BKTree:
@@ -126,10 +170,19 @@ class BKTIndex(VectorIndex):
             refine_accuracy_floor=float(p.refine_accuracy_floor),
             device=self.device)
 
-    def _pivot_ids(self) -> np.ndarray:
-        """Seed-pivot ids: the forest's centers breadth-first, at most
-        `pivot_budget` of them."""
-        rows = self._n
+    def _load_tree(self, path: str):
+        p = self.params
+        return BKTree.load(
+            path, kmeans_k=p.kmeans_k, leaf_size=p.leaf_size,
+            samples=p.samples, metric=int(self.dist_calc_method),
+            base=self.base, device=self.device)
+
+    def _pivot_ids(self, rows: Optional[int] = None) -> np.ndarray:
+        """Seed-pivot ids for an engine over `rows` corpus rows (default:
+        the main tier): the forest's centers breadth-first, at most
+        `pivot_budget` of them.  A tree newer than a delta absorb may name
+        ids past a smaller engine's corpus; those are dropped."""
+        rows = self._main_rows() if rows is None else rows
         max_pivots = min(rows, pivot_budget(self.params, rows))
         pivots = self._tree.collect_pivots(max_pivots)
         return pivots[pivots < rows]
@@ -140,8 +193,10 @@ class BKTIndex(VectorIndex):
         self._host = np.ascontiguousarray(data)
         self._n = data.shape[0]
         self._deleted = np.zeros(self._n, bool)
-        self._dense = None
-        self._engine = None
+        self._num_deleted = 0
+        self._adds_since_rebuild = 0
+        self._structure_gen += 1
+        self._dirty = True
         t0 = time.perf_counter()
         self._tree = self._new_tree()
         self._tree.build(self._host)
@@ -224,12 +279,12 @@ class BKTIndex(VectorIndex):
     # ---- dense snapshot ---------------------------------------------------
 
     def _dense_clusters(self):
-        """Tree partition, plus nearest-center assignment of any row the
-        tree does not cover."""
-        n = self._n
+        """Tree partition of the main rows, plus nearest-center assignment
+        of any row the tree does not cover (rows added since the last
+        tree rebuild)."""
+        n = self._main_rows()
         data = self._host[:n]
-        centers, clusters = partition_from_tree(
-            self._tree, n, self.params.dense_cluster_size)
+        centers, clusters = self._partition_tree(n)
         covered = np.zeros(n, bool)
         for c in clusters:
             covered[c] = True
@@ -248,6 +303,13 @@ class BKTIndex(VectorIndex):
                     clusters[ci] = np.concatenate([clusters[ci], extra])
         return centers, clusters
 
+    def _partition_tree(self, rows: Optional[int] = None):
+        """Cut the tree into the dense layout's partition of `rows` rows
+        (KDT cuts kd cells)."""
+        return partition_from_tree(
+            self._tree, self._main_rows() if rows is None else rows,
+            self.params.dense_cluster_size)
+
     def _build_dense_searcher(self, replicas: Optional[int] = None,
                               cascade_ok: bool = True) -> DenseTreeSearcher:
         """Cluster-contiguous device snapshot from the current tree.  The
@@ -257,14 +319,37 @@ class BKTIndex(VectorIndex):
             raise not_ported("CascadeSearch=1", "cascade")
         if replicas is None:
             replicas = getattr(self.params, "dense_replicas", 1)
+        n = self._main_rows()
         _, clusters = self._dense_clusters()
         return DenseTreeSearcher(
-            self._host[:self._n], clusters, self._deleted[:self._n],
+            self._host[:n], clusters, self._deleted[:n],
             self.dist_calc_method, self.base, replicas=replicas,
             device=self.device)
 
     def _get_dense(self) -> DenseTreeSearcher:
-        """The dense snapshot, built at first use."""
+        """The dense snapshot, built at first use after a change and
+        pinned by local reference like the engine."""
+        if not getattr(self.params, "build_graph", 1):
+            # dense-only: refresh without materializing the walk's engine
+            # (a second device copy of data and graph no search reads).
+            # Every add dirties the snapshot, so the next search rebuilds
+            # the whole layout, as in the JAX package
+            with self._lock:
+                if self._dirty:
+                    self._engine = None
+                    self._dense = None
+                    self._dirty = False
+                    self._tombstones_dirty = False
+                    self._snapshot_epoch += 1
+                elif self._tombstones_dirty:
+                    if self._dense is not None:
+                        self._dense.set_deleted(
+                            self._deleted[:self._main_rows()])
+                    self._tombstones_dirty = False
+                if self._dense is None:
+                    self._dense = self._build_dense_searcher()
+                return self._dense
+        self._get_engine()          # refresh the dirty state under one lock
         dense = self._dense
         if dense is not None:
             return dense
@@ -275,11 +360,14 @@ class BKTIndex(VectorIndex):
 
     # ---- walk snapshot ----------------------------------------------------
 
-    def _make_engine(self, graph: np.ndarray) -> GraphSearchEngine:
+    def _make_engine(self, graph: np.ndarray,
+                     rows: Optional[int] = None) -> GraphSearchEngine:
+        """An engine snapshot over `rows` corpus rows (default: the main
+        tier; delta rows are served by the delta scan)."""
         p = self.params
-        n = self._n
+        n = self._main_rows() if rows is None else rows
         return GraphSearchEngine(
-            self._host[:n], graph[:n], self._pivot_ids(), self._deleted[:n],
+            self._host[:n], graph[:n], self._pivot_ids(n), self._deleted[:n],
             self.dist_calc_method, self.base,
             score_dtype=str(getattr(p, "beam_score_dtype", "auto")),
             packed_neighbors=bool(int(getattr(p, "beam_packed_neighbors",
@@ -290,13 +378,27 @@ class BKTIndex(VectorIndex):
             device=self.device)
 
     def _get_engine(self) -> GraphSearchEngine:
-        """The walk's snapshot, built at first use."""
+        """Pin the current engine snapshot: readers take one unlocked
+        reference of an immutable snapshot and keep it even if a writer
+        publishes a newer one mid-search; every publish happens under the
+        lock with an epoch bump."""
         eng = self._engine
-        if eng is not None:
+        if eng is not None and not self._dirty \
+                and not self._tombstones_dirty:
             return eng
         with self._lock:
-            if self._engine is None:
+            if self._dirty or self._engine is None:
                 self._engine = self._make_engine(self._graph)
+                self._dense = None
+                self._dirty = False
+                self._tombstones_dirty = False
+                self._snapshot_epoch += 1
+            elif self._tombstones_dirty:
+                # delete-only change: swap the masks, keep the snapshots
+                self._engine.set_deleted(self._deleted)
+                if self._dense is not None:
+                    self._dense.set_deleted(self._deleted)
+                self._tombstones_dirty = False
             return self._engine
 
     # ---- search -----------------------------------------------------------
@@ -364,6 +466,369 @@ class BKTIndex(VectorIndex):
         """Query-group size the last dense search actually ran with."""
         return 0 if self._dense is None else self._dense.last_effective_group
 
+    # ---- mutation ---------------------------------------------------------
+
+    def _add(self, data: np.ndarray) -> int:
+        begin = self._n
+        count = data.shape[0]
+        link = bool(getattr(self.params, "build_graph", 1))
+        # the snapshot before the rows land; a dense-only index has no
+        # graph to link into (new rows join their nearest cluster at the
+        # next snapshot until the tree is rebuilt)
+        engine = self._get_engine() if link else None
+        self._reserve(count)
+        self._host[begin:begin + count] = data
+        self._n += count
+        if link:
+            self._graph = self._linked_graph(engine, self._graph[:begin],
+                                             begin, count, self._host)
+        else:
+            self._graph = np.concatenate(
+                [self._graph, np.full((count, self._graph.shape[1]), -1,
+                                      np.int32)], axis=0)
+        self._adds_since_rebuild += count
+        if self._adds_since_rebuild >= self.params.add_count_for_rebuild:
+            self._adds_since_rebuild = 0
+            self._schedule_rebuild()
+        self._dirty = True
+        return begin
+
+    def _linked_graph(self, engine: GraphSearchEngine,
+                      graph_base: np.ndarray, begin: int, count: int,
+                      host: np.ndarray) -> np.ndarray:
+        """The linking pass, pure: a (begin + count, m') graph whose first
+        `begin` rows extend `graph_base` with reverse edges and whose tail
+        rows are freshly RNG-pruned.  Shared by the inline add and the
+        background delta absorb, which runs it off the lock (rows
+        [0, begin + count) of `host` are append-only stable).
+
+        SPTAG's AddIndex searches each new node at AddCEF, RebuildNeighbors
+        its row and InsertNeighbors the reverse edges one pair at a time;
+        here the searches of a batch are one walk, and the reverse edges
+        one batched RNG re-prune of every touched row: its old neighbours
+        plus all its inserts, sorted by distance (stable), pruned by the
+        same rule."""
+        p = self.params
+        m = p.neighborhood_size
+        dev = self.device
+        metric = int(self.dist_calc_method)
+        new_rows = np.full((count, graph_base.shape[1]), -1, np.int32)
+        grown = np.concatenate([graph_base, new_rows], axis=0)
+
+        add_k = min(p.add_cef + 1, max(begin, 1))
+        queries = host[begin:begin + count]
+        d, ids = engine.search(
+            queries, add_k, max_check=p.max_check_for_refine_graph,
+            nbp_limit=p.no_better_propagation_limit)
+        vecs = host[np.maximum(ids, 0)].astype(np.float32)
+        keep = graph_ops.rng_select(
+            torch.from_numpy(vecs).to(dev), torch.from_numpy(d).to(dev),
+            torch.from_numpy(ids >= 0).to(dev), m, metric,
+            self.base).cpu().numpy()
+        sel = np.where(keep >= 0,
+                       np.take_along_axis(ids, np.maximum(keep, 0), axis=1),
+                       -1)
+        grown[begin:begin + count, :m] = sel
+
+        pairs = sel >= 0                                    # (count, m)
+        if not pairs.any():
+            return grown
+        tgt = sel[pairs].astype(np.int64)                   # (P,) old nodes
+        vid = np.broadcast_to(
+            np.arange(begin, begin + count)[:, None], sel.shape)[pairs]
+        uniq, inv = np.unique(tgt, return_inverse=True)
+        U = len(uniq)
+        # each target's inserted ids in a (U, max_ins) pad table
+        order = np.argsort(inv, kind="stable")
+        sorted_inv = inv[order]
+        group_start = np.searchsorted(sorted_inv, np.arange(U))
+        pos = np.arange(len(tgt)) - group_start[sorted_inv]
+        max_ins = int(pos.max()) + 1
+        ins = np.full((U, max_ins), -1, np.int64)
+        ins[sorted_inv, pos] = vid[order]
+        cand = np.concatenate([grown[uniq].astype(np.int64), ins], axis=1)
+        width = grown.shape[1]
+        # rows are independent: chunk them to bound the gathered vectors
+        for lo in range(0, U, _LINK_CHUNK):
+            c = cand[lo:lo + _LINK_CHUNK]
+            valid = c >= 0
+            cvecs = torch.from_numpy(
+                host[np.maximum(c, 0)].astype(np.float32)).to(dev)
+            tvecs = torch.from_numpy(
+                host[uniq[lo:lo + _LINK_CHUNK]].astype(np.float32)).to(dev)
+            cd = graph_ops.node_candidate_dists(tvecs, cvecs, metric,
+                                                self.base).cpu().numpy()
+            cd = np.where(valid, cd, MAX_DIST).astype(np.float32)
+            ordc = np.argsort(cd, axis=1, kind="stable")
+            cand_s = np.take_along_axis(c, ordc, axis=1)
+            cd_s = np.take_along_axis(cd, ordc, axis=1)
+            valid_s = np.take_along_axis(valid, ordc, axis=1)
+            ordc_t = torch.from_numpy(ordc).to(dev)
+            keep_r = graph_ops.rng_select(
+                torch.gather(cvecs, 1, ordc_t[..., None].expand_as(cvecs)),
+                torch.from_numpy(cd_s).to(dev),
+                torch.from_numpy(valid_s).to(dev), width, metric,
+                self.base).cpu().numpy()
+            grown[uniq[lo:lo + _LINK_CHUNK]] = np.where(
+                keep_r >= 0,
+                np.take_along_axis(cand_s, np.maximum(keep_r, 0), axis=1),
+                -1).astype(np.int32)
+        return grown
+
+    def _delete_id(self, vid: int) -> bool:
+        if self._deleted[vid]:
+            return False
+        self._deleted[vid] = True
+        self._num_deleted += 1
+        # tombstones ride a mask swap, not a snapshot rebuild
+        self._tombstones_dirty = True
+        return True
+
+    # ---- background tree rebuild ------------------------------------------
+
+    def _pool(self):
+        """The index's one background worker (lock held)."""
+        if self._rebuild_pool is None:
+            from sptag_tpu_torch.utils.threadpool import ThreadPool
+
+            self._rebuild_pool = ThreadPool(name="bkt-rebuild")
+            self._rebuild_pool.init(1)
+        return self._rebuild_pool
+
+    def _schedule_rebuild(self) -> None:
+        """Queue a forest rebuild on the background worker (SPTAG's
+        RebuildJob); searches keep serving the current snapshot.  At most
+        one runs; a request arriving meanwhile coalesces into one more
+        pass."""
+        with self._lock:
+            if not self._rebuild_done.is_set():
+                self._rebuild_pending = True
+                return
+            pool = self._pool()
+            self._rebuild_pending = False
+            # enqueue before clearing: if add() raises (a concurrent
+            # close()), _rebuild_done must stay set
+            pool.add(self._rebuild_job)
+            self._rebuild_done.clear()
+
+    def _rebuild_job(self) -> None:
+        try:
+            while True:
+                with self._lock:
+                    gen = self._structure_gen
+                    # main rows only: delta rows would put out-of-engine
+                    # ids into the pivot set
+                    snapshot = self._host[:self._main_rows()].copy()
+                tree = self._new_tree()
+                tree.build(snapshot)      # the long pass, no lock held
+                with self._lock:
+                    # a compaction or a rebuild remapped ids: drop it
+                    if self._structure_gen == gen:
+                        self._tree = tree
+                        self._dirty = True    # the pivot set changed
+                    if not self._rebuild_pending:
+                        self._rebuild_done.set()
+                        return
+                    self._rebuild_pending = False
+        except BaseException:
+            # leave the old tree serving and unblock the waiters; the next
+            # add schedules a fresh attempt
+            with self._lock:
+                self._rebuild_pending = False
+                self._rebuild_done.set()
+            raise
+
+    def wait_for_rebuild(self, timeout: Optional[float] = None) -> None:
+        """Block until an in-flight background rebuild has finished."""
+        self._rebuild_done.wait(timeout)
+
+    def close(self) -> None:
+        """Stop the background worker (idempotent); the pool swap happens
+        under the lock, the join outside it (a running job needs the lock
+        to finish)."""
+        with self._lock:
+            pool, self._rebuild_pool = self._rebuild_pool, None
+        if pool is not None:
+            pool.stop()
+
+    def __del__(self):                    # pragma: no cover - GC timing
+        try:
+            self.close()
+        except Exception:                              # noqa: BLE001
+            pass
+
+    # ---- delta shard and the background swap -------------------------------
+
+    def _append_rows_unlinked(self, data: np.ndarray) -> Optional[int]:
+        """Rows land in host storage, unlinked, and the snapshots stay:
+        the delta scan serves them until a refine absorbs the tail.  The
+        graph keeps exactly `_main_rows()` rows meanwhile."""
+        begin = self._n
+        count = data.shape[0]
+        self._reserve(count)
+        self._host[begin:begin + count] = data
+        self._n += count
+        return begin
+
+    def _tombstone_mask(self) -> Optional[np.ndarray]:
+        return self._deleted[:self._n]
+
+    def _absorb_delta_impl(self, begin: int, count: int) -> None:
+        """The synchronous absorb (lock held; overflow, save, refine):
+        link the tail against an engine over [0, begin), then let the
+        next snapshot cover everything."""
+        if getattr(self.params, "build_graph", 1):
+            engine = self._engine
+            if engine is None or engine.n != begin or self._dirty:
+                engine = self._make_engine(self._graph, rows=begin)
+            self._graph = self._linked_graph(
+                engine, self._graph[:begin], begin, count, self._host)
+            self._adds_since_rebuild += count
+            if self._adds_since_rebuild >= \
+                    self.params.add_count_for_rebuild:
+                self._adds_since_rebuild = 0
+                self._schedule_rebuild()
+        else:
+            self._graph = np.concatenate(
+                [self._graph[:begin],
+                 np.full((count, self._graph.shape[1]), -1, np.int32)])
+        self._dirty = True
+
+    def _schedule_auto_refine(self) -> None:
+        """Queue the background absorb + swap; at most one in flight (the
+        job re-checks the threshold when it ends)."""
+        with self._lock:
+            if self._refine_in_flight:
+                return
+            d = self._delta
+            if d is None or not d.count:
+                return
+            if not getattr(self.params, "build_graph", 1):
+                # dense-only: absorbing is a partition reassignment at the
+                # next snapshot, cheap enough inline
+                self._absorb_delta_locked()
+                return
+            pool = self._pool()
+            self._refine_in_flight = True
+            try:
+                pool.add(self._auto_refine_job)
+            except BaseException:
+                self._refine_in_flight = False
+                raise
+
+    def _auto_refine_job(self) -> None:
+        """The background refine and snapshot swap, without drain: link
+        the delta tail into a copy of the graph and build the new engine
+        off the lock (searches and acks go on), then publish under the
+        lock.  A compaction, a synchronous absorb or an engine-baked
+        set_parameter that raced the build wins: the result is dropped.
+        Staleness is bounded by this job's wall time."""
+        t0 = time.monotonic()
+        try:
+            with self._lock:
+                d = self._delta
+                if d is None or not d.count:
+                    return
+                gen = self._structure_gen
+                pgen = self._engine_param_gen
+                b0 = d.base_id
+                n0 = b0 + d.count
+                host = self._host          # pinned; rows [0, n0) stable
+                graph_base = self._graph[:b0].copy()
+                engine = self._engine
+                if engine is None or engine.n != b0 or self._dirty:
+                    engine = None
+            if engine is None:
+                engine = self._make_engine(graph_base, rows=b0)
+            new_graph = self._linked_graph(engine, graph_base, b0,
+                                           n0 - b0, host)
+            new_engine = self._make_engine(new_graph, rows=n0)
+            if new_engine.device.type == "cuda":
+                # the snapshot is complete on the card before any reader
+                # can pin it
+                torch.cuda.synchronize(new_engine.device)
+            with self._lock:
+                d = self._delta
+                if self._structure_gen != gen or d is None \
+                        or d.base_id != b0 \
+                        or self._engine_param_gen != pgen:
+                    return
+                # the whole linked graph: its prefix rows carry the
+                # reverse edges into the absorbed tail
+                self._graph = new_graph
+                # tombstones that landed during the build, then publish
+                new_engine.set_deleted(self._deleted[:n0])
+                self._engine = new_engine
+                self._dense = None
+                self._dirty = False
+                self._tombstones_dirty = False
+                self._snapshot_epoch += 1
+                self._swap_count += 1
+                tail = (self._host[n0:self._n].copy()
+                        if self._n > n0 else None)
+                self._delta = d.rebased(n0, tail)
+                self._adds_since_rebuild += n0 - b0
+                if self._adds_since_rebuild >= \
+                        self.params.add_count_for_rebuild:
+                    self._adds_since_rebuild = 0
+                    self._schedule_rebuild()
+            t1 = time.monotonic()
+            with self._lock:
+                self._swap_windows = tuple(self._swap_windows[-15:]) + (
+                    (t0 * 1000.0, t1 * 1000.0),)
+        except BaseException:
+            # the delta keeps serving; the next trigger retries
+            log.exception("background delta refine failed")
+        finally:
+            with self._lock:
+                self._refine_in_flight = False
+            self._maybe_auto_refine()
+
+    # ---- refine (compaction) ----------------------------------------------
+
+    def _refine_impl(self) -> None:
+        """SPTAG BKT::RefineIndex: drop the tombstoned rows, remap ids,
+        rebuild the forest, run one refine pass (the final pass of the
+        rebuild: FinalRefineSearchMode applies) and repair orphans."""
+        self._structure_gen += 1     # stale for an in-flight rebuild
+        keep = np.flatnonzero(~self._deleted[:self._n])
+        remap = np.full(self._n, -1, np.int64)
+        remap[keep] = np.arange(len(keep))
+        self._host = np.ascontiguousarray(self._host[keep])
+        g = self._graph[keep]
+        g = np.where(g >= 0, remap[np.maximum(g, 0)], -1).astype(np.int32)
+        # each row's surviving neighbours to the front
+        order = np.argsort(g < 0, axis=1, kind="stable")
+        g = np.take_along_axis(g, order, axis=1)
+        self._graph = g
+        self._n = len(keep)
+        self._deleted = np.zeros(self._n, bool)
+        self._num_deleted = 0
+        if self.metadata is not None:
+            self.metadata = self.metadata.refine(keep.tolist())
+        if self._meta_to_vec is not None:
+            self.build_meta_mapping()
+        t0 = time.perf_counter()
+        self._tree = self._new_tree()
+        self._tree.build(self._host[:self._n])
+        self.build_stages = {"tree": time.perf_counter() - t0}
+        if getattr(self.params, "build_graph", 1):
+            rng = self._new_graph()
+            rng.graph = g
+            t0 = time.perf_counter()
+            try:
+                rng.refine_once(
+                    self._host[:self._n],
+                    self._refine_search_factory(g, final=True), g.shape[1],
+                    int(self.dist_calc_method), self.base)
+            finally:
+                self._refine_dense = None   # free the refine snapshot
+            rng.repair_connectivity()
+            self._graph = rng.graph
+            self.build_stages["refine_pass"] = time.perf_counter() - t0
+        self._adds_since_rebuild = 0
+        self._dirty = True
+
     # ---- persistence ------------------------------------------------------
 
     def _save_index_data(self, folder: str) -> None:
@@ -393,15 +858,16 @@ class BKTIndex(VectorIndex):
         data = fmt.read_matrix(path(p.vector_file), dtype_of(self.value_type))
         self._host = np.ascontiguousarray(data)
         self._n = data.shape[0]
-        self._tree = BKTree.load(
-            path(p.tree_file), kmeans_k=p.kmeans_k, leaf_size=p.leaf_size,
-            samples=p.samples, metric=int(self.dist_calc_method),
-            base=self.base, device=self.device)
+        self._tree = self._load_tree(path(p.tree_file))
         self._graph = fmt.read_graph(path(p.graph_file))
         self._deleted = np.zeros(self._n, bool)
         dpath = os.path.join(folder, p.delete_file)
         if os.path.exists(dpath):
             mask = fmt.read_deletes(dpath)
             self._deleted[:len(mask)] = mask[:self._n]
+        self._num_deleted = int(self._deleted.sum())
+        self._adds_since_rebuild = 0
+        self._structure_gen += 1
         self._dense = None
         self._engine = None
+        self._dirty = True

@@ -1,12 +1,13 @@
 """Dense tree-partition search (port of ``sptag_tpu/algo/dense.py``).
 
-The BKT forest's first tree is cut into subtrees of about
-``DenseClusterSize`` samples; the corpus is re-laid out cluster-contiguously
-as one (C, P, D) block tensor on the device (P = padded cluster size,
-padding rows carry id -1 and squared norm 0).  A query batch scores every
-block mean with one (Q, C) matrix product, takes its ``nprobe =
-ceil(MaxCheck / P)`` nearest blocks, scores every row of them with the
-hand-written block-dot kernels (ops/block_dots.py) and keeps a masked top-k.
+The first tree of the BKT forest (or of the KDT forest: kd cells) is cut
+into subtrees of about ``DenseClusterSize`` samples; the corpus is re-laid
+out cluster-contiguously as one (C, P, D) block tensor on the device (P =
+padded cluster size, padding rows carry id -1 and squared norm 0).  A query
+batch scores every block mean with one (Q, C) matrix product, takes its
+``nprobe = ceil(MaxCheck / P)`` nearest blocks, scores every row of them
+with the hand-written block-dot kernels (ops/block_dots.py) and keeps a
+masked top-k.
 With ``DenseQueryGroup`` the batch is sorted by nearest block, split into
 groups, and each group scores the union of its members' probes.
 
@@ -115,6 +116,84 @@ def partition_from_tree(tree, n: int, target_size: int
         smallest = min(range(len(clusters)), key=lambda i: len(clusters[i]))
         clusters[smallest] = np.append(clusters[smallest], s)
 
+    return _pack_clusters(clusters, centers, target_size)
+
+
+def partition_from_kdtree(tree, n: int, target_size: int
+                          ) -> Tuple[np.ndarray, List[np.ndarray]]:
+    """Cut the first kd-tree into subtrees of <= target_size samples.
+
+    The kd-tree analog of `partition_from_tree` (``sptag_tpu/algo/
+    dense.py::partition_from_kdtree``): kd nodes store left/right child
+    node indices with ``-id-1`` encodings for single-sample leaves, and
+    children always follow their parent, so a reverse scan yields subtree
+    sizes and a BFS emits the cut.  A kd cell is an axis-aligned box, so
+    block means rank blocks well.  Returns (center sample ids (C,), C
+    member arrays covering [0, n) exactly once)."""
+    nodes = tree.nodes
+    left = nodes["left"].astype(np.int64)
+    right = nodes["right"].astype(np.int64)
+    start = int(tree.tree_starts[0])
+    end = int(tree.tree_starts[1]) if len(tree.tree_starts) > 1 \
+        else len(nodes)
+
+    def kids(ni: int):
+        return (int(left[ni]), int(right[ni]))
+
+    # bottom-up subtree sample counts (children appended after parents)
+    counts = np.zeros(end - start, np.int64)
+    for ni in range(end - 1, start - 1, -1):
+        c = 0
+        for ch in kids(ni):
+            c += 1 if ch < 0 else int(counts[ch - start])
+        counts[ni - start] = c
+
+    def collect(ni: int) -> List[int]:
+        out: List[int] = []
+        stack = [ni]
+        while stack:
+            cur = stack.pop()
+            for ch in kids(cur):
+                if ch < 0:
+                    sid = -ch - 1
+                    if 0 <= sid < n:
+                        out.append(sid)
+                else:
+                    stack.append(ch)
+        return out
+
+    clusters: List[np.ndarray] = []
+    centers: List[int] = []
+    loose: List[int] = []
+    frontier = [start]
+    while frontier:
+        nxt: List[int] = []
+        for ni in frontier:
+            if counts[ni - start] == 0:
+                continue
+            if counts[ni - start] <= target_size:
+                members = collect(ni)
+                if members:
+                    # degenerate duplicate leaves (one-row corpus) collapse
+                    members = sorted(set(members))
+                    clusters.append(np.asarray(members, np.int64))
+                    centers.append(members[0])
+            else:
+                for ch in kids(ni):
+                    if ch < 0:
+                        sid = -ch - 1
+                        if 0 <= sid < n:
+                            loose.append(sid)
+                    else:
+                        nxt.append(ch)
+        frontier = nxt
+    if loose and not clusters:
+        clusters.append(np.asarray(sorted(set(loose)), np.int64))
+        centers.append(clusters[0][0])
+        loose = []
+    for s in loose:
+        smallest = min(range(len(clusters)), key=lambda i: len(clusters[i]))
+        clusters[smallest] = np.append(clusters[smallest], s)
     return _pack_clusters(clusters, centers, target_size)
 
 

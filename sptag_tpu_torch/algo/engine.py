@@ -9,7 +9,10 @@ improve the top-k.  Here a query batch walks together:
 * seeding: one (Q, P) distance matrix against the pivot set collected
   from the BKT forest; the top-L pivots fill each query's beam, the rest
   form a sorted spare queue injected mid-walk when the frontier falls
-  behind it or stalls (SPTAG's SearchTrees refill);
+  behind it or stalls (SPTAG's SearchTrees refill).  KDT passes per-query
+  ``seeds`` instead (its kd-tree descent, trees/kdtree.py): they are
+  de-duplicated, marked visited and scored as one batched contraction,
+  and the walk runs without spares;
 * each iteration pops the best B unexpanded beam entries at once, gathers
   their B*m neighbours, drops those already visited, scores the rest as
   one batched contraction and merges beam + candidates into the top-L;
@@ -20,9 +23,13 @@ The JAX package's ``lax.while_loop`` is a Python loop here.  A row whose
 ``row_alive`` is false is an absorbing no-op (its pool no longer changes),
 so the loop asks the card whether any row is alive only every
 ``_ALIVE_CHECK`` iterations — the one device-to-host sync of the body —
-and the results are the same.  Rows are independent, so chunking and batch
-padding do not change them either; ``chunk_size`` keeps the JAX package's
-formula all the same.
+and the results are the same.  On the card a chunk of at most
+``_GRAPH_MAX_Q`` queries runs all T iterations with no sync inside one
+CUDA graph, captured per padded shape and plan on each snapshot when
+asked for the second time (at most ``_GRAPH_CACHE`` kept): the JAX package's one compiled program per
+search, and the same results.  Rows are independent, so chunking and
+batch padding do not change them either;
+``chunk_size`` keeps the JAX package's formula all the same.
 
 The visited set is a (Q, N + 1) bool table per chunk (column N takes the
 masked candidates) instead of the JAX package's packed bitset: PyTorch has
@@ -34,14 +41,16 @@ visited marking, exactly as the JAX package's binned body.  Every
 
 Not ported (each raises, naming its ROADMAP.md item): the bf16 shadow
 corpus (``BeamScoreDtype=bf16``), packed neighbours
-(``BeamPackedNeighbors=1``), the cascade, seeded (KDT) search and the
-segmented walk (``BeamSegmentIters``) with its slot scheduler.
+(``BeamPackedNeighbors=1``), the cascade and the segmented walk
+(``BeamSegmentIters``) with its slot scheduler.
 ``BeamScoreDtype=auto`` is float32, as the JAX package resolves it off the
 TPU.
 """
 
 from __future__ import annotations
 
+import collections
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -62,6 +71,15 @@ MAX_DIST = float(np.float32(3.4e38))
 _VISITED_BUDGET = 1 << 29
 # walk iterations between two "any row alive?" reads
 _ALIVE_CHECK = 4
+# query chunks of at most this many rows replay a CUDA graph on the card,
+# padded up to the first bucket that holds them: one plan captures at most
+# len(_GRAPH_BUCKETS) graphs.  On the H100 a replay beat the eager walk at
+# every measured size up to 256 queries, padding included (PERF.md)
+_GRAPH_BUCKETS = (4, 16, 64, 256)
+_GRAPH_MAX_Q = _GRAPH_BUCKETS[-1]
+# captured graphs kept per snapshot (each holds its own memory pool); the
+# least recently replayed goes first
+_GRAPH_CACHE = 8
 
 #: ROADMAP.md item of what the walk leaves out
 SCHEDULER_ITEM = ("RNG graph build, beam walk and scheduler "
@@ -103,9 +121,37 @@ def _seed_from_pivots(pivot_ids, pivot_vecs, queries, L: int, metric: int,
         sorted_d, cols = dist_ops.smallest_k(d0, d0.shape[1])
     sorted_ids = torch.where(sorted_d < MAX_DIST, seed_ids[cols], -1)
     visited = torch.zeros((Q, n + 1), dtype=torch.bool, device=dev)
-    visited[:, pivot_ids] = True
+    visited.index_fill_(1, pivot_ids, True)
     return (sorted_ids[:, :L], sorted_d[:, :L], visited,
             sorted_ids[:, L:], sorted_d[:, L:])
+
+
+def _seed_from_seeds(data, sqnorm, seed_ids, queries, L: int, metric: int,
+                     base: int):
+    """Per-query seeding (KDT): the (Q, S) seed ids (-1 padded) are
+    gathered and scored in one batched contraction; a seed reached twice
+    keeps its first occurrence only, and every seed is marked visited.
+    Returns (cand_ids, cand_d, visited (Q, N + 1) bool)."""
+    Q, S = seed_ids.shape
+    N = data.shape[0]
+    seed_ids = torch.where(seed_ids < N, seed_ids, -1)
+    safe = seed_ids.clamp_min(0)
+    d0 = dist_ops.batched_gathered_distance(
+        queries, data[safe], DistCalcMethod(metric), base, sqnorm[safe])
+    seeds_safe = torch.where(seed_ids >= 0, seed_ids, N)
+    d0 = torch.where((seed_ids < 0) | _sorted_dup_mask(seeds_safe),
+                     MAX_DIST, d0)
+    visited = torch.zeros((Q, N + 1), dtype=torch.bool,
+                          device=queries.device)
+    visited.scatter_(1, seeds_safe, True)
+    if S < L:
+        d0 = torch.cat([d0, d0.new_full((Q, L - S), MAX_DIST)], dim=1)
+        seed_ids = torch.cat([seed_ids, seed_ids.new_full((Q, L - S), -1)],
+                             dim=1)
+    cand_d, pos = dist_ops.smallest_k(d0, L)
+    cand_ids = torch.where(cand_d < MAX_DIST, torch.gather(seed_ids, 1, pos),
+                           -1)
+    return cand_ids, cand_d, visited
 
 
 class _Walk:
@@ -292,6 +338,13 @@ class _Walk:
             self.body()
         return self.t_limit
 
+    def run_all(self) -> int:
+        """All `t_limit` iterations with no host sync: the same result as
+        `run` (a dead row is an absorbing no-op), capturable in a graph."""
+        for _ in range(self.t_limit):
+            self.body()
+        return self.t_limit
+
 
 def _finalize(eng: "GraphSearchEngine", cand_ids, cand_d, k_eff: int,
               binned_bins: int = 0):
@@ -351,8 +404,22 @@ class GraphSearchEngine:
             pivot_ids = np.zeros(1, np.int64)
         self.pivot_ids = put(pivot_ids)
         self.pivot_vecs = self.data[self.pivot_ids]
-        #: walk iterations of the last search, summed over its chunks
+        #: walk iterations the last search ran, summed over its chunks (a
+        #: replayed graph runs all T: a finished row is a no-op there)
         self.last_iterations = 0
+        # CUDA graphs of small-chunk walks, by (shapes, plan), oldest first
+        self._graphs = collections.OrderedDict()
+        self._graph_lock = threading.Lock()
+        self._graph_seen = set()        # keys asked for once
+
+    def set_deleted(self, deleted: np.ndarray) -> None:
+        """Swap only the tombstone mask (a delete-only change).  On the
+        card the mask is copied in place: captured graphs read it there."""
+        mask = torch.from_numpy(np.ascontiguousarray(deleted[:self.n], bool))
+        if self.device.type == "cuda":
+            self.deleted.copy_(mask)
+        else:
+            self.deleted = mask
 
     def exact_scan(self, queries: np.ndarray, k: int
                    ) -> Tuple[np.ndarray, np.ndarray]:
@@ -402,19 +469,103 @@ class GraphSearchEngine:
 
     # ---- search -------------------------------------------------------------
 
-    def _search_chunk(self, q: np.ndarray, k_eff: int, L: int, B: int,
-                      T: int, limit: int, inject: int, mb: int, fb: int,
-                      sk: int) -> Tuple[np.ndarray, np.ndarray]:
-        queries = torch.from_numpy(np.ascontiguousarray(q)).to(self.device)
-        cand_ids, cand_d, visited, spare_ids, spare_d = _seed_from_pivots(
-            self.pivot_ids, self.pivot_vecs, queries, L, int(self.metric),
-            self.n, seed_keep=sk)
+    def _walk_chunk(self, queries, seeds, plan, check_alive: bool = True):
+        """Seed, walk and finalize one chunk on the device: ((Q, k') dists,
+        (Q, k') int32 ids, iterations run).  `seeds` is None or a (Q, S)
+        int64 tensor."""
+        k_eff, L, B, T, limit, inject, mb, fb, sk = plan
+        if seeds is None:
+            cand_ids, cand_d, visited, spare_ids, spare_d = \
+                _seed_from_pivots(self.pivot_ids, self.pivot_vecs, queries,
+                                  L, int(self.metric), self.n, seed_keep=sk)
+        else:
+            cand_ids, cand_d, visited = _seed_from_seeds(
+                self.data, self.sqnorm, seeds, queries, L, int(self.metric),
+                self.base)
+            # no spare queue: the tree descent seeded up front
+            spare_ids = cand_ids.new_full((queries.shape[0], 0), -1)
+            spare_d = cand_d.new_full((queries.shape[0], 0), MAX_DIST)
+            inject = 0
         walk = _Walk(self, queries, cand_ids, cand_d, visited, spare_ids,
                      spare_d, T, k_eff, L, B, limit, inject, mb)
-        self.last_iterations += walk.run()
+        its = walk.run() if check_alive else walk.run_all()
         d, ids = _finalize(self, walk.cand_ids, walk.cand_d, min(k_eff, L),
                            binned_bins=fb)
+        return d, ids, its
+
+    def _search_chunk(self, q: np.ndarray, seeds: Optional[np.ndarray],
+                      *plan) -> Tuple[np.ndarray, np.ndarray]:
+        queries = torch.from_numpy(np.ascontiguousarray(q)).to(self.device)
+        s = None if seeds is None else \
+            torch.from_numpy(np.asarray(seeds, np.int64)).to(self.device)
+        if self.device.type == "cuda" and q.shape[0] <= _GRAPH_MAX_Q:
+            out = self._replay_chunk(queries, s, plan)
+            if out is not None:
+                return out
+        d, ids, its = self._walk_chunk(queries, s, plan)
+        self.last_iterations += its
         return d.cpu().numpy(), ids.cpu().numpy()
+
+    def _replay_chunk(self, queries, seeds, plan
+                      ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        """A small chunk on the card replays a CUDA graph of the whole
+        walk — seeding, all T iterations, finalize — captured per (padded
+        shape, plan) on this snapshot: one launch instead of ~3,500 small
+        ones, which bound such searches (phase 9 of chip_smoke.py).  The
+        chunk is padded to its bucket with copies of its first row (rows
+        walk independently).  A key is captured the second time it is
+        asked for (None the first time: the caller walks eagerly), so a
+        snapshot searched once, as an add's linking walk is, pays no
+        capture; at most `_GRAPH_CACHE` graphs are kept.  The graph reads
+        the snapshot's tensors in place (set_deleted copies into them);
+        its inputs and outputs are static buffers, so one replay at a time
+        uses them."""
+        nq, dim = queries.shape
+        size = next(b for b in _GRAPH_BUCKETS + (nq,) if b >= nq)
+        key = ((size, dim), queries.dtype,
+               None if seeds is None else (size, seeds.shape[1]), plan)
+        with self._graph_lock:
+            entry = self._graphs.get(key)
+            if entry is None and key not in self._graph_seen:
+                if len(self._graph_seen) >= 4 * _GRAPH_CACHE:
+                    self._graph_seen.clear()
+                self._graph_seen.add(key)
+                return None
+        if size > nq:
+            queries = torch.cat([queries, queries[:1].expand(size - nq, -1)])
+            if seeds is not None:
+                seeds = torch.cat([seeds, seeds[:1].expand(size - nq, -1)])
+        with self._graph_lock:
+            entry = self._graphs.get(key)
+            if entry is None:
+                entry = self._capture(queries, seeds, plan)
+                self._graphs[key] = entry
+                while len(self._graphs) > _GRAPH_CACHE:
+                    self._graphs.popitem(last=False)
+            else:
+                self._graphs.move_to_end(key)
+        graph, q_in, s_in, d_out, i_out, lock = entry
+        with lock:
+            q_in.copy_(queries)
+            if s_in is not None:
+                s_in.copy_(seeds)
+            graph.replay()
+            self.last_iterations += plan[3]
+            return d_out[:nq].cpu().numpy(), i_out[:nq].cpu().numpy()
+
+    def _capture(self, queries, seeds, plan):
+        q_in = queries.clone()
+        s_in = None if seeds is None else seeds.clone()
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self._walk_chunk(q_in, s_in, plan, check_alive=False)  # warm-up
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            d_out, i_out, _ = self._walk_chunk(q_in, s_in, plan,
+                                               check_alive=False)
+        return graph, q_in, s_in, d_out, i_out, threading.Lock()
 
     def search(self, queries: np.ndarray, k: int, max_check: int = 2048,
                beam_width: int = 16, pool_size: Optional[int] = None,
@@ -424,9 +575,9 @@ class GraphSearchEngine:
                ) -> Tuple[np.ndarray, np.ndarray]:
         """Batched search -> ((Q, k) dists, (Q, k) int32 ids), ascending,
         -1 / MAX_DIST padded.  `dynamic_pivots` spare pivots are injected
-        per mid-walk re-seed (NumberOfOtherDynamicPivots; 0 disables)."""
-        if seeds is not None:
-            raise not_ported("seeded (KDT tree-descent) beam search", "KDT")
+        per mid-walk re-seed (NumberOfOtherDynamicPivots; 0 disables).
+        `seeds` (Q, S), -1 padded, replaces the shared pivot seeding with
+        per-query seed ids (KDT)."""
         if segment_iters:
             raise not_ported("BeamSegmentIters > 0 (the segmented walk)",
                              SCHEDULER_ITEM)
@@ -444,7 +595,8 @@ class GraphSearchEngine:
         out_d = np.full((nq, k), np.float32(MAX_DIST), np.float32)
         out_i = np.full((nq, k), -1, np.int32)
         for lo in range(0, nq, chunk):
-            d, ids = self._search_chunk(queries[lo:lo + chunk], *plan)
+            s = None if seeds is None else seeds[lo:lo + chunk]
+            d, ids = self._search_chunk(queries[lo:lo + chunk], s, *plan)
             out_d[lo:lo + chunk, :d.shape[1]] = d
             out_i[lo:lo + chunk, :ids.shape[1]] = ids
         return out_d, out_i

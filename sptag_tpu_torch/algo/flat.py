@@ -10,8 +10,11 @@ score MAX_DIST.  It is also the exact oracle of the graph indexes
 ``ApproxTopK`` computes the exact top-k: ``lax.approx_max_k`` lowers to an
 exact sort on every backend but a TPU, so that is what the JAX package
 returns here too.  ``BinnedTopK`` wins when both are set.
-``SketchPrefilter`` and ``CascadeSearch`` belong to the cascade item of
-ROADMAP.md, mutation to the mutation item; both raise.
+Adds append to the host corpus and drop the device snapshot (the next
+search re-uploads it); with ``DeltaShardCapacity`` they land in the delta
+shard instead and the snapshot keeps covering ``[0, _main_rows())``.
+Deletes tombstone; ``refine_index`` compacts.  ``SketchPrefilter`` and
+``CascadeSearch`` belong to the cascade item of ROADMAP.md and raise.
 """
 
 from __future__ import annotations
@@ -22,8 +25,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from sptag_tpu_torch.core.index import (MAX_DIST, VectorIndex, not_ported,
-                                        pad_results, register_algo)
+from sptag_tpu_torch.core.index import (MAX_DIST, VectorIndex, grow_rows,
+                                        not_ported, pad_results,
+                                        register_algo)
 from sptag_tpu_torch.core.params import FlatParams
 from sptag_tpu_torch.core.types import (DistCalcMethod, IndexAlgoType,
                                         VectorValueType, dtype_of)
@@ -115,21 +119,70 @@ class FlatIndex(VectorIndex):
     def contains_sample(self, vid: int) -> bool:
         return 0 <= vid < self._n and not self._deleted[vid]
 
+    def get_sample(self, vid: int) -> np.ndarray:
+        return self._host[vid]
+
+    def _reserve(self, extra: int) -> None:
+        self._host, self._deleted = grow_rows(self._host, self._deleted,
+                                              self._n, extra)
+
     def _build(self, data: np.ndarray) -> None:
         self._host = np.ascontiguousarray(data)
         self._n = data.shape[0]
         self._deleted = np.zeros(self._n, bool)
         self._device_snap = None
 
+    # ---- mutation ---------------------------------------------------------
+
+    def _add(self, data: np.ndarray) -> int:
+        begin = self._append_rows_unlinked(data)
+        self._device_snap = None
+        return begin
+
+    def _delete_id(self, vid: int) -> bool:
+        if self._deleted[vid]:
+            return False
+        self._deleted[vid] = True
+        self._device_snap = None
+        return True
+
+    def _append_rows_unlinked(self, data: np.ndarray) -> Optional[int]:
+        """Rows land in the host corpus without touching the device
+        snapshot, which keeps covering [0, _main_rows())."""
+        begin = self._n
+        self._reserve(data.shape[0])
+        self._host[begin:begin + data.shape[0]] = data
+        self._n += data.shape[0]
+        return begin
+
+    def _tombstone_mask(self) -> Optional[np.ndarray]:
+        return self._deleted[:self._n]
+
+    def _absorb_delta_impl(self, begin: int, count: int) -> None:
+        # the rows are resident already: the next snapshot covers them
+        self._device_snap = None
+
+    def _refine_impl(self) -> None:
+        """Compaction: drop the tombstoned rows, renumber the rest."""
+        keep = np.flatnonzero(~self._deleted[:self._n])
+        self._host = np.ascontiguousarray(self._host[keep])
+        self._n = len(keep)
+        self._deleted = np.zeros(self._n, dtype=bool)
+        if self.metadata is not None:
+            self.metadata = self.metadata.refine(keep.tolist())
+        if self._meta_to_vec is not None:
+            self.build_meta_mapping()
+        self._device_snap = None
+
     def _snapshot(self):
         """(data (Npad, D), squared norms (Npad,), invalid (Npad,)) on the
-        device, built at first use."""
+        device over the main rows, built at first use after a change."""
         snap = self._device_snap
         if snap is not None:
             return snap
         with self._lock:
             if self._device_snap is None:
-                n = self._n
+                n = self._main_rows()
                 n_pad = max(_ROW_PAD, round_up(n, _ROW_PAD))
                 data = np.zeros((n_pad, self.feature_dim),
                                 dtype_of(self.value_type))

@@ -1,17 +1,27 @@
 """VectorIndex — the public API of the port (``sptag_tpu/core/index.py``).
 
 build / search / search_batch / save_index / load_index / create_instance
-with the JAX package's semantics and folder format.  Every index lives on a
-torch device: ``None`` means the CUDA card (device.py), and the tests pass
-``device="cpu"``.  Mutation (add / delete / refine), the write-ahead log,
-the delta shard and the observability hooks belong to later slices of the
-port and raise ``NotImplementedError`` naming their ROADMAP.md item.
+and the mutation surface (add / delete / delete_by_metadata / refine_index /
+merge_index) with the JAX package's semantics and folder format.  Every
+index lives on a torch device: ``None`` means the CUDA card (device.py),
+and the tests pass ``device="cpu"``.
+
+Mutation follows the JAX package's single-writer design: writers hold the
+index lock, readers pin immutable device snapshots by one local reference.
+With ``WalEnabled=1`` every acked add/delete is logged (io/wal.py) before
+it applies, and ``load_index`` replays the log.  With
+``DeltaShardCapacity`` set, added rows land in an exactly scanned side
+index (core/delta.py) merged into every search until a refine absorbs
+them.  The observability hooks of the JAX code (metrics, the flight
+recorder, the device-memory ledger, the lock sanitizer, the quality
+monitor) belong to ROADMAP.md's observability item and are left out.
 """
 
 from __future__ import annotations
 
 import abc
 import errno
+import logging
 import os
 import shutil
 import threading
@@ -34,15 +44,21 @@ from sptag_tpu_torch.core.types import (
 )
 from sptag_tpu_torch.core.vectorset import MetadataSet, VectorSet, metas_for
 from sptag_tpu_torch.device import DeviceLike, resolve_device
-from sptag_tpu_torch.io import atomic
+from sptag_tpu_torch.io import atomic, wal
 from sptag_tpu_torch.ops import distance as dist_ops
 from sptag_tpu_torch.utils.ini import IniReader
+
+log = logging.getLogger(__name__)
 
 # float32-exact padding distance of every result
 MAX_DIST = float(np.float32(3.4e38))
 
-_WAL_NAME = "wal.bin"
-_MUTATION = "mutation, WAL and delta shard"
+# distance at or below which a searched vector counts as the same vector
+# for delete-by-content (SPTAG BKTIndex.cpp:439-453 uses 1e-6)
+DELETE_EPS = 1e-6
+# pre-filter of delete's exact recheck: wide enough to admit a true
+# duplicate's expanded-form float32 residue at realistic norms
+_NEAR_EPS = 1e-2
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -79,8 +95,6 @@ def create_instance(algo: Union[IndexAlgoType, str],
     algo = IndexAlgoType(algo)
     cls = _REGISTRY.get(algo)
     if cls is None:
-        if algo == IndexAlgoType.KDT:
-            raise not_ported(f"the {algo.name} index", algo.name)
         raise ValueError(f"no index algorithm registered for {algo}")
     return cls(value_type, resolve_device(device))
 
@@ -94,9 +108,26 @@ class VectorIndex(abc.ABC):
         self.params: ParamSet = self._make_params()
         self.metadata: Optional[MetadataSet] = None
         self._meta_to_vec: Optional[Dict[bytes, int]] = None
+        # the single-writer mutation lock
         self._lock = threading.RLock()
         self._meta_file = "metadata.bin"
         self._meta_index_file = "metadataIndex.bin"
+        # the WAL writer, armed by load_index and by a save with
+        # WalEnabled=1; _wal_replaying keeps replayed records unlogged
+        self._wal: Optional[wal.WalWriter] = None
+        self._wal_folder: Optional[str] = None
+        self._wal_replaying = False
+        self._acked_writes = 0
+        # the delta shard (core/delta.py); None until an add routes to it
+        self._delta = None
+        # snapshot handoff: readers pin a snapshot by local reference,
+        # every publish bumps the epoch
+        self._snapshot_epoch = 0
+        self._swap_count = 0
+        self._refine_in_flight = False
+        # (start_ms, end_ms) monotonic windows of recent swaps; a tuple
+        # replaced whole, never mutated, so readers iterate it unlocked
+        self._swap_windows: tuple = ()
 
     # ---- subclass surface -------------------------------------------------
 
@@ -114,6 +145,15 @@ class VectorIndex(abc.ABC):
                       ) -> Tuple[np.ndarray, np.ndarray]:
         """Prepared (Q, D) queries -> ((Q, K) dists, (Q, K) int32 ids),
         ascending, -1 / 3.4e38 padded, deleted rows excluded."""
+
+    @abc.abstractmethod
+    def _add(self, data: np.ndarray) -> int:
+        """Append prepared rows, linked into the search structures;
+        returns the first new id."""
+
+    @abc.abstractmethod
+    def _delete_id(self, vid: int) -> bool:
+        """Tombstone one id; False if it was deleted already."""
 
     @abc.abstractmethod
     def _save_index_data(self, folder: str) -> None: ...
@@ -135,6 +175,14 @@ class VectorIndex(abc.ABC):
 
     @abc.abstractmethod
     def contains_sample(self, vid: int) -> bool: ...
+
+    @abc.abstractmethod
+    def get_sample(self, vid: int) -> np.ndarray:
+        """The stored (prepared) row `vid`, on the host."""
+
+    def _refine_impl(self) -> None:
+        """Compact the deleted rows away; the families override."""
+        raise NotImplementedError
 
     # ---- parameters -------------------------------------------------------
 
@@ -182,6 +230,7 @@ class VectorIndex(abc.ABC):
             return ErrorCode.EmptyData
         with self._lock:
             self._build(data)
+            self._reset_delta()
             self.metadata = metadata
             if with_meta_index and metadata is not None:
                 self.build_meta_mapping()
@@ -215,8 +264,12 @@ class VectorIndex(abc.ABC):
         if queries.shape[1] != self.feature_dim:
             raise ValueError(
                 f"query dim {queries.shape[1]} != index dim {self.feature_dim}")
-        return self._search_batch(self._prepare_query(queries), k, max_check,
-                                  search_mode)
+        queries = self._prepare_query(queries)
+        # the main tier covers its frozen snapshot, fresh rows the delta
+        # shard: the two top-k lists merge here
+        return self._merge_delta(
+            queries, k, self._search_batch(queries, k, max_check,
+                                           search_mode))
 
     def _exact_scan(self, queries: np.ndarray, k: int
                     ) -> Tuple[np.ndarray, np.ndarray]:
@@ -239,26 +292,367 @@ class VectorIndex(abc.ABC):
             raise ValueError(
                 f"query dim {queries.shape[1]} != index dim "
                 f"{self.feature_dim}")
-        dists, ids = self._exact_scan(self._prepare_query(queries),
-                                      min(k, self.num_samples))
+        queries = self._prepare_query(queries)
+        k_eff = min(k, self.num_samples)
+        # both tiers are exact: an oracle blind to just-acked rows would
+        # score the serving path against a stale truth
+        dists, ids = self._merge_delta(queries, k_eff,
+                                       self._exact_scan(queries, k_eff))
         return pad_results(dists, ids, k)
 
-    # ---- not in this slice ------------------------------------------------
+    # ---- mutation ---------------------------------------------------------
 
-    def add(self, vectors, metadata=None, with_meta_index=False):
-        raise not_ported("add", _MUTATION)
+    def add(self, vectors, metadata: Optional[MetadataSet] = None,
+            with_meta_index: bool = False) -> ErrorCode:
+        """Append rows (SPTAG AddIndex, with BKT's dedupe by metadata).
+        With the WAL armed the record is appended, and fsync'd with
+        ``WalFsync=1``, before the rows apply; with ``DeltaShardCapacity``
+        the rows land in the delta shard, searchable at once."""
+        data = self._prepare_vectors(vectors)
+        if data.size == 0:
+            return ErrorCode.EmptyData
+        metas = ([metadata.get_metadata(i) for i in range(data.shape[0])]
+                 if metadata is not None else None)
+        with self._lock:
+            # log before apply: a failed append leaves the index as it
+            # was; an apply that raises after a durable append leaves the
+            # write's outcome to the replay (the usual WAL contract).
+            # Every add path appends, so `begin` is the tail
+            begin = self.num_samples
+            self._wal_log(wal.pack_add(begin, data, metas))
+            applied = self._apply_add(data, metas, with_meta_index)
+            assert applied == begin, (applied, begin)
+        self._maybe_auto_refine()
+        return ErrorCode.Success
 
-    def delete(self, vectors):
-        raise not_ported("delete", _MUTATION)
+    def _apply_add(self, data: np.ndarray, metas: Optional[List[bytes]],
+                   with_meta_index: bool) -> int:
+        """The add's effect, shared by the live path and the WAL replay
+        (lock held, `data` prepared); returns the first row's id."""
+        if self.num_samples == 0:
+            # the first add is a build (data already prepared)
+            self._build(data)
+            self._reset_delta()
+            self.metadata = (MetadataSet(metas) if metas is not None
+                             else None)
+            if with_meta_index and self.metadata is not None:
+                self.build_meta_mapping()
+            return 0
+        begin = self._route_add(data)
+        if metas is not None:
+            if self.metadata is None:
+                self.metadata = MetadataSet([b""] * begin)
+            for i in range(data.shape[0]):
+                meta = metas[i]
+                self.metadata.add(meta)
+                if self._meta_to_vec is not None and meta:
+                    old = self._meta_to_vec.get(meta)
+                    if old is not None:
+                        self._delete_id(old)
+                    self._meta_to_vec[meta] = begin + i
+        elif self.metadata is not None:
+            for _ in range(data.shape[0]):
+                self.metadata.add(b"")
+        if with_meta_index and self.metadata is not None \
+                and self._meta_to_vec is None:
+            self.build_meta_mapping()
+        return begin
 
-    def delete_by_metadata(self, meta: bytes):
-        raise not_ported("delete_by_metadata", _MUTATION)
+    def _route_add(self, data: np.ndarray) -> int:
+        """Where appended rows go (lock held): the delta shard when it is
+        enabled and the batch fits, the family's linked `_add` otherwise.
+        The delta is always the tail of the id space, so a fallback to
+        `_add` absorbs it first."""
+        cap = int(getattr(self.params, "delta_shard_capacity", 0) or 0)
+        if cap > 0:
+            if data.shape[0] > cap:
+                # a bulk load the shard can never hold: fold the pending
+                # delta, then take the linked path
+                self._absorb_delta_locked()
+            else:
+                if self._delta is not None and \
+                        self._delta.count + data.shape[0] > \
+                        self._delta.capacity:
+                    self._absorb_delta_locked()
+                begin = self._delta_append(data, cap)
+                if begin is not None:
+                    return begin
+        elif self._delta is not None:
+            # the knob was turned off with rows still resident
+            self._absorb_delta_locked()
+        return self._add(data)
 
-    def refine_index(self):
-        raise not_ported("refine_index", _MUTATION)
+    def _delta_append(self, data: np.ndarray, cap: int) -> Optional[int]:
+        """Append `data` to the delta shard (created at the current tail
+        when absent); None when the family has no unlinked append."""
+        from sptag_tpu_torch.core.delta import DeltaShard
 
-    def merge_index(self, other):
-        raise not_ported("merge_index", _MUTATION)
+        begin = self._append_rows_unlinked(data)
+        if begin is None:
+            return None
+        if self._delta is None:
+            self._delta = DeltaShard(begin, data.shape[1], data.dtype, cap,
+                                     int(self.dist_calc_method), self.base,
+                                     self.device)
+        self._delta.append(data, begin)
+        return begin
+
+    # ---- delta-shard hooks ------------------------------------------------
+
+    def _append_rows_unlinked(self, data: np.ndarray) -> Optional[int]:
+        """Append rows to the family's storage without linking them or
+        invalidating its snapshots (the delta shard serves them); the
+        first new id, or None when the family has no such path."""
+        return None
+
+    def _tombstone_mask(self) -> Optional[np.ndarray]:
+        """The (num_samples,) tombstone mask the delta scan reads."""
+        return None
+
+    def _absorb_delta_impl(self, begin: int, count: int) -> None:
+        """Fold rows [begin, begin + count), served by the delta shard,
+        into the main structures (lock held)."""
+        raise NotImplementedError
+
+    def _absorb_delta_locked(self) -> None:
+        """Absorb and drop the delta shard (lock held); a no-op without
+        one.  Every path that appends through `_add`, remaps ids or saves
+        calls it first."""
+        d = self._delta
+        if d is None:
+            return
+        self._delta = None
+        if d.count:
+            self._absorb_delta_impl(d.base_id, d.count)
+
+    def _reset_delta(self) -> None:
+        """Discard the delta (build or load replaced the corpus)."""
+        self._delta = None
+
+    def _main_rows(self) -> int:
+        """Rows the main search structures cover: everything below the
+        delta shard's base; snapshot builds size themselves by it."""
+        d = self._delta
+        return d.base_id if (d is not None and d.count) else \
+            self.num_samples
+
+    def _merge_delta(self, queries: np.ndarray, k: int,
+                     main: Tuple[np.ndarray, np.ndarray]
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """Union the main tier's top-k with the delta scan's (queries
+        prepared).  One local reference pins the shard: a concurrent swap
+        retires it harmlessly (merge_topk dedupes a row seen twice)."""
+        d = self._delta
+        if d is None or not d.count:
+            return main
+        from sptag_tpu_torch.core.delta import merge_topk
+
+        dd, di = d.search(queries, min(k, d.count), self._tombstone_mask())
+        return merge_topk(main[0], main[1], dd, di, k)
+
+    def _maybe_auto_refine(self) -> None:
+        """Schedule an absorb once the delta reaches AutoRefineThreshold."""
+        thr = int(getattr(self.params, "auto_refine_threshold", 0) or 0)
+        d = self._delta
+        if thr <= 0 or d is None or d.count < thr:
+            return
+        self._schedule_auto_refine()
+
+    def _schedule_auto_refine(self) -> None:
+        """The base absorbs inline; the graph indexes run it in the
+        background and swap."""
+        with self._lock:
+            self._absorb_delta_locked()
+
+    def mutation_state(self) -> Dict[str, object]:
+        """Swap and durability state: epoch, WAL, delta occupancy, swaps
+        and their recent windows."""
+        d = self._delta
+        return {
+            "epoch": self._snapshot_epoch,
+            "wal": self._wal is not None,
+            "wal_folder": self._wal_folder or "",
+            "acked_writes": self._acked_writes,
+            "delta_rows": int(d.count) if d is not None else 0,
+            "delta_capacity": int(getattr(self.params,
+                                          "delta_shard_capacity", 0) or 0),
+            "swap_count": self._swap_count,
+            "refine_in_flight": self._refine_in_flight,
+            "swap_windows_ms": [list(w) for w in self._swap_windows],
+        }
+
+    # ---- write-ahead log --------------------------------------------------
+
+    def _wal_log(self, payload: bytes) -> None:
+        """Append one record (lock held).  If this raises, the mutation
+        was not acked."""
+        if self._wal is None or self._wal_replaying:
+            return
+        self._wal.append(payload)
+        self._acked_writes += 1
+
+    def _arm_wal(self, folder: str) -> None:
+        """(Re)open the WAL writer at `folder`: after a load, and after
+        every save (the publish moved the log)."""
+        if self._wal is not None:
+            self._wal.close()
+        self._wal = wal.WalWriter(
+            os.path.join(folder, wal.WAL_NAME),
+            sync=bool(int(getattr(self.params, "wal_fsync", 1) or 0)))
+        self._wal_folder = folder
+
+    def _replay_wal(self, folder: str) -> None:
+        """Re-apply the folder's log over the loaded snapshot.  Torn tails
+        truncate; records the snapshot already holds are skipped by their
+        `begin`; deletes are idempotent; replay stops at the first record
+        that fails to apply and serves the prefix."""
+        path = os.path.join(folder, wal.WAL_NAME)
+        records, _ = wal.replay(path)
+        if not records:
+            return
+        applied = 0
+        with self._lock:
+            self._wal_replaying = True
+            try:
+                for rec in records:
+                    try:
+                        if isinstance(rec, wal.WalAdd):
+                            n = self.num_samples
+                            if rec.begin + rec.rows.shape[0] <= n:
+                                continue      # folded into the snapshot
+                            skip = max(0, n - rec.begin)
+                            rows = rec.rows[skip:]
+                            metas = (rec.metas[skip:]
+                                     if rec.metas is not None else None)
+                            self._apply_add(np.ascontiguousarray(rows),
+                                            metas, False)
+                        else:
+                            for vid in rec.vids:
+                                if 0 <= vid < self.num_samples:
+                                    self._delete_id(int(vid))
+                        applied += 1
+                    except Exception:                    # noqa: BLE001
+                        # later records may depend on the failed one:
+                        # serve the durable prefix, loudly
+                        log.exception(
+                            "WAL replay: record %d failed to apply; "
+                            "serving the snapshot + %d replayed "
+                            "record(s)", applied, applied)
+                        break
+            finally:
+                self._wal_replaying = False
+        if applied:
+            log.info("WAL replay: %d record(s) re-applied from %s",
+                     applied, path)
+
+    def delete(self, vectors) -> ErrorCode:
+        """Delete by content (SPTAG BKT::DeleteIndex): search each vector
+        at k = CEF, recheck every hit within `_NEAR_EPS` on the host in
+        float64, tombstone those within `DELETE_EPS`; log, then apply."""
+        if self.num_samples == 0:
+            return ErrorCode.VectorNotFound
+        data = self._prepare_vectors(vectors)
+        if data.shape[1] != self.feature_dim:
+            return ErrorCode.DimensionSizeMismatch
+        found_any = False
+        # data is prepared: call the family's search directly (search_batch
+        # would normalize twice); the delta merge rides along
+        k = int(getattr(self.params, "cef", 32))
+        k_eff = min(k, self.num_samples)
+        dists, ids = self._merge_delta(
+            data, k_eff, self._search_batch(data, k_eff))
+        tombstoned: List[int] = []
+        seen = set()
+        with self._lock:
+            for q, row_d, row_i in zip(data, dists, ids):
+                for d, v in zip(row_d, row_i):
+                    if v >= 0 and d <= max(DELETE_EPS, _NEAR_EPS) and \
+                            self._exact_distance(q, int(v)) <= DELETE_EPS:
+                        found_any = True
+                        if int(v) not in seen and \
+                                self.contains_sample(int(v)):
+                            seen.add(int(v))
+                            tombstoned.append(int(v))
+            if tombstoned:
+                self._wal_log(wal.pack_delete(tombstoned))
+                for v in tombstoned:
+                    self._delete_id(v)
+        return ErrorCode.Success if found_any else ErrorCode.VectorNotFound
+
+    def _exact_distance(self, q: np.ndarray, vid: int) -> float:
+        """The host float64 recheck of one candidate, by direct
+        subtraction / dot on the stored row: the expanded form
+        ||q||^2 + ||x||^2 - 2qx leaves an O(||x||^2 eps_f32) residue on
+        identical rows that would fail SPTAG's 1e-6 test."""
+        x = self.get_sample(vid).astype(np.float64)
+        qf = q.astype(np.float64)
+        if self.dist_calc_method == DistCalcMethod.L2:
+            diff = qf - x
+            return float((diff * diff).sum())
+        return float(self.base) ** 2 - float(qf @ x)
+
+    def delete_by_metadata(self, meta: bytes) -> ErrorCode:
+        """SPTAG DeleteIndex(ByteArray): needs the metadata index."""
+        if self._meta_to_vec is None:
+            return ErrorCode.VectorNotFound
+        vid = self._meta_to_vec.get(bytes(meta))
+        if vid is None:
+            return ErrorCode.VectorNotFound
+        with self._lock:
+            if self.contains_sample(vid):
+                self._wal_log(wal.pack_delete([vid]))     # log first
+                self._delete_id(vid)
+        return ErrorCode.Success
+
+    # ---- refine / merge ---------------------------------------------------
+
+    def refine_index(self) -> ErrorCode:
+        """Compact the deleted rows away (SPTAG RefineIndex)."""
+        with self._lock:
+            # compaction remaps ids: fold the delta's tail in first
+            self._absorb_delta_locked()
+            self._refine_impl()
+        return ErrorCode.Success
+
+    def merge_index(self, other: "VectorIndex") -> ErrorCode:
+        """SPTAG MergeIndex: re-add `other`'s live rows (already prepared
+        by `other`) and their metadata."""
+        if other.value_type != self.value_type:
+            return ErrorCode.Fail
+        if other.dist_calc_method != self.dist_calc_method:
+            return ErrorCode.Fail
+        if self.num_samples > 0 and other.feature_dim != self.feature_dim:
+            return ErrorCode.Fail
+        keep = [i for i in range(other.num_samples)
+                if other.contains_sample(i)]
+        if not keep:
+            return ErrorCode.Success
+        rows = np.stack([other.get_sample(i) for i in keep])
+        metas = None
+        if other.metadata is not None:
+            metas = MetadataSet(other.metadata.get_metadata(i) for i in keep)
+        with self._lock:
+            if self.num_samples == 0:
+                self._build(rows)
+                self._reset_delta()
+                self.metadata = metas
+            else:
+                self._absorb_delta_locked()   # _add appends at the tail
+                self._wal_log(wal.pack_add(
+                    self.num_samples, rows,
+                    [metas.get_metadata(i) for i in range(len(keep))]
+                    if metas is not None else None))
+                begin = self._add(rows)
+                if metas is not None:
+                    if self.metadata is None:
+                        self.metadata = MetadataSet([b""] * begin)
+                    self.metadata.add_batch(metas)
+                elif self.metadata is not None:
+                    for _ in keep:
+                        self.metadata.add(b"")
+        if self._meta_to_vec is not None:
+            self.build_meta_mapping()
+        return ErrorCode.Success
 
     # ---- persistence ------------------------------------------------------
 
@@ -291,16 +685,18 @@ class VectorIndex(abc.ABC):
         ``indexloader.ini`` completeness check with truncated data."""
         if self.num_samples - self.num_deleted == 0:
             return ErrorCode.EmptyIndex
-        if int(getattr(self.params, "wal_enabled", 0) or 0):
-            raise not_ported("WalEnabled=1", _MUTATION)
-        if self.need_refine:
-            raise not_ported("compaction of a mostly-deleted index",
-                             _MUTATION)
         with self._lock:
             existing = os.path.exists(os.path.join(folder, "indexloader.ini"))
             token = f"{os.getpid()}-{threading.get_ident()}"
             target = folder.rstrip("/\\") + f".saving-{token}"
             os.makedirs(target, exist_ok=True)
+            # a saved snapshot is fully linked: the delta tail folds in
+            # first, and a mostly-deleted index is compacted (SPTAG's
+            # SaveIndex does the same)
+            self._absorb_delta_locked()
+            if self.need_refine:
+                self._refine_impl()
+            wal_on = bool(int(getattr(self.params, "wal_enabled", 0) or 0))
             with atomic.checked_open(
                     os.path.join(target, "indexloader.ini"), "w") as f:
                 f.write(self.save_index_config())
@@ -309,8 +705,13 @@ class VectorIndex(abc.ABC):
                     os.path.join(target, self._meta_file),
                     os.path.join(target, self._meta_index_file))
             self._save_index_data(target)
+            if wal_on:
+                # the published snapshot ships an empty log: every acked
+                # record is folded into the blobs beside it, and the
+                # directory swap retires the old log with the old blobs
+                wal.create_empty(os.path.join(target, wal.WAL_NAME))
             atomic.write_manifest(target,
-                                  exclude=(_WAL_NAME, "indexloader.ini"))
+                                  exclude=(wal.WAL_NAME, "indexloader.ini"))
             if existing:
                 backup = folder.rstrip("/\\") + f".old-{token}"
                 try:
@@ -321,6 +722,8 @@ class VectorIndex(abc.ABC):
                     # a mountpoint: move files in, the old sentinel first
                     os.unlink(os.path.join(folder, "indexloader.ini"))
                     _move_files_in(target, folder)
+                    if wal_on:
+                        self._arm_wal(folder)
                     return ErrorCode.Success
                 os.rename(target, folder)
                 shutil.rmtree(backup, ignore_errors=True)
@@ -329,12 +732,16 @@ class VectorIndex(abc.ABC):
             else:
                 # a pre-created folder that may hold other files
                 _move_files_in(target, folder)
+            if wal_on:
+                # future acks append to the (empty) published log
+                self._arm_wal(folder)
         return ErrorCode.Success
 
     def load_index_data(self, folder: str, reader: IniReader) -> None:
         with self._lock:
             self.params.load_config(reader.section_items("Index"))
             self._load_index_data(folder)
+            self._reset_delta()
             if reader.does_section_exist("MetaData"):
                 self._meta_file = reader.get_parameter(
                     "MetaData", "MetaDataFilePath", self._meta_file)
@@ -346,6 +753,22 @@ class VectorIndex(abc.ABC):
                 if reader.get_parameter("MetaData", "MetaDataToVectorIndex",
                                         "") == "true":
                     self.build_meta_mapping()
+
+
+def grow_rows(host: np.ndarray, deleted: np.ndarray, n: int, extra: int
+              ) -> Tuple[np.ndarray, np.ndarray]:
+    """The host corpus and tombstones with room for `extra` rows past the
+    first `n` (capacity doubles), or the same arrays when they fit."""
+    need = n + extra
+    cap = host.shape[0]
+    if need <= cap:
+        return host, deleted
+    new_cap = max(need, cap * 2, 1024)
+    grown = np.empty((new_cap, host.shape[1]), host.dtype)
+    grown[:n] = host[:n]
+    dels = np.zeros(new_cap, bool)
+    dels[:n] = deleted[:n]
+    return grown, dels
 
 
 def pad_results(d: np.ndarray, ids: np.ndarray, k: int
@@ -392,7 +815,8 @@ def _recover_interrupted_save(folder: str) -> None:
 
 def load_index(folder: str, device: DeviceLike = None) -> VectorIndex:
     """Load a folder saved by either package (or by SPTAG) onto `device`
-    (None: the CUDA card).  The manifest, when present, is verified first."""
+    (None: the CUDA card).  The manifest, when present, is verified first;
+    a ``WalEnabled`` folder's log is replayed over the snapshot."""
     device = resolve_device(device)
     if os.path.exists(os.path.join(folder, "sharded.json")):
         raise not_ported("a sharded (mesh) index folder", "multi-GPU")
@@ -406,5 +830,7 @@ def load_index(folder: str, device: DeviceLike = None) -> VectorIndex:
     index = create_instance(algo, value_type, device)
     index.load_index_data(folder, reader)
     if int(getattr(index.params, "wal_enabled", 0) or 0):
-        raise not_ported("WalEnabled=1 (WAL replay)", _MUTATION)
+        # every acked mutation since the save, then future acks append
+        index._replay_wal(folder)
+        index._arm_wal(folder)
     return index

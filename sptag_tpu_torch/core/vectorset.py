@@ -76,6 +76,16 @@ class MetadataSet:
             return b""
         return self._metas[i]
 
+    def add(self, meta: bytes) -> None:
+        self._metas.append(bytes(meta))
+
+    def add_batch(self, other: "MetadataSet") -> None:
+        self._metas.extend(other._metas)
+
+    def refine(self, indices: Sequence[int]) -> "MetadataSet":
+        """The payloads of `indices`, in that order (compaction)."""
+        return MetadataSet(self._metas[i] for i in indices)
+
     def save(self, meta_path_or_stream, index_path_or_stream) -> None:
         blob = b"".join(self._metas)
         offsets = np.zeros(len(self._metas) + 1, dtype=np.uint64)

@@ -316,7 +316,15 @@ class RelativeNeighborhoodGraph:
         `cef` budget and RNG-prune the results; every search of the pass
         reads the pass-start graph.  The tail chunk is padded to the chunk
         size by repeating its first row, as in the JAX package: a grouped
-        search's groups depend on the whole batch."""
+        search's groups depend on the whole batch.  Outside a build (a
+        compaction's pass) the corpus is uploaded for the pass."""
+        if self._data_f is None:
+            self._upload(data)
+            try:
+                self.refine_once(data, search_fn, width, metric, base, cef)
+            finally:
+                self._data_d = self._data_f = None
+            return
         n = data.shape[0]
         cef = self.cef if cef is None else cef
         k = min(cef + 1, n)

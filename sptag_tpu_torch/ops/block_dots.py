@@ -107,6 +107,7 @@ float32 scoring: FFMA
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -117,11 +118,14 @@ from sptag_tpu_torch.ops import distance as dist_ops
 #: plain prep's default, replaced by the library's own tile when it loads
 TILE_ENTRIES = 32
 
-#: launches of each CUDA kernel (plain ints; the CPU path never counts)
+#: launches of each CUDA kernel (plain ints; the CPU path never counts).
+#: Readers, writers and the background worker of a mutating index launch
+#: from several threads: every increment holds _count_lock
 probe_f32_launches = 0
 probe_i8_launches = 0
 group_f32_launches = 0
 group_i8_launches = 0
+_count_lock = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -145,8 +149,9 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     global probe_f32_launches, probe_i8_launches
     global group_f32_launches, group_i8_launches
-    probe_f32_launches = probe_i8_launches = 0
-    group_f32_launches = group_i8_launches = 0
+    with _count_lock:
+        probe_f32_launches = probe_i8_launches = 0
+        group_f32_launches = group_i8_launches = 0
 
 
 _lib = None
@@ -355,10 +360,11 @@ def probe_block_dots(blocks: torch.Tensor, queries: torch.Tensor,
     Q, nprobe = topc.shape
     out = _block_dots(blocks, queries, topc, (Q, nprobe, blocks.shape[1]),
                       nprobe, 1, "probe_block_dots")
-    if blocks.dtype == torch.int8:
-        probe_i8_launches += 1
-    else:
-        probe_f32_launches += 1
+    with _count_lock:
+        if blocks.dtype == torch.int8:
+            probe_i8_launches += 1
+        else:
+            probe_f32_launches += 1
     return out
 
 
@@ -379,8 +385,9 @@ def group_block_dots(blocks: torch.Tensor, queries: torch.Tensor,
     G = Q // NG
     out = _block_dots(blocks, queries, union, (NG, U, G, blocks.shape[1]),
                       U, G, "group_block_dots")
-    if blocks.dtype == torch.int8:
-        group_i8_launches += 1
-    else:
-        group_f32_launches += 1
+    with _count_lock:
+        if blocks.dtype == torch.int8:
+            group_i8_launches += 1
+        else:
+            group_f32_launches += 1
     return out

@@ -43,6 +43,7 @@ def bkt_index_from_arrays(host: np.ndarray, tree_starts: np.ndarray,
     index._n = index._host.shape[0]
     index._deleted = (np.zeros(index._n, bool) if deleted is None
                       else np.asarray(deleted, bool)[:index._n].copy())
+    index._num_deleted = int(index._deleted.sum())
     index._tree = BKTree.from_arrays(
         tree_starts, tree_nodes, kmeans_k=p.kmeans_k, leaf_size=p.leaf_size,
         samples=p.samples, metric=int(index.dist_calc_method),

@@ -200,8 +200,9 @@ def test_search_contract_padding_and_modes():
 
 def test_not_ported_paths_raise_naming_the_roadmap():
     """The library defaults (BuildGraph=1, FinalRefineSearchMode=beam)
-    build and serve beam, auto and dense with BinnedTopK; what is left out
-    raises NotImplementedError naming its ROADMAP.md item."""
+    build and serve beam, auto and dense with BinnedTopK, and take adds,
+    deletes and a refine; what is left out raises NotImplementedError
+    naming its ROADMAP.md item."""
     data, _ = _corpus(200, 8, 1, seed=7)
     idx = tsp.create_instance("BKT", "Float", device="cpu")
     idx.set_parameter("DistCalcMethod", "L2")
@@ -213,11 +214,12 @@ def test_not_ported_paths_raise_naming_the_roadmap():
     assert idx.search(data[4], 3, search_mode="dense").ids[0] == 4
     assert idx.search(data[4], 3, search_mode="beam").ids[0] == 4
     idx.set_parameter("BinnedTopK", "off")
-    for call in (lambda: idx.add(data[:2]), lambda: idx.delete(data[:1]),
-                 lambda: idx.refine_index(),
-                 lambda: tsp.create_instance("KDT", "Float", device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    assert idx.add(data[:2] + 0.5) == tsp.ErrorCode.Success
+    assert idx.delete(data[:1]) == tsp.ErrorCode.Success
+    assert idx.refine_index() == tsp.ErrorCode.Success
+    assert idx.num_samples == 201
+    assert tsp.create_instance("KDT", "Float", device="cpu").algo.name \
+        == "KDT"
     for name, value in (("ContinuousBatching", "1"),
                         ("BeamSegmentIters", "2"), ("BeamScoreDtype", "bf16"),
                         ("BeamPackedNeighbors", "1"), ("CascadeSearch", "1")):

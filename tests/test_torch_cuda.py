@@ -18,6 +18,8 @@ integer-valued data, so the card must give the CPU's ids and distances
 exactly.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -476,3 +478,236 @@ def test_int_contract_on_card_at_float32_edge(cuda, dtype, d):
                                 torch.from_numpy(b).to(cuda))
     assert got.device.type == "cuda" and got.dtype == torch.int64
     np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+# ---- mutation and KDT (integer-valued rows: the card gives the CPU's
+# results exactly) -----------------------------------------------------------
+
+def _clustered_ints(n, d, seed):
+    rng = np.random.default_rng(seed)
+    cent = np.random.default_rng(55).standard_normal((16, d)) * 4.0
+    return np.round((cent[rng.integers(0, 16, n)]
+                     + rng.standard_normal((n, d))) * 2).astype(np.float32)
+
+
+_MUT_SETTINGS = [("DistCalcMethod", "L2"), ("TPTNumber", "4"),
+                 ("TPTLeafSize", "500"), ("CEF", "64"),
+                 ("MaxCheckForRefineGraph", "128"),
+                 ("NeighborhoodSize", "16"), ("MaxCheck", "512"),
+                 ("RefineQueryGroup", "32"), ("AddCEF", "32"),
+                 ("FinalRefineSearchMode", "same"),
+                 ("DenseClusterSize", "128"),
+                 ("AddCountForRebuild", "100000")]
+
+
+def _cpu_built_folder(tmp_path, algo, data):
+    idx = tsp.create_instance(algo, "Float", device="cpu")
+    for name, value in _MUT_SETTINGS:
+        assert idx.set_parameter(name, value)
+    idx.build(data)
+    folder = str(tmp_path / algo)
+    idx.save_index(folder)
+    idx.close()
+    return folder
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", [0, 1])
+def test_delta_scan_on_card_matches_cpu(cuda, metric):
+    from sptag_tpu_torch.core.delta import DeltaShard
+
+    rows = _clustered_ints(300, 32, seed=1)
+    if metric == 1:
+        rows = rows / np.linalg.norm(rows, axis=1, keepdims=True)
+    deleted = np.zeros(1300, bool)
+    deleted[[1003, 1100, 1250]] = True
+    out = []
+    for dev in (cuda, "cpu"):
+        shard = DeltaShard(1000, 32, np.float32, 512, metric, 1, device=dev)
+        shard.append(rows[:200], 1000)
+        shard.append(rows[200:], 1200)
+        assert shard._snapshot()[1].device.type == torch.device(dev).type
+        out.append(shard.search(rows[::7], 10, deleted))
+    np.testing.assert_array_equal(out[0][1], out[1][1])
+    if metric == 0:
+        np.testing.assert_array_equal(out[0][0], out[1][0])
+    else:
+        np.testing.assert_allclose(out[0][0], out[1][0], atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_linked_add_and_swap_on_card_match_cpu(cuda, tmp_path):
+    """An inline add's linked graph, a delta-shard add, its background
+    link and swap, and a delete: the card's graph and ids equal the
+    CPU's."""
+    data = _clustered_ints(1600, 32, seed=2)
+    q = _clustered_ints(64, 32, seed=3)
+    folder = _cpu_built_folder(tmp_path, "BKT", data[:1200])
+    pair = [tsp.load_index(folder), tsp.load_index(folder, device="cpu")]
+    assert pair[0]._get_engine().data.is_cuda
+    for idx in pair:
+        idx.add(data[1200:1300])
+    np.testing.assert_array_equal(pair[0]._graph, pair[1]._graph)
+    for idx in pair:
+        idx.set_parameter("DeltaShardCapacity", "128")
+        idx.set_parameter("AutoRefineThreshold", "32")
+        idx.add(data[1300:1340])
+        deadline = time.time() + 60
+        while idx.mutation_state()["swap_count"] < 1 \
+                or idx.mutation_state()["refine_in_flight"]:
+            assert time.time() < deadline
+            time.sleep(0.05)
+        idx.delete(data[1305:1306])
+    np.testing.assert_array_equal(pair[0]._graph, pair[1]._graph)
+    for mode in ("beam", "dense"):
+        got = [idx.search_batch(q, 10, search_mode=mode) for idx in pair]
+        np.testing.assert_array_equal(got[0][1], got[1][1])
+        np.testing.assert_array_equal(got[0][0], got[1][0])
+    for idx in pair:
+        idx.close()
+
+
+@pytest.mark.cuda
+def test_kdt_seeded_walk_and_refine_on_card_match_cpu(cuda, tmp_path):
+    """KDT: the kd-seeded walk and the kd-cell dense scan on the card
+    return the CPU's ids and distances; refine_index (host kd-forest
+    rebuild, the refine pass through the block-dot kernels) gives the same
+    graph on both."""
+    data = _clustered_ints(1500, 32, seed=4)
+    q = _clustered_ints(64, 32, seed=5)
+    folder = _cpu_built_folder(tmp_path, "KDT", data)
+    pair = [tsp.load_index(folder), tsp.load_index(folder, device="cpu")]
+    for mode in ("beam", "dense"):
+        got = [idx.search_batch(q, 10, search_mode=mode) for idx in pair]
+        np.testing.assert_array_equal(got[0][1], got[1][1])
+        np.testing.assert_array_equal(got[0][0], got[1][0])
+    block_dots.reset_launch_counts()
+    for idx in pair:
+        idx.delete(data[:600:3])
+        idx.refine_index()
+    counts = block_dots.launch_counts()
+    assert counts["group_block_dots_f32"] + counts["probe_block_dots_f32"] \
+        >= 1, counts
+    assert pair[0].num_samples == pair[1].num_samples
+    np.testing.assert_array_equal(pair[0]._graph, pair[1]._graph)
+    got = [idx.search_batch(q, 10) for idx in pair]
+    np.testing.assert_array_equal(got[0][1], got[1][1])
+
+
+@pytest.mark.cuda
+def test_bkt_refine_index_on_card(cuda):
+    """BKT compaction on the card: the forest is rebuilt on the card (its
+    k-means need not match the CPU's), the corpus remap is exact and the
+    walk's recall against the exact truth holds."""
+    data = _clustered_ints(2000, 32, seed=6)
+    q = _clustered_ints(64, 32, seed=7)
+    idx = tsp.create_instance("BKT", "Float")
+    for name, value in _MUT_SETTINGS:
+        assert idx.set_parameter(name, value)
+    idx.build(data)
+    idx.delete(data[::5])
+    kept = np.flatnonzero(~idx._deleted[:idx._n])
+    block_dots.reset_launch_counts()
+    assert idx.refine_index() == tsp.ErrorCode.Success
+    assert sum(block_dots.launch_counts().values()) >= 1
+    np.testing.assert_array_equal(idx._host[:idx._n], data[kept])
+    _, ids = idx.search_batch(q, 10, search_mode="beam")
+    _, truth = idx.exact_search_batch(q, 10)
+    assert np.mean([len(set(a) & set(b)) / 10
+                    for a, b in zip(ids, truth)]) >= 0.9
+    idx.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("binned", ["off", "on"])
+def test_small_chunk_graph_replay_matches_cpu(cuda, binned):
+    """Chunks of at most _GRAPH_MAX_Q queries replay one CUDA graph of the
+    whole walk (no alive checks, all T iterations): the same ids and
+    distances as the CPU walk, before and after an in-place tombstone
+    swap, seeded or not, from several threads at once."""
+    import threading
+
+    from sptag_tpu_torch.algo import engine as teng
+    from sptag_tpu_torch.core.types import DistCalcMethod
+
+    n = 3000
+    data = _int_rows(n, 32, seed=12)
+    q = _int_rows(40, 32, seed=13)
+    graph = _weak_graph(n, 16, seed=14)
+    pivots = np.random.default_rng(15).choice(n, 400, replace=False)
+    deleted = np.zeros(n, bool)
+    engines = [teng.GraphSearchEngine(data, graph, pivots, deleted,
+                                      DistCalcMethod.L2, 1,
+                                      binned_topk=binned, device=dev)
+               for dev in (cuda, "cpu")]
+    seeds = np.random.default_rng(16).integers(-1, n, (40, 12))
+
+    def both(qq, **kw):
+        out = [e.search(qq, 10, max_check=512, **kw) for e in engines]
+        np.testing.assert_array_equal(out[0][1], out[1][1])
+        np.testing.assert_array_equal(out[0][0], out[1][0])
+        return out[0]
+    both(q[:4])                        # eager: a key's first call
+    both(q[4:8])                       # captured, other queries
+    both(q[8:12])                      # replayed
+    assert len(engines[0]._graphs) == 1
+    both(q[:5], seeds=seeds[:5])
+    both(q[5:10], seeds=seeds[5:10])   # the seeded walk's graph
+    assert len(engines[0]._graphs) == 2
+    deleted[np.random.default_rng(17).random(n) < 0.1] = True
+    for e in engines:
+        e.set_deleted(deleted)
+    _, ids = both(q[:4])
+    assert not deleted[ids[ids >= 0]].any()
+    want = [engines[1].search(q[i:i + 4], 10, max_check=512)[1]
+            for i in range(0, 40, 4)]
+    got, errors = {}, []
+
+    def reader(i):
+        try:
+            for _ in range(5):
+                got[i] = engines[0].search(q[i:i + 4], 10, max_check=512)[1]
+        except Exception as e:                           # noqa: BLE001
+            errors.append(repr(e))
+    threads = [threading.Thread(target=reader, args=(i,))
+               for i in range(0, 40, 4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    for i, w in zip(range(0, 40, 4), want):
+        np.testing.assert_array_equal(got[i], w)
+
+
+@pytest.mark.cuda
+def test_graph_replay_pads_to_buckets_and_bounds_its_cache(cuda):
+    """Chunks of every size up to the cutoff are padded to their bucket
+    (one graph per bucket and plan, captured when a bucket is asked for
+    the second time; the CPU walk's ids), and many plans keep at most
+    _GRAPH_CACHE graphs, the newest ones."""
+    from sptag_tpu_torch.algo import engine as teng
+    from sptag_tpu_torch.core.types import DistCalcMethod
+
+    n = 3000
+    data = _int_rows(n, 32, seed=22)
+    q = _int_rows(teng._GRAPH_MAX_Q + 8, 32, seed=23)
+    graph = _weak_graph(n, 16, seed=24)
+    pivots = np.random.default_rng(25).choice(n, 400, replace=False)
+    engines = [teng.GraphSearchEngine(data, graph, pivots, None,
+                                      DistCalcMethod.L2, 1, device=dev)
+               for dev in (cuda, "cpu")]
+    for nq in (1, 3, 4, 5, 16, 17, 63, 64, 65, teng._GRAPH_MAX_Q):
+        out = [e.search(q[:nq], 10, max_check=256) for e in engines]
+        np.testing.assert_array_equal(out[0][1], out[1][1])
+        np.testing.assert_array_equal(out[0][0], out[1][0])
+    assert len(engines[0]._graphs) == len(teng._GRAPH_BUCKETS)
+    engines[0].search(q[:teng._GRAPH_MAX_Q + 1], 10, max_check=256)
+    assert len(engines[0]._graphs) == len(teng._GRAPH_BUCKETS)  # eager
+    for k in range(1, teng._GRAPH_CACHE + 4):
+        for _ in range(2):                 # captured at the second call
+            out = [e.search(q[:4], k, max_check=256) for e in engines]
+            np.testing.assert_array_equal(out[0][1], out[1][1])
+    assert len(engines[0]._graphs) == teng._GRAPH_CACHE
+    assert [key[3][0] for key in engines[0]._graphs] == \
+        list(range(4, teng._GRAPH_CACHE + 4))

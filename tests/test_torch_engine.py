@@ -153,6 +153,35 @@ def test_k_beyond_corpus_pads_and_exact_scan():
     np.testing.assert_array_equal(td, jd)
 
 
+# (kind, binned, seeds per query, k, max_check): duplicates, -1 padding
+# and fewer seeds than the pool
+SEEDED = [("l2", "off", 24, 10, 512), ("l2", "on", 24, 10, 512),
+          ("int8_cosine", "off", 40, 5, 256), ("l2", "off", 6, 10, 512)]
+
+
+@pytest.mark.parametrize("kind,binned,S,k,mc", SEEDED)
+def test_seeded_walk_ids_equal_jax(kind, binned, S, k, mc):
+    """The seeded walk (KDT's per-query seeds): de-duplicated, premarked
+    visited, scored in one contraction, no spares; ids and distances equal
+    to the JAX package's."""
+    data, q, graph, pivots, deleted, metric, base = _setup(kind)
+    rng = np.random.default_rng(9)
+    seeds = rng.integers(-1, len(data), (len(q), S)).astype(np.int32)
+    seeds[:, 1] = seeds[:, 0]                    # a seed reached twice
+    j, t = _engines(data, graph, pivots, deleted, metric, base, binned)
+    jd, ji = j.search(q, k, max_check=mc, seeds=seeds)
+    td, ti = t.search(q, k, max_check=mc, seeds=seeds)
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_array_equal(td, jd)
+    # the seeds are the walk's start: searching from every row's own
+    # seed set finds the row itself
+    own = np.full((len(q), 2), -1, np.int32)
+    own[:, 0] = np.arange(len(q))
+    _, ids = t.search(data[:len(q)], 1, max_check=mc, seeds=own)
+    assert (ids[~deleted[:len(q)], 0] == np.arange(len(q))[
+        ~deleted[:len(q)]]).all()
+
+
 def test_not_ported_options_raise():
     data, q, graph, pivots, deleted, metric, base = _setup("l2", n=100,
                                                            pivots=50)
@@ -163,7 +192,5 @@ def test_not_ported_options_raise():
                                    device="cpu", **kw)
     t = teng.GraphSearchEngine(data, graph, pivots, None, metric, base,
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t.search(q[:2], 3, seeds=np.zeros((2, 4), np.int32))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t.search(q[:2], 3, segment_iters=2)

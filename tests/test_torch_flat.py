@@ -134,5 +134,7 @@ def test_flat_not_ported_knobs_raise():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             idx.search_batch(q, 3)
         idx.set_parameter(name, "0" if name == "CascadeSearch" else "false")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        idx.add(data[:2])
+    # mutation is ported (tests/test_torch_mutation.py): an add is found
+    assert idx.add(data[:2] + 0.25) == tsp.ErrorCode.Success
+    assert idx.search_batch(data[:2] + 0.25, 1)[1][:, 0].tolist() == \
+        [400, 401]

@@ -203,7 +203,10 @@ def test_import_pulls_in_no_jax_and_no_sptag_tpu():
             "sptag_tpu_torch.ops.block_dots, sptag_tpu_torch._build, "
             "sptag_tpu_torch.algo.engine, sptag_tpu_torch.algo.flat, "
             "sptag_tpu_torch.graph.rng, sptag_tpu_torch.graph.tptree, "
-            "sptag_tpu_torch.ops.graph, sptag_tpu_torch.ops.topk_bins\n"
+            "sptag_tpu_torch.ops.graph, sptag_tpu_torch.ops.topk_bins, "
+            "sptag_tpu_torch.algo.kdt, sptag_tpu_torch.trees.kdtree, "
+            "sptag_tpu_torch.core.delta, sptag_tpu_torch.io.wal, "
+            "sptag_tpu_torch.utils.threadpool\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m.startswith('jaxlib') "
             "or m == 'sptag_tpu' or m.startswith('sptag_tpu.')]\n"
@@ -225,7 +228,9 @@ def test_sources_import_no_jax_and_no_sptag_tpu():
     assert len(files) > 20
     names = {os.path.relpath(f, REPO) for f in files}
     for new in ("algo/engine.py", "algo/flat.py", "graph/rng.py",
-                "graph/tptree.py", "ops/graph.py", "ops/topk_bins.py"):
+                "graph/tptree.py", "ops/graph.py", "ops/topk_bins.py",
+                "algo/kdt.py", "trees/kdtree.py", "core/delta.py",
+                "io/wal.py", "utils/threadpool.py"):
         assert os.path.join("sptag_tpu_torch", new) in names
     offenders = [f for f in files if pattern.search(open(f).read())]
     assert offenders == []
