@@ -8,7 +8,8 @@ Run from the repository root:
 It builds the CUDA kernels from ``sptag_tpu_torch/csrc`` (first use), drives
 the port's BKT dense path, its BKT graph path (RNG graph build, beam walk),
 FLAT, online mutation (inline and delta-shard adds, the background swap,
-delete, compaction, the write-ahead log) and the KDT index through their
+delete, compaction, the write-ahead log), the KDT index, the walk's bf16,
+packed and segmented options and the slot scheduler through their
 public entry points at the repository's headline sizes, checks what comes
 out, and compares every kernel with its plain PyTorch version.  Each
 phase prints one JSON line; any failure exits non-zero.  Without a CUDA
@@ -80,7 +81,30 @@ Phases, in the order they run:
 6. where a search batch's time goes: ``torch.profiler`` device time by
    kernel for one batch of each configuration (f32 per-query and grouped,
    int8 grouped and per-query, f32 beam exact and binned), against its
-   untraced time; the beam rows per walk iteration.
+   untraced time; the beam rows per walk iteration;
+11. the walk's options and the slot scheduler on phase 7's index: (a)
+   ``BeamScoreDtype=bf16`` over the 4,096 queries, exact and binned walk,
+   recall@10 held within 0.01 of the f32 walk's and every distance held
+   to its id's float32 distance (the re-rank), a profile of one batch
+   (gather ms, contraction ms, launches per iteration) beside f32's; (b)
+   ``BeamPackedNeighbors=1`` in f32 and bf16, ids and distances held equal
+   to the unpacked walk's, with ``nbr_vecs`` / ``nbr_sq`` bytes; (c)
+   ``BeamSegmentIters`` = T/4, held equal to the monolithic walk; (d)
+   ``ContinuousBatching=1``: 1,024 queries through ``search_batch`` and
+   through ``submit_batch`` from 4 threads, ids held equal to the
+   monolithic walk's; a straggler stream of 2,048 queries from 4
+   submitters, MaxCheck alternating 8,192 / 16,384 (one pool), its
+   submit-to-resolve p50 / p99, wall time against the monolithic walk,
+   resident iterations, segment times and peak memory, held to no slot
+   left live or pending and to the monolithic walk's ids; a sweep of
+   scheduled batches of 1 to 1,024 queries with eager and with replayed
+   segments, against the monolithic walk, ids held; phase 10's KDT index
+   through the scheduler, ids held equal; (f) a ``save_index_blobs`` ->
+   ``load_index_blobs`` round trip, ids held equal, and
+   ``estimated_hbm_usage`` beside the engine's allocated bytes; (e) 200
+   delta adds past ``AutoRefineThreshold`` with 1,024 scheduled queries
+   in flight: every future resolves without error, one swap, the old
+   scheduler's worker exits, the next query walks the new snapshot.
 
 Launch counts are zeroed just before phase 3 and read just after phase 5,
 and zeroed again before each graph build of phases 7 and 7b, before the
@@ -867,6 +891,455 @@ def kdt_phase(pt, block_dots, dist_ops, workdir):
     return first, dense_launches
 
 
+# phase 11: the walk's options and the slot scheduler on phase 7's index
+STRAGGLER_BUDGETS = (8192, 16384)   # one pool: L = 1,024, B = 128
+STRAGGLER_QUERIES = 2048
+SUBMITTERS = 4
+SUBMIT_BATCH = 8
+SWEEP_CAPACITIES = (1, 8, 32, 128, 256, 1024)   # QUERY_BUCKETS
+
+
+def walk_profile(index, queries):
+    """One batch's device time by kernel (torch.profiler), phase 6's way:
+    the row gathers (kernels named *index* / *gather*), the contractions
+    (cuBLAS *gemv* / *gemm* / *xmma* / *nvjet*), launches per walk
+    iteration."""
+    from torch.profiler import ProfilerActivity, profile
+
+    index.search_batch(queries, K)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        index.search_batch(queries, K)
+        torch.cuda.synchronize()
+    its = index._get_engine().last_iterations
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def ms(*words):
+        return sum(e.self_device_time_total for e in rows
+                   if any(w in e.key.lower() for w in words)) / 1e3
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:8]
+    return {"device_ms": busy, "gather_ms": ms("index", "gather"),
+            "contraction_ms": ms("gemv", "gemm", "xmma", "cutlass",
+                                 "nvjet"),
+            "walk_iterations": its,
+            "launches_per_iteration": sum(e.count for e in rows) / its,
+            "top_device": [[e.key[:80], e.self_device_time_total / 1e3,
+                            e.count] for e in top]}
+
+
+def rerank_exact(host, queries, d, ids, dev) -> int:
+    """Returned distances that are not the float32 distance of their id
+    (within 1e-5 * (|q|^2 + |x|^2 + 2 sum |q_d x_d|) of the float64
+    one): the exact re-rank of the bf16 walk's pool."""
+    q = torch.from_numpy(queries).to(dev).double()
+    x = torch.from_numpy(host[np.maximum(ids, 0)]).to(dev).double()
+    exact = ((q[:, None, :] - x) ** 2).sum(-1)
+    bound = 1e-5 * ((q * q).sum(-1)[:, None] + (x * x).sum(-1)
+                    + 2.0 * (q[:, None, :] * x).abs().sum(-1))
+    bad = ((torch.from_numpy(d).to(dev).double() - exact).abs() > bound) \
+        & torch.from_numpy(ids >= 0).to(dev)
+    return int(bad.sum().item())
+
+
+def set_params(index, **kw):
+    for name, value in kw.items():
+        if not index.set_parameter(name, str(value)):
+            fail(f"set_parameter {name}")
+
+
+def paired_times(index, queries, a, b):
+    """Batch p50 (ms, batches of 1,024) of two settings (name, params) of
+    `index`, timed in turns a, b, b, a in one window; each turn builds
+    its engine with one untimed batch first."""
+    times = {a[0]: [], b[0]: []}
+    for name, params in (a, b, b, a):
+        set_params(index, **params)
+        index.search_batch(queries[:1024], K)
+        times[name] += timed_batches(index, queries, 1024, 1)[1]
+    return {name: statistics.median(t) * 1e3 for name, t in times.items()}
+
+
+def straggler_stream(index, sched, qs, mcs, want):
+    """SUBMITTERS threads submit `qs` in batches of SUBMIT_BATCH through
+    `index.submit_batch`, batch i at MaxCheck `mcs[i]`; the readings of
+    one run: submit-to-resolve percentiles, wall time, ids equal to the
+    monolithic walk's (`want`), resident walk iterations and segments."""
+    import threading
+
+    base = sched.stats()
+    lat = [None] * len(qs)
+    got = np.full((len(qs), K), -2, np.int32)
+    done = threading.Event()
+    left = [len(qs)]
+    lock = threading.Lock()
+
+    def resolved(f, i, t_sub):
+        lat[i] = time.perf_counter() - t_sub
+        if f.exception() is None:
+            got[i] = f.result()[1]
+        with lock:
+            left[0] -= 1
+            if not left[0]:
+                done.set()
+
+    def submitter(t):
+        per = len(qs) // SUBMITTERS
+        for lo in range(t * per, (t + 1) * per, SUBMIT_BATCH):
+            t_sub = time.perf_counter()
+            futs = index.submit_batch(qs[lo:lo + SUBMIT_BATCH], K,
+                                      max_check=int(mcs[lo]))
+            for j, f in enumerate(futs):
+                f.add_done_callback(
+                    lambda f, i=lo + j, t_sub=t_sub: resolved(f, i, t_sub))
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=submitter, args=(t,))
+               for t in range(SUBMITTERS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    done.wait(timeout=900)
+    wall = time.perf_counter() - t0
+    st = sched.stats()
+    retired = st["retired"] - base["retired"]
+    segs = {m: (st[f"segments_{m}"] - base[f"segments_{m}"],
+                st[f"segment_s_{m}"] - base[f"segment_s_{m}"])
+            for m in ("eager", "replayed")}
+    lat_ms = sorted(x * 1e3 for x in lat if x is not None)
+    return {"resolved": len(lat_ms), "wall_s": wall,
+            "submit_to_resolve_ms_p50": statistics.median(lat_ms),
+            "submit_to_resolve_ms_p99": float(np.percentile(lat_ms, 99)),
+            "ids_equal_monolithic": int((got == want).all(1).sum()),
+            "resident_iterations_mean": (st["resident_iters_sum"]
+                                         - base["resident_iters_sum"])
+            / max(retired, 1),
+            "resident_iterations_max": st["resident_iters_max"],
+            **{f"segments_{m}": n for m, (n, _) in segs.items()},
+            **{f"segment_ms_{m}": (sec / n * 1e3 if n else None)
+               for m, (n, sec) in segs.items()}}
+
+
+def segment_sweep(index, queries):
+    """The scheduler's segments eager and replayed at each capacity of
+    the QUERY_BUCKETS ladder (SWEEP_CAPACITIES), on either side of
+    `_GRAPH_MAX_SLOTS`: per capacity a scheduler that runs every segment
+    eagerly and one that replays every segment, in turns eager, replayed,
+    replayed, eager; each turn two untimed batches (the second captures)
+    and three timed.  Per capacity: batch ms (median), ms per segment,
+    and the monolithic walk's batch ms over the same queries (a graph
+    replay up to 256 queries); ids held to the monolithic walk's."""
+    from sptag_tpu_torch.algo.scheduler import BeamSlotScheduler
+
+    eng = index._get_engine()
+    mc = int(index.params.max_check)
+    out = []
+    for n in SWEEP_CAPACITIES:
+        q = queries[:n]
+        want = eng.search(q, K, max_check=mc)[1]
+        eng.search(q, K, max_check=mc)
+        t = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            eng.search(q, K, max_check=mc)
+            t.append((time.perf_counter() - t0) * 1e3)
+        row = {"queries": n, "monolithic_ms": statistics.median(t)}
+        walls = {"eager": [], "replayed": []}
+        segs = {"eager": [0, 0.0], "replayed": [0, 0.0]}
+        same = True
+        for mode in ("eager", "replayed", "replayed", "eager"):
+            sched = BeamSlotScheduler(
+                eng, graph_max_slots=1024 if mode == "replayed" else 0)
+            try:
+                for _ in range(2):
+                    same &= bool(np.array_equal(
+                        sched.search_batch(q, K, mc)[1], want))
+                b = sched.stats()
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    got = sched.search_batch(q, K, mc)[1]
+                    walls[mode].append((time.perf_counter() - t0) * 1e3)
+                    same &= bool(np.array_equal(got, want))
+                a = sched.stats()
+            finally:
+                sched.stop()
+            segs[mode][0] += a[f"segments_{mode}"] - b[f"segments_{mode}"]
+            segs[mode][1] += (a[f"segment_s_{mode}"]
+                              - b[f"segment_s_{mode}"])
+        for mode in walls:
+            row[f"{mode}_ms"] = statistics.median(walls[mode])
+            row[f"segment_ms_{mode}"] = (segs[mode][1] / segs[mode][0] * 1e3
+                                         if segs[mode][0] else None)
+        row["segments_per_batch"] = segs["eager"][0] / 6
+        row["ids_equal_monolithic"] = same
+        out.append(row)
+    return out
+
+
+def scheduler_phase(pt, gidx, queries, truth, beam, kfolder, kq):
+    """Phase 11 on phase 7's f32 200k graph index (and phase 10's KDT
+    folder): (a) the bf16 shadow, exact and binned walks; (b) packed
+    neighbours in f32 and bf16; (c) the segmented walk; (d) the slot
+    scheduler: parity, the straggler stream, KDT parity; (f) a blob round
+    trip and the card-memory estimate; (e) a background swap with
+    scheduled queries in flight (last: it mutates the index)."""
+    import threading
+
+    dev = gidx.device
+    host = gidx._host[:gidx._n]
+    q1k = queries[:1024]
+
+    # ---- 11a: the bf16 shadow ------------------------------------------
+    set_params(gidx, BinnedTopK="off", BeamScoreDtype="f32")
+    f32_profile = walk_profile(gidx, q1k)
+    f32, bf16 = ("f32", {"BeamScoreDtype": "f32"}), \
+        ("bf16", {"BeamScoreDtype": "bf16"})
+    out = {}
+    for binned in ("off", "on"):
+        set_params(gidx, BinnedTopK=binned)
+        times = paired_times(gidx, queries, f32, bf16)
+        set_params(gidx, BeamScoreDtype="bf16")
+        res = [gidx.search_batch(queries[lo:lo + 1024], K)
+               for lo in range(0, len(queries), 1024)]
+        d_all = np.concatenate([r[0] for r in res])
+        ids_b = np.concatenate([r[1] for r in res])
+        eng = gidx._get_engine()
+        r = recall_at_k(ids_b, truth)
+        out[binned] = {"recall_at_10": r,
+                       "f32_recall_at_10": beam[binned]["recall_at_10"],
+                       "batch_ms_p50": times["bf16"],
+                       "f32_batch_ms_p50": times["f32"],
+                       "distances_not_exact": rerank_exact(
+                           host, queries, d_all, ids_b, dev)}
+        check(abs(r - beam[binned]["recall_at_10"]) <= 0.01,
+              f"11a: bf16 walk (BinnedTopK={binned}) recall@10 {r} more "
+              f"than 0.01 from the f32 walk's "
+              f"{beam[binned]['recall_at_10']}")
+        check(out[binned]["distances_not_exact"] == 0,
+              f"11a: {out[binned]['distances_not_exact']} bf16-walk "
+              f"distances are not their ids' exact float32 distances")
+    set_params(gidx, BinnedTopK="off")
+    bf16_profile = walk_profile(gidx, q1k)
+    # the contraction alone at a walk iteration's shape (1,024 queries x
+    # B*m = 2,048 candidate rows): the bf16 product with float32 dots,
+    # its plain form (upcast rows, a float32 contraction), and float32
+    from sptag_tpu_torch.ops import distance as dist_ops
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    cq = torch.randn((1024, host.shape[1]), generator=gen, device=dev)
+    cc = torch.randn((1024, 2048, host.shape[1]), generator=gen,
+                     device=dev)
+    bq, bc = cq.to(torch.bfloat16), cc.to(torch.bfloat16)
+    contraction = {
+        "bf16_product_ms": median_ms(
+            lambda: dist_ops.bf16_gathered_dot(bq, bc)),
+        "bf16_upcast_plain_ms": median_ms(
+            lambda: dist_ops.bf16_gathered_dot_plain(bq, bc)),
+        "f32_ms": median_ms(
+            lambda: torch.einsum("qd,qcd->qc", cq, cc))}
+    del cq, cc, bq, bc
+    emit({"phase": "11a", "walks": out, "contraction_1024x2048": contraction,
+          "shadow_bytes": eng.data_score.nbytes,
+          "engine_bytes": eng.device_bytes(),
+          "profile_exact_walk_1024": {"f32": f32_profile,
+                                      "bf16": bf16_profile}})
+
+    # ---- 11b: packed neighbours ------------------------------------------
+    rows = {}
+    for score in ("f32", "bf16"):
+        set_params(gidx, BeamScoreDtype=score, BeamPackedNeighbors=0)
+        d0, i0 = gidx.search_batch(q1k, K)
+        set_params(gidx, BeamPackedNeighbors=1)
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+        d1, i1 = gidx.search_batch(q1k, K)           # builds the engine
+        eng = gidx._get_engine()
+        grown = torch.cuda.memory_allocated() - m0
+        same = bool(np.array_equal(i0, i1) and np.array_equal(d0, d1))
+        times = paired_times(gidx, queries,
+                             ("unpacked", {"BeamPackedNeighbors": 0}),
+                             ("packed", {"BeamPackedNeighbors": 1}))
+        set_params(gidx, BeamPackedNeighbors=1)
+        rows[score] = {"ids_and_distances_equal_unpacked": same,
+                       "profile_exact_walk_1024": walk_profile(gidx, q1k),
+                       "nbr_vecs_bytes": eng.nbr_vecs.nbytes,
+                       "nbr_sq_bytes": eng.nbr_sq.nbytes,
+                       "allocated_delta_bytes": grown,
+                       "batch_ms_p50": times["packed"],
+                       "unpacked_batch_ms_p50": times["unpacked"]}
+        check(same, f"11b: packed {score} walk differs from the unpacked "
+                    f"one")
+    set_params(gidx, BeamScoreDtype="f32", BeamPackedNeighbors=0)
+    emit({"phase": "11b", "packed": rows})
+
+    # ---- 11c: the segmented walk -------------------------------------------
+    d0, i0 = gidx.search_batch(q1k, K)
+    T = gidx._get_engine().walk_plan(K, 2048, 16, None, 3)[3]
+    S = max(1, T // 4)
+    set_params(gidx, BeamSegmentIters=S)
+    d1, i1 = gidx.search_batch(q1k, K)
+    times = paired_times(gidx, queries,
+                         ("monolithic", {"BeamSegmentIters": 0}),
+                         ("segmented", {"BeamSegmentIters": S}))
+    set_params(gidx, BeamSegmentIters=0)
+    same = bool(np.array_equal(i0, i1) and np.array_equal(d0, d1))
+    emit({"phase": "11c", "T": T, "segment_iters": S,
+          "ids_and_distances_equal_monolithic": same,
+          "batch_ms_p50": times["segmented"],
+          "monolithic_batch_ms_p50": times["monolithic"]})
+    check(same, "11c: the segmented walk differs from the monolithic one")
+
+    # ---- 11d: the slot scheduler ------------------------------------------
+    set_params(gidx, ContinuousBatching=1)
+    _, i_sb = gidx.search_batch(q1k, K)
+    sub = [None] * SUBMITTERS
+    errors = []
+
+    def thread_batch(t):
+        try:
+            lo = t * len(q1k) // SUBMITTERS
+            futs = gidx.submit_batch(q1k[lo:lo + len(q1k) // SUBMITTERS], K)
+            sub[t] = np.stack([f.result(timeout=600)[1] for f in futs])
+        except Exception as e:                           # noqa: BLE001
+            errors.append(repr(e)[:300])
+    threads = [threading.Thread(target=thread_batch, args=(t,))
+               for t in range(SUBMITTERS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    i_threads = np.concatenate(sub) if not errors else None
+    parity = {"search_batch_ids_equal": bool(np.array_equal(i_sb, i0)),
+              "submit_batch_4_threads_ids_equal": bool(
+                  i_threads is not None and np.array_equal(i_threads, i0)),
+              "queries_differing": int(((i_sb != i0).any(1)).sum()),
+              "errors": errors}
+    check(parity["search_batch_ids_equal"]
+          and parity["submit_batch_4_threads_ids_equal"],
+          f"11d: scheduled ids differ from the monolithic walk's {parity}")
+
+    # the straggler stream: 4 submitters, MaxCheck alternating per batch
+    qs = queries[:STRAGGLER_QUERIES]
+    mcs = np.array([STRAGGLER_BUDGETS[(i // SUBMIT_BATCH) % 2]
+                    for i in range(len(qs))])
+    set_params(gidx, ContinuousBatching=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mono = {mc: gidx.search_batch(qs[mcs == mc], K, max_check=int(mc))[1]
+            for mc in STRAGGLER_BUDGETS}
+    torch.cuda.synchronize()
+    mono_s = time.perf_counter() - t0
+    want = np.empty((len(qs), K), np.int32)
+    for mc in STRAGGLER_BUDGETS:
+        want[mcs == mc] = mono[mc]
+    set_params(gidx, ContinuousBatching=1)
+    sched = gidx._get_scheduler()
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    runs = [straggler_stream(gidx, sched, qs, mcs, want) for _ in range(2)]
+    peak = torch.cuda.max_memory_allocated()
+    st = sched.stats()
+    # the slot state of one row (the visited table's N + 1 bools, the
+    # spare queue, the pool); a captured segment holds a second copy
+    pool = max(sched._pools.values(), key=lambda p: p.L)
+    slot_bytes = sum(t.nbytes // t.shape[0] for t in pool.state.values()
+                     if t is not None) + 8
+    stream = {"queries": len(qs), "budgets": list(STRAGGLER_BUDGETS),
+              "walk_plans": [list(gidx._get_engine().walk_plan(
+                  K, mc, 16, None, 3)) for mc in STRAGGLER_BUDGETS],
+              "monolithic_wall_s": mono_s, "runs": runs,
+              "graphs_captured": st["graphs_captured"],
+              "slot_state_bytes_per_slot": slot_bytes,
+              "slot_state_bytes_at_max_slots": slot_bytes * pool.max_slots,
+              "allocated_before_bytes": base_bytes,
+              "peak_allocated_bytes": peak,
+              "live_after": st["live"], "pending_after": st["pending"]}
+    check(all(r["resolved"] == len(qs) for r in runs) and st["live"] == 0
+          and st["pending"] == 0,
+          f"11d: straggler stream left {st['live']} live, "
+          f"{st['pending']} pending, resolved "
+          f"{[r['resolved'] for r in runs]} of {len(qs)}")
+    check(all(r["ids_equal_monolithic"] == len(qs) for r in runs),
+          f"11d: straggler stream ids equal the monolithic walk's for "
+          f"{[r['ids_equal_monolithic'] for r in runs]} of {len(qs)}")
+    sweep = segment_sweep(gidx, queries)
+    check(all(r["ids_equal_monolithic"] for r in sweep),
+          "11d: eager or replayed scheduler segments changed the ids")
+
+    # KDT through the scheduler, on phase 10's saved index
+    kidx = pt.load_index(kfolder)
+    _, ki0 = kidx.search_batch(kq, K)
+    set_params(kidx, ContinuousBatching=1)
+    _, ki1 = kidx.search_batch(kq, K)
+    kst = kidx._scheduler.stats()
+    kidx.close()
+    kdt = {"ids_equal": bool(np.array_equal(ki0, ki1)),
+           "live_after": kst["live"], "pools": kst["pools"]}
+    check(kdt["ids_equal"] and kst["live"] == 0,
+          f"11d: KDT scheduled ids differ from the monolithic walk's {kdt}")
+    emit({"phase": "11d", "parity": parity, "straggler_stream": stream,
+          "segment_sweep": sweep, "kdt": kdt})
+
+    # ---- 11f: blobs and the card-memory estimate ------------------------
+    set_params(gidx, ContinuousBatching=0)
+    config, blobs = gidx.save_index_blobs()
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    back = pt.load_index_blobs(config, blobs)
+    _, ib = back.search_batch(q1k, K)                  # builds the engine
+    torch.cuda.synchronize()
+    alloc = torch.cuda.memory_allocated() - m0
+    est = pt.estimated_hbm_usage(back.num_samples, back.feature_dim,
+                                 "Float", back._graph.shape[1],
+                                 dense_mode=False)
+    same = bool(np.array_equal(ib, i0))
+    emit({"phase": "11f", "blob_bytes": [len(b) for b in blobs],
+          "ids_equal": same, "estimated_hbm_usage": est,
+          "engine_device_bytes": sum(
+              back._get_engine().device_bytes().values()),
+          "memory_allocated_delta": alloc})
+    check(same, "11f: the blob round trip changed the ids")
+    back.close()
+    del back, blobs
+
+    # ---- 11e: a background swap with scheduled queries in flight --------
+    set_params(gidx, ContinuousBatching=1, DeltaShardCapacity=2048,
+               AutoRefineThreshold=128)
+    old = gidx._get_scheduler()
+    n0 = gidx.num_samples
+    swaps0 = gidx.mutation_state()["swap_count"]
+    futs = gidx.submit_batch(q1k, K, max_check=8192)
+    rows_e, _ = make_dataset(n=200, d=gidx.feature_dim, nq=1, seed=17)
+    t0 = time.perf_counter()
+    check(gidx.add(rows_e) == pt.ErrorCode.Success, "11e: add failed")
+    errs = [f.exception(timeout=600) for f in futs]
+    t_wait = time.monotonic() + 120.0
+    while time.monotonic() < t_wait and (
+            gidx.mutation_state()["refine_in_flight"]
+            or gidx.mutation_state()["swap_count"] == swaps0):
+        time.sleep(0.05)
+    swap_s = time.perf_counter() - t0
+    old._thread.join(timeout=60)
+    _, ids_new = gidx.search_batch(rows_e[:32], 1)
+    new = gidx._scheduler
+    swap = {"in_flight": len(futs), "errors": sum(e is not None
+                                                  for e in errs),
+            "swaps": gidx.mutation_state()["swap_count"] - swaps0,
+            "add_to_swap_s": swap_s, "old_worker_exited": not old.alive,
+            "new_engine_rows": None if new is None else new._engine.n,
+            "added_rows_found": int((ids_new[:, 0]
+                                     == np.arange(n0, n0 + 32)).sum())}
+    emit({"phase": "11e", **swap})
+    check(swap["errors"] == 0 and swap["swaps"] >= 1
+          and swap["old_worker_exited"]
+          and swap["new_engine_rows"] == n0 + len(rows_e),
+          f"11e: swap with queries in flight: {swap}")
+    set_params(gidx, ContinuousBatching=0)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a CUDA "
@@ -1362,6 +1835,11 @@ def main() -> None:
                   lambda: gidx.search_batch(queries[:1024], K),
                   beam[binned]["batch_ms_p50"],
                   iterations=lambda: gidx._get_engine().last_iterations)
+
+    # ---- phase 11: the walk's options and the slot scheduler -------------
+    scheduler_phase(pt, gidx, queries, truth_f32, beam,
+                    os.path.join(work.name, "kdt"), make_dataset(
+                        n=50_000, d=100, nq=200)[1])
 
     if FAILED_CHECKS:
         fail(f"{len(FAILED_CHECKS)} check(s) failed: {FAILED_CHECKS}")

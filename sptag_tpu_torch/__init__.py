@@ -8,7 +8,10 @@ loaded in the SPTAG folder format and searched with ``SearchMode=dense``
 ``csrc/block_dots.cu``), ``beam`` (the batched graph walk,
 ``algo/engine.py``) or ``auto``; the exact FLAT index; and online mutation
 of all three (add, delete, refine, merge, the write-ahead log and the delta
-shard).  Entry points run on the CUDA card unless given ``device="cpu"``.
+shard), with ``ContinuousBatching=1`` searches through the slot scheduler
+(``algo/scheduler.py``); blobs, the capacity estimators and the TSV / BIN
+reader (``io/reader.py``).  Entry points run on the CUDA card unless
+given ``device="cpu"``.
 The JAX package ``sptag_tpu`` is the reference; this package imports none
 of it.
 """
@@ -18,11 +21,18 @@ from sptag_tpu_torch.algo import bkt  # noqa: F401  (registers BKT)
 from sptag_tpu_torch.algo import flat  # noqa: F401  (registers FLAT)
 from sptag_tpu_torch.algo import kdt  # noqa: F401  (registers KDT)
 from sptag_tpu_torch.core.index import (SearchResult, VectorIndex,
-                                        create_instance, load_index)
+                                        create_instance,
+                                        estimated_hbm_usage,
+                                        estimated_memory_usage,
+                                        estimated_vector_count, load_index,
+                                        load_index_blobs)
 from sptag_tpu_torch.core.types import (DistCalcMethod, ErrorCode,
                                         IndexAlgoType, VectorValueType)
-from sptag_tpu_torch.core.vectorset import MetadataSet, VectorSet
+from sptag_tpu_torch.core.vectorset import (FileMetadataSet, MetadataSet,
+                                            VectorSet)
 
-__all__ = ["DistCalcMethod", "ErrorCode", "IndexAlgoType", "MetadataSet",
-           "SearchResult", "VectorIndex", "VectorSet", "VectorValueType",
-           "create_instance", "load_index"]
+__all__ = ["DistCalcMethod", "ErrorCode", "FileMetadataSet",
+           "IndexAlgoType", "MetadataSet", "SearchResult", "VectorIndex",
+           "VectorSet", "VectorValueType", "create_instance",
+           "estimated_hbm_usage", "estimated_memory_usage",
+           "estimated_vector_count", "load_index", "load_index_blobs"]

@@ -23,23 +23,33 @@ lock.  ``AddCountForRebuild`` linked adds queue a background tree rebuild
 on the same worker.  Deletes swap the snapshots' tombstone masks;
 ``refine_index`` compacts (id remap, new forest, one refine pass, orphan
 repair).  Readers pin the engine and the dense searcher by one local
-reference; every publish happens under the lock.  ``ContinuousBatching=1``
-(the slot scheduler) and build checkpoints are later slices of the port.
+reference; every publish happens under the lock.
+
+``ContinuousBatching=1`` runs beam searches through the slot scheduler
+(algo/scheduler.py) over the current engine: ``search_batch`` waits for
+its queries' futures, ``submit_batch`` hands them out, resolving each as
+its query retires (the delta shard is scanned once per batch and merged
+per query).  A background swap retires the old scheduler, which finishes
+its queries on the old snapshot.
 """
 
 from __future__ import annotations
 
 import logging
-import os
 import threading
 import time
+from concurrent.futures import Future
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from sptag_tpu_torch.algo.dense import DenseTreeSearcher, partition_from_tree
-from sptag_tpu_torch.algo.engine import SCHEDULER_ITEM, GraphSearchEngine
+from sptag_tpu_torch.algo.engine import GraphSearchEngine
+from sptag_tpu_torch.algo.scheduler import (BeamSlotScheduler,
+                                            SchedulerStopped, gather_futures,
+                                            pad_result_row)
+from sptag_tpu_torch.core.delta import merge_topk
 from sptag_tpu_torch.core.index import (MAX_DIST, VectorIndex, grow_rows,
                                         not_ported, pad_results,
                                         register_algo)
@@ -47,7 +57,6 @@ from sptag_tpu_torch.core.params import BKTParams
 from sptag_tpu_torch.core.types import (DistCalcMethod, IndexAlgoType,
                                         VectorValueType, dtype_of)
 from sptag_tpu_torch.graph.rng import RelativeNeighborhoodGraph
-from sptag_tpu_torch.io import atomic
 from sptag_tpu_torch.io import format as fmt
 from sptag_tpu_torch.ops import graph as graph_ops
 from sptag_tpu_torch.trees.bktree import BKTree
@@ -91,6 +100,8 @@ class BKTIndex(VectorIndex):
         self._graph: Optional[np.ndarray] = None
         self._dense: Optional[DenseTreeSearcher] = None
         self._engine: Optional[GraphSearchEngine] = None
+        # the slot scheduler over the current engine (ContinuousBatching)
+        self._scheduler = None
         # the snapshots are stale (rows or structure changed) / only their
         # tombstone masks are
         self._dirty = True
@@ -413,6 +424,25 @@ class BKTIndex(VectorIndex):
         thr = int(getattr(self.params, "auto_mode_threshold", 1024))
         return "beam" if max_check < thr else "dense"
 
+    def search_mode_ready(self, mode: str, max_check: int = 0) -> bool:
+        """True when serving `mode` needs no new device snapshot: what a
+        server checks before it honours a client's search-mode override
+        (a dense layout is about a second corpus copy on the card).  The
+        configured mode is always ready; a pending mutation makes the
+        other one not ready."""
+        default_mc = int(getattr(self.params, "max_check", 8192))
+        mode = self.resolve_search_mode(mode, max_check or default_mc)
+        configured = self.resolve_search_mode(
+            getattr(self.params, "search_mode", "beam"), default_mc)
+        if mode == configured:
+            return True
+        if mode == "beam" and not getattr(self.params, "build_graph", 1):
+            # no graph to walk: the search raises without allocating
+            return True
+        if self._dirty:
+            return False
+        return (self._dense if mode == "dense" else self._engine) is not None
+
     def _search_batch(self, queries: np.ndarray, k: int,
                       max_check: Optional[int] = None,
                       search_mode: Optional[str] = None
@@ -447,7 +477,10 @@ class BKTIndex(VectorIndex):
         """The beam-walk branch of _search_batch."""
         p = self.params
         if int(getattr(p, "continuous_batching", 0)):
-            raise not_ported("ContinuousBatching=1", SCHEDULER_ITEM)
+            # the same results, continuously batched with concurrent
+            # submitters
+            return gather_futures(
+                self._scheduler_submit(queries, k, max_check), k)
         seg = int(getattr(p, "beam_segment_iters", 0))
         return self._get_engine().search(
             queries, k, max_check=max_check,
@@ -455,6 +488,119 @@ class BKTIndex(VectorIndex):
             nbp_limit=p.no_better_propagation_limit,
             dynamic_pivots=p.other_dynamic_pivots,
             segment_iters=seg or None)
+
+    def _get_scheduler(self) -> BeamSlotScheduler:
+        """The slot scheduler over the current engine snapshot, made at
+        first use.  When the engine changed, the old scheduler is retired:
+        it takes no new queries and finishes those it has on its own
+        (immutable) snapshot, as searches already running do."""
+        engine = self._get_engine()
+        with self._lock:
+            sched = self._scheduler
+            if (sched is not None and sched._engine is engine
+                    and not sched._stopped and not sched._draining):
+                return sched
+            old = sched
+            p = self.params
+            sched = BeamSlotScheduler(
+                engine, slots=int(getattr(p, "beam_slots", 1024)),
+                segment_iters=int(getattr(p, "beam_segment_iters", 0)),
+                name="beam-sched")
+            self._scheduler = sched
+        if old is not None:
+            old.retire()
+        return sched
+
+    def _scheduler_submit(self, queries: np.ndarray, k: int,
+                          max_check: int,
+                          rids: Optional[list] = None) -> list:
+        """Submit prepared queries to the slot scheduler; KDT overrides it
+        to attach its per-query kd-tree seeds."""
+        p = self.params
+        return self._submit_each(
+            queries, k, max_check, rids,
+            beam_width=getattr(p, "beam_width", 16),
+            nbp_limit=p.no_better_propagation_limit,
+            dynamic_pivots=p.other_dynamic_pivots)
+
+    def _submit_each(self, queries: np.ndarray, k: int, max_check: int,
+                     rids: Optional[list], seeds: Optional[np.ndarray] = None,
+                     **kw) -> list:
+        """One scheduler future per query.  A background swap may retire
+        the scheduler in the middle of the batch: the queries left go to
+        its replacement.  Each query walks one snapshot either way, and
+        the delta union drops a row that the shard and the new snapshot
+        both hold (merge_topk)."""
+        sched = self._get_scheduler()
+        futs = []
+        for i in range(queries.shape[0]):
+            while True:
+                try:
+                    futs.append(sched.submit(
+                        queries[i], k, max_check,
+                        seeds=None if seeds is None else seeds[i],
+                        rid=rids[i] if rids else "", **kw))
+                    break
+                except SchedulerStopped:
+                    if not sched.draining:       # stopped, or it failed
+                        raise
+                    sched = self._get_scheduler()
+        return futs
+
+    def submit_batch(self, queries: np.ndarray, k: int = 10,
+                     max_check: Optional[int] = None,
+                     search_mode: Optional[str] = None,
+                     rids: Optional[list] = None) -> list:
+        """Per-query futures (core/index.py's contract).  With
+        ContinuousBatching=1 and a mode that resolves to beam, each
+        future resolves as its query retires from the slot scheduler;
+        otherwise the base class's resolved futures.  The delta shard is
+        scanned once for the whole batch and merged into each query's row
+        as it resolves; the scheduler walks the engine pinned at submit,
+        so the two tiers stay disjoint across a swap."""
+        p = self.params
+        mc = max_check if max_check is not None else p.max_check
+        mode = search_mode or getattr(p, "search_mode", "beam")
+        if (self._n == 0 or not int(getattr(p, "continuous_batching", 0))
+                or mode not in ("beam", "auto")
+                or self.resolve_search_mode(mode, mc) != "beam"
+                or not getattr(p, "build_graph", 1)):
+            return super().submit_batch(queries, k, max_check=max_check,
+                                        search_mode=search_mode)
+        queries = np.asarray(queries)
+        if queries.ndim == 1:
+            queries = queries[None, :]
+        if queries.shape[1] != self.feature_dim:
+            raise ValueError(
+                f"query dim {queries.shape[1]} != index dim "
+                f"{self.feature_dim}")
+        queries = self._prepare_query(queries)
+        delta = self._delta
+        delta_res = None
+        if delta is not None and delta.count:
+            delta_res = delta.search(queries, min(k, delta.count),
+                                     self._tombstone_mask())
+        out = []
+        for row, inner in enumerate(
+                self._scheduler_submit(queries, min(k, self._n), mc,
+                                       rids=rids)):
+            outer: Future = Future()
+
+            def _pad(f, outer=outer, row=row):
+                e = f.exception()
+                if e is not None:
+                    outer.set_exception(e)
+                    return
+                d, ids = pad_result_row(*f.result(), k)
+                if delta_res is not None:
+                    md, mi = merge_topk(d[None, :], ids[None, :],
+                                        delta_res[0][row:row + 1],
+                                        delta_res[1][row:row + 1], k)
+                    d, ids = md[0], mi[0]
+                outer.set_result((d, ids))
+            inner.add_done_callback(_pad)
+            out.append(outer)
+        return out
 
     def _exact_scan(self, queries: np.ndarray, k: int
                     ) -> Tuple[np.ndarray, np.ndarray]:
@@ -648,8 +794,11 @@ class BKTIndex(VectorIndex):
         to finish)."""
         with self._lock:
             pool, self._rebuild_pool = self._rebuild_pool, None
+            sched, self._scheduler = self._scheduler, None
         if pool is not None:
             pool.stop()
+        if sched is not None:
+            sched.stop()
 
     def __del__(self):                    # pragma: no cover - GC timing
         try:
@@ -772,6 +921,9 @@ class BKTIndex(VectorIndex):
                         self.params.add_count_for_rebuild:
                     self._adds_since_rebuild = 0
                     self._schedule_rebuild()
+                old_sched, self._scheduler = self._scheduler, None
+            if old_sched is not None:
+                old_sched.retire()       # its resident queries finish
             t1 = time.monotonic()
             with self._lock:
                 self._swap_windows = tuple(self._swap_windows[-15:]) + (
@@ -831,10 +983,10 @@ class BKTIndex(VectorIndex):
 
     # ---- persistence ------------------------------------------------------
 
-    def _save_index_data(self, folder: str) -> None:
-        """Blob order: vectors, tree, graph, deletes."""
+    def _blob_writers(self):
+        """Blob order: vectors, tree, graph, deletes (SPTAG's)."""
         p = self.params
-        writers = [
+        return [
             (p.vector_file,
              lambda f: fmt.write_matrix(f, self._host[:self._n])),
             (p.tree_file, lambda f: self._tree.save(f)),
@@ -842,32 +994,33 @@ class BKTIndex(VectorIndex):
             (p.delete_file,
              lambda f: fmt.write_deletes(f, self._deleted[:self._n])),
         ]
-        for name, writer in writers:
-            with atomic.checked_open(os.path.join(folder, name), "wb") as f:
-                writer(f)
 
-    def _load_index_data(self, folder: str) -> None:
-        p = self.params
-
-        def path(name: str) -> str:
-            full = os.path.join(folder, name)
-            if not os.path.exists(full):
-                raise FileNotFoundError(full)
-            return full
-
-        data = fmt.read_matrix(path(p.vector_file), dtype_of(self.value_type))
+    def _load_vectors_stream(self, f) -> None:
+        data = fmt.read_matrix(f, dtype_of(self.value_type))
         self._host = np.ascontiguousarray(data)
         self._n = data.shape[0]
-        self._tree = self._load_tree(path(p.tree_file))
-        self._graph = fmt.read_graph(path(p.graph_file))
         self._deleted = np.zeros(self._n, bool)
-        dpath = os.path.join(folder, p.delete_file)
-        if os.path.exists(dpath):
-            mask = fmt.read_deletes(dpath)
-            self._deleted[:len(mask)] = mask[:self._n]
-        self._num_deleted = int(self._deleted.sum())
+        self._num_deleted = 0
         self._adds_since_rebuild = 0
-        self._structure_gen += 1
+        self._structure_gen += 1     # stale for an in-flight rebuild
         self._dense = None
         self._engine = None
         self._dirty = True
+
+    def _load_tree_stream(self, f) -> None:
+        self._tree = self._load_tree(f)
+
+    def _load_graph_stream(self, f) -> None:
+        self._graph = fmt.read_graph(f)
+
+    def _load_deletes_stream(self, f) -> None:
+        mask = fmt.read_deletes(f)
+        self._deleted[:len(mask)] = mask[:self._n]
+        self._num_deleted = int(self._deleted.sum())
+
+    def _blob_loaders(self):
+        p = self.params
+        return [(p.vector_file, self._load_vectors_stream, False),
+                (p.tree_file, self._load_tree_stream, False),
+                (p.graph_file, self._load_graph_stream, False),
+                (p.delete_file, self._load_deletes_stream, True)]

@@ -1,5 +1,4 @@
-"""Batched beam-search engine (port of ``sptag_tpu/algo/engine.py``, its
-monolithic walk).
+"""Batched beam-search engine (port of ``sptag_tpu/algo/engine.py``).
 
 SPTAG's search pops one frontier node at a time, scores its graph
 neighbours and stops when the MaxCheck budget is spent or
@@ -17,19 +16,28 @@ improve the top-k.  Here a query batch walks together:
   their B*m neighbours, drops those already visited, scores the rest as
   one batched contraction and merges beam + candidates into the top-L;
   ``ceil(MaxCheck / B)`` iterations keep the budget;
-* finalize: tombstones filtered, final top-k.
+* finalize: the exact float32 re-rank of the pool when the walk scored a
+  bf16 shadow, tombstones filtered, final top-k.
 
-The JAX package's ``lax.while_loop`` is a Python loop here.  A row whose
-``row_alive`` is false is an absorbing no-op (its pool no longer changes),
-so the loop asks the card whether any row is alive only every
+The JAX package's ``lax.while_loop`` is a Python loop here.  Each row
+carries its own iteration count and budget (``it``, ``t_limit``, (Q,)); a
+row whose ``row_alive`` is false is an absorbing no-op (its pool no longer
+changes), so the loop asks the card whether any row is alive only every
 ``_ALIVE_CHECK`` iterations — the one device-to-host sync of the body —
-and the results are the same.  On the card a chunk of at most
+and the results are the same.  A row with ``t_limit`` 0 (a pad row, an
+empty scheduler slot) is never alive.  On the card a chunk of at most
 ``_GRAPH_MAX_Q`` queries runs all T iterations with no sync inside one
 CUDA graph, captured per padded shape and plan on each snapshot when
-asked for the second time (at most ``_GRAPH_CACHE`` kept): the JAX package's one compiled program per
-search, and the same results.  Rows are independent, so chunking and
-batch padding do not change them either;
+asked for the second time (at most ``_GRAPH_CACHE`` kept): the JAX
+package's one compiled program per search, and the same results.  Rows
+are independent, so chunking and batch padding do not change them either;
 ``chunk_size`` keeps the JAX package's formula all the same.
+
+The walk's state is the JAX package's (``seed_state``): ``run_segment``
+advances it by at most S iterations and ``finalize`` retires it, so
+``BeamSegmentIters`` (``_search_segmented``) and the slot scheduler
+(algo/scheduler.py) run the same body as the monolithic walk and return
+its results bit for bit.
 
 The visited set is a (Q, N + 1) bool table per chunk (column N takes the
 masked candidates) instead of the JAX package's packed bitset: PyTorch has
@@ -39,19 +47,24 @@ and the finalize to the bin-reduction forms (ops/topk_bins.py), with lazy
 visited marking, exactly as the JAX package's binned body.  Every
 ``lax.top_k``/``argsort`` is a stable sort (lowest index first among ties).
 
-Not ported (each raises, naming its ROADMAP.md item): the bf16 shadow
-corpus (``BeamScoreDtype=bf16``), packed neighbours
-(``BeamPackedNeighbors=1``), the cascade and the segmented walk
-(``BeamSegmentIters``) with its slot scheduler.
+``BeamScoreDtype=bf16`` keeps a bf16 shadow of a float32 corpus for the
+in-loop scoring (half the bytes of the candidate-row gather; the queries
+are cast to bf16 too) and re-ranks the final pool against the float32
+rows, so returned distances are exact; seeds, pivots and the squared
+norms stay float32.  The bf16 dots come out as float32 (ops/distance.py).
 ``BeamScoreDtype=auto`` is float32, as the JAX package resolves it off the
-TPU.
+TPU.  ``BeamPackedNeighbors=1`` stores each node's m neighbour rows
+contiguously in the scoring dtype (``nbr_vecs`` (N, m, D), ``nbr_sq``
+(N, m)): B block reads per query instead of B*m scattered rows, at m times
+the corpus's memory.  The cascade (``CascadeSearch``) raises, naming its
+ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 import collections
 import threading
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -63,6 +76,7 @@ from sptag_tpu_torch.core.types import DistCalcMethod
 from sptag_tpu_torch.device import DeviceLike, resolve_device
 from sptag_tpu_torch.ops import distance as dist_ops
 from sptag_tpu_torch.ops import topk_bins
+from sptag_tpu_torch.utils import query_bucket
 
 MAX_DIST = float(np.float32(3.4e38))
 
@@ -81,9 +95,9 @@ _GRAPH_MAX_Q = _GRAPH_BUCKETS[-1]
 # least recently replayed goes first
 _GRAPH_CACHE = 8
 
-#: ROADMAP.md item of what the walk leaves out
-SCHEDULER_ITEM = ("RNG graph build, beam walk and scheduler "
-                  "(the scheduler)")
+#: the walk state's per-row tensors that a segment changes
+STATE_KEYS = ("cand_ids", "cand_d", "expanded", "visited", "no_better",
+              "ptr", "it")
 
 
 def beam_width_for(beam_width: int, max_check: int, L: int) -> int:
@@ -154,43 +168,70 @@ def _seed_from_seeds(data, sqnorm, seed_ids, queries, L: int, metric: int,
     return cand_ids, cand_d, visited
 
 
-class _Walk:
-    """One chunk's walk: the loop-carried state and the shared body,
-    the PyTorch form of the JAX package's ``_walk_machine``."""
+def _init_state(queries, cand_ids, cand_d, visited, spare_ids=None,
+                spare_d=None) -> Dict[str, Optional[torch.Tensor]]:
+    """A fresh walk state over a seeded beam: the JAX package's 7-tuple
+    (``cand_ids, cand_d, expanded, visited, no_better, ptr, it``) plus the
+    queries and the spare queue (None without spares)."""
+    Q = cand_ids.shape[0]
+    dev = cand_ids.device
+    zeros = torch.zeros(Q, dtype=torch.int64, device=dev)
+    return {
+        "queries": queries, "cand_ids": cand_ids, "cand_d": cand_d,
+        # expanded has a dump column at L, visited one at N
+        "expanded": torch.cat(
+            [cand_ids < 0, torch.zeros((Q, 1), dtype=torch.bool,
+                                       device=dev)], dim=1),
+        "visited": visited, "no_better": zeros, "ptr": zeros.clone(),
+        "it": zeros.clone(), "spare_ids": spare_ids, "spare_d": spare_d}
 
-    def __init__(self, eng: "GraphSearchEngine", queries, cand_ids, cand_d,
-                 visited, spare_ids, spare_d, t_limit: int, k: int, L: int,
-                 B: int, nbp_limit: int, inject: int, merge_bins: int):
+
+class _Walk:
+    """The walk body over one state, the PyTorch form of the JAX package's
+    ``_walk_machine``.  `t_limit` is the (Q,) per-row iteration budget;
+    `visited` and `expanded` are updated in place, the rest replaced."""
+
+    def __init__(self, eng: "GraphSearchEngine", state: dict, t_limit,
+                 k: int, L: int, B: int, nbp_limit: int, inject: int,
+                 merge_bins: int):
         if merge_bins:
             # the strided binning keeps the sorted beam prefix collision
             # free only when bins >= L
             assert merge_bins >= L, (merge_bins, L)
         self.eng = eng
+        queries = state["queries"]
         self.queries = queries
+        src = eng.score_src
+        # the bf16 shadow scores bf16 queries; integer corpora keep theirs
+        self.queries_s = (queries.to(src.dtype)
+                          if queries.dtype != src.dtype
+                          and queries.dtype.is_floating_point
+                          and src.dtype.is_floating_point else queries)
         self.L, self.B, self.k_eff = L, B, min(k, L)
         self.t_limit = t_limit
         self.nbp_limit = nbp_limit
         self.merge_bins = merge_bins
         Q = queries.shape[0]
         dev = queries.device
-        self.Ps = spare_ids.shape[1]
+        spare_ids = state.get("spare_ids")
+        self.Ps = 0 if spare_ids is None else spare_ids.shape[1]
         self.inject = inject
         self.use_spares = self.Ps > 0 and inject > 0
-        self.spare_ids, self.spare_d = spare_ids, spare_d
+        self.spare_ids, self.spare_d = spare_ids, state.get("spare_d")
         # only real spare entries count as remaining work
         self.n_spare = (spare_ids >= 0).sum(1) if self.use_spares else None
-        self.cand_ids, self.cand_d = cand_ids, cand_d
-        # expanded has a dump column at L, visited one at N
-        self.expanded = torch.cat(
-            [cand_ids < 0, torch.zeros((Q, 1), dtype=torch.bool,
-                                       device=dev)], dim=1)
-        self.visited = visited
-        self.no_better = torch.zeros(Q, dtype=torch.int64, device=dev)
-        self.ptr = torch.zeros(Q, dtype=torch.int64, device=dev)
-        self.it = 0            # every row's iteration count (one budget)
+        for key in STATE_KEYS:
+            setattr(self, key, state[key])
         self._arange_L = torch.arange(L, device=dev)
         self._arange_inject = torch.arange(max(inject, 1), device=dev)
         self._zero_col = torch.zeros((Q, 1), dtype=torch.bool, device=dev)
+
+    def state(self) -> dict:
+        """The walk's state, in seed_state's layout."""
+        out = {key: getattr(self, key) for key in STATE_KEYS}
+        out.update(queries=self.queries, spare_ids=self.spare_ids,
+                   spare_d=self.spare_d)
+        return out
 
     def _active(self):
         # nbp-tripped rows stay active while real spare pivots remain (the
@@ -241,7 +282,8 @@ class _Walk:
         eng, L = self.eng, self.L
         N = eng.n
         Q = self.queries.shape[0]
-        # a row past its budget is frozen exactly like an nbp-tripped one
+        # a row past its own budget is frozen exactly like an nbp-tripped
+        # one: rows with different budgets share one batch
         active = self._active() & (self.it < self.t_limit)
         sel_ok, sel_ids, best_pop_d = self._pop(active)
         frontier_worse = best_pop_d > self.cand_d[:, self.k_eff - 1]
@@ -260,10 +302,19 @@ class _Walk:
             self.visited.scatter_(1, flat_safe, True)
 
         # ---- score the fresh candidates (one batched contraction)
-        gather_idx = torch.where(fresh, flat, 0)
+        if eng.nbr_vecs is not None:
+            # packed neighbours: B block reads of (m, D) per query, in the
+            # order of `flat`; masked slots score row 0's copy and `fresh`
+            # discards them
+            sel_safe = sel_ids.clamp_min(0)
+            cvecs = eng.nbr_vecs[sel_safe].reshape(Q, flat.shape[1], -1)
+            csq = eng.nbr_sq[sel_safe].reshape(Q, flat.shape[1])
+        else:
+            gather_idx = torch.where(fresh, flat, 0)
+            cvecs = eng.score_src[gather_idx]
+            csq = eng.sqnorm[gather_idx]
         nd = dist_ops.batched_gathered_distance(
-            self.queries, eng.data[gather_idx], eng.metric, eng.base,
-            eng.sqnorm[gather_idx])
+            self.queries_s, cvecs, eng.metric, eng.base, csq)
         nd = torch.where(fresh, nd, MAX_DIST)
 
         # ---- inject spare pivots when the frontier falls behind the next
@@ -328,28 +379,35 @@ class _Walk:
         if trigger is not None:
             nb = torch.where(trigger, 0, nb)     # a fresh re-seed resets it
         self.no_better = nb
-        self.it += 1
+        self.it = self.it + 1
 
-    def run(self) -> int:
-        """Walk until no row is alive; returns the iterations run."""
-        for step in range(self.t_limit):
+    def run(self, max_iters: int) -> int:
+        """At most `max_iters` bodies, ending early once no row is alive;
+        returns the bodies run."""
+        for step in range(max_iters):
             if step % _ALIVE_CHECK == 0 and not bool(self.row_alive().any()):
                 return step
             self.body()
-        return self.t_limit
+        return max_iters
 
-    def run_all(self) -> int:
-        """All `t_limit` iterations with no host sync: the same result as
-        `run` (a dead row is an absorbing no-op), capturable in a graph."""
-        for _ in range(self.t_limit):
+    def run_all(self, iters: int) -> int:
+        """`iters` bodies with no host sync: the same pools as `run` (a
+        dead row is an absorbing no-op), capturable in a graph."""
+        for _ in range(iters):
             self.body()
-        return self.t_limit
+        return iters
 
 
-def _finalize(eng: "GraphSearchEngine", cand_ids, cand_d, k_eff: int,
-              binned_bins: int = 0):
-    """Tombstone filter and final top-k over the L-pool (binned when
-    `binned_bins` > 0)."""
+def _finalize(eng: "GraphSearchEngine", queries, cand_ids, cand_d,
+              k_eff: int, binned_bins: int = 0):
+    """Exact float32 re-rank of the pool when the walk scored the bf16
+    shadow, tombstone filter and final top-k (binned when `binned_bins`
+    > 0)."""
+    if eng.rerank:
+        safe = cand_ids.clamp_min(0)
+        exact = dist_ops.batched_gathered_distance(
+            queries, eng.data[safe], eng.metric, eng.base, eng.sqnorm[safe])
+        cand_d = torch.where(cand_ids >= 0, exact, MAX_DIST)
     dead = eng.deleted[cand_ids.clamp_min(0)] | (cand_ids < 0)
     out_d = torch.where(dead, MAX_DIST, cand_d)
     if binned_bins:
@@ -374,11 +432,6 @@ class GraphSearchEngine:
                  recall_target: float = topk_bins.DEFAULT_RECALL_TARGET,
                  cascade_search: bool = False,
                  device: DeviceLike = None):
-        if str(score_dtype).lower() not in ("auto", "f32"):
-            raise not_ported(f"BeamScoreDtype={score_dtype} (the bf16 "
-                             "shadow corpus)", SCHEDULER_ITEM)
-        if packed_neighbors:
-            raise not_ported("BeamPackedNeighbors=1", SCHEDULER_ITEM)
         if cascade_search and np.issubdtype(np.asarray(data).dtype,
                                             np.floating):
             raise not_ported("CascadeSearch=1", "cascade")
@@ -396,6 +449,16 @@ class GraphSearchEngine:
 
         self.data = put(data)
         self.sqnorm = dist_ops.row_sqnorms(self.data)
+        # the bf16 shadow of a float32 corpus ("auto" is float32 here, as
+        # the JAX package resolves it off the TPU); integer corpora ignore
+        # the option
+        self.data_score = (self.data.to(torch.bfloat16)
+                           if score_dtype == "bf16"
+                           and self.data.dtype == torch.float32 else None)
+        self.score_src = (self.data_score if self.data_score is not None
+                          else self.data)
+        #: finalize re-ranks the pool against the float32 rows
+        self.rerank = self.data_score is not None
         self.graph = put(graph.astype(np.int32, copy=False))
         self.deleted = put(np.zeros(n, bool) if deleted is None
                            else np.asarray(deleted[:n], bool))
@@ -404,8 +467,15 @@ class GraphSearchEngine:
             pivot_ids = np.zeros(1, np.int64)
         self.pivot_ids = put(pivot_ids)
         self.pivot_vecs = self.data[self.pivot_ids]
+        # packed neighbours in the scoring dtype; a -1 slot points at row 0
+        self.nbr_vecs = self.nbr_sq = None
+        if packed_neighbors:
+            g = self.graph.clamp_min(0).to(torch.int64)
+            self.nbr_vecs = self.score_src[g]
+            self.nbr_sq = self.sqnorm[g]
         #: walk iterations the last search ran, summed over its chunks (a
-        #: replayed graph runs all T: a finished row is a no-op there)
+        #: replayed graph runs all T: a finished row is a no-op there; a
+        #: segmented search counts S per segment)
         self.last_iterations = 0
         # CUDA graphs of small-chunk walks, by (shapes, plan), oldest first
         self._graphs = collections.OrderedDict()
@@ -421,6 +491,19 @@ class GraphSearchEngine:
         else:
             self.deleted = mask
 
+    def device_bytes(self) -> Dict[str, int]:
+        """Bytes of the snapshot's resident tensors, by part."""
+        out = {"corpus": self.data.nbytes + self.sqnorm.nbytes
+               + self.deleted.nbytes,
+               "graph": self.graph.nbytes,
+               "pivots": self.pivot_ids.nbytes + self.pivot_vecs.nbytes}
+        if self.data_score is not None:
+            out["bf16_shadow"] = self.data_score.nbytes
+        if self.nbr_vecs is not None:
+            out["packed_neighbors"] = (self.nbr_vecs.nbytes
+                                       + self.nbr_sq.nbytes)
+        return out
+
     def exact_scan(self, queries: np.ndarray, k: int
                    ) -> Tuple[np.ndarray, np.ndarray]:
         """Exact top-k over this snapshot's corpus (the FLAT scan on the
@@ -435,7 +518,8 @@ class GraphSearchEngine:
                   ) -> Tuple[int, int, int, int, int]:
         """(k_eff, L, B, T, limit): pool size, pops per iteration,
         iterations, and the no-better-propagation limit (maxCheck/64 pops
-        in SPTAG, B pops per iteration here)."""
+        in SPTAG, B pops per iteration here).  The slot scheduler keys its
+        pools on all but T, which rides per row as `t_limit`."""
         k_eff = min(k, self.n)
         L = beam_pool_size(k_eff, max_check, self.n, pool_size)
         B = beam_width_for(beam_width, max_check, L)
@@ -467,6 +551,100 @@ class GraphSearchEngine:
         return topk_bins.resolve_bins(self.binned_mode, k_eff, L,
                                       self.recall_target)
 
+    # ---- the walk as state: seed, segment, finalize -------------------------
+
+    def seed_state(self, queries: torch.Tensor, L: int,
+                   seeds: Optional[torch.Tensor] = None) -> dict:
+        """A fresh walk state for the (Q, D) device `queries` (with
+        (Q, S) int64 `seeds`, -1 padded, the per-query seeding): the
+        loop-carried tensors, the spare queue (None when seeded) and the
+        queries.  The slot scheduler inserts, compacts and blanks its rows
+        between segments; `run_segment` advances it."""
+        if seeds is None:
+            cand_ids, cand_d, visited, spare_ids, spare_d = \
+                _seed_from_pivots(self.pivot_ids, self.pivot_vecs, queries,
+                                  L, int(self.metric), self.n,
+                                  seed_keep=self.seed_keep_for(L))
+            return _init_state(queries, cand_ids, cand_d, visited,
+                               spare_ids, spare_d)
+        cand_ids, cand_d, visited = _seed_from_seeds(
+            self.data, self.sqnorm, seeds, queries, L, int(self.metric),
+            self.base)
+        return _init_state(queries, cand_ids, cand_d, visited)
+
+    def run_segment(self, state: dict, t_limit: torch.Tensor, k_eff: int,
+                    L: int, B: int, nbp_limit: int, S: int,
+                    inject: int = 0, check_alive: bool = True
+                    ) -> Tuple[dict, torch.Tensor]:
+        """Advance every row of `state` by at most S walk iterations (all
+        S, with no host sync, when `check_alive` is False: what a captured
+        graph runs); returns (new state, (Q,) alive).  A row with alive
+        False is done (absorbing): its pool is final and `finalize` may
+        retire it.  `visited` and `expanded` of `state` are updated in
+        place."""
+        walk = _Walk(self, state, t_limit, k_eff, L, B, nbp_limit,
+                     inject if state.get("spare_ids") is not None else 0,
+                     self.merge_bins_for(L, B))
+        if check_alive:
+            walk.run(S)
+        else:
+            walk.run_all(S)
+        return walk.state(), walk.row_alive()
+
+    def finalize(self, state: dict, k_eff: int
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+        """Re-rank, tombstone filter and top-k over the state's pools, the
+        monolithic walk's epilogue: ((Q, k') dists, (Q, k') int32 ids)."""
+        d, ids = _finalize(self, state["queries"], state["cand_ids"],
+                           state["cand_d"], k_eff,
+                           self.finalize_bins_for(
+                               k_eff, int(state["cand_ids"].shape[1])))
+        return d.cpu().numpy(), ids.cpu().numpy()
+
+    def _search_segmented(self, queries: np.ndarray,
+                          seeds: Optional[np.ndarray], k_eff: int, L: int,
+                          B: int, T: int, limit: int, inject: int,
+                          chunk: int, S: int
+                          ) -> Tuple[np.ndarray, np.ndarray]:
+        """search() as repeated segments of at most S iterations
+        (BeamSegmentIters), the results of the monolithic walk bit for
+        bit.  Chunks pad to `utils.query_bucket` with zero rows whose
+        `t_limit` is 0: never alive, bit-frozen no-ops."""
+        nq, D = queries.shape
+        out_d = np.zeros((nq, k_eff), np.float32)
+        out_i = np.zeros((nq, k_eff), np.int32)
+        self.last_iterations = 0
+        for start in range(0, nq, chunk):
+            q = queries[start:start + chunk]
+            nqc = q.shape[0]
+            q_pad = query_bucket(nqc, chunk)
+            if q_pad != nqc:
+                q = np.concatenate([q, np.zeros((q_pad - nqc, D), q.dtype)])
+            s = None
+            if seeds is not None:
+                s = np.asarray(seeds[start:start + nqc], np.int64)
+                if q_pad != nqc:
+                    s = np.concatenate(
+                        [s, np.full((q_pad - nqc, s.shape[1]), -1,
+                                    np.int64)])
+                s = torch.from_numpy(s).to(self.device)
+            state = self.seed_state(
+                torch.from_numpy(np.ascontiguousarray(q)).to(self.device),
+                L, seeds=s)
+            t_limit = torch.zeros(q_pad, dtype=torch.int64,
+                                  device=self.device)
+            t_limit[:nqc] = T
+            while True:
+                state, alive = self.run_segment(state, t_limit, k_eff, L,
+                                                B, limit, S, inject=inject)
+                self.last_iterations += S
+                if not bool(alive.any()):
+                    break
+            d, ids = self.finalize(state, k_eff)
+            out_d[start:start + nqc] = d[:nqc]
+            out_i[start:start + nqc] = ids[:nqc]
+        return out_d, out_i
+
     # ---- search -------------------------------------------------------------
 
     def _walk_chunk(self, queries, seeds, plan, check_alive: bool = True):
@@ -474,23 +652,14 @@ class GraphSearchEngine:
         (Q, k') int32 ids, iterations run).  `seeds` is None or a (Q, S)
         int64 tensor."""
         k_eff, L, B, T, limit, inject, mb, fb, sk = plan
-        if seeds is None:
-            cand_ids, cand_d, visited, spare_ids, spare_d = \
-                _seed_from_pivots(self.pivot_ids, self.pivot_vecs, queries,
-                                  L, int(self.metric), self.n, seed_keep=sk)
-        else:
-            cand_ids, cand_d, visited = _seed_from_seeds(
-                self.data, self.sqnorm, seeds, queries, L, int(self.metric),
-                self.base)
-            # no spare queue: the tree descent seeded up front
-            spare_ids = cand_ids.new_full((queries.shape[0], 0), -1)
-            spare_d = cand_d.new_full((queries.shape[0], 0), MAX_DIST)
-            inject = 0
-        walk = _Walk(self, queries, cand_ids, cand_d, visited, spare_ids,
-                     spare_d, T, k_eff, L, B, limit, inject, mb)
-        its = walk.run() if check_alive else walk.run_all()
-        d, ids = _finalize(self, walk.cand_ids, walk.cand_d, min(k_eff, L),
-                           binned_bins=fb)
+        state = self.seed_state(queries, L, seeds)
+        t_limit = torch.full((queries.shape[0],), T, dtype=torch.int64,
+                             device=queries.device)
+        walk = _Walk(self, state, t_limit, k_eff, L, B, limit,
+                     inject if seeds is None else 0, mb)
+        its = walk.run(T) if check_alive else walk.run_all(T)
+        d, ids = _finalize(self, queries, walk.cand_ids, walk.cand_d,
+                           min(k_eff, L), binned_bins=fb)
         return d, ids, its
 
     def _search_chunk(self, q: np.ndarray, seeds: Optional[np.ndarray],
@@ -577,23 +746,29 @@ class GraphSearchEngine:
         -1 / MAX_DIST padded.  `dynamic_pivots` spare pivots are injected
         per mid-walk re-seed (NumberOfOtherDynamicPivots; 0 disables).
         `seeds` (Q, S), -1 padded, replaces the shared pivot seeding with
-        per-query seed ids (KDT)."""
-        if segment_iters:
-            raise not_ported("BeamSegmentIters > 0 (the segmented walk)",
-                             SCHEDULER_ITEM)
+        per-query seed ids (KDT).  `segment_iters` > 0 runs the walk as
+        segments of that many iterations (state kept between them), with
+        the same results bit for bit."""
         queries = np.asarray(queries)
         if queries.ndim == 1:
             queries = queries[None, :]
         nq = queries.shape[0]
         k_eff, L, B, T, limit = self.walk_plan(k, max_check, beam_width,
                                                pool_size, nbp_limit)
+        chunk = self.chunk_size()
+        out_d = np.full((nq, k), np.float32(MAX_DIST), np.float32)
+        out_i = np.full((nq, k), -1, np.int32)
+        if segment_iters:
+            d, ids = self._search_segmented(
+                queries, seeds, k_eff, L, B, T, limit, dynamic_pivots,
+                chunk, int(segment_iters))
+            out_d[:, :k_eff] = d
+            out_i[:, :k_eff] = ids
+            return out_d, out_i
         plan = (k_eff, L, B, T, limit, dynamic_pivots,
                 self.merge_bins_for(L, B), self.finalize_bins_for(k_eff, L),
                 self.seed_keep_for(L))
-        chunk = self.chunk_size()
         self.last_iterations = 0
-        out_d = np.full((nq, k), np.float32(MAX_DIST), np.float32)
-        out_i = np.full((nq, k), -1, np.int32)
         for lo in range(0, nq, chunk):
             s = None if seeds is None else seeds[lo:lo + chunk]
             d, ids = self._search_chunk(queries[lo:lo + chunk], s, *plan)

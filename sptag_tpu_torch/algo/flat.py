@@ -19,7 +19,6 @@ Deletes tombstone; ``refine_index`` compacts.  ``SketchPrefilter`` and
 
 from __future__ import annotations
 
-import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -31,7 +30,6 @@ from sptag_tpu_torch.core.index import (MAX_DIST, VectorIndex, grow_rows,
 from sptag_tpu_torch.core.params import FlatParams
 from sptag_tpu_torch.core.types import (DistCalcMethod, IndexAlgoType,
                                         VectorValueType, dtype_of)
-from sptag_tpu_torch.io import atomic
 from sptag_tpu_torch.io import format as fmt
 from sptag_tpu_torch.ops import distance as dist_ops
 from sptag_tpu_torch.ops import topk_bins
@@ -228,25 +226,24 @@ class FlatIndex(VectorIndex):
 
     # ---- persistence ------------------------------------------------------
 
-    def _save_index_data(self, folder: str) -> None:
+    def _blob_writers(self):
+        """Blob order: vectors, deletes."""
         p = self.params
-        writers = [
+        return [
             (p.vector_file,
              lambda f: fmt.write_matrix(f, self._host[:self._n])),
             (p.delete_file,
              lambda f: fmt.write_deletes(f, self._deleted[:self._n])),
         ]
-        for name, writer in writers:
-            with atomic.checked_open(os.path.join(folder, name), "wb") as f:
-                writer(f)
 
-    def _load_index_data(self, folder: str) -> None:
+    def _load_vectors_stream(self, f) -> None:
+        self._build(fmt.read_matrix(f, dtype_of(self.value_type)))
+
+    def _load_deletes_stream(self, f) -> None:
+        mask = fmt.read_deletes(f)
+        self._deleted[:len(mask)] = mask[:self._n]
+
+    def _blob_loaders(self):
         p = self.params
-        path = os.path.join(folder, p.vector_file)
-        if not os.path.exists(path):
-            raise FileNotFoundError(path)
-        self._build(fmt.read_matrix(path, dtype_of(self.value_type)))
-        dpath = os.path.join(folder, p.delete_file)
-        if os.path.exists(dpath):
-            mask = fmt.read_deletes(dpath)
-            self._deleted[:len(mask)] = mask[:self._n]
+        return [(p.vector_file, self._load_vectors_stream, False),
+                (p.delete_file, self._load_deletes_stream, True)]

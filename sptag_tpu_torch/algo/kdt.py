@@ -8,8 +8,9 @@ descends the kd-trees per query — the greedy leaf plus the ``backtrack``
 lowest-bound other branches of each tree — and seeds the walk with those
 leaves (``engine.search(seeds=...)``).  ``SearchMode=dense`` runs the
 block-dot kernels over a kd-cell partition (`partition_from_kdtree`).
-Storage, mutation, the delta shard and persistence are BKTIndex's.
-``ContinuousBatching=1`` (the slot scheduler) raises as BKT's does.
+Storage, mutation, the delta shard, persistence and the slot scheduler
+are BKTIndex's; with ``ContinuousBatching=1`` each query rides the
+scheduler with its kd-tree seeds.
 """
 
 from __future__ import annotations
@@ -20,8 +21,8 @@ import numpy as np
 
 from sptag_tpu_torch.algo.bkt import BKTIndex
 from sptag_tpu_torch.algo.dense import partition_from_kdtree
-from sptag_tpu_torch.algo.engine import SCHEDULER_ITEM
-from sptag_tpu_torch.core.index import not_ported, register_algo
+from sptag_tpu_torch.algo.scheduler import gather_futures
+from sptag_tpu_torch.core.index import register_algo
 from sptag_tpu_torch.core.params import KDTParams
 from sptag_tpu_torch.core.types import IndexAlgoType
 from sptag_tpu_torch.trees.kdtree import KDTree
@@ -77,11 +78,24 @@ class KDTIndex(BKTIndex):
             self._tree, self._main_rows() if rows is None else rows,
             self.params.dense_cluster_size)
 
+    def _scheduler_submit(self, queries: np.ndarray, k: int,
+                          max_check: int,
+                          rids: Optional[list] = None) -> list:
+        # each query's kd-tree seeds ride with it; the scheduler pools KDT
+        # queries by their seed width
+        p = self.params
+        return self._submit_each(
+            queries, k, max_check, rids,
+            seeds=self._seeds_for(queries, max_check),
+            beam_width=getattr(p, "beam_width", 16),
+            nbp_limit=p.no_better_propagation_limit)
+
     def _engine_search(self, queries: np.ndarray, k: int, max_check: int
                        ) -> Tuple[np.ndarray, np.ndarray]:
         p = self.params
         if int(getattr(p, "continuous_batching", 0)):
-            raise not_ported("ContinuousBatching=1", SCHEDULER_ITEM)
+            return gather_futures(
+                self._scheduler_submit(queries, k, max_check), k)
         seeds = self._seeds_for(queries, max_check)
         seg = int(getattr(p, "beam_segment_iters", 0))
         return self._get_engine().search(

@@ -15,18 +15,24 @@ index (core/delta.py) merged into every search until a refine absorbs
 them.  The observability hooks of the JAX code (metrics, the flight
 recorder, the device-memory ledger, the lock sanitizer, the quality
 monitor) belong to ROADMAP.md's observability item and are left out.
+
+Every index also serializes to memory buffers (`save_index_blobs`,
+`load_index_blobs`), hands out per-query futures (`submit_batch`) and
+estimates its host and card memory (`estimated_*`).
 """
 
 from __future__ import annotations
 
 import abc
 import errno
+import io
 import logging
 import os
 import shutil
 import threading
+from concurrent.futures import Future
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple, Type, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Type, Union
 
 import numpy as np
 import torch
@@ -42,7 +48,8 @@ from sptag_tpu_torch.core.types import (
     dtype_of,
     enum_from_string,
 )
-from sptag_tpu_torch.core.vectorset import MetadataSet, VectorSet, metas_for
+from sptag_tpu_torch.core.vectorset import (FileMetadataSet, MetadataSet,
+                                            VectorSet, metas_for)
 from sptag_tpu_torch.device import DeviceLike, resolve_device
 from sptag_tpu_torch.io import atomic, wal
 from sptag_tpu_torch.ops import distance as dist_ops
@@ -74,6 +81,29 @@ class SearchResult:
     ids: np.ndarray                  # (K,) int32, -1 padded
     dists: np.ndarray                # (K,) float32, 3.4e38 padded
     metas: Optional[List[bytes]] = None
+
+    def __len__(self) -> int:
+        return len(self.ids)
+
+
+def resolved_futures(search_batch, nrows: int) -> List[Future]:
+    """Run `search_batch()` once for a whole block and hand back one
+    resolved future per row; a failure resolves every row's future with
+    the exception, the error contract of the scheduler's futures."""
+    futs: List[Future] = []
+    try:
+        dists, ids = search_batch()
+    except Exception as e:                               # noqa: BLE001
+        for _ in range(nrows):
+            f: Future = Future()
+            f.set_exception(e)
+            futs.append(f)
+        return futs
+    for row in range(ids.shape[0]):
+        f = Future()
+        f.set_result((dists[row], ids[row]))
+        futs.append(f)
+    return futs
 
 
 _REGISTRY: Dict[IndexAlgoType, Type["VectorIndex"]] = {}
@@ -155,12 +185,6 @@ class VectorIndex(abc.ABC):
     def _delete_id(self, vid: int) -> bool:
         """Tombstone one id; False if it was deleted already."""
 
-    @abc.abstractmethod
-    def _save_index_data(self, folder: str) -> None: ...
-
-    @abc.abstractmethod
-    def _load_index_data(self, folder: str) -> None: ...
-
     @property
     @abc.abstractmethod
     def num_samples(self) -> int: ...
@@ -224,7 +248,19 @@ class VectorIndex(abc.ABC):
     # ---- build / search ---------------------------------------------------
 
     def build(self, vectors, metadata: Optional[MetadataSet] = None,
-              with_meta_index: bool = False) -> ErrorCode:
+              with_meta_index: bool = False,
+              checkpoint_dir: Optional[str] = None,
+              keep_checkpoint: bool = False) -> ErrorCode:
+        """Build over `vectors`.  Resumable build checkpoints
+        (`checkpoint_dir`, `keep_checkpoint` or ``SPTAG_TPU_BUILD_CKPT``)
+        are not ported: asking for one raises rather than build without
+        it."""
+        if checkpoint_dir is None:
+            checkpoint_dir = os.environ.get("SPTAG_TPU_BUILD_CKPT") or None
+        if checkpoint_dir or keep_checkpoint:
+            raise not_ported("resumable build checkpoints (checkpoint_dir, "
+                             "keep_checkpoint, SPTAG_TPU_BUILD_CKPT)",
+                             "observability")
         data = self._prepare_vectors(vectors)
         if data.size == 0:
             return ErrorCode.EmptyData
@@ -270,6 +306,25 @@ class VectorIndex(abc.ABC):
         return self._merge_delta(
             queries, k, self._search_batch(queries, k, max_check,
                                            search_mode))
+
+    def submit_batch(self, queries: np.ndarray, k: int = 10,
+                     max_check: Optional[int] = None,
+                     search_mode: Optional[str] = None,
+                     rids: Optional[List[str]] = None) -> List[Future]:
+        """Per-query futures over a (Q, D) block, each resolving to
+        `(dists (k,), ids (k,))` with search_batch's padding: the
+        streaming surface of the serving layer.  Here the whole batch runs
+        at once and the futures come back resolved; the graph indexes with
+        ContinuousBatching=1 resolve them as queries retire from the slot
+        scheduler.  `rids` (one request id per query) only tags
+        scheduler-backed queries."""
+        queries = np.asarray(queries)
+        if queries.ndim == 1:
+            queries = queries[None, :]
+        return resolved_futures(
+            lambda: self.search_batch(queries, k, max_check=max_check,
+                                      search_mode=search_mode),
+            queries.shape[0])
 
     def _exact_scan(self, queries: np.ndarray, k: int
                     ) -> Tuple[np.ndarray, np.ndarray]:
@@ -737,7 +792,78 @@ class VectorIndex(abc.ABC):
                 self._arm_wal(folder)
         return ErrorCode.Success
 
-    def load_index_data(self, folder: str, reader: IniReader) -> None:
+    def _blob_writers(self):
+        """Ordered (name, write(stream)) pairs of the index's binary
+        files, shared by the folder save and the blob save."""
+        raise NotImplementedError
+
+    def _blob_loaders(self):
+        """Ordered (name, load(stream), optional) triples mirroring
+        `_blob_writers`."""
+        raise NotImplementedError
+
+    def _save_index_data(self, folder: str) -> None:
+        for name, writer in self._blob_writers():
+            with atomic.checked_open(os.path.join(folder, name), "wb") as f:
+                writer(f)
+
+    def _load_index_data(self, folder: str) -> None:
+        for name, loader, optional in self._blob_loaders():
+            path = os.path.join(folder, name)
+            if not os.path.exists(path):
+                if optional:
+                    continue
+                raise FileNotFoundError(path)
+            with open(path, "rb") as f:
+                loader(f)
+
+    def save_index_blobs(self) -> Tuple[str, List[bytes]]:
+        """The whole index as memory buffers (SPTAG's SaveIndex to
+        blobs): (config text, blobs) with the blobs ordered as the folder
+        files [vectors, <structures...>, deletes][, metadata,
+        metadataIndex], each byte-identical to its file."""
+        with self._lock:
+            self._absorb_delta_locked()
+            if self.need_refine:
+                self._refine_impl()
+            config = self.save_index_config()
+            blobs: List[bytes] = []
+            for _name, writer in self._blob_writers():
+                buf = io.BytesIO()
+                writer(buf)
+                blobs.append(buf.getvalue())
+            if self.metadata is not None:
+                mb, ib = io.BytesIO(), io.BytesIO()
+                self.metadata.save(mb, ib)
+                blobs.extend([mb.getvalue(), ib.getvalue()])
+        return config, blobs
+
+    def load_index_blobs_data(self, config: str,
+                              blobs: Sequence[bytes]) -> None:
+        """`save_index_blobs`'s counterpart on an existing instance; the
+        module's `load_index_blobs` is the factory entry point."""
+        reader = IniReader.loads(config)
+        with self._lock:
+            self.params.load_config(reader.section_items("Index"))
+            pos = 0
+            for name, loader, optional in self._blob_loaders():
+                if pos >= len(blobs):
+                    if optional:
+                        continue
+                    raise ValueError(f"missing index blob #{pos} ({name})")
+                loader(io.BytesIO(blobs[pos]))
+                pos += 1
+            self._reset_delta()
+            if reader.does_section_exist("MetaData") and \
+                    pos + 1 < len(blobs):
+                self.metadata = MetadataSet.load(
+                    io.BytesIO(blobs[pos]), io.BytesIO(blobs[pos + 1]))
+                if reader.get_parameter("MetaData", "MetaDataToVectorIndex",
+                                        "") == "true":
+                    self.build_meta_mapping()
+
+    def load_index_data(self, folder: str, reader: IniReader,
+                        lazy_metadata: bool = False) -> None:
         with self._lock:
             self.params.load_config(reader.section_items("Index"))
             self._load_index_data(folder)
@@ -747,9 +873,12 @@ class VectorIndex(abc.ABC):
                     "MetaData", "MetaDataFilePath", self._meta_file)
                 self._meta_index_file = reader.get_parameter(
                     "MetaData", "MetaDataIndexPath", self._meta_index_file)
-                self.metadata = MetadataSet.load(
-                    os.path.join(folder, self._meta_file),
-                    os.path.join(folder, self._meta_index_file))
+                meta_path = os.path.join(folder, self._meta_file)
+                index_path = os.path.join(folder, self._meta_index_file)
+                # lazy: offsets resident, each payload read on demand
+                self.metadata = (FileMetadataSet(meta_path, index_path)
+                                 if lazy_metadata else
+                                 MetadataSet.load(meta_path, index_path))
                 if reader.get_parameter("MetaData", "MetaDataToVectorIndex",
                                         "") == "true":
                     self.build_meta_mapping()
@@ -813,10 +942,13 @@ def _recover_interrupted_save(folder: str) -> None:
             return
 
 
-def load_index(folder: str, device: DeviceLike = None) -> VectorIndex:
+def load_index(folder: str, device: DeviceLike = None,
+               lazy_metadata: bool = False) -> VectorIndex:
     """Load a folder saved by either package (or by SPTAG) onto `device`
     (None: the CUDA card).  The manifest, when present, is verified first;
-    a ``WalEnabled`` folder's log is replayed over the snapshot."""
+    a ``WalEnabled`` folder's log is replayed over the snapshot.
+    `lazy_metadata` loads the metadata as a FileMetadataSet (offsets
+    resident, payloads read per lookup)."""
     device = resolve_device(device)
     if os.path.exists(os.path.join(folder, "sharded.json")):
         raise not_ported("a sharded (mesh) index folder", "multi-GPU")
@@ -828,9 +960,113 @@ def load_index(folder: str, device: DeviceLike = None) -> VectorIndex:
     if algo is None or value_type is None:
         raise ValueError("indexloader.ini missing IndexAlgoType/ValueType")
     index = create_instance(algo, value_type, device)
-    index.load_index_data(folder, reader)
+    index.load_index_data(folder, reader, lazy_metadata=lazy_metadata)
     if int(getattr(index.params, "wal_enabled", 0) or 0):
         # every acked mutation since the save, then future acks append
         index._replay_wal(folder)
         index._arm_wal(folder)
     return index
+
+
+def load_index_blobs(config: str, blobs: Sequence[bytes],
+                     device: DeviceLike = None) -> VectorIndex:
+    """An index loaded from the memory buffers of `save_index_blobs`
+    onto `device` (None: the CUDA card), with no file system use."""
+    device = resolve_device(device)
+    reader = IniReader.loads(config)
+    algo = reader.get_parameter("Index", "IndexAlgoType")
+    value_type = reader.get_parameter("Index", "ValueType")
+    if algo is None or value_type is None:
+        raise ValueError("config missing IndexAlgoType/ValueType")
+    index = create_instance(algo, value_type, device)
+    index.load_index_blobs_data(config, blobs)
+    return index
+
+
+# ---- capacity planning (SPTAG VectorIndex.cpp:403-437) ----------------------
+
+def _tree_node_size(algo) -> int:
+    """Bytes per tree node: BKT {centerid, childStart, childEnd} int32,
+    KDT {left, right, split_dim} int32 + split_value float32."""
+    if isinstance(algo, str):
+        algo = enum_from_string(IndexAlgoType, algo)
+    algo = IndexAlgoType(algo)
+    if algo == IndexAlgoType.BKT:
+        return 4 * 3
+    if algo == IndexAlgoType.KDT:
+        return 4 * 2 + 4 + 4
+    return 0
+
+
+def _row_bytes(value_type, dimension: int) -> int:
+    if isinstance(value_type, str):
+        value_type = enum_from_string(VectorValueType, value_type)
+    return (np.dtype(dtype_of(VectorValueType(value_type))).itemsize
+            * dimension)
+
+
+def estimated_memory_usage(vector_count: int, dimension: int,
+                           algo, value_type,
+                           tree_number: int = 1,
+                           neighborhood_size: int = 32) -> int:
+    """Host bytes of an index of `vector_count` rows, SPTAG's formula
+    (EstimatedMemoryUsage): vectors, metadata offsets, graph rows, a
+    tombstone byte and the tree nodes; 0 outside BKT / KDT, as SPTAG."""
+    tree_node = _tree_node_size(algo)
+    if tree_node == 0:
+        return 0
+    unit = _row_bytes(value_type, dimension)
+    total = unit * vector_count                    # vectors
+    total += 8 * vector_count                      # metadata offset table
+    total += 4 * neighborhood_size * vector_count  # graph rows
+    total += vector_count                          # tombstone flags
+    total += tree_node * tree_number * vector_count
+    return total
+
+
+def estimated_vector_count(memory_bytes: int, dimension: int,
+                           algo, value_type,
+                           tree_number: int = 1,
+                           neighborhood_size: int = 32) -> int:
+    """Rows that fit in `memory_bytes` (estimated_memory_usage inverted)."""
+    per_row = estimated_memory_usage(1, dimension, algo, value_type,
+                                     tree_number, neighborhood_size)
+    return 0 if per_row == 0 else memory_bytes // per_row
+
+
+def estimated_hbm_usage(vector_count: int, dimension: int, value_type,
+                        neighborhood_size: int = 32,
+                        dense_mode: bool = True,
+                        dense_cluster_size: int = 256,
+                        dense_replicas: int = 1) -> int:
+    """Card-memory bytes of the port's search snapshots (the name and the
+    formula are the JAX package's, whose device memory is the TPU's HBM).
+
+    The walk's engine (algo/engine.py): vectors, float32 squared norms,
+    int32 graph rows and a bool tombstone mask.  The dense layout
+    (algo/dense.py) adds its cluster-contiguous copy (x1.15 padding,
+    times DenseReplicas), int32 member ids and float32 member norms per
+    padded slot, float32 block centroids and its own mask.
+
+    Not counted: the pivots, the walk options' copies (the bf16 shadow
+    of `BeamScoreDtype=bf16`, N x D bf16; the packed neighbours of
+    `BeamPackedNeighbors=1`, N x m x D in the scoring dtype plus N x m
+    float32 norms, about m times the vectors), and per-query working
+    memory (the walk's visited table, a scheduler's slots).  A built
+    engine's `GraphSearchEngine.device_bytes()` gives its own tensors by
+    part."""
+    unit = _row_bytes(value_type, dimension)
+    pad = 1.15 * max(1, dense_replicas)
+    total = unit * vector_count                    # engine vector snapshot
+    total += 4 * vector_count                      # sqnorms
+    total += 4 * neighborhood_size * vector_count  # graph
+    total += vector_count                          # bool tombstones
+    if dense_mode:
+        slots = int(vector_count * pad)
+        n_blocks = max(1, slots // max(dense_cluster_size, 1))
+        total += unit * slots                      # packed blocks
+        total += 4 * slots                         # member ids (int32)
+        total += 4 * slots                         # member sqnorms
+        total += 4 * dimension * n_blocks          # block-mean centroids
+        total += vector_count                      # tombstone mask copy
+    return total

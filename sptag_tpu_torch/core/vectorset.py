@@ -1,4 +1,5 @@
-"""VectorSet and MetadataSet (port of ``sptag_tpu/core/vectorset.py``).
+"""VectorSet, MetadataSet and FileMetadataSet (port of
+``sptag_tpu/core/vectorset.py``).
 
 Host-side numpy containers, as in the JAX package; the folder metadata
 files keep SPTAG's layout: ``metadata.bin`` is the raw concatenation of
@@ -8,8 +9,9 @@ uint64 byte offsets (MetadataSet.cpp:22-35).
 
 from __future__ import annotations
 
+import os
 import struct
-from typing import Iterable, List, Optional, Sequence
+from typing import Iterable, List, Optional, Sequence, Union
 
 import numpy as np
 
@@ -45,6 +47,18 @@ class VectorSet:
     @property
     def dimension(self) -> int:
         return self._data.shape[1]
+
+    def get_vector(self, i: int) -> np.ndarray:
+        return self._data[i]
+
+    def save(self, path_or_stream) -> None:
+        """SPTAG's vectors.bin layout: int32 rows, int32 cols, the rows."""
+        fmt.write_matrix(path_or_stream, self._data)
+
+    @classmethod
+    def load(cls, path_or_stream, value_type: VectorValueType) -> "VectorSet":
+        return cls(fmt.read_matrix(path_or_stream, dtype_of(value_type)),
+                   value_type)
 
 
 def metas_for(metadata: Optional["MetadataSet"],
@@ -105,3 +119,78 @@ class MetadataSet:
         with fmt.open_read(meta_path_or_stream) as f:
             blob = f.read()
         return cls.from_lines(blob, offsets.tolist())
+
+
+class FileMetadataSet(MetadataSet):
+    """Metadata read from its file on demand: only the (count + 1)
+    offset table is resident (SPTAG's FileMetadataSet), for stores too
+    large to hold.  Adds are kept in memory and written on `save`."""
+
+    def __init__(self, meta_path: str, index_path: str):
+        super().__init__()
+        self._meta_path = meta_path
+        self._file = open(meta_path, "rb")
+        with fmt.open_read(index_path) as f:
+            idx = f.read()
+        (self._count,) = struct.unpack_from("<i", idx, 0)
+        self._offsets = np.frombuffer(
+            idx, dtype=np.uint64, count=self._count + 1,
+            offset=4).astype(np.int64)
+
+    @property
+    def count(self) -> int:
+        return self._count + len(self._metas)
+
+    def get_metadata(self, i: int) -> bytes:
+        if i < 0 or i >= self.count:
+            return b""
+        if i >= self._count:                     # an add kept in memory
+            return self._metas[i - self._count]
+        start = int(self._offsets[i])
+        self._file.seek(start)
+        return self._file.read(int(self._offsets[i + 1]) - start)
+
+    def refine(self, indices: Sequence[int]) -> MetadataSet:
+        # a compaction materializes the survivors
+        return MetadataSet(self.get_metadata(i) for i in indices)
+
+    def save(self, meta_path_or_stream, index_path_or_stream) -> None:
+        # saving over the backing file would truncate it under the open
+        # handle: read every payload before the target is opened
+        in_place = isinstance(meta_path_or_stream, str) and \
+            os.path.realpath(meta_path_or_stream) == \
+            os.path.realpath(self._meta_path)
+        staged = [self.get_metadata(i) for i in range(self.count)] \
+            if in_place else None
+        sizes = []
+        with fmt.open_write(meta_path_or_stream) as f:
+            for i in range(self.count):
+                m = staged[i] if staged is not None else self.get_metadata(i)
+                sizes.append(len(m))
+                f.write(m)
+        offsets = np.zeros(self.count + 1, dtype=np.uint64)
+        np.cumsum(sizes, out=offsets[1:])
+        with fmt.open_write(index_path_or_stream) as f:
+            f.write(struct.pack("<i", self.count) + offsets.tobytes())
+        if in_place:
+            # the adds are on disk now: read from the rewritten file
+            self._file.close()
+            self._file = open(self._meta_path, "rb")
+            self._count = len(offsets) - 1
+            self._offsets = offsets.astype(np.int64)
+            self._metas = []
+
+    def close(self) -> None:
+        self._file.close()
+
+    def __del__(self):                            # pragma: no cover
+        try:
+            self._file.close()
+        except (AttributeError, OSError):
+            pass
+
+
+def metadata_from_texts(texts: Iterable[Union[str, bytes]]) -> MetadataSet:
+    """A MetadataSet of `texts`, str encoded as UTF-8."""
+    return MetadataSet(
+        t.encode() if isinstance(t, str) else bytes(t) for t in texts)

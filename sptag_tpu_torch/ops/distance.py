@@ -6,7 +6,8 @@ Conventions are the JAX package's, which are SPTAG's (DistanceUtils.h):
   ``max(|q|^2 + |x|^2 - 2 q.x, 0)`` from (cached) squared norms.
 * Cosine is ``base^2 - dot`` (int8 127^2, uint8 255^2, int16 32767^2, float
   1), on rows normalized to length ``base`` at ingest.
-* Floats accumulate in float32 at full precision (TF32 off, device.py).
+* Floats accumulate in float32 at full precision (TF32 off, device.py);
+  the walk's bf16 shadow contracts bf16 operands into float32 dots.
 * int8 / uint8 dots are exact integers.  int16 uses the exact high/low byte
   split, a = 256*hi + lo: three integer-exact contractions combined with
   one float32 rounding per partial for L2, and exactly in int32 for cosine.
@@ -185,14 +186,40 @@ def batched_gathered_distance(q: torch.Tensor, cand: torch.Tensor,
             cand_sqnorm = (cf * cf).sum(-1)
         return torch.clamp_min(qn + cand_sqnorm - 2.0 * dot, 0.0)
     qf = q.to(torch.float32)
-    cf = cand.to(torch.float32)
-    dot = torch.einsum(eq, qf, cf)
+    if q.dtype == torch.bfloat16 and cand.dtype == torch.bfloat16:
+        # the walk's bf16 shadow: bf16 operands, float32 dots
+        dot = bf16_gathered_dot(q, cand)
+    else:
+        dot = torch.einsum(eq, qf, cand.to(torch.float32))
     if metric == int(DistCalcMethod.Cosine):
         return 1.0 - dot
     qn = (qf * qf).sum(-1)[:, None]
     if cand_sqnorm is None:
+        cf = cand.to(torch.float32)
         cand_sqnorm = (cf * cf).sum(-1)
     return torch.clamp_min(qn + cand_sqnorm - 2.0 * dot, 0.0)
+
+
+def bf16_gathered_dot_plain(q: torch.Tensor, cand: torch.Tensor
+                            ) -> torch.Tensor:
+    """(Q, D) x (Q, C, D) bf16 -> (Q, C) float32 dots: both operands
+    upcast (exactly) and contracted in float32, where each product of two
+    bf16 values is exact.  The CPU path and the card's reference."""
+    return torch.einsum("qd,qcd->qc", q.to(torch.float32),
+                        cand.to(torch.float32))
+
+
+def bf16_gathered_dot(q: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
+    """bf16 dots with float32 results, as the JAX package's
+    ``preferred_element_type=float32``: a bf16 product rounded to bf16
+    (what ``einsum``/``bmm`` give for two bf16 tensors) would keep 8
+    mantissa bits of every dot and walk differently.  On the card one
+    batched bf16 tensor-core product with a float32 output reads the
+    (Q, C, D) rows once at 2 bytes an element; a CPU tensor takes the
+    plain form."""
+    if q.device.type != "cuda":
+        return bf16_gathered_dot_plain(q, cand)
+    return torch.bmm(cand, q[:, :, None], out_dtype=torch.float32)[..., 0]
 
 
 def normalize(vectors: np.ndarray, base: int) -> np.ndarray:

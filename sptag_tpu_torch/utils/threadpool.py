@@ -2,7 +2,8 @@
 ``sptag_tpu/utils/threadpool.py``).
 
 Helper::ThreadPool: ``init(threads)`` spawns workers draining a shared job
-queue; ``add(job)`` enqueues a plain callable.  The BKT and KDT indexes run
+queue; ``add(job)`` enqueues a plain callable; ``current_jobs()`` counts
+the queued jobs and ``join()`` waits for them.  The BKT and KDT indexes run
 their single background worker on it: the tree rebuild after
 ``AddCountForRebuild`` adds, and the delta shard's link + engine swap.
 
@@ -56,6 +57,15 @@ class ThreadPool:
             if self._stopped:
                 raise RuntimeError(f"ThreadPool {self.name!r} is stopped")
             self._queue.put_nowait(job)
+
+    def current_jobs(self) -> int:
+        """Jobs queued and not yet started, approximately (SPTAG's
+        ThreadPool::jobsize)."""
+        return self._queue.qsize()
+
+    def join(self) -> None:
+        """Block until every queued job has finished."""
+        self._queue.join()
 
     def stop(self, join_timeout_s: float = 10.0) -> None:
         """Drain and terminate the workers (idempotent).  A worker still

@@ -220,15 +220,19 @@ def test_not_ported_paths_raise_naming_the_roadmap():
     assert idx.num_samples == 201
     assert tsp.create_instance("KDT", "Float", device="cpu").algo.name \
         == "KDT"
+    # the walk options of the scheduler slice serve; the cascade raises
+    want = idx.search(data[5], 3, search_mode="beam").ids[0]
     for name, value in (("ContinuousBatching", "1"),
                         ("BeamSegmentIters", "2"), ("BeamScoreDtype", "bf16"),
-                        ("BeamPackedNeighbors", "1"), ("CascadeSearch", "1")):
+                        ("BeamPackedNeighbors", "1")):
         default = idx.get_parameter(name)
         idx.set_parameter(name, value)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            idx.search(data[0], 3, search_mode="beam")
+        assert idx.search(data[5], 3, search_mode="beam").ids[0] == want
         idx.set_parameter(name, default)
+    idx.close()
     idx.set_parameter("CascadeSearch", "1")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        idx.search(data[0], 3, search_mode="beam")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         idx.search(data[0], 3, search_mode="dense")
 

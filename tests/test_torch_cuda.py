@@ -349,8 +349,8 @@ def test_walk_on_card_matches_cpu(cuda, monkeypatch, binned, int8):
     on_card = []
     run = teng._Walk.run
 
-    def checked_run(self):
-        out = run(self)
+    def checked_run(self, *args):
+        out = run(self, *args)
         on_card.append(all(t.is_cuda for t in (
             self.queries, self.cand_ids, self.cand_d, self.visited,
             self.expanded, self.no_better)))
@@ -711,3 +711,113 @@ def test_graph_replay_pads_to_buckets_and_bounds_its_cache(cuda):
     assert len(engines[0]._graphs) == teng._GRAPH_CACHE
     assert [key[3][0] for key in engines[0]._graphs] == \
         list(range(4, teng._GRAPH_CACHE + 4))
+
+
+# ---- the walk's bf16 shadow, packed neighbours, segments, the scheduler ----
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,C,D", [(64, 512, 128), (7, 33, 100)])
+def test_bf16_card_contraction_matches_plain(cuda, Q, C, D):
+    """The card's bf16 dots (one bf16 tensor-core product, float32 out)
+    against the plain form (exact upcasts, a float32 contraction): every
+    product of two bf16 values is exact in float32, so only the summation
+    order differs, within 1e-5 * sum |q_d x_d|.  Both are float32, far
+    closer to the float64 dot of the bf16 values than a bf16 result."""
+    from sptag_tpu_torch.ops import distance as dist_ops
+
+    gen = torch.Generator().manual_seed(Q + C)
+    q = torch.randn((Q, D), generator=gen).to(torch.bfloat16).to(cuda)
+    cand = torch.randn((Q, C, D), generator=gen).to(torch.bfloat16) \
+        .to(cuda)
+    got = dist_ops.bf16_gathered_dot(q, cand)
+    want = dist_ops.bf16_gathered_dot_plain(q, cand)
+    assert got.dtype == want.dtype == torch.float32
+    exact = torch.einsum("qd,qcd->qc", q.double(), cand.double())
+    scale = torch.einsum("qd,qcd->qc", q.double().abs(),
+                         cand.double().abs())
+    assert ((got.double() - want.double()).abs() <= 1e-5 * scale).all()
+    assert ((got.double() - exact).abs() <= 1e-5 * scale).all()
+    assert (exact - exact.to(torch.bfloat16).double()).abs().max() > \
+        (got.double() - exact).abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("score,packed,seg", [("bf16", False, 0),
+                                              ("f32", True, 0),
+                                              ("bf16", True, 3),
+                                              ("f32", False, 2)])
+def test_walk_options_on_card_match_cpu(cuda, score, packed, seg):
+    """bf16 shadow, packed neighbours and segments on integer rows
+    (|x| <= 4, every bf16 value and distance exact): the card's ids and
+    distances are the CPU's, and the segmented walk's are the monolithic
+    walk's."""
+    from sptag_tpu_torch.algo import engine as teng
+    from sptag_tpu_torch.core.types import DistCalcMethod
+
+    n = 3000
+    data = _int_rows(n, 32, seed=31)
+    q = _int_rows(300, 32, seed=32)
+    graph = _weak_graph(n, 16, seed=33)
+    pivots = np.random.default_rng(34).choice(n, 400, replace=False)
+    deleted = np.random.default_rng(35).random(n) < 0.05
+    res = []
+    for dev in (cuda, "cpu"):
+        eng = teng.GraphSearchEngine(data, graph, pivots, deleted,
+                                     DistCalcMethod.L2, 1,
+                                     score_dtype=score,
+                                     packed_neighbors=packed, device=dev)
+        assert (eng.data_score is not None) == (score == "bf16")
+        res.append(eng.search(q, 10, max_check=512, segment_iters=seg))
+        if seg:
+            mono = eng.search(q, 10, max_check=512)
+            np.testing.assert_array_equal(res[-1][1], mono[1])
+            np.testing.assert_array_equal(res[-1][0], mono[0])
+    np.testing.assert_array_equal(res[0][1], res[1][1])
+    np.testing.assert_array_equal(res[0][0], res[1][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seeded", [False, True])
+@pytest.mark.parametrize("graph_max_slots", [256, 0])
+def test_scheduler_on_card_replays_segments_and_matches_cpu(
+        cuda, seeded, graph_max_slots):
+    """The slot scheduler on the card: at a capacity up to
+    `graph_max_slots` its segments are captured as CUDA graphs (the
+    second cycle of a capacity) and replayed, from its worker thread;
+    with 0 every segment runs eagerly.  Every query gets the monolithic
+    walk's ids and distances (the CPU scheduler's too); no slot stays
+    occupied."""
+    from sptag_tpu_torch.algo import engine as teng
+    from sptag_tpu_torch.algo.scheduler import BeamSlotScheduler
+    from sptag_tpu_torch.core.types import DistCalcMethod
+
+    n = 3000
+    data = _int_rows(n, 32, seed=41)
+    q = _int_rows(300, 32, seed=42)
+    graph = _weak_graph(n, 16, seed=43)
+    pivots = np.random.default_rng(44).choice(n, 400, replace=False)
+    seeds = (np.random.default_rng(45).integers(-1, n, (300, 12))
+             if seeded else None)
+    out = []
+    for dev in (cuda, "cpu"):
+        eng = teng.GraphSearchEngine(data, graph, pivots, None,
+                                     DistCalcMethod.L2, 1, device=dev)
+        want = eng.search(q, 10, max_check=1024, seeds=seeds)
+        sched = BeamSlotScheduler(eng, slots=32, segment_iters=2,
+                                  graph_max_slots=graph_max_slots)
+        try:
+            got = sched.search_batch(q, 10, 1024, seeds=seeds)
+            stats = sched.stats()
+        finally:
+            sched.stop()
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_array_equal(got[0], want[0])
+        assert stats["live"] == 0 and stats["pending"] == 0
+        out.append((got, stats))
+    np.testing.assert_array_equal(out[0][0][1], out[1][0][1])
+    replayed = [st["segments_replayed"] for _, st in out]
+    if graph_max_slots:
+        assert out[0][1]["graphs_captured"] >= 1 and replayed[0] > 0
+    else:
+        assert out[0][1]["graphs_captured"] == 0 and replayed[0] == 0
+    assert replayed[1] == 0

@@ -183,14 +183,21 @@ def test_seeded_walk_ids_equal_jax(kind, binned, S, k, mc):
 
 
 def test_not_ported_options_raise():
+    """The cascade is the one walk option still left out; the bf16
+    shadow, packed neighbours and the segmented walk run (their parity is
+    tests/test_torch_scheduler.py's)."""
     data, q, graph, pivots, deleted, metric, base = _setup("l2", n=100,
                                                            pivots=50)
-    for kw in ({"score_dtype": "bf16"}, {"packed_neighbors": True},
-               {"cascade_search": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            teng.GraphSearchEngine(data, graph, pivots, None, metric, base,
-                                   device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*cascade"):
+        teng.GraphSearchEngine(data, graph, pivots, None, metric, base,
+                               device="cpu", cascade_search=True)
     t = teng.GraphSearchEngine(data, graph, pivots, None, metric, base,
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t.search(q[:2], 3, segment_iters=2)
+    want = t.search(q[:2], 3)
+    for kw in ({"score_dtype": "bf16"}, {"packed_neighbors": True}):
+        got = teng.GraphSearchEngine(data, graph, pivots, None, metric,
+                                     base, device="cpu", **kw).search(q[:2],
+                                                                      3)
+        np.testing.assert_array_equal(got[1], want[1])
+    got = t.search(q[:2], 3, segment_iters=2)
+    np.testing.assert_array_equal(got[1], want[1])

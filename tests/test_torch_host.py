@@ -206,7 +206,9 @@ def test_import_pulls_in_no_jax_and_no_sptag_tpu():
             "sptag_tpu_torch.ops.graph, sptag_tpu_torch.ops.topk_bins, "
             "sptag_tpu_torch.algo.kdt, sptag_tpu_torch.trees.kdtree, "
             "sptag_tpu_torch.core.delta, sptag_tpu_torch.io.wal, "
-            "sptag_tpu_torch.utils.threadpool\n"
+            "sptag_tpu_torch.utils.threadpool, "
+            "sptag_tpu_torch.algo.scheduler, sptag_tpu_torch.io.reader, "
+            "sptag_tpu_torch.native\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m.startswith('jaxlib') "
             "or m == 'sptag_tpu' or m.startswith('sptag_tpu.')]\n"
@@ -230,7 +232,8 @@ def test_sources_import_no_jax_and_no_sptag_tpu():
     for new in ("algo/engine.py", "algo/flat.py", "graph/rng.py",
                 "graph/tptree.py", "ops/graph.py", "ops/topk_bins.py",
                 "algo/kdt.py", "trees/kdtree.py", "core/delta.py",
-                "io/wal.py", "utils/threadpool.py"):
+                "io/wal.py", "utils/threadpool.py", "algo/scheduler.py",
+                "io/reader.py", "native.py"):
         assert os.path.join("sptag_tpu_torch", new) in names
     offenders = [f for f in files if pattern.search(open(f).read())]
     assert offenders == []

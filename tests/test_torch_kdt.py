@@ -214,9 +214,16 @@ def test_kdt_add_delete_dense_replicas_and_recall():
 
 
 def test_kdt_continuous_batching_raises_naming_the_scheduler():
+    """The slot scheduler is ported: ContinuousBatching=1 no longer
+    raises, and the kd-seeded queries it schedules return the monolithic
+    walk's ids (tests/test_torch_scheduler.py holds them to the JAX
+    package's)."""
     idx = _kdt(tsp, "same", device="cpu")
     idx.build(DATA[:300])
+    want = idx.search_batch(QUERIES[:8], 5, search_mode="beam")
     idx.set_parameter("ContinuousBatching", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*scheduler"):
-        idx.search(QUERIES[0], 5, search_mode="beam")
+    got = idx.search_batch(QUERIES[:8], 5, search_mode="beam")
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[0], want[0])
+    assert idx._scheduler.stats()["retired"] == 8
     idx.close()
