@@ -9,16 +9,18 @@ It builds the CUDA kernels from ``sptag_tpu_torch/csrc`` (first use), drives
 the port's BKT dense path, its BKT graph path (RNG graph build, beam walk),
 FLAT, online mutation (inline and delta-shard adds, the background swap,
 delete, compaction, the write-ahead log), the KDT index, the walk's bf16,
-packed and segmented options and the slot scheduler through their
-public entry points at the repository's headline sizes, checks what comes
-out, and compares every kernel with its plain PyTorch version.  Each
+packed and segmented options, the slot scheduler and the socket search
+server through their public entry points at the repository's headline
+sizes, checks what comes out, and compares every kernel with its plain
+PyTorch version.  Each
 phase prints one JSON line; any failure exits non-zero.  Without a CUDA
 card, or outside the repository, it exits non-zero and prints no result.
 
 Phases, in the order they run:
 
 0. environment: ``nvidia-smi`` name and power limit, versions, sm_90 check;
-1. build the kernels;
+1. build the kernels (``block_dots.cu`` and ``walk_dots.cu``, one
+   ``nvcc`` each, started together);
 3. f32 headline: BKT Float L2, BuildGraph=0, BKTKmeansK=32, MaxCheck=2048,
    n=200,000 x d=128 (seed 7); 4,096 queries in batches of 1,024 through
    ``probe_block_dots``; then the same queries in one grouped call
@@ -30,12 +32,13 @@ Phases, in the order they run:
    ``INT8_RECALL`` within ``RECALL_SLACK``;
 5. persistence: save_index, load_index, the first 1,024 queries again;
 2. every kernel against its plain version on the card, on the main path's
-   own blocks and block ids, and on the arguments of the first block-dot
-   call of each graph build (phases 7 and 7b), of the compaction's refine
-   pass (phase 9c) and of the KDT dense search (phase 10), all run last so
-   their launches stay out of the paths' counts, with its time, the plain
-   version's, one PyTorch
-   call's (``library_ms``) and the card's bound for the same work; every
+   own blocks and block ids (the walk's fixed-order dots on phase 7's
+   first in-loop scoring and seeding calls), and on the arguments of the
+   first block-dot call of each graph build (phases 7 and 7b), of the
+   compaction's refine pass (phase 9c) and of the KDT dense search (phase
+   10), all run last so their launches stay out of the paths' counts,
+   with its time, the plain version's, one PyTorch call's
+   (``library_ms``) and the card's bound for the same work; every
    row also counts the blocks the block-major kernel reads
    (``block_reads``: tiles of at most ``TILE_ENTRIES`` entries, from the
    ids on the host and from the CUDA prep's tile table) beside the distinct
@@ -104,12 +107,33 @@ Phases, in the order they run:
    ``estimated_hbm_usage`` beside the engine's allocated bytes; (e) 200
    delta adds past ``AutoRefineThreshold`` with 1,024 scheduled queries
    in flight: every future resolves without error, one swap, the old
-   scheduler's worker exits, the next query walks the new snapshot.
+   scheduler's worker exits, the next query walks the new snapshot;
+12. the socket search server (``sptag_tpu_torch.serve``) over phase 7's
+   saved folder, loaded from a service INI at the JAX package's serving
+   defaults (batch window 2 ms, batches of at most 1,024): (a) the
+   wrapper lifecycle fixture replayed frame by frame (a FLAT index built
+   on the card over the wire); (b) 1,024 single-query requests through a
+   4-connection pipelined client pool, ``$searchmode:beam`` then
+   ``dense``, ids held to the in-process ``search_batch`` at every
+   separated rank and distances to the float32 bound, the dense half's
+   ``probe_block_dots`` f32 launches counted; (c) the beam requests again
+   with ``ContinuousBatching=1``, streamed in retire order, ids held; (d)
+   ``bench.py``'s open-loop ramp (Zipfian keys, bursty arrivals, mixed
+   options), at the walk's former CUDA-graph cache of 8 (to its first
+   missed step) and then at the default (to its second), from 64 QPS
+   doubling per 2 s step against the 250 ms p99 SLO, per step offered and answered QPS, p50 / p99, batch
+   sizes and unanswered requests, the card's idle share over the first
+   step; nothing may fail below the knee; (e) concurrent clients at
+   ever-new padded sizes and budgets with ``QualitySampleRate=1`` and
+   the flight recorder on: no request fails, the shadow recall printed,
+   a slow-query dump holds the server's and the scheduler's events; (f) after ``stop()`` no scheduler worker, serving thread or
+   new non-daemon thread is left.
 
-Launch counts are zeroed just before phase 3 and read just after phase 5,
+Launch counts are zeroed just before phase 3 and read just after phase 5
+(the walk's just before phase 7's beam searches and read after them),
 and zeroed again before each graph build of phases 7 and 7b, before the
 refine of phase 9c and before the dense searches of phase 10, and read
-after each (the beam walk and FLAT launch no hand-written kernel).
+after each (FLAT launches no hand-written kernel).
 Each query set is searched ``PASSES`` times over for its batch times; the
 QPS and batch percentiles are smoke readings of that window, not a
 benchmark.  Phase 2's ``ms``, ``plain_ms`` and ``library_ms`` are each the
@@ -127,6 +151,7 @@ wall time (``wall_s``).
 """
 
 import json
+import logging
 import os
 import statistics
 import subprocess
@@ -226,6 +251,8 @@ def exact_truth(dist_ops, rows: torch.Tensor, queries: torch.Tensor,
     return np.concatenate(out)
 
 
+# the CUDA sources in sptag_tpu_torch/csrc, built in phase 1
+KERNEL_SOURCES = ("block_dots", "walk_dots")
 # the f32 dense-only headline index (phases 3 and 9e)
 DENSE_PARAMS = [("DistCalcMethod", "L2"), ("BuildGraph", "0"),
                 ("BKTNumber", "1"), ("BKTKmeansK", "32"), ("MaxCheck", "2048")]
@@ -318,6 +345,31 @@ class FirstCalls:
     def __exit__(self, *exc):
         for kind, fn in self.saved.items():
             setattr(self.module, kind, fn)
+
+
+class FirstWalkDots:
+    """Inside the ``with`` block, records the arguments of the walk's first
+    fixed-order dots call of each row mode with at least `min_q` queries
+    (``ops/walk_dots.py``), for phase 2 to hold the kernel against its
+    plain version at the main path's shapes."""
+
+    def __init__(self, module, min_q: int):
+        self.module, self.min_q, self.args = module, min_q, {}
+
+    def __enter__(self):
+        self.saved = fn = self.module.walk_dots
+
+        def wrapper(q, x, idx, mode, C, _fn=fn):
+            if mode not in self.args and q.shape[0] >= self.min_q \
+                    and not (mode == self.module.ROWS and C == 1):
+                self.args[mode] = (q.clone(), x, None if idx is None
+                                   else idx.clone(), C)
+            return _fn(q, x, idx, mode, C)
+        self.module.walk_dots = wrapper
+        return self
+
+    def __exit__(self, *exc):
+        self.module.walk_dots = self.saved
 
 
 def median_ms(fn, reps: int = 30, calls: int = 1) -> float:
@@ -1340,6 +1392,661 @@ def scheduler_phase(pt, gidx, queries, truth, beam, kfolder, kq):
     set_params(gidx, ContinuousBatching=0)
 
 
+# phase 12: the socket search server on phase 7's saved folder
+SERVE_QUERIES = 1024
+SERVE_CONNECTIONS = 4
+# the open-loop ramp (bench.py _loadgen_measure): offered QPS doubling per
+# step of RAMP_STEP_S seconds, judged against a p99 of RAMP_SLO_MS
+RAMP_START_QPS = 64.0
+RAMP_MAX_QPS = 8192.0
+RAMP_STEP_S = 2.0
+RAMP_SLO_MS = 250.0
+# the walk's former CUDA-graph cache per snapshot (engine._GRAPH_CACHE):
+# 12d ramps at it first, then at the default, in the same call
+RAMP_AB_GRAPH_CACHE = 8
+RAMP_OPTIONS = ["", "$resultnum:1 ", "$maxcheck:256 ", "$maxcheck:2048 ",
+                "$searchmode:dense ", "$resultnum:1 $maxcheck:256 "]
+# the observability run: concurrent clients, every response sampled by the
+# quality monitor, the flight recorder on with slow-query dumps
+LOAD_CLIENTS = 6
+LOAD_S = 8.0
+LOAD_MAXCHECKS = (512, 1024, 4096)
+SLOW_QUERY_MS = 20.0
+# the server's own flight-recorder events (serve/server.py) and the slot
+# scheduler's (algo/scheduler.py), under the JAX package's names
+SERVER_EVENTS = {"decode", "enqueue", "queue_wait", "execute", "encode",
+                 "drain", "request"}
+SCHEDULER_EVENTS = {"pending", "slot_assign", "segment", "retire"}
+
+
+class ServerRunner:
+    """A SearchServer on its own asyncio loop in a daemon thread (the
+    repository's test and bench harness shape)."""
+
+    def __init__(self, server):
+        import asyncio
+        import threading
+
+        self.server = server
+        self.loop = asyncio.new_event_loop()
+        ready = threading.Event()
+
+        def run():
+            asyncio.set_event_loop(self.loop)
+
+            async def boot():
+                self.addr = await server.start("127.0.0.1", 0)
+                ready.set()
+
+            self._boot = self.loop.create_task(boot())
+            self.loop.run_forever()
+
+        self.thread = threading.Thread(target=run, daemon=True,
+                                       name="chip-smoke-serve-loop")
+        self.thread.start()
+        if not ready.wait(60):
+            fail("12: the server did not start")
+
+    def stop(self) -> None:
+        import asyncio
+
+        asyncio.run_coroutine_threadsafe(self.server.stop(),
+                                         self.loop).result(120)
+
+        async def drain():
+            tasks = [t for t in asyncio.all_tasks()
+                     if t is not asyncio.current_task()]
+            for t in tasks:
+                t.cancel()
+            await asyncio.gather(*tasks, return_exceptions=True)
+
+        asyncio.run_coroutine_threadsafe(drain(), self.loop).result(30)
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(30)
+        self.loop.close()
+
+
+def b64_query(v) -> str:
+    import base64
+
+    return "#" + base64.b64encode(
+        np.ascontiguousarray(v, np.float32).tobytes()).decode()
+
+
+def read_frames(sock, n):
+    """Read one response frame per expected reply: (header, body)."""
+    from sptag_tpu_torch.serve import wire
+
+    def read_exact(m):
+        buf = b""
+        while len(buf) < m:
+            chunk = sock.recv(m - len(buf))
+            if not chunk:
+                raise OSError("server closed")
+            buf += chunk
+        return buf
+
+    out = []
+    for _ in range(n):
+        h = wire.PacketHeader.unpack(read_exact(wire.HEADER_SIZE))
+        out.append((h, read_exact(h.body_length) if h.body_length else b""))
+    return out
+
+
+def lifecycle_replay(addr, here) -> dict:
+    """12a: tests/fixtures/wrapper_lifecycle.bytes frame by frame, checked
+    as tests/test_wrapper_bytes.py does (it builds FLAT on the card)."""
+    import socket
+
+    from sptag_tpu_torch.serve import wire
+
+    with open(os.path.join(here, "tests", "fixtures",
+                           "wrapper_lifecycle.bytes"), "rb") as f:
+        stream = f.read()
+    sock = socket.create_connection(addr, timeout=120)
+    replies, off = [], 0
+    try:
+        while off < len(stream):
+            h = wire.PacketHeader.unpack(stream[off:off + wire.HEADER_SIZE])
+            end = off + wire.HEADER_SIZE + h.body_length
+            sock.sendall(stream[off:end])
+            off = end
+            (rh, body), = read_frames(sock, 1)
+            if rh.packet_type == wire.PacketType.SearchResponse:
+                replies.append(wire.RemoteSearchResult.unpack(body))
+    finally:
+        sock.close()
+    names = [r.results[0].index_name if r is not None and r.results
+             else None for r in replies]
+    ok = (len(replies) == 5 and names[0] == "admin:ok:built"
+          and replies[0].results[0].ids[0] == 2
+          and names[1] == "admin:ok:added"
+          and replies[2].status == wire.ResultStatus.Success
+          and replies[2].results[0].ids[0] == 0
+          and names[3] == "admin:ok:deleted"
+          and names[4] == "admin:ok:deleted")
+    return {"replies": names, "self_query_id": (
+        replies[2].results[0].ids[0] if len(replies) > 2
+        and replies[2].results else None), "ok": ok}
+
+
+def pool_search(addr, texts, connections=SERVE_CONNECTIONS):
+    """Every text through one AnnClientPool of pipelined connections; the
+    results in order and the wall seconds."""
+    from sptag_tpu_torch.serve.client import AnnClientPool
+
+    pool = AnnClientPool(addr[0], addr[1], connections=connections,
+                         timeout_s=120.0)
+    pool.connect()
+    try:
+        t0 = time.perf_counter()
+        futs = [pool.search_async(t) for t in texts]
+        res = [f.result() for f in futs]
+        return res, time.perf_counter() - t0
+    finally:
+        pool.close()
+
+
+def served_arrays(results, k):
+    from sptag_tpu_torch.serve import wire
+
+    ids = np.full((len(results), k), -1, np.int64)
+    d = np.full((len(results), k), np.inf)
+    bad = 0
+    for i, r in enumerate(results):
+        if r.status != wire.ResultStatus.Success or not r.results:
+            bad += 1
+            continue
+        row = r.results[0]
+        ids[i, :len(row.ids)] = row.ids
+        d[i, :len(row.dists)] = row.dists
+    return d, ids, bad
+
+
+def hold_parity(label, d, ids, bad, ref_d, ref_i, host, q) -> dict:
+    """Ids equal to the in-process search at every separated rank (the
+    repository's rule for float32 results), distances within phase 2's
+    float32 bound, 1e-5 (|q|^2 + |x|^2 + 2 sum |q_d x_d|)."""
+    tol = 2e-5 * float(np.abs(ref_d[np.isfinite(ref_d)]).max())
+    diff = separated_ids_equal(ids, ref_i, ref_d, tol)
+    live = ids >= 0
+    x = host.astype(np.float64)[np.maximum(ids, 0)]
+    qd = q.astype(np.float64)[:, None, :]
+    exact = ((qd - x) ** 2).sum(-1)
+    bound = 1e-5 * ((qd * qd).sum(-1) + (x * x).sum(-1)
+                    + 2 * np.abs(qd * x).sum(-1))
+    dist_ok = bool((np.abs(d - exact) <= bound)[live].all())
+    rows_equal = int((ids == ref_i).all(1).sum())
+    out = {"errors": bad, "rows_ids_equal": rows_equal,
+           "ids_differing_at_separated_ranks": diff,
+           "distances_within_f32_bound": dist_ok}
+    check(bad == 0 and diff == 0 and dist_ok,
+          f"12{label}: {bad} errors, {diff} ids off the in-process search, "
+          f"distances within bound {dist_ok}")
+    return out
+
+
+def open_loop_ramp(addr, queries, batch_sizes, label,
+                   max_misses: int = 2) -> dict:
+    """12d: bench.py's _loadgen_measure without admission control:
+    Zipfian keys, bursty modulated-Poisson arrivals, the option palette,
+    offered QPS doubling per step until `max_misses` steps miss the SLO
+    (or the top rate); one connection, open loop.  QPS at SLO is the last
+    rate before the first miss.  The card's busy share over the first
+    step from torch.profiler."""
+    import socket
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from sptag_tpu_torch.serve import wire
+
+    rng = np.random.default_rng(17)
+    nq = len(queries)
+    zipf_p = 1.0 / np.arange(1, nq + 1, dtype=np.float64) ** 1.1
+    zipf_p /= zipf_p.sum()
+    texts = {}
+    sock = socket.create_connection(addr, timeout=30)
+    sock.settimeout(None)
+    pending, done = {}, {}
+    lock = threading.Lock()
+
+    def receiver():
+        try:
+            while True:
+                (h, body), = read_frames(sock, 1)
+                t = time.perf_counter()
+                with lock:
+                    t_sent = pending.pop(h.resource_id, None)
+                if t_sent is None:
+                    continue
+                res = wire.RemoteSearchResult.unpack(body)
+                done[h.resource_id] = (
+                    t - t_sent, res.status if res is not None else -1)
+        except OSError:
+            pass
+
+    rth = threading.Thread(target=receiver, daemon=True,
+                           name="chip-smoke-ramp-recv")
+    rth.start()
+    next_rid = [1]
+
+    def fire(text):
+        rid = next_rid[0]
+        next_rid[0] += 1
+        body = wire.RemoteQuery(text).pack()
+        with lock:
+            pending[rid] = time.perf_counter()
+        sock.sendall(wire.PacketHeader(
+            wire.PacketType.SearchRequest, wire.PacketProcessStatus.Ok,
+            len(body), 0, rid).pack() + body)
+        return rid
+
+    def qtext(i, opt):
+        if i not in texts:
+            texts[i] = b64_query(queries[i])
+        return "$indexname:main " + opt + texts[i]
+
+    def run_step(offered, profiled):
+        n_req = int(min(offered * RAMP_STEP_S, 4000))
+        ts, t_cur, burst = [], 0.0, False
+        while len(ts) < n_req:
+            t_cur += rng.exponential(1.0 / (offered * (2.4 if burst
+                                                       else 0.8)))
+            ts.append(t_cur)
+            if rng.random() < (0.09 if burst else 0.01):
+                burst = not burst
+        keys = rng.choice(nq, size=n_req, p=zipf_p)
+        opt_ix = rng.integers(0, len(RAMP_OPTIONS), size=n_req)
+        n_batches = len(batch_sizes)
+        prof = None
+        if profiled:
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.__enter__()
+        rids = []
+        t0 = time.perf_counter()
+        for j in range(n_req):
+            dt = ts[j] - (time.perf_counter() - t0)
+            if dt > 0:
+                time.sleep(dt)
+            rids.append(fire(qtext(int(keys[j]),
+                                   RAMP_OPTIONS[int(opt_ix[j])])))
+        send_s = time.perf_counter() - t0
+        t_drain = time.perf_counter() + max(2.0, 6 * RAMP_SLO_MS / 1e3)
+        while time.perf_counter() < t_drain and any(
+                r in pending for r in rids):
+            time.sleep(0.01)
+        wall = time.perf_counter() - t0
+        busy = None
+        if prof is not None:
+            torch.cuda.synchronize()
+            prof.__exit__(None, None, None)
+            busy = sum(e.self_device_time_total
+                       for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       ) / 1e6
+        lat, errors = [], 0
+        for r in rids:
+            c = done.pop(r, None)
+            if c is None:
+                with lock:
+                    pending.pop(r, None)
+                continue
+            lat.append(c[0])
+            errors += c[1] != wire.ResultStatus.Success
+        sizes = batch_sizes[n_batches:]
+        p50 = float(np.percentile(lat, 50)) * 1e3 if lat else None
+        p99 = float(np.percentile(lat, 99)) * 1e3 if lat else None
+        row = {"offered_qps": offered,
+               "sent_qps": n_req / max(send_s, 1e-9),
+               "answered_qps": len(lat) / max(wall, 1e-9),
+               "requests": n_req, "answered": len(lat),
+               "unanswered": n_req - len(lat), "errors": errors,
+               "p50_ms": p50, "p99_ms": p99,
+               "batches": len(sizes),
+               "batch_size": ({"p50": float(np.median(sizes)),
+                               "mean": float(np.mean(sizes)),
+                               "max": int(max(sizes))} if sizes else None)}
+        if busy is not None:
+            row["card_busy_s"] = busy
+            row["card_idle_share"] = 1.0 - busy / wall
+            row["step_wall_s"] = wall
+        ok = (p99 is not None and p99 <= RAMP_SLO_MS and errors == 0
+              and row["unanswered"] == 0)
+        return ok, row
+
+    steps, qps_at_slo, offered, below = [], 0.0, RAMP_START_QPS, []
+    misses = 0
+    try:
+        # warm-up, closed loop: each option at each padded walk size twice
+        # (the walk captures a CUDA graph at a key's second sighting)
+        for opt in RAMP_OPTIONS:
+            for burst in (1, 4, 16, 64):
+                for _ in range(2):
+                    for j in range(burst):
+                        fire(qtext(j, opt))
+                    t_warm = time.perf_counter() + 60
+                    while pending and time.perf_counter() < t_warm:
+                        time.sleep(0.005)
+        done.clear()
+        # the card's busy share is read over the first step; the ramp ends
+        # at the top rate or after the second step that misses the SLO
+        while offered <= RAMP_MAX_QPS:
+            ok, row = run_step(offered, profiled=not steps)
+            steps.append(row)
+            emit({"phase": "12d_step", **label, **row})
+            if not ok:
+                misses += 1
+                if misses == max_misses:
+                    break
+            elif not misses:
+                below.append(row)
+                qps_at_slo = offered
+            offered *= 2.0
+    finally:
+        sock.close()
+    check(all(s["errors"] == 0 for s in below),
+          f"12d: errors below the knee: {[s['errors'] for s in below]}")
+    return {"qps_at_slo": qps_at_slo, "slo_ms": RAMP_SLO_MS,
+            "steps": len(steps)}
+
+
+def load_with_observability(addr, queries, index) -> dict:
+    """12e: concurrent clients at ever-new padded sizes and budgets
+    (fresh walk captures, then the scheduler's) while the quality
+    monitor replays every answer through the exact scan."""
+    import threading
+
+    from sptag_tpu_torch.serve.client import AnnClientPool
+    from sptag_tpu_torch.serve import wire
+
+    rng = np.random.default_rng(23)
+    counts = {"sent": 0, "errors": 0}
+    lock = threading.Lock()
+
+    def client(seed, stop_at):
+        r = np.random.default_rng(seed)
+        pool = AnnClientPool(addr[0], addr[1], connections=2,
+                             timeout_s=120.0)
+        pool.connect()
+        try:
+            while time.perf_counter() < stop_at:
+                burst = int(r.choice((1, 3, 7, 20, 60, 200)))
+                mc = int(r.choice(LOAD_MAXCHECKS))
+                mode = "dense" if r.random() < 0.25 else "beam"
+                keys = r.integers(0, len(queries), burst)
+                futs = [pool.search_async(
+                    f"$indexname:main $maxcheck:{mc} $searchmode:{mode} "
+                    + b64_query(queries[k])) for k in keys]
+                bad = sum(f.result().status != wire.ResultStatus.Success
+                          for f in futs)
+                with lock:
+                    counts["sent"] += burst
+                    counts["errors"] += bad
+        finally:
+            pool.close()
+
+    halves = {}
+    for cb in ("0", "1"):
+        index.set_parameter("ContinuousBatching", cb)
+        stop_at = time.perf_counter() + LOAD_S / 2
+        ths = [threading.Thread(target=client, args=(int(rng.integers(1e9)),
+                                                     stop_at),
+                                name=f"chip-smoke-load-{i}")
+               for i in range(LOAD_CLIENTS)]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join(300)
+        halves[cb] = dict(counts)
+    index.set_parameter("ContinuousBatching", "0")
+    return {"clients": LOAD_CLIENTS, "requests": counts["sent"],
+            "errors": counts["errors"], "by_continuous_batching": halves}
+
+
+def server_phase(pt, block_dots, graph_folder, queries, workdir, here,
+                 device=None) -> None:
+    """Phase 12: the port's socket SearchServer over phase 7's saved f32
+    graph folder, loaded from a service INI onto the card, at the JAX
+    package's serving defaults (batch window 2 ms, batches of at most
+    1,024, ContinuousBatching off)."""
+    import threading
+
+    from sptag_tpu_torch.ops import walk_dots as walk_ops
+    from sptag_tpu_torch.serve import server as sserver
+    from sptag_tpu_torch.serve import service as sservice
+    from sptag_tpu_torch.utils import flightrec, metrics, qualmon
+
+    t_phase = time.perf_counter()
+    threads_before = set(threading.enumerate())
+    ini = os.path.join(workdir, "service.ini")
+    with open(ini, "w") as f:
+        f.write("[Service]\nListenAddr=127.0.0.1\nListenPort=0\n"
+                "EnableRemoteAdmin=1\n"
+                f"[QueryConfig]\nDefaultMaxResultNumber={K}\n"
+                "[Index]\nList=main\n"
+                f"[Index_main]\nIndexFolder={graph_folder}\n")
+    t0 = time.perf_counter()
+    ctx = sservice.ServiceContext.from_ini(ini, device=device)
+    load_s = time.perf_counter() - t0
+    index = ctx.indexes["main"]
+    q = queries[:SERVE_QUERIES]
+    # the in-process reference; it also materializes both engines, which
+    # the default AllowSearchModeOverride=auto asks of a $searchmode
+    ref = {m: index.search_batch(q, K, search_mode=m)
+           for m in ("beam", "dense")}
+
+    batch_sizes = []
+    server = sserver.SearchServer(ctx)
+    execute = server.executor.execute_batch
+
+    def counted(texts, **kw):
+        batch_sizes.append(len(texts))
+        return execute(texts, **kw)
+
+    server.executor.execute_batch = counted
+    run = ServerRunner(server)
+    out = {"load_s": load_s}
+
+    # ---- 12a: the lifecycle fixture ---------------------------------------
+    out["a"] = lifecycle_replay(run.addr, here)
+    check(out["a"]["ok"], f"12a: lifecycle replies {out['a']}")
+
+    # ---- 12b: parity with the in-process search ---------------------------
+    out["b"] = {}
+    for mode in ("beam", "dense"):
+        before = block_dots.launch_counts()["probe_block_dots_f32"]
+        walk_before = walk_ops.launches
+        n_batches = len(batch_sizes)
+        res, wall = pool_search(run.addr, [
+            f"$indexname:main $searchmode:{mode} " + b64_query(v)
+            for v in q])
+        d, ids, bad = served_arrays(res, K)
+        row = hold_parity(f"b {mode}", d, ids, bad, *ref[mode],
+                          index._host, q)
+        sizes = batch_sizes[n_batches:]
+        row.update({"wall_s": wall, "qps": len(q) / wall,
+                    "batches": len(sizes),
+                    "batch_size_p50": float(np.median(sizes)),
+                    "probe_block_dots_f32_launches":
+                        block_dots.launch_counts()["probe_block_dots_f32"]
+                        - before,
+                    # eager walks and captures count; a graph replay
+                    # launches the captured kernels without the wrapper
+                    "walk_dots_f32_launches": walk_ops.launches
+                        - walk_before})
+        out["b"][mode] = row
+    check(out["b"]["dense"]["probe_block_dots_f32_launches"] >= 1,
+          "12b: the server's dense requests launched no probe_block_dots "
+          "f32")
+
+    # ---- 12c: streaming through the slot scheduler -------------------
+    index.set_parameter("ContinuousBatching", "1")
+    streamed0 = metrics.counter_value("server.streamed_responses")
+    res, wall = pool_search(run.addr, ["$indexname:main $searchmode:beam "
+                                       + b64_query(v) for v in q])
+    d, ids, bad = served_arrays(res, K)
+    out["c"] = hold_parity("c", d, ids, bad, *ref["beam"], index._host, q)
+    out["c"].update({"wall_s": wall, "streamed_responses":
+                     metrics.counter_value("server.streamed_responses")
+                     - streamed0})
+    index.set_parameter("ContinuousBatching", "0")
+    check(out["c"]["streamed_responses"] >= len(q) // 2,
+          f"12c: only {out['c']['streamed_responses']} responses streamed")
+    emit({"phase": "12abc", **out})
+
+    # ---- 12d: the open-loop ramp -------------------------------------------
+    # first at the walk's former graph cache, then at the default
+    from sptag_tpu_torch.algo import engine as walk_engine
+
+    default_cache = walk_engine._GRAPH_CACHE
+    out["d"] = {}
+    for cache in (RAMP_AB_GRAPH_CACHE, default_cache):
+        walk_engine._GRAPH_CACHE = cache
+        try:
+            label = {"graph_cache": cache}
+            # the former cache's ramp only needs its knee
+            out["d"][str(cache)] = {**label, **open_loop_ramp(
+                run.addr, queries, batch_sizes, label,
+                max_misses=1 if cache == RAMP_AB_GRAPH_CACHE else 2)}
+        finally:
+            walk_engine._GRAPH_CACHE = default_cache
+    run.stop()
+
+    # ---- 12e: observability under load -------------------------------------
+    flight_dir = os.path.join(workdir, "flight")
+    server = sserver.SearchServer(ctx, quality_sample_rate=1.0,
+                                  flight_recorder=True,
+                                  flight_dump_dir=flight_dir,
+                                  slow_query_threshold_ms=SLOW_QUERY_MS)
+    run = ServerRunner(server)
+    # the slow-query log would flood stderr; the dumps are what is held
+    serve_log = logging.getLogger("sptag_tpu_torch.serve.server")
+    level = serve_log.level
+    serve_log.setLevel(logging.ERROR)
+    out["e"] = load_with_observability(run.addr, queries, index)
+    drained = qualmon.drain(60.0)
+    snap = qualmon.snapshot()
+    # stop() joins the server's IO thread: every dump is whole after it
+    run.stop()
+    serve_log.setLevel(level)
+    dumps = sorted((os.path.join(flight_dir, fn)
+                    for fn in os.listdir(flight_dir)
+                    if fn.endswith(".json")), key=os.path.getmtime) \
+        if os.path.isdir(flight_dir) else []
+    # the newest dump holding both the server's and the scheduler's events
+    kinds = {}
+    for path in reversed(dumps):
+        with open(path) as f:
+            kinds = {}
+            for ev in json.load(f).get("flightEvents", []):
+                kinds.setdefault(ev["tier"], set()).add(ev["kind"])
+        if SERVER_EVENTS <= kinds.get("server", set()) \
+                and SCHEDULER_EVENTS <= kinds.get("scheduler", set()):
+            break
+    out["e"].update({
+        "shadow_drained": drained,
+        "shadow_recall": {key: {"recall": w["recall"],
+                                "samples": w["samples"]}
+                          for key, w in snap["windows"].items()},
+        "shadow_counters": snap["counters"],
+        "flight_dumps": len(dumps),
+        "dump_tiers": {t: sorted(k) for t, k in kinds.items()},
+        "walk_graphs": len(index._get_engine()._graphs)})
+    check(out["e"]["errors"] == 0,
+          f"12e: {out['e']['errors']} failed requests under load")
+    check(SERVER_EVENTS <= kinds.get("server", set())
+          and SCHEDULER_EVENTS <= kinds.get("scheduler", set()),
+          f"12e: no slow-query dump holds the server's and the "
+          f"scheduler's events: {out['e']['dump_tiers']}")
+    flightrec.configure(enabled=False)
+    qualmon.configure(sample_rate=0.0)
+
+    # ---- 12f: a clean stop --------------------------------------------
+    t_end = time.perf_counter() + 10
+    while time.perf_counter() < t_end:
+        # phase 12's own threads: any non-daemon one, a scheduler worker
+        # or a serving thread still alive
+        left = [t.name for t in threading.enumerate()
+                if t.is_alive() and t not in threads_before and (
+                    not t.daemon
+                    or t.name.startswith(("beam-sched", "sptag-serve")))]
+        if not left:
+            break
+        time.sleep(0.1)
+    out["f"] = {"threads_left": left}
+    check(not left, f"12f: threads left after stop: {left}")
+    for i in ctx.indexes.values():
+        if hasattr(i, "close"):
+            i.close()
+    out["wall_s"] = time.perf_counter() - t_phase
+    emit({"phase": "12def", "d": out["d"], "e": out["e"], "f": out["f"],
+          "wall_s": out["wall_s"]})
+
+
+def walk_dots_rows(walk_ops, first, launches: int) -> list:
+    """Phase 2 for the walk's fixed-order dots: the kernel against its
+    plain version on the arguments of phase 7's first in-loop scoring
+    call (1,024 queries, B * m gathered rows each) and first seeding call
+    (every pivot), with the same times and bound as the block-dot rows;
+    the library call is one einsum over the pre-gathered rows (gathering:
+    plain version) or one matrix product (seeding)."""
+    rows = []
+    for mode, path in ((walk_ops.GATHER, "walk_scoring"),
+                       (walk_ops.SHARED, "walk_seeding")):
+        if mode not in first.args:
+            fail(f"phase 7 made no walk_dots call of mode {mode}")
+        q, x, idx, C = first.args[mode]
+        fn = walk_ops.walk_dots
+        ref = walk_ops.walk_dots_reference
+        got = fn(q, x, idx, mode, C)
+        want = ref(q, x, idx, mode, C)
+        scale = ref(q.abs(), x.abs(), idx, mode, C).double()
+        torch.cuda.synchronize()
+        err = (got.double() - want.double()).abs()
+        ok = bool((err <= 1e-5 * scale + 1e-30).all())
+        Q, D = q.shape
+        if mode == walk_ops.GATHER:
+            distinct = int(torch.unique(idx).numel())
+            nbytes = distinct * D * 4 + Q * D * 4 + idx.numel() * 8 \
+                + Q * C * 4
+            pre = x[idx]
+            lib = lambda: torch.einsum("qd,qcd->qc", q, pre)  # noqa: E731
+        else:
+            distinct = C
+            nbytes = C * D * 4 + Q * D * 4 + Q * C * 4
+            lib = lambda: q @ x.T                             # noqa: E731
+        ops = 2.0 * Q * C * D
+        bytes_ms = nbytes / HBM_BYTES_S * 1e3
+        ops_ms = ops / PEAK_OPS_S["f32"] * 1e3
+        card_ms, card_rows = device_ms(lambda: fn(q, x, idx, mode, C))
+        timing = {"ms_back_to_back": median_ms(
+            lambda: fn(q, x, idx, mode, C), calls=BACK_TO_BACK),
+            "device_ms": card_ms, "device_ms_by_kernel": card_rows,
+            "host_ms": host_ms(lambda: fn(q, x, idx, mode, C)),
+            "library_ms_back_to_back": median_ms(lib, calls=BACK_TO_BACK)}
+        row = {"name": "walk_dots_f32", "route": "cuda",
+               "source": "sptag_tpu_torch/csrc/walk_dots.cu",
+               "replaces": ("sptag_tpu/ops/distance.py:249"
+                            if mode == walk_ops.GATHER
+                            else "sptag_tpu/ops/distance.py:232"),
+               "path": path, "launches": launches,
+               "max_abs_err": float(err.max().item()),
+               "ms": median_ms(lambda: fn(q, x, idx, mode, C)),
+               "plain_ms": median_ms(lambda: ref(q, x, idx, mode, C)),
+               "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "library_ms": median_ms(lib)}
+        emit({"phase": 2, **row, **timing,
+              "shape": {"Q": Q, "C": C, "D": D, "mode": mode},
+              "distinct_rows": distinct, "bytes": nbytes, "ops": ops,
+              "within_tolerance": ok})
+        check(ok, f"walk_dots ({path}): kernel disagrees with its plain "
+                  f"version (max |err| {row['max_abs_err']})")
+        rows.append(row)
+    return rows
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a CUDA "
@@ -1355,6 +2062,7 @@ def main() -> None:
     from sptag_tpu_torch.algo import dense
     from sptag_tpu_torch.ops import block_dots
     from sptag_tpu_torch.ops import distance as dist_ops
+    from sptag_tpu_torch.ops import walk_dots as walk_ops
 
     # ---- phase 0: environment ---------------------------------------------
     smi = subprocess.run(
@@ -1372,14 +2080,21 @@ def main() -> None:
     dev = torch.device("cuda")
 
     # ---- phase 1: build -----------------------------------------------------
+    # one nvcc per source, all started together
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
-    so, nvcc_s = _build.build("block_dots")
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as ex:
+        built = dict(zip(KERNEL_SOURCES, ex.map(_build.build,
+                                                KERNEL_SOURCES)))
     block_dots.library()
-    log = _build.build_log.get("block_dots", "")
-    emit({"phase": 1, "library": os.path.relpath(so, here),
-          "build_s": time.perf_counter() - t0, "nvcc_s": nvcc_s,
-          "ptxas": [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]})
+    walk_ops.library()
+    emit({"phase": 1, "build_s": time.perf_counter() - t0,
+          **{name: {"library": os.path.relpath(so, here), "nvcc_s": secs,
+                    "ptxas": [ln.strip() for ln in
+                              _build.build_log.get(name, "").splitlines()
+                              if "registers" in ln or "spill" in ln]}
+             for name, (so, secs) in built.items()}})
 
     # ---- main path ----------------------------------------------------------
     block_dots.reset_launch_counts()
@@ -1509,9 +2224,13 @@ def main() -> None:
     indeg = np.bincount(graph[graph >= 0].ravel(), minlength=len(graph))
     gidx.set_parameter("SearchMode", "beam")
     beam = {}
+    # the walk's fixed-order dots: zeroed just before the beam searches
+    walk_ops.reset_launch_counts()
+    first_walk = FirstWalkDots(walk_ops, 1024)
     for binned in ("off", "on"):
         gidx.set_parameter("BinnedTopK", binned)
-        gidx.search_batch(queries[:1024], K)            # builds the engine
+        with first_walk:
+            gidx.search_batch(queries[:1024], K)        # builds the engine
         ids_b, times_b = timed_batches(gidx, queries, 1024, BEAM_PASSES)
         eng = gidx._get_engine()
         beam[binned] = {"recall_at_10": recall_at_k(ids_b, truth_f32),
@@ -1522,9 +2241,10 @@ def main() -> None:
                         "iterations_last_batch": eng.last_iterations,
                         "ids": ids_b, "times": times_b}
     walk = eng.walk_plan(K, 2048, 16, None, 3)
+    walk_launches = walk_ops.launch_counts()
     emit({"phase": 7, "n": len(data), "d": data.shape[1],
           "build_s": gbuild_s, "build_stages_s": gidx.build_stages,
-          "build_launches": build_launches,
+          "build_launches": build_launches, "walk_launches": walk_launches,
           "mean_degree": float((graph >= 0).sum(1).mean()),
           "zero_in_degree": int((indeg == 0).sum()),
           "pivots": int(eng.pivot_ids.shape[0]),
@@ -1539,6 +2259,9 @@ def main() -> None:
             + build_launches["probe_block_dots_f32"] < 1:
         fail(f"the graph build launched no f32 block-dot kernel: "
              f"{build_launches}")
+    check(walk_launches["walk_dots_f32"] >= 1,
+          f"the beam searches launched no walk_dots kernel: "
+          f"{walk_launches}")
     r_off, r_on = beam["off"]["recall_at_10"], beam["on"]["recall_at_10"]
     # on one folder the two packages' walks agree id for id
     # (tests/test_torch_bkt.py); the band covers the port's own forest
@@ -1779,6 +2502,9 @@ def main() -> None:
               f"(max |err| {row['max_abs_err']})")
         rows.append(row)
 
+    rows.extend(walk_dots_rows(walk_ops, first_walk,
+                               walk_launches["walk_dots_f32"]))
+
     # ---- phase 6: where a search batch's time goes ---------------------------
     # device time from the profiler's CUDA rows (kernels and copies); the
     # idle share is against the untraced batch time of phases 3/4
@@ -1840,6 +2566,9 @@ def main() -> None:
     scheduler_phase(pt, gidx, queries, truth_f32, beam,
                     os.path.join(work.name, "kdt"), make_dataset(
                         n=50_000, d=100, nq=200)[1])
+
+    # ---- phase 12: the socket search server on phase 7's folder ----------
+    server_phase(pt, block_dots, graph_folder, queries, work.name, here)
 
     if FAILED_CHECKS:
         fail(f"{len(FAILED_CHECKS)} check(s) failed: {FAILED_CHECKS}")

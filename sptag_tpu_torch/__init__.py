@@ -10,8 +10,9 @@ loaded in the SPTAG folder format and searched with ``SearchMode=dense``
 of all three (add, delete, refine, merge, the write-ahead log and the delta
 shard), with ``ContinuousBatching=1`` searches through the slot scheduler
 (``algo/scheduler.py``); blobs, the capacity estimators and the TSV / BIN
-reader (``io/reader.py``).  Entry points run on the CUDA card unless
-given ``device="cpu"``.
+reader (``io/reader.py``); the socket search server and its clients
+(``serve/``) with the host observability stack (``utils/``).  Entry points
+run on the CUDA card unless given ``device="cpu"``.
 The JAX package ``sptag_tpu`` is the reference; this package imports none
 of it.
 """

@@ -60,12 +60,16 @@ from sptag_tpu_torch.graph.rng import RelativeNeighborhoodGraph
 from sptag_tpu_torch.io import format as fmt
 from sptag_tpu_torch.ops import graph as graph_ops
 from sptag_tpu_torch.trees.bktree import BKTree
+from sptag_tpu_torch.utils import flightrec, metrics
 
 log = logging.getLogger(__name__)
 
 # touched rows per chunk of an add's reverse-edge re-prune
 _LINK_CHUNK = 4096
 
+# the flight recorder's knobs, applied process-wide at set_parameter
+_FLIGHT_PARAMS = frozenset({"flightrecorder", "flightrecorderevents",
+                            "flightdumponslowquery"})
 # knobs baked into the dense snapshot: a change rebuilds it
 _DENSE_PARAMS = frozenset({"densereplicas", "denseclustersize",
                            "cascadesearch"})
@@ -160,6 +164,17 @@ class BKTIndex(VectorIndex):
                 if low in _ENGINE_PARAMS:
                     self._engine = None
                     self._engine_param_gen += 1
+        if ok and low in _FLIGHT_PARAMS:
+            # the flight recorder is process-wide: applied at once
+            p = self.params
+            flightrec.configure(
+                enabled=(bool(int(getattr(p, "flight_recorder", 0)))
+                         if low == "flightrecorder" else None),
+                max_events=(int(getattr(p, "flight_recorder_events", 0))
+                            or None
+                            if low == "flightrecorderevents" else None),
+                dump_dir=(getattr(p, "flight_dump_on_slow_query", "")
+                          if low == "flightdumponslowquery" else None))
         return ok
 
     def _new_tree(self) -> BKTree:
@@ -602,6 +617,29 @@ class BKTIndex(VectorIndex):
             out.append(outer)
         return out
 
+    def _health_payload(self) -> Optional[dict]:
+        """Graph navigability (qualmon.graph_health): degree histogram,
+        sampled reciprocal-edge fraction and the fraction of live rows
+        reachable from the tree seeds, over the main-tier rows (a live
+        delta's tail is unlinked by design); the scalars also ride
+        qualmon gauges."""
+        from sptag_tpu_torch.utils import qualmon
+
+        if self._graph is None:
+            return None
+        n = min(self._main_rows(), len(self._graph))
+        health = qualmon.graph_health(self._graph[:n], self._deleted[:n],
+                                      self._pivot_ids())
+        shard = getattr(self, "_quality_shard",
+                        type(self).__name__.lower())
+        qualmon.gauge("graph.mean_degree",
+                      health.get("degree_mean", 0.0), shard=shard)
+        qualmon.gauge("graph.reciprocal_fraction",
+                      health.get("reciprocal_fraction", 0.0), shard=shard)
+        qualmon.gauge("graph.reachable_fraction",
+                      health.get("reachable_fraction", 0.0), shard=shard)
+        return health
+
     def _exact_scan(self, queries: np.ndarray, k: int
                     ) -> Tuple[np.ndarray, np.ndarray]:
         """The exact scan over the walk snapshot's resident corpus."""
@@ -788,17 +826,24 @@ class BKTIndex(VectorIndex):
         """Block until an in-flight background rebuild has finished."""
         self._rebuild_done.wait(timeout)
 
-    def close(self) -> None:
-        """Stop the background worker (idempotent); the pool swap happens
-        under the lock, the join outside it (a running job needs the lock
-        to finish)."""
+    def stop_scheduler(self) -> None:
+        """Stop the slot scheduler's worker, if one runs (queries it still
+        holds fail with SchedulerStopped); the next scheduled search makes
+        a new one.  A server calls it when it stops."""
         with self._lock:
-            pool, self._rebuild_pool = self._rebuild_pool, None
             sched, self._scheduler = self._scheduler, None
-        if pool is not None:
-            pool.stop()
         if sched is not None:
             sched.stop()
+
+    def close(self) -> None:
+        """Stop the background worker and the scheduler (idempotent); the
+        swaps happen under the lock, the joins outside it (a running job
+        needs the lock to finish)."""
+        with self._lock:
+            pool, self._rebuild_pool = self._rebuild_pool, None
+        if pool is not None:
+            pool.stop()
+        self.stop_scheduler()
 
     def __del__(self):                    # pragma: no cover - GC timing
         try:
@@ -887,6 +932,9 @@ class BKTIndex(VectorIndex):
                 engine = self._engine
                 if engine is None or engine.n != b0 or self._dirty:
                     engine = None
+            if flightrec.enabled():
+                flightrec.record("index", "swap_begin",
+                                 payload={"rows": n0 - b0, "base": b0})
             if engine is None:
                 engine = self._make_engine(graph_base, rows=b0)
             new_graph = self._linked_graph(engine, graph_base, b0,
@@ -901,6 +949,7 @@ class BKTIndex(VectorIndex):
                 if self._structure_gen != gen or d is None \
                         or d.base_id != b0 \
                         or self._engine_param_gen != pgen:
+                    metrics.inc("mutation.swap_stale_discards")
                     return
                 # the whole linked graph: its prefix rows carry the
                 # reverse edges into the absorbed tail
@@ -916,6 +965,9 @@ class BKTIndex(VectorIndex):
                 tail = (self._host[n0:self._n].copy()
                         if self._n > n0 else None)
                 self._delta = d.rebased(n0, tail)
+                metrics.set_gauge(
+                    "mutation.delta_rows",
+                    self._delta.count if self._delta is not None else 0)
                 self._adds_since_rebuild += n0 - b0
                 if self._adds_since_rebuild >= \
                         self.params.add_count_for_rebuild:
@@ -928,8 +980,17 @@ class BKTIndex(VectorIndex):
             with self._lock:
                 self._swap_windows = tuple(self._swap_windows[-15:]) + (
                     (t0 * 1000.0, t1 * 1000.0),)
+            metrics.inc("mutation.swaps")
+            metrics.observe("mutation.swap_s", t1 - t0)
+            if flightrec.enabled():
+                flightrec.record("index", "swap_publish",
+                                 dur_ns=int((t1 - t0) * 1e9),
+                                 payload={"rows": n0 - b0,
+                                          "epoch": self._snapshot_epoch})
+            self.publish_quality_health(background=True)
         except BaseException:
             # the delta keeps serving; the next trigger retries
+            metrics.inc("mutation.refine_errors")
             log.exception("background delta refine failed")
         finally:
             with self._lock:

@@ -30,8 +30,12 @@ empty scheduler slot) is never alive.  On the card a chunk of at most
 CUDA graph, captured per padded shape and plan on each snapshot when
 asked for the second time (at most ``_GRAPH_CACHE`` kept): the JAX
 package's one compiled program per search, and the same results.  Rows
-are independent, so chunking and batch padding do not change them either;
-``chunk_size`` keeps the JAX package's formula all the same.
+are independent, so chunking and batch padding do not change them either:
+on the card every float32 distance of the walk (seeding, the in-loop
+scoring, the re-rank) comes from ops/walk_dots.py's fixed-order kernel,
+whose bits do not depend on the batch's shape, so a server that coalesces
+requests answers a query alike in any batch.  ``chunk_size`` keeps the
+JAX package's formula all the same.
 
 The walk's state is the JAX package's (``seed_state``): ``run_segment``
 advances it by at most S iterations and ``finalize`` retires it, so
@@ -75,6 +79,7 @@ from sptag_tpu_torch.core.index import not_ported
 from sptag_tpu_torch.core.types import DistCalcMethod
 from sptag_tpu_torch.device import DeviceLike, resolve_device
 from sptag_tpu_torch.ops import distance as dist_ops
+from sptag_tpu_torch.ops import walk_dots as walk_ops
 from sptag_tpu_torch.ops import topk_bins
 from sptag_tpu_torch.utils import query_bucket
 
@@ -91,9 +96,17 @@ _ALIVE_CHECK = 4
 # every measured size up to 256 queries, padding included (PERF.md)
 _GRAPH_BUCKETS = (4, 16, 64, 256)
 _GRAPH_MAX_Q = _GRAPH_BUCKETS[-1]
+# one CUDA-graph capture at a time in the process: a server captures from
+# its executor thread (new padded walk sizes) and from the scheduler's
+# worker (new capacities) while the quality monitor and background swaps
+# launch from their own threads; every capture holds this lock
+capture_lock = threading.Lock()
 # captured graphs kept per snapshot (each holds its own memory pool); the
-# least recently replayed goes first
-_GRAPH_CACHE = 8
+# least recently replayed goes first.  A server's mixed traffic needs a
+# graph per (padded size, plan): chip_smoke.py phase 12's option palette
+# alone keeps 16-20 resident, and at 8 its ramp recaptured all along
+# (PERF.md)
+_GRAPH_CACHE = 32
 
 #: the walk state's per-row tensors that a segment changes
 STATE_KEYS = ("cand_ids", "cand_d", "expanded", "visited", "no_better",
@@ -122,8 +135,8 @@ def _seed_from_pivots(pivot_ids, pivot_vecs, queries, L: int, metric: int,
     Q = queries.shape[0]
     P = pivot_ids.shape[0]
     dev = queries.device
-    d0 = dist_ops.pairwise_distance(queries, pivot_vecs,
-                                    DistCalcMethod(metric))       # (Q, P)
+    d0 = walk_ops.walk_distance(queries, pivot_vecs, metric, 1,
+                                walk_ops.SHARED)                  # (Q, P)
     seed_ids = pivot_ids
     if P < L:
         d0 = torch.cat([d0, d0.new_full((Q, L - P), MAX_DIST)], dim=1)
@@ -150,8 +163,9 @@ def _seed_from_seeds(data, sqnorm, seed_ids, queries, L: int, metric: int,
     N = data.shape[0]
     seed_ids = torch.where(seed_ids < N, seed_ids, -1)
     safe = seed_ids.clamp_min(0)
-    d0 = dist_ops.batched_gathered_distance(
-        queries, data[safe], DistCalcMethod(metric), base, sqnorm[safe])
+    d0 = walk_ops.walk_distance(queries, data, metric, base,
+                                walk_ops.GATHER, idx=safe,
+                                x_sqnorm=sqnorm[safe])
     seeds_safe = torch.where(seed_ids >= 0, seed_ids, N)
     d0 = torch.where((seed_ids < 0) | _sorted_dup_mask(seeds_safe),
                      MAX_DIST, d0)
@@ -307,14 +321,17 @@ class _Walk:
             # order of `flat`; masked slots score row 0's copy and `fresh`
             # discards them
             sel_safe = sel_ids.clamp_min(0)
-            cvecs = eng.nbr_vecs[sel_safe].reshape(Q, flat.shape[1], -1)
+            cvecs = eng.nbr_vecs[sel_safe].reshape(Q * flat.shape[1], -1)
             csq = eng.nbr_sq[sel_safe].reshape(Q, flat.shape[1])
+            nd = walk_ops.walk_distance(self.queries_s, cvecs, eng.metric,
+                                        eng.base, walk_ops.ROWS,
+                                        x_sqnorm=csq, C=flat.shape[1])
         else:
             gather_idx = torch.where(fresh, flat, 0)
-            cvecs = eng.score_src[gather_idx]
-            csq = eng.sqnorm[gather_idx]
-        nd = dist_ops.batched_gathered_distance(
-            self.queries_s, cvecs, eng.metric, eng.base, csq)
+            nd = walk_ops.walk_distance(self.queries_s, eng.score_src,
+                                        eng.metric, eng.base,
+                                        walk_ops.GATHER, idx=gather_idx,
+                                        x_sqnorm=eng.sqnorm[gather_idx])
         nd = torch.where(fresh, nd, MAX_DIST)
 
         # ---- inject spare pivots when the frontier falls behind the next
@@ -405,8 +422,9 @@ def _finalize(eng: "GraphSearchEngine", queries, cand_ids, cand_d,
     > 0)."""
     if eng.rerank:
         safe = cand_ids.clamp_min(0)
-        exact = dist_ops.batched_gathered_distance(
-            queries, eng.data[safe], eng.metric, eng.base, eng.sqnorm[safe])
+        exact = walk_ops.walk_distance(queries, eng.data, eng.metric,
+                                       eng.base, walk_ops.GATHER, idx=safe,
+                                       x_sqnorm=eng.sqnorm[safe])
         cand_d = torch.where(cand_ids >= 0, exact, MAX_DIST)
     dead = eng.deleted[cand_ids.clamp_min(0)] | (cand_ids < 0)
     out_d = torch.where(dead, MAX_DIST, cand_d)
@@ -731,9 +749,10 @@ class GraphSearchEngine:
             self._walk_chunk(q_in, s_in, plan, check_alive=False)  # warm-up
         torch.cuda.current_stream(self.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            d_out, i_out, _ = self._walk_chunk(q_in, s_in, plan,
-                                               check_alive=False)
+        with capture_lock:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                d_out, i_out, _ = self._walk_chunk(q_in, s_in, plan,
+                                                   check_alive=False)
         return graph, q_in, s_in, d_out, i_out, threading.Lock()
 
     def search(self, queries: np.ndarray, k: int, max_check: int = 2048,

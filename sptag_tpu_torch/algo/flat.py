@@ -38,6 +38,23 @@ from sptag_tpu_torch.utils import round_up
 _ROW_PAD = 128      # corpus rows are padded to a multiple of this
 # score-matrix elements per query chunk (Q_chunk * Npad)
 _SCAN_BUDGET = 1 << 28
+# passes over the materialized (Q, N) score matrix in the exact scan (mask,
+# negate, top-k): the JAX package's costmodel.SCAN_MATRIX_TRAFFIC
+_SCAN_MATRIX_TRAFFIC = 3.2
+
+
+def flat_scan_cost(Q: int, N: int, D: int, k: int,
+                   itemsize: int = 4) -> Tuple[float, float]:
+    """(flops, bytes) of one exact scan of Q queries over N rows of width
+    D: the contraction, the norms and the masked top-k; bytes are the
+    corpus, queries, norms and tombstones read, the results written and
+    the score matrix's passes.  The JAX package's ``flat.scan``
+    cost-ledger formula (its unbinned branch); the quality monitor's
+    shadow budget charges each replay by it."""
+    flops = 2.0 * Q * N * D + 2.0 * D * (Q + N) + 2.0 * Q * N
+    nbytes = (N * D * itemsize + Q * D * itemsize + N * 4 + N + Q * k * 8
+              + _SCAN_MATRIX_TRAFFIC * Q * N * 4)
+    return flops, nbytes
 
 
 def _flat_search_kernel(data, sqnorm, invalid, queries, k: int, metric: int,

@@ -41,13 +41,16 @@ not the main thread; at most ``_GRAPH_CACHE`` kept).  There the host's
 launches bound an eager segment; at 1,024 slots the card does, and a
 replay did not pay (PERF.md), so larger capacities run eagerly.
 
-Left out, each with its ROADMAP.md item: the metrics registry, the
-flight recorder, the host profiler's stage pins and the lock sanitizer
-(observability, host half: a plain ``threading.Lock`` here, and
-``stats()`` carries the counters), the device-memory ledger (the same
-item, ``devmem.py``), the recompile guard's hot sections and the
-roofline attribution of slow queries (observability, device half), and
-the mesh shard-skew telemetry (multi-GPU).
+Observability as in the JAX package: the ``scheduler.*`` metrics the
+serving layer reads (slot wait, occupancy, pending, submitted, segments,
+retired, worker errors, leaked workers), the flight recorder's
+``scheduler`` events and per-rid stats for the slow-query log, the host
+profiler's execute-stage pin, and the lock sanitizer (``SanLock``,
+``race_track``).  Left out, each with its ROADMAP.md item: the
+device-memory ledger (``devmem.py``, observability, host half), the
+recompile guard's hot sections and the roofline attribution of slow
+queries (observability, device half), and the mesh shard-skew telemetry
+(multi-GPU).
 """
 
 from __future__ import annotations
@@ -62,8 +65,9 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from sptag_tpu_torch.algo.engine import STATE_KEYS
-from sptag_tpu_torch.utils import query_bucket
+from sptag_tpu_torch.algo.engine import STATE_KEYS, capture_lock
+from sptag_tpu_torch.utils import (flightrec, hostprof, locksan, metrics,
+                                   query_bucket)
 
 log = logging.getLogger(__name__)
 
@@ -106,13 +110,22 @@ def gather_futures(futs, k: int) -> Tuple[np.ndarray, np.ndarray]:
 
 
 class _Item:
-    __slots__ = ("query", "seeds", "t_limit", "future")
+    __slots__ = ("query", "seeds", "t_limit", "future", "t_enq", "rid",
+                 "slot_wait", "segments", "refills")
 
-    def __init__(self, query, seeds, t_limit, future):
+    def __init__(self, query, seeds, t_limit, future, t_enq, rid=""):
         self.query = query
         self.seeds = seeds
         self.t_limit = t_limit
         self.future = future
+        self.t_enq = t_enq
+        # flight-recorder attribution: the request id, the time queued
+        # before a slot opened, the segments resident and the refill
+        # batches that joined the pool while resident
+        self.rid = rid
+        self.slot_wait = 0.0
+        self.segments = 0
+        self.refills = 0
 
 
 class _SlotPool:
@@ -185,6 +198,7 @@ class _SlotPool:
         return query_bucket(min(need, self.max_slots), self.max_slots)
 
 
+@locksan.race_track
 class BeamSlotScheduler:
     """Continuous-batching front end over one GraphSearchEngine snapshot.
 
@@ -206,7 +220,7 @@ class BeamSlotScheduler:
         # seen once (captured at the second)
         self._graphs = collections.OrderedDict()
         self._graph_seen = set()
-        self._lock = threading.Lock()
+        self._lock = locksan.make_lock("BeamSlotScheduler._lock")
         self._cv = threading.Condition(self._lock)
         self._pending: Dict[tuple, collections.deque] = {}
         self._pools: Dict[tuple, _SlotPool] = {}
@@ -229,9 +243,8 @@ class BeamSlotScheduler:
                seeds: Optional[np.ndarray] = None,
                rid: str = "") -> Future:
         """Queue one query; the future resolves to (dists, ids), the
-        values `engine.search` returns for it.  `rid`, the request id the
-        JAX package's flight recorder tags, is accepted and unused until
-        that recorder is ported."""
+        values `engine.search` returns for it.  `rid` tags the query's
+        flight-recorder events and per-rid stats."""
         k_eff, L, B, T, limit = self._engine.walk_plan(
             k, max_check, beam_width, pool_size, nbp_limit)
         seeds_row = None
@@ -244,15 +257,20 @@ class BeamSlotScheduler:
             inject = dynamic_pivots
         key = (k_eff, L, B, limit, inject, seed_width)
         fut: Future = Future()
-        del rid
-        item = _Item(np.asarray(query).reshape(-1), seeds_row, T, fut)
+        item = _Item(np.asarray(query).reshape(-1), seeds_row, T, fut,
+                     time.perf_counter(), rid=rid)
+        if flightrec.enabled():
+            flightrec.record("scheduler", "pending", rid,
+                             payload={"max_check": max_check})
         with self._cv:
             if (self._stopped or self._draining
                     or self._worker_error is not None):
                 raise SchedulerStopped(
                     f"scheduler is stopped ({self._worker_error!r})")
             self._pending.setdefault(key, collections.deque()).append(item)
+            metrics.set_gauge("scheduler.pending", self._pending_count())
             self._cv.notify()
+        metrics.inc("scheduler.submitted")
         return fut
 
     def search_batch(self, queries: np.ndarray, k: int, max_check: int,
@@ -295,8 +313,18 @@ class BeamSlotScheduler:
         queries on the old engine snapshot while the new one serves new
         traffic."""
         with self._cv:
+            already = self._draining
             self._draining = True
             self._cv.notify()
+            resident = (sum(p.live_count() for p in self._pools.values())
+                        + self._pending_count())
+        if not already:
+            # how many schedulers a mutation stream retired and how much
+            # work each drained: the witness that a swap dropped nothing
+            metrics.inc("scheduler.retired_schedulers")
+            if flightrec.enabled():
+                flightrec.record("scheduler", "retire_drain",
+                                 payload={"resident": resident})
 
     def stop(self) -> None:
         """Stop the worker and fail outstanding queries with
@@ -307,6 +335,7 @@ class BeamSlotScheduler:
         if self._thread is not threading.current_thread():
             self._thread.join(timeout=30.0)
             if self._thread.is_alive():    # pragma: no cover - wedged card
+                metrics.inc("scheduler.leaked_workers")
                 log.warning("scheduler worker still running after stop "
                             "join")
         leftovers: List[_Item] = []
@@ -368,6 +397,8 @@ class BeamSlotScheduler:
                         if take:
                             intake[key] = [dq.popleft()
                                            for _ in range(take)]
+                    metrics.set_gauge("scheduler.pending",
+                                      self._pending_count())
                     active_pools = [p for p in self._pools.values()
                                     if p.live_count() or intake.get(p.key)]
                 for pool in active_pools:
@@ -377,6 +408,7 @@ class BeamSlotScheduler:
             with self._cv:
                 self._worker_error = e
                 self._stopped = True
+            metrics.inc("scheduler.worker_errors")
             # fail everything in flight so no caller blocks forever
             with self._lock:
                 items = [i for dq in self._pending.values() for i in dq]
@@ -410,8 +442,25 @@ class BeamSlotScheduler:
 
     def _cycle(self, pool: _SlotPool, incoming: List[_Item]) -> None:
         engine = self._engine
+        now = time.perf_counter()
+        rec = flightrec.enabled()
+        if hostprof.armed():
+            # everything this worker does is execute-stage serve work;
+            # re-pinned per cycle so a profiler armed mid-flight
+            # attributes the very next cycle
+            hostprof.set_stage("execute")
         # ---- resize (grow for the intake / compact a drained pool)
         target = pool.target_capacity(len(incoming))
+        residents = pool.live_count()
+        if incoming and residents:
+            # a refill: count it against every resident query
+            for e in pool.entries:
+                if e is not None:
+                    e.refills += 1
+            if rec:
+                flightrec.record("scheduler", "refill",
+                                 payload={"count": len(incoming),
+                                          "live": residents})
         if incoming and pool.capacity == 0:
             # the first allocation takes dtypes and widths from a seeded
             # bucket
@@ -420,16 +469,42 @@ class BeamSlotScheduler:
             self._insert(pool, incoming, seeded)
         else:
             if target != pool.capacity:
+                if rec and target < pool.capacity and residents:
+                    flightrec.record("scheduler", "compact",
+                                     payload={"from": pool.capacity,
+                                              "to": target})
                 pool._alloc(target, pool.state)
             if incoming:
                 self._insert(pool, incoming,
                              self._seed_bucket(pool, incoming))
+        for item in incoming:
+            item.slot_wait = now - item.t_enq
+            metrics.observe("scheduler.slot_wait", item.slot_wait)
+            if rec:
+                flightrec.record("scheduler", "slot_assign", item.rid,
+                                 dur_ns=int(item.slot_wait * 1e9))
+        metrics.set_gauge("scheduler.occupancy",
+                          pool.live_count() / max(pool.capacity, 1))
         if not pool.live_count():
             return
+        t_seg0 = time.monotonic_ns() if rec else 0
         alive = self._segment(pool)
+        metrics.inc("scheduler.segments")
+        live_now = 0
+        for e in pool.entries:
+            if e is not None:
+                e.segments += 1
+                live_now += 1
+        if rec:
+            flightrec.record("scheduler", "segment",
+                             dur_ns=time.monotonic_ns() - t_seg0,
+                             payload={"live": live_now,
+                                      "capacity": pool.capacity})
         done = [i for i, e in enumerate(pool.entries)
                 if e is not None and not alive[i]]
         if not done:
+            metrics.set_gauge("scheduler.occupancy",
+                              pool.live_count() / max(pool.capacity, 1))
             return
         # ---- retire: finalize only the retiring rows, gathered to a
         # bucketed sub-batch
@@ -439,6 +514,7 @@ class BeamSlotScheduler:
         sub = {name: pool.state[name][rows]
                for name in ("queries", "cand_ids", "cand_d")}
         d, ids = engine.finalize(sub, pool.k_eff)
+        t_done = time.perf_counter()
         iters = pool.state["it"][rows[:len(done)]].cpu().tolist()
         items = [pool.entries[i] for i in done]
         for i in done:
@@ -449,10 +525,34 @@ class BeamSlotScheduler:
             c["resident_iters_sum"] += int(sum(iters))
             c["resident_iters_max"] = max(c["resident_iters_max"],
                                           max(iters))
+        # every observation of the retiring queries is published before
+        # any future resolves: a caller reading metrics or flight stats
+        # at result time finds its own query's numbers
+        metrics.inc("scheduler.retired", len(done))
+        for j, item in enumerate(items):
+            metrics.observe("scheduler.query_s", t_done - item.t_enq)
+            if rec:
+                flightrec.record(
+                    "scheduler", "retire", item.rid,
+                    dur_ns=int((t_done - item.t_enq) * 1e9),
+                    payload={"segments": item.segments,
+                             "refills": item.refills})
+            if item.rid:
+                # iters against the budget is the quality monitor's
+                # triage input (qualmon.classify_low_recall); retire owns
+                # the query's lifecycle, so it replaces a reused rid's
+                # stats
+                flightrec.note_query_stats(
+                    item.rid, _replace=True,
+                    slot_wait_ms=round(item.slot_wait * 1000.0, 3),
+                    segments=item.segments, refills=item.refills,
+                    iters=int(iters[j]), t_budget=int(item.t_limit))
         for j, item in enumerate(items):
             if not item.future.done():
                 item.future.set_result((d[j].copy(), ids[j].copy()))
         pool._blank_rows(torch.tensor(done, device=engine.device))
+        metrics.set_gauge("scheduler.occupancy",
+                          pool.live_count() / max(pool.capacity, 1))
 
     def _segment(self, pool: _SlotPool) -> np.ndarray:
         """One segment over the pool's slots (replayed from a captured
@@ -527,8 +627,9 @@ class BeamSlotScheduler:
             segment()                                        # warm-up
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            alive_out = segment()
+        with capture_lock:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                alive_out = segment()
         return graph, bufs, t_in, alive_out
 
     def _seed_bucket(self, pool: _SlotPool,

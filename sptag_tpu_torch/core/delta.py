@@ -18,21 +18,20 @@ a bounded side index that is scanned exactly on every search:
   off the lock, swaps a new engine in and `rebased` hands the rows that
   arrived meanwhile to a fresh shard.
 
-The scan is the port's `algo.flat.exact_device_scan`; the lock sanitizer
-and the device-memory ledger of the JAX package are left out (ROADMAP.md,
-observability).
+The scan is the port's `algo.flat.exact_device_scan`; the class is under
+the lock sanitizer like the JAX package's.  The device-memory ledger is
+left out (ROADMAP.md, observability).
 """
 
 from __future__ import annotations
 
-import threading
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from sptag_tpu_torch.device import DeviceLike, resolve_device
-from sptag_tpu_torch.utils import round_up
+from sptag_tpu_torch.utils import locksan, round_up
 
 #: sentinel distance (core/index.py MAX_DIST)
 _MAX_DIST = np.float32(3.4e38)
@@ -40,6 +39,7 @@ _MAX_DIST = np.float32(3.4e38)
 _ROW_PAD = 128      # the FLAT scan's row padding (algo/flat.py)
 
 
+@locksan.race_track
 class DeltaShard:
     """Bounded side index for rows appended after the engine snapshot.
 
@@ -62,7 +62,7 @@ class DeltaShard:
         self._device: Optional[tuple] = None
         # serializes the lazy re-upload (the owner lock is not held on
         # the search path); a leaf lock, never nested
-        self._cache_lock = threading.Lock()
+        self._cache_lock = locksan.make_lock("DeltaShard._cache_lock")
 
     def append(self, data: np.ndarray, begin: int) -> None:
         """Append prepared rows whose global ids start at `begin`

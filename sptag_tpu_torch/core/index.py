@@ -12,9 +12,12 @@ With ``WalEnabled=1`` every acked add/delete is logged (io/wal.py) before
 it applies, and ``load_index`` replays the log.  With
 ``DeltaShardCapacity`` set, added rows land in an exactly scanned side
 index (core/delta.py) merged into every search until a refine absorbs
-them.  The observability hooks of the JAX code (metrics, the flight
-recorder, the device-memory ledger, the lock sanitizer, the quality
-monitor) belong to ROADMAP.md's observability item and are left out.
+them.  The host half of the JAX package's observability rides along:
+the ``mutation.*`` metrics, the lock sanitizer (the writer lock is a
+``SanLock`` and the class is ``race_track``ed when armed), the storage
+crash points of ``save_index``, the live-applied quality-monitor and
+timeline knobs, and `publish_quality_health`.  The device-memory ledger
+belongs to ROADMAP.md's observability item and is left out.
 
 Every index also serializes to memory buffers (`save_index_blobs`,
 `load_index_blobs`), hands out per-query futures (`submit_batch`) and
@@ -53,6 +56,7 @@ from sptag_tpu_torch.core.vectorset import (FileMetadataSet, MetadataSet,
 from sptag_tpu_torch.device import DeviceLike, resolve_device
 from sptag_tpu_torch.io import atomic, wal
 from sptag_tpu_torch.ops import distance as dist_ops
+from sptag_tpu_torch.utils import faultinject, locksan, metrics
 from sptag_tpu_torch.utils.ini import IniReader
 
 log = logging.getLogger(__name__)
@@ -129,6 +133,7 @@ def create_instance(algo: Union[IndexAlgoType, str],
     return cls(value_type, resolve_device(device))
 
 
+@locksan.race_track
 class VectorIndex(abc.ABC):
     algo: IndexAlgoType = IndexAlgoType.Undefined
 
@@ -138,8 +143,8 @@ class VectorIndex(abc.ABC):
         self.params: ParamSet = self._make_params()
         self.metadata: Optional[MetadataSet] = None
         self._meta_to_vec: Optional[Dict[bytes, int]] = None
-        # the single-writer mutation lock
-        self._lock = threading.RLock()
+        # the single-writer mutation lock (sanitized under SPTAG_LOCKSAN)
+        self._lock = locksan.make_rlock("VectorIndex._lock")
         self._meta_file = "metadata.bin"
         self._meta_index_file = "metadataIndex.bin"
         # the WAL writer, armed by load_index and by a save with
@@ -219,8 +224,49 @@ class VectorIndex(abc.ABC):
     def base(self) -> int:
         return base_of(self.value_type)
 
+    # quality-monitor knobs (utils/qualmon.py): process-wide, applied at
+    # set_parameter time for every index family; each maps to its own
+    # configure field so setting one never clobbers the others
+    _QUALITY_PARAMS = frozenset({"qualitysamplerate", "qualityrecallfloor",
+                                 "qualityshadowbudget", "qualitywindow"})
+
     def set_parameter(self, name: str, value: str) -> bool:
-        return self.params.set_param(name, value)
+        ok = self.params.set_param(name, value)
+        low = name.lower()
+        if ok and low in ("timelineintervalms", "timelineevents"):
+            # serving timeline (utils/timeline.py): process-wide;
+            # interval > 0 arms and starts the sampler, 0 stops it; the
+            # events knob resizes the per-series rings
+            from sptag_tpu_torch.utils import timeline
+
+            if low == "timelineintervalms":
+                interval = float(getattr(self.params,
+                                         "timeline_interval_ms", 0.0))
+                if interval > 0:
+                    timeline.configure(enabled=True, interval_ms=interval)
+                    timeline.start()
+                else:
+                    timeline.configure(enabled=False)
+                    timeline.stop()
+            else:
+                timeline.configure(
+                    capacity=int(getattr(self.params, "timeline_events",
+                                         0)) or None)
+        if ok and low in self._QUALITY_PARAMS:
+            from sptag_tpu_torch.utils import qualmon
+
+            p = self.params
+            qualmon.configure(
+                sample_rate=(float(getattr(p, "quality_sample_rate", 0.0))
+                             if low == "qualitysamplerate" else None),
+                recall_floor=(float(getattr(p, "quality_recall_floor", 0.0))
+                              if low == "qualityrecallfloor" else None),
+                shadow_budget_gflops=(
+                    float(getattr(p, "quality_shadow_budget", 0.0))
+                    if low == "qualityshadowbudget" else None),
+                window=(int(getattr(p, "quality_window", 0))
+                        if low == "qualitywindow" else None))
+        return ok
 
     def get_parameter(self, name: str) -> Optional[str]:
         return self.params.get_param(name)
@@ -270,6 +316,9 @@ class VectorIndex(abc.ABC):
             self.metadata = metadata
             if with_meta_index and metadata is not None:
                 self.build_meta_mapping()
+        # index health at every structural mutation: one flag test when
+        # the monitor is off; the O(n) sweep runs on its worker
+        self.publish_quality_health(background=True)
         return ErrorCode.Success
 
     def build_meta_mapping(self) -> None:
@@ -355,6 +404,66 @@ class VectorIndex(abc.ABC):
                                        self._exact_scan(queries, k_eff))
         return pad_results(dists, ids, k)
 
+    # ---- quality health (utils/qualmon.py) --------------------------------
+
+    def publish_quality_health(self, shard: Optional[str] = None,
+                               background: bool = False) -> None:
+        """Publish this index's health to the quality monitor: sample
+        count and deleted fraction (the graph indexes add degree,
+        reciprocity and reachability through `_health_payload`).  `shard`
+        names the series (a server passes its index name and the label
+        sticks for later republishes).  A no-op with the monitor off;
+        never raises.  `background=True` (the mutation paths) runs the
+        O(n) sweep on the monitor's worker, debounced: one pending job
+        at a time, reading the index state when it runs."""
+        from sptag_tpu_torch.utils import qualmon
+
+        if shard is not None:
+            self._quality_shard = str(shard)
+        if not qualmon.enabled():
+            return
+        label = getattr(self, "_quality_shard",
+                        type(self).__name__.lower())
+        if background:
+            if getattr(self, "_health_job_pending", False):
+                return
+            self._health_job_pending = True
+
+            def job():
+                # the label is read when the job runs, like the state
+                try:
+                    self._publish_health_now(
+                        getattr(self, "_quality_shard",
+                                type(self).__name__.lower()))
+                finally:
+                    self._health_job_pending = False
+            if not qualmon.submit(job):
+                self._health_job_pending = False
+            return
+        self._publish_health_now(label)
+
+    def _publish_health_now(self, label: str) -> None:
+        from sptag_tpu_torch.utils import qualmon
+
+        try:
+            n = self.num_samples
+            payload = {"samples": int(n), "deleted": int(self.num_deleted)}
+            qualmon.gauge("index.samples", n, shard=label)
+            qualmon.gauge("index.deleted_fraction",
+                          (self.num_deleted / n) if n else 0.0,
+                          shard=label)
+            extra = self._health_payload()
+            if extra:
+                payload.update(extra)
+            qualmon.note_health(label, **payload)
+        except Exception:                                # noqa: BLE001
+            qualmon.inc("health_errors")
+            log.exception("quality health publish failed")
+
+    def _health_payload(self) -> Optional[dict]:
+        """Family-specific health extras (the graph indexes override)."""
+        return None
+
     # ---- mutation ---------------------------------------------------------
 
     def add(self, vectors, metadata: Optional[MetadataSet] = None,
@@ -377,6 +486,7 @@ class VectorIndex(abc.ABC):
             self._wal_log(wal.pack_add(begin, data, metas))
             applied = self._apply_add(data, metas, with_meta_index)
             assert applied == begin, (applied, begin)
+        self.publish_quality_health(background=True)
         self._maybe_auto_refine()
         return ErrorCode.Success
 
@@ -450,6 +560,7 @@ class VectorIndex(abc.ABC):
                                      int(self.dist_calc_method), self.base,
                                      self.device)
         self._delta.append(data, begin)
+        metrics.set_gauge("mutation.delta_rows", self._delta.count)
         return begin
 
     # ---- delta-shard hooks ------------------------------------------------
@@ -545,6 +656,7 @@ class VectorIndex(abc.ABC):
             return
         self._wal.append(payload)
         self._acked_writes += 1
+        metrics.inc("mutation.wal_appends")
 
     def _arm_wal(self, folder: str) -> None:
         """(Re)open the WAL writer at `folder`: after a load, and after
@@ -562,7 +674,9 @@ class VectorIndex(abc.ABC):
         `begin`; deletes are idempotent; replay stops at the first record
         that fails to apply and serves the prefix."""
         path = os.path.join(folder, wal.WAL_NAME)
-        records, _ = wal.replay(path)
+        records, torn = wal.replay(path)
+        if torn:
+            metrics.inc("mutation.wal_torn_tails")
         if not records:
             return
         applied = 0
@@ -587,6 +701,7 @@ class VectorIndex(abc.ABC):
                                     self._delete_id(int(vid))
                         applied += 1
                     except Exception:                    # noqa: BLE001
+                        metrics.inc("mutation.wal_replay_errors")
                         # later records may depend on the failed one:
                         # serve the durable prefix, loudly
                         log.exception(
@@ -597,6 +712,7 @@ class VectorIndex(abc.ABC):
             finally:
                 self._wal_replaying = False
         if applied:
+            metrics.inc("mutation.wal_replayed", applied)
             log.info("WAL replay: %d record(s) re-applied from %s",
                      applied, path)
 
@@ -632,6 +748,8 @@ class VectorIndex(abc.ABC):
                 self._wal_log(wal.pack_delete(tombstoned))
                 for v in tombstoned:
                     self._delete_id(v)
+        if found_any:
+            self.publish_quality_health(background=True)
         return ErrorCode.Success if found_any else ErrorCode.VectorNotFound
 
     def _exact_distance(self, q: np.ndarray, vid: int) -> float:
@@ -667,6 +785,7 @@ class VectorIndex(abc.ABC):
             # compaction remaps ids: fold the delta's tail in first
             self._absorb_delta_locked()
             self._refine_impl()
+        self.publish_quality_health(background=True)
         return ErrorCode.Success
 
     def merge_index(self, other: "VectorIndex") -> ErrorCode:
@@ -767,6 +886,7 @@ class VectorIndex(abc.ABC):
                 wal.create_empty(os.path.join(target, wal.WAL_NAME))
             atomic.write_manifest(target,
                                   exclude=(wal.WAL_NAME, "indexloader.ini"))
+            faultinject.crash_point("save.pre_rename")
             if existing:
                 backup = folder.rstrip("/\\") + f".old-{token}"
                 try:
@@ -777,6 +897,7 @@ class VectorIndex(abc.ABC):
                     # a mountpoint: move files in, the old sentinel first
                     os.unlink(os.path.join(folder, "indexloader.ini"))
                     _move_files_in(target, folder)
+                    faultinject.crash_point("save.post_rename")
                     if wal_on:
                         self._arm_wal(folder)
                     return ErrorCode.Success
@@ -787,6 +908,7 @@ class VectorIndex(abc.ABC):
             else:
                 # a pre-created folder that may hold other files
                 _move_files_in(target, folder)
+            faultinject.crash_point("save.post_rename")
             if wal_on:
                 # future acks append to the (empty) published log
                 self._arm_wal(folder)

@@ -5,6 +5,14 @@ manifest: per-file size + CRC32, written last into a staged save, so a
 folder whose blobs were truncated or bit-flipped fails the load instead of
 deserializing garbage.  The manifest format is the JAX package's, so either
 package verifies the other's folders.
+
+Fault sites (utils/faultinject.py storage kinds, ``SPTAG_FAULTINJECT``):
+
+* ``snapshot.write`` — every checked_open'd file write (``torn_write``
+  persists a prefix then dies; ``crash`` dies before the file exists);
+* ``snapshot.read`` — manifest verification reads (``short_read``);
+* crash points are the caller's: save_index names its own
+  (``save.pre_rename`` / ``save.post_rename``).
 """
 
 from __future__ import annotations
@@ -16,6 +24,8 @@ import os
 import shutil
 import zlib
 from typing import Dict, Iterable, Optional
+
+from sptag_tpu_torch.utils import faultinject
 
 MANIFEST_NAME = "manifest.json"
 
@@ -32,14 +42,40 @@ def _fsync_dir(path: str) -> None:
         os.close(fd)
 
 
+class _TearingFile:
+    """File proxy armed by a ``torn_write`` fault: the first write
+    persists a durable prefix of its bytes, then the "process dies"."""
+
+    def __init__(self, f):
+        self._f = f
+
+    def write(self, b):
+        prefix = bytes(b)[: max(1, len(b) // 2)] if len(b) else b""
+        self._f.write(prefix)
+        # the torn prefix is durable before the death: a torn tail lost
+        # with the page cache would test nothing
+        self._f.flush()
+        os.fsync(self._f.fileno())
+        raise faultinject.InjectedCrash("torn_write")
+
+    def __getattr__(self, name):
+        return getattr(self._f, name)
+
+
 @contextlib.contextmanager
-def checked_open(path_or_stream, mode: str = "wb"):
-    """Write-mode open that fsyncs before close; streams pass through."""
+def checked_open(path_or_stream, mode: str = "wb",
+                 site: str = "snapshot.write"):
+    """Write-mode open with the fault hooks, fsync'd before close; streams
+    pass through (their owner handles durability)."""
     if hasattr(path_or_stream, "write"):
         yield path_or_stream
         return
+    fault = faultinject.storage_fault(site)
+    if fault is not None and fault.kind == "crash":
+        raise faultinject.InjectedCrash(site)
     with open(path_or_stream, mode) as f:
-        yield f
+        yield (_TearingFile(f) if fault is not None
+               and fault.kind == "torn_write" else f)
         f.flush()
         os.fsync(f.fileno())
 
@@ -65,14 +101,22 @@ def replace_file(src: str, dst: str) -> None:
     os.unlink(src)
 
 
-def file_crc32(path: str) -> int:
+def file_crc32(path: str, site: str = "snapshot.read") -> int:
+    """Streaming CRC32 of a file; a ``short_read`` fault truncates the
+    bytes seen (the checksum then fails loudly downstream)."""
+    fault = faultinject.storage_fault(site)
+    total = os.path.getsize(path)
+    limit = total // 2 if fault is not None \
+        and fault.kind == "short_read" else total
+    seen = 0
     crc = 0
     with open(path, "rb") as f:
-        while True:
-            chunk = f.read(1 << 20)
+        while seen < limit:
+            chunk = f.read(min(1 << 20, limit - seen))
             if not chunk:
                 break
             crc = zlib.crc32(chunk, crc)
+            seen += len(chunk)
     return crc & 0xFFFFFFFF
 
 
@@ -86,7 +130,7 @@ def write_manifest(folder: str, exclude: Iterable[str] = ()) -> None:
         if name in skip or not os.path.isfile(path):
             continue
         files[name] = {"bytes": os.path.getsize(path),
-                       "crc32": file_crc32(path)}
+                       "crc32": file_crc32(path, site="snapshot.write")}
     payload = json.dumps({"version": 1, "files": files}, sort_keys=True)
     with checked_open(os.path.join(folder, MANIFEST_NAME), "w") as f:
         f.write(payload)

@@ -27,10 +27,9 @@ returns the good prefix.  Replay is idempotent against the snapshot via
 (begin + rows <= n) is skipped, so the crash window "snapshot published,
 WAL not yet reset" double-applies nothing.
 
-The JAX package's storage-fault hooks (``SPTAG_FAULTINJECT`` sites
-``wal.append`` and ``wal.read``, its crash matrix) are not ported: with
-that variable set, the writer and replay raise ``NotImplementedError``
-naming ROADMAP.md's observability item.
+Fault sites (utils/faultinject.py storage kinds, ``SPTAG_FAULTINJECT``):
+``wal.append`` (``torn_write`` / ``crash``, per record) and ``wal.read``
+(``short_read``), the sites of the deterministic crash-recovery matrix.
 """
 
 from __future__ import annotations
@@ -43,6 +42,8 @@ from typing import List, Optional, Tuple, Union
 
 import numpy as np
 
+from sptag_tpu_torch.utils import faultinject
+
 log = logging.getLogger(__name__)
 
 #: WAL file name inside an index folder
@@ -54,16 +55,6 @@ _HEADER = _MAGIC + struct.pack("<I", _VERSION)
 
 OP_ADD = 1
 OP_DELETE = 2
-
-
-def _no_fault_injection() -> None:
-    """Storage faults belong to the observability item: refuse to run a
-    crash-matrix configuration without them."""
-    if os.environ.get("SPTAG_FAULTINJECT"):
-        raise NotImplementedError(
-            "SPTAG_FAULTINJECT storage faults (the crash matrix) are not "
-            "ported to sptag_tpu_torch yet (ROADMAP.md, 'What the port "
-            "still lacks': observability)")
 
 
 class WalAdd:
@@ -149,7 +140,6 @@ class WalWriter:
     truncated away by the next replay."""
 
     def __init__(self, path: str, sync: bool = True):
-        _no_fault_injection()
         self.path = path
         self.sync = sync
         self.appended = 0
@@ -167,6 +157,17 @@ class WalWriter:
     def append(self, payload: bytes) -> None:
         rec = struct.pack("<II", len(payload),
                           zlib.crc32(payload) & 0xFFFFFFFF) + payload
+        fault = faultinject.storage_fault("wal.append")
+        if fault is not None:
+            if fault.kind == "crash":
+                raise faultinject.InjectedCrash("wal.append")
+            if fault.kind == "torn_write":
+                self._f.write(rec[: max(1, len(rec) // 2)])
+                # a durable torn prefix, then the "death" (io/atomic.py
+                # _TearingFile)
+                self._f.flush()
+                os.fsync(self._f.fileno())
+                raise faultinject.InjectedCrash("wal.append")
         self._f.write(rec)
         self._flush()
         self.appended += 1
@@ -197,11 +198,13 @@ def replay(path: str, truncate: bool = True
     bytes were never acked) and parsing stops.  A missing file is an
     empty log.  A file whose HEADER is unreadable is treated as wholly
     torn — truncated to a fresh header, zero records."""
-    _no_fault_injection()
     if not os.path.exists(path):
         return [], False
     with open(path, "rb") as f:
         raw = f.read()
+    fault = faultinject.storage_fault("wal.read")
+    if fault is not None and fault.kind == "short_read":
+        raw = raw[: len(raw) // 2]
     if raw[:len(_HEADER)] != _HEADER:
         log.warning("WAL %s: bad header; treating as empty", path)
         if truncate:

@@ -1,0 +1,620 @@
+"""Search client — remote query API over the wire protocol.
+
+Parity: ClientWrapper / client tool (AnnService/inc/Client/
+ClientWrapper.h:26-74, src/Client/main.cpp:13-78): connect (with the
+register handshake), send `RemoteQuery`, match the `SearchResponse` by
+resourceID, honor a per-call timeout (the reference uses Socket::
+ResourceManager's timeout thread, inc/Socket/ResourceManager.h:31-184 —
+here a socket timeout plays that role), expose results as
+(ids, dists, metas) per index.
+
+Three client shapes, smallest first:
+
+* `AnnClient` — one socket, one in-flight request (lock-serialized);
+  the simple REPL/tool client.
+* `PipelinedAnnClient` — one socket, MANY in-flight requests: a reader
+  thread dispatches responses to waiters by resource id, so concurrent
+  callers share the connection without serializing on the round trip
+  (the send is locked, the wait is not).  This is the Socket::
+  ResourceManager callback registry recast as events
+  (inc/Socket/ResourceManager.h:31-184); a timed-out request's late
+  reply is read and discarded, leaving the stream aligned.
+* `AnnClientPool` — N pipelined connections, round-robin per request
+  (ClientWrapper.h:26-74: the reference tool dials N sockets and
+  round-robins queries across them from its thread pool).
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import random
+import socket
+import threading
+import time
+from typing import List, Optional
+
+from sptag_tpu_torch.serve import wire
+from sptag_tpu_torch.serve.protocol import request_id_of
+from sptag_tpu_torch.utils import flightrec, locksan, metrics
+
+#: auto-reconnect backoff bounds: search()'s
+#: re-dial of a dead server backs off exponentially from BASE to CAP
+#: with ±50% jitter instead of paying a full connect timeout per call —
+#: a dead backend costs one failed dial per backoff window, not one per
+#: request.  An explicit connect() always dials (and resets the state).
+RECONNECT_BASE_S = 0.05
+RECONNECT_CAP_S = 5.0
+
+
+class _DialBackoff:
+    """Shared auto-reconnect backoff state for the client shapes."""
+
+    def __init__(self):
+        self.backoff_s = 0.0
+        self.next_dial = 0.0
+
+    def suppressed(self, now: float) -> bool:
+        if now < self.next_dial:
+            metrics.inc("client.dials_suppressed")
+            return True
+        return False
+
+    def failed(self, now: float) -> None:
+        metrics.inc("client.reconnect_failures")
+        self.backoff_s = min(RECONNECT_CAP_S,
+                             (self.backoff_s * 2.0) or RECONNECT_BASE_S)
+        self.next_dial = now + self.backoff_s * random.uniform(0.5, 1.5)
+
+    def succeeded(self) -> None:
+        metrics.inc("client.reconnects")
+        self.backoff_s = 0.0
+        self.next_dial = 0.0
+
+
+class AnnClient:
+    def __init__(self, host: str, port: int,
+                 timeout_s: float = 9.0,
+                 heartbeat_interval_s: float = 0.0,
+                 trace_requests: bool = True):
+        self.host = host
+        self.port = port
+        self.timeout_s = timeout_s
+        self.heartbeat_interval_s = heartbeat_interval_s
+        # trace_requests=False restores reference-EXACT request bytes
+        # (minor version 0, no request-id trailer) for peers that must
+        # see the unextended layout; explicit/text-channel ids still ride
+        self.trace_requests = trace_requests
+        self._sock: Optional[socket.socket] = None
+        self._backoff = _DialBackoff()
+        # RLock: search() calls close() from inside its locked region on
+        # error paths, and close() itself must hold the lock (the heartbeat
+        # pump mutates _sock concurrently)
+        self._lock = locksan.make_rlock("AnnClient._lock")
+        self._next_resource = 1
+        self._remote_cid = wire.INVALID_CONNECTION_ID
+        self._hb_stop: Optional[threading.Event] = None
+        self._hb_thread: Optional[threading.Thread] = None
+
+    # ------------------------------------------------------------ connection
+
+    def connect(self) -> None:
+        # dial-and-handshake entirely under the lock: two racing callers
+        # (or search()'s auto-reconnect racing an explicit connect()) must
+        # not both dial and leak the loser's socket
+        with self._lock:
+            if self._sock is not None:
+                return
+            sock = socket.create_connection((self.host, self.port),
+                                            timeout=self.timeout_s)
+            sock.settimeout(self.timeout_s)
+            try:
+                # register handshake (Connection.cpp:301-312, 367-371)
+                self._send(sock,
+                           wire.PacketHeader(wire.PacketType.RegisterRequest),
+                           b"")
+                header, _ = self._recv(sock)
+            except OSError:
+                sock.close()
+                raise
+            self._backoff.succeeded()
+            self._sock = sock
+            if header.packet_type == wire.PacketType.RegisterResponse:
+                self._remote_cid = header.connection_id
+            # still under the lock: two racing connects must not both see
+            # _hb_thread None and start duplicate pump threads
+            if self.heartbeat_interval_s > 0 and self._hb_thread is None:
+                self.start_heartbeat(self.heartbeat_interval_s)
+
+    @property
+    def is_connected(self) -> bool:
+        return self._sock is not None
+
+    def close(self) -> None:
+        self.stop_heartbeat()
+        with self._lock:
+            if self._sock is not None:
+                self._sock.close()
+                self._sock = None
+
+    # ------------------------------------------------------------- heartbeat
+
+    def start_heartbeat(self, interval_s: float = 10.0) -> None:
+        """Periodic HeartbeatRequest pump — keeps NAT/proxy state warm and
+        surfaces dead connections early (parity: Connection::StartHeartbeat,
+        reference inc/Socket/Connection.h:38; interval is a Socket::Client
+        ctor arg there, inc/Socket/Client.h:29).
+
+        Send-only under the client lock: the heartbeat RESPONSES are drained
+        by the next search's resource-id matching loop (it skips every
+        non-matching packet), so the pump never races a search read."""
+        self.stop_heartbeat()
+        self._hb_stop = threading.Event()
+
+        def pump(stop: threading.Event) -> None:
+            while not stop.wait(interval_s):
+                with self._lock:
+                    sock = self._sock
+                    if sock is None:
+                        continue
+                    try:
+                        self._send(sock, wire.PacketHeader(
+                            wire.PacketType.HeartbeatRequest,
+                            wire.PacketProcessStatus.Ok, 0,
+                            self._remote_cid, 0), b"")
+                    except OSError:
+                        sock.close()
+                        self._sock = None
+
+        self._hb_thread = threading.Thread(
+            target=pump, args=(self._hb_stop,), daemon=True,
+            name="client-heartbeat")
+        self._hb_thread.start()
+
+    def stop_heartbeat(self) -> None:
+        if self._hb_stop is not None:
+            self._hb_stop.set()
+        self._hb_thread = None
+        self._hb_stop = None
+
+    # ---------------------------------------------------------------- search
+
+    def search(self, query: str,
+               timeout_s: Optional[float] = None,
+               request_id: Optional[str] = None,
+               deadline_ms: Optional[float] = None
+               ) -> wire.RemoteSearchResult:
+        """Send one text-protocol query; returns the RemoteSearchResult
+        (status Timeout / FailedNetwork on failure, matching the
+        aggregator's partial-result statuses).  Every request carries a
+        request id — `request_id`, the query's own `$requestid` option, or
+        a minted one — echoed back on `result.request_id` so one slow
+        query is traceable through aggregator → shard logs (construct the
+        client with trace_requests=False for reference-exact bytes).
+        `deadline_ms` rides the wire body's minor-2 trailer: servers and
+        aggregators drop the query once that budget is spent instead of
+        computing an answer nobody is waiting for."""
+        req_id = request_id or request_id_of(query) or \
+            (wire.new_request_id() if self.trace_requests else "")
+        rec = flightrec.enabled()
+        t_send0 = time.monotonic_ns() if rec else 0
+        if self._sock is None:
+            # auto-reconnect with backoff: a dead server costs one
+            # failed dial per backoff window, not one per search
+            now = time.monotonic()
+            if self._backoff.suppressed(now):
+                return wire.RemoteSearchResult(
+                    wire.ResultStatus.FailedNetwork, [])
+            try:
+                metrics.inc("client.reconnect_attempts")
+                self.connect()
+            except OSError:
+                self._backoff.failed(time.monotonic())
+                return wire.RemoteSearchResult(
+                    wire.ResultStatus.FailedNetwork, [])
+        with self._lock:
+            # re-check under the lock: the heartbeat pump may have dropped
+            # the connection between the check above and lock acquisition
+            sock = self._sock
+            if sock is None:
+                return wire.RemoteSearchResult(
+                    wire.ResultStatus.FailedNetwork, [])
+            rid = self._next_resource
+            self._next_resource += 1
+            body = wire.RemoteQuery(query, request_id=req_id,
+                                    deadline_ms=deadline_ms or 0.0).pack()
+            header = wire.PacketHeader(
+                wire.PacketType.SearchRequest, wire.PacketProcessStatus.Ok,
+                len(body), self._remote_cid, rid)
+            old_timeout = sock.gettimeout()
+            if timeout_s is not None:
+                sock.settimeout(timeout_s)
+            try:
+                self._send(sock, header, body)
+                while True:
+                    rhead, rbody = self._recv(sock)
+                    if rhead.packet_type == wire.PacketType.SearchResponse \
+                            and rhead.resource_id == rid:
+                        result = wire.RemoteSearchResult.unpack(rbody)
+                        if rec:
+                            # the client edge's "send" span: request out
+                            # to response in — the flow arrow's origin
+                            flightrec.record(
+                                "client", "send", req_id,
+                                dur_ns=time.monotonic_ns() - t_send0)
+                        return result if result is not None else \
+                            wire.RemoteSearchResult(
+                                wire.ResultStatus.FailedNetwork, [])
+            except socket.timeout:
+                # a timeout can fire mid-message (header read, body pending),
+                # leaving the stream misaligned — drop the connection so the
+                # next search re-dials cleanly (like the OSError path)
+                self.close()
+                return wire.RemoteSearchResult(wire.ResultStatus.Timeout, [])
+            except OSError:
+                self.close()
+                return wire.RemoteSearchResult(
+                    wire.ResultStatus.FailedNetwork, [])
+            finally:
+                if self._sock is not None:
+                    self._sock.settimeout(old_timeout)
+
+    # ------------------------------------------------------------------- io
+
+    def _send(self, sock: socket.socket, header: wire.PacketHeader,
+              body: bytes) -> None:
+        header.body_length = len(body)
+        sock.sendall(header.pack() + body)
+
+    def _recv(self, sock: socket.socket):
+        head = _read_exact(sock, wire.HEADER_SIZE)
+        header = wire.PacketHeader.unpack(head)
+        if not 0 <= header.body_length <= wire.MAX_BODY_LENGTH:
+            # garbled/hostile length: fail the connection rather than
+            # buffering multi-GB (the caller's OSError path re-dials)
+            raise OSError("response body_length %d exceeds cap"
+                          % header.body_length)
+        body = _read_exact(sock, header.body_length) \
+            if header.body_length else b""
+        return header, body
+
+
+class PipelinedAnnClient:
+    """One socket, many in-flight requests.
+
+    `search()` registers its resource id, sends under the write lock,
+    then waits WITHOUT the lock; a dedicated reader thread dispatches
+    each response to its waiter.  On timeout the waiter deregisters and
+    the reader discards the late reply by resource id — the stream stays
+    aligned and the connection survives (the plain AnnClient must drop
+    it).  Parity: Socket::ResourceManager (reference
+    inc/Socket/ResourceManager.h:31-184)."""
+
+    def __init__(self, host: str, port: int, timeout_s: float = 9.0,
+                 trace_requests: bool = True):
+        self.host = host
+        self.port = port
+        self.timeout_s = timeout_s
+        # see AnnClient: False = reference-exact request bytes
+        self.trace_requests = trace_requests
+        self._sock: Optional[socket.socket] = None
+        self._backoff = _DialBackoff()
+        self._wlock = locksan.make_lock("PipelinedAnnClient._wlock")
+        # guards _pending + _next_rid; never nests with _wlock — the
+        # canonical order (registration, then locked send, then lock-free
+        # wait) is documented in docs/DESIGN.md §9
+        self._plock = locksan.make_lock("PipelinedAnnClient._plock")
+        self._pending: dict = {}            # rid -> [Event, result-slot]
+        self._next_rid = 1
+        self._remote_cid = wire.INVALID_CONNECTION_ID
+        self._reader: Optional[threading.Thread] = None
+        # terminal state: terminate() forbids the auto-re-dial in
+        # search() — a pool tearing down must not have an in-flight
+        # search resurrect the connection (close() alone stays
+        # re-dialable for transient-error recovery)
+        self._terminated = False
+
+    # ------------------------------------------------------------ connection
+
+    def connect(self) -> None:
+        with self._wlock:
+            if self._sock is not None:
+                return
+            if self._terminated:
+                raise OSError("client terminated")
+            sock = socket.create_connection((self.host, self.port),
+                                            timeout=self.timeout_s)
+            # handshake under the normal timeout (a peer that accepts TCP
+            # but never answers must not hang connect forever)...
+            sock.settimeout(self.timeout_s)
+            try:
+                header = wire.PacketHeader(wire.PacketType.RegisterRequest)
+                header.body_length = 0
+                sock.sendall(header.pack())
+                head = _read_exact(sock, wire.HEADER_SIZE)
+                rhead = wire.PacketHeader.unpack(head)
+                if rhead.body_length:
+                    _read_exact(sock, rhead.body_length)
+                if rhead.packet_type == wire.PacketType.RegisterResponse:
+                    self._remote_cid = rhead.connection_id
+            except OSError:
+                sock.close()
+                raise
+            # ...then blocking mode for the reader thread: request
+            # timeouts are enforced by the waiters, not the socket
+            sock.settimeout(None)
+            self._backoff.succeeded()
+            self._sock = sock
+            self._reader = threading.Thread(target=self._read_loop,
+                                            args=(sock,), daemon=True,
+                                            name="client-reader-pump")
+            self._reader.start()
+
+    @property
+    def is_connected(self) -> bool:
+        return self._sock is not None
+
+    def close(self) -> None:
+        with self._wlock:
+            sock, self._sock = self._sock, None
+        if sock is not None:
+            sock.close()
+        self._fail_pending()
+
+    def terminate(self) -> None:
+        """close() plus a terminal flag: search() fails instead of
+        re-dialing.  Pool teardown uses this so an in-flight search that
+        raced past the pool's closed check cannot resurrect the
+        connection (socket + reader-thread leak)."""
+        self._terminated = True
+        self.close()
+
+    def _fail_pending(self) -> None:
+        with self._plock:
+            pending, self._pending = self._pending, {}
+        for ev, slot in pending.values():
+            slot.append(None)               # None = connection failure
+            ev.set()
+
+    # ---------------------------------------------------------------- reader
+
+    def _read_loop(self, sock: socket.socket) -> None:
+        try:
+            while True:
+                head = _read_exact(sock, wire.HEADER_SIZE)
+                header = wire.PacketHeader.unpack(head)
+                if not 0 <= header.body_length <= wire.MAX_BODY_LENGTH:
+                    raise OSError("response body_length over cap")
+                body = _read_exact(sock, header.body_length) \
+                    if header.body_length else b""
+                if header.packet_type != wire.PacketType.SearchResponse:
+                    continue                # heartbeat responses etc.
+                with self._plock:
+                    entry = self._pending.pop(header.resource_id, None)
+                if entry is not None:       # else: late reply, discarded
+                    entry[1].append(body)
+                    entry[0].set()
+        except OSError:
+            pass
+        finally:
+            # reader death = connection death (either close() already ran
+            # or the peer reset): fail every waiter now rather than letting
+            # each ride out its full timeout
+            with self._wlock:
+                if self._sock is sock:
+                    self._sock = None
+                    sock.close()
+            self._fail_pending()
+
+    # ---------------------------------------------------------------- search
+
+    def search(self, query: str,
+               timeout_s: Optional[float] = None,
+               request_id: Optional[str] = None,
+               deadline_ms: Optional[float] = None
+               ) -> wire.RemoteSearchResult:
+        req_id = request_id or request_id_of(query) or \
+            (wire.new_request_id() if self.trace_requests else "")
+        rec = flightrec.enabled()
+        t_send0 = time.monotonic_ns() if rec else 0
+        if self._sock is None:
+            # auto-reconnect with backoff (see AnnClient.search): a dead
+            # server must not cost a connect timeout per request
+            now = time.monotonic()
+            if self._backoff.suppressed(now):
+                return wire.RemoteSearchResult(
+                    wire.ResultStatus.FailedNetwork, [])
+            try:
+                metrics.inc("client.reconnect_attempts")
+                self.connect()
+            except OSError:
+                self._backoff.failed(time.monotonic())
+                return wire.RemoteSearchResult(
+                    wire.ResultStatus.FailedNetwork, [])
+        ev = threading.Event()
+        slot: list = []
+        with self._plock:
+            rid = self._next_rid
+            self._next_rid += 1
+            self._pending[rid] = (ev, slot)
+        body = wire.RemoteQuery(query, request_id=req_id,
+                                deadline_ms=deadline_ms or 0.0).pack()
+        header = wire.PacketHeader(
+            wire.PacketType.SearchRequest, wire.PacketProcessStatus.Ok,
+            len(body), self._remote_cid, rid)
+        try:
+            with self._wlock:
+                sock = self._sock
+                if sock is None:
+                    raise OSError("not connected")
+                sock.sendall(header.pack() + body)
+        except OSError:
+            with self._plock:
+                self._pending.pop(rid, None)
+            self.close()
+            return wire.RemoteSearchResult(
+                wire.ResultStatus.FailedNetwork, [])
+        if not ev.wait(timeout_s if timeout_s is not None
+                       else self.timeout_s):
+            # deregister; if the reader dispatched between wait() expiring
+            # and the pop, the slot holds the result — use it
+            with self._plock:
+                self._pending.pop(rid, None)
+            if not slot:
+                return wire.RemoteSearchResult(wire.ResultStatus.Timeout, [])
+        payload = slot[0]
+        if payload is None:                 # connection failed mid-flight
+            return wire.RemoteSearchResult(
+                wire.ResultStatus.FailedNetwork, [])
+        result = wire.RemoteSearchResult.unpack(payload)
+        if rec:
+            flightrec.record("client", "send", req_id,
+                             dur_ns=time.monotonic_ns() - t_send0)
+        return result if result is not None else \
+            wire.RemoteSearchResult(wire.ResultStatus.FailedNetwork, [])
+
+
+class AnnClientPool:
+    """Round-robin pool of N pipelined connections to one server
+    (reference ClientWrapper.h:26-74: the client tool dials
+    `Connections` sockets and its thread pool round-robins requests
+    over them).  Each underlying connection additionally pipelines, so
+    total in-flight capacity is bounded by the server, not the pool.
+
+    `search()` is synchronous from the caller's thread; `search_async()`
+    returns a Future from the pool's executor (the reference's async
+    send + callback, ClientWrapper.h:40-49)."""
+
+    def __init__(self, host: str, port: int, connections: int = 4,
+                 timeout_s: float = 9.0, max_workers: Optional[int] = None,
+                 trace_requests: bool = True):
+        if connections < 1:
+            raise ValueError("connections must be >= 1")
+        self.timeout_s = timeout_s
+        self._clients: List[PipelinedAnnClient] = [
+            PipelinedAnnClient(host, port, timeout_s,
+                               trace_requests=trace_requests)
+            for _ in range(connections)]
+        self._rr = 0
+        self._rr_lock = locksan.make_lock("AnnClientPool._rr_lock")
+        self._closed = False
+        self._executor = concurrent.futures.ThreadPoolExecutor(
+            max_workers=max_workers or 4 * connections,
+            thread_name_prefix="annpool")
+
+    def connect(self) -> None:
+        errors = []
+        for c in self._clients:
+            try:
+                c.connect()
+            except OSError as e:
+                errors.append(e)
+        if len(errors) == len(self._clients):
+            raise errors[0]                 # nothing usable
+
+    @property
+    def num_connected(self) -> int:
+        return sum(1 for c in self._clients if c.is_connected)
+
+    def _pick(self) -> PipelinedAnnClient:
+        with self._rr_lock:
+            start = self._rr
+            self._rr = (self._rr + 1) % len(self._clients)
+        # prefer a live connection; fall back to the round-robin pick
+        # (whose search() will re-dial)
+        for off in range(len(self._clients)):
+            c = self._clients[(start + off) % len(self._clients)]
+            if c.is_connected:
+                return c
+        return self._clients[start]
+
+    def search(self, query: str,
+               timeout_s: Optional[float] = None,
+               request_id: Optional[str] = None,
+               deadline_ms: Optional[float] = None
+               ) -> wire.RemoteSearchResult:
+        # a closed pool must not serve: PipelinedAnnClient.search would
+        # silently RE-DIAL the dropped socket, leaking a fresh connection
+        # + reader thread from a pool the caller already tore down
+        if self._closed:
+            return wire.RemoteSearchResult(
+                wire.ResultStatus.FailedNetwork, [])
+        return self._pick().search(query, timeout_s, request_id=request_id,
+                                   deadline_ms=deadline_ms)
+
+    def search_async(self, query: str,
+                     timeout_s: Optional[float] = None,
+                     request_id: Optional[str] = None,
+                     deadline_ms: Optional[float] = None
+                     ) -> "concurrent.futures.Future[wire.RemoteSearchResult]":
+        return self._executor.submit(self.search, query, timeout_s,
+                                     request_id, deadline_ms)
+
+    def close(self) -> None:
+        self._closed = True
+        # cancel queued (not-yet-started) search_async tasks — without
+        # this they would run AFTER close and re-dial
+        self._executor.shutdown(wait=False, cancel_futures=True)
+        for c in self._clients:
+            c.terminate()        # in-flight searches cannot re-dial
+
+    def __enter__(self) -> "AnnClientPool":
+        self.connect()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def _read_exact(sock: socket.socket, n: int) -> bytes:
+    chunks = []
+    remaining = n
+    while remaining:
+        chunk = sock.recv(remaining)
+        if not chunk:
+            raise OSError("connection closed")
+        chunks.append(chunk)
+        remaining -= len(chunk)
+    return b"".join(chunks)
+
+
+def main(argv=None) -> int:
+    """Interactive remote query REPL (parity: src/Client/main.cpp:13-78)."""
+    import argparse
+
+    parser = argparse.ArgumentParser(description="sptag_tpu_torch client")
+    parser.add_argument("-s", "--server", default="127.0.0.1")
+    parser.add_argument("-p", "--port", type=int, default=8000)
+    parser.add_argument("-t", "--timeout", type=float, default=9.0)
+    parser.add_argument("-c", "--connections", type=int, default=1,
+                        help="socket pool size (reference ClientWrapper "
+                             "dials N connections and round-robins)")
+    args = parser.parse_args(argv)
+    if args.connections > 1:
+        client = AnnClientPool(args.server, args.port, args.connections,
+                               args.timeout)
+    else:
+        client = AnnClient(args.server, args.port, args.timeout)
+    client.connect()
+    print("connected; enter queries (empty line quits)")
+    import sys
+    for line in sys.stdin:
+        line = line.strip()
+        if not line:
+            break
+        result = client.search(line)
+        print(f"status={wire.ResultStatus(result.status).name}")
+        for idx_res in result.results:
+            print(f"[{idx_res.index_name}]")
+            for rank, (vid, dist) in enumerate(
+                    zip(idx_res.ids, idx_res.dists)):
+                meta = ""
+                if idx_res.metas is not None:
+                    meta = " " + idx_res.metas[rank].decode("utf-8",
+                                                            "replace")
+                print(f"  {rank}: id={vid} dist={dist:.6g}{meta}")
+    client.close()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

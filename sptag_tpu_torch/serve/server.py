@@ -1,0 +1,918 @@
+"""Socket search server — asyncio front-end over the wire protocol.
+
+Parity: SearchService (AnnService/src/Server/
+SearchService.cpp:90-262) + Socket::Server (inc/Socket/Server.h:20-49,
+src/Socket/Connection.cpp): 16-byte packet framing, register handshake
+(Connection.cpp:351-371), heartbeat responses (:316-347), SearchRequest ->
+RemoteQuery body -> executor -> SearchResponse with RemoteSearchResult body;
+interactive stdin mode (SearchService.cpp:157-199).
+
+Port of ``sptag_tpu/serve/server.py``.  Instead of one worker thread per
+query (boost thread_pool, SearchService.cpp:114-130), concurrent requests
+are COALESCED: an asyncio micro-batcher drains whatever queries arrived
+within `batch_window_ms` and executes them as one card batch
+(service.SearchExecutor.execute_batch) on the server's own executor
+thread, which `stop()` drains and joins.
+
+Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP.md
+item when a setting or constructor argument arms it: admission control,
+the SLO engine, the canary prober, the online controller and the metrics
+HTTP listener ('serving, wrappers and CLIs'), and MeshServe
+('multi-GPU').  All are off by default, so the default server runs whole.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import concurrent.futures
+import functools
+import logging
+import time
+from typing import Dict, List, Optional, Tuple
+
+from sptag_tpu_torch.algo.flat import flat_scan_cost
+from sptag_tpu_torch.core.index import not_ported
+from sptag_tpu_torch.serve import protocol, wire
+from sptag_tpu_torch.serve.service import SearchExecutor, ServiceContext
+from sptag_tpu_torch.utils import (faultinject, flightrec, hostprof, locksan,
+                             metrics, qualmon, timeline, trace)
+
+log = logging.getLogger(__name__)
+
+
+#: body-size ceiling, shared with every framing reader (see wire.py)
+MAX_BODY_LENGTH = wire.MAX_BODY_LENGTH
+
+#: request-id prefix of the canary prober's probes (the JAX package's
+#: serve/canary.py): excluded from the live quality windows
+CANARY_RID_PREFIX = "canary-"
+
+_LATER = "serving, wrappers and CLIs"
+
+
+def is_canary_rid(rid: str) -> bool:
+    return rid.startswith(CANARY_RID_PREFIX)
+
+
+def _refuse_unported(settings, metrics_port, admission, canary_interval_ms,
+                     slo_config, controller_config) -> None:
+    """Raise for every armed feature the port does not have yet."""
+    if admission is not None or settings.admission_control:
+        raise not_ported("admission control (AdmissionControl)", _LATER)
+    if metrics_port:
+        raise not_ported("the metrics HTTP listener (MetricsPort)", _LATER)
+    if slo_config is not None or any(
+            float(getattr(settings, a)) > 0.0 for a in (
+                "slo_availability_target", "slo_p99_ms",
+                "slo_recall_floor", "slo_qps_floor")):
+        raise not_ported("SLO objectives (Slo*)", _LATER)
+    if controller_config is not None or settings.controller:
+        raise not_ported("the online controller (Controller)", _LATER)
+    if canary_interval_ms > 0:
+        raise not_ported("the canary prober (CanaryIntervalMs)", _LATER)
+    if settings.mesh_serve:
+        raise not_ported("MeshServe", "multi-GPU")
+
+
+class SearchServer:
+    def __init__(self, context: ServiceContext,
+                 batch_window_ms: float = 2.0,
+                 max_batch: int = 1024,
+                 max_connections: int = 256,
+                 drain_timeout_s: float = 15.0,
+                 metrics_port: Optional[int] = None,
+                 slow_query_threshold_ms: Optional[float] = None,
+                 max_response_tasks: int = 8,
+                 flight_recorder: Optional[bool] = None,
+                 flight_dump_dir: Optional[str] = None,
+                 flight_tier: str = "server",
+                 quality_sample_rate: Optional[float] = None,
+                 quality_recall_floor: Optional[float] = None,
+                 admission=None,
+                 fault_spec: Optional[str] = None,
+                 fault_seed: Optional[int] = None,
+                 host_prof_hz: Optional[float] = None,
+                 host_prof_dump_on_slow_query: Optional[bool] = None,
+                 timeline_interval_ms: Optional[float] = None,
+                 canary_interval_ms: Optional[float] = None,
+                 slo_config=None,
+                 controller_config=None):
+        self.context = context
+        self.executor = SearchExecutor(context)
+        self.batch_window = batch_window_ms / 1000.0
+        self.max_batch = max_batch
+        # observability overrides; None = the [Service] ini settings
+        # (SlowQueryThresholdMs 0 disables)
+        metrics_port = (metrics_port if metrics_port is not None
+                        else context.settings.metrics_port)
+        canary_interval_ms = (
+            canary_interval_ms if canary_interval_ms is not None
+            else context.settings.canary_interval_ms)
+        _refuse_unported(context.settings, metrics_port, admission,
+                         canary_interval_ms, slo_config, controller_config)
+        self.slow_query_threshold_ms = (
+            slow_query_threshold_ms if slow_query_threshold_ms is not None
+            else context.settings.slow_query_threshold_ms)
+        # flight recorder: the recorder itself is process-wide
+        # (utils/flightrec.py); this server contributes events under
+        # `flight_tier` — tests running several tiers in one process give
+        # each a distinct tier so the exported trace keeps one Perfetto
+        # process per tier
+        self.flight_recorder = (
+            flight_recorder if flight_recorder is not None
+            else context.settings.flight_recorder)
+        self.flight_dump_dir = (
+            flight_dump_dir if flight_dump_dir is not None
+            else context.settings.flight_dump_on_slow_query)
+        self.flight_tier = flight_tier
+        # search-quality monitor (utils/qualmon.py): process-wide like
+        # the flight recorder; ctor overrides are the test surface,
+        # [Service] QualitySampleRate/... the deployment one
+        self.quality_sample_rate = (
+            quality_sample_rate if quality_sample_rate is not None
+            else context.settings.quality_sample_rate)
+        self.quality_recall_floor = (
+            quality_recall_floor if quality_recall_floor is not None
+            else context.settings.quality_recall_floor)
+        # reference parity: ConnectionManager hands out at most 256
+        # connection slots (AnnService/inc/Socket/
+        # ConnectionManager.h:23-67); excess clients are closed at accept
+        self.max_connections = max_connections
+        # bound on how long one connection's drain() may block the batcher
+        # (slow-reader eviction; see _send)
+        self.drain_timeout_s = drain_timeout_s
+        self._next_cid = 1
+        self._conns: Dict[int, Tuple[asyncio.StreamWriter,
+                                     asyncio.Lock]] = {}
+        # bounded: 256 pipelining connections could otherwise queue
+        # requests without limit (memory exhaustion the connection cap
+        # alone doesn't prevent); a full queue answers Dropped immediately
+        # — the reference's thread-pool depth plays the same role
+        self._queue: asyncio.Queue = asyncio.Queue(maxsize=8 * max_batch)
+        self._server: Optional[asyncio.AbstractServer] = None
+        self._batcher_task: Optional[asyncio.Task] = None
+        # card batches run on ONE executor thread the server owns (and
+        # joins at stop); flight dumps' file IO on another, so a dump
+        # never delays a batch
+        self._batch_pool: Optional[concurrent.futures.ThreadPoolExecutor] \
+            = None
+        self._io_pool: Optional[concurrent.futures.ThreadPoolExecutor] = None
+        self._inflight: Optional[concurrent.futures.Future] = None
+        # response handoff: encoding + draining a batch's responses runs
+        # in a SEPARATE task so the batcher assembles and executes batch
+        # N+1 while batch N's responses drain.  The semaphore bounds
+        # in-flight response batches — a slow drain backpressures the
+        # batcher instead of queueing unbounded encoded responses.
+        self._response_sem = asyncio.Semaphore(max(1, max_response_tasks))
+        self._response_tasks: set = set()
+        # per-query streamed sends are bounded too: past this many live
+        # response tasks a query's response falls back to the batch-tail
+        # task (which rides the semaphore) instead of spawning — without
+        # it a slow-reading client accumulates one task + encoded body
+        # per streamed query across every batch in its drain window
+        self._max_stream_tasks = max_batch
+        # host sampling profiler (utils/hostprof.py): process-wide like
+        # the flight recorder; ctor overrides are the test surface,
+        # [Service] HostProfHz/... the deployment one
+        self.host_prof_hz = (
+            host_prof_hz if host_prof_hz is not None
+            else context.settings.host_prof_hz)
+        self.host_prof_dump_on_slow_query = (
+            host_prof_dump_on_slow_query
+            if host_prof_dump_on_slow_query is not None
+            else context.settings.host_prof_dump_on_slow_query)
+        # serving timeline (utils/timeline.py): off by default
+        self.timeline_interval_ms = (
+            timeline_interval_ms if timeline_interval_ms is not None
+            else context.settings.timeline_interval_ms)
+        # default per-request deadline (requests carrying their own —
+        # wire trailer or $deadlinems text option — keep it)
+        self.deadline_ms = context.settings.deadline_ms
+        # wire-layer fault injection (utils/faultinject.py): a per-server
+        # injector when a spec is given (tests run several differently-
+        # faulty shards in one process), else the process-global one
+        # (env SPTAG_FAULTINJECT; disabled when unset)
+        spec = (fault_spec if fault_spec is not None
+                else context.settings.fault_inject)
+        if spec:
+            self._fault = faultinject.Injector(
+                spec, fault_seed if fault_seed is not None
+                else context.settings.fault_inject_seed)
+        else:
+            self._fault = faultinject.global_injector()
+
+    # ------------------------------------------------------------- lifecycle
+
+    async def start(self, host: Optional[str] = None,
+                    port: Optional[int] = None) -> Tuple[str, int]:
+        host = host or self.context.settings.listen_addr
+        port = port if port is not None else self.context.settings.listen_port
+        if self.slow_query_threshold_ms > 0:
+            # the slow-query log wants request-id-stamped records
+            metrics.install_request_id_logging()
+        if self.flight_recorder:
+            flightrec.configure(
+                enabled=True,
+                max_events=self.context.settings.flight_recorder_events
+                or None,
+                dump_dir=self.flight_dump_dir or None)
+        if self.context.settings.lock_contention_ledger:
+            # ctor-built contexts (tests) never ran from_ini's early
+            # enable; late enabling still covers every SanLock at its
+            # next acquire
+            locksan.enable_contention()
+        if self.host_prof_hz > 0:
+            # arm + start the host sampler (utils/hostprof.py).  At the
+            # default HostProfHz=0 this branch never runs: no sampler
+            # thread, stage pins stay one flag test (the parity contract)
+            hostprof.configure(
+                hz=self.host_prof_hz,
+                max_samples=self.context.settings.host_prof_events
+                or None,
+                dump_on_slow_query=self.host_prof_dump_on_slow_query
+                or None)
+            hostprof.start()
+        if self.quality_sample_rate > 0:
+            qualmon.configure(
+                sample_rate=self.quality_sample_rate,
+                recall_floor=self.quality_recall_floor,
+                shadow_budget_gflops=self.context.settings
+                .quality_shadow_budget,
+                window=self.context.settings.quality_window or None)
+            # seed the per-shard health series under the serving index
+            # names (mutation paths republish under the same labels)
+            for name, index in self.context.indexes.items():
+                if hasattr(index, "publish_quality_health"):
+                    index.publish_quality_health(shard=name)
+        if self.timeline_interval_ms > 0:
+            timeline.configure(
+                enabled=True, interval_ms=self.timeline_interval_ms,
+                capacity=self.context.settings.timeline_events or None)
+            timeline.start()
+        self._batch_pool = concurrent.futures.ThreadPoolExecutor(
+            1, thread_name_prefix="sptag-serve-batch")
+        self._io_pool = concurrent.futures.ThreadPoolExecutor(
+            1, thread_name_prefix="sptag-serve-io")
+        self._server = await asyncio.start_server(self._on_client, host, port)
+        self._batcher_task = asyncio.create_task(self._batcher())
+        addr = self._server.sockets[0].getsockname()
+        log.info("search server listening on %s:%d", addr[0], addr[1])
+        return addr[0], addr[1]
+
+    async def stop(self) -> None:
+        """Stop accepting, cancel the batcher and the response tasks, let
+        a card batch already running finish, join the executor threads and
+        stop the indexes' slot-scheduler workers: no serving thread
+        outlives this call."""
+        if self._batcher_task:
+            self._batcher_task.cancel()
+        for task in list(self._response_tasks):
+            task.cancel()
+        if self._server:
+            self._server.close()
+            # wait_closed() waits for every open connection: drop them
+            for writer, _lock in list(self._conns.values()):
+                writer.transport.abort()
+            await self._server.wait_closed()
+        inflight = self._inflight
+        while inflight is not None and not inflight.done():
+            # a card batch in the executor cannot be cancelled: wait for
+            # it without blocking the loop (its responses are dropped)
+            await asyncio.sleep(0.005)
+        for pool in (self._batch_pool, self._io_pool):
+            if pool is not None:
+                pool.shutdown(wait=True)
+        self._batch_pool = self._io_pool = None
+        # the slot schedulers' workers end with the server (an index makes
+        # a new one at its next scheduled search)
+        for index in self.context.indexes.values():
+            stop_scheduler = getattr(index, "stop_scheduler", None)
+            if stop_scheduler is not None:
+                stop_scheduler()
+
+    # ------------------------------------------------------------ connection
+
+    async def _on_client(self, reader: asyncio.StreamReader,
+                         writer: asyncio.StreamWriter) -> None:
+        if len(self._conns) >= self.max_connections:
+            # slot table full — close at accept, like the reference's
+            # ConnectionManager returning no slot
+            metrics.inc("server.rejected_connections")
+            log.warning("connection limit (%d) reached; rejecting client",
+                        self.max_connections)
+            writer.close()
+            return
+        cid = self._next_cid
+        self._next_cid += 1
+        # per-connection write lock: the reader task (register/heartbeat/
+        # shed responses) and the batcher task both write+drain the same
+        # StreamWriter; two concurrent drain() waiters trip an assertion
+        # inside asyncio's FlowControlMixin on Python 3.10/3.11 and would
+        # kill the batcher — all writes serialize through this lock
+        self._conns[cid] = (writer, asyncio.Lock())
+        metrics.set_gauge("server.connections", len(self._conns))
+        try:
+            while True:
+                head = await reader.readexactly(wire.HEADER_SIZE)
+                header = wire.PacketHeader.unpack(head)
+                if not 0 <= header.body_length <= MAX_BODY_LENGTH:
+                    metrics.inc("server.malformed_packets")
+                    log.warning("cid %d: body_length %d exceeds cap; "
+                                "closing", cid, header.body_length)
+                    break
+                body = (await reader.readexactly(header.body_length)
+                        if header.body_length else b"")
+                await self._dispatch(cid, header, body)
+        except (asyncio.IncompleteReadError, ConnectionResetError):
+            pass
+        except Exception:                                    # noqa: BLE001
+            # malformed header/body must cost only THIS connection, never
+            # the server: log and drop the client
+            metrics.inc("server.malformed_packets")
+            log.exception("cid %d: malformed packet; closing", cid)
+        finally:
+            self._conns.pop(cid, None)
+            metrics.set_gauge("server.connections", len(self._conns))
+            writer.close()
+
+    async def _send(self, cid: int, payload: bytes) -> None:
+        """Locked write+drain on a connection (see _on_client for why).
+
+        Self-contained failure handling: the ONE batcher task services
+        every connection, so a send must never take it down (any OSError
+        -> drop that client) nor wedge it (a client that stops reading
+        blocks drain() at the high-water mark forever -> bounded wait,
+        then evict the slow reader).  Head-of-line blocking across
+        connections is otherwise this design's DoS surface."""
+        entry = self._conns.get(cid)
+        if entry is None:
+            return
+        writer, lock = entry
+        try:
+            async with lock:
+                writer.write(payload)
+                await asyncio.wait_for(writer.drain(),
+                                       timeout=self.drain_timeout_s)
+        except asyncio.TimeoutError:
+            metrics.inc("server.drain_timeouts")
+            log.warning("cid %d: response drain exceeded %.0fs (client "
+                        "not reading); evicting", cid,
+                        self.drain_timeout_s)
+            self._conns.pop(cid, None)
+            # abort, not close: a graceful close waits for the very write
+            # buffer the non-reading peer will never drain — the FD, the
+            # buffered bytes, and the wedged reader task would all leak
+            # (and the freed connection slot lets the attacker repeat)
+            writer.transport.abort()
+        except OSError:
+            # BrokenPipeError / ConnectionResetError / anything transport:
+            # the reader task's readexactly will observe the close and
+            # clean up; the batcher must not die
+            metrics.inc("server.send_errors")
+            self._conns.pop(cid, None)
+            writer.transport.abort()
+
+    async def _dispatch(self, cid: int, header: wire.PacketHeader,
+                        body: bytes) -> None:
+        t = header.packet_type
+        if t == wire.PacketType.RegisterRequest:
+            # Connection::HandleRegisterRequest (Connection.cpp:351-363)
+            resp = wire.PacketHeader(wire.PacketType.RegisterResponse,
+                                     wire.PacketProcessStatus.Ok, 0, cid,
+                                     header.resource_id)
+            await self._send(cid, resp.pack())
+        elif t == wire.PacketType.HeartbeatRequest:
+            resp = wire.PacketHeader(wire.PacketType.HeartbeatResponse,
+                                     wire.PacketProcessStatus.Ok, 0,
+                                     header.connection_id,
+                                     header.resource_id)
+            await self._send(cid, resp.pack())
+        elif t == wire.PacketType.SearchRequest:
+            metrics.inc("server.requests")
+            rec = flightrec.enabled()
+            degraded = False
+            t_dec0 = time.monotonic_ns() if rec else 0
+            hp = hostprof.armed()
+            if hp:
+                # serve-stage pin (utils/hostprof.py): samples
+                # landing on the loop thread during decode fold under
+                # stage:decode (the rid is unknown until unpack returns)
+                hostprof.set_stage("decode")
+            with trace.span("server.decode"):
+                query = wire.RemoteQuery.unpack(body)
+            if query is None:
+                # a SearchRequest whose body does not decode still gets a
+                # FailedExecute answer downstream, but must be countable
+                metrics.inc("server.malformed_packets")
+            elif not query.request_id:
+                # text-protocol id channel (reference clients can't set
+                # the wire field); stays empty if neither is present
+                query.request_id = protocol.request_id_of(query.query) or ""
+            else:
+                # the wire field is attacker-sized (up to the body cap);
+                # it rides into every log line and response — bound it
+                # like the text channel does
+                query.request_id = query.request_id[:64]
+            if rec:
+                flightrec.record(
+                    self.flight_tier, "decode",
+                    query.request_id if query is not None else "",
+                    dur_ns=time.monotonic_ns() - t_dec0)
+            if hp:
+                hostprof.clear_stage()
+            # deadline resolution: the wire trailer wins, the
+            # $deadlinems text option covers reference clients, then the
+            # operator's [Service] DeadlineMs default.  The value is a
+            # RELATIVE budget anchored at THIS arrival (clocks across
+            # machines are not assumed synchronized).
+            deadline_mono = None
+            if query is not None:
+                dl = query.deadline_ms \
+                    or (protocol.deadline_of(query.query) or 0.0)
+                if dl <= 0:
+                    dl = self.deadline_ms
+                if dl > 0:
+                    deadline_mono = time.perf_counter() + dl / 1000.0
+            try:
+                self._queue.put_nowait((cid, header, query,
+                                        time.perf_counter(),
+                                        deadline_mono, degraded))
+                metrics.set_gauge("server.queue_depth", self._queue.qsize())
+                if rec:
+                    flightrec.record(
+                        self.flight_tier, "enqueue",
+                        query.request_id if query is not None else "",
+                        payload={"depth": self._queue.qsize()})
+            except asyncio.QueueFull:
+                # shed load at the edge rather than buffering unboundedly;
+                # the client sees a definitive, well-formed FailedExecute
+                # for THIS request (a body-less Dropped header would break
+                # result unpacking on the other side)
+                metrics.inc("server.queue_full")
+                shed = wire.RemoteSearchResult(
+                    wire.ResultStatus.FailedExecute, [],
+                    query.request_id if query is not None else "").pack()
+                resp = wire.PacketHeader(wire.PacketType.SearchResponse,
+                                         wire.PacketProcessStatus.Dropped,
+                                         len(shed), cid, header.resource_id)
+                await self._send(cid, resp.pack() + shed)
+        elif wire.is_request(t):
+            # HandleNoHandlerResponse (Connection.cpp:374-398)
+            resp = wire.PacketHeader(wire.response_type(t),
+                                     wire.PacketProcessStatus.Dropped, 0,
+                                     cid, header.resource_id)
+            await self._send(cid, resp.pack())
+
+    # --------------------------------------------------------- batched serve
+
+    async def _batcher(self) -> None:
+        while True:
+            first = await self._queue.get()
+            batch = [first]
+            deadline = asyncio.get_event_loop().time() + self.batch_window
+            while len(batch) < self.max_batch:
+                timeout = deadline - asyncio.get_event_loop().time()
+                if timeout <= 0:
+                    break
+                try:
+                    batch.append(await asyncio.wait_for(
+                        self._queue.get(), timeout))
+                except asyncio.TimeoutError:
+                    break
+            await self._serve_batch(batch)
+
+    async def _serve_batch(self, batch) -> None:
+        t_assembled = time.perf_counter()
+        metrics.set_gauge("server.queue_depth", self._queue.qsize())
+        metrics.set_gauge("server.last_batch_size", len(batch))
+        rec = flightrec.enabled()
+        # deadline enforcement at the execute boundary: a
+        # query whose budget ran out while queued gets a Timeout answer
+        # NOW instead of burning device time nobody is waiting for —
+        # counted and flight-recorded, never silent
+        live, expired = [], []
+        for e in batch:
+            (expired if e[4] is not None and t_assembled >= e[4]
+             else live).append(e)
+        if expired:
+            batch = live
+            metrics.inc("server.deadline_drops", len(expired))
+            if rec:
+                for entry in expired:
+                    flightrec.record(
+                        self.flight_tier, "deadline_drop",
+                        entry[2].request_id
+                        if entry[2] is not None else "")
+            await self._spawn_response_task(
+                self._respond_expired(expired, t_assembled))
+            if not batch:
+                return
+        texts = []
+        rids = []
+        for cid, header, query, t_enq, _deadline, _deg in batch:
+            texts.append(query.query if query is not None else "")
+            rids.append(query.request_id if query is not None else "")
+            trace.record("server.queue_wait", t_assembled - t_enq)
+            if rec:
+                flightrec.record(
+                    self.flight_tier, "queue_wait", rids[-1],
+                    dur_ns=int((t_assembled - t_enq) * 1e9))
+        loop = asyncio.get_event_loop()
+        # per-query streaming (continuous batching): the executor invokes
+        # on_ready from ITS thread as individual queries finish; each
+        # marshals onto the loop and sends immediately — a fast query's
+        # response leaves while stragglers are still walking, instead of
+        # at whole-batch granularity.  Every on_ready lands on the loop
+        # BEFORE the executor future's completion wakes this coroutine
+        # (call_soon_threadsafe is FIFO), so `streamed` is complete when
+        # the batch tail below reads it.
+        streamed: set = set()
+
+        def on_ready(i, result):
+            loop.call_soon_threadsafe(self._stream_response, batch[i],
+                                      result, t_assembled, streamed, i)
+        try:
+            def run_batch():
+                if hostprof.armed():
+                    # execute-stage pin: rid attribution is EXACT when
+                    # the batch carries one request (the straggler /
+                    # slow-query case the profiler exists for); mixed
+                    # batches record the stage alone — per-query blame
+                    # inside a coalesced device batch would be a lie
+                    live = [r for r in rids if r]
+                    hostprof.set_stage(
+                        "execute", live[0] if len(live) == 1 else "")
+                try:
+                    with trace.span("server.execute_batch"):
+                        return self.executor.execute_batch(
+                            texts, on_ready=on_ready, rids=rids)
+                finally:
+                    hostprof.clear_stage()
+            self._inflight = self._batch_pool.submit(run_batch)
+            results = await asyncio.wrap_future(self._inflight)
+        except Exception:
+            metrics.inc("server.batch_failures")
+            log.exception("batch execution failed")
+            results = [wire.RemoteSearchResult(
+                wire.ResultStatus.FailedExecute, [])] * len(batch)
+        t_executed = time.perf_counter()
+        if rec:
+            flightrec.record(
+                self.flight_tier, "execute",
+                dur_ns=int((t_executed - t_assembled) * 1e9),
+                payload={"batch": len(batch)})
+        # response handoff (bounded, counted): the batcher returns to
+        # assembling batch N+1 while this batch's responses encode+drain
+        # in their own task
+        if rec:
+            flightrec.record(self.flight_tier, "handoff",
+                             payload={"batch": len(batch),
+                                      "streamed": len(streamed)})
+        await self._spawn_response_task(
+            self._respond_batch(batch, results, streamed, t_assembled,
+                                t_executed))
+
+    def _stream_response(self, entry, result, t_assembled: float,
+                         streamed: set, i: int) -> None:
+        """Loop-thread half of the streaming path: mark the query as
+        delivered and send its response in its own (tracked) task.
+        NOT marking it (over the task cap) is always safe — the batch
+        tail sends whatever was not streamed."""
+        if len(self._response_tasks) >= self._max_stream_tasks:
+            metrics.inc("server.stream_overflows")
+            return
+        streamed.add(i)
+        metrics.inc("server.streamed_responses")
+        task = asyncio.ensure_future(
+            self._respond_one(entry, result, t_assembled,
+                              time.perf_counter()))
+        self._track_response_task(task)
+
+    async def _spawn_response_task(self, coro) -> None:
+        await self._response_sem.acquire()
+        task = asyncio.ensure_future(coro)
+        task.add_done_callback(lambda _t: self._response_sem.release())
+        self._track_response_task(task)
+
+    def _track_response_task(self, task: asyncio.Task) -> None:
+        self._response_tasks.add(task)
+        metrics.set_gauge("server.response_tasks",
+                          len(self._response_tasks))
+
+        def _done(t: asyncio.Task) -> None:
+            self._response_tasks.discard(t)
+            metrics.set_gauge("server.response_tasks",
+                              len(self._response_tasks))
+            if not t.cancelled() and t.exception() is not None:
+                metrics.inc("server.response_task_errors")
+                log.error("response task failed: %r", t.exception())
+        task.add_done_callback(_done)
+
+    async def _respond_batch(self, batch, results, streamed: set,
+                             t_assembled: float, t_executed: float) -> None:
+        for i, (entry, result) in enumerate(zip(batch, results)):
+            if i in streamed:
+                continue           # already sent by the streaming path
+            await self._respond_one(entry, result, t_assembled, t_executed)
+
+    async def _respond_expired(self, entries, t_assembled: float) -> None:
+        """Answer deadline-expired queries with Timeout — cheap, honest,
+        and the client (which may already have given up) stays
+        stream-aligned either way."""
+        for entry in entries:
+            await self._respond_one(
+                entry, wire.RemoteSearchResult(wire.ResultStatus.Timeout,
+                                               []),
+                t_assembled, t_assembled)
+
+    async def _apply_fault(self, fault, cid: int,
+                           payload: bytes) -> Optional[bytes]:
+        """Apply one injected wire fault to this response (utils/
+        faultinject.py; test/chaos surface).  Returns the (possibly
+        mutated) payload to send, or None when the fault consumed it."""
+        if fault.kind == "delay":
+            await asyncio.sleep(fault.delay_s)
+            return payload
+        if fault.kind == "garble":
+            # flip the first body byte (the serialized version prologue):
+            # framing stays aligned, the body reliably fails decode —
+            # the peer must count a malformed body, not crash
+            b = bytearray(payload)
+            if len(b) > wire.HEADER_SIZE:
+                b[wire.HEADER_SIZE] ^= 0xFF
+            return bytes(b)
+        if fault.kind == "disconnect":
+            # die mid-stream: a payload prefix goes out, then the
+            # transport aborts — the peer sees an incomplete read
+            entry = self._conns.pop(cid, None)
+            if entry is not None:
+                writer, _lock = entry
+                try:
+                    writer.write(payload[:max(1, len(payload) // 2)])
+                finally:
+                    writer.transport.abort()
+            return None
+        return None                                       # "drop"
+
+    async def _respond_one(self, entry, result, t_assembled: float,
+                           t_executed: float) -> None:
+        cid, header, query, t_enq, _deadline, degraded = entry
+        if query is None or result is None:
+            result = wire.RemoteSearchResult(
+                wire.ResultStatus.FailedExecute, [])
+        # echo the request id so the caller (client or aggregator) can
+        # match the response to its trace
+        rid = query.request_id if query is not None else ""
+        result.request_id = rid
+        rec = flightrec.enabled()
+        if degraded and result.status == wire.ResultStatus.Success:
+            # the degraded marker channel (wire minor 2): clients KNOW
+            # this answer traded recall for survival
+            if wire.MARKER_DEGRADED not in result.markers:
+                result.markers.append(wire.MARKER_DEGRADED)
+            metrics.inc("server.degraded_responses")
+            if rec:
+                flightrec.record(self.flight_tier, "degrade", rid)
+        t_enc0 = time.monotonic_ns() if rec else 0
+        hp = hostprof.armed()
+        if hp:
+            # per-query encode runs whole on the loop thread between
+            # awaits, so the rid pin is exact here
+            hostprof.set_stage("encode", rid)
+        with trace.span("server.encode"):
+            body = result.pack()
+        if hp:
+            hostprof.clear_stage()
+        if rec:
+            flightrec.record(self.flight_tier, "encode", rid,
+                             dur_ns=time.monotonic_ns() - t_enc0)
+        resp = wire.PacketHeader(
+            wire.PacketType.SearchResponse,
+            wire.PacketProcessStatus.Ok, len(body), cid,
+            header.resource_id)
+        payload = resp.pack() + body
+        if self._fault.enabled:
+            fault = self._fault.decide("server.respond")
+            if fault is not None:
+                payload = await self._apply_fault(fault, cid, payload)
+                if payload is None:
+                    return          # drop / disconnect consumed it
+        t_send0 = time.perf_counter()
+        with trace.span("server.drain"):
+            await self._send(cid, payload)
+        metrics.inc("server.responses")
+        now = time.perf_counter()
+        total = now - t_enq
+        trace.record("server.request", total)
+        if rec:
+            flightrec.record(self.flight_tier, "drain", rid,
+                             dur_ns=int((now - t_send0) * 1e9))
+            flightrec.record(self.flight_tier, "request", rid,
+                             dur_ns=int(total * 1e9),
+                             payload={"status": int(result.status)})
+        thresh = self.slow_query_threshold_ms
+        slow = thresh > 0 and total * 1000.0 >= thresh
+        if slow:
+            # slow-query enrichment: the scheduler's
+            # per-rid numbers — slot wait, resident segments, refill
+            # batches — logged alongside the per-stage timings, so the
+            # log line and a flight dump of the same query agree
+            st = flightrec.query_stats(rid) if rid else None
+            sched = ("slot_wait=%.2fms segments=%d refills=%d" % (
+                st.get("slot_wait_ms", 0.0), st.get("segments", 0),
+                st.get("refills", 0))) if st else "sched=-"
+            if st and "gflops" in st:
+                # roofline attribution: achieved
+                # GFLOP/s and %-of-peak over the query's own segments
+                # classify the slowness — low pct at high gflops means
+                # bandwidth-bound, low both with high slot_wait means
+                # scheduling-bound, high pct means genuinely compute-big
+                sched += " gflops=%.2f" % st["gflops"]
+                if "pct_peak" in st:
+                    sched += " pct_peak=%.3f" % st["pct_peak"]
+            token = metrics.set_request_id(rid)
+            try:
+                log.warning(
+                    "slow query rid=%s total=%.2fms queue=%.2fms "
+                    "execute=%.2fms send=%.2fms %s results=%d",
+                    rid or "-", total * 1000.0,
+                    (t_assembled - t_enq) * 1000.0,
+                    (t_executed - t_assembled) * 1000.0,
+                    (now - t_send0) * 1000.0, sched,
+                    sum(len(r.ids) for r in result.results))
+            finally:
+                metrics.reset_request_id(token)
+        if self.flight_dump_dir and rec and (
+                slow or result.status != wire.ResultStatus.Success):
+            # auto-dump the ring for post-mortem (FlightDumpOnSlowQuery);
+            # file IO runs off the event loop, the dump dir is ringed
+            asyncio.get_event_loop().run_in_executor(
+                self._io_pool, flightrec.dump_to_file,
+                "slow" if slow else "error", rid)
+        # online recall estimation: AFTER the response is on
+        # the wire — the shadow path never touches serve latency or
+        # bytes.  Off = this one flag test; on, the deterministic rate
+        # gate picks 1-in-N responses for background exact replay.
+        # canary probes are EXCLUDED from the live quality windows
+        # (they publish their own exact recall; double-counting the
+        # probe set as "live" samples would bias the Wilson window —
+        # the canary isolation contract)
+        if qualmon.enabled() and query is not None \
+                and result.status == wire.ResultStatus.Success \
+                and not is_canary_rid(rid) \
+                and qualmon.maybe_sample():
+            self._queue_quality_sample(rid, query.query, result)
+
+    def _queue_quality_sample(self, rid: str, text: str,
+                              result) -> None:
+        """Hand one served query to the quality monitor's shadow queue
+        (bounded, drop-on-overflow — never blocks the loop).  The job
+        captures only host data (query text + served ids/dists); the
+        exact-scan device work is charged against QualityShadowBudget
+        via the exact scan's FLOP estimate at the real shapes
+        (algo/flat.py flat_scan_cost)."""
+        served = [(r.index_name, [int(v) for v in r.ids],
+                   [float(d) for d in r.dists]) for r in result.results]
+        if not served:
+            return
+        est = 0.0
+        for name, ids, _d in served:
+            index = self.context.indexes.get(name)
+            if index is None:
+                continue
+            try:
+                est += flat_scan_cost(1, index.num_samples,
+                                      index.feature_dim,
+                                      max(1, len(ids)))[0]
+            except Exception:                            # noqa: BLE001
+                # estimate failure degrades to an unbudgeted (but still
+                # queue-bounded) submit — visible, never fatal
+                log.debug("quality shadow cost estimate failed for %s",
+                          name, exc_info=True)
+        qualmon.submit(
+            functools.partial(_shadow_replay, self.context, rid, text,
+                              served),
+            est_flops=est)
+
+
+def _shadow_replay(context: ServiceContext, rid: str, text: str,
+                   served: List[tuple]) -> None:
+    """Quality-monitor shadow job (runs on qualmon's worker thread,
+    never the serve loop): re-parse the sampled query, replay it
+    through each served index's exact FLAT scan, and fold the
+    canonical recall (reference CalcRecall semantics, distance ties
+    honored) into the (searchmode, shard) window.  A sample below
+    QualityRecallFloor is classified — beam budget exhausted (the
+    scheduler's per-rid it/t_limit), dense/sketch prefilter miss — and
+    triaged onto the slow-query stats + flight dump."""
+    parsed = protocol.parse_query(text)
+    for name, ids, dists in served:
+        index = context.indexes.get(name)
+        if index is None or not ids:
+            continue
+        vec = parsed.extract_vector(
+            parsed.data_type or index.value_type,
+            context.settings.vector_separator)
+        if vec is None or vec.shape[-1] != index.feature_dim:
+            continue
+        k = len(ids)
+        try:
+            ex_d, ex_ids = index.exact_search_batch(
+                vec.reshape(1, -1), k)
+        except (NotImplementedError, RuntimeError):
+            continue                     # no oracle / emptied mid-flight
+        mode = (parsed.search_mode
+                or getattr(index.params, "search_mode", "flat"))
+        # resolve "auto" to the engine that actually executed (beam vs
+        # dense is a MaxCheck crossover) — triage must blame the real
+        # engine, and the (mode, shard) window should key on it too
+        resolver = getattr(index, "resolve_search_mode", None)
+        if resolver is not None:
+            try:
+                mode = resolver(mode, parsed.max_check
+                                or int(getattr(index.params,
+                                               "max_check", 8192)))
+            except Exception:                            # noqa: BLE001
+                # unresolvable mode degrades to the wire/configured
+                # label — the sample still counts, only less precisely
+                log.debug("quality shadow mode resolve failed",
+                          exc_info=True)
+        sketch = bool(getattr(index.params, "sketch_prefilter", False))
+        recall = qualmon.recall_row(ids, ex_ids[0], k, dists=dists,
+                                    truth_dists=ex_d[0])
+        verdict = detail = ""
+        floor = qualmon.recall_floor()
+        if floor > 0 and recall < floor:
+            # cascade tier triage: re-run the shortlist
+            # stages for this one sampled query so the verdict can name
+            # the starved tier (sketch_budget / int8_budget /
+            # host_fetch_drop).  Sampled + already-below-floor only —
+            # never the serve path; a triage failure degrades to the
+            # legacy verdicts
+            tiers = None
+            triage = getattr(index, "cascade_triage", None)
+            if triage is not None:
+                try:
+                    tiers = triage(vec.reshape(-1), ex_ids[0][:k], k)
+                except Exception:                        # noqa: BLE001
+                    log.debug("cascade triage failed", exc_info=True)
+            verdict, detail = qualmon.classify_low_recall(
+                rid, mode, sketch=sketch, cascade=tiers)
+        qualmon.record_sample(mode, name, recall, k, rid=rid,
+                              verdict=verdict, detail=detail)
+
+
+def run_interactive(context: ServiceContext) -> None:
+    """Interactive stdin mode (SearchService.cpp:157-199)."""
+    executor = SearchExecutor(context)
+    import sys
+    print("sptag_tpu_torch search server (interactive). Empty line quits.")
+    for line in sys.stdin:
+        line = line.strip()
+        if not line:
+            break
+        result = executor.execute(line)
+        print(f"status={wire.ResultStatus(result.status).name}")
+        for idx_res in result.results:
+            print(f"[{idx_res.index_name}]")
+            for rank, (vid, dist) in enumerate(
+                    zip(idx_res.ids, idx_res.dists)):
+                meta = ""
+                if idx_res.metas is not None:
+                    meta = " " + idx_res.metas[rank].decode("utf-8",
+                                                            "replace")
+                print(f"  {rank}: id={vid} dist={dist:.6g}{meta}")
+
+
+def main(argv=None) -> int:
+    """`python -m sptag_tpu_torch.serve.server -m socket -c config.ini
+    [--device cpu]` — parity with the reference server CLI
+    (src/Server/main.cpp); the indexes load onto the CUDA card unless
+    `--device` names another device."""
+    import argparse
+
+    parser = argparse.ArgumentParser(
+        description="sptag_tpu_torch search server")
+    parser.add_argument("-c", "--config", required=True)
+    parser.add_argument("-m", "--mode", choices=("socket", "interactive"),
+                        default="interactive")
+    parser.add_argument("--device", default=None,
+                        help="torch device of the indexes (e.g. cpu); "
+                        "default: the CUDA card, an error without one")
+    args = parser.parse_args(argv)
+    context = ServiceContext.from_ini(args.config, device=args.device)
+    if args.mode == "interactive":
+        run_interactive(context)
+        return 0
+
+    async def serve():
+        server = SearchServer(context)
+        await server.start()
+        await asyncio.Event().wait()
+
+    asyncio.run(serve())
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

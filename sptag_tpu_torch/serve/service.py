@@ -1,0 +1,1021 @@
+"""Search service context + executor.
+
+Parity: ServiceContext/ServiceSettings (AnnService/src/
+Server/ServiceContext.cpp:13-61) — ini sections ``[Service]`` (ListenAddr,
+ListenPort, ThreadNumber, SocketThreadNumber), ``[QueryConfig]``
+(DefaultMaxResultNumber, DefaultSeparator) and ``[Index]``/``[Index_<name>]``
+(List=, IndexFolder=) — and SearchExecutor (src/Server/SearchExecutor.cpp:
+25-112): parse -> select indexes -> type/dim check -> SearchIndex per index
+-> RemoteSearchResult.
+
+Port of ``sptag_tpu/serve/service.py``.  The executor exposes
+`execute_batch` so the socket front-end can coalesce concurrent queries
+into one card batch (the reference runs one OpenMP thread per query).  The
+context loads its indexes onto one torch device (`from_ini(path,
+device)`; None is the CUDA card).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from sptag_tpu_torch.core.index import VectorIndex, load_index, not_ported
+from sptag_tpu_torch.core.vectorset import metas_for
+from sptag_tpu_torch.serve.protocol import (
+    DEFAULT_SEPARATOR,
+    ParsedQuery,
+    parse_query,
+)
+from sptag_tpu_torch.serve.wire import (
+    IndexSearchResult,
+    RemoteSearchResult,
+    ResultStatus,
+)
+from sptag_tpu_torch.device import DeviceLike, resolve_device
+from sptag_tpu_torch.utils import metrics
+from sptag_tpu_torch.utils.ini import IniReader
+
+log = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass
+class ServiceSettings:
+    listen_addr: str = "0.0.0.0"
+    listen_port: int = 8000
+    thread_num: int = 8
+    socket_thread_num: int = 8
+    default_max_result: int = 10
+    vector_separator: str = DEFAULT_SEPARATOR
+    # ceiling for the wire-reachable $maxcheck override: unbounded, one
+    # request could pin the card with ceil(max_check/B) beam iterations
+    max_check_limit: int = 65536
+    # policy for the wire-reachable $searchmode override.  "on" always
+    # honors it; "off" ignores it; "auto" (default) honors it only when
+    # the requested engine is ALREADY materialized on the card — a lazy
+    # dense-pack build is roughly a second corpus copy in its memory, and a
+    # remote client must not be able to force that allocation on an
+    # operator who configured beam-only ($maxcheck by contrast has
+    # max_check_limit as its DoS ceiling)
+    allow_search_mode_override: str = "auto"
+    # opt-in remote admin surface: the
+    # reference's SWIG wrappers give Java/C#/.NET the full in-process
+    # AnnIndex Build/Add/Delete surface (Wrappers/inc/CoreInterface.h:
+    # 14-65); here non-Python languages reach the same capabilities over
+    # the wire via `$admin:<op>` query lines.  Off by default — index
+    # mutation from the network is an operator decision
+    enable_remote_admin: bool = False
+    # DoS ceiling for $admin:build/add payloads (rows per request), the
+    # admin analog of max_check_limit: a build runs synchronously in the
+    # request path, so one oversized block would block all serving for
+    # its whole duration.  Raise it for trusted deployments
+    # via [Service] AdminMaxRows.
+    admin_max_rows: int = 1_000_000
+    admin_max_dim: int = 4096
+    # root directory for $admin:save / $admin:load paths; empty (default)
+    # DISABLES the persist ops.  Paths are resolved strictly under this
+    # root (escapes rejected) — the ops exist for the in-process AnnIndex
+    # facades (wrappers/) whose host server is a local child, not for
+    # exposing filesystem writes to remote networks.
+    admin_persist_root: str = ""
+    # observability (serve/metrics_http.py): port for the /metrics +
+    # /healthz HTTP listener; 0 (default) disables it, negative binds
+    # OS-ephemeral (tests).  The bind host defaults to loopback — the
+    # endpoint is unauthenticated and /healthz discloses index config,
+    # so exposing it to a scrape network is an explicit operator choice
+    metrics_port: int = 0
+    metrics_host: str = "127.0.0.1"
+    # slow-query log threshold: a request whose TOTAL server time
+    # (queue wait + execute + send) reaches this many ms is logged with
+    # its request id, per-stage timings and result count; 0 disables
+    slow_query_threshold_ms: float = 0.0
+    # flight recorder (utils/flightrec.py): per-query timeline
+    # ring exported as Chrome trace JSON (GET /debug/flight on the
+    # metrics listener).  Off by default — off costs one flag test per
+    # stage and the serve bytes stay identical.  FlightRecorderEvents
+    # sizes the ring (0 = module default); FlightDumpOnSlowQuery names a
+    # directory that receives a ringed auto-dump whenever the slow-query
+    # log fires or a request errors (empty disables dumps).
+    flight_recorder: bool = False
+    flight_recorder_events: int = 0
+    flight_dump_on_slow_query: str = ""
+    # search-quality monitor (utils/qualmon.py): sample this
+    # fraction of served queries onto the background shadow path that
+    # replays them through the exact scan and publishes online
+    # quality.recall_at_k gauges (0 = off; off costs one flag test per
+    # query and the serve wire bytes stay byte-identical).  A sampled
+    # recall below QualityRecallFloor is triaged (verdict + flight
+    # dump); QualityShadowBudget bounds shadow device work in estimated
+    # GFLOP/s; QualityWindow sizes the sliding recall window (0 =
+    # module default).
+    quality_sample_rate: float = 0.0
+    quality_recall_floor: float = 0.0
+    quality_shadow_budget: float = 0.0
+    quality_window: int = 0
+    # overload defense (serve/admission.py): the admission
+    # controller's normal -> degrade -> shed ladder over queue fill,
+    # scheduler slot-wait p99 and pool occupancy.  Off by default — one
+    # `is None` test per request, serve wire bytes byte-identical (the
+    # ci_check.sh off-parity pass).
+    admission_control: bool = False
+    admission_degrade_queue_frac: float = 0.5
+    admission_shed_queue_frac: float = 0.9
+    admission_degrade_slot_wait_ms: float = 50.0
+    admission_shed_slot_wait_ms: float = 250.0
+    admission_fair_share: float = 0.5
+    admission_recover_hold_ms: float = 2000.0
+    # degrade-state budget clamp: per-query MaxCheck is clamped DOWN to
+    # this floor (never raised), oversized k to default_max_result
+    degrade_max_check_floor: int = 512
+    # default per-request deadline in ms, applied to requests that carry
+    # none (wire minor-2 trailer or $deadlinems text option); 0 = none.
+    # Queries whose deadline passes while queued are dropped (counted,
+    # flight-recorded) instead of burning device time nobody waits for.
+    deadline_ms: float = 0.0
+    # wire-layer fault injection (utils/faultinject.py): spec string +
+    # seed.  Empty (default) = no injector work beyond one flag test.
+    # The env twin SPTAG_FAULTINJECT covers processes without an ini.
+    fault_inject: str = ""
+    fault_inject_seed: int = 0
+    # runtime lock sanitizer (utils/locksan.py): when on, locks created
+    # from here on (index writer locks, client locks, thread pools) are
+    # wrapped to detect lock-order inversions at runtime; the watchdog
+    # threshold dumps all held locks + thread stacks into the log when a
+    # lock wait exceeds it (0 = watchdog off).  Env SPTAG_LOCKSAN
+    # equivalently enables it process-wide ("strict" makes inversions
+    # raise instead of log)
+    lock_sanitizer: bool = False
+    locksan_watchdog_ms: float = 0.0
+    # host sampling profiler (utils/hostprof.py): HostProfHz>0
+    # starts the sampler at serve start — per-thread stacks folded into a
+    # bounded flamegraph aggregate with serve-stage + request-id
+    # attribution (GET /debug/prof).  0 (default): the sampler thread is
+    # never started and the stage pins are one flag test.
+    host_prof_hz: float = 0.0
+    # raw-sample ring capacity for the chrome-trace/merge export
+    # (0 = hostprof.DEFAULT_MAX_SAMPLES)
+    host_prof_events: int = 0
+    # bundle host stacks into the flight recorder's slow-query auto-dump
+    # (rides FlightDumpOnSlowQuery — needs that dir armed to dump)
+    host_prof_dump_on_slow_query: bool = False
+    # lock-contention ledger (utils/locksan.py): per-lock
+    # wait/hold accounting published as lock_wait_ms{name=} gauges.
+    # Enabled at config load, BEFORE the indexes build their locks.
+    lock_contention_ledger: bool = False
+    # Eraser-style race sanitizer (utils/locksan.py): when on,
+    # every @race_track hot class (VectorIndex, BeamSlotScheduler,
+    # DeltaShard, ServingAdapter, AdmissionController, aggregator state)
+    # records sampled attribute writes with the writer's held-lockset;
+    # an attribute whose lockset intersection across writing threads
+    # goes empty bumps racesan.races with both stacks logged ("strict"
+    # raises DataRaceError).  Armed at config load, BEFORE index load —
+    # the lockset feed is SanLock's per-thread stacks, so arming also
+    # wraps locks created from here on.  Off (default): tracked classes
+    # are completely untouched and serve bytes stay byte-identical.
+    race_sanitizer: bool = False
+    # fraction of tracked attribute writes the sanitizer records
+    # (deterministic per-thread 1-in-round(1/rate)); 1.0 = every write
+    racesan_sample_rate: float = 1.0
+    # trace/transfer sentinel (the JAX package's utils/recompile_guard.py):
+    # not ported (ROADMAP 'observability, device half'); arming it raises.
+    trace_sanitizer: bool = False
+    # default per-family compile budget while armed; 0 = unlimited
+    tracesan_compile_budget: int = 0
+    # in-mesh sharded serving: not ported (ROADMAP 'multi-GPU'); the
+    # server raises when MeshServe=1.  MeshServeSlots / MeshServeSegmentIters
+    # size its slot pools and segments.
+    mesh_serve: bool = False
+    mesh_serve_slots: int = 0
+    mesh_serve_segment_iters: int = 0
+    # serving timeline (utils/timeline.py): >0 arms the
+    # in-process time-series sampler at this interval — the metrics
+    # registry + every labeled-series family snapshotted into bounded
+    # rings, served on GET /debug/timeline.  0 (default): no sampler
+    # thread, serve bytes byte-identical.  TimelineEvents sizes the
+    # fine ring (0 = module default 512 samples/series).
+    timeline_interval_ms: float = 0.0
+    timeline_events: int = 0
+    # SLO burn-rate engine (serve/slo.py): declared objectives judged
+    # over the timeline with multi-window burn rates.  Each objective
+    # is off at 0; declaring ANY arms the engine (and the timeline, if
+    # not already armed).  SloBudget is the tolerated violating-sample
+    # fraction for the threshold objectives (latency/recall/qps).
+    slo_availability_target: float = 0.0
+    slo_p99_ms: float = 0.0
+    slo_recall_floor: float = 0.0
+    slo_qps_floor: float = 0.0
+    slo_budget: float = 0.05
+    slo_fast_window_s: float = 60.0
+    slo_slow_window_s: float = 300.0
+    slo_warn_burn: float = 1.0
+    slo_page_burn: float = 4.0
+    # ground-truth canary prober (serve/canary.py): >0 arms a
+    # background worker replaying oracle-pinned probe queries through
+    # the FULL serve path (loopback client) every this-many ms, feeding
+    # e2e latency + exact recall into the timeline/SLO engine.
+    # CanaryProbes bounds the probe set per index; CanaryK is the
+    # probes' top-k.  0 (default): no probes, no thread.
+    canary_interval_ms: float = 0.0
+    canary_probes: int = 8
+    canary_k: int = 10
+    # online controller (serve/controller.py): Controller=1
+    # arms the SLO-driven closed loop — burn-rate state + canary recall
+    # drive bounded, reversible, fully audited live actuations of the
+    # knobs in the core/params live-actuation registry.  Requires
+    # declared SLO objectives (the controller's judgement input).  Off
+    # (default): no controller, no tick listener, serve bytes
+    # byte-identical.
+    controller: bool = False
+    controller_cooldown_ms: float = 10000.0
+    controller_hold_ms: float = 30000.0
+    controller_revert_window_ms: float = 15000.0
+    controller_max_check_floor: int = 256
+    controller_recall_floor: float = 0.0
+    # offline autotuner artifact (tools/autotune.py): path to the
+    # emitted INI fragment, applied to every loaded index at start
+    # through set_parameter (unknown keys logged and skipped).  "" =
+    # no artifact.
+    autotune_config: str = ""
+
+
+class ServiceContext:
+    """Loads settings + named indexes from a service ini file.  Every
+    index lives on `device` (None: the CUDA card, or RuntimeError); the
+    `$admin:build` / `$admin:load` ops create theirs there too."""
+
+    def __init__(self, settings: Optional[ServiceSettings] = None,
+                 device: DeviceLike = None):
+        self.settings = settings or ServiceSettings()
+        self.device = resolve_device(device)
+        self.indexes: Dict[str, VectorIndex] = {}
+
+    @classmethod
+    def from_ini(cls, path: str,
+                 device: DeviceLike = None) -> "ServiceContext":
+        device = resolve_device(device)
+        reader = IniReader.load(path)
+        s = ServiceSettings(
+            listen_addr=reader.get_parameter("Service", "ListenAddr",
+                                             "0.0.0.0"),
+            listen_port=int(reader.get_parameter("Service", "ListenPort",
+                                                 "8000")),
+            thread_num=int(reader.get_parameter("Service", "ThreadNumber",
+                                                "8")),
+            socket_thread_num=int(reader.get_parameter(
+                "Service", "SocketThreadNumber", "8")),
+            default_max_result=int(reader.get_parameter(
+                "QueryConfig", "DefaultMaxResultNumber", "10")),
+            vector_separator=reader.get_parameter(
+                "QueryConfig", "DefaultSeparator", DEFAULT_SEPARATOR),
+            allow_search_mode_override={
+                "1": "on", "true": "on", "on": "on",
+                "0": "off", "false": "off", "off": "off",
+            }.get(reader.get_parameter(
+                "Service", "AllowSearchModeOverride", "auto").lower(),
+                "auto"),
+            enable_remote_admin=reader.get_parameter(
+                "Service", "EnableRemoteAdmin", "0").lower() in
+            ("1", "true", "on", "yes"),
+            admin_max_rows=int(reader.get_parameter(
+                "Service", "AdminMaxRows", "1000000")),
+            admin_max_dim=int(reader.get_parameter(
+                "Service", "AdminMaxDim", "4096")),
+            admin_persist_root=reader.get_parameter(
+                "Service", "AdminPersistRoot", ""),
+            metrics_port=int(reader.get_parameter(
+                "Service", "MetricsPort", "0")),
+            metrics_host=reader.get_parameter(
+                "Service", "MetricsHost", "127.0.0.1"),
+            slow_query_threshold_ms=float(reader.get_parameter(
+                "Service", "SlowQueryThresholdMs", "0")),
+            flight_recorder=reader.get_parameter(
+                "Service", "FlightRecorder", "0").lower() in
+            ("1", "true", "on", "yes"),
+            flight_recorder_events=int(reader.get_parameter(
+                "Service", "FlightRecorderEvents", "0")),
+            flight_dump_on_slow_query=reader.get_parameter(
+                "Service", "FlightDumpOnSlowQuery", ""),
+            quality_sample_rate=float(reader.get_parameter(
+                "Service", "QualitySampleRate", "0")),
+            quality_recall_floor=float(reader.get_parameter(
+                "Service", "QualityRecallFloor", "0")),
+            quality_shadow_budget=float(reader.get_parameter(
+                "Service", "QualityShadowBudget", "0")),
+            quality_window=int(reader.get_parameter(
+                "Service", "QualityWindow", "0")),
+            admission_control=reader.get_parameter(
+                "Service", "AdmissionControl", "0").lower() in
+            ("1", "true", "on", "yes"),
+            admission_degrade_queue_frac=float(reader.get_parameter(
+                "Service", "AdmissionDegradeQueueFrac", "0.5")),
+            admission_shed_queue_frac=float(reader.get_parameter(
+                "Service", "AdmissionShedQueueFrac", "0.9")),
+            admission_degrade_slot_wait_ms=float(reader.get_parameter(
+                "Service", "AdmissionDegradeSlotWaitMs", "50")),
+            admission_shed_slot_wait_ms=float(reader.get_parameter(
+                "Service", "AdmissionShedSlotWaitMs", "250")),
+            admission_fair_share=float(reader.get_parameter(
+                "Service", "AdmissionFairShare", "0.5")),
+            admission_recover_hold_ms=float(reader.get_parameter(
+                "Service", "AdmissionRecoverHoldMs", "2000")),
+            degrade_max_check_floor=int(reader.get_parameter(
+                "Service", "DegradeMaxCheckFloor", "512")),
+            deadline_ms=float(reader.get_parameter(
+                "Service", "DeadlineMs", "0")),
+            fault_inject=reader.get_parameter(
+                "Service", "FaultInject", ""),
+            fault_inject_seed=int(reader.get_parameter(
+                "Service", "FaultInjectSeed", "0")),
+            lock_sanitizer=reader.get_parameter(
+                "Service", "LockSanitizer", "0").lower() in
+            ("1", "true", "on", "yes", "strict"),
+            locksan_watchdog_ms=float(reader.get_parameter(
+                "Service", "LockSanWatchdogMs", "0")),
+            host_prof_hz=float(reader.get_parameter(
+                "Service", "HostProfHz", "0")),
+            host_prof_events=int(reader.get_parameter(
+                "Service", "HostProfEvents", "0")),
+            host_prof_dump_on_slow_query=reader.get_parameter(
+                "Service", "HostProfDumpOnSlowQuery", "0").lower() in
+            ("1", "true", "on", "yes"),
+            lock_contention_ledger=reader.get_parameter(
+                "Service", "LockContentionLedger", "0").lower() in
+            ("1", "true", "on", "yes"),
+            race_sanitizer=reader.get_parameter(
+                "Service", "RaceSanitizer", "0").lower() in
+            ("1", "true", "on", "yes", "strict"),
+            racesan_sample_rate=float(reader.get_parameter(
+                "Service", "RaceSanSampleRate", "1")),
+            trace_sanitizer=reader.get_parameter(
+                "Service", "TraceSanitizer", "0").lower() in
+            ("1", "true", "on", "yes", "strict"),
+            tracesan_compile_budget=int(reader.get_parameter(
+                "Service", "TraceSanCompileBudget", "0")),
+            mesh_serve=reader.get_parameter(
+                "Service", "MeshServe", "0").lower() in
+            ("1", "true", "on", "yes"),
+            mesh_serve_slots=int(reader.get_parameter(
+                "Service", "MeshServeSlots", "0")),
+            mesh_serve_segment_iters=int(reader.get_parameter(
+                "Service", "MeshServeSegmentIters", "0")),
+            timeline_interval_ms=float(reader.get_parameter(
+                "Service", "TimelineIntervalMs", "0")),
+            timeline_events=int(reader.get_parameter(
+                "Service", "TimelineEvents", "0")),
+            slo_availability_target=float(reader.get_parameter(
+                "Service", "SloAvailabilityTarget", "0")),
+            slo_p99_ms=float(reader.get_parameter(
+                "Service", "SloP99Ms", "0")),
+            slo_recall_floor=float(reader.get_parameter(
+                "Service", "SloRecallFloor", "0")),
+            slo_qps_floor=float(reader.get_parameter(
+                "Service", "SloQpsFloor", "0")),
+            slo_budget=float(reader.get_parameter(
+                "Service", "SloBudget", "0.05")),
+            slo_fast_window_s=float(reader.get_parameter(
+                "Service", "SloFastWindowS", "60")),
+            slo_slow_window_s=float(reader.get_parameter(
+                "Service", "SloSlowWindowS", "300")),
+            slo_warn_burn=float(reader.get_parameter(
+                "Service", "SloWarnBurn", "1")),
+            slo_page_burn=float(reader.get_parameter(
+                "Service", "SloPageBurn", "4")),
+            canary_interval_ms=float(reader.get_parameter(
+                "Service", "CanaryIntervalMs", "0")),
+            canary_probes=int(reader.get_parameter(
+                "Service", "CanaryProbes", "8")),
+            canary_k=int(reader.get_parameter(
+                "Service", "CanaryK", "10")),
+            controller=reader.get_parameter(
+                "Service", "Controller", "0").lower() in
+            ("1", "true", "on", "yes"),
+            controller_cooldown_ms=float(reader.get_parameter(
+                "Service", "ControllerCooldownMs", "10000")),
+            controller_hold_ms=float(reader.get_parameter(
+                "Service", "ControllerHoldMs", "30000")),
+            controller_revert_window_ms=float(reader.get_parameter(
+                "Service", "ControllerRevertWindowMs", "15000")),
+            controller_max_check_floor=int(reader.get_parameter(
+                "Service", "ControllerMaxCheckFloor", "256")),
+            controller_recall_floor=float(reader.get_parameter(
+                "Service", "ControllerRecallFloor", "0")),
+            autotune_config=reader.get_parameter(
+                "Service", "AutotuneConfig", ""),
+        )
+        if s.lock_sanitizer:
+            # before the indexes load: their writer locks must be created
+            # with the sanitizer already on to be wrapped
+            from sptag_tpu_torch.utils import locksan
+            locksan.enable(
+                strict=(reader.get_parameter(
+                    "Service", "LockSanitizer", "0").lower() == "strict"),
+                watchdog_ms=(s.locksan_watchdog_ms or None))
+        if s.lock_contention_ledger:
+            # same timing contract as the sanitizer: arm BEFORE index
+            # load so the indexes' writer locks are wrapped for the
+            # ledger even with the order sanitizer off
+            from sptag_tpu_torch.utils import locksan
+            locksan.enable_contention()
+        if s.race_sanitizer:
+            # arm BEFORE index load: the shim must be installed before
+            # the hot classes instantiate, and arming wraps the locks
+            # whose per-thread held-stacks feed the locksets
+            from sptag_tpu_torch.utils import locksan
+            locksan.enable_racesan(
+                strict=(reader.get_parameter(
+                    "Service", "RaceSanitizer", "0").lower() == "strict"),
+                sample_rate=s.racesan_sample_rate)
+        if s.trace_sanitizer:
+            raise not_ported("TraceSanitizer (recompile_guard)",
+                             "observability, device half")
+        ctx = cls(s, device)
+        index_list = reader.get_parameter("Index", "List", "")
+        for name in (t.strip() for t in index_list.split(",")):
+            if not name:
+                continue
+            folder = reader.get_parameter(f"Index_{name}", "IndexFolder", "")
+            if not folder:
+                continue
+            try:
+                ctx.indexes[name] = load_index(folder, device)
+                log.info("loaded index %s from %s", name, folder)
+            except Exception:
+                log.exception("Failed loading index: %s", name)
+        if s.autotune_config:
+            apply_autotune_artifact(ctx, s.autotune_config)
+        return ctx
+
+    def add_index(self, name: str, index: VectorIndex) -> None:
+        self.indexes[name] = index
+
+
+def apply_autotune_artifact(ctx: ServiceContext, path: str) -> int:
+    """Apply an autotuner-emitted INI fragment (tools/autotune.py) to
+    the loaded indexes at start: ``[Index]`` keys go to every index,
+    ``[Index_<name>]`` keys to that index only.  Values flow through
+    `set_parameter` — the same live-apply path the online controller
+    uses — so an artifact can only change what an operator could.
+    Returns the number of applied (index, key) pairs; unknown keys and
+    missing index names are logged and skipped (an artifact from a
+    newer build must not take down an older server)."""
+    try:
+        reader = IniReader.load(path)
+    except OSError:
+        log.exception("autotune artifact unreadable: %s", path)
+        return 0
+    applied = 0
+    for section in reader.sections():
+        low = section.lower()
+        if low == "index":
+            targets = list(ctx.indexes.items())
+        elif low.startswith("index_"):
+            name = section[len("index_"):]
+            if name not in ctx.indexes:
+                log.warning("autotune artifact names unknown index %s",
+                            name)
+                continue
+            targets = [(name, ctx.indexes[name])]
+        else:
+            continue
+        for key, value in reader.section_items(section).items():
+            for name, index in targets:
+                if index.set_parameter(key, value):
+                    applied += 1
+                    log.info("autotune apply index=%s %s=%s",
+                             name, key, value)
+                else:
+                    log.warning("autotune artifact key %s rejected by "
+                                "index %s", key, name)
+    if applied:
+        metrics.inc("autotune.applied_params", applied)
+    return applied
+
+
+class SearchExecutor:
+    """Parity: SearchExecutor::Execute (SearchExecutor.cpp:25-112)."""
+
+    def __init__(self, context: ServiceContext):
+        self.context = context
+
+    def execute(self, query_text: str) -> RemoteSearchResult:
+        parsed = parse_query(query_text)
+        if "admin" in parsed.options:
+            return self._execute_admin(parsed)
+        return self._run(parsed)
+
+    # ---- remote admin surface -------------------
+
+    @staticmethod
+    def _admin_reply(ok: bool, message: str,
+                     count: int = 0) -> RemoteSearchResult:
+        """Admin ops answer with the SAME RemoteSearchResult body the
+        search path uses (so every existing client can drive them): one
+        result row whose index_name carries a machine-parseable
+        `admin:<ok|error>:<message>` marker and whose single id is the
+        affected-row count."""
+        return RemoteSearchResult(
+            ResultStatus.Success if ok else ResultStatus.FailedExecute,
+            [IndexSearchResult(
+                f"admin:{'ok' if ok else 'error'}:{message}",
+                [int(count)], [0.0], None)])
+
+    def _decode_metadata(self, parsed: ParsedQuery, n_rows: int):
+        """Optional `$metadata:<b64>` — one payload per row,
+        \\x00-separated (a single row may omit the separator entirely).
+        Returns (MetadataSet-or-None, error-reply-or-None)."""
+        import base64 as b64mod
+
+        from sptag_tpu_torch.core.vectorset import MetadataSet
+
+        raw_meta = parsed.options.get("metadata")
+        if raw_meta is None:
+            return None, None
+        try:
+            payload = b64mod.b64decode(raw_meta, validate=False)
+        except Exception:                                # noqa: BLE001
+            return None, self._admin_reply(False, "bad-metadata")
+        parts = payload.split(b"\x00")
+        if len(parts) != n_rows:
+            return None, self._admin_reply(False,
+                                           "metadata-count-mismatch")
+        return MetadataSet(parts), None
+
+    def _persist_path(self, parsed: ParsedQuery) -> Optional[str]:
+        """Resolve `$path:<b64 relative path>` strictly under
+        AdminPersistRoot; None when the ops are disabled (empty root),
+        the path is missing/undecodable, or it escapes the root."""
+        import base64 as b64mod
+        import os
+
+        root = self.context.settings.admin_persist_root
+        if not root:
+            return None
+        raw = parsed.options.get("path")
+        if raw is None:
+            return None
+        try:
+            rel = b64mod.b64decode(raw, validate=False).decode("utf-8")
+        except Exception:                                # noqa: BLE001
+            return None
+        if not rel or rel.startswith(("/", "\\")) or ".." in rel.split("/"):
+            return None
+        root_abs = os.path.abspath(root)
+        full = os.path.abspath(os.path.join(root_abs, rel))
+        if full != root_abs and not full.startswith(root_abs + os.sep):
+            return None
+        return full
+
+    def _extract_capped(self, parsed: ParsedQuery, value_type,
+                        dim: int):
+        """Shared build/add/delete payload path: pre-decode cap gate,
+        extract, exact post-decode cap check.  Returns (rows, None) on
+        success or (None, error_reply).
+
+        The base64 length upper-bounds the decoded byte count, so an
+        oversized b64 block is rejected at O(1) BEFORE extract_vector
+        materializes the array (the cap must bound the allocation, not
+        just the build).  Text payloads skip the pre-gate — element
+        widths vary too much for a tight length bound (a 2-chars-per-
+        element estimate falsely rejected legal payloads) and the text
+        is already resident in memory; the exact post-decode check
+        bounds the work that matters."""
+        from sptag_tpu_torch.core.types import dtype_of
+
+        cap = self.context.settings.admin_max_rows
+        if dim > 0 and parsed.vector_base64 is not None:
+            b64 = parsed.vector_base64
+            # exact decoded length: subtract '=' padding so a payload of
+            # exactly `cap` rows is never over-counted by the 3/4 estimate
+            pad = 2 if b64.endswith("==") else (1 if b64.endswith("=")
+                                                else 0)
+            est_bytes = (len(b64) * 3) // 4 - pad
+            itemsize = dtype_of(value_type).itemsize
+            if est_bytes // max(1, itemsize * dim) > cap:
+                return None, self._admin_reply(False, "rows-over-limit")
+        rows = parsed.extract_vector(
+            value_type, self.context.settings.vector_separator)
+        if rows is None or dim <= 0 or rows.size % dim:
+            return None, self._admin_reply(False, "bad-vector-block")
+        if rows.size // dim > cap:
+            return None, self._admin_reply(False, "rows-over-limit")
+        return rows.reshape(-1, dim), None
+
+    def _execute_admin(self, parsed: ParsedQuery) -> RemoteSearchResult:
+        """`$admin:<op>` — the reference's in-process AnnIndex
+        Build/Add/Delete surface (Wrappers/inc/CoreInterface.h:14-65),
+        reachable over the wire so Java/C#/.NET clients can drive the
+        full index lifecycle.  Ops:
+
+        * `$admin:build $indexname:n $datatype:T $dimension:D
+          [$algo:BKT|KDT|FLAT] [$distcalcmethod:L2|Cosine]
+          [$params:Name=Val,Name=Val] #<b64 raw row-major block>`
+        * `$admin:add $indexname:n [$metadata:<b64>] #<b64 rows>`
+        * `$admin:delete $indexname:n #<b64 rows>` (delete-by-content)
+        * `$admin:deletemeta $indexname:n $metadata:<b64>`
+        * `$admin:setparam $indexname:n $params:Name=Val[,Name=Val]`
+          (reference SetSearchParam — live parameter changes post-build)
+        * `$admin:save $indexname:n $path:<b64 rel path>` /
+          `$admin:load $indexname:n $path:<b64 rel path>` — persist ops,
+          enabled only when `[Service] AdminPersistRoot` names a
+          directory; paths resolve strictly under it
+
+        Gated by `[Service] EnableRemoteAdmin` (default off).  Build/add
+        payloads are capped at AdminMaxRows x AdminMaxDim (builds run
+        synchronously in the request path — an uncapped block would
+        block all serving for its duration).  `$params`
+        values are split on ','/'=': parameter VALUES containing either
+        character cannot be expressed over this surface (no SPTAG
+        parameter needs them; use the Python/CLI surface otherwise)."""
+        import base64 as b64mod
+
+        from sptag_tpu_torch.core.index import create_instance
+        from sptag_tpu_torch.core.types import ErrorCode
+
+        metrics.inc("service.admin_ops")
+        if not self.context.settings.enable_remote_admin:
+            return self._admin_reply(False, "disabled")
+        op = parsed.options.get("admin", "").lower()
+        names = parsed.index_names
+        if len(names) != 1:
+            return self._admin_reply(False, "need-one-indexname")
+        name = names[0]
+        try:
+            if op == "build":
+                dt = parsed.data_type
+                if dt is None:
+                    return self._admin_reply(False, "need-datatype")
+                try:
+                    dim = int(parsed.options.get("dimension", ""))
+                except ValueError:
+                    return self._admin_reply(False, "need-dimension")
+                if dim > self.context.settings.admin_max_dim:
+                    return self._admin_reply(False, "dimension-over-limit")
+                block, err = self._extract_capped(parsed, dt, dim)
+                if err is not None:
+                    return err
+                algo = parsed.options.get("algo", "BKT").upper()
+                index = create_instance(algo, dt, self.context.device)
+                index.set_parameter(
+                    "DistCalcMethod",
+                    parsed.options.get("distcalcmethod", "L2"))
+                for kv in parsed.options.get("params", "").split(","):
+                    if not kv:
+                        continue
+                    pname, _, pval = kv.partition("=")
+                    if not index.set_parameter(pname, pval):
+                        return self._admin_reply(False,
+                                                 f"bad-param-{pname}")
+                metadata, merr = self._decode_metadata(parsed, len(block))
+                if merr is not None:
+                    return merr
+                index.build(block, metadata,
+                            with_meta_index=metadata is not None
+                            and parsed.options.get("withmetaindex", "")
+                            .lower() in ("1", "true", "yes"))
+                self.context.add_index(name, index)
+                return self._admin_reply(True, "built", index.num_samples)
+            if op == "load":
+                folder = self._persist_path(parsed)
+                if folder is None:
+                    return self._admin_reply(False, "bad-path")
+                loaded = load_index(folder, self.context.device)
+                self.context.add_index(name, loaded)
+                return self._admin_reply(True, "loaded",
+                                         loaded.num_samples)
+            index = self.context.indexes.get(name)
+            if index is None:
+                return self._admin_reply(False, "no-such-index")
+            if op == "setparam":
+                # all-or-nothing: a failure mid-list rolls back the
+                # already-applied names, so an error reply never hides a
+                # half-applied config on the live index
+                pairs = [kv.partition("=") for kv in
+                         parsed.options.get("params", "").split(",") if kv]
+                undo = [(p, index.get_parameter(p)) for p, _, _ in pairs]
+                applied = 0
+                for pname, _, pval in pairs:
+                    if not index.set_parameter(pname, pval):
+                        for uname, uval in undo[:applied]:
+                            if uval is not None:
+                                index.set_parameter(uname, uval)
+                        return self._admin_reply(False,
+                                                 f"bad-param-{pname}")
+                    applied += 1
+                return self._admin_reply(True, "set", applied)
+            if op == "save":
+                folder = self._persist_path(parsed)
+                if folder is None:
+                    return self._admin_reply(False, "bad-path")
+                index.save_index(folder)
+                return self._admin_reply(True, "saved", index.num_samples)
+            if op == "add":
+                rows, err = self._extract_capped(
+                    parsed, index.value_type, index.feature_dim)
+                if err is not None:
+                    return err
+                metadata, merr = self._decode_metadata(parsed, len(rows))
+                if merr is not None:
+                    return merr
+                code = index.add(rows, metadata,
+                                 with_meta_index=metadata is not None)
+                ok = code == ErrorCode.Success
+                return self._admin_reply(ok, "added" if ok else str(code),
+                                         len(rows) if ok else 0)
+            if op == "delete":
+                # delete-by-content is a search per row, synchronous in
+                # the request path — same cap as build/add
+                rows, err = self._extract_capped(
+                    parsed, index.value_type, index.feature_dim)
+                if err is not None:
+                    return err
+                code = index.delete(rows)
+                ok = code == ErrorCode.Success
+                return self._admin_reply(ok,
+                                         "deleted" if ok else str(code),
+                                         len(rows) if ok else 0)
+            if op == "deletemeta":
+                raw_meta = parsed.options.get("metadata")
+                if raw_meta is None:
+                    return self._admin_reply(False, "need-metadata")
+                try:
+                    payload = b64mod.b64decode(raw_meta, validate=False)
+                except Exception:                        # noqa: BLE001
+                    return self._admin_reply(False, "bad-metadata")
+                code = index.delete_by_metadata(payload)
+                ok = code == ErrorCode.Success
+                return self._admin_reply(ok,
+                                         "deleted" if ok else str(code),
+                                         1 if ok else 0)
+            return self._admin_reply(False, f"unknown-op-{op}")
+        except Exception as e:                           # noqa: BLE001
+            log.exception("admin op %s failed", op)
+            return self._admin_reply(False, f"exception-{type(e).__name__}")
+
+    def _sanitize_max_check(self, parsed: ParsedQuery) -> Optional[int]:
+        """Clamp the wire-reachable $maxcheck to the service ceiling and
+        round UP to a power of two: the budget feeds static kernel shape
+        parameters (L, T), so unquantized values would mint a fresh
+        CUDA-graph capture per distinct request value — unbounded growth
+        in a long-lived server (rounding up never lowers the recall the
+        client asked for)."""
+        mc = parsed.max_check
+        if mc is None:
+            return None
+        if mc > 1:
+            mc = 1 << (mc - 1).bit_length()
+        # clamp AFTER quantizing: rounding up must never exceed the
+        # configured ceiling (a non-power-of-two limit admits at most one
+        # extra compiled shape — the limit itself)
+        return min(mc, self.context.settings.max_check_limit)
+
+    def _sanitize_search_mode(self, parsed: ParsedQuery,
+                              index: VectorIndex) -> Optional[str]:
+        """Apply the AllowSearchModeOverride policy to the wire-level
+        $searchmode option.  Under "auto" the override is honored only
+        when the engine it resolves to is already materialized — a remote
+        client must not be able to trigger a lazy dense-pack build
+        (roughly a second corpus copy on the card) on a beam-configured
+        server.  A dropped override degrades to the index's configured
+        SearchMode, mirroring how an unknown $searchmode value parses."""
+        sm = parsed.search_mode
+        if sm is None:
+            return None
+        policy = self.context.settings.allow_search_mode_override
+        if policy == "on":
+            return sm
+        if policy == "off":
+            return None
+        ready = getattr(index, "search_mode_ready", None)
+        if ready is None:
+            return sm                     # modeless index (FLAT): harmless
+        mc = self._sanitize_max_check(parsed)
+        if ready(sm, mc if mc is not None else 0):
+            return sm
+        log.warning("dropping $searchmode:%s — engine not materialized "
+                    "and AllowSearchModeOverride=auto", sm)
+        return None
+
+    def _select_indexes(self, parsed: ParsedQuery) -> Dict[str, VectorIndex]:
+        names = parsed.index_names
+        if not names:
+            # singleton service: an unnamed query hits the only index
+            # (SearchExecutor.cpp:55-63)
+            if len(self.context.indexes) == 1:
+                return dict(self.context.indexes)
+            return {}
+        return {n: self.context.indexes[n] for n in names
+                if n in self.context.indexes}
+
+    def _run(self, parsed: ParsedQuery) -> RemoteSearchResult:
+        selected = self._select_indexes(parsed)
+        if not selected:
+            return RemoteSearchResult(ResultStatus.FailedExecute, [])
+        k = parsed.result_num or self.context.settings.default_max_result
+        out = RemoteSearchResult(ResultStatus.Success, [])
+        for name, index in selected.items():
+            vec = parsed.extract_vector(
+                parsed.data_type or index.value_type,
+                self.context.settings.vector_separator)
+            if vec is None or vec.shape[-1] != index.feature_dim:
+                return RemoteSearchResult(ResultStatus.FailedExecute, [])
+            try:
+                res = index.search(vec.astype(
+                    np.dtype(vec.dtype), copy=False), k=k,
+                    with_metadata=parsed.extract_metadata,
+                    max_check=self._sanitize_max_check(parsed),
+                    search_mode=self._sanitize_search_mode(parsed, index))
+            except Exception:
+                metrics.inc("service.search_errors")
+                log.exception("search failed on index %s", name)
+                return RemoteSearchResult(ResultStatus.FailedExecute, [])
+            out.results.append(IndexSearchResult(
+                name, [int(v) for v in res.ids],
+                [float(d) for d in res.dists],
+                res.metas if parsed.extract_metadata else None))
+        return out
+
+    def _run_group_streaming(self, parsed, results, name: str, k: int,
+                             with_meta: bool, max_check, search_mode,
+                             idxs: List[int], on_ready,
+                             rids: Optional[List[str]] = None) -> None:
+        """Single-index group via per-query futures (VectorIndex
+        .submit_batch): each query's result is built and handed to
+        `on_ready(i, result)` AS ITS FUTURE RESOLVES — with a continuous-
+        batching index that is per-query retire order from the slot
+        scheduler, so the caller streams responses while stragglers are
+        still walking.  Indexes without a scheduler resolve everything at
+        once (base submit_batch) and on_ready degrades to batch
+        granularity.  `on_ready` runs on THIS thread; failures are not
+        streamed (they ride the returned results list)."""
+        import concurrent.futures as cf
+
+        index = self.context.indexes[name]
+        vecs = []
+        ok: List[int] = []
+        for i in idxs:
+            v = parsed[i].extract_vector(
+                parsed[i].data_type or index.value_type,
+                self.context.settings.vector_separator)
+            if v is None or v.shape[-1] != index.feature_dim:
+                results[i] = RemoteSearchResult(
+                    ResultStatus.FailedExecute, [])
+            else:
+                vecs.append(v)
+                ok.append(i)
+        if not ok:
+            return
+        try:
+            futs = index.submit_batch(
+                np.stack(vecs), k, max_check=max_check,
+                search_mode=self._sanitize_search_mode(parsed[ok[0]],
+                                                       index),
+                rids=[rids[i] if rids else "" for i in ok])
+        except Exception:                                # noqa: BLE001
+            metrics.inc("service.search_errors")
+            log.exception("streamed batch submit failed on index %s", name)
+            for i in ok:
+                results[i] = RemoteSearchResult(
+                    ResultStatus.FailedExecute, [])
+            return
+        by_fut = {f: i for f, i in zip(futs, ok)}
+        for f in cf.as_completed(futs):
+            i = by_fut[f]
+            e = f.exception()
+            if e is not None:
+                metrics.inc("service.search_errors")
+                log.error("streamed search failed on index %s: %r",
+                          name, e)
+                results[i] = RemoteSearchResult(
+                    ResultStatus.FailedExecute, [])
+                continue
+            dists, ids = f.result()
+            metas = (metas_for(index.metadata, ids) if with_meta else None)
+            r = RemoteSearchResult(ResultStatus.Success, [IndexSearchResult(
+                name, [int(v) for v in ids], [float(d) for d in dists],
+                metas)])
+            results[i] = r
+            metrics.inc("service.streamed_results")
+            try:
+                on_ready(i, r)
+            except Exception:                            # noqa: BLE001
+                log.exception("on_ready callback failed")
+
+    def _degrade_max_check(self, mc: Optional[int],
+                           sel: tuple, floor: int) -> int:
+        """Effective MaxCheck for a degraded query: the requested (or
+        the selected indexes' configured) budget clamped DOWN to the
+        degrade floor — never raised (a server whose configured budget
+        is already below the floor must not do MORE work in degrade)."""
+        base = mc
+        if base is None:
+            vals = []
+            for n in sel:
+                params = getattr(self.context.indexes.get(n), "params",
+                                 None)
+                v = getattr(params, "max_check", None)
+                if v is not None:
+                    vals.append(int(v))
+            base = max(vals) if vals else floor
+        return min(int(base), int(floor))
+
+    def execute_batch(self, query_texts: List[str], on_ready=None,
+                      rids: Optional[List[str]] = None,
+                      degraded: Optional[List[bool]] = None,
+                      degrade_floor: Optional[int] = None
+                      ) -> List[RemoteSearchResult]:
+        """Coalesced execution: groups parsed queries by (index set, k,
+        meta) and runs each group's vectors as ONE device batch.
+
+        `on_ready(i, result)`: optional streaming callback, invoked on the
+        EXECUTING thread as individual queries finish (single-index groups
+        only — multi-index fan-outs keep batch granularity).  Every result
+        is still present in the returned list; the caller tracks which
+        indices it already consumed via the callback.
+
+        `rids` (one request id per query, optional) rides into scheduler-
+        backed submit_batch paths so flight-recorder events and per-rid
+        slot stats attribute to the wire request id.
+
+        `degraded` (one flag per query) + `degrade_floor`: admission-
+        control degrade clamp (serve/admission.py) — flagged queries get
+        their MaxCheck clamped toward the floor and oversized k toward
+        the service default before grouping, so an overloaded server
+        spends a bounded amount of device time per admitted query."""
+        parsed = [parse_query(t) for t in query_texts]
+        results: List[Optional[RemoteSearchResult]] = [None] * len(parsed)
+        groups: Dict[tuple, List[int]] = {}
+        for i, p in enumerate(parsed):
+            if "admin" in p.options:      # mutations never batch/group
+                results[i] = self._execute_admin(p)
+                continue
+            sel = tuple(sorted(self._select_indexes(p)))
+            k = (p.result_num
+                 or self.context.settings.default_max_result)
+            mc = self._sanitize_max_check(p)
+            if degraded is not None and degraded[i] and degrade_floor:
+                mc = self._degrade_max_check(mc, sel, degrade_floor)
+                k = min(k, self.context.settings.default_max_result)
+            key = (sel, k, p.extract_metadata, mc, p.search_mode)
+            groups.setdefault(key, []).append(i)
+        for (sel, k, with_meta, max_check, search_mode), idxs in \
+                groups.items():
+            if not sel:
+                for i in idxs:
+                    results[i] = RemoteSearchResult(
+                        ResultStatus.FailedExecute, [])
+                continue
+            if (on_ready is not None and len(sel) == 1
+                    and hasattr(self.context.indexes[sel[0]],
+                                "submit_batch")):
+                # every serving surface exposes submit_batch — indexes
+                # without a scheduler (and mesh adapters with MeshServe
+                # off) return pre-resolved futures, so streaming
+                # degrades to batch granularity with identical bytes
+                self._run_group_streaming(parsed, results, sel[0], k,
+                                          with_meta, max_check,
+                                          search_mode, idxs, on_ready,
+                                          rids=rids)
+                continue
+            for name in sel:
+                index = self.context.indexes[name]
+                vecs = []
+                ok: List[int] = []
+                for i in idxs:
+                    v = parsed[i].extract_vector(
+                        parsed[i].data_type or index.value_type,
+                        self.context.settings.vector_separator)
+                    if v is None or v.shape[-1] != index.feature_dim:
+                        results[i] = RemoteSearchResult(
+                            ResultStatus.FailedExecute, [])
+                    else:
+                        vecs.append(v)
+                        ok.append(i)
+                if not ok:
+                    continue
+                try:
+                    dists, ids = index.search_batch(
+                        np.stack(vecs), k, max_check=max_check,
+                        search_mode=self._sanitize_search_mode(
+                            parsed[ok[0]], index))
+                except Exception:
+                    metrics.inc("service.search_errors")
+                    log.exception("batch search failed on index %s", name)
+                    for i in ok:
+                        results[i] = RemoteSearchResult(
+                            ResultStatus.FailedExecute, [])
+                    continue
+                for row, i in enumerate(ok):
+                    metas = (metas_for(index.metadata, ids[row])
+                             if with_meta else None)
+                    if results[i] is None:
+                        results[i] = RemoteSearchResult(
+                            ResultStatus.Success, [])
+                    results[i].results.append(IndexSearchResult(
+                        name, [int(v) for v in ids[row]],
+                        [float(d) for d in dists[row]], metas))
+        return [r if r is not None
+                else RemoteSearchResult(ResultStatus.FailedExecute, [])
+                for r in results]

@@ -1,0 +1,516 @@
+"""Query flight recorder — cross-tier timeline capture.
+
+Aggregate telemetry (utils/metrics.py) answers "HOW SLOW is the
+p99"; this module answers "WHERE did THIS query's time go".  It keeps an
+always-on, bounded-overhead ring of structured events
+
+    (mono_ns, request_id, tier, kind, dur_ns, payload)
+
+covering the full query path — client/aggregator edge (send, per-shard
+fan-out, merge), server stages (decode, queue-wait, execute, encode,
+drain, response-task handoff), scheduler slot lifecycle (pending,
+slot-assign, refill, compact, retire) and sampled engine segment
+device time — and exports it as Chrome trace-event JSON loadable in
+Perfetto / chrome://tracing: one track per thread, one process per
+tier, flow arrows stitching a request id across tiers.
+
+Overhead contract (DESIGN.md §11):
+
+* `FlightRecorder=off` (the default): `record()` is ONE module-flag test
+  and a return — no allocation, no thread-local touch, no event.  The
+  serve wire bytes are byte-identical with the recorder off
+  (tests/test_flightrec.py pins both).
+* on: the hot path appends a tuple to a PER-THREAD deque — no lock, no
+  syscall.  Ring overflow drops the OLDEST event and counts the drop; a
+  recording thread never blocks.
+* draining is an epoch swap: `collect()` replaces each thread's deque
+  under the registry lock and folds the old ones into a central ring.
+  A writer racing the swap can at worst land one event in an
+  already-collected deque (lost, counted nowhere) — the recorder trades
+  that vanishing window for a lock-free hot path.
+
+Timestamps are `time.monotonic_ns()` — on Linux CLOCK_MONOTONIC shares
+its epoch across processes on one machine, so dumps from an aggregator
+and its shard processes merge onto one coherent timeline
+(`python -m sptag_tpu.tools.flight`).
+
+Event `kind` strings must be LITERALS at the call site (graftlint
+GL603, the GL6xx cardinality rule): the export keys tracks off them and
+the ring never expires a name.
+
+This module is import-light (stdlib only) so the scheduler and serve
+tiers can import it backend-free.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import json
+import logging
+import os
+import threading
+import time
+import zlib
+from typing import Dict, Iterator, List, Optional
+
+log = logging.getLogger(__name__)
+
+#: default ring capacity (events) — ~100 bytes/event -> a few MB resident
+DEFAULT_MAX_EVENTS = 16384
+
+#: default cap on ringed dump files kept in the dump dir
+DEFAULT_DUMP_MAX_FILES = 32
+
+#: minimum seconds between auto-dumps — a failing 1024-query batch must
+#: not fire 1024 ring serializations onto the executor during the very
+#: incident being debugged (consecutive dumps of one ring are near-
+#: identical anyway)
+DEFAULT_DUMP_MIN_INTERVAL_S = 1.0
+
+_enabled = False
+_max_events = DEFAULT_MAX_EVENTS
+_dump_dir = ""
+_dump_max_files = DEFAULT_DUMP_MAX_FILES
+_dump_min_interval_s = DEFAULT_DUMP_MIN_INTERVAL_S
+
+_reg_lock = threading.Lock()
+_epoch = 0
+_buffers: List["_Buf"] = []
+_ring: collections.deque = collections.deque(maxlen=DEFAULT_MAX_EVENTS)
+_ring_dropped = 0       # central-ring evictions (written under _reg_lock)
+# counts inherited from pruned dead-thread buffers (owner gone, so the
+# fold may safely fold the monotonic counters in here)
+_retired_recorded = 0
+_retired_dropped = 0
+_dump_errors = 0
+_dump_ratelimited = 0
+_dump_seq = 0
+_last_dump_mono = 0.0
+
+_tls = threading.local()
+
+#: optional auto-dump enricher (utils/hostprof.py registers its host-
+#: stack payload here when HostProfDumpOnSlowQuery is on): called once
+#: per dump_to_file, its dict merges into the dump's otherData so one
+#: slow-query artifact bundles the flight timeline AND the host stacks
+_dump_enricher = None
+
+
+def set_dump_enricher(fn) -> None:
+    """Register `fn() -> dict` to enrich auto-dump otherData (None
+    deregisters).  A failing enricher is logged + counted as a dump
+    error, never fatal — the flight trace must still land."""
+    global _dump_enricher
+    _dump_enricher = fn
+
+
+class _Buf:
+    """One thread's lock-free event buffer (deque append is atomic).
+    `recorded`/`dropped` are MONOTONIC and written only by the owning
+    thread — the fold/counters paths read them without ever writing, so
+    accounting is race-free without a hot-path lock."""
+
+    __slots__ = ("events", "dropped", "recorded", "tid", "tname", "epoch")
+
+    def __init__(self, epoch: int, maxlen: int):
+        self.events = collections.deque(maxlen=maxlen)
+        self.dropped = 0
+        self.recorded = 0
+        self.tid = threading.get_ident()
+        self.tname = threading.current_thread().name
+        self.epoch = epoch
+
+
+def _buf() -> _Buf:
+    b = getattr(_tls, "buf", None)
+    if b is None or b.epoch != _epoch:
+        b = _Buf(_epoch, _max_events)
+        with _reg_lock:
+            if b.epoch == _epoch:       # reset may have raced; re-check
+                _buffers.append(b)
+        _tls.buf = b
+    return b
+
+
+# ---------------------------------------------------------------------------
+# configuration
+# ---------------------------------------------------------------------------
+
+def configure(enabled: Optional[bool] = None,
+              max_events: Optional[int] = None,
+              dump_dir: Optional[str] = None,
+              dump_max_files: Optional[int] = None,
+              dump_min_interval_s: Optional[float] = None) -> None:
+    """Process-wide recorder config (None leaves a field unchanged).
+    Resizing the ring bumps the epoch, so live thread buffers are
+    replaced at their next append."""
+    global _enabled, _max_events, _dump_dir, _dump_max_files, _epoch, _ring
+    global _dump_min_interval_s, _retired_recorded, _retired_dropped
+    with _reg_lock:
+        if max_events is not None and max_events > 0 \
+                and max_events != _max_events:
+            # resize must not lose what threads already recorded: fold
+            # buffered events into the ring and inherit the (about to be
+            # discarded) buffers' monotonic counters before the epoch
+            # bump invalidates them — counters() must never go backwards
+            _fold_buffers_locked()
+            for b in _buffers:
+                _retired_recorded += b.recorded
+                _retired_dropped += b.dropped
+            _max_events = int(max_events)
+            _epoch += 1
+            _buffers.clear()
+            _ring = collections.deque(_ring, maxlen=_max_events)
+        if dump_dir is not None:
+            _dump_dir = dump_dir
+        if dump_max_files is not None and dump_max_files > 0:
+            _dump_max_files = int(dump_max_files)
+        if dump_min_interval_s is not None:
+            _dump_min_interval_s = max(0.0, float(dump_min_interval_s))
+        if enabled is not None:
+            _enabled = bool(enabled)
+
+
+def enabled() -> bool:
+    return _enabled
+
+
+def reset() -> None:
+    """Restore defaults and drop everything (test isolation; wired into
+    tests/conftest.py's autouse telemetry reset)."""
+    global _enabled, _max_events, _dump_dir, _dump_max_files
+    global _epoch, _ring, _ring_dropped, _dump_errors, _dump_ratelimited
+    global _retired_recorded, _retired_dropped, _last_dump_mono
+    global _dump_min_interval_s, _dump_enricher
+    _dump_enricher = None
+    with _reg_lock:
+        _enabled = False
+        _max_events = DEFAULT_MAX_EVENTS
+        _dump_dir = ""
+        _dump_max_files = DEFAULT_DUMP_MAX_FILES
+        _dump_min_interval_s = DEFAULT_DUMP_MIN_INTERVAL_S
+        _epoch += 1                      # live thread buffers go stale
+        _buffers.clear()
+        _ring = collections.deque(maxlen=DEFAULT_MAX_EVENTS)
+        _ring_dropped = 0
+        _retired_recorded = 0
+        _retired_dropped = 0
+        _dump_errors = 0
+        _dump_ratelimited = 0
+        _last_dump_mono = 0.0
+    with _stats_lock:
+        _query_stats.clear()
+
+
+def counters() -> Dict[str, int]:
+    """Drop/overflow accounting — bench.py embeds this in BENCH json.
+    Per-buffer counters are monotonic and single-writer (see _Buf), so
+    this read is exact once writers are quiescent and never loses or
+    double-counts under concurrency."""
+    with _reg_lock:
+        rec = _retired_recorded + sum(b.recorded for b in _buffers)
+        drop = (_ring_dropped + _retired_dropped
+                + sum(b.dropped for b in _buffers))
+        threads = len(_buffers)
+        derr = _dump_errors
+        drate = _dump_ratelimited
+    return {"enabled": int(_enabled), "recorded": rec, "dropped": drop,
+            "threads": threads, "dump_errors": derr,
+            "dump_ratelimited": drate}
+
+
+# ---------------------------------------------------------------------------
+# recording (the hot path)
+# ---------------------------------------------------------------------------
+
+def record(tier: str, kind: str, rid: str = "", dur_ns: int = 0,
+           payload: Optional[dict] = None) -> None:
+    """Append one event.  `dur_ns > 0` marks a COMPLETE span ending now
+    (started `dur_ns` ago); 0 is an instant.  Off = one flag test."""
+    if not _enabled:
+        return
+    b = _buf()
+    if len(b.events) == b.events.maxlen:
+        b.dropped += 1                   # deque evicts the oldest below
+    b.events.append((time.monotonic_ns(), rid, tier, kind, dur_ns, payload))
+    b.recorded += 1
+
+
+@contextlib.contextmanager
+def span(tier: str, kind: str, rid: str = "",
+         payload: Optional[dict] = None) -> Iterator[None]:
+    """Context-manager form of a complete event (cold paths only — hot
+    paths record explicit durations to skip the generator frame)."""
+    if not _enabled:
+        yield
+        return
+    t0 = time.monotonic_ns()
+    try:
+        yield
+    finally:
+        record(tier, kind, rid, dur_ns=time.monotonic_ns() - t0,
+               payload=payload)
+
+
+# ---------------------------------------------------------------------------
+# draining
+# ---------------------------------------------------------------------------
+
+def _fold_buffers_locked() -> None:
+    """Epoch-swap: replace every thread's deque and fold the old ones
+    (with their owner's tid/name) into the central ring, oldest first.
+    Per-buffer counters are NOT touched — they are monotonic and owned
+    by the recording thread (zeroing them here would race its lock-free
+    increments and corrupt the accounting)."""
+    global _ring_dropped, _retired_recorded, _retired_dropped
+    batches = []
+    for b in _buffers:
+        old, b.events = b.events, collections.deque(maxlen=_max_events)
+        if old:
+            batches.append((b.tid, b.tname, old))
+    # prune buffers whose owning thread is gone (their events were just
+    # swapped out above): thread churn must not grow _buffers without
+    # bound.  The owner being dead makes folding its monotonic counters
+    # into the retired totals race-free; a recycled thread ident merely
+    # delays the prune one fold.
+    alive = {t.ident for t in threading.enumerate()}
+    dead = [b for b in _buffers if b.tid not in alive]
+    for b in dead:
+        _retired_recorded += b.recorded
+        _retired_dropped += b.dropped
+        _buffers.remove(b)
+    merged = sorted(
+        ((ev, tid, tname) for tid, tname, evs in batches for ev in evs),
+        key=lambda x: x[0][0])
+    for ev, tid, tname in merged:
+        if len(_ring) == _ring.maxlen:
+            _ring_dropped += 1
+        _ring.append(ev + (tid, tname))
+
+
+def _rows_to_dicts(rows: List[tuple]) -> List[dict]:
+    rows.sort(key=lambda r: r[0])
+    return [{"t_ns": t, "rid": rid, "tier": tier, "kind": kind,
+             "dur_ns": dur, "payload": payload, "tid": tid, "tname": tname}
+            for t, rid, tier, kind, dur, payload, tid, tname in rows]
+
+
+def collect() -> List[dict]:
+    """Fold thread buffers into the central ring and return its contents
+    (non-destructive — repeated dumps keep history) as plain dicts,
+    timestamp-ordered."""
+    with _reg_lock:
+        _fold_buffers_locked()
+        rows = list(_ring)
+    return _rows_to_dicts(rows)
+
+
+def drain() -> List[dict]:
+    """collect(), then clear the ring — fold, snapshot and clear happen
+    under ONE lock hold, so a concurrent collect() (a /debug/flight
+    scrape) can never fold events into the ring between our snapshot and
+    the clear: each event is returned exactly once across successive
+    drains (the hammer test's contract)."""
+    with _reg_lock:
+        _fold_buffers_locked()
+        rows = list(_ring)
+        _ring.clear()
+    return _rows_to_dicts(rows)
+
+
+# ---------------------------------------------------------------------------
+# Chrome trace-event export
+# ---------------------------------------------------------------------------
+
+def _flow_id(rid: str) -> int:
+    return zlib.crc32(rid.encode("utf-8", "replace")) or 1
+
+
+def export_chrome_trace(events: Optional[List[dict]] = None,
+                        other_data: Optional[dict] = None) -> dict:
+    """Render events (default: the live ring) as Chrome trace-event JSON:
+    one pid per tier (process_name metadata), one tid per recording
+    thread, `X` complete events for spans / `i` instants, and `s`/`t`/`f`
+    flow events chaining every request id's spans in timestamp order —
+    the arrows that stitch one query across aggregator → shard →
+    scheduler → engine in Perfetto.  `ts`/`dur` are microseconds (the
+    format's unit); `t_ns` rides in args for exact math."""
+    if events is None:
+        events = collect()
+    tiers = sorted({e["tier"] for e in events})
+    pid_of = {tier: i + 1 for i, tier in enumerate(tiers)}
+    out: List[dict] = []
+    for tier, pid in pid_of.items():
+        out.append({"name": "process_name", "ph": "M", "pid": pid,
+                    "tid": 0, "args": {"name": tier}})
+    seen_threads = set()
+    by_rid: Dict[str, List[dict]] = {}
+    for e in events:
+        pid = pid_of[e["tier"]]
+        if (pid, e["tid"]) not in seen_threads:
+            seen_threads.add((pid, e["tid"]))
+            out.append({"name": "thread_name", "ph": "M", "pid": pid,
+                        "tid": e["tid"], "args": {"name": e["tname"]}})
+        dur_us = e["dur_ns"] / 1000.0
+        ts_us = (e["t_ns"] - e["dur_ns"]) / 1000.0   # t_ns stamps the END
+        args = {"t_ns": e["t_ns"]}
+        if e["rid"]:
+            args["rid"] = e["rid"]
+        if e["payload"]:
+            args.update(e["payload"])
+        ev = {"name": e["kind"], "cat": e["tier"], "pid": pid,
+              "tid": e["tid"], "ts": ts_us, "args": args}
+        if e["dur_ns"] > 0:
+            ev["ph"] = "X"
+            ev["dur"] = dur_us
+        else:
+            ev["ph"] = "i"
+            ev["s"] = "t"
+        out.append(ev)
+        if e["rid"]:
+            by_rid.setdefault(e["rid"], []).append(ev)
+    for rid, evs in by_rid.items():
+        if len(evs) < 2:
+            continue
+        evs.sort(key=lambda ev: ev["ts"])
+        fid = _flow_id(rid)
+        for i, ev in enumerate(evs):
+            flow = {"name": "rid", "cat": "flight.flow", "id": fid,
+                    "pid": ev["pid"], "tid": ev["tid"], "ts": ev["ts"]}
+            if i == 0:
+                flow["ph"] = "s"
+            elif i == len(evs) - 1:
+                flow["ph"] = "f"
+                flow["bp"] = "e"
+            else:
+                flow["ph"] = "t"
+            out.append(flow)
+    trace = {"traceEvents": out, "displayTimeUnit": "ms",
+             "flightEvents": events,
+             "otherData": dict(other_data or {}, counters=counters(),
+                               pid=os.getpid())}
+    return trace
+
+
+def write_trace(path: str, other_data: Optional[dict] = None) -> str:
+    """Export the live ring to an explicit path (the CLI `--flight-dump`
+    surface; `dump_to_file` below is the ringed auto-dump)."""
+    trace = export_chrome_trace(other_data=other_data)
+    d = os.path.dirname(os.path.abspath(path))
+    if d:
+        os.makedirs(d, exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(trace, f)
+    return path
+
+
+def dump_to_file(reason: str, rid: str = "") -> Optional[str]:
+    """Auto-dump the ring into the configured dump dir (slow-query /
+    request-error trigger, FlightDumpOnSlowQuery).  The dir itself is
+    RINGED: at most `dump_max_files` `flight-*.json` files are kept,
+    oldest deleted first — a slow-query storm cannot fill the disk.
+    Returns the written path, or None when disabled/unconfigured."""
+    global _dump_seq, _dump_errors, _last_dump_mono, _dump_ratelimited
+    if not _enabled or not _dump_dir:
+        return None
+    with _reg_lock:
+        # rate limit: a failing batch fires one dump per response — the
+        # ring barely changes between them, and serializing it 1024
+        # times would steal executor threads mid-incident.  Hits are
+        # counted (and scraped as flight.dump_ratelimited) so a "why is
+        # the dump dir thin" post-mortem has its answer.
+        now_mono = time.monotonic()
+        if _dump_min_interval_s > 0 and \
+                now_mono - _last_dump_mono < _dump_min_interval_s:
+            _dump_ratelimited += 1
+            return None
+        _last_dump_mono = now_mono
+        _dump_seq += 1
+        seq = _dump_seq
+    name = f"flight-{os.getpid()}-{seq:06d}.json"
+    path = os.path.join(_dump_dir, name)
+    other: dict = {"reason": reason, "rid": rid}
+    if rid:
+        # per-query roofline attribution rides the dump: the
+        # scheduler's note_query_stats carries achieved GFLOP/s and
+        # %-of-peak, so the payload classifies the slow query without
+        # cross-referencing the log
+        st = query_stats(rid)
+        if st:
+            other["query_stats"] = dict(st)
+    if _dump_enricher is not None:
+        try:
+            other.update(_dump_enricher() or {})
+        except Exception:                                # noqa: BLE001
+            with _reg_lock:
+                _dump_errors += 1
+            log.exception("flight dump enricher failed")
+    trace = export_chrome_trace(other_data=other)
+    try:
+        os.makedirs(_dump_dir, exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(trace, f)
+    except OSError:
+        # an unwritable dump dir must be VISIBLE (the callers fire this
+        # from a discarded executor future): log once per failure and
+        # count it, so an empty post-mortem dir has an explanation
+        with _reg_lock:
+            _dump_errors += 1
+        log.exception("flight dump to %s failed", path)
+        return None
+    try:
+        dumps = sorted(
+            (fn for fn in os.listdir(_dump_dir)
+             if fn.startswith("flight-") and fn.endswith(".json")),
+            key=lambda fn: os.path.getmtime(os.path.join(_dump_dir, fn)))
+        for fn in dumps[:-_dump_max_files]:
+            os.remove(os.path.join(_dump_dir, fn))
+    except OSError:
+        pass                             # concurrent dumper won the race
+    return path
+
+
+# ---------------------------------------------------------------------------
+# per-rid scheduler stats (slow-query log enrichment)
+# ---------------------------------------------------------------------------
+
+_stats_lock = threading.Lock()
+_query_stats: "collections.OrderedDict[str, dict]" = collections.OrderedDict()
+_QUERY_STATS_CAP = 512
+
+
+def note_query_stats(rid: str, **stats) -> None:
+    """Record per-request scheduler numbers (slot-wait, segment count,
+    refills) under the request id, bounded LRU.  Independent of the
+    recorder flag — the slow-query log reads these even with the ring
+    off, so the log line and a flight dump always tell the same story.
+    Called once per retired query (not per segment), so it is off the
+    per-iteration hot path by construction.
+
+    MERGE semantics: multiple producers annotate one rid —
+    the scheduler writes slot/iteration numbers at retire, the quality
+    monitor (utils/qualmon.py) adds its recall/triage verdict when the
+    shadow replay lands later — so keys UPDATE the existing dict rather
+    than replacing it; a later producer never erases an earlier one's
+    attribution.  The per-QUERY lifecycle owner (the scheduler's retire
+    path) passes `_replace=True` to start the rid's dict fresh: request
+    ids are client-supplied and REUSABLE, and without the reset point a
+    reused rid would carry the previous query's verdict/roofline keys
+    into the next query's slow-query log and flight dump."""
+    if not rid:
+        return
+    replace = stats.pop("_replace", False)
+    with _stats_lock:
+        cur = None if replace else _query_stats.get(rid)
+        if cur is None:
+            cur = _query_stats[rid] = {}
+        cur.update(stats)
+        _query_stats.move_to_end(rid)
+        while len(_query_stats) > _QUERY_STATS_CAP:
+            _query_stats.popitem(last=False)
+
+
+def query_stats(rid: str) -> Optional[dict]:
+    with _stats_lock:
+        return _query_stats.get(rid)

@@ -1,0 +1,445 @@
+"""Host-side sampling profiler — "where is the host CPU going".
+
+The flight recorder (utils/flightrec.py) answers "where did THIS query's
+wall-clock go" and the cost ledger (utils/costmodel.py) answers "how close
+to roofline is the DEVICE" — this module answers the remaining question:
+what the HOST threads are doing while all of that happens.  TPU-KNN
+(arxiv 2206.14286) reaches peak FLOP/s only when host-side dispatch,
+encode/decode and lock waits are driven out of the serving loop; this is
+the instrument that makes those visible.
+
+One daemon thread (``hostprof-sampler``) wakes at ``HostProfHz`` and walks
+``sys._current_frames()``, folding every live thread's stack into a
+bounded aggregate of collapsed stacks:
+
+    thread-name;stage:<stage>;module:func;module:func;...  <count>
+
+Two attribution channels ride each sample:
+
+* **serve stage** — threads doing request work pin their current stage
+  (``decode`` / ``queue`` / ``execute`` / ``encode``; GL607 requires the
+  names to be literals at the pin site) via `set_stage`, and the sampler
+  injects a synthetic ``stage:<name>`` frame so flamegraphs group by
+  pipeline stage before code location.
+* **request id** — `set_stage(stage, rid)` additionally pins the rid the
+  thread is working for; samples landing on a pinned thread count toward
+  that rid (bounded LRU), which is how a flamegraph snapshot names the
+  slow query that burned the CPU.  Attribution is per-thread and exact
+  only while a thread works for a single request (single-query execute,
+  per-query encode); batch-granular work records the stage alone.
+
+"On-CPU" is approximated: ``sys._current_frames()`` reports EVERY live
+thread, running or blocked, so a waiting thread shows its wait frame
+(``lock.acquire``, ``queue.get``...).  That is deliberate — lock waits and
+queue waits are precisely the host-side costs this profiler exists to
+expose; pair with the lock-contention ledger (utils/locksan.py) to get
+per-lock numbers for the waits the stacks reveal.
+
+Overhead contract (DESIGN.md §16):
+
+* off (the default — ``HostProfHz=0``): the sampler thread is NEVER
+  started, `set_stage`/`clear_stage` are one module-flag test, serve
+  bytes are byte-identical (tests/test_hostprof.py pins both).
+* on: one wake per period samples all threads (~tens of µs per thread);
+  the aggregate is bounded (`_MAX_FOLDED` distinct stacks, overflow
+  folded into a counted ``(other)`` bucket), the raw ring is bounded
+  (``HostProfEvents``), and a sampling pass that overruns its period is
+  counted (``overruns``) instead of silently skewing the rate.
+
+Exports: `snapshot()` (JSON state), `flamegraph()` (Brendan-Gregg
+collapsed-stack text — pipe into flamegraph.pl or speedscope),
+`export_chrome_trace()` (the flightrec event schema, tier ``hostprof``,
+so ``python -m sptag_tpu.tools.flight`` merges host samples onto the
+same timeline as device/flight dumps), and `dump_payload()` (registered
+as flightrec's dump enricher when ``HostProfDumpOnSlowQuery`` is on, so
+a slow-query auto-dump bundles the host stacks that were live around
+the incident).
+
+Import-light (stdlib + flightrec, itself stdlib-only): the serve tiers
+and the scheduler import this backend-free.
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import os
+import sys
+import threading
+import time
+from typing import Dict, List, Optional, Tuple
+
+#: default sampling rate for on-demand starts (/debug/prof?action=start
+#: without an hz) — prime-ish, so it does not beat against 10ms timers
+DEFAULT_HZ = 99.0
+
+#: default raw-sample ring capacity (HostProfEvents), ~200 bytes/sample
+DEFAULT_MAX_SAMPLES = 8192
+
+#: bound on DISTINCT folded stacks in the aggregate; overflow folds into
+#: the "(other)" bucket and bumps `folded_overflow`
+_MAX_FOLDED = 4096
+
+#: stack depth cap per sample — deep recursions must not balloon keys
+_MAX_DEPTH = 48
+
+#: bounded per-rid sample LRU (the flightrec._QUERY_STATS_CAP analog)
+_RID_CAP = 512
+
+_lock = threading.Lock()
+_hz = 0.0
+_max_samples = DEFAULT_MAX_SAMPLES
+_dump_on_slow_query = False
+
+_running = False
+_thread: Optional[threading.Thread] = None
+_stop_evt = threading.Event()
+
+#: folded-stack -> count (bounded; the flamegraph aggregate)
+_folded: Dict[str, int] = {}
+_folded_overflow = 0
+#: serve-stage -> sample count
+_stage_counts: Dict[str, int] = {}
+#: rid -> sample count (bounded LRU)
+_rid_samples: "collections.OrderedDict[str, int]" = collections.OrderedDict()
+#: raw samples in the flightrec event schema (chrome-trace/merge export)
+_raw: collections.deque = collections.deque(maxlen=DEFAULT_MAX_SAMPLES)
+_samples_total = 0
+_ticks = 0
+_overruns = 0
+
+#: tid -> (stage, rid) — the per-thread attribution pins.  Plain dict
+#: assignment (GIL-atomic); the sampler reads racily by design: a pin
+#: torn across one sample misattributes ONE sample, never corrupts.
+_pins: Dict[int, Tuple[str, str]] = {}
+
+#: armed flag — True once a non-zero rate is configured; gates the pin
+#: hot path so the default serve path pays ONE module-flag test
+_armed = False
+
+
+# ---------------------------------------------------------------------------
+# configuration / lifecycle
+# ---------------------------------------------------------------------------
+
+def configure(hz: Optional[float] = None,
+              max_samples: Optional[int] = None,
+              dump_on_slow_query: Optional[bool] = None) -> None:
+    """Process-wide profiler config (None leaves a field unchanged).
+    `hz > 0` ARMS the profiler (stage pins go live); `start()` actually
+    launches the sampler thread.  `dump_on_slow_query` registers /
+    deregisters the flightrec dump enricher so slow-query auto-dumps
+    bundle host stacks."""
+    global _hz, _max_samples, _armed, _raw, _dump_on_slow_query
+    with _lock:
+        if hz is not None:
+            _hz = max(0.0, float(hz))
+            _armed = _hz > 0
+        if max_samples is not None and max_samples > 0 \
+                and int(max_samples) != _max_samples:
+            _max_samples = int(max_samples)
+            _raw = collections.deque(_raw, maxlen=_max_samples)
+        if dump_on_slow_query is not None:
+            _dump_on_slow_query = bool(dump_on_slow_query)
+    if dump_on_slow_query is not None:
+        from sptag_tpu_torch.utils import flightrec
+        flightrec.set_dump_enricher(
+            dump_payload if dump_on_slow_query else None)
+
+
+def armed() -> bool:
+    """True once a non-zero HostProfHz is configured — the gate the
+    stage-pin call sites test (one module flag when off)."""
+    return _armed
+
+
+def running() -> bool:
+    return _running
+
+
+def hz() -> float:
+    return _hz
+
+
+def start(hz_override: Optional[float] = None) -> bool:
+    """Launch the sampler thread (idempotent; returns True when a
+    sampler is running on exit).  With no configured rate and no
+    override the profiler stays off and returns False — the sampler
+    thread is NEVER started at defaults (the parity contract).  A rate
+    change while a sampler runs re-paces it at its next tick (the loop
+    re-reads the configured hz)."""
+    global _running, _thread, _stop_evt
+    if hz_override is not None and hz_override > 0:
+        configure(hz=hz_override)
+    if _hz <= 0:
+        return False
+    with _lock:
+        if _running and _thread is not None and _thread.is_alive():
+            return True
+        # fresh stop event PER sampler thread: a stop() racing this
+        # start() sets the OLD thread's event and can never wake or
+        # keep alive the new one
+        evt = _stop_evt = threading.Event()
+        _running = True
+        _thread = threading.Thread(target=_run, args=(evt,), daemon=True,
+                                   name="hostprof-sampler")
+        _thread.start()
+    return True
+
+
+def stop() -> None:
+    """Stop the sampler thread (idempotent; the aggregate is kept for
+    post-hoc snapshots — `reset()` clears it)."""
+    global _running, _thread
+    with _lock:
+        _running = False
+        evt = _stop_evt
+    evt.set()
+    if _thread is not None and _thread is not threading.current_thread():
+        _thread.join(timeout=5.0)
+    with _lock:
+        # a start() racing this stop already replaced the handle with a
+        # live thread — only discard a handle we actually retired
+        if _thread is not None and not _thread.is_alive():
+            _thread = None
+
+
+def reset() -> None:
+    """Restore defaults and drop everything (test isolation; wired into
+    tests/conftest.py's autouse telemetry reset)."""
+    global _hz, _max_samples, _armed, _folded_overflow, _samples_total
+    global _ticks, _overruns, _raw, _dump_on_slow_query
+    stop()
+    with _lock:
+        _hz = 0.0
+        _armed = False
+        _max_samples = DEFAULT_MAX_SAMPLES
+        _dump_on_slow_query = False
+        _folded.clear()
+        _stage_counts.clear()
+        _rid_samples.clear()
+        _pins.clear()
+        _raw = collections.deque(maxlen=DEFAULT_MAX_SAMPLES)
+        _folded_overflow = 0
+        _samples_total = 0
+        _ticks = 0
+        _overruns = 0
+    from sptag_tpu_torch.utils import flightrec
+    flightrec.set_dump_enricher(None)
+
+
+# ---------------------------------------------------------------------------
+# stage / request-id pins (the serve hot path)
+# ---------------------------------------------------------------------------
+
+def set_stage(stage: str, rid: str = "") -> None:
+    """Pin the calling thread's serve stage (+ optional request id) for
+    sample attribution.  `stage` must be a string LITERAL at the call
+    site (graftlint GL607 — the folded-stack aggregate keys off it and
+    never expires a name).  One flag test when the profiler is unarmed."""
+    if not _armed:
+        return
+    _pins[threading.get_ident()] = (stage, rid)
+
+
+def clear_stage() -> None:
+    if not _armed:
+        return
+    _pins.pop(threading.get_ident(), None)
+
+
+class stage:
+    """Context-manager pin: ``with hostprof.stage("encode", rid): ...``
+    (cold paths; hot paths call set_stage/clear_stage to skip the
+    object).  The stage name is GL607 lint surface like set_stage's."""
+
+    __slots__ = ("_stage", "_rid")
+
+    def __init__(self, stage: str, rid: str = ""):
+        self._stage = stage
+        self._rid = rid
+
+    def __enter__(self) -> "stage":
+        set_stage(self._stage, self._rid)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        clear_stage()
+
+
+# ---------------------------------------------------------------------------
+# the sampler
+# ---------------------------------------------------------------------------
+
+def _run(evt: threading.Event) -> None:
+    me = threading.get_ident()
+    while not evt.is_set():
+        # period re-read every tick: /debug/prof?action=start&hz=… on a
+        # live sampler re-paces it without a restart, and snapshot()'s
+        # reported hz never lies about the actual rate
+        period = 1.0 / _hz if _hz > 0 else 0.1
+        t0 = time.perf_counter()
+        try:
+            _sample_once(me)
+        except Exception:                                # noqa: BLE001
+            # a torn frame race inside the interpreter must not kill the
+            # sampler; the tick simply yields fewer samples
+            pass
+        elapsed = time.perf_counter() - t0
+        if elapsed > period:
+            global _overruns
+            with _lock:           # reset() zeroes it under _lock (GL802)
+                _overruns += 1
+        # Event.wait, not sleep: stop() interrupts a slow period.  The
+        # event is THIS thread's own — a racing start() hands the next
+        # sampler a fresh one, so two samplers can never co-exist
+        if evt.wait(timeout=max(0.0, period - elapsed)):
+            return
+
+
+def _frames_of(frame) -> List[str]:
+    """Collapse one thread's frame chain, outermost first, as
+    ``module.py:func`` entries (no line numbers — folding needs bounded
+    keys; the raw ring keeps the innermost line for the curious)."""
+    out: List[str] = []
+    f = frame
+    while f is not None and len(out) < _MAX_DEPTH:
+        code = f.f_code
+        out.append(f"{os.path.basename(code.co_filename)}:{code.co_name}")
+        f = f.f_back
+    out.reverse()
+    return out
+
+
+def _sample_once(self_tid: int) -> None:
+    global _samples_total, _ticks, _folded_overflow
+    frames = sys._current_frames()
+    names = {t.ident: t.name for t in threading.enumerate()}
+    now_ns = time.monotonic_ns()
+    rows = []
+    for tid, frame in frames.items():
+        if tid == self_tid:
+            continue
+        stack = _frames_of(frame)
+        if not stack:
+            continue
+        pin = _pins.get(tid)
+        stage_name, rid = pin if pin is not None else ("", "")
+        tname = names.get(tid, f"tid-{tid}")
+        parts = [tname]
+        if stage_name:
+            parts.append(f"stage:{stage_name}")
+        parts.extend(stack)
+        rows.append((tid, tname, stage_name, rid,
+                     ";".join(parts), stack[-1], now_ns))
+    with _lock:
+        _ticks += 1
+        for tid, tname, stage_name, rid, key, leaf, t_ns in rows:
+            _samples_total += 1
+            if key in _folded:
+                _folded[key] += 1
+            elif len(_folded) < _MAX_FOLDED:
+                _folded[key] = 1
+            else:
+                _folded_overflow += 1
+                _folded["(other)"] = _folded.get("(other)", 0) + 1
+            if stage_name:
+                _stage_counts[stage_name] = \
+                    _stage_counts.get(stage_name, 0) + 1
+            if rid:
+                _rid_samples[rid] = _rid_samples.get(rid, 0) + 1
+                _rid_samples.move_to_end(rid)
+                while len(_rid_samples) > _RID_CAP:
+                    _rid_samples.popitem(last=False)
+            # raw ring rides the flightrec event schema so the flight
+            # merge CLI overlays host samples on device timelines
+            _raw.append({"t_ns": t_ns, "rid": rid, "tier": "hostprof",
+                         "kind": "sample", "dur_ns": 0,
+                         "payload": {"stack": key,
+                                     "stage": stage_name or ""},
+                         "tid": tid, "tname": tname})
+
+
+# ---------------------------------------------------------------------------
+# exports
+# ---------------------------------------------------------------------------
+
+def counters() -> Dict[str, int]:
+    with _lock:
+        return {"enabled": int(_armed), "running": int(_running),
+                "samples": _samples_total, "ticks": _ticks,
+                "overruns": _overruns,
+                "distinct_stacks": len(_folded),
+                "folded_overflow": _folded_overflow}
+
+
+def snapshot() -> dict:
+    """JSON state for GET /debug/prof: config, counters, per-stage
+    sample counts, per-rid sample counts (most recent first)."""
+    with _lock:
+        return {
+            "enabled": _armed, "running": _running, "hz": _hz,
+            "samples": _samples_total, "ticks": _ticks,
+            "overruns": _overruns,
+            "distinct_stacks": len(_folded),
+            "folded_overflow": _folded_overflow,
+            "stage_samples": dict(_stage_counts),
+            "rid_samples": dict(reversed(_rid_samples.items())),
+            "dump_on_slow_query": _dump_on_slow_query,
+        }
+
+
+def top_stacks(n: int = 10) -> List[Tuple[str, int]]:
+    """The `n` hottest folded stacks, count-descending (bench.py embeds
+    the loadgen stage's top 10 so benchdiff has stable keys)."""
+    with _lock:
+        rows = sorted(_folded.items(), key=lambda kv: -kv[1])
+    return rows[:n]
+
+
+def flamegraph() -> str:
+    """Collapsed-stack text (one ``stack count`` line per distinct
+    folded stack) — flamegraph.pl / speedscope / inferno input."""
+    with _lock:
+        rows = sorted(_folded.items(), key=lambda kv: -kv[1])
+    return "".join(f"{k} {v}\n" for k, v in rows)
+
+
+def raw_events() -> List[dict]:
+    with _lock:
+        return list(_raw)
+
+
+def export_chrome_trace(other_data: Optional[dict] = None) -> dict:
+    """The raw sample ring as Chrome trace-event JSON, via flightrec's
+    exporter (tier ``hostprof``, one track per sampled thread, rid flow
+    arrows when samples carry one) — the file merges with flight dumps
+    in ``python -m sptag_tpu.tools.flight`` because it carries the same
+    ``flightEvents`` payload."""
+    from sptag_tpu_torch.utils import flightrec
+    other = dict(other_data or {}, hostprof=counters())
+    return flightrec.export_chrome_trace(events=raw_events(),
+                                         other_data=other)
+
+
+def write_trace(path: str, other_data: Optional[dict] = None) -> str:
+    trace = export_chrome_trace(other_data=other_data)
+    d = os.path.dirname(os.path.abspath(path))
+    if d:
+        os.makedirs(d, exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(trace, f)
+    return path
+
+
+def dump_payload() -> dict:
+    """flightrec dump-enricher payload (HostProfDumpOnSlowQuery): the
+    sampler's counters, per-stage split, per-rid counts and the top 50
+    folded stacks ride the auto-dump's ``otherData.hostprof``, so one
+    slow-query artifact holds the flight timeline AND the host stacks
+    live around the incident."""
+    if not _armed:
+        return {}
+    snap = snapshot()
+    snap["top_stacks"] = top_stacks(50)
+    return {"hostprof": snap}

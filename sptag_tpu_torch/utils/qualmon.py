@@ -1,0 +1,769 @@
+"""Search-quality observatory — online recall, index health, triage.
+
+The observability stack answers "where did the time go" (utils/flightrec.py)
+and "how well is the chip used" (utils/costmodel.py / utils/roofline.py);
+this module answers the third axis of every ANN tradeoff: **how good are
+the answers**.  Until now recall was measured only offline (bench.py, the
+IndexSearcher CLI); no live query ever learned its own recall, yet every
+planned tradeoff — the tiered sketch→int8→exact pipeline, partial-
+reduction approximate top-k, live mutation's "bounded staleness" — spends
+recall to buy speed.  This module is the measurement substrate:
+
+* **one canonical recall definition** (`recall_row` / `recall_at_k`):
+  reference CalcRecall parity (IndexSearcher/main.cpp:17-48) — per truth
+  slot, a hit is a served id match OR a served distance equal to the
+  truth distance within tolerance (distinct vectors tied at the same
+  distance are equally correct answers).  bench.py and the IndexSearcher
+  CLI both delegate here, so the definition lives in exactly one place.
+* **online recall estimator**: the serve tier samples a
+  `QualitySampleRate` fraction of served queries (deterministic 1-in-N
+  counter — reproducible, no RNG on the hot path) and replays each on a
+  background SHADOW path through the index's exact FLAT scan
+  (`VectorIndex.exact_search_batch`).  The shadow queue is bounded and
+  never blocks serving (overflow drops are counted); shadow device work
+  is budgeted in estimated FLOP/s via the cost ledger
+  (`QualityShadowBudget`) so the overhead is explicit, not incidental.
+  Results feed sliding windows per (searchmode, shard) published as
+  `quality.recall_at_k` gauges with Wilson confidence bounds.
+* **index health**: mutation paths publish graph degree histograms,
+  reciprocal-edge fraction, deleted-vector fraction and a sampled
+  reachable-fraction swept from the tree seeds — `GET /debug/quality`
+  on the metrics listener renders the whole picture.
+* **triage**: a shadow sample below `QualityRecallFloor` is classified —
+  beam budget exhausted (the row's `it` counter reached its `t_limit`),
+  dense/sketch prefilter miss, aggregator merge drop — and the verdict
+  is merged into the query's flight stats (`flightrec.note_query_stats`)
+  and logged on the same request-id-stamped stream as the slow-query
+  log, with a flight-recorder auto-dump, so a low-recall query gets the
+  same forensics as a slow one.
+
+Overhead contract (DESIGN.md §13): off (the default) costs ONE module
+flag test per served query and the serve wire bytes are byte-identical
+(tests/test_qualmon.py pins both; standalone pass in tools/ci_check.sh).
+Quality gauge/counter NAMES passed to `gauge()`/`inc()` must be string
+literals at the call site (graftlint GL606, the GL6xx cardinality
+family): the labeled exposition keys series off them and the windows
+never expire a name.  `mode`/`shard` labels are bounded by deployment
+(search modes are an enum; shards come from the service config).
+
+Import-light: numpy + stdlib only — the serve tiers and graftlint tests
+import this backend-free; device work happens inside submitted jobs.
+"""
+
+from __future__ import annotations
+
+import collections
+import logging
+import math
+import queue
+import threading
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from sptag_tpu_torch.utils import flightrec, metrics
+
+log = logging.getLogger(__name__)
+
+#: default sliding-window length (samples) for the recall gauges
+DEFAULT_WINDOW = 256
+
+#: default shadow-queue capacity (pending replay jobs); overflow drops
+DEFAULT_QUEUE_CAP = 64
+
+#: relative tolerance for "equal distance" in the canonical recall
+#: definition — a few-ULP spread between heterogeneous backends scoring
+#: the same vector (the merge_top_k rel_tol rationale)
+DEFAULT_DIST_TOL = 1e-5
+
+#: per-query shard iteration imbalance (max/mean over the mesh's shard
+#: axis) at or above which a budget-exhausted low-recall sample is
+#: triaged ``shard_skew`` instead of ``beam_budget`` — the straggler
+#: shard, not the budget knob, is the root cause
+SHARD_SKEW_IMBALANCE = 1.5
+
+_lock = threading.Lock()
+_sample_rate = 0.0
+_recall_floor = 0.0
+_shadow_budget_gflops = 0.0
+_window = DEFAULT_WINDOW
+_queue_cap = DEFAULT_QUEUE_CAP
+
+_sample_seen = 0
+_sampled = 0
+_submitted = 0
+_queue_drops = 0
+_budget_drops = 0
+_shadow_errors = 0
+_low_recall = 0
+_shadow_flops = 0.0
+_bucket_flops = 0.0          # leaky-bucket tokens for the shadow budget
+_bucket_stamp = 0.0
+
+_queue: "queue.Queue" = queue.Queue(maxsize=DEFAULT_QUEUE_CAP)
+_worker: Optional[threading.Thread] = None
+_worker_stop = threading.Event()
+
+#: (mode, shard) -> deque[(hit_count, trials)] — sliding recall windows
+_windows: Dict[Tuple[str, str], collections.deque] = {}
+#: shard -> health payload (merged dict, /debug/quality)
+_health: Dict[str, dict] = {}
+#: literal-name quality gauges, keyed (name, mode, shard)
+_gauges: Dict[Tuple[str, str, str], float] = {}
+#: literal-name quality counters
+_counters: Dict[str, int] = {}
+
+
+# ---------------------------------------------------------------------------
+# configuration / lifecycle
+# ---------------------------------------------------------------------------
+
+def configure(sample_rate: Optional[float] = None,
+              recall_floor: Optional[float] = None,
+              shadow_budget_gflops: Optional[float] = None,
+              window: Optional[int] = None,
+              queue_cap: Optional[int] = None) -> None:
+    """Process-wide monitor config (None leaves a field unchanged —
+    the flightrec.configure contract, so the serve tiers and the index
+    `set_parameter` path can each own their knob without clobbering the
+    others).  `sample_rate > 0` enables the monitor; `window`/`queue_cap`
+    of 0 restore their defaults."""
+    global _sample_rate, _recall_floor, _shadow_budget_gflops
+    global _window, _queue_cap, _queue
+    with _lock:
+        if sample_rate is not None:
+            _sample_rate = max(0.0, float(sample_rate))
+        if recall_floor is not None:
+            _recall_floor = float(recall_floor)
+        if shadow_budget_gflops is not None:
+            _shadow_budget_gflops = max(0.0, float(shadow_budget_gflops))
+        if window is not None:
+            _window = int(window) if window and int(window) > 0 \
+                else DEFAULT_WINDOW
+        if queue_cap is not None:
+            cap = int(queue_cap) if queue_cap and int(queue_cap) > 0 \
+                else DEFAULT_QUEUE_CAP
+            if cap != _queue_cap:
+                _queue_cap = cap
+                # pending jobs survive: drain the old queue into the new
+                old, _queue = _queue, queue.Queue(maxsize=cap)
+                while True:
+                    try:
+                        _queue.put_nowait(old.get_nowait())
+                    except (queue.Empty, queue.Full):
+                        break
+
+
+def enabled() -> bool:
+    """One module-flag test — the whole hot-path cost when off."""
+    return _sample_rate > 0.0
+
+
+def recall_floor() -> float:
+    return _recall_floor
+
+
+def reset() -> None:
+    """Restore defaults and drop everything (test isolation; wired into
+    tests/conftest.py's autouse telemetry reset)."""
+    global _sample_rate, _recall_floor, _shadow_budget_gflops, _window
+    global _queue_cap, _queue, _sample_seen, _sampled, _submitted
+    global _queue_drops, _budget_drops, _shadow_errors, _low_recall
+    global _shadow_flops, _bucket_flops, _bucket_stamp, _active_jobs
+    _stop_worker()
+    with _lock:
+        # the worker bumps _active_jobs under _lock; zeroing it outside
+        # raced a late job's decrement (GL801)
+        _active_jobs = 0
+        _sample_rate = 0.0
+        _recall_floor = 0.0
+        _shadow_budget_gflops = 0.0
+        _window = DEFAULT_WINDOW
+        _queue_cap = DEFAULT_QUEUE_CAP
+        _queue = queue.Queue(maxsize=DEFAULT_QUEUE_CAP)
+        _sample_seen = _sampled = _submitted = 0
+        _queue_drops = _budget_drops = _shadow_errors = _low_recall = 0
+        _shadow_flops = 0.0
+        _bucket_flops = 0.0
+        _bucket_stamp = 0.0
+        _windows.clear()
+        _health.clear()
+        _gauges.clear()
+        _counters.clear()
+
+
+def counters() -> Dict[str, int]:
+    """Accounting snapshot — the off-parity test pins the all-zero shape
+    and bench embeds this next to flightrec.counters()."""
+    with _lock:
+        return {"enabled": int(_sample_rate > 0.0), "seen": _sample_seen,
+                "sampled": _sampled, "submitted": _submitted,
+                "queue_drops": _queue_drops, "budget_drops": _budget_drops,
+                "shadow_errors": _shadow_errors, "low_recall": _low_recall,
+                "shadow_gflops": round(_shadow_flops / 1e9, 3)}
+
+
+# ---------------------------------------------------------------------------
+# canonical recall math (reference CalcRecall parity)
+# ---------------------------------------------------------------------------
+
+def recall_row(ids, truth_ids, k: int, dists=None, truth_dists=None,
+               rel_tol: float = DEFAULT_DIST_TOL) -> float:
+    """Recall of ONE query's served top-k against its truth — THE
+    definition every consumer (bench, IndexSearcher, the online
+    estimator) shares.
+
+    Reference CalcRecall semantics (IndexSearcher/main.cpp:17-48): for
+    each of the first `k` truth slots, a hit is a served id equal to the
+    truth id, OR — when both distance vectors are given — a served
+    distance within `rel_tol` relative tolerance of the truth distance
+    (two distinct vectors tied at the same distance are equally correct,
+    and shard-local id spaces make id equality alone too strict across
+    backends).  Negative ids are padding on either side."""
+    t_ids = [int(v) for v in list(truth_ids)[:k] if int(v) >= 0]
+    s_ids = {int(v) for v in list(ids)[:k] if int(v) >= 0}
+    if not t_ids:
+        return 0.0
+    hits = 0
+    s_dists = None
+    if dists is not None and truth_dists is not None:
+        s_dists = [float(d) for v, d in zip(list(ids)[:k], list(dists)[:k])
+                   if int(v) >= 0]
+        t_dist = list(truth_dists)[:k]
+    for slot, tid in enumerate(list(truth_ids)[:k]):
+        tid = int(tid)
+        if tid < 0:
+            continue
+        if tid in s_ids:
+            hits += 1
+            continue
+        if s_dists is not None:
+            td = float(t_dist[slot])
+            tol = rel_tol * max(abs(td), 1.0)
+            if any(abs(sd - td) <= tol for sd in s_dists):
+                hits += 1
+    return hits / float(k)
+
+
+def recall_at_k(ids_all, truth, k: int) -> float:
+    """Mean id-match recall over a batch — the bench.py / IndexSearcher
+    shape: `ids_all` (Q, >=k) array-like, `truth` one container of true
+    ids per query (set / list / ndarray row)."""
+    n = min(len(ids_all), len(truth))
+    if n == 0:
+        return 0.0
+    return float(np.mean([
+        recall_row(ids_all[i], list(truth[i]), k) for i in range(n)]))
+
+
+def wilson(successes: float, trials: float, z: float = 1.96
+           ) -> Tuple[float, float]:
+    """Wilson score interval for a binomial proportion — each of the k
+    result slots of a sampled query is one trial.  (0, 1) when empty."""
+    if trials <= 0:
+        return 0.0, 1.0
+    p = min(max(successes / trials, 0.0), 1.0)
+    denom = 1.0 + z * z / trials
+    center = (p + z * z / (2.0 * trials)) / denom
+    half = (z / denom) * math.sqrt(
+        p * (1.0 - p) / trials + z * z / (4.0 * trials * trials))
+    return max(0.0, center - half), min(1.0, center + half)
+
+
+def dist_recall(dists, truth_dists, k: int,
+                rel_tol: float = DEFAULT_DIST_TOL) -> float:
+    """Distance-only recall: fraction of the first k truth distances
+    matched (greedily, each served slot used once) by a served distance
+    within tolerance.  The aggregator's merge check uses this — shard-
+    local ids are not comparable across backends, distances are."""
+    t = sorted(float(d) for d in list(truth_dists)[:k])
+    s = sorted(float(d) for d in list(dists)[:k])
+    if not t:
+        return 0.0
+    hits = 0
+    si = 0
+    for td in t:
+        tol = rel_tol * max(abs(td), 1.0)
+        while si < len(s) and s[si] < td - tol:
+            si += 1
+        if si < len(s) and abs(s[si] - td) <= tol:
+            hits += 1
+            si += 1
+    return hits / float(len(t))
+
+
+# ---------------------------------------------------------------------------
+# sampling + shadow queue (the serve-tier surface)
+# ---------------------------------------------------------------------------
+
+def maybe_sample() -> bool:
+    """Deterministic rate gate: True for 1 in round(1/QualitySampleRate)
+    calls (every call at rate >= 1).  Counter-based like the engine's
+    FlightDeviceSampleRate — reproducible, no RNG on the hot path.
+    Callers gate on `enabled()` first; this is only reached when on."""
+    global _sample_seen, _sampled
+    rate = _sample_rate
+    if rate <= 0.0:
+        return False
+    with _lock:
+        _sample_seen += 1
+        every = 1 if rate >= 1.0 else max(1, int(round(1.0 / rate)))
+        if _sample_seen % every:
+            return False
+        _sampled += 1
+        return True
+
+
+def submit(job, est_flops: float = 0.0) -> bool:
+    """Queue one shadow-replay job (a zero-arg callable) for the worker
+    thread.  NEVER blocks the caller: a full queue drops the sample
+    (counted), and when `QualityShadowBudget` is set the job's estimated
+    device FLOPs (from the cost ledger at the caller's shapes) are
+    charged against a leaky token bucket first — shadow work is bounded
+    in GFLOP/s, not just in queue depth.  Returns False when dropped."""
+    global _submitted, _queue_drops, _budget_drops
+    global _bucket_flops, _bucket_stamp, _shadow_flops
+    if _sample_rate <= 0.0:
+        return False
+    with _lock:
+        if _shadow_budget_gflops > 0.0 and est_flops > 0.0:
+            now = time.monotonic()
+            if _bucket_stamp == 0.0:
+                _bucket_stamp = now
+                _bucket_flops = 2.0 * _shadow_budget_gflops * 1e9
+            _bucket_flops = min(
+                _bucket_flops
+                + (now - _bucket_stamp) * _shadow_budget_gflops * 1e9,
+                2.0 * _shadow_budget_gflops * 1e9)
+            _bucket_stamp = now
+            if est_flops > _bucket_flops:
+                _budget_drops += 1
+                metrics.inc("quality.shadow_budget_drops")
+                return False
+            _bucket_flops -= est_flops
+        try:
+            _queue.put_nowait(job)
+        except queue.Full:
+            _queue_drops += 1
+            metrics.inc("quality.shadow_queue_drops")
+            return False
+        _submitted += 1
+        _shadow_flops += max(0.0, est_flops)
+    metrics.set_gauge("quality.shadow_gflops", _shadow_flops / 1e9)
+    _ensure_worker()
+    return True
+
+
+def _ensure_worker() -> None:
+    global _worker
+    with _lock:
+        if _worker is not None and _worker.is_alive():
+            return
+        _worker_stop.clear()
+        _worker = threading.Thread(target=_run_worker, daemon=True,
+                                   name="qualmon-shadow")
+        _worker.start()
+
+
+_active_jobs = 0
+
+
+def _run_worker() -> None:
+    global _shadow_errors, _active_jobs
+    while not _worker_stop.is_set():
+        q = _queue
+        try:
+            job = q.get(timeout=0.2)
+        except queue.Empty:
+            continue
+        with _lock:
+            _active_jobs += 1
+        try:
+            job()
+        except Exception:                                # noqa: BLE001
+            # a broken replay must cost one sample, never the worker
+            with _lock:
+                _shadow_errors += 1
+            metrics.inc("quality.shadow_errors")
+            log.exception("quality shadow replay failed")
+        finally:
+            with _lock:
+                _active_jobs -= 1
+            # task_done on the SAME queue the job came from (configure
+            # may swap _queue mid-job); its unfinished_tasks counter is
+            # what drain() watches — only decremented here, after the
+            # job ran, so "dequeued but not yet running" never reads
+            # as idle
+            try:
+                q.task_done()
+            except ValueError:                           # swapped away
+                pass
+
+
+def _stop_worker() -> None:
+    global _worker
+    if _worker is None:
+        return
+    _worker_stop.set()
+    _worker.join(timeout=5.0)     # outside _lock: the worker takes it
+    with _lock:                   # _ensure_worker publishes under _lock
+        _worker = None            # (GL801)
+
+
+def drain(timeout_s: float = 10.0) -> bool:
+    """Wait until the shadow queue is empty and no job is mid-execution
+    — test/bench convenience; serving never calls this."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        with _lock:
+            # unfinished_tasks (incremented at put, decremented via
+            # task_done AFTER the job ran) closes the dequeued-but-not-
+            # yet-counted window; _active_jobs covers a job mid-flight
+            # from a queue configure() swapped away
+            idle = _queue.unfinished_tasks == 0 and _active_jobs == 0
+        if idle:
+            return True
+        time.sleep(0.02)
+    return False
+
+
+# ---------------------------------------------------------------------------
+# sample recording, windows, triage
+# ---------------------------------------------------------------------------
+
+def record_sample(mode: str, shard: str, recall: float, k: int,
+                  rid: str = "", verdict: str = "",
+                  detail: str = "") -> None:
+    """Fold one shadow sample into the (mode, shard) sliding window and
+    publish the aggregate gauges.  Below `QualityRecallFloor` the sample
+    is TRIAGED: the verdict (see `classify_low_recall`) is merged into
+    the query's flight stats, logged on the request-id-stamped stream
+    (the slow-query log's quality sibling), and a flight-recorder
+    auto-dump fires — a low-recall query gets slow-query forensics."""
+    global _low_recall
+    k = max(1, int(k))
+    hitval = min(max(float(recall), 0.0), 1.0) * k
+    key = (str(mode or "-"), str(shard or "-"))
+    with _lock:
+        win = _windows.get(key)
+        if win is None or win.maxlen != _window:
+            win = collections.deque(win or (), maxlen=_window)
+            _windows[key] = win
+        win.append((hitval, k))
+        hits = sum(h for h, _ in win)
+        trials = sum(t for _, t in win)
+        floor = _recall_floor
+    lo, hi = wilson(hits, trials)
+    metrics.inc("quality.samples")
+    if floor > 0.0 and recall < floor:
+        with _lock:
+            _low_recall += 1
+        metrics.inc("quality.low_recall")
+        verdict = verdict or "unknown"
+        if rid:
+            flightrec.note_query_stats(rid, quality_recall=round(recall, 4),
+                                       quality_verdict=verdict)
+        token = metrics.set_request_id(rid)
+        try:
+            log.warning(
+                "low-recall query rid=%s mode=%s shard=%s recall=%.4f "
+                "floor=%.4f window=[%.4f, %.4f] verdict=%s (%s)",
+                rid or "-", key[0], key[1], recall, floor, lo, hi,
+                verdict, detail or "no detail")
+        finally:
+            metrics.reset_request_id(token)
+        # same forensics as a slow query: ring dump when the flight
+        # recorder + dump dir are armed (no-op otherwise)
+        flightrec.dump_to_file("low_recall", rid)
+
+
+#: the triage-verdict contract surface — every code a classifier can
+#: return (or a triage site can stamp, e.g. the aggregator's
+#: `merge_drop`).  Dashboards, tests and the GL10xx observability graph
+#: key on this tuple: a classifier returning a code missing here is
+#: GL1001, a registry entry no classifier produces is GL1002.
+TRIAGE_VERDICTS: Tuple[str, ...] = (
+    "sketch_budget", "int8_budget", "host_fetch_drop", "shard_skew",
+    "beam_budget", "sketch_prefilter", "dense_prefilter",
+    "beam_converged_early", "merge_drop", "unknown",
+)
+
+
+def classify_low_recall(rid: str, mode: str,
+                        sketch: bool = False,
+                        cascade: Optional[Dict[str, int]] = None
+                        ) -> Tuple[str, str]:
+    """Where was the recall lost?  Returns (verdict code, human detail).
+
+    * cascade: `cascade` is the per-tier triage the shadow
+      path measured for THIS query (the index's `cascade_triage` hook
+      re-runs the shortlist stages and counts which tier dropped each
+      true neighbor — ops/cascade.py tier_membership).  The verdict
+      names the STARVED tier: ``host_fetch_drop`` when the host fp
+      fetch dropped rows, else ``sketch_budget`` / ``int8_budget`` by
+      which shortlist lost more true neighbors — so a recall regression
+      is attributable to the one budget knob that fixes it;
+    * beam: the scheduler's per-rid stats carry the row's own iteration
+      counter and budget (`iters` / `t_budget`) — iters == budget means
+      the walk was cut off by MaxCheck ("beam terminated early"), iters
+      below budget means the no-better-propagation stop converged on a
+      local pool;
+    * dense: candidates outside the probed partition blocks never get
+      scored (nprobe prefilter);
+    * sketch: the Hamming shortlist dropped a true neighbor before the
+      exact re-rank.
+
+    The scheduler's per-rid stats are consulted only for beam-capable
+    modes: request ids are client-supplied and reusable, so a dense or
+    flat query sharing a rid with an earlier beam query must not
+    inherit that query's iteration counters."""
+    if cascade:
+        host = int(cascade.get("host_dropped", 0) or 0)
+        sk = int(cascade.get("sketch_dropped", 0) or 0)
+        i8 = int(cascade.get("int8_dropped", 0) or 0)
+        # measured budget starvation first: the triage re-ran THIS
+        # query's shortlists, while host_dropped is the snapshot's
+        # lifetime fetch-drop counter (a re-run cannot observe a past
+        # fetch) — it decides only when both shortlists kept every true
+        # neighbor, so one historical drop can never mask a budget root
+        # cause
+        if sk or i8:
+            if sk >= i8:
+                return ("sketch_budget",
+                        "sketch tier dropped %d true neighbor(s) "
+                        "(TierBudgetSketch starved; int8 dropped %d)"
+                        % (sk, i8))
+            return ("int8_budget",
+                    "int8 tier dropped %d true neighbor(s) "
+                    "(TierBudgetInt8 starved; sketch dropped %d)"
+                    % (i8, sk))
+        if host > 0:
+            return ("host_fetch_drop",
+                    "host fp fetch dropped %d shortlist row(s) over "
+                    "this snapshot's lifetime" % host)
+        # every true neighbor survived both shortlists and no fetch
+        # ever dropped: the loss is downstream of the cascade — fall
+        # through to the mode verdicts
+    st = (flightrec.query_stats(rid) or {}) \
+        if mode in ("beam", "auto") else {}
+    it = st.get("iters")
+    budget = st.get("t_budget")
+    # mesh shard skew: the mesh scheduler stamps per-query
+    # per-shard iteration counters at retire — when one shard's walk
+    # ran far past the mesh mean AND the query still exhausted its
+    # budget, the straggler shard (an unbalanced slice, a slow chip)
+    # explains the loss better than the budget knob does
+    imb = st.get("shard_imbalance")
+    if imb is not None and imb >= SHARD_SKEW_IMBALANCE \
+            and it is not None and budget and it >= budget:
+        return ("shard_skew",
+                "straggler shard %s ran %.2fx the mesh mean iters "
+                "(it=%d budget=%d)" % (st.get("slow_shard", "?"), imb,
+                                       it, budget))
+    if it is not None and budget and it >= budget:
+        return ("beam_budget",
+                "beam terminated early: it=%d budget=%d" % (it, budget))
+    if sketch:
+        return ("sketch_prefilter",
+                "missed by sketch prefilter shortlist")
+    if mode == "dense":
+        return ("dense_prefilter",
+                "missed by dense partition prefilter (nprobe)")
+    if mode in ("beam", "auto"):
+        return ("beam_converged_early",
+                "beam no-better-propagation stop below budget")
+    return ("unknown", "no classifier matched")
+
+
+# ---------------------------------------------------------------------------
+# quality gauges / counters / health (the GL606-linted name surface)
+# ---------------------------------------------------------------------------
+
+def gauge(name: str, value: float, mode: str = "", shard: str = "") -> None:
+    """Labeled quality gauge, self-rendered on /metrics (the shared
+    registry has no labels).  `name` must be a string literal at the
+    call site (graftlint GL606); `mode`/`shard` are bounded labels."""
+    with _lock:
+        _gauges[(name, str(mode), str(shard))] = float(value)
+
+
+def inc(name: str, n: int = 1) -> None:
+    """Quality counter; `name` must be a string literal (GL606)."""
+    with _lock:
+        _counters[name] = _counters.get(name, 0) + int(n)
+
+
+def note_health(shard: str, **payload) -> None:
+    """Merge a health payload (degree histogram, fractions, ...) under
+    `shard` for /debug/quality — non-scalar values welcome here; the
+    scalar series ride `gauge()`."""
+    with _lock:
+        _health.setdefault(str(shard or "-"), {}).update(payload)
+
+
+def graph_health(graph: np.ndarray, deleted: Optional[np.ndarray],
+                 seeds: np.ndarray, sample_rows: int = 4096,
+                 max_sweeps: int = 256) -> dict:
+    """Host-side health sweep over a neighborhood graph: degree
+    histogram, reciprocal-edge fraction (sampled), and the fraction of
+    live nodes reachable from the tree seeds via a frontier sweep — the
+    navigability numbers a budget-starved refine or a mutation storm
+    degrade first.  Pure numpy (runs identically off-device; the graph
+    is host-resident in the index anyway)."""
+    graph = np.asarray(graph)
+    n = graph.shape[0]
+    if n == 0:
+        return {"nodes": 0}
+    valid = graph >= 0
+    degrees = valid.sum(axis=1)
+    m = graph.shape[1]
+    hist = np.bincount(np.clip(degrees, 0, m), minlength=m + 1)
+    rng = np.random.default_rng(0x5EED)
+    s = min(int(sample_rows), n)
+    idx = (np.arange(n) if s == n
+           else np.sort(rng.choice(n, size=s, replace=False)))
+    nb = graph[idx]                                   # (S, m)
+    nb_valid = nb >= 0
+    back = graph[np.maximum(nb, 0)]                   # (S, m, m)
+    recip = (back == idx[:, None, None]).any(axis=2) & nb_valid
+    edges = int(nb_valid.sum())
+    recip_frac = float(recip.sum()) / edges if edges else 0.0
+    # frontier sweep from the tree seeds (the walk's entry points): BFS
+    # over the same edges the beam expands, until fixpoint or cap
+    visited = np.zeros(n, bool)
+    seeds = np.asarray(seeds, np.int64).reshape(-1)
+    seeds = seeds[(seeds >= 0) & (seeds < n)]
+    visited[seeds] = True
+    frontier = np.unique(seeds)
+    sweeps = 0
+    while frontier.size and sweeps < max_sweeps:
+        sweeps += 1
+        nxt = graph[frontier]
+        nxt = np.unique(nxt[nxt >= 0])
+        frontier = nxt[~visited[nxt]]
+        visited[frontier] = True
+    if deleted is not None:
+        live = ~np.asarray(deleted, bool)[:n]
+    else:
+        live = np.ones(n, bool)
+    n_live = int(live.sum())
+    reach = float(visited[live].sum()) / n_live if n_live else 0.0
+    return {
+        "nodes": int(n),
+        "degree_min": int(degrees.min()),
+        "degree_mean": round(float(degrees.mean()), 3),
+        "degree_max": int(degrees.max()),
+        "degree_hist": [int(c) for c in hist],
+        "reciprocal_fraction": round(recip_frac, 4),
+        "reciprocal_sampled_rows": int(s),
+        "reachable_fraction": round(reach, 4),
+        "reachable_sweeps": int(sweeps),
+        "seed_count": int(seeds.size),
+        "deleted_fraction": round(1.0 - (n_live / float(n)), 4),
+    }
+
+
+# ---------------------------------------------------------------------------
+# exposition
+# ---------------------------------------------------------------------------
+
+def aggregate_stats() -> dict:
+    """Recall over ALL windows' samples pooled — the unlabeled
+    aggregate sample rendered alongside the labeled series (one
+    Prometheus metric group: a second group or TYPE line for the same
+    name would invalidate the whole scrape)."""
+    with _lock:
+        hits = sum(h for w in _windows.values() for h, _ in w)
+        trials = sum(t for w in _windows.values() for _, t in w)
+    lo, hi = wilson(hits, trials)
+    return {"recall": round(hits / trials, 4) if trials else 0.0,
+            "lo": round(lo, 4), "hi": round(hi, 4),
+            "trials": int(trials)}
+
+
+def window_stats() -> Dict[str, dict]:
+    """Per-(mode, shard) window snapshot with Wilson bounds."""
+    out: Dict[str, dict] = {}
+    with _lock:
+        items = [(key, list(win)) for key, win in _windows.items()]
+    for (mode, shard), win in items:
+        hits = sum(h for h, _ in win)
+        trials = sum(t for _, t in win)
+        lo, hi = wilson(hits, trials)
+        out["%s|%s" % (mode, shard)] = {
+            "mode": mode, "shard": shard, "samples": len(win),
+            "recall": round(hits / trials, 4) if trials else 0.0,
+            "lo": round(lo, 4), "hi": round(hi, 4),
+            "trials": int(trials),
+        }
+    return out
+
+
+def snapshot() -> dict:
+    """The /debug/quality payload: config, accounting, recall windows
+    and per-shard health.  An aggregator sharing the process with its
+    shards (tests, single-host deployments) sees every shard's windows
+    merged here; separate processes each expose their own view."""
+    with _lock:
+        cfg = {"sample_rate": _sample_rate, "recall_floor": _recall_floor,
+               "shadow_budget_gflops": _shadow_budget_gflops,
+               "window": _window, "queue_cap": _queue_cap}
+        health = {k: dict(v) for k, v in _health.items()}
+        gauges = {"%s{mode=%s,shard=%s}" % k: v
+                  for k, v in sorted(_gauges.items())}
+        cnts = dict(sorted(_counters.items()))
+    return {"enabled": _sample_rate > 0.0, "config": cfg,
+            "counters": counters(), "windows": window_stats(),
+            "aggregate": aggregate_stats(), "health": health,
+            "gauges": gauges, "quality_counters": cnts}
+
+
+def families() -> List[metrics.Family]:
+    """The quality exposition as labeled metric families (utils/
+    metrics.py Family): the (mode, shard) recall windows with
+    the unlabeled all-windows aggregate, the literal-name gauges
+    grouped one family per name (a second TYPE line for the same name
+    is an invalid exposition and Prometheus' parser rejects the WHOLE
+    scrape), and the counters.  Empty when nothing was ever recorded,
+    so the off-path exposition is byte-identical."""
+    fams: List[metrics.Family] = []
+    ws = window_stats()
+    if ws:
+        agg = aggregate_stats()
+        for suffix, field, aggval in (
+                ("", "recall", agg["recall"]), ("_lo", "lo", agg["lo"]),
+                ("_hi", "hi", agg["hi"]),
+                ("_samples", "samples", None)):
+            fam = metrics.Family("quality.recall_at_k" + suffix)
+            for st in ws.values():
+                fam.add(st[field], {"mode": st["mode"],
+                                    "shard": st["shard"]})
+            if aggval is not None:
+                fam.add(aggval)
+            fams.append(fam)
+    with _lock:
+        gauges = sorted(_gauges.items())
+        cnts = sorted(_counters.items())
+    by_name: Dict[str, List[Tuple[str, str, float]]] = {}
+    for (name, mode, shard), value in gauges:
+        by_name.setdefault(name, []).append((mode, shard, value))
+    for name, entries in sorted(by_name.items()):
+        fam = metrics.Family("quality." + name)
+        for mode, shard, value in entries:
+            fam.add(value, {"mode": mode, "shard": shard}
+                    if (mode or shard) else None)
+        fams.append(fam)
+    for name, value in cnts:
+        fams.append(metrics.Family("quality." + name,
+                                   kind="counter").add(value))
+    return fams
+
+
+def render_prometheus(prefix: str = "sptag_tpu") -> str:
+    """Labeled quality series in Prometheus text format — the families
+    above through the shared formatter (the devmem pattern)."""
+    return metrics.render_families(families(), prefix)
+
+
+metrics.register_family_provider("qualmon", families)

@@ -10,10 +10,11 @@ their single background worker on it: the tree rebuild after
 Concurrency contract: ``_stopped`` and the queue change together under
 ``_lock``, so every job ``add()`` accepts runs before the stop sentinels.
 ``stop()`` is idempotent, joins its workers outside the lock (a running
-job may need its owner's lock to finish) and logs workers that outlive the
-join timeout; ``init()`` on a stopped pool raises.  The JAX package's lock
-sanitizer and its leaked-worker counter belong to ROADMAP.md's
-observability item.
+job may need its owner's lock to finish) and reports workers that outlive
+the join timeout in a warning and the ``threadpool.leaked_workers``
+counter; ``init()`` on a stopped pool raises.  The lock is a lock-sanitizer
+``SanLock`` when ``SPTAG_LOCKSAN`` (or the service's LockSanitizer) is on
+(utils/locksan.py).
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ import logging
 import queue
 import threading
 from typing import Callable, Optional
+
+from sptag_tpu_torch.utils import locksan, metrics
 
 log = logging.getLogger(__name__)
 
@@ -33,7 +36,7 @@ class ThreadPool:
             queue.Queue()
         self._workers: list = []
         self._stopped = False
-        self._lock = threading.Lock()
+        self._lock = locksan.make_lock("ThreadPool._lock")
 
     def init(self, threads: int = 1) -> None:
         """Spawn `threads` daemon workers; RuntimeError on a stopped pool
@@ -84,6 +87,7 @@ class ThreadPool:
             if t.is_alive():
                 leaked += 1
         if leaked:
+            metrics.inc("threadpool.leaked_workers", leaked)
             log.warning(
                 "ThreadPool %r: %d worker(s) still running %.1fs after "
                 "stop(); job wedged, daemon thread(s) abandoned",

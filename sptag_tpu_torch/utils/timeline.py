@@ -1,0 +1,460 @@
+"""Serving timeline — a bounded in-process time-series store.
+
+Every observability layer so far reports INSTANTANEOUS truth: the
+metrics registry's counters and last-value gauges (§8), the flight
+ring's recent events (§11), %-of-peak on the latest sampled segment
+(§12), the quality windows' current Wilson interval (§13).  Nothing
+records HISTORY, so nothing can answer "was the p99 degrading before
+the page?", "what did recall do across the snapshot swap?", or — the
+question the ROADMAP's self-tuning item hinges on — "is this knob nudge
+making the SLO better or worse over the last ten minutes?".  This
+module is that history: a sampler thread snapshots the metrics registry
+(plus every registered labeled-series family — the unified surface from
+the renderer dedupe) every ``TimelineIntervalMs`` into fixed-size
+per-series rings, with
+
+* **counter → rate conversion**: a counter named ``server.requests``
+  becomes the series ``server.requests.rate`` in events/second over the
+  sampling interval (the raw monotone count is useless to plot);
+* **histogram extraction**: each latency histogram contributes
+  ``<name>.p50_ms`` / ``<name>.p99_ms`` point-in-time estimates and a
+  ``<name>.rate`` observation rate;
+* **labeled families**: each sample of a registered provider family
+  (``memory.device_bytes{component=…}``, the quality windows, the mesh
+  skew series) becomes its own series keyed ``name{label="v",…}``;
+* **direct records**: event-driven producers (the canary prober, the
+  SLO engine) push points between ticks via `record()` — names must be
+  string literals at the call site (graftlint GL608, the GL6xx
+  cardinality family: the store never expires a series name).
+
+Each series keeps a FINE ring (the last `capacity` samples at the
+sampling interval) and a COARSE ring: every `coarse_every` fine samples
+are folded into one (mean, min, max) aggregate, so the same fixed
+memory covers a `coarse_every`× longer horizon at lower resolution —
+`window_values()` transparently extends a query past the fine span with
+coarse means.  Memory is strictly bounded: rings are fixed-size deques
+and the series table is capped (`MAX_SERIES`, overflow counted, never
+raised).
+
+Consumers: ``GET /debug/timeline`` (serve/metrics_http.py) serves the
+rings as JSON, ``python -m sptag_tpu.tools.timeline`` renders terminal
+sparklines from a live endpoint or a saved snapshot, bench.py embeds
+`summary()` in its artifact, and serve/slo.py evaluates burn rates over
+`window_values()`.
+
+Overhead contract (DESIGN.md §21): off (the default) there is NO
+sampler thread and `record()` is one module-flag test — the serve wire
+bytes are byte-identical (tests/test_timeline.py pins both; standalone
+pass in tools/ci_check.sh).  On, the cost is one registry snapshot per
+interval on a dedicated daemon thread (``timeline-sampler``) — never on
+a request path.
+
+Import-light: stdlib + utils/metrics.py only, so the serve tiers and
+tools import this backend-free.
+"""
+
+from __future__ import annotations
+
+import collections
+import logging
+import threading
+import time
+from typing import Callable, Dict, List, Optional, Tuple
+
+from sptag_tpu_torch.utils import locksan, metrics
+
+log = logging.getLogger(__name__)
+
+#: default sampling interval when armed without an explicit value
+DEFAULT_INTERVAL_MS = 1000.0
+
+#: default fine-ring length (samples per series)
+DEFAULT_CAPACITY = 512
+
+#: fine samples folded into one coarse aggregate
+DEFAULT_COARSE_EVERY = 16
+
+#: hard cap on distinct series — the registry's names are GL6xx-bounded
+#: and label sets are deployment-bounded, so hitting this means a bug;
+#: overflow is counted, never raised
+MAX_SERIES = 1024
+
+_lock = locksan.make_lock("timeline._lock")
+_enabled = False
+_interval_ms = DEFAULT_INTERVAL_MS
+_capacity = DEFAULT_CAPACITY
+_coarse_every = DEFAULT_COARSE_EVERY
+
+_thread: Optional[threading.Thread] = None
+_stop = threading.Event()
+
+_samples = 0                 # sampler ticks completed
+_recorded = 0                # direct record() points accepted
+_series_dropped = 0          # points dropped at the MAX_SERIES cap
+_listener_errors = 0
+
+#: previous counter/histogram-count snapshot for rate conversion
+_prev_counts: Dict[str, Tuple[float, float]] = {}   # name -> (t, count)
+
+#: post-tick listeners (the SLO engine registers here): fn(now) called
+#: on the sampler thread after each sample round; exceptions are
+#: swallowed + counted — a broken listener must never kill the sampler
+_listeners: List[Callable[[float], None]] = []
+
+
+class _Series:
+    __slots__ = ("fine", "coarse", "acc_n", "acc_sum", "acc_min",
+                 "acc_max")
+
+    def __init__(self, capacity: int):
+        #: (t, value)
+        self.fine: collections.deque = collections.deque(maxlen=capacity)
+        #: (t, mean, min, max) — one entry per `coarse_every` fine points
+        self.coarse: collections.deque = collections.deque(
+            maxlen=capacity)
+        self.acc_n = 0
+        self.acc_sum = 0.0
+        self.acc_min = 0.0
+        self.acc_max = 0.0
+
+    def append(self, t: float, value: float, coarse_every: int) -> None:
+        self.fine.append((t, value))
+        if self.acc_n == 0:
+            self.acc_min = self.acc_max = value
+        else:
+            self.acc_min = min(self.acc_min, value)
+            self.acc_max = max(self.acc_max, value)
+        self.acc_sum += value
+        self.acc_n += 1
+        if self.acc_n >= coarse_every:
+            self.coarse.append((t, self.acc_sum / self.acc_n,
+                                self.acc_min, self.acc_max))
+            self.acc_n = 0
+            self.acc_sum = 0.0
+
+
+_series: Dict[str, _Series] = {}
+
+
+# ---------------------------------------------------------------------------
+# configuration / lifecycle
+# ---------------------------------------------------------------------------
+
+def configure(enabled: Optional[bool] = None,
+              interval_ms: Optional[float] = None,
+              capacity: Optional[int] = None,
+              coarse_every: Optional[int] = None) -> None:
+    """Process-wide store config (None leaves a field unchanged).
+    Resizing the rings re-allocates them empty — history at the old
+    resolution would misrepresent the new sampling cadence."""
+    global _enabled, _interval_ms, _capacity, _coarse_every
+    with _lock:
+        if interval_ms is not None and interval_ms > 0:
+            _interval_ms = float(interval_ms)
+        if capacity is not None and capacity > 0 \
+                and int(capacity) != _capacity:
+            _capacity = int(capacity)
+            _series.clear()
+        if coarse_every is not None and coarse_every > 1:
+            _coarse_every = int(coarse_every)
+        if enabled is not None:
+            _enabled = bool(enabled)
+
+
+def enabled() -> bool:
+    return _enabled
+
+
+def start() -> bool:
+    """Arm + launch the sampler thread (idempotent).  Returns True when
+    a sampler is running on exit."""
+    global _thread, _enabled
+    with _lock:
+        _enabled = True
+        if _thread is not None and _thread.is_alive():
+            return True
+        _stop.clear()
+        _thread = threading.Thread(target=_run_sampler, daemon=True,
+                                   name="timeline-sampler")
+        _thread.start()
+        return True
+
+
+def stop() -> None:
+    """Stop the sampler thread (the store and its history stay)."""
+    global _thread
+    _stop.set()
+    # join the module handle directly (the hostprof GL704 pattern)
+    if _thread is not None and _thread is not threading.current_thread():
+        _thread.join(timeout=5.0)
+    with _lock:
+        # a start() racing this stop already replaced the handle with a
+        # live thread — only discard a handle we actually retired
+        if _thread is not None and not _thread.is_alive():
+            _thread = None
+
+
+def reset() -> None:
+    """Stop the sampler, drop every ring and restore defaults (test
+    isolation; wired into tests/conftest.py's autouse reset).  Tick
+    listeners are dropped too — they reference per-server engines."""
+    global _enabled, _interval_ms, _capacity, _coarse_every
+    global _samples, _recorded, _series_dropped, _listener_errors
+    stop()
+    with _lock:
+        _enabled = False
+        _interval_ms = DEFAULT_INTERVAL_MS
+        _capacity = DEFAULT_CAPACITY
+        _coarse_every = DEFAULT_COARSE_EVERY
+        _samples = 0
+        _recorded = 0
+        _series_dropped = 0
+        _listener_errors = 0
+        _series.clear()
+        _prev_counts.clear()
+        _listeners.clear()
+
+
+def counters() -> Dict[str, int]:
+    """Accounting for bench artifacts and the off-parity test."""
+    with _lock:
+        return {"enabled": int(_enabled), "samples": _samples,
+                "recorded": _recorded, "series": len(_series),
+                "series_dropped": _series_dropped,
+                "listener_errors": _listener_errors}
+
+
+def add_tick_listener(fn: Callable[[float], None]) -> None:
+    with _lock:
+        if fn not in _listeners:
+            _listeners.append(fn)
+
+
+def remove_tick_listener(fn: Callable[[float], None]) -> None:
+    with _lock:
+        if fn in _listeners:
+            _listeners.remove(fn)
+
+
+# ---------------------------------------------------------------------------
+# recording
+# ---------------------------------------------------------------------------
+
+def _append_locked(key: str, t: float, value: float) -> bool:
+    global _series_dropped
+    s = _series.get(key)
+    if s is None:
+        if len(_series) >= MAX_SERIES:
+            _series_dropped += 1
+            return False
+        s = _series[key] = _Series(_capacity)
+    s.append(t, float(value), _coarse_every)
+    return True
+
+
+def record(name: str, value: float, label: str = "",
+           now: Optional[float] = None) -> None:
+    """Append one point to the series `name` (or ``name{label}`` when a
+    label rides along) at `now` (default: the monotonic clock).  The
+    event-driven producer surface — the canary prober and SLO engine
+    push points between sampler ticks.  Off = one module-flag test.
+    `name` must be a string literal at the call site (GL608); `label`
+    is deployment-bounded (index names, objective names) like qualmon's
+    shard label."""
+    global _recorded
+    if not _enabled:
+        return
+    key = "%s{%s}" % (name, label) if label else name
+    t = time.monotonic() if now is None else float(now)
+    with _lock:
+        if _append_locked(key, t, value):
+            _recorded += 1
+
+
+# ---------------------------------------------------------------------------
+# sampling (the sampler-thread body; callable directly with a fake
+# clock for tests)
+# ---------------------------------------------------------------------------
+
+def sample_now(now: Optional[float] = None) -> int:
+    """One sampling round over the metrics registry + every registered
+    labeled-series provider; returns the number of points appended.
+    Counters (and histogram counts) convert to per-second rates against
+    the previous round's values; gauges and histogram percentiles
+    sample as-is (percentiles in MILLISECONDS — every registry
+    histogram is a latency in seconds)."""
+    global _samples, _listener_errors
+    if not _enabled:
+        return 0
+    t = time.monotonic() if now is None else float(now)
+    snap = metrics.snapshot()
+    fams = metrics.collect_families()
+    appended = 0
+    with _lock:
+        for name, count in snap["counters"].items():
+            rate = _rate_locked(name, t, count)
+            if rate is not None and _append_locked(name + ".rate", t,
+                                                   rate):
+                appended += 1
+        for name, value in snap["gauges"].items():
+            if _append_locked(name, t, value):
+                appended += 1
+        for name, h in snap["histograms"].items():
+            if _append_locked(name + ".p50_ms", t, h["p50"] * 1000.0):
+                appended += 1
+            if _append_locked(name + ".p99_ms", t, h["p99"] * 1000.0):
+                appended += 1
+            rate = _rate_locked(name + "#count", t, h["count"])
+            if rate is not None and _append_locked(name + ".rate", t,
+                                                   rate):
+                appended += 1
+        for fam in fams:
+            for labels, value in fam.samples:
+                key = fam.name + metrics.format_labels(labels)
+                if _append_locked(key, t, value):
+                    appended += 1
+        _samples += 1
+        listeners = list(_listeners)
+    for fn in listeners:
+        try:
+            fn(t)
+        except Exception:                                # noqa: BLE001
+            with _lock:
+                _listener_errors += 1
+            log.exception("timeline tick listener failed")
+    return appended
+
+
+def _rate_locked(key: str, t: float, count: float) -> Optional[float]:
+    """Per-second delta against the previous round; None on the first
+    observation or a counter reset (count went backwards)."""
+    prev = _prev_counts.get(key)
+    _prev_counts[key] = (t, float(count))
+    if prev is None:
+        return None
+    t0, c0 = prev
+    dt = t - t0
+    if dt <= 0 or count < c0:
+        return None
+    return (count - c0) / dt
+
+
+def _run_sampler() -> None:
+    # deadline-based pacing: wait() on the stop event, never a bare
+    # sleep — stop() takes effect within one interval and the wait is
+    # the only blocking point
+    while not _stop.wait(_interval_ms / 1000.0):
+        try:
+            sample_now()
+        except Exception:                                # noqa: BLE001
+            # one broken round must not kill the history
+            log.exception("timeline sampling round failed")
+
+
+# ---------------------------------------------------------------------------
+# query surface
+# ---------------------------------------------------------------------------
+
+def series_names() -> List[str]:
+    with _lock:
+        return sorted(_series)
+
+
+def points(name: str, window_s: Optional[float] = None,
+           coarse: bool = False,
+           now: Optional[float] = None) -> List[Tuple[float, float]]:
+    """(t, value) points of one series, oldest first; `coarse=True`
+    returns (t, mean) of the downsampled ring.  `window_s` keeps only
+    the trailing window."""
+    with _lock:
+        s = _series.get(name)
+        if s is None:
+            return []
+        rows = ([(t, m) for t, m, _mn, _mx in s.coarse] if coarse
+                else list(s.fine))
+    if window_s is not None and rows:
+        t_now = (time.monotonic() if now is None else float(now))
+        rows = [(t, v) for t, v in rows if t >= t_now - window_s]
+    return rows
+
+
+def latest(name: str) -> Optional[float]:
+    with _lock:
+        s = _series.get(name)
+        if s is None or not s.fine:
+            return None
+        return s.fine[-1][1]
+
+
+def window_values(name: str, window_s: float,
+                  now: Optional[float] = None) -> List[float]:
+    """Values of `name` inside the trailing window, oldest first.  When
+    the window extends past the fine ring's span, coarse MEANS cover
+    the older part — the long-horizon path the slow burn window rides."""
+    t_now = time.monotonic() if now is None else float(now)
+    t_lo = t_now - window_s
+    with _lock:
+        s = _series.get(name)
+        if s is None:
+            return []
+        fine = [(t, v) for t, v in s.fine if t >= t_lo]
+        fine_start = s.fine[0][0] if s.fine else t_now
+        older = [(t, m) for t, m, _mn, _mx in s.coarse
+                 if t_lo <= t < fine_start] if t_lo < fine_start else []
+    return [v for _t, v in older] + [v for _t, v in fine]
+
+
+def window_stats(name: str, window_s: float,
+                 now: Optional[float] = None) -> Optional[dict]:
+    vals = window_values(name, window_s, now=now)
+    if not vals:
+        return None
+    return {"n": len(vals), "last": vals[-1], "min": min(vals),
+            "max": max(vals), "mean": sum(vals) / len(vals)}
+
+
+def snapshot(window_s: Optional[float] = None,
+             series_filter: Optional[str] = None,
+             coarse: bool = False,
+             max_points: int = 512) -> dict:
+    """The /debug/timeline payload: config + accounting + per-series
+    points (bounded per series by `max_points`)."""
+    with _lock:
+        cfg = {"interval_ms": _interval_ms, "capacity": _capacity,
+               "coarse_every": _coarse_every}
+        names = sorted(_series)
+    out_series: Dict[str, dict] = {}
+    for name in names:
+        if series_filter and series_filter not in name:
+            continue
+        rows = points(name, window_s=window_s, coarse=coarse)
+        if not rows:
+            continue
+        vals = [v for _t, v in rows]
+        out_series[name] = {
+            "n": len(rows), "last": vals[-1], "min": min(vals),
+            "max": max(vals), "mean": sum(vals) / len(vals),
+            "points": [[round(t, 3), v] for t, v in rows[-max_points:]],
+        }
+    return {"enabled": _enabled, "config": cfg,
+            "counters": counters(), "series": out_series}
+
+
+def summary(prefixes: Optional[List[str]] = None) -> dict:
+    """Compact per-series stats over the fine rings — the bench-artifact
+    embedding (no raw points; benchdiff-diffable scalars only).
+    `prefixes` keeps only series whose name starts with one of them."""
+    out: Dict[str, dict] = {}
+    for name in series_names():
+        if prefixes is not None and \
+                not any(name.startswith(p) for p in prefixes):
+            continue
+        rows = points(name)
+        if not rows:
+            continue
+        vals = [v for _t, v in rows]
+        out[name] = {"n": len(vals), "last": round(vals[-1], 4),
+                     "min": round(min(vals), 4),
+                     "max": round(max(vals), 4),
+                     "mean": round(sum(vals) / len(vals), 4)}
+    return {"counters": counters(), "series": out}

@@ -821,3 +821,176 @@ def test_scheduler_on_card_replays_segments_and_matches_cpu(
     else:
         assert out[0][1]["graphs_captured"] == 0 and replayed[0] == 0
     assert replayed[1] == 0
+
+
+class _LoopThread:
+    """A port SearchServer on its own asyncio loop in a daemon thread."""
+
+    def __init__(self, server):
+        import asyncio
+        import threading
+
+        self.server = server
+        self.loop = asyncio.new_event_loop()
+        self._ready = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+        assert self._ready.wait(60)
+
+    def _run(self):
+        import asyncio
+
+        asyncio.set_event_loop(self.loop)
+
+        async def boot():
+            self.addr = await self.server.start("127.0.0.1", 0)
+            self._ready.set()
+
+        self._boot = self.loop.create_task(boot())
+        self.loop.run_forever()
+
+    def stop(self):
+        import asyncio
+
+        asyncio.run_coroutine_threadsafe(self.server.stop(),
+                                         self.loop).result(60)
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(10)
+
+
+def _exchange(addr, frames):
+    import socket
+
+    from sptag_tpu_torch.serve import wire
+
+    sock = socket.create_connection(addr, timeout=120)
+
+    def read_exact(n):
+        buf = b""
+        while len(buf) < n:
+            chunk = sock.recv(n - len(buf))
+            assert chunk, "server closed early"
+            buf += chunk
+        return buf
+
+    out = []
+    try:
+        for f in frames:
+            sock.sendall(f)
+            head = read_exact(wire.HEADER_SIZE)
+            h = wire.PacketHeader.unpack(head)
+            out.append(head + (read_exact(h.body_length)
+                               if h.body_length else b""))
+    finally:
+        sock.close()
+    return out
+
+
+@pytest.mark.cuda
+def test_server_on_card_answers_like_cpu_server(cuda, tmp_path):
+    """The port's SearchServer over a graph index on the card answers
+    beam and dense requests with the same response bytes as the same
+    server over the folder on the CPU (integer rows: exact distances),
+    and its dense requests launch probe_block_dots f32."""
+    from sptag_tpu_torch.serve import server as tserver
+    from sptag_tpu_torch.serve import service as tservice
+    from sptag_tpu_torch.serve import wire
+
+    # a wide integer range: exact distances with few ties
+    data = _int_rows(4000, 32, seed=60, lo=-40, hi=41)
+    q = _int_rows(24, 32, seed=61, lo=-40, hi=41)
+    idx = tsp.create_instance("BKT", "Float", device="cpu")
+    for name, value in [("DistCalcMethod", "L2"), ("TPTNumber", "4"),
+                        ("CEF", "64"), ("MaxCheckForRefineGraph", "256"),
+                        ("RefineQueryGroup", "32"), ("MaxCheck", "512"),
+                        ("DenseClusterSize", "64"),
+                        ("FinalRefineSearchMode", "same")]:
+        assert idx.set_parameter(name, value)
+    idx.build(data)
+    folder = str(tmp_path / "g")
+    idx.save_index(folder)
+    frames = []
+    for i, v in enumerate(q):
+        text = "|".join(str(int(x)) for x in v)
+        for mode in ("beam", "dense"):
+            body = wire.RemoteQuery(f"$searchmode:{mode} $resultnum:10 "
+                                    f"{text}").pack()
+            frames.append(wire.PacketHeader(
+                wire.PacketType.SearchRequest, 0, len(body), 0,
+                i + 1).pack() + body)
+    out = {}
+    for dev in (cuda, "cpu"):
+        settings = tservice.ServiceSettings(allow_search_mode_override="on")
+        ctx = tservice.ServiceContext(settings, device=dev)
+        ctx.add_index("main", tsp.load_index(folder, device=dev))
+        srv = _LoopThread(tserver.SearchServer(ctx, batch_window_ms=2.0))
+        try:
+            block_dots.reset_launch_counts()
+            out[str(dev)] = _exchange(srv.addr, frames)
+            launches = block_dots.launch_counts()["probe_block_dots_f32"]
+        finally:
+            srv.stop()
+            ctx.indexes["main"].close()
+        if dev == cuda:
+            assert launches >= len(q), launches
+    assert out[str(cuda)] == out["cpu"]
+    res = wire.RemoteSearchResult.unpack(out["cpu"][0][16:])
+    assert res.status == wire.ResultStatus.Success
+    assert len(res.results[0].ids) == 10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [128, 100, 33])
+@pytest.mark.parametrize("mode", ["gather", "rows", "shared"])
+def test_walk_dots_kernel_matches_plain_version(cuda, mode, D):
+    """The walk's fixed-order dots against their plain version, in each
+    of the three row modes."""
+    from sptag_tpu_torch.ops import walk_dots as wd
+
+    gen = torch.Generator().manual_seed(D)
+    Q, C, N = 37, 29, 500
+    q = torch.randn((Q, D), generator=gen).to(cuda)
+    x = torch.randn((N, D), generator=gen).to(cuda)
+    idx = torch.randint(0, N, (Q, C), generator=gen).to(cuda)
+    m = {"gather": wd.GATHER, "rows": wd.ROWS, "shared": wd.SHARED}[mode]
+    if m == wd.ROWS:
+        x = x[idx].reshape(Q * C, D).contiguous()
+    before = wd.launches
+    got = wd.walk_dots(q, x, idx if m == wd.GATHER else None, m,
+                       C if m != wd.SHARED else N)
+    want = wd.walk_dots_reference(q, x, idx, m, C if m != wd.SHARED else N)
+    assert wd.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_walk_dots_bits_do_not_depend_on_the_batch(cuda):
+    """A query's dots, and its whole walk on a float32 corpus, come out
+    bit for bit alike alone, in a small batch and in a batch of 1,024."""
+    from sptag_tpu_torch.algo import engine as teng
+    from sptag_tpu_torch.core.types import DistCalcMethod
+    from sptag_tpu_torch.ops import walk_dots as wd
+
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((4000, 64), generator=gen).to(cuda)
+    q = torch.randn((1024, 64), generator=gen).to(cuda)
+    idx = torch.randint(0, 4000, (1024, 300), generator=gen).to(cuda)
+    full = wd.walk_dots(q, x, idx, wd.GATHER, 300)
+    for rows in (slice(0, 1), slice(5, 21), slice(100, 164)):
+        part = wd.walk_dots(q[rows].contiguous(), x,
+                            idx[rows].contiguous(), wd.GATHER, 300)
+        assert torch.equal(part, full[rows])
+    data = np.random.default_rng(4).standard_normal((6000, 64)).astype(
+        np.float32)
+    queries = np.random.default_rng(5).standard_normal((1024, 64)).astype(
+        np.float32)
+    graph = _weak_graph(6000, 16, seed=6)
+    pivots = np.random.default_rng(7).choice(6000, 500, replace=False)
+    eng = teng.GraphSearchEngine(data, graph, pivots, None,
+                                 DistCalcMethod.L2, 1, device=cuda)
+    d_all, i_all = eng.search(queries, 10, max_check=1024)
+    for lo, hi in ((0, 1), (1, 17), (17, 81), (81, 337)):
+        for _ in range(2):                    # eager, then a graph replay
+            d, i = eng.search(queries[lo:hi], 10, max_check=1024)
+            np.testing.assert_array_equal(i, i_all[lo:hi])
+            np.testing.assert_array_equal(d, d_all[lo:hi])

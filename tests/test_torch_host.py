@@ -208,7 +208,15 @@ def test_import_pulls_in_no_jax_and_no_sptag_tpu():
             "sptag_tpu_torch.core.delta, sptag_tpu_torch.io.wal, "
             "sptag_tpu_torch.utils.threadpool, "
             "sptag_tpu_torch.algo.scheduler, sptag_tpu_torch.io.reader, "
-            "sptag_tpu_torch.native\n"
+            "sptag_tpu_torch.native, sptag_tpu_torch.serve.server, "
+            "sptag_tpu_torch.serve.service, sptag_tpu_torch.serve.client, "
+            "sptag_tpu_torch.serve.wire, sptag_tpu_torch.serve.protocol, "
+            "sptag_tpu_torch.utils.metrics, sptag_tpu_torch.utils.locksan, "
+            "sptag_tpu_torch.utils.flightrec, "
+            "sptag_tpu_torch.utils.faultinject, "
+            "sptag_tpu_torch.utils.timeline, sptag_tpu_torch.utils.hostprof, "
+            "sptag_tpu_torch.utils.trace, sptag_tpu_torch.utils.qualmon, "
+            "sptag_tpu_torch.ops.walk_dots\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m.startswith('jaxlib') "
             "or m == 'sptag_tpu' or m.startswith('sptag_tpu.')]\n"
@@ -233,7 +241,12 @@ def test_sources_import_no_jax_and_no_sptag_tpu():
                 "graph/tptree.py", "ops/graph.py", "ops/topk_bins.py",
                 "algo/kdt.py", "trees/kdtree.py", "core/delta.py",
                 "io/wal.py", "utils/threadpool.py", "algo/scheduler.py",
-                "io/reader.py", "native.py"):
+                "io/reader.py", "native.py", "serve/wire.py",
+                "serve/protocol.py", "serve/service.py", "serve/server.py",
+                "serve/client.py", "utils/metrics.py", "utils/locksan.py",
+                "utils/flightrec.py", "utils/faultinject.py",
+                "utils/timeline.py", "utils/hostprof.py", "utils/trace.py",
+                "utils/qualmon.py", "ops/walk_dots.py"):
         assert os.path.join("sptag_tpu_torch", new) in names
     offenders = [f for f in files if pattern.search(open(f).read())]
     assert offenders == []

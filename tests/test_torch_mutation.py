@@ -168,13 +168,31 @@ def test_wal_bytes_identical_and_cross_replay(tmp_path, writer, tail):
 
 
 def test_wal_refuses_fault_injection(tmp_path, monkeypatch):
-    """The crash-matrix storage faults are not ported: a configuration
-    that asks for them raises, naming the ROADMAP item."""
-    monkeypatch.setenv("SPTAG_FAULTINJECT", "torn_write@wal.append")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*observability"):
-        twal.WalWriter(str(tmp_path / "w.bin"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        twal.replay(str(tmp_path / "w.bin"))
+    """``SPTAG_FAULTINJECT`` arms the WAL's storage faults in both
+    packages: a torn append leaves the same durable prefix and raises
+    InjectedCrash, and the replay of the torn log agrees (the record
+    never acked is truncated away)."""
+    from sptag_tpu.utils import faultinject as jfi
+    from sptag_tpu_torch.utils import faultinject as tfi
+
+    monkeypatch.setenv("SPTAG_FAULTINJECT", "torn_write@wal.append:after=1")
+    out = {}
+    for name, mod, fi in (("jax", jwal, jfi), ("port", twal, tfi)):
+        fi.reset()
+        path = str(tmp_path / f"w_{name}.bin")
+        w = mod.WalWriter(path)
+        w.append(mod.pack_add(0, np.ones((2, 4), np.float32), None))
+        with pytest.raises(fi.InjectedCrash):
+            w.append(mod.pack_delete([1, 3]))
+        w.close()
+        fi.reset()
+        with open(path, "rb") as f:
+            raw = f.read()
+        recs, torn = mod.replay(path)
+        fi.reset()          # no injector outlives the test's environment
+        out[name] = (raw, len(recs), torn)
+    assert out["port"] == out["jax"]
+    assert out["port"][1:] == (1, True)
 
 
 # ---- the delta shard -------------------------------------------------------
