@@ -32,8 +32,9 @@ Phases, in the order they run:
    ``INT8_RECALL`` within ``RECALL_SLACK``;
 5. persistence: save_index, load_index, the first 1,024 queries again;
 2. every kernel against its plain version on the card, on the main path's
-   own blocks and block ids (the walk's fixed-order dots on phase 7's
-   first in-loop scoring and seeding calls), and on the arguments of the
+   own blocks and block ids (the walk's fixed-order distance kernels on
+   phase 7's first in-loop scoring and seeding calls and the pivots'
+   norms, with the share of fresh slots), and on the arguments of the
    first block-dot call of each graph build (phases 7 and 7b), of the
    compaction's refine pass (phase 9c) and of the KDT dense search (phase
    10), all run last so their launches stay out of the paths' counts,
@@ -84,7 +85,8 @@ Phases, in the order they run:
 6. where a search batch's time goes: ``torch.profiler`` device time by
    kernel for one batch of each configuration (f32 per-query and grouped,
    int8 grouped and per-query, f32 beam exact and binned), against its
-   untraced time; the beam rows per walk iteration;
+   untraced time; the beam rows per walk iteration, the walk kernels'
+   device time, and the former walk kernel's batch beside them;
 11. the walk's options and the slot scheduler on phase 7's index: (a)
    ``BeamScoreDtype=bf16`` over the 4,096 queries, exact and binned walk,
    recall@10 held within 0.01 of the f32 walk's and every distance held
@@ -265,6 +267,14 @@ GRAPH_PARAMS = [("BKTNumber", "1"), ("BKTKmeansK", "32"),
                 ("MaxCheck", "2048"), ("RefineQueryGroup", "32"),
                 ("FinalRefineSearchMode", "same")]
 BEAM_PASSES = 2      # timed passes over each beam query set
+# phase 6's beam batch of 1,024 with the walk's former distance kernel (one
+# warp a dot, the epilogue in separate launches), on an NVIDIA H100 80GB
+# HBM3 at 700 W (PERF.md section 5), printed beside this run's
+FORMER_BEAM_BATCH = {
+    "off": {"untraced_ms": 44.38, "device_ms": 35.84,
+            "device_launches": 3494},
+    "on": {"untraced_ms": 52.96, "device_ms": 32.19,
+           "device_launches": 4299}}
 # recall@10 of the JAX package's beam walk on the bench graph (BENCH_r07.json:
 # CPU, 512 queries, the same graph parameters): exact walk, binned walk
 JAX_BEAM_RECALL = {"off": 0.8955, "on": 0.8906}
@@ -349,27 +359,49 @@ class FirstCalls:
 
 class FirstWalkDots:
     """Inside the ``with`` block, records the arguments of the walk's first
-    fixed-order dots call of each row mode with at least `min_q` queries
-    (``ops/walk_dots.py``), for phase 2 to hold the kernel against its
-    plain version at the main path's shapes."""
+    call of each fixed-order kernel (``ops/walk_dots.py``): the seeding
+    and the in-loop scoring with at least `min_q` queries, the norm helper
+    on at least `min_rows` rows (the pivots' norms when an engine is
+    built), for phase 2 to hold each kernel against its plain version at
+    the main path's shapes.  The wrappers run unchanged and count their
+    launches as always."""
 
-    def __init__(self, module, min_q: int):
-        self.module, self.min_q, self.args = module, min_q, {}
+    KINDS = ("walk_seed", "walk_score", "row_sqnorms")
+
+    def __init__(self, module, min_q: int, min_rows: int = 1024):
+        self.module, self.min_q, self.min_rows = module, min_q, min_rows
+        self.args, self.saved = {}, {}
+        # fresh and all slots of every such scoring call (device tensors:
+        # counting adds no sync to the walk)
+        self.slots = [0, 0]
 
     def __enter__(self):
-        self.saved = fn = self.module.walk_dots
+        for kind in self.KINDS:
+            fn = self.saved[kind] = getattr(self.module, kind)
 
-        def wrapper(q, x, idx, mode, C, _fn=fn):
-            if mode not in self.args and q.shape[0] >= self.min_q \
-                    and not (mode == self.module.ROWS and C == 1):
-                self.args[mode] = (q.clone(), x, None if idx is None
-                                   else idx.clone(), C)
-            return _fn(q, x, idx, mode, C)
-        self.module.walk_dots = wrapper
+            def wrapper(*a, _fn=fn, _kind=kind):
+                rows = a[0].shape[0]
+                take = a[0].dtype == torch.float32 and (
+                    rows >= self.min_rows if _kind == "row_sqnorms"
+                    else rows >= self.min_q) and (
+                    _kind != "walk_score" or a[5] == self.module.GATHER)
+                if take and _kind == "walk_score":
+                    self.slots[0] = self.slots[0] + (a[2] >= 0).sum()
+                    self.slots[1] += a[2].numel()
+                if take and _kind not in self.args:
+                    # the rows searched (a[1], the corpus or the pivots)
+                    # are not copied
+                    self.args[_kind] = tuple(
+                        t.clone() if isinstance(t, torch.Tensor)
+                        and (k != 1 or _kind == "row_sqnorms") else t
+                        for k, t in enumerate(a))
+                return _fn(*a)
+            setattr(self.module, kind, wrapper)
         return self
 
     def __exit__(self, *exc):
-        self.module.walk_dots = self.saved
+        for kind, fn in self.saved.items():
+            setattr(self.module, kind, fn)
 
 
 def median_ms(fn, reps: int = 30, calls: int = 1) -> float:
@@ -1856,7 +1888,7 @@ def server_phase(pt, block_dots, graph_folder, queries, workdir, here,
     out["b"] = {}
     for mode in ("beam", "dense"):
         before = block_dots.launch_counts()["probe_block_dots_f32"]
-        walk_before = walk_ops.launches
+        walk_before = walk_ops.launch_counts()
         n_batches = len(batch_sizes)
         res, wall = pool_search(run.addr, [
             f"$indexname:main $searchmode:{mode} " + b64_query(v)
@@ -1873,8 +1905,9 @@ def server_phase(pt, block_dots, graph_folder, queries, workdir, here,
                         - before,
                     # eager walks and captures count; a graph replay
                     # launches the captured kernels without the wrapper
-                    "walk_dots_f32_launches": walk_ops.launches
-                        - walk_before})
+                    "walk_launches": {
+                        k: v - walk_before[k]
+                        for k, v in walk_ops.launch_counts().items()}})
         out["b"][mode] = row
     check(out["b"]["dense"]["probe_block_dots_f32_launches"] >= 1,
           "12b: the server's dense requests launched no probe_block_dots "
@@ -1984,64 +2017,107 @@ def server_phase(pt, block_dots, graph_folder, queries, workdir, here,
           "wall_s": out["wall_s"]})
 
 
-def walk_dots_rows(walk_ops, first, launches: int) -> list:
-    """Phase 2 for the walk's fixed-order dots: the kernel against its
-    plain version on the arguments of phase 7's first in-loop scoring
-    call (1,024 queries, B * m gathered rows each) and first seeding call
-    (every pivot), with the same times and bound as the block-dot rows;
-    the library call is one einsum over the pre-gathered rows (gathering:
-    plain version) or one matrix product (seeding)."""
+def walk_dots_rows(walk_ops, first, launches: dict) -> list:
+    """Phase 2 for the walk's fixed-order distance kernels: each against
+    its plain version on the arguments of phase 7's first call (in-loop
+    scoring: 1,024 queries, B * m gathered slots each, the slots that are
+    not fresh -1; seeding: every pivot; the norm helper: the pivots' norms
+    at the engine's build), with the same times and bound as the
+    block-dot rows.  The kernels' times include the fused epilogue; the
+    library call is the bare dot (one einsum over the rows pre-gathered,
+    one matrix product, one einsum of a row with itself).  The bound
+    counts what this run's data needs: the scoring reads each distinct
+    fresh row once and scores only fresh slots."""
     rows = []
-    for mode, path in ((walk_ops.GATHER, "walk_scoring"),
-                       (walk_ops.SHARED, "walk_seeding")):
-        if mode not in first.args:
-            fail(f"phase 7 made no walk_dots call of mode {mode}")
-        q, x, idx, C = first.args[mode]
-        fn = walk_ops.walk_dots
-        ref = walk_ops.walk_dots_reference
-        got = fn(q, x, idx, mode, C)
-        want = ref(q, x, idx, mode, C)
-        scale = ref(q.abs(), x.abs(), idx, mode, C).double()
-        torch.cuda.synchronize()
-        err = (got.double() - want.double()).abs()
-        ok = bool((err <= 1e-5 * scale + 1e-30).all())
-        Q, D = q.shape
-        if mode == walk_ops.GATHER:
-            distinct = int(torch.unique(idx).numel())
-            nbytes = distinct * D * 4 + Q * D * 4 + idx.numel() * 8 \
-                + Q * C * 4
-            pre = x[idx]
+    for kind, path in (("walk_score", "walk_scoring"),
+                       ("walk_seed", "walk_seeding"),
+                       ("row_sqnorms", "pivot_norms")):
+        if kind not in first.args:
+            fail(f"phase 7 made no {kind} call of the main path's shape")
+        args = first.args[kind]
+        fn = getattr(walk_ops, kind)
+        extra = {}
+        if kind == "walk_score":
+            q, x, idx, xn, epi, mode, C = args
+            name = "walk_score_f32"
+            ref = lambda: walk_ops.walk_score_reference(  # noqa: E731
+                q, x, idx, xn, epi, mode, C)
+            fresh = idx >= 0
+            safe = idx.clamp_min(0)
+            pre = x[safe]
             lib = lambda: torch.einsum("qd,qcd->qc", q, pre)  # noqa: E731
-        else:
-            distinct = C
-            nbytes = C * D * 4 + Q * D * 4 + Q * C * 4
+            absdot = torch.einsum("qd,qcd->qc", q.abs(), pre.abs())
+            xn_out = xn[safe]
+            Q, D = q.shape
+            distinct = int(torch.unique(idx[fresh]).numel())
+            n_fresh = int(fresh.sum().item())
+            nbytes = (distinct * (D + 1) + Q * D + Q * C) * 4 + idx.numel() * 8
+            ops = 2.0 * n_fresh * D
+            shape = {"Q": Q, "C": C, "D": D, "mode": mode, "epilogue": epi}
+            extra = {"library_call": "einsum over the rows pre-gathered: "
+                                     "the bare dot, no epilogue, no mask",
+                     "distinct_rows": distinct,
+                     "fresh_share": n_fresh / idx.numel(),
+                     # over every in-loop scoring call of phase 7's
+                     # first exact and binned beam batches
+                     "fresh_share_walk": float(first.slots[0])
+                     / max(first.slots[1], 1)}
+        elif kind == "walk_seed":
+            q, x, xn, epi = args
+            name = "walk_seed_f32"
+            ref = lambda: walk_ops.walk_seed_reference(  # noqa: E731
+                q, x, xn, epi)
             lib = lambda: q @ x.T                             # noqa: E731
-        ops = 2.0 * Q * C * D
+            absdot = q.abs() @ x.abs().T
+            xn_out = xn[None, :]
+            (Q, D), P = q.shape, x.shape[0]
+            nbytes = (Q * D + P * (D + 1) + Q * P) * 4
+            ops = 2.0 * Q * P * D
+            shape = {"Q": Q, "P": P, "D": D, "epilogue": epi}
+            extra = {"library_call": "q @ x.T: the bare dot, no epilogue"}
+        else:
+            (x,) = args
+            name = "walk_sqnorm_f32"
+            ref = lambda: (x * x).sum(1)                       # noqa: E731
+            lib = lambda: torch.einsum("nd,nd->n", x, x)      # noqa: E731
+            q, absdot, xn_out = x, 0.0, 0.0
+            N, D = x.shape
+            nbytes = (N * D + N) * 4
+            ops = 2.0 * N * D
+            shape = {"N": N, "D": D}
+        call = lambda: fn(*args)                              # noqa: E731
+        got, want = call(), ref()
+        torch.cuda.synchronize()
+        qn = (q * q).sum(1)
+        scale = (qn[:, None] + xn_out + 2 * absdot if kind != "row_sqnorms"
+                 else qn)
+        err = (got.double() - want.double()).abs()
+        ok = bool((err <= 1e-5 * scale.double() + 1e-30).all())
         bytes_ms = nbytes / HBM_BYTES_S * 1e3
         ops_ms = ops / PEAK_OPS_S["f32"] * 1e3
-        card_ms, card_rows = device_ms(lambda: fn(q, x, idx, mode, C))
-        timing = {"ms_back_to_back": median_ms(
-            lambda: fn(q, x, idx, mode, C), calls=BACK_TO_BACK),
-            "device_ms": card_ms, "device_ms_by_kernel": card_rows,
-            "host_ms": host_ms(lambda: fn(q, x, idx, mode, C)),
-            "library_ms_back_to_back": median_ms(lib, calls=BACK_TO_BACK)}
-        row = {"name": "walk_dots_f32", "route": "cuda",
+        card_ms, card_rows = device_ms(call)
+        timing = {"ms_back_to_back": median_ms(call, calls=BACK_TO_BACK),
+                  "device_ms": card_ms, "device_ms_by_kernel": card_rows,
+                  "host_ms": host_ms(call),
+                  "library_ms_back_to_back": median_ms(lib,
+                                                       calls=BACK_TO_BACK),
+                  "library_device_ms": device_ms(lib)[0]}
+        row = {"name": name, "route": "cuda",
                "source": "sptag_tpu_torch/csrc/walk_dots.cu",
-               "replaces": ("sptag_tpu/ops/distance.py:249"
-                            if mode == walk_ops.GATHER
-                            else "sptag_tpu/ops/distance.py:232"),
-               "path": path, "launches": launches,
+               "replaces": ("sptag_tpu/ops/distance.py:232"
+                            if kind == "walk_seed"
+                            else "sptag_tpu/ops/distance.py:249"
+                            if kind == "walk_score"
+                            else "sptag_tpu/ops/distance.py:175"),
+               "path": path, "launches": launches[name],
                "max_abs_err": float(err.max().item()),
-               "ms": median_ms(lambda: fn(q, x, idx, mode, C)),
-               "plain_ms": median_ms(lambda: ref(q, x, idx, mode, C)),
+               "ms": median_ms(call), "plain_ms": median_ms(ref),
                "bound_ms": max(bytes_ms, ops_ms),
                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                "library_ms": median_ms(lib)}
-        emit({"phase": 2, **row, **timing,
-              "shape": {"Q": Q, "C": C, "D": D, "mode": mode},
-              "distinct_rows": distinct, "bytes": nbytes, "ops": ops,
-              "within_tolerance": ok})
-        check(ok, f"walk_dots ({path}): kernel disagrees with its plain "
+        emit({"phase": 2, **row, **timing, **extra, "shape": shape,
+              "bytes": nbytes, "ops": ops, "within_tolerance": ok})
+        check(ok, f"{name} ({path}): kernel disagrees with its plain "
                   f"version (max |err| {row['max_abs_err']})")
         rows.append(row)
     return rows
@@ -2224,7 +2300,7 @@ def main() -> None:
     indeg = np.bincount(graph[graph >= 0].ravel(), minlength=len(graph))
     gidx.set_parameter("SearchMode", "beam")
     beam = {}
-    # the walk's fixed-order dots: zeroed just before the beam searches
+    # the walk's fixed-order kernels: zeroed just before the beam searches
     walk_ops.reset_launch_counts()
     first_walk = FirstWalkDots(walk_ops, 1024)
     for binned in ("off", "on"):
@@ -2259,8 +2335,8 @@ def main() -> None:
             + build_launches["probe_block_dots_f32"] < 1:
         fail(f"the graph build launched no f32 block-dot kernel: "
              f"{build_launches}")
-    check(walk_launches["walk_dots_f32"] >= 1,
-          f"the beam searches launched no walk_dots kernel: "
+    check(all(v >= 1 for v in walk_launches.values()),
+          f"the beam searches did not launch every walk kernel: "
           f"{walk_launches}")
     r_off, r_on = beam["off"]["recall_at_10"], beam["on"]["recall_at_10"]
     # on one folder the two packages' walks agree id for id
@@ -2503,14 +2579,14 @@ def main() -> None:
         rows.append(row)
 
     rows.extend(walk_dots_rows(walk_ops, first_walk,
-                               walk_launches["walk_dots_f32"]))
+                               walk_launches))
 
     # ---- phase 6: where a search batch's time goes ---------------------------
     # device time from the profiler's CUDA rows (kernels and copies); the
     # idle share is against the untraced batch time of phases 3/4
     from torch.profiler import ProfilerActivity, profile
 
-    def breakdown(label, run, untraced_ms, iterations=None):
+    def breakdown(label, run, untraced_ms, iterations=None, former=None):
         run()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -2537,7 +2613,13 @@ def main() -> None:
                         "untraced_ms_per_iteration": untraced_ms / its,
                         "device_ms_per_iteration": busy_ms / its,
                         "launches_per_iteration":
-                            row["device_launches"] / its})
+                            row["device_launches"] / its,
+                        # the fixed-order distance kernels' share
+                        "walk_kernels_device_ms": {
+                            e.key[:40]: e.self_device_time_total / 1e3
+                            for e in dev_rows if "walk_" in e.key}})
+        if former is not None:
+            row["former_kernel"] = former
         emit(row)
 
     breakdown("f32 per-query, 1024 queries",
@@ -2560,7 +2642,8 @@ def main() -> None:
         breakdown(f"f32 beam BinnedTopK={binned}, 1024 queries",
                   lambda: gidx.search_batch(queries[:1024], K),
                   beam[binned]["batch_ms_p50"],
-                  iterations=lambda: gidx._get_engine().last_iterations)
+                  iterations=lambda: gidx._get_engine().last_iterations,
+                  former=FORMER_BEAM_BATCH[binned])
 
     # ---- phase 11: the walk's options and the slot scheduler -------------
     scheduler_phase(pt, gidx, queries, truth_f32, beam,

@@ -32,7 +32,7 @@ asked for the second time (at most ``_GRAPH_CACHE`` kept): the JAX
 package's one compiled program per search, and the same results.  Rows
 are independent, so chunking and batch padding do not change them either:
 on the card every float32 distance of the walk (seeding, the in-loop
-scoring, the re-rank) comes from ops/walk_dots.py's fixed-order kernel,
+scoring, the re-rank) comes from ops/walk_dots.py's fixed-order kernels,
 whose bits do not depend on the batch's shape, so a server that coalesces
 requests answers a query alike in any batch.  ``chunk_size`` keeps the
 JAX package's formula all the same.
@@ -83,7 +83,7 @@ from sptag_tpu_torch.ops import walk_dots as walk_ops
 from sptag_tpu_torch.ops import topk_bins
 from sptag_tpu_torch.utils import query_bucket
 
-MAX_DIST = float(np.float32(3.4e38))
+MAX_DIST = walk_ops.MAX_DIST
 
 # visited-table budget per search call in the JAX package's packed-bitset
 # bytes (N/8 per query); it sets the chunk size
@@ -126,17 +126,19 @@ def beam_pool_size(k: int, max_check: int, n: int,
     return min(max(L, k), n)
 
 
-def _seed_from_pivots(pivot_ids, pivot_vecs, queries, L: int, metric: int,
-                      n: int, seed_keep: int = 0):
+def _seed_from_pivots(pivot_ids, pivot_vecs, pivot_sqnorm, queries, L: int,
+                      metric: int, n: int, seed_keep: int = 0):
     """Shared-pivot seeding: the top-L pivots by distance fill the beam,
     the rest (all, or `seed_keep` of them when binned) form the sorted
-    spare queue; every pivot is marked visited.  Returns (cand_ids,
-    cand_d, visited (Q, n + 1) bool, spare_ids, spare_d)."""
+    spare queue; every pivot is marked visited.  `pivot_sqnorm` is the
+    pivots' cached squared norms.  Returns (cand_ids, cand_d, visited
+    (Q, n + 1) bool, spare_ids, spare_d)."""
     Q = queries.shape[0]
     P = pivot_ids.shape[0]
     dev = queries.device
     d0 = walk_ops.walk_distance(queries, pivot_vecs, metric, 1,
-                                walk_ops.SHARED)                  # (Q, P)
+                                walk_ops.SHARED,
+                                x_sqnorm=pivot_sqnorm)            # (Q, P)
     seed_ids = pivot_ids
     if P < L:
         d0 = torch.cat([d0, d0.new_full((Q, L - P), MAX_DIST)], dim=1)
@@ -162,13 +164,12 @@ def _seed_from_seeds(data, sqnorm, seed_ids, queries, L: int, metric: int,
     Q, S = seed_ids.shape
     N = data.shape[0]
     seed_ids = torch.where(seed_ids < N, seed_ids, -1)
-    safe = seed_ids.clamp_min(0)
-    d0 = walk_ops.walk_distance(queries, data, metric, base,
-                                walk_ops.GATHER, idx=safe,
-                                x_sqnorm=sqnorm[safe])
     seeds_safe = torch.where(seed_ids >= 0, seed_ids, N)
-    d0 = torch.where((seed_ids < 0) | _sorted_dup_mask(seeds_safe),
-                     MAX_DIST, d0)
+    # a masked or repeated seed scores MAX_DIST and loads nothing
+    d0 = walk_ops.walk_distance(
+        queries, data, metric, base, walk_ops.GATHER,
+        idx=torch.where(_sorted_dup_mask(seeds_safe), -1, seed_ids),
+        x_sqnorm=sqnorm)
     visited = torch.zeros((Q, N + 1), dtype=torch.bool,
                           device=queries.device)
     visited.scatter_(1, seeds_safe, True)
@@ -315,24 +316,23 @@ class _Walk:
             fresh = fresh & ~_sorted_dup_mask(flat_safe)
             self.visited.scatter_(1, flat_safe, True)
 
-        # ---- score the fresh candidates (one batched contraction)
+        # ---- score the fresh candidates (one launch: the slots that are
+        # not fresh are -1 and score MAX_DIST)
+        fresh_ids = torch.where(fresh, flat, -1)
         if eng.nbr_vecs is not None:
             # packed neighbours: B block reads of (m, D) per query, in the
-            # order of `flat`; masked slots score row 0's copy and `fresh`
-            # discards them
+            # order of `flat`
             sel_safe = sel_ids.clamp_min(0)
             cvecs = eng.nbr_vecs[sel_safe].reshape(Q * flat.shape[1], -1)
-            csq = eng.nbr_sq[sel_safe].reshape(Q, flat.shape[1])
             nd = walk_ops.walk_distance(self.queries_s, cvecs, eng.metric,
                                         eng.base, walk_ops.ROWS,
-                                        x_sqnorm=csq, C=flat.shape[1])
+                                        idx=fresh_ids,
+                                        x_sqnorm=eng.nbr_sq[sel_safe])
         else:
-            gather_idx = torch.where(fresh, flat, 0)
             nd = walk_ops.walk_distance(self.queries_s, eng.score_src,
                                         eng.metric, eng.base,
-                                        walk_ops.GATHER, idx=gather_idx,
-                                        x_sqnorm=eng.sqnorm[gather_idx])
-        nd = torch.where(fresh, nd, MAX_DIST)
+                                        walk_ops.GATHER, idx=fresh_ids,
+                                        x_sqnorm=eng.sqnorm)
 
         # ---- inject spare pivots when the frontier falls behind the next
         # one, or the nbp counter would trip with budget left
@@ -421,11 +421,9 @@ def _finalize(eng: "GraphSearchEngine", queries, cand_ids, cand_d,
     shadow, tombstone filter and final top-k (binned when `binned_bins`
     > 0)."""
     if eng.rerank:
-        safe = cand_ids.clamp_min(0)
-        exact = walk_ops.walk_distance(queries, eng.data, eng.metric,
-                                       eng.base, walk_ops.GATHER, idx=safe,
-                                       x_sqnorm=eng.sqnorm[safe])
-        cand_d = torch.where(cand_ids >= 0, exact, MAX_DIST)
+        cand_d = walk_ops.walk_distance(queries, eng.data, eng.metric,
+                                        eng.base, walk_ops.GATHER,
+                                        idx=cand_ids, x_sqnorm=eng.sqnorm)
     dead = eng.deleted[cand_ids.clamp_min(0)] | (cand_ids < 0)
     out_d = torch.where(dead, MAX_DIST, cand_d)
     if binned_bins:
@@ -485,6 +483,9 @@ class GraphSearchEngine:
             pivot_ids = np.zeros(1, np.int64)
         self.pivot_ids = put(pivot_ids)
         self.pivot_vecs = self.data[self.pivot_ids]
+        # computed once a snapshot (a swap, a compaction or a load builds a
+        # new engine): seeding reads them every walk
+        self.pivot_sqnorm = walk_ops.row_sqnorms(self.pivot_vecs)
         # packed neighbours in the scoring dtype; a -1 slot points at row 0
         self.nbr_vecs = self.nbr_sq = None
         if packed_neighbors:
@@ -514,7 +515,8 @@ class GraphSearchEngine:
         out = {"corpus": self.data.nbytes + self.sqnorm.nbytes
                + self.deleted.nbytes,
                "graph": self.graph.nbytes,
-               "pivots": self.pivot_ids.nbytes + self.pivot_vecs.nbytes}
+               "pivots": self.pivot_ids.nbytes + self.pivot_vecs.nbytes
+               + self.pivot_sqnorm.nbytes}
         if self.data_score is not None:
             out["bf16_shadow"] = self.data_score.nbytes
         if self.nbr_vecs is not None:
@@ -580,8 +582,9 @@ class GraphSearchEngine:
         between segments; `run_segment` advances it."""
         if seeds is None:
             cand_ids, cand_d, visited, spare_ids, spare_d = \
-                _seed_from_pivots(self.pivot_ids, self.pivot_vecs, queries,
-                                  L, int(self.metric), self.n,
+                _seed_from_pivots(self.pivot_ids, self.pivot_vecs,
+                                  self.pivot_sqnorm, queries, L,
+                                  int(self.metric), self.n,
                                   seed_keep=self.seed_keep_for(L))
             return _init_state(queries, cand_ids, cand_d, visited,
                                spare_ids, spare_d)

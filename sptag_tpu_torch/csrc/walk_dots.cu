@@ -1,83 +1,519 @@
-// Fixed-order float32 dots of the graph walk (sptag_tpu_torch/algo/engine.py).
+// Fixed-order float32 distances of the graph walk (sptag_tpu_torch/algo/engine.py).
 //
-// The walk scores a query against pivots (seeding), against the neighbours
-// it gathers each iteration, and against its final pool (the re-rank).  A
-// library contraction picks its tiling, and with it the order of each
-// dot's float32 sum, from the whole call's shape, so one query's distances
-// change in the last bits with the batch it rides in, and a walk that pops
-// nodes by those distances can take another path.  Here every output is
-// one warp's sum in one order: lane l adds d = l, l + 32, ... with FMAs,
-// then a fixed xor butterfly joins the lanes.  The bits depend on D and the
-// two rows only, never on Q, C, the launch or the stream, so a query
-// scores alike in a batch of 1 and of 1,024, eager or in a CUDA graph.
+// The walk scores a query against the pivots when it seeds, against the
+// neighbours it gathers every iteration, and against its final pool (the
+// re-rank).  A library contraction picks its tiling, and with it the order
+// of each dot's float32 sum, from the whole call's shape, so one query's
+// distances would change in the last bits with the batch it rides in, and a
+// walk that pops nodes by those distances can take another path.  Here the
+// order of every sum is fixed by D alone: an output's bits depend on D and
+// its two rows, never on Q, C, P, the tile or CTA an output lands in, the
+// launch or the stream, so a query scores alike in a batch of 1 and of
+// 1,024, eager or replayed in a CUDA graph.  No split-K, no atomics, no
+// tensor cores (TF32 is not float32).
 //
-// out[r], r in [0, rows), C outputs per query (query r / C), against row
-//   mode 0: x[idx[r]]       (the gathered neighbours, the re-rank pool)
-//   mode 1: x[r]            (rows already laid out in output order)
-//   mode 2: x[r % C]        (every row of x for every query: the pivots)
-// q is (rows / C, D), x (.., D), both contiguous float32; idx int64.
+// Both kernels fuse the walk's distance epilogue (ops/distance.py):
+//   L2:     max((qn + xn) - 2 dot, 0), written with __fadd_rn / __fsub_rn /
+//           __fmul_rn so that nvcc cannot contract it into an FMA: the fused
+//           result equals the unfused formula over the same dot, bit for bit;
+//   cosine: 1 - dot;
+//   dot:    the bare dot (the tests hold the fused epilogues against it).
+// A row's squared norm comes from one device function, `lane_sqnorms` (the
+// canonical order below) and `warp_sum`, in both kernels (a query's qn) and
+// in `walk_sqnorms_kernel` (the pivots' cached norms), so every kernel gives
+// a row the same bits.
+//
+// The canonical warp order (scoring, norms): lane l of a warp owns
+// d = 128 c + 4 l + j (chunk c = 0, 1, ..., j = 0..3) and sums its products
+// with fmaf in that order; the fixed xor butterfly (16, 8, 4, 2, 1) joins
+// the 32 lane partials.
+//
+// Kernel 1, walk_seed_kernel: SHARED mode, every pivot for every query, out
+// (Q, P).  Stands in for the XLA contraction of pairwise_distance
+// (sptag_tpu/ops/distance.py:232).  A dense (Q, P, D) product: 1,024 x 8,333
+// x 128 is 2.2 GFLOP against 38 MB of rows and output, so it is bound by
+// float32 FFMA issue (67 TFLOP/s), not by bytes; one warp a dot reused
+// nothing and was bound by its load instructions.  Design: a CTA takes a
+// 128 x 128 tile of queries x pivots with 256 threads, 8 x 8 outputs in
+// registers a thread (16 FFMAs a shared-memory load); k-tiles of 8 d are
+// staged through registers into double-buffered, transposed shared memory
+// (one barrier a k-tile, the next tile's loads in flight during the FFMAs),
+// and each output accumulates with fmaf in d = 0, 1, ..., D - 1 order and
+// nothing else.  Zero-filled rows past Q and P feed only outputs that are
+// not stored; a ragged last k-tile adds exact zeros.  The epilogue reads qn
+// from shared memory (each warp computes 16 of the tile's query norms by
+// the canonical order, 8 rows' loads in flight, while the first k-tile
+// loads) and xn from the pivots' cached norms.
+//
+// Kernel 2, walk_score_kernel: GATHER and ROWS modes, out (Q, C): the
+// walk's in-loop scoring (the hot kernel), KDT's seeds and the re-rank.
+// Stands in for the XLA contraction of batched_gathered_distance
+// (sptag_tpu/ops/distance.py:249).  Each output reads one 512-byte row
+// (D 128), mostly an L2 hit, so it is bound by bytes: the rows moved from
+// L2, and the query's row if it were re-read for every dot.  Most slots of
+// a walk are not fresh (already visited, or duplicates) and read nothing.
+// Design: one CTA of 8 warps serves one query row (or a slice of its C
+// slots when Q is small); the query is read once into shared memory and
+// each lane keeps its float4 of it.  A warp takes 32 slots at a time (slot
+// groups g = w, w + 8, ...): it reads their 32 ids in one coalesced load
+// (the next group's ids and this group's xn already in flight), compacts
+// the live slots to the front with a ballot, issues their rows' float4
+// loads eight at a time (one 16-byte load a lane a row), does 4 FMAs a lane
+// a row in the canonical order, and joins the 32 x 32 lane partials with a
+// transposing butterfly: 31 shuffles for 32 dots instead of 160, the same
+// pairs added in the same tree as the per-dot butterfly, so the same bits.
+// Lane k then holds the k-th live slot's dot and stores it; a slot whose
+// id is < 0 loads nothing and writes max_dist.  xn is read by row id from
+// the norm table inside the kernel (GATHER: the corpus's sqnorm; ROWS:
+// norms in output order), qn from the query row by the canonical order.
+// D % 4 != 0 or a row pointer that is not 16-byte aligned takes the
+// template's scalar-load branch: the same order, 4-byte loads.
+//
+// mode 0 (GATHER): row r of output (q, c) is x[idx[q * C + c]]
+// mode 1 (ROWS):   row r is x[q * C + c] (rows already in output order);
+//                  idx, when given, only masks (idx < 0: max_dist)
+// q (Q, D), x (rows, D) and xn (rows,) are contiguous float32; idx int64.
+// The kernels allocate nothing and never synchronise; they launch on the
+// caller's stream, so CUDA graphs capture them.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kWarps = 8;          // outputs (warps) per block
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kChunk = 128;            // d a warp covers a pass: 32 x float4
+constexpr int kEpiL2 = 0, kEpiCosine = 1, kEpiDot = 2;
+constexpr int kGather = 0, kRows = 1;
 
-template <int MODE>
-__global__ void __launch_bounds__(32 * kWarps)
-walk_dots_kernel(const float* __restrict__ q, const float* __restrict__ x,
-                 const int64_t* __restrict__ idx, float* __restrict__ out,
-                 int64_t rows, int C, int D) {
-  const int64_t r = static_cast<int64_t>(blockIdx.x) * kWarps +
-                    threadIdx.x / 32;
-  if (r >= rows) return;                       // whole warps leave together
-  const int lane = threadIdx.x & 31;
-  int64_t xi;
-  if (MODE == 0) {
-    xi = idx[r];
-  } else if (MODE == 1) {
-    xi = r;
-  } else {
-    xi = r % C;
+template <int EPI>
+__device__ __forceinline__ float epilogue(float dot, float qn, float xn) {
+  if (EPI == kEpiL2) {
+    return fmaxf(__fsub_rn(__fadd_rn(qn, xn), __fmul_rn(2.0f, dot)), 0.0f);
   }
-  const float* qr = q + (r / C) * static_cast<int64_t>(D);
-  const float* xr = x + xi * static_cast<int64_t>(D);
-  float acc = 0.0f;
-  for (int d = lane; d < D; d += 32) acc = fmaf(qr[d], xr[d], acc);
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, s);
-  if (lane == 0) out[r] = acc;
+  if (EPI == kEpiCosine) return __fsub_rn(1.0f, dot);
+  return dot;
 }
+
+__device__ __forceinline__ float warp_sum(float acc) {
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) acc += __shfl_xor_sync(kFull, acc, s);
+  return acc;
+}
+
+// 4 consecutive d of a row from d0 (zeros past D or for a row not there);
+// GLOBAL: the row is in device memory (read-only cache), else generic
+template <bool VEC, bool GLOBAL>
+__device__ __forceinline__ float4 load4(const float* __restrict__ row, int d0,
+                                        int D, bool ok) {
+  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (VEC) {
+    if (ok && d0 < D) {
+      const float4* p = reinterpret_cast<const float4*>(row + d0);
+      v = GLOBAL ? __ldg(p) : *p;
+    }
+  } else if (ok) {
+    if (d0 + 0 < D) v.x = GLOBAL ? __ldg(row + d0 + 0) : row[d0 + 0];
+    if (d0 + 1 < D) v.y = GLOBAL ? __ldg(row + d0 + 1) : row[d0 + 1];
+    if (d0 + 2 < D) v.z = GLOBAL ? __ldg(row + d0 + 2) : row[d0 + 2];
+    if (d0 + 3 < D) v.w = GLOBAL ? __ldg(row + d0 + 3) : row[d0 + 3];
+  }
+  return v;
+}
+
+// One step of the canonical order: a lane's products at d .. d + 3 (those
+// below D) added to its partial with fmaf, in d order.
+template <bool VEC>
+__device__ __forceinline__ float fma4(float4 a, float4 b, float acc, int d,
+                                      int D) {
+  if (VEC || d + 0 < D) acc = fmaf(a.x, b.x, acc);
+  if (VEC || d + 1 < D) acc = fmaf(a.y, b.y, acc);
+  if (VEC || d + 2 < D) acc = fmaf(a.z, b.z, acc);
+  if (VEC || d + 3 < D) acc = fmaf(a.w, b.w, acc);
+  return acc;
+}
+
+// Lane `lane`'s partials of R rows' squared norms in the canonical order,
+// the R rows' loads in flight together (rows with ok false give 0).
+template <bool VEC, bool GLOBAL, int R>
+__device__ __forceinline__ void lane_sqnorms(const float* const (&rows)[R],
+                                             const bool (&ok)[R], int D,
+                                             int lane, float (&p)[R]) {
+#pragma unroll
+  for (int u = 0; u < R; ++u) p[u] = 0.0f;
+  for (int d = 4 * lane; d < D; d += kChunk) {
+    float4 v[R];
+#pragma unroll
+    for (int u = 0; u < R; ++u) {
+      v[u] = load4<VEC, GLOBAL>(rows[u], d, D, ok[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < R; ++u) p[u] = fma4<VEC>(v[u], v[u], p[u], d, D);
+  }
+}
+
+// A row's squared norm in the canonical order; every lane gets the same
+// bits.  With lane_sqnorms, the one norm function of every kernel here.
+template <bool VEC, bool GLOBAL>
+__device__ __forceinline__ float warp_sqnorm(const float* row, int D,
+                                             int lane) {
+  const float* const rows[1] = {row};
+  const bool ok[1] = {true};
+  float p[1];
+  lane_sqnorms<VEC, GLOBAL, 1>(rows, ok, D, lane, p);
+  return warp_sum(p[0]);
+}
+
+// ---- kernel 1: seeding, every pivot for every query ----------------------
+
+constexpr int kTileM = 128;            // queries a CTA
+constexpr int kTileN = 128;            // pivots a CTA
+constexpr int kTileK = 8;              // d a k-tile
+constexpr int kSeedThreads = 256;      // 16 x 16 threads, 8 x 8 outputs each
+constexpr int kTileStride = kTileM + 4;  // padded row of a transposed tile
+
+template <int EPI, bool VEC>
+__global__ void __launch_bounds__(kSeedThreads, 2)
+walk_seed_kernel(const float* __restrict__ q, const float* __restrict__ x,
+                 const float* __restrict__ xn, float* __restrict__ out,
+                 int Q, int P, int D) {
+  __shared__ __align__(16) float As[2][kTileK][kTileStride];
+  __shared__ __align__(16) float Bs[2][kTileK][kTileStride];
+  __shared__ float qn_s[kTileM];
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.y * kTileM;
+  const int p0 = blockIdx.x * kTileN;
+
+  // loader: thread -> row lr of both tiles, d lc .. lc + 3 of the k-tile
+  const int lr = tid >> 1;
+  const int lc = (tid & 1) * 4;
+  const bool qok = q0 + lr < Q;
+  const bool pok = p0 + lr < P;
+  const float* qrow = q + static_cast<int64_t>(qok ? q0 + lr : 0) * D;
+  const float* xrow = x + static_cast<int64_t>(pok ? p0 + lr : 0) * D;
+  float4 ra = load4<VEC, true>(qrow, lc, D, qok);
+  float4 rb = load4<VEC, true>(xrow, lc, D, pok);
+
+  if (EPI == kEpiL2) {
+    // the tile's query norms while the first k-tile loads: 16 rows a
+    // warp, 8 rows' loads in flight together
+    const int lane = tid & 31;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m0 = (tid >> 5) * 16 + h * 8;
+      const float* rows[8];
+      bool ok[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        ok[u] = q0 + m0 + u < Q;
+        rows[u] = q + static_cast<int64_t>(ok[u] ? q0 + m0 + u : 0) * D;
+      }
+      float p[8];
+      lane_sqnorms<VEC, true, 8>(rows, ok, D, lane, p);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const float v = warp_sum(p[u]);
+        if (lane == 0) qn_s[m0 + u] = v;
+      }
+    }
+  }
+
+  As[0][lc + 0][lr] = ra.x; As[0][lc + 1][lr] = ra.y;
+  As[0][lc + 2][lr] = ra.z; As[0][lc + 3][lr] = ra.w;
+  Bs[0][lc + 0][lr] = rb.x; Bs[0][lc + 1][lr] = rb.y;
+  Bs[0][lc + 2][lr] = rb.z; Bs[0][lc + 3][lr] = rb.w;
+  __syncthreads();
+
+  // thread -> rows ty*4 + i and 64 + ty*4 + i, columns tx + 16 j
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  }
+  const int tiles = (D + kTileK - 1) / kTileK;
+  for (int t = 0; t < tiles; ++t) {
+    const int buf = t & 1;
+    const bool more = t + 1 < tiles;
+    if (more) {
+      ra = load4<VEC, true>(qrow, (t + 1) * kTileK + lc, D, qok);
+      rb = load4<VEC, true>(xrow, (t + 1) * kTileK + lc, D, pok);
+    }
+#pragma unroll
+    for (int k = 0; k < kTileK; ++k) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][k][ty * 4]);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(&As[buf][k][64 + ty * 4]);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      float b[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) b[j] = Bs[buf][k][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+    }
+    if (more) {
+      const int nb = buf ^ 1;
+      As[nb][lc + 0][lr] = ra.x; As[nb][lc + 1][lr] = ra.y;
+      As[nb][lc + 2][lr] = ra.z; As[nb][lc + 3][lr] = ra.w;
+      Bs[nb][lc + 0][lr] = rb.x; Bs[nb][lc + 1][lr] = rb.y;
+      Bs[nb][lc + 2][lr] = rb.z; Bs[nb][lc + 3][lr] = rb.w;
+    }
+    __syncthreads();
+  }
+
+  float xnv[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int p = p0 + tx + 16 * j;
+    xnv[j] = (EPI == kEpiL2 && p < P) ? __ldg(xn + p) : 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = (i < 4 ? 0 : 64) + ty * 4 + (i & 3);
+    if (q0 + m >= Q) continue;
+    const float qn = EPI == kEpiL2 ? qn_s[m] : 0.0f;
+    float* orow = out + static_cast<int64_t>(q0 + m) * P + p0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = tx + 16 * j;
+      if (p0 + n < P) orow[n] = epilogue<EPI>(acc[i][j], qn, xnv[j]);
+    }
+  }
+}
+
+// ---- kernel 2: in-loop scoring, one CTA a query --------------------------
+
+constexpr int kScoreWarps = 8;
+// CTAs a scoring call aims for (8 an SM): a small batch splits each query's
+// slots over several CTAs (slots are independent: no bit moves)
+constexpr int kScoreCtas = 8 * 132;
+constexpr int kScoreMinBlocks = 2;    // CTAs an SM: at most 128 registers
+
+// Joins 32 lane partials of 2S slots into S: lane l keeps the slots whose
+// bit log2(S) equals its own and adds its partner's (lane l ^ S) partial of
+// them, the pair the per-dot butterfly adds at that stage.
+template <int S>
+__device__ __forceinline__ void fold(float (&p)[32], int lane) {
+  const bool hi = (lane & S) != 0;
+#pragma unroll
+  for (int t = 0; t < S; ++t) {
+    const float send = hi ? p[t] : p[t + S];
+    const float keep = hi ? p[t + S] : p[t];
+    p[t] = keep + __shfl_xor_sync(kFull, send, S);
+  }
+}
+
+template <int MODE, int EPI, bool VEC>
+__global__ void __launch_bounds__(32 * kScoreWarps, kScoreMinBlocks)
+walk_score_kernel(const float* __restrict__ q, const float* __restrict__ x,
+                  const int64_t* __restrict__ idx,
+                  const float* __restrict__ xn, float* __restrict__ out,
+                  int C, int D, int groups_per_cta, float max_dist) {
+  extern __shared__ float4 q_smem[];    // the query, zero padded per chunk
+  // a warp's live slots of its current group, in lane order
+  __shared__ int live_slot[kScoreWarps][32];
+  float* qs = reinterpret_cast<float*>(q_smem);
+  const int row = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int dpad = (D + kChunk - 1) / kChunk * kChunk;
+  const float* qr = q + static_cast<int64_t>(row) * D;
+  for (int d = threadIdx.x; d < dpad; d += blockDim.x) {
+    qs[d] = d < D ? qr[d] : 0.0f;
+  }
+  __syncthreads();
+  const float qn = EPI == kEpiL2 ? warp_sqnorm<VEC, false>(qs, D, lane)
+                                 : 0.0f;
+  const int64_t base = static_cast<int64_t>(row) * C;
+
+  // lane's slot c of group g -> its row of x (-1: masked or past C)
+  auto row_of = [&](int g) -> int {
+    const int c = g * 32 + lane;
+    if (c >= C) return -1;
+    if (MODE == kGather) {
+      const int64_t id = idx[base + c];
+      return id < 0 ? -1 : static_cast<int>(id);
+    }
+    return (idx == nullptr || idx[base + c] >= 0)
+               ? static_cast<int>(base + c) : -1;
+  };
+
+  const int groups = (C + 31) / 32;
+  const int g_begin = static_cast<int>(blockIdx.y) * groups_per_cta;
+  const int g_end = min(groups, g_begin + groups_per_cta);
+  int r_next = g_begin + warp < g_end ? row_of(g_begin + warp) : -1;
+  for (int g = g_begin + warp; g < g_end; g += kScoreWarps) {
+    const int c = g * 32 + lane;
+    const int r = r_next;
+    if (g + kScoreWarps < g_end) r_next = row_of(g + kScoreWarps);
+    const float xv = (EPI == kEpiL2 && r >= 0) ? __ldg(xn + r) : 0.0f;
+    // compact the live slots: the k-th live slot is scored at position k,
+    // so a masked slot costs no load and no FMA
+    const unsigned live = __ballot_sync(kFull, r >= 0);
+    const int n = __popc(live);
+    if (r >= 0) live_slot[warp][__popc(live & ((1u << lane) - 1u))] = lane;
+    __syncwarp();
+    const int src = lane < n ? live_slot[warp][lane] : lane;
+    const int rk = __shfl_sync(kFull, r, src);        // position lane's row
+    float part[32];
+#pragma unroll
+    for (int s = 0; s < 32; ++s) part[s] = 0.0f;
+    for (int d0 = 0; d0 < D; d0 += kChunk) {
+      const int d = d0 + 4 * lane;
+      const bool in = d < D;
+      const float4 qv = *reinterpret_cast<const float4*>(qs + d);
+#pragma unroll
+      for (int s0 = 0; s0 < 32; s0 += 8) {
+        if (s0 >= n) break;                           // whole warps
+        float4 v[8];
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          const int rs = __shfl_sync(kFull, rk, s0 + t);
+          const bool ok = s0 + t < n;
+          v[t] = load4<VEC, true>(
+              x + static_cast<int64_t>(ok ? rs : 0) * D, d, D, ok);
+        }
+        if (in) {
+#pragma unroll
+          for (int t = 0; t < 8; ++t) {
+            part[s0 + t] = fma4<VEC>(qv, v[t], part[s0 + t], d, D);
+          }
+        }
+      }
+    }
+    fold<16>(part, lane);
+    fold<8>(part, lane);
+    fold<4>(part, lane);
+    fold<2>(part, lane);
+    fold<1>(part, lane);
+    // lane k < n holds the dot of live slot src; masked slots write
+    // max_dist themselves
+    const float xk = __shfl_sync(kFull, xv, src);
+    if (lane < n) {
+      out[base + g * 32 + src] = epilogue<EPI>(part[0], qn, xk);
+    }
+    if (c < C && r < 0) out[base + c] = max_dist;
+    __syncwarp();                     // live_slot is rewritten next group
+  }
+}
+
+// ---- the norm helper -----------------------------------------------------
+
+constexpr int kNormWarps = 8;
+
+template <bool VEC>
+__global__ void __launch_bounds__(32 * kNormWarps)
+walk_sqnorms_kernel(const float* __restrict__ x, float* __restrict__ out,
+                    int64_t N, int D) {
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * kNormWarps +
+                    (threadIdx.x >> 5);
+  if (r >= N) return;                          // whole warps leave together
+  const float v = warp_sqnorm<VEC, true>(x + r * D, D, threadIdx.x & 31);
+  if ((threadIdx.x & 31) == 0) out[r] = v;
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+#define SPTAG_EPI_SWITCH(EPI_VAR, ...)          \
+  switch (EPI_VAR) {                            \
+    case kEpiL2: { constexpr int E = kEpiL2; __VA_ARGS__; } break;         \
+    case kEpiCosine: { constexpr int E = kEpiCosine; __VA_ARGS__; } break; \
+    case kEpiDot: { constexpr int E = kEpiDot; __VA_ARGS__; } break;       \
+    default: return -2;                         \
+  }
 
 }  // namespace
 
-extern "C" int sptag_walk_dots(const void* q, const void* x, const void* idx,
-                               void* out, long long rows, int C, int D,
-                               int mode, void* stream) {
-  if (rows <= 0) return 0;
-  if (C <= 0 || D <= 0) return -1;
-  const long long blocks = (rows + kWarps - 1) / kWarps;
-  if (blocks > 2147483647LL) return -1;
-  const dim3 grid(static_cast<unsigned>(blocks));
-  const dim3 block(32 * kWarps);
+// out (Q, P) = epilogue(q @ x.T); xn (P,) is read for L2 only.
+extern "C" int sptag_walk_seed(const void* q, const void* x, const void* xn,
+                               void* out, int Q, int P, int D, int epi,
+                               void* stream) {
+  if (Q <= 0 || P <= 0) return 0;
+  if (D <= 0) return -1;
+  const dim3 grid((P + kTileN - 1) / kTileN, (Q + kTileM - 1) / kTileM);
+  if (grid.y > 65535u) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* qf = static_cast<const float*>(q);
+  const float* xf = static_cast<const float*>(x);
+  const float* nf = static_cast<const float*>(xn);
+  float* o = static_cast<float*>(out);
+  const bool vec = D % 4 == 0 && aligned16(q) && aligned16(x);
+  SPTAG_EPI_SWITCH(epi,
+    if (vec) {
+      walk_seed_kernel<E, true><<<grid, kSeedThreads, 0, s>>>(qf, xf, nf, o,
+                                                              Q, P, D);
+    } else {
+      walk_seed_kernel<E, false><<<grid, kSeedThreads, 0, s>>>(qf, xf, nf, o,
+                                                               Q, P, D);
+    })
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out (Q, C) = epilogue of each slot's dot, max_dist where the slot is
+// masked.
+extern "C" int sptag_walk_score(const void* q, const void* x, const void* idx,
+                                const void* xn, void* out, int Q, int C,
+                                int D, int mode, int epi, float max_dist,
+                                void* stream) {
+  if (Q <= 0 || C <= 0) return 0;
+  if (D <= 0) return -1;
+  const int groups = (C + 31) / 32;
+  const int splits = max(1, min((groups + kScoreWarps - 1) / kScoreWarps,
+                                (kScoreCtas + Q - 1) / Q));
+  const int per_cta = (groups + splits - 1) / splits;
+  const dim3 grid(Q, (groups + per_cta - 1) / per_cta);
+  const size_t smem = static_cast<size_t>((D + kChunk - 1) / kChunk) *
+                      kChunk * sizeof(float);
+  if (smem > 48 * 1024) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* qf = static_cast<const float*>(q);
   const float* xf = static_cast<const float*>(x);
   const int64_t* ix = static_cast<const int64_t*>(idx);
+  const float* nf = static_cast<const float*>(xn);
   float* o = static_cast<float*>(out);
+  const bool vec = D % 4 == 0 && aligned16(x);
+  const dim3 block(32 * kScoreWarps);
+#define SPTAG_SCORE(M)                                                      \
+  SPTAG_EPI_SWITCH(epi,                                                     \
+    if (vec) {                                                              \
+      walk_score_kernel<M, E, true><<<grid, block, smem, s>>>(              \
+          qf, xf, ix, nf, o, C, D, per_cta, max_dist);                      \
+    } else {                                                                \
+      walk_score_kernel<M, E, false><<<grid, block, smem, s>>>(             \
+          qf, xf, ix, nf, o, C, D, per_cta, max_dist);                      \
+    })
   switch (mode) {
-    case 0:
-      walk_dots_kernel<0><<<grid, block, 0, s>>>(qf, xf, ix, o, rows, C, D);
-      break;
-    case 1:
-      walk_dots_kernel<1><<<grid, block, 0, s>>>(qf, xf, ix, o, rows, C, D);
-      break;
-    case 2:
-      walk_dots_kernel<2><<<grid, block, 0, s>>>(qf, xf, ix, o, rows, C, D);
-      break;
-    default:
-      return -2;
+    case kGather: SPTAG_SCORE(kGather) break;
+    case kRows: SPTAG_SCORE(kRows) break;
+    default: return -2;
+  }
+#undef SPTAG_SCORE
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out (N,) = each row's squared norm by warp_sqnorm.
+extern "C" int sptag_walk_sqnorms(const void* x, void* out, long long N,
+                                  int D, void* stream) {
+  if (N <= 0) return 0;
+  if (D <= 0) return -1;
+  const long long blocks = (N + kNormWarps - 1) / kNormWarps;
+  if (blocks > 2147483647LL) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  float* o = static_cast<float*>(out);
+  const dim3 grid(static_cast<unsigned>(blocks));
+  const dim3 block(32 * kNormWarps);
+  if (D % 4 == 0 && aligned16(x)) {
+    walk_sqnorms_kernel<true><<<grid, block, 0, s>>>(xf, o, N, D);
+  } else {
+    walk_sqnorms_kernel<false><<<grid, block, 0, s>>>(xf, o, N, D);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -939,47 +939,189 @@ def test_server_on_card_answers_like_cpu_server(cuda, tmp_path):
     assert len(res.results[0].ids) == 10
 
 
+def _walk_inputs(gen, Q, N, C, D, dev):
+    """Unit-normal queries and rows, (Q, C) int64 ids about 30% -1."""
+    q = torch.randn((Q, D), generator=gen)
+    x = torch.randn((N, D), generator=gen)
+    idx = torch.randint(0, N, (Q, C), generator=gen)
+    idx[torch.rand((Q, C), generator=gen) < 0.3] = -1
+    return q.to(dev), x.to(dev), idx.to(dev)
+
+
+def _misaligned(x):
+    """A contiguous copy of `x` whose data pointer is 4 bytes past a
+    16-byte boundary (the kernels' scalar-load branch)."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = flat[1:].view(x.shape)
+    out.copy_(x)
+    assert out.data_ptr() % 16 != 0
+    return out
+
+
+# (Q, C or P): ragged against every tile and slot group
+WALK_SHAPES = [(1, 8333), (7, 129), (129, 7), (130, 300)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [128, 100, 33])
+@pytest.mark.parametrize("D", [64, 100, 128, 200, 33])
+@pytest.mark.parametrize("metric", ["l2", "cosine"])
 @pytest.mark.parametrize("mode", ["gather", "rows", "shared"])
-def test_walk_dots_kernel_matches_plain_version(cuda, mode, D):
-    """The walk's fixed-order dots against their plain version, in each
-    of the three row modes."""
+def test_walk_dots_kernel_matches_plain_version(cuda, mode, metric, D):
+    """The walk's two fixed-order distance kernels (and the norm helper)
+    against their plain versions, in each row mode and metric, at ragged
+    Q, C and P: within 1e-5 * (qn + xn + 2 sum |q_d x_d|) a distance,
+    the bare dots within rtol 1e-5, atol 1e-4; -1 slots MAX_DIST."""
     from sptag_tpu_torch.ops import walk_dots as wd
 
     gen = torch.Generator().manual_seed(D)
-    Q, C, N = 37, 29, 500
-    q = torch.randn((Q, D), generator=gen).to(cuda)
-    x = torch.randn((N, D), generator=gen).to(cuda)
-    idx = torch.randint(0, N, (Q, C), generator=gen).to(cuda)
     m = {"gather": wd.GATHER, "rows": wd.ROWS, "shared": wd.SHARED}[mode]
-    if m == wd.ROWS:
-        x = x[idx].reshape(Q * C, D).contiguous()
-    before = wd.launches
-    got = wd.walk_dots(q, x, idx if m == wd.GATHER else None, m,
-                       C if m != wd.SHARED else N)
-    want = wd.walk_dots_reference(q, x, idx, m, C if m != wd.SHARED else N)
-    assert wd.launches == before + 1
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    epi = wd.L2 if metric == "l2" else wd.COSINE
+    for Q, C in WALK_SHAPES:
+        q, x, idx = _walk_inputs(gen, Q, C if m == wd.SHARED else 500, C,
+                                 D, cuda)
+        sq = wd.row_sqnorms(x)
+        torch.testing.assert_close(sq, (x * x).sum(1), rtol=1e-5, atol=0)
+        if m == wd.SHARED:
+            name = "walk_seed_f32"
+            torch.testing.assert_close(
+                wd.walk_seed(q, x, None, wd.DOT),
+                wd.walk_seed_reference(q, x, None, wd.DOT),
+                rtol=1e-5, atol=1e-4)
+            before = wd.launch_counts()
+            got = wd.walk_seed(q, x, sq, epi)
+            want = wd.walk_seed_reference(q, x, sq, epi)
+            absdot = q.abs() @ x.abs().T
+            xn = sq[None, :]
+        else:
+            name = "walk_score_f32"
+            safe = idx.clamp_min(0)
+            rows, table = ((x, sq) if m == wd.GATHER else
+                           (x[safe].reshape(-1, D).contiguous(),
+                            sq[safe].reshape(-1).contiguous()))
+            torch.testing.assert_close(
+                wd.walk_score(q, rows, idx, None, wd.DOT, m, C),
+                wd.walk_score_reference(q, rows, idx, None, wd.DOT, m, C),
+                rtol=1e-5, atol=1e-4)
+            before = wd.launch_counts()
+            got = wd.walk_score(q, rows, idx, table, epi, m, C)
+            want = wd.walk_score_reference(q, rows, idx, table, epi, m, C)
+            absdot = torch.einsum("qd,qcd->qc", q.abs(), x[safe].abs())
+            xn = sq[safe]
+            masked = idx < 0
+            assert bool((got[masked] == wd.MAX_DIST).all())
+        assert wd.launch_counts()[name] == before[name] + 1
+        torch.cuda.synchronize()
+        tol = 1e-5 * ((q * q).sum(1)[:, None] + xn + 2 * absdot)
+        err = (got.double() - want.double()).abs()
+        assert bool((err <= tol.double()).all()), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [True, False])
+def test_walk_fused_epilogue_equals_the_unfused_formula(cuda, aligned):
+    """Each kernel's L2 and cosine outputs equal the unfused formula over
+    the kernel's own dots (its bare-dot epilogue) and norms (the norm
+    helper, the kernels' one norm function) bit for bit: the epilogue is
+    not contracted into an FMA.  A -1 slot gives MAX_DIST; ROWS gives
+    GATHER's bits.  Misaligned rows take the scalar-load branch and give
+    the same bits."""
+    from sptag_tpu_torch.ops import walk_dots as wd
+
+    gen = torch.Generator().manual_seed(11)
+    for D in (128, 100, 33):
+        q, x, idx = _walk_inputs(gen, 37, 600, 300, D, cuda)
+        if not aligned:
+            q, x = _misaligned(q), _misaligned(x)
+        qn, xn = wd.row_sqnorms(q), wd.row_sqnorms(x)
+        dot = wd.walk_seed(q, x, None, wd.DOT)
+        assert torch.equal(wd.walk_seed(q, x, xn, wd.L2), torch.clamp_min(
+            qn[:, None] + xn[None, :] - 2.0 * dot, 0.0))
+        assert torch.equal(wd.walk_seed(q, x, None, wd.COSINE), 1.0 - dot)
+        C = idx.shape[1]
+        safe = idx.clamp_min(0)
+        masked = idx < 0
+        dot = wd.walk_score(q, x, idx, None, wd.DOT, wd.GATHER, C)
+        assert bool((dot[masked] == wd.MAX_DIST).all())
+        l2 = torch.where(masked, wd.MAX_DIST, torch.clamp_min(
+            qn[:, None] + xn[safe] - 2.0 * dot, 0.0))
+        cos = torch.where(masked, wd.MAX_DIST, 1.0 - dot)
+        assert torch.equal(wd.walk_score(q, x, idx, xn, wd.L2, wd.GATHER, C),
+                           l2)
+        assert torch.equal(
+            wd.walk_score(q, x, idx, None, wd.COSINE, wd.GATHER, C), cos)
+        rows = x[safe].reshape(-1, D)
+        rows = _misaligned(rows) if not aligned else rows.contiguous()
+        table = xn[safe].reshape(-1).contiguous()
+        assert torch.equal(wd.walk_score(q, rows, idx, table, wd.L2,
+                                         wd.ROWS, C), l2)
+        bare = wd.walk_score(q, rows, None, None, wd.DOT, wd.ROWS, C)
+        assert torch.equal(bare[~masked], dot[~masked])
+        # a row against itself: the norm helper's bits are the kernel's
+        # own dot of the row with itself, so (qn + qn) - 2 qn is 0
+        assert torch.equal(wd.walk_score(q, q, None, qn, wd.L2, wd.ROWS, 1),
+                           torch.zeros_like(qn)[:, None])
+
+
+@pytest.mark.cuda
+def test_walk_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    """On the card a wrapper launches its kernel or raises: int32 or
+    non-contiguous ids, rows or norms on another device, another dtype
+    or a ROWS table of the wrong length are refused before any launch."""
+    from sptag_tpu_torch.ops import walk_dots as wd
+
+    gen = torch.Generator().manual_seed(5)
+    q, x, idx = _walk_inputs(gen, 7, 300, 40, 64, cuda)
+    sq = wd.row_sqnorms(x)
+    before = wd.launch_counts()
+    bad = [
+        lambda: wd.walk_score(q, x, idx.int(), sq, wd.L2, wd.GATHER, 40),
+        lambda: wd.walk_score(q, x, idx.t().contiguous().t(), sq, wd.L2,
+                              wd.GATHER, 40),
+        lambda: wd.walk_score(q, x, idx, sq.cpu(), wd.L2, wd.GATHER, 40),
+        lambda: wd.walk_score(q, x.double(), idx, sq, wd.L2, wd.GATHER, 40),
+        lambda: wd.walk_score(q, x[:279], idx, sq[:279], wd.L2, wd.ROWS,
+                              40),
+        lambda: wd.walk_seed(q, x.cpu(), sq, wd.L2),
+        lambda: wd.walk_seed(q, x, sq[:-1], wd.L2),
+        lambda: wd.walk_seed(q[:, :32], x, sq, wd.L2)]
+    for call in bad:
+        with pytest.raises((TypeError, ValueError)):
+            call()
+    assert wd.launch_counts() == before
 
 
 @pytest.mark.cuda
 def test_walk_dots_bits_do_not_depend_on_the_batch(cuda):
-    """A query's dots, and its whole walk on a float32 corpus, come out
-    bit for bit alike alone, in a small batch and in a batch of 1,024."""
+    """A query's distances in each row mode (seeding against shared rows,
+    gathered rows, rows in output order), and its whole walk on a float32
+    corpus, come out bit for bit alike alone, in small batches and in a
+    batch of 1,024, eager and replayed."""
     from sptag_tpu_torch.algo import engine as teng
     from sptag_tpu_torch.core.types import DistCalcMethod
     from sptag_tpu_torch.ops import walk_dots as wd
 
     gen = torch.Generator().manual_seed(3)
-    x = torch.randn((4000, 64), generator=gen).to(cuda)
-    q = torch.randn((1024, 64), generator=gen).to(cuda)
-    idx = torch.randint(0, 4000, (1024, 300), generator=gen).to(cuda)
-    full = wd.walk_dots(q, x, idx, wd.GATHER, 300)
-    for rows in (slice(0, 1), slice(5, 21), slice(100, 164)):
-        part = wd.walk_dots(q[rows].contiguous(), x,
-                            idx[rows].contiguous(), wd.GATHER, 300)
-        assert torch.equal(part, full[rows])
+    q, x, idx = _walk_inputs(gen, 1024, 4000, 300, 64, cuda)
+    sq = wd.row_sqnorms(x)
+    pivots = x[:3001].contiguous()
+    piv_sq = wd.row_sqnorms(pivots)
+    rows = x[idx.clamp_min(0)].reshape(-1, 64).contiguous()
+    rows_sq = sq[idx.clamp_min(0)].reshape(-1).contiguous()
+    full = {
+        "gather": wd.walk_score(q, x, idx, sq, wd.L2, wd.GATHER, 300),
+        "rows": wd.walk_score(q, rows, idx, rows_sq, wd.L2, wd.ROWS, 300),
+        "shared": wd.walk_seed(q, pivots, piv_sq, wd.L2)}
+    for lo, hi in ((0, 1), (5, 12), (100, 116), (300, 429)):
+        qs, ids = q[lo:hi].contiguous(), idx[lo:hi].contiguous()
+        part = {
+            "gather": wd.walk_score(qs, x, ids, sq, wd.L2, wd.GATHER, 300),
+            "rows": wd.walk_score(
+                qs, rows[lo * 300:hi * 300].contiguous(), ids,
+                rows_sq[lo * 300:hi * 300].contiguous(), wd.L2, wd.ROWS,
+                300),
+            "shared": wd.walk_seed(qs, pivots, piv_sq, wd.L2)}
+        for mode, d in part.items():
+            assert torch.equal(d, full[mode][lo:hi]), (mode, lo, hi)
     data = np.random.default_rng(4).standard_normal((6000, 64)).astype(
         np.float32)
     queries = np.random.default_rng(5).standard_normal((1024, 64)).astype(
