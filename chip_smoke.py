@@ -9,10 +9,11 @@ It builds the CUDA kernels from ``sptag_tpu_torch/csrc`` (first use), drives
 the port's BKT dense path, its BKT graph path (RNG graph build, beam walk),
 FLAT, online mutation (inline and delta-shard adds, the background swap,
 delete, compaction, the write-ahead log), the KDT index, the walk's bf16,
-packed and segmented options, the slot scheduler and the socket search
-server through their public entry points at the repository's headline
-sizes, checks what comes out, and compares every kernel with its plain
-PyTorch version.  Each
+packed and segmented options, the slot scheduler, the socket search
+server, the CLIs, resumable builds, the aggregator, the serving control
+plane and the wrappers through their public entry points at the
+repository's headline sizes, checks what comes out, and compares every
+kernel with its plain PyTorch version.  Each
 phase prints one JSON line; any failure exits non-zero.  Without a CUDA
 card, or outside the repository, it exits non-zero and prints no result.
 
@@ -129,13 +130,47 @@ Phases, in the order they run:
    ever-new padded sizes and budgets with ``QualitySampleRate=1`` and
    the flight recorder on: no request fails, the shadow recall printed,
    a slow-query dump holds the server's and the scheduler's events; (f) after ``stop()`` no scheduler worker, serving thread or
-   new non-daemon thread is left.
+   new non-daemon thread is left;
+13. the f32 L2 headline (phase 3's corpus) cut into two shards of 100,000
+   rows at the graph parameters: (a) each shard written as a ``BIN:``
+   vector file and built by ``python -m
+   sptag_tpu_torch.tools.index_builder`` with no device flag (the card),
+   both processes started together, and ``tools.index_searcher`` on shard
+   0 with the exact top-10 of FLAT on the card as its truth file, its
+   recall and ids held to an in-process ``search_batch``; (b) shard 0
+   built in-process with ``checkpoint_dir``, interrupted at its first
+   refine pass, resumed (``build_resumed``, graph and tree files held
+   equal to (a)'s folder) and built once more uninterrupted, each timed;
+   (c) two port ``SearchServer`` s (one shard each, every row's global id
+   as its metadata) behind the port's aggregator with ``MergeTopK``, the
+   1,024 queries through ``wrappers.AnnClient`` from 16 threads, beam
+   then ``$searchmode:dense``, the merged global ids held to the
+   in-process merge of the two shards' ``search_batch`` at every
+   separated rank and the distances to phase 2's float32 bound, recall@10
+   against the 200k exact truth, QPS and p50 / p99; (d) servers and
+   aggregator again with ``AdmissionControl``, a tight p99 objective (so
+   the SLO engine pages and the controller acts), canaries, the
+   controller and the metrics listener, through phase 12d's ramp (4
+   steps): no request fails except with admission's overload status,
+   every canary probe succeeds, ``/metrics`` parses and carries the
+   ``admission`` / ``slo`` / ``canary`` / ``controller`` series,
+   ``/debug/memory`` names the JAX package's components within
+   ``torch.cuda.memory_allocated``, and each of three
+   ``/debug/devicetrace`` traces taken under load holds a walk or
+   block-dot kernel event while an overlapping one answers 409; (e) ``AnnIndex`` over shard 0: ``Search`` /
+   ``SearchWithMetaData`` / ``BatchSearch`` ids held to ``search_batch``,
+   1,000 adds found, 100 deletes by content, a ``Save`` / ``Load`` round
+   trip with the same ids; (f) every subprocess exited 0 and no serving,
+   canary, listener or scheduler thread is left.  Phase 2 holds the
+   block-dot kernels again on the first calls of (b)'s build and (c)'s
+   dense requests, with the launches counted over (b)-(e).
 
 Launch counts are zeroed just before phase 3 and read just after phase 5
 (the walk's just before phase 7's beam searches and read after them),
 and zeroed again before each graph build of phases 7 and 7b, before the
-refine of phase 9c and before the dense searches of phase 10, and read
-after each (FLAT launches no hand-written kernel).
+refine of phase 9c, before the dense searches of phase 10 and before
+phase 13b, and read after each (phase 13's after 13e; FLAT launches no
+hand-written kernel).
 Each query set is searched ``PASSES`` times over for its batch times; the
 QPS and batch percentiles are smoke readings of that window, not a
 benchmark.  Phase 2's ``ms``, ``plain_ms`` and ``library_ms`` are each the
@@ -155,6 +190,7 @@ wall time (``wall_s``).
 import json
 import logging
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -1477,7 +1513,7 @@ class ServerRunner:
                                        name="chip-smoke-serve-loop")
         self.thread.start()
         if not ready.wait(60):
-            fail("12: the server did not start")
+            fail("the server did not start")
 
     def stop(self) -> None:
         import asyncio
@@ -1613,19 +1649,26 @@ def hold_parity(label, d, ids, bad, ref_d, ref_i, host, q) -> dict:
            "ids_differing_at_separated_ranks": diff,
            "distances_within_f32_bound": dist_ok}
     check(bad == 0 and diff == 0 and dist_ok,
-          f"12{label}: {bad} errors, {diff} ids off the in-process search, "
+          f"{label}: {bad} errors, {diff} ids off the in-process search, "
           f"distances within bound {dist_ok}")
     return out
 
 
 def open_loop_ramp(addr, queries, batch_sizes, label,
-                   max_misses: int = 2) -> dict:
+                   max_misses: int = 2, max_steps: int = 0,
+                   profile_first: bool = True, allowed=None,
+                   on_step=None, phase: str = "12d",
+                   connections: int = 1) -> dict:
     """12d: bench.py's _loadgen_measure without admission control:
     Zipfian keys, bursty modulated-Poisson arrivals, the option palette,
     offered QPS doubling per step until `max_misses` steps miss the SLO
-    (or the top rate); one connection, open loop.  QPS at SLO is the last
-    rate before the first miss.  The card's busy share over the first
-    step from torch.profiler."""
+    (or the top rate, or `max_steps` steps); open loop over `connections`
+    connections, requests dealt round-robin.
+    QPS at SLO is the last rate before the first miss.  The card's busy
+    share over the first step from torch.profiler (unless not
+    `profile_first`).  A reply whose status is in `allowed` (default:
+    Success only) is no error; each status is counted.  `on_step(i)` runs
+    as step i starts."""
     import socket
     import threading
 
@@ -1633,17 +1676,21 @@ def open_loop_ramp(addr, queries, batch_sizes, label,
 
     from sptag_tpu_torch.serve import wire
 
+    allowed = {int(wire.ResultStatus.Success)} if allowed is None \
+        else {int(a) for a in allowed}
     rng = np.random.default_rng(17)
     nq = len(queries)
     zipf_p = 1.0 / np.arange(1, nq + 1, dtype=np.float64) ** 1.1
     zipf_p /= zipf_p.sum()
     texts = {}
-    sock = socket.create_connection(addr, timeout=30)
-    sock.settimeout(None)
+    socks = [socket.create_connection(addr, timeout=30)
+             for _ in range(connections)]
+    for sock in socks:
+        sock.settimeout(None)
     pending, done = {}, {}
     lock = threading.Lock()
 
-    def receiver():
+    def receiver(sock):
         try:
             while True:
                 (h, body), = read_frames(sock, 1)
@@ -1658,9 +1705,9 @@ def open_loop_ramp(addr, queries, batch_sizes, label,
         except OSError:
             pass
 
-    rth = threading.Thread(target=receiver, daemon=True,
-                           name="chip-smoke-ramp-recv")
-    rth.start()
+    for sock in socks:
+        threading.Thread(target=receiver, args=(sock,), daemon=True,
+                         name="chip-smoke-ramp-recv").start()
     next_rid = [1]
 
     def fire(text):
@@ -1669,7 +1716,7 @@ def open_loop_ramp(addr, queries, batch_sizes, label,
         body = wire.RemoteQuery(text).pack()
         with lock:
             pending[rid] = time.perf_counter()
-        sock.sendall(wire.PacketHeader(
+        socks[rid % connections].sendall(wire.PacketHeader(
             wire.PacketType.SearchRequest, wire.PacketProcessStatus.Ok,
             len(body), 0, rid).pack() + body)
         return rid
@@ -1717,7 +1764,7 @@ def open_loop_ramp(addr, queries, batch_sizes, label,
                        for e in prof.key_averages()
                        if e.device_type == torch.autograd.DeviceType.CUDA
                        ) / 1e6
-        lat, errors = [], 0
+        lat, errors, statuses = [], 0, {}
         for r in rids:
             c = done.pop(r, None)
             if c is None:
@@ -1725,7 +1772,8 @@ def open_loop_ramp(addr, queries, batch_sizes, label,
                     pending.pop(r, None)
                 continue
             lat.append(c[0])
-            errors += c[1] != wire.ResultStatus.Success
+            errors += int(c[1]) not in allowed
+            statuses[int(c[1])] = statuses.get(int(c[1]), 0) + 1
         sizes = batch_sizes[n_batches:]
         p50 = float(np.percentile(lat, 50)) * 1e3 if lat else None
         p99 = float(np.percentile(lat, 99)) * 1e3 if lat else None
@@ -1734,7 +1782,7 @@ def open_loop_ramp(addr, queries, batch_sizes, label,
                "answered_qps": len(lat) / max(wall, 1e-9),
                "requests": n_req, "answered": len(lat),
                "unanswered": n_req - len(lat), "errors": errors,
-               "p50_ms": p50, "p99_ms": p99,
+               "statuses": statuses, "p50_ms": p50, "p99_ms": p99,
                "batches": len(sizes),
                "batch_size": ({"p50": float(np.median(sizes)),
                                "mean": float(np.mean(sizes)),
@@ -1763,10 +1811,14 @@ def open_loop_ramp(addr, queries, batch_sizes, label,
         done.clear()
         # the card's busy share is read over the first step; the ramp ends
         # at the top rate or after the second step that misses the SLO
-        while offered <= RAMP_MAX_QPS:
-            ok, row = run_step(offered, profiled=not steps)
+        while offered <= RAMP_MAX_QPS and not (
+                max_steps and len(steps) >= max_steps):
+            if on_step is not None:
+                on_step(len(steps))
+            ok, row = run_step(offered,
+                               profiled=profile_first and not steps)
             steps.append(row)
-            emit({"phase": "12d_step", **label, **row})
+            emit({"phase": f"{phase}_step", **label, **row})
             if not ok:
                 misses += 1
                 if misses == max_misses:
@@ -1776,11 +1828,15 @@ def open_loop_ramp(addr, queries, batch_sizes, label,
                 qps_at_slo = offered
             offered *= 2.0
     finally:
-        sock.close()
+        for sock in socks:
+            sock.close()
     check(all(s["errors"] == 0 for s in below),
-          f"12d: errors below the knee: {[s['errors'] for s in below]}")
+          f"{phase}: errors below the knee: {[s['errors'] for s in below]}")
     return {"qps_at_slo": qps_at_slo, "slo_ms": RAMP_SLO_MS,
-            "steps": len(steps)}
+            "steps": len(steps), "errors": sum(s["errors"] for s in steps),
+            "statuses": {k: sum(s["statuses"].get(k, 0) for s in steps)
+                         for k in {k for s in steps for k in s["statuses"]}},
+            "unanswered": sum(s["unanswered"] for s in steps)}
 
 
 def load_with_observability(addr, queries, index) -> dict:
@@ -1894,7 +1950,7 @@ def server_phase(pt, block_dots, graph_folder, queries, workdir, here,
             f"$indexname:main $searchmode:{mode} " + b64_query(v)
             for v in q])
         d, ids, bad = served_arrays(res, K)
-        row = hold_parity(f"b {mode}", d, ids, bad, *ref[mode],
+        row = hold_parity(f"12b {mode}", d, ids, bad, *ref[mode],
                           index._host, q)
         sizes = batch_sizes[n_batches:]
         row.update({"wall_s": wall, "qps": len(q) / wall,
@@ -1919,7 +1975,8 @@ def server_phase(pt, block_dots, graph_folder, queries, workdir, here,
     res, wall = pool_search(run.addr, ["$indexname:main $searchmode:beam "
                                        + b64_query(v) for v in q])
     d, ids, bad = served_arrays(res, K)
-    out["c"] = hold_parity("c", d, ids, bad, *ref["beam"], index._host, q)
+    out["c"] = hold_parity("12c", d, ids, bad, *ref["beam"], index._host,
+                           q)
     out["c"].update({"wall_s": wall, "streamed_responses":
                      metrics.counter_value("server.streamed_responses")
                      - streamed0})
@@ -2015,6 +2072,891 @@ def server_phase(pt, block_dots, graph_folder, queries, workdir, here,
     out["wall_s"] = time.perf_counter() - t_phase
     emit({"phase": "12def", "d": out["d"], "e": out["e"], "f": out["f"],
           "wall_s": out["wall_s"]})
+
+
+# ---- phase 13: the control plane, the aggregator, the wrappers, the CLIs ---
+# the f32 L2 headline cut into two shards of global rows [lo, hi)
+SHARDS = ((0, 100_000), (100_000, 200_000))
+# the CLI builds use the graph parameters, and serve beam by default
+SHARD_PARAMS = [("DistCalcMethod", "L2")] + GRAPH_PARAMS \
+    + [("SearchMode", "beam")]
+CLI_THREADS = 8
+CLUSTER_QUERIES = 1024
+# concurrent AnnClients of 13c, each a thread sending one query at a time
+CLUSTER_CLIENTS = 16
+# 13d: the open-loop ramp's steps through the aggregator, and the SLO
+# engine's p99 objective: tight on purpose, so that the burn-rate engine
+# pages during the ramp and the controller acts within it
+CLUSTER_RAMP_STEPS = 4
+# the aggregator answers one connection's requests one at a time (the JAX
+# package's aggregator.py), so its ramp deals requests over connections
+CLUSTER_RAMP_CONNECTIONS = 16
+CLUSTER_SLO_P99_MS = 5.0
+# 13d: device traces taken one after another on shard 0 under load, each
+# with an overlapping one that must get 409
+DEVICE_TRACES = 3
+CANARY_MS = 250.0
+ANN_ADDS = 1000
+ANN_DELETES = 100
+# the JAX package's device-memory ledger components (sptag_tpu/utils/
+# devmem.py's call sites)
+JAX_COMPONENTS = {"corpus", "graph", "tree", "dense_blocks", "int8_blocks",
+                  "packed_neighbors", "slot_pool", "delta_shard", "sketch",
+                  "host_corpus", "shard_blocks"}
+# series the control plane publishes on /metrics (name prefixes)
+CONTROL_SERIES = ("sptag_tpu_admission_", "sptag_tpu_slo_",
+                  "sptag_tpu_canary_", "sptag_tpu_controller_")
+
+
+def run_processes(cmds, here, timeout_s=900):
+    """Start every command together; (rc, stdout, stderr, wall seconds)
+    of each, in order."""
+    import threading
+
+    out = [None] * len(cmds)
+
+    def one(i, cmd):
+        t0 = time.perf_counter()
+        p = subprocess.Popen(cmd, cwd=here, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True)
+        try:
+            so, se = p.communicate(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            so, se = p.communicate()
+        out[i] = (p.returncode, so, se, time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=one, args=(i, c),
+                                name=f"chip-smoke-cli-{i}")
+               for i, c in enumerate(cmds)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out
+
+
+def cli_phase(pt, data, queries, workdir, here) -> dict:
+    """13a: each shard written as a BIN: vector file and built by
+    ``python -m sptag_tpu_torch.tools.index_builder`` (no device flag: the
+    card), both processes started together; shard 0's exact top-10 from
+    FLAT on the card as the truth file of ``tools.index_searcher``, whose
+    recall and result ids are held to an in-process search_batch of the
+    folder at the same MaxCheck."""
+    import re
+
+    from sptag_tpu_torch.io import format as fmt
+    from sptag_tpu_torch.tools.index_searcher import calc_recall, load_truth
+
+    out, cmds, folders = {}, [], []
+    d = data.shape[1]
+    for s, (lo, hi) in enumerate(SHARDS):
+        path = os.path.join(workdir, f"shard{s}.bin")
+        fmt.write_matrix(path, data[lo:hi])
+        folders.append(os.path.join(workdir, f"cli_shard{s}"))
+        cmds.append([sys.executable, "-m",
+                     "sptag_tpu_torch.tools.index_builder", "-d", str(d),
+                     "-v", "Float", "-i", "BIN:" + path, "-o", folders[-1],
+                     "-a", "BKT", "-t", str(CLI_THREADS)]
+                    + [f"Index.{k}={v}" for k, v in SHARD_PARAMS])
+    builds = []
+    for (rc, so, se, wall), cmd in zip(run_processes(cmds, here), cmds):
+        m = re.search(r"built index in ([0-9.]+)s on device=(\w+)", se)
+        builds.append({"rc": rc, "process_s": wall,
+                       "build_s": float(m.group(1)) if m else None,
+                       "device": m.group(2) if m else None})
+        if rc != 0:
+            print(se[-4000:], file=sys.stderr, flush=True)
+    out["builds"] = builds
+    check(all(b["rc"] == 0 and b["device"] == "cuda" for b in builds),
+          f"13a: the builder CLI did not build both shards on cuda: {builds}")
+    if any(b["rc"] != 0 for b in builds):
+        fail("13a: a shard build failed")
+
+    # the truth file: shard 0's exact top-10 from FLAT on the card
+    lo, hi = SHARDS[0]
+    q = queries[:CLUSTER_QUERIES]
+    flat = pt.create_instance("FLAT", "Float")
+    flat.set_parameter("DistCalcMethod", "L2")
+    flat.build(data[lo:hi])
+    _, truth_ids = flat.search_batch(q, K)
+    del flat
+    truth_path = os.path.join(workdir, "shard0_truth.txt")
+    with open(truth_path, "w") as f:
+        for row in truth_ids:
+            f.write(" ".join(str(int(v)) for v in row) + "\n")
+    qpath = os.path.join(workdir, "queries.bin")
+    fmt.write_matrix(qpath, q)
+    res_path = os.path.join(workdir, "shard0_results.txt")
+    max_check = dict(GRAPH_PARAMS)["MaxCheck"]
+    (rc, so, se, wall), = run_processes([[
+        sys.executable, "-m", "sptag_tpu_torch.tools.index_searcher", "-x",
+        folders[0], "-q", "BIN:" + qpath, "-r", truth_path, "-k", str(K),
+        "-m", max_check, "-b", str(CLUSTER_QUERIES), "-o", res_path]], here)
+    rows = [ln.split() for ln in so.splitlines()
+            if ln.split() and ln.split()[0] == max_check]
+    cli_recall = float(rows[0][4]) if rows else None
+    cli_qps = float(rows[0][6]) if rows else None
+    if rc != 0:
+        print(se[-4000:], file=sys.stderr, flush=True)
+    loaded = pt.load_index(folders[0])
+    loaded.set_parameter("MaxCheck", max_check)
+    _, ids = loaded.search_batch(q, K)
+    recall = calc_recall(ids, load_truth(truth_path, K), K)
+    cli_ids = np.loadtxt(res_path, dtype=np.int64, ndmin=2) \
+        if rc == 0 else None
+    out["searcher"] = {"rc": rc, "process_s": wall,
+                       "recall_at_10": cli_recall, "qps": cli_qps,
+                       "in_process_recall_at_10": recall,
+                       "ids_equal_in_process": bool(
+                           cli_ids is not None
+                           and np.array_equal(cli_ids, ids))}
+    check(rc == 0 and cli_recall is not None
+          and cli_recall == float(f"{recall:.4f}")
+          and out["searcher"]["ids_equal_in_process"],
+          f"13a: the searcher CLI's recall {cli_recall} (ids equal "
+          f"{out['searcher']['ids_equal_in_process']}) is not the "
+          f"in-process recall {recall}")
+    out["folders"] = folders
+    out["loaded"] = loaded
+    return out
+
+
+def resume_phase(pt, block_dots, data, cli_loaded, cli_folder, workdir):
+    """13b: shard 0 built in-process with checkpoint_dir, interrupted at
+    its first refine pass (refine_once raising, as
+    tests/test_build_ckpt.py does), resumed, and built again without an
+    interruption; the resumed graph and tree are held equal to 13a's CLI
+    folder."""
+    from sptag_tpu_torch.graph.rng import RelativeNeighborhoodGraph as RNG
+
+    lo, hi = SHARDS[0]
+    rows = data[lo:hi]
+
+    def make():
+        idx = pt.create_instance("BKT", "Float")
+        for name, value in SHARD_PARAMS + [("NumberOfThreads",
+                                            str(CLI_THREADS))]:
+            if not idx.set_parameter(name, value):
+                fail(f"set_parameter {name}")
+        return idx
+
+    ck = os.path.join(workdir, "ckpt")
+    real = RNG.refine_once
+    calls = {"n": 0}
+
+    def interrupted(self, *a, **kw):
+        calls["n"] += 1
+        raise RuntimeError("interrupted at the first refine pass")
+
+    RNG.refine_once = interrupted
+    t0 = time.perf_counter()
+    try:
+        make().build(rows, checkpoint_dir=ck)
+        fail("13b: the interrupted build did not raise")
+    except RuntimeError:
+        pass
+    finally:
+        RNG.refine_once = real
+    torch.cuda.synchronize()
+    interrupted_s = time.perf_counter() - t0
+    stages = sorted(os.listdir(os.path.join(ck, os.listdir(ck)[0])))
+    resumed = make()
+    t0 = time.perf_counter()
+    with FirstCalls(block_dots) as first:
+        resumed.build(rows, checkpoint_dir=ck)
+        torch.cuda.synchronize()
+    resumed_s = time.perf_counter() - t0
+    plain = make()
+    t0 = time.perf_counter()
+    plain.build(rows, checkpoint_dir=os.path.join(workdir, "ckpt_plain"))
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    folder = os.path.join(workdir, "resumed_shard0")
+    resumed.save_index(folder)
+    files = {}
+    for name in (resumed.params.tree_file, resumed.params.graph_file):
+        with open(os.path.join(folder, name), "rb") as a, \
+                open(os.path.join(cli_folder, name), "rb") as b:
+            files[name] = a.read() == b.read()
+    out = {"interrupted_s": interrupted_s, "resumed_s": resumed_s,
+           "uninterrupted_s": plain_s, "stages_at_interrupt": stages,
+           "refine_calls_before_interrupt": calls["n"],
+           "build_resumed": bool(resumed.build_resumed),
+           "graph_equal_cli": bool(np.array_equal(resumed._graph,
+                                                  cli_loaded._graph)),
+           "graph_equal_uninterrupted": bool(np.array_equal(
+               resumed._graph, plain._graph)),
+           "files_equal_cli": files,
+           "checkpoints_left": sorted(os.listdir(ck))}
+    check(out["build_resumed"] and out["graph_equal_cli"]
+          and all(files.values()) and not out["checkpoints_left"],
+          f"13b: resumed build {out}")
+    for idx in (resumed, plain):
+        idx.close()
+    return out, first
+
+
+def ann_client_search(addr, q, mode, clients=CLUSTER_CLIENTS):
+    """Every query through `clients` wrappers.AnnClient connections, one
+    query at a time each, with metadata: (results, per-query seconds,
+    wall seconds)."""
+    import threading
+
+    from sptag_tpu_torch.wrappers import AnnClient
+
+    results, lat = [None] * len(q), [0.0] * len(q)
+
+    def worker(w):
+        c = AnnClient(addr[0], addr[1])
+        c.SetTimeoutMilliseconds(120_000)
+        c.SetSearchParam("searchmode", mode)
+        try:
+            for i in range(w, len(q), clients):
+                t0 = time.perf_counter()
+                results[i] = c.Search(q[i], K, "Float", True)
+                lat[i] = time.perf_counter() - t0
+        finally:
+            c._transport.close()
+
+    threads = [threading.Thread(target=worker, args=(w,),
+                                name=f"chip-smoke-annclient-{w}")
+               for w in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return results, np.asarray(lat), time.perf_counter() - t0
+
+
+def merged_arrays(results):
+    """(dists, global ids from the metadata, failures) of merged replies."""
+    from sptag_tpu_torch.serve import wire
+
+    ids = np.full((len(results), K), -1, np.int64)
+    d = np.full((len(results), K), np.inf)
+    bad = 0
+    for i, r in enumerate(results):
+        if r is None or r.status != wire.ResultStatus.Success \
+                or len(r.results) != 1 or not r.results[0].metas:
+            bad += 1
+            continue
+        row = r.results[0]
+        ids[i, :len(row.metas)] = [int(m) for m in row.metas]
+        d[i, :len(row.dists)] = row.dists
+    return d, ids, bad
+
+
+def in_process_merge(shard_results):
+    """The two shards' search_batch results merged as merge_top_k does:
+    global ids, ascending (distance, shard-local id)."""
+    ds, gs, ls = [], [], []
+    for (lo, _), (d, ids) in zip(SHARDS, shard_results):
+        ds.append(d)
+        ls.append(ids)
+        gs.append(np.where(ids >= 0, ids + lo, -1))
+    d, g, loc = (np.concatenate(a, axis=1) for a in (ds, gs, ls))
+    d = np.where(g >= 0, d, np.inf)
+    order = np.lexsort((loc, d), axis=1)[:, :K]
+    return (np.take_along_axis(d, order, 1),
+            np.take_along_axis(g, order, 1))
+
+
+def write_shard_ini(path, folder, extra="", port=0):
+    with open(path, "w") as f:
+        f.write(f"[Service]\nListenAddr=127.0.0.1\nListenPort={port}\n"
+                "AllowSearchModeOverride=on\n" + extra +
+                f"[QueryConfig]\nDefaultMaxResultNumber={K}\n"
+                "[Index]\nList=main\n"
+                f"[Index_main]\nIndexFolder={folder}\n")
+
+
+def http_get(port, path, timeout=120):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def wait_listening(port, proc, what, timeout_s=180.0) -> None:
+    import socket
+
+    t_end = time.perf_counter() + timeout_s
+    while time.perf_counter() < t_end:
+        if proc.poll() is not None:
+            fail(f"13d: the {what} exited with {proc.returncode}")
+        try:
+            socket.create_connection(("127.0.0.1", port), timeout=1).close()
+            return
+        except OSError:
+            time.sleep(0.2)
+    fail(f"13d: the {what} did not listen on {port}")
+
+
+def control_phase(queries, serve_folders, workdir, here) -> dict:
+    """13d: each shard's ``python -m sptag_tpu_torch.serve.server`` and
+    ``python -m sptag_tpu_torch.serve.aggregator`` as processes of their
+    own with AdmissionControl, a tight SLO p99 objective (so that the
+    burn-rate engine pages and the controller acts), canaries, the
+    controller and the metrics listener; the shards warmed directly, then
+    phase 12d's ramp through the aggregator, a device trace taken under
+    load on shard 0's listener and an overlapping one; SIGTERM ends each
+    process, which must exit 0."""
+    import threading
+
+    from sptag_tpu_torch.serve import wire
+
+    # the controller's MaxCheck floor is the shards' MaxCheck: it pages and
+    # audits its holds, but new walk plans (and their graph captures) do
+    # not enter the ramp
+    control = (f"AdmissionControl=1\nSloP99Ms={CLUSTER_SLO_P99_MS}\n"
+               "SloFastWindowS=5\nSloSlowWindowS=10\n"
+               f"CanaryIntervalMs={CANARY_MS}\nController=1\n"
+               "ControllerCooldownMs=2000\nControllerMaxCheckFloor="
+               f"{dict(GRAPH_PARAMS)['MaxCheck']}\n")
+    procs, ports, mports = {}, {}, {}
+    logs = {}
+
+    def start(name, module, ini):
+        logs[name] = open(os.path.join(workdir, f"{name}.log"), "w")
+        # -X faulthandler: a fatal signal leaves the threads' stacks in
+        # the process's log, which a failed check prints
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-X", "faulthandler", "-m", module, "-c", ini]
+            + (["-m", "socket"] if module.endswith("server") else []),
+            cwd=here, stdout=logs[name], stderr=subprocess.STDOUT)
+
+    for s, folder in enumerate(serve_folders):
+        name = f"server{s}"
+        ports[name], mports[name] = free_port(), free_port()
+        ini = os.path.join(workdir, f"{name}_control.ini")
+        write_shard_ini(ini, folder, f"MetricsPort={mports[name]}\n"
+                        + control, port=ports[name])
+        start(name, "sptag_tpu_torch.serve.server", ini)
+    t0 = time.perf_counter()
+    for name in ("server0", "server1"):
+        wait_listening(ports[name], procs[name], name)
+    servers_up_s = time.perf_counter() - t0
+    # warm each shard directly (first walks, graph captures at the ramp's
+    # padded sizes), as an operator does before it takes traffic
+    for name in ("server0", "server1"):
+        for opt in RAMP_OPTIONS:
+            for burst in (1, 4, 16, 64):
+                for _ in range(2):
+                    pool_search(("127.0.0.1", ports[name]), [
+                        "$indexname:main " + opt + b64_query(v)
+                        for v in queries[:burst]])
+    probe_file = os.path.join(workdir, "canary_probes.txt")
+    with open(probe_file, "w") as f:
+        for v in queries[:8]:
+            f.write(f"$resultnum:{K} {b64_query(v)}\n")
+    ports["aggregator"], mports["aggregator"] = free_port(), free_port()
+    agg_ini = os.path.join(workdir, "aggregator.ini")
+    with open(agg_ini, "w") as f:
+        f.write("[Service]\nListenAddr=127.0.0.1\n"
+                f"ListenPort={ports['aggregator']}\nSearchTimeout=120\n"
+                f"MergeTopK=true\nMetricsPort={mports['aggregator']}\n"
+                + control + f"CanaryProbeFile={probe_file}\n"
+                f"CanaryK={K}\n[Servers]\nNumber=2\n"
+                f"[Server_0]\nAddress=127.0.0.1\nPort={ports['server0']}\n"
+                f"[Server_1]\nAddress=127.0.0.1\nPort={ports['server1']}\n")
+    start("aggregator", "sptag_tpu_torch.serve.aggregator", agg_ini)
+    wait_listening(ports["aggregator"], procs["aggregator"], "aggregator")
+
+    mport0 = mports["server0"]
+
+    def take_trace(trace_dir):
+        """One 200 ms trace on shard 0's listener and an overlapping one:
+        the first's status, wall seconds and failure body, the
+        overlapping one's status, the trace's events, kernel events and
+        the path's kernel names."""
+        first = {}
+
+        def long_get():
+            try:
+                first["r"] = http_get(
+                    mport0,
+                    f"/debug/devicetrace?duration_ms=200&dir={trace_dir}",
+                    timeout=60)
+            except OSError as e:                         # timed out
+                first["r"] = (None, repr(e).encode())
+
+        t = threading.Thread(target=long_get, name="chip-smoke-trace")
+        t0 = time.perf_counter()
+        t.start()
+        # the trace runs in the server process: wait for its directory
+        t_end = time.perf_counter() + 30
+        while not os.path.isdir(trace_dir) and t.is_alive() \
+                and time.perf_counter() < t_end:
+            time.sleep(0.002)
+        try:
+            second = http_get(mport0, "/debug/devicetrace?duration_ms=50",
+                              timeout=60)[0]
+        except OSError:
+            second = None
+        t.join(90)
+        seconds = time.perf_counter() - t0
+        status, body = first.get("r", (None, b""))
+        events, names = [], set()
+        trace_json = os.path.join(trace_dir, "trace.json")
+        if os.path.exists(trace_json):
+            with open(trace_json) as f:
+                events = json.load(f).get("traceEvents", [])
+            names = {ev.get("name", "") for ev in events}
+        return {"first": status, "seconds": seconds,
+                "error": (None if status == 200
+                          else body[:400].decode("utf8", "replace")),
+                "overlapping": second, "events": len(events),
+                "kernel_events_all": sum(ev.get("cat") == "kernel"
+                                         for ev in events),
+                "kernel_events": sorted(
+                    n for n in names if "walk_score_kernel" in n
+                    or "block_major_f32_kernel" in n)}
+
+    admission_at_step = []
+
+    def on_step(i):
+        admission_at_step.append({
+            n: {k: v for k, v in json.loads(http_get(
+                mports[n], "/debug/admission")[1]).items()
+                if k in ("state", "signals")}
+            for n in ("server0", "aggregator")})
+
+    ramp = open_loop_ramp(
+        ("127.0.0.1", ports["aggregator"]), queries, [],
+        {"tier": "aggregator"}, max_misses=CLUSTER_RAMP_STEPS,
+        max_steps=CLUSTER_RAMP_STEPS, profile_first=False, on_step=on_step,
+        phase="13d", connections=CLUSTER_RAMP_CONNECTIONS,
+        allowed=(wire.ResultStatus.Success, wire.ResultStatus.Overloaded))
+
+    def scrape(name):
+        code, body = http_get(mports[name], "/metrics")
+        series, bad = set(), 0
+        for ln in body.decode().splitlines():
+            if not ln or ln.startswith("#"):
+                continue
+            key, _, value = ln.rpartition(" ")
+            try:
+                float(value)
+            except ValueError:
+                bad += 1
+                continue
+            series.add(key)
+        return {"status": code, "unparsed": bad,
+                "series": {p: sum(1 for n in series if n.startswith(p))
+                           for p in CONTROL_SERIES}}
+
+    def debug(name, route):
+        return json.loads(http_get(mports[name], route)[1])
+
+    tiers = ("server0", "server1", "aggregator")
+    metrics_out = {n: scrape(n) for n in tiers}
+    slo = {n: debug(n, "/debug/slo") for n in tiers}
+    canaries = {n: {k: (v["probes"], v["failures"]) for k, v in
+                    slo[n].get("canary", {}).get("indexes", {}).items()}
+                for n in tiers}
+    adm = {n: debug(n, "/debug/admission") for n in tiers}
+    ctl = {n: debug(n, "/debug/controller") for n in tiers}
+    mem = {n: debug(n, "/debug/memory") for n in ("server0", "server1")}
+    # the device trace last: a profile slows its process for seconds
+    # (the profiler's stop), and the tiers' admission reads lifetime
+    # latency percentiles (ROADMAP.md section 3).  Load goes to shard 0
+    # directly while it runs, beam and dense
+    from sptag_tpu_torch.serve.client import AnnClientPool
+
+    stop_load = threading.Event()
+    trace_load = {"requests": 0, "errors": 0, "overloaded": 0}
+
+    def load():
+        pool = AnnClientPool("127.0.0.1", ports["server0"], connections=4,
+                             timeout_s=120.0)
+        pool.connect()
+        i = 0
+        try:
+            while not stop_load.is_set():
+                opt = ("$searchmode:dense ", "")[i % 2]
+                lo = (i * 16) % 4000
+                futs = [pool.search_async("$indexname:main " + opt
+                                          + b64_query(v))
+                        for v in queries[lo:lo + 16]]
+                for f in futs:
+                    try:
+                        status = f.result().status
+                    except Exception:                    # noqa: BLE001
+                        status = None
+                    trace_load["requests"] += 1
+                    trace_load["overloaded"] += (
+                        status == wire.ResultStatus.Overloaded)
+                    trace_load["errors"] += status not in (
+                        wire.ResultStatus.Success,
+                        wire.ResultStatus.Overloaded)
+                i += 1
+        finally:
+            pool.close()
+
+    loader = threading.Thread(target=load, name="chip-smoke-trace-load")
+    loader.start()
+    time.sleep(0.2)
+    traces = []
+    for i in range(DEVICE_TRACES):
+        traces.append(take_trace(os.path.join(workdir, f"devicetrace{i}")))
+        if procs["server0"].poll() is not None or traces[-1]["first"] is None:
+            break
+    stop_load.set()
+    loader.join(120)
+    exit_codes = {}
+    for name in ("aggregator", "server0", "server1"):
+        procs[name].terminate()
+        try:
+            exit_codes[name] = procs[name].wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            # hung: SIGABRT makes faulthandler write every thread's stack
+            # into the log before the process dies
+            procs[name].send_signal(signal.SIGABRT)
+            try:
+                exit_codes[name] = procs[name].wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                procs[name].kill()
+                exit_codes[name] = procs[name].wait()
+        logs[name].close()
+    out = {"servers_up_s": servers_up_s, "ramp": ramp,
+           "admission_at_step": admission_at_step,
+           "sheds": {n: adm[n].get("counters", {}).get("sheds")
+                     for n in tiers},
+           "admission_state": {n: adm[n].get("state") for n in tiers},
+           "slo_state": {n: {k: v.get("state") for k, v in
+                             slo[n].get("objectives", {}).items()}
+                         for n in tiers},
+           "controller_decisions": {
+               n: ctl[n].get("audit", {}).get("counters") for n in tiers},
+           "controller_epoch": {n: ctl[n].get("epoch") for n in tiers},
+           "canary_probes_failures": canaries, "metrics": metrics_out,
+           "memory": {n: {"components": m["components"],
+                          "ledger_device_bytes": m["ledger_device_bytes"],
+                          "memory_allocated": m.get("live_arrays_bytes"),
+                          "allocated_minus_ledger": m.get("untracked_bytes")}
+                      for n, m in mem.items()},
+           "devicetrace": {"traces": traces, "load": trace_load},
+           "exit_codes": exit_codes}
+    overloaded = int(wire.ResultStatus.Overloaded)
+    # past the knee a request may still be on its way when a step's drain
+    # window ends (`unanswered`, printed); none may fail
+    check(ramp["errors"] == 0,
+          f"13d: requests failed other than by admission's overload status "
+          f"({overloaded}): {ramp['statuses']}")
+    check(all(c and all(p > 0 and f == 0 for p, f in c.values())
+              for c in canaries.values()),
+          f"13d: canary probes failed or none ran: {canaries}")
+    check(all(m["status"] == 200 and m["unparsed"] == 0
+              for m in metrics_out.values())
+          and all(metrics_out["server0"]["series"].values()),
+          f"13d: /metrics {metrics_out}")
+    check(all(set(m["components"]) <= JAX_COMPONENTS
+              and {"corpus", "graph", "tree"} <= set(m["components"])
+              and m.get("live_arrays_bytes") is not None
+              and m["ledger_device_bytes"] <= m["live_arrays_bytes"]
+              for m in mem.values()),
+          f"13d: /debug/memory {out['memory']}")
+    check(len(traces) == DEVICE_TRACES
+          and all(t["first"] == 200 and t["overlapping"] == 409
+                  and t["kernel_events"] for t in traces)
+          and trace_load["errors"] == 0,
+          f"13d: device traces {out['devicetrace']}")
+    check(all(rc == 0 for rc in exit_codes.values()),
+          f"13d: exit codes {exit_codes}")
+    for name, rc in exit_codes.items():
+        if rc != 0:
+            with open(os.path.join(workdir, f"{name}.log")) as f:
+                print(f"chip_smoke: 13d: the end of the {name}'s log:\n"
+                      + f.read()[-12000:], file=sys.stderr, flush=True)
+    return out
+
+
+def cluster_phase(pt, block_dots, walk_ops, data, queries, truth, workdir,
+                  here) -> tuple:
+    """Phase 13 on the f32 L2 headline cut into two shards: (a) the CLIs,
+    (b) a resumable build, (c) two port servers behind the port's
+    aggregator with MergeTopK, (d) the control plane under the open-loop
+    ramp, (e) AnnIndex, (f) a clean stop.  Returns the first block-dot
+    calls of 13b's build and of 13c's dense requests and the launches of
+    13b-13e (in-process), for phase 2's rows."""
+    import contextlib
+    import threading
+
+    from sptag_tpu_torch.serve import aggregator as sagg
+    from sptag_tpu_torch.serve import server as sserver
+    from sptag_tpu_torch.serve import service as sservice
+    from sptag_tpu_torch.utils import devmem
+    from sptag_tpu_torch.utils import trace as trace_mod
+    from sptag_tpu_torch.wrappers import AnnIndex
+
+    t_phase = time.perf_counter()
+    threads_before = set(threading.enumerate())
+    q = queries[:CLUSTER_QUERIES]
+
+    # ---- 13a: the CLIs ------------------------------------------------------
+    out_a = cli_phase(pt, data, queries, workdir, here)
+    cli_loaded = out_a.pop("loaded")
+    cli_folders = out_a.pop("folders")
+    emit({"phase": "13a", **out_a})
+
+    # ---- 13b: a resumable build (launches counted from here on) ------------
+    block_dots.reset_launch_counts()
+    walk_ops.reset_launch_counts()
+    out_b, first_b = resume_phase(pt, block_dots, data, cli_loaded,
+                                  cli_folders[0], workdir)
+    emit({"phase": "13b", **out_b})
+    cli_loaded.close()
+    del cli_loaded
+
+    # ---- 13c: two servers behind the aggregator ----------------------------
+    # the CLI folders with each row's global id as its metadata
+    serve_folders, ctxs = [], []
+    for s, ((lo, hi), folder) in enumerate(zip(SHARDS, cli_folders)):
+        idx = pt.load_index(folder)
+        idx.metadata = pt.MetadataSet(str(i).encode()
+                                      for i in range(lo, hi))
+        serve_folders.append(os.path.join(workdir, f"serve_shard{s}"))
+        if idx.save_index(serve_folders[-1]) != pt.ErrorCode.Success:
+            fail("13c: save_index of a shard with metadata")
+        idx.close()
+        ini = os.path.join(workdir, f"shard{s}.ini")
+        write_shard_ini(ini, serve_folders[-1])
+        ctxs.append(sservice.ServiceContext.from_ini(ini))
+    refs = {m: [c.indexes["main"].search_batch(q, K, search_mode=m)
+                for c in ctxs] for m in ("beam", "dense")}
+    runs = [ServerRunner(sserver.SearchServer(c)) for c in ctxs]
+    actx = sagg.AggregatorContext(listen_addr="127.0.0.1",
+                                  search_timeout_s=120.0, merge_top_k=True)
+    actx.servers = [sagg.RemoteServer(*r.addr) for r in runs]
+    agg = ServerRunner(sagg.AggregatorService(actx))
+    out_c = {}
+    # the dense requests' first block-dot call, for phase 2
+    first_c = FirstCalls(block_dots)
+    for mode in ("beam", "dense"):
+        with first_c if mode == "dense" else contextlib.nullcontext():
+            res, lat, wall = ann_client_search(agg.addr, q, mode)
+        d, ids, bad = merged_arrays(res)
+        ref_d, ref_i = in_process_merge(refs[mode])
+        row = hold_parity(f"13c {mode}", d, ids, bad, ref_d, ref_i, data, q)
+        row.update({"recall_at_10": recall_at_k(ids, truth[:len(q)]),
+                    "qps": len(q) / wall, "wall_s": wall,
+                    "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+                    "p99_ms": float(np.percentile(lat, 99)) * 1e3})
+        out_c[mode] = row
+    agg.stop()
+    for r in runs:
+        r.stop()
+    emit({"phase": "13c", "clients": CLUSTER_CLIENTS, **out_c})
+
+    # ---- 13d: the control plane under the ramp -----------------------------
+    # a restart: each tier its own process, so that no tier reads the
+    # latency histograms earlier phases left in this one's registry
+    for c in ctxs:
+        for i in c.indexes.values():
+            i.close()
+    del ctxs, refs
+    out_d = control_phase(queries, serve_folders, workdir, here)
+    emit({"phase": "13d", **out_d})
+
+    # ---- 13e: AnnIndex ----------------------------------------------------
+    ann = AnnIndex.Load(serve_folders[0])
+    index = ann.index
+    _, want = index.search_batch(q, K)
+    t0 = time.perf_counter()
+    lone = np.asarray([ann.Search(v, K).ids for v in q])
+    lone_s = time.perf_counter() - t0
+    with_meta = [ann.SearchWithMetaData(v, K) for v in q]
+    meta_ids = np.asarray([r.ids for r in with_meta])
+    metas_ok = all(m == str(int(i) + SHARDS[0][0]).encode()
+                   for r in with_meta for i, m in zip(r.ids, r.metas)
+                   if i >= 0)
+    batch = ann.BatchSearch(q, len(q), K, True)
+    added = make_dataset(n=ANN_ADDS, d=data.shape[1], nq=1, seed=11)[0]
+    n0 = index.num_samples
+    meta_blob = b"".join(f"added{i}\n".encode() for i in range(ANN_ADDS))
+    add_ok = ann.AddWithMetaData(added, meta_blob, ANN_ADDS)
+    _, found = index.search_batch(added, 1)
+    _, found_x = index.exact_search_batch(added, 1)
+    new_ids = np.arange(n0, n0 + ANN_ADDS)
+    victims = data[SHARDS[0][0]:SHARDS[0][0] + ANN_DELETES]
+    del_ok = ann.Delete(victims, ANN_DELETES)
+    # a delete by content removes the rows its search finds
+    gone = np.asarray([i for i in range(ANN_DELETES)
+                       if not index.contains_sample(i)])
+    _, vic = index.search_batch(victims, K)
+    _, before = index.search_batch(q, K)
+    folder = os.path.join(workdir, "annindex_saved")
+    save_ok = ann.Save(folder)
+    again = AnnIndex.Load(folder)
+    _, after = again.index.search_batch(q, K)
+    out_e = {"lone_search_s": lone_s,
+             "search_ids_equal": bool(np.array_equal(lone, want)),
+             "search_with_metadata_ids_equal": bool(
+                 np.array_equal(meta_ids, want)),
+             "metadata_is_global_id": metas_ok,
+             "batch_search_ids_equal": bool(np.array_equal(
+                 np.asarray([r.ids for r in batch]), want)),
+             "add": add_ok, "delete": del_ok, "save": save_ok,
+             "added_found_by_search": float(np.mean(found[:, 0] == new_ids)),
+             "added_found_by_exact": float(np.mean(found_x[:, 0]
+                                                   == new_ids)),
+             "deleted": len(gone),
+             "deleted_returned": int(np.isin(vic, gone).sum()
+                                     + np.isin(before, gone).sum()),
+             "ids_equal_after_save_load": bool(np.array_equal(before,
+                                                              after))}
+    emit({"phase": "13e", **out_e})
+    check(out_e["search_ids_equal"]
+          and out_e["search_with_metadata_ids_equal"] and metas_ok
+          and out_e["batch_search_ids_equal"] and add_ok and del_ok
+          and save_ok and out_e["added_found_by_exact"] == 1.0
+          and len(gone) > 0 and out_e["deleted_returned"] == 0
+          and out_e["ids_equal_after_save_load"],
+          f"13e: AnnIndex {out_e}")
+    launches = {**block_dots.launch_counts(), **walk_ops.launch_counts()}
+    for i in (index, again.index):
+        i.close()
+    del ann, again, index
+
+    # ---- 13f: a clean stop ------------------------------------------------
+    t_end = time.perf_counter() + 15
+    while True:
+        left = [t.name for t in threading.enumerate()
+                if t.is_alive() and t not in threads_before and (
+                    not t.daemon or t.name.startswith(
+                        ("beam-sched", "sptag-serve", "canary",
+                         "metrics-http")))]
+        if not left or time.perf_counter() > t_end:
+            break
+        time.sleep(0.1)
+    subprocesses_ok = all(b["rc"] == 0 for b in out_a["builds"]) \
+        and out_a["searcher"]["rc"] == 0 \
+        and all(rc == 0 for rc in out_d["exit_codes"].values())
+    emit({"phase": "13f", "threads_left": left,
+          "subprocesses_exit_0": subprocesses_ok,
+          "exit_codes": {**{f"builder{i}": b["rc"]
+                            for i, b in enumerate(out_a["builds"])},
+                         "searcher": out_a["searcher"]["rc"],
+                         **out_d["exit_codes"]},
+          "tracing_after": trace_mod.tracing(),
+          "launches_13b_13e": launches,
+          "wall_s": time.perf_counter() - t_phase,
+          "ledger_components_after": devmem.component_bytes()})
+    check(not left and subprocesses_ok and not trace_mod.tracing(),
+          f"13f: threads left {left}, subprocesses exit 0 "
+          f"{subprocesses_ok}")
+    return first_b, first_c, launches
+
+
+def block_dot_row(block_dots, kind, t, path, counts, blocks, q, ids) -> dict:
+    """Phase 2 for one block-dot kernel on one path's arguments: the
+    kernel against its plain version, its block reads, times, library
+    yardstick and bound; emits the row's JSON line and returns the row of
+    the final kernels line."""
+    fn = getattr(block_dots, kind)
+    ref = getattr(block_dots, kind + "_reference")
+    got = fn(blocks, q, ids)
+    want = ref(blocks, q, ids)
+    torch.cuda.synchronize()
+    err = (got.double() - want.double()).abs()
+    if t == "i8":
+        ok = bool(err.max().item() == 0)
+    else:
+        # |kernel - plain| <= 1e-5 * sum_d |q_d x_d|, per element
+        scale = ref(blocks.abs(), q.abs(), ids).double()
+        ok = bool((err <= 1e-5 * scale + 1e-30).all())
+    C, P, D = blocks.shape
+    es = blocks.element_size()
+    Q = q.shape[0]
+    distinct = int(torch.unique(ids).numel())
+    # blocks the block-major kernel reads: one per tile of at most
+    # TILE_ENTRIES entries, from the ids on the host and from the tile
+    # table the CUDA prep built on the card
+    G = Q // ids.shape[0] if kind == "group_block_dots" else 1
+    E = ids.numel() * G
+    _, host_tiles = block_dots.block_major_prep_reference(ids.cpu(), G, C)
+    _, dev_tiles, ntiles = block_dots.block_major_prep(ids, G, C)
+    dev_tiles = dev_tiles[:int(ntiles.item())].cpu()
+    reads = {"block_reads": int((host_tiles[:, 0] < C).sum()),
+             "block_reads_kernel": int((dev_tiles[:, 0] < C).sum()),
+             "old_design_reads": ids.numel(), "entries": E,
+             "tile_entries": block_dots.TILE_ENTRIES}
+    check(reads["block_reads"] == reads["block_reads_kernel"]
+          and reads["block_reads"]
+          <= distinct + E / block_dots.TILE_ENTRIES,
+          f"{kind} {t} reads {reads} blocks, distinct {distinct}")
+    if kind == "probe_block_dots":
+        npb = ids.shape[1]
+        shape = {"Q": Q, "nprobe": npb, "P": P, "D": D, "C": C}
+        nbytes = (distinct * P * D * es + Q * D * es + ids.numel() * 4
+                  + Q * npb * P * 4)
+        ops = 2.0 * Q * npb * P * D
+        lib = ("qd,qjpd->qjp", q, blocks[ids.long()])
+    else:
+        NG, U = ids.shape
+        G = Q // NG
+        shape = {"NG": NG, "U": U, "G": G, "P": P, "D": D, "C": C}
+        nbytes = (distinct * P * D * es + Q * D * es + ids.numel() * 4
+                  + NG * U * G * P * 4)
+        ops = 2.0 * NG * U * G * P * D
+        lib = ("gqd,gupd->guqp", q.reshape(NG, G, D), blocks[ids.long()])
+    bytes_ms = nbytes / HBM_BYTES_S * 1e3
+    ops_ms = ops / PEAK_OPS_S[t] * 1e3
+    kernel_ms = median_ms(lambda: fn(blocks, q, ids))
+    card_ms, card_rows = device_ms(lambda: fn(blocks, q, ids))
+    timing = {"ms_back_to_back": median_ms(lambda: fn(blocks, q, ids),
+                                           calls=BACK_TO_BACK),
+              "device_ms": card_ms, "device_ms_by_kernel": card_rows,
+              "host_ms": host_ms(lambda: fn(blocks, q, ids)),
+              "prep_ms_back_to_back": median_ms(
+                  lambda: block_dots.block_major_prep(ids, G, C),
+                  calls=BACK_TO_BACK)}
+    plain_ms = median_ms(lambda: ref(blocks, q, ids))
+    # the library yardstick: one float32 einsum over the pre-gathered
+    # blocks (gather and casts outside the timing).  For int8 it is
+    # exact: every partial sum is an integer of magnitude at most
+    # 128^2 * D = 2^21 < 2^24
+    eq, a, b = lib
+    if t == "i8":
+        a, b = a.float(), b.float()
+    library_ms = median_ms(lambda: torch.einsum(eq, a, b))
+    timing["library_ms_back_to_back"] = median_ms(
+        lambda: torch.einsum(eq, a, b), calls=BACK_TO_BACK)
+    lib_err = float((torch.einsum(eq, a, b).double()
+                     - want.double()).abs().max().item())
+    del lib, a, b
+    row = {"name": f"{kind}_{t}", "route": "cuda",
+           "source": "sptag_tpu_torch/csrc/block_dots.cu",
+           "replaces": ("sptag_tpu/ops/pallas_kernels.py:151"
+                        if kind == "probe_block_dots"
+                        else "sptag_tpu/ops/pallas_kernels.py:214"),
+           "path": path, "launches": counts[f"{kind}_{t}"],
+           "max_abs_err": float(err.max().item()), "ms": kernel_ms,
+           "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "library_ms": library_ms}
+    emit({"phase": 2, **row, **timing, "shape": shape,
+          "distinct_blocks": distinct, **reads, "bytes": nbytes, "ops": ops,
+          "within_tolerance": ok, "library_max_abs_err": lib_err})
+    check(ok,
+          f"{kind} {t} ({path}): kernel disagrees with its plain version "
+          f"(max |err| {row['max_abs_err']})")
+    return row
 
 
 def walk_dots_rows(walk_ops, first, launches: dict) -> list:
@@ -2488,95 +3430,8 @@ def main() -> None:
         for (kind, t), args in sorted(first.args.items()):
             cases.append((kind, t, path, counts, *args))
     for kind, t, path, counts, blocks, q, ids in cases:
-        fn = getattr(block_dots, kind)
-        ref = getattr(block_dots, kind + "_reference")
-        got = fn(blocks, q, ids)
-        want = ref(blocks, q, ids)
-        torch.cuda.synchronize()
-        err = (got.double() - want.double()).abs()
-        if t == "i8":
-            ok = bool(err.max().item() == 0)
-        else:
-            # |kernel - plain| <= 1e-5 * sum_d |q_d x_d|, per element
-            scale = ref(blocks.abs(), q.abs(), ids).double()
-            ok = bool((err <= 1e-5 * scale + 1e-30).all())
-        C, P, D = blocks.shape
-        es = blocks.element_size()
-        Q = q.shape[0]
-        distinct = int(torch.unique(ids).numel())
-        # blocks the block-major kernel reads: one per tile of at most
-        # TILE_ENTRIES entries, from the ids on the host and from the tile
-        # table the CUDA prep built on the card
-        G = Q // ids.shape[0] if kind == "group_block_dots" else 1
-        E = ids.numel() * G
-        _, host_tiles = block_dots.block_major_prep_reference(ids.cpu(), G, C)
-        _, dev_tiles, ntiles = block_dots.block_major_prep(ids, G, C)
-        dev_tiles = dev_tiles[:int(ntiles.item())].cpu()
-        reads = {"block_reads": int((host_tiles[:, 0] < C).sum()),
-                 "block_reads_kernel": int((dev_tiles[:, 0] < C).sum()),
-                 "old_design_reads": ids.numel(), "entries": E,
-                 "tile_entries": block_dots.TILE_ENTRIES}
-        check(reads["block_reads"] == reads["block_reads_kernel"]
-              and reads["block_reads"]
-              <= distinct + E / block_dots.TILE_ENTRIES,
-              f"{kind} {t} reads {reads} blocks, distinct {distinct}")
-        if kind == "probe_block_dots":
-            npb = ids.shape[1]
-            shape = {"Q": Q, "nprobe": npb, "P": P, "D": D, "C": C}
-            nbytes = (distinct * P * D * es + Q * D * es + ids.numel() * 4
-                      + Q * npb * P * 4)
-            ops = 2.0 * Q * npb * P * D
-            lib = ("qd,qjpd->qjp", q, blocks[ids.long()])
-        else:
-            NG, U = ids.shape
-            G = Q // NG
-            shape = {"NG": NG, "U": U, "G": G, "P": P, "D": D, "C": C}
-            nbytes = (distinct * P * D * es + Q * D * es + ids.numel() * 4
-                      + NG * U * G * P * 4)
-            ops = 2.0 * NG * U * G * P * D
-            lib = ("gqd,gupd->guqp", q.reshape(NG, G, D), blocks[ids.long()])
-        bytes_ms = nbytes / HBM_BYTES_S * 1e3
-        ops_ms = ops / PEAK_OPS_S[t] * 1e3
-        kernel_ms = median_ms(lambda: fn(blocks, q, ids))
-        card_ms, card_rows = device_ms(lambda: fn(blocks, q, ids))
-        timing = {"ms_back_to_back": median_ms(lambda: fn(blocks, q, ids),
-                                               calls=BACK_TO_BACK),
-                  "device_ms": card_ms, "device_ms_by_kernel": card_rows,
-                  "host_ms": host_ms(lambda: fn(blocks, q, ids)),
-                  "prep_ms_back_to_back": median_ms(
-                      lambda: block_dots.block_major_prep(ids, G, C),
-                      calls=BACK_TO_BACK)}
-        plain_ms = median_ms(lambda: ref(blocks, q, ids))
-        # the library yardstick: one float32 einsum over the pre-gathered
-        # blocks (gather and casts outside the timing).  For int8 it is
-        # exact: every partial sum is an integer of magnitude at most
-        # 128^2 * D = 2^21 < 2^24
-        eq, a, b = lib
-        if t == "i8":
-            a, b = a.float(), b.float()
-        library_ms = median_ms(lambda: torch.einsum(eq, a, b))
-        timing["library_ms_back_to_back"] = median_ms(
-            lambda: torch.einsum(eq, a, b), calls=BACK_TO_BACK)
-        lib_err = float((torch.einsum(eq, a, b).double()
-                         - want.double()).abs().max().item())
-        del lib, a, b
-        row = {"name": f"{kind}_{t}", "route": "cuda",
-               "source": "sptag_tpu_torch/csrc/block_dots.cu",
-               "replaces": ("sptag_tpu/ops/pallas_kernels.py:151"
-                            if kind == "probe_block_dots"
-                            else "sptag_tpu/ops/pallas_kernels.py:214"),
-               "path": path, "launches": counts[f"{kind}_{t}"],
-               "max_abs_err": float(err.max().item()), "ms": kernel_ms,
-               "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-               "library_ms": library_ms}
-        emit({"phase": 2, **row, **timing, "shape": shape, "distinct_blocks": distinct, **reads,
-              "bytes": nbytes, "ops": ops, "within_tolerance": ok,
-              "library_max_abs_err": lib_err})
-        check(ok,
-              f"{kind} {t} ({path}): kernel disagrees with its plain version "
-              f"(max |err| {row['max_abs_err']})")
-        rows.append(row)
+        rows.append(block_dot_row(block_dots, kind, t, path, counts, blocks,
+                                  q, ids))
 
     rows.extend(walk_dots_rows(walk_ops, first_walk,
                                walk_launches))
@@ -2652,6 +3507,18 @@ def main() -> None:
 
     # ---- phase 12: the socket search server on phase 7's folder ----------
     server_phase(pt, block_dots, graph_folder, queries, work.name, here)
+
+    # ---- phase 13: the CLIs, a resumable build, the aggregator, the ------
+    # control plane and AnnIndex on two shards of the headline
+    first13b, first13c, launches13 = cluster_phase(
+        pt, block_dots, walk_ops, data, queries, truth_f32, work.name, here)
+    for path, first in (("phase13_resumed_build", first13b),
+                        ("phase13_aggregator_dense", first13c)):
+        if not first.args:
+            fail(f"{path}: no block-dot call recorded")
+        for (kind, t), args in sorted(first.args.items()):
+            rows.append(block_dot_row(block_dots, kind, t, path,
+                                      launches13, *args))
 
     if FAILED_CHECKS:
         fail(f"{len(FAILED_CHECKS)} check(s) failed: {FAILED_CHECKS}")

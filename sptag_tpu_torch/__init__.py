@@ -11,8 +11,11 @@ of all three (add, delete, refine, merge, the write-ahead log and the delta
 shard), with ``ContinuousBatching=1`` searches through the slot scheduler
 (``algo/scheduler.py``); blobs, the capacity estimators and the TSV / BIN
 reader (``io/reader.py``); the socket search server and its clients
-(``serve/``) with the host observability stack (``utils/``).  Entry points
-run on the CUDA card unless given ``device="cpu"``.
+(``serve/``: server, aggregator, admission, SLO engine, canary,
+controller, metrics listener) with the host observability stack
+(``utils/``, the card-memory ledger and resumable builds included); the
+``AnnIndex`` / ``AnnClient`` wrappers and the ``tools/`` CLIs.  Entry
+points run on the CUDA card unless given ``device="cpu"``.
 The JAX package ``sptag_tpu`` is the reference; this package imports none
 of it.
 """
@@ -31,9 +34,10 @@ from sptag_tpu_torch.core.types import (DistCalcMethod, ErrorCode,
                                         IndexAlgoType, VectorValueType)
 from sptag_tpu_torch.core.vectorset import (FileMetadataSet, MetadataSet,
                                             VectorSet)
+from sptag_tpu_torch.wrappers import AnnClient, AnnIndex
 
-__all__ = ["DistCalcMethod", "ErrorCode", "FileMetadataSet",
-           "IndexAlgoType", "MetadataSet", "SearchResult", "VectorIndex",
+__all__ = ["AnnClient", "AnnIndex", "DistCalcMethod", "ErrorCode",
+           "FileMetadataSet", "IndexAlgoType", "MetadataSet", "SearchResult", "VectorIndex",
            "VectorSet", "VectorValueType", "create_instance",
            "estimated_hbm_usage", "estimated_memory_usage",
            "estimated_vector_count", "load_index", "load_index_blobs"]

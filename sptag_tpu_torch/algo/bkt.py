@@ -35,6 +35,7 @@ its queries on the old snapshot.
 
 from __future__ import annotations
 
+import io
 import logging
 import threading
 import time
@@ -154,6 +155,15 @@ class BKTIndex(VectorIndex):
         self._host, self._deleted = grow_rows(self._host, self._deleted,
                                               self._n, extra)
 
+    def _retrack_devmem(self) -> None:
+        # DeviceBytesLedger re-enabled on a warm index: re-register the
+        # materialized snapshots; slot pools re-track at their next resize
+        with self._lock:
+            if self._engine is not None:
+                self._engine.register_devmem()
+            if self._dense is not None:
+                self._dense.register_devmem()
+
     def set_parameter(self, name: str, value: str) -> bool:
         ok = super().set_parameter(name, value)
         low = name.lower()
@@ -215,7 +225,7 @@ class BKTIndex(VectorIndex):
 
     # ---- build ------------------------------------------------------------
 
-    def _build(self, data: np.ndarray) -> None:
+    def _build(self, data: np.ndarray, checkpoint=None) -> None:
         self._host = np.ascontiguousarray(data)
         self._n = data.shape[0]
         self._deleted = np.zeros(self._n, bool)
@@ -224,8 +234,24 @@ class BKTIndex(VectorIndex):
         self._structure_gen += 1
         self._dirty = True
         t0 = time.perf_counter()
-        self._tree = self._new_tree()
-        self._tree.build(self._host)
+        # resumable build (utils/build_ckpt.py): the tree stage is loaded
+        # from the checkpoint when a prior run already finished it
+        self._tree = None
+        if checkpoint is not None:
+            raw = checkpoint.get_bytes("tree")
+            if raw is not None:
+                try:
+                    self._tree = self._load_tree(io.BytesIO(raw))
+                    log.info("build resume: tree stage from checkpoint")
+                except Exception:                      # noqa: BLE001
+                    self._tree = None                  # corrupt -> rebuild
+        if self._tree is None:
+            self._tree = self._new_tree()
+            self._tree.build(self._host)
+            if checkpoint is not None:
+                buf = io.BytesIO()
+                self._tree.save(buf)
+                checkpoint.put_bytes("tree", buf.getvalue())
         self.build_stages = {"tree": time.perf_counter() - t0}
         p = self.params
         if not getattr(p, "build_graph", 1):
@@ -241,7 +267,8 @@ class BKTIndex(VectorIndex):
             fmode == getattr(p, "refine_search_mode", "beam")
         try:
             rng.build(self._host, int(self.dist_calc_method), self.base,
-                      self._refine_search_factory, guard_final=same_engine)
+                      self._refine_search_factory, checkpoint=checkpoint,
+                      guard_final=same_engine)
         finally:
             self._refine_dense = None       # free the build's snapshot
         self._graph = rng.graph

@@ -32,7 +32,7 @@ from sptag_tpu_torch.device import DeviceLike, resolve_device
 from sptag_tpu_torch.ops import block_dots
 from sptag_tpu_torch.ops import distance as dist_ops
 from sptag_tpu_torch.ops import topk_bins
-from sptag_tpu_torch.utils import query_bucket, round_up
+from sptag_tpu_torch.utils import devmem, query_bucket, round_up
 
 log = logging.getLogger(__name__)
 
@@ -544,6 +544,17 @@ class DenseTreeSearcher:
                          else deleted)
         self.last_effective_group = 0     # set by search(); diagnostic only
         self._demotions = set()
+        self.register_devmem()
+
+    def register_devmem(self) -> None:
+        """(Re-)register the block layout's resident bytes under a
+        dtype-split component (int8 blocks apart from float32 ones);
+        called at placement and on DeviceBytesLedger re-enable."""
+        lay_bytes = (self.data_perm.nbytes + self.member_ids.nbytes
+                     + self.member_sq.nbytes + self.centroids.nbytes
+                     + self.cent_sq.nbytes + self.deleted.nbytes)
+        devmem.track("int8_blocks" if self.data_perm.dtype == torch.int8
+                     else "dense_blocks", self, lay_bytes)
 
     def set_deleted(self, deleted: np.ndarray) -> None:
         """Swap only the tombstone mask."""

@@ -81,7 +81,7 @@ from sptag_tpu_torch.device import DeviceLike, resolve_device
 from sptag_tpu_torch.ops import distance as dist_ops
 from sptag_tpu_torch.ops import walk_dots as walk_ops
 from sptag_tpu_torch.ops import topk_bins
-from sptag_tpu_torch.utils import query_bucket
+from sptag_tpu_torch.utils import devmem, query_bucket, trace
 
 MAX_DIST = walk_ops.MAX_DIST
 
@@ -96,11 +96,10 @@ _ALIVE_CHECK = 4
 # every measured size up to 256 queries, padding included (PERF.md)
 _GRAPH_BUCKETS = (4, 16, 64, 256)
 _GRAPH_MAX_Q = _GRAPH_BUCKETS[-1]
-# one CUDA-graph capture at a time in the process: a server captures from
-# its executor thread (new padded walk sizes) and from the scheduler's
-# worker (new capacities) while the quality monitor and background swaps
-# launch from their own threads; every capture holds this lock
-capture_lock = threading.Lock()
+# one CUDA-graph capture or replay at a time in the process, none while
+# the profiler starts or stops, no capture while a profile runs
+# (utils/trace.py); every capture and replay holds this lock
+capture_lock = trace.capture_lock
 # captured graphs kept per snapshot (each holds its own memory pool); the
 # least recently replayed goes first.  A server's mixed traffic needs a
 # graph per (padded size, plan): chip_smoke.py phase 12's option palette
@@ -500,6 +499,26 @@ class GraphSearchEngine:
         self._graphs = collections.OrderedDict()
         self._graph_lock = threading.Lock()
         self._graph_seen = set()        # keys asked for once
+        # device-memory ledger: every resident tensor of this snapshot,
+        # owned by the engine (a swap retires the entry when the
+        # superseded engine is collected)
+        self.register_devmem()
+
+    def register_devmem(self) -> None:
+        """(Re-)register this snapshot's resident bytes with the memory
+        ledger, under the JAX package's components (the bf16 shadow rides
+        in ``corpus``, the pivots in ``tree``); called at construction and
+        when DeviceBytesLedger is re-enabled on a warm index.  The walk's
+        captured CUDA graphs own private pools no component names: they
+        show in `devmem.snapshot`'s untracked bytes."""
+        parts = self.device_bytes()
+        devmem.track("corpus", self, parts["corpus"]
+                     + parts.get("bf16_shadow", 0))
+        devmem.track("graph", self, parts["graph"])
+        devmem.track("tree", self, parts["pivots"])
+        if "packed_neighbors" in parts:
+            devmem.track("packed_neighbors", self,
+                         parts["packed_neighbors"])
 
     def set_deleted(self, deleted: np.ndarray) -> None:
         """Swap only the tombstone mask (a delete-only change).  On the
@@ -729,6 +748,8 @@ class GraphSearchEngine:
             entry = self._graphs.get(key)
             if entry is None:
                 entry = self._capture(queries, seeds, plan)
+                if entry is None:
+                    return None
                 self._graphs[key] = entry
                 while len(self._graphs) > _GRAPH_CACHE:
                     self._graphs.popitem(last=False)
@@ -739,11 +760,16 @@ class GraphSearchEngine:
             q_in.copy_(queries)
             if s_in is not None:
                 s_in.copy_(seeds)
-            graph.replay()
+            with capture_lock:       # not while the profiler starts / stops
+                graph.replay()
             self.last_iterations += plan[3]
             return d_out[:nq].cpu().numpy(), i_out[:nq].cpu().numpy()
 
     def _capture(self, queries, seeds, plan):
+        """The graph and its static buffers, or None while a profile runs
+        (the caller walks eagerly; the key is captured on a later call)."""
+        if trace.tracing():
+            return None
         q_in = queries.clone()
         s_in = None if seeds is None else seeds.clone()
         side = torch.cuda.Stream(self.device)
@@ -753,6 +779,8 @@ class GraphSearchEngine:
         torch.cuda.current_stream(self.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         with capture_lock:
+            if trace.tracing():
+                return None
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 d_out, i_out, _ = self._walk_chunk(q_in, s_in, plan,
                                                    check_alive=False)

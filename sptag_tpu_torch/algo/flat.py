@@ -33,7 +33,7 @@ from sptag_tpu_torch.core.types import (DistCalcMethod, IndexAlgoType,
 from sptag_tpu_torch.io import format as fmt
 from sptag_tpu_torch.ops import distance as dist_ops
 from sptag_tpu_torch.ops import topk_bins
-from sptag_tpu_torch.utils import round_up
+from sptag_tpu_torch.utils import devmem, round_up
 
 _ROW_PAD = 128      # corpus rows are padded to a multiple of this
 # score-matrix elements per query chunk (Q_chunk * Npad)
@@ -141,7 +141,8 @@ class FlatIndex(VectorIndex):
         self._host, self._deleted = grow_rows(self._host, self._deleted,
                                               self._n, extra)
 
-    def _build(self, data: np.ndarray) -> None:
+    def _build(self, data: np.ndarray, checkpoint=None) -> None:
+        # exact index: single-stage build, nothing to checkpoint
         self._host = np.ascontiguousarray(data)
         self._n = data.shape[0]
         self._deleted = np.zeros(self._n, bool)
@@ -205,10 +206,26 @@ class FlatIndex(VectorIndex):
                 invalid = np.ones(n_pad, bool)
                 invalid[:n] = self._deleted[:n]
                 data_d = torch.from_numpy(data).to(self.device)
-                self._device_snap = (
-                    data_d, dist_ops.row_sqnorms(data_d),
-                    torch.from_numpy(invalid).to(self.device))
+                snap = (data_d, dist_ops.row_sqnorms(data_d),
+                        torch.from_numpy(invalid).to(self.device))
+                # device-memory ledger: owned by the data tensor, so a
+                # snapshot rebuild drops the old entry with the old tensors
+                self._track_snapshot(snap)
+                self._device_snap = snap
             return self._device_snap
+
+    @staticmethod
+    def _track_snapshot(snap) -> None:
+        data_d, sqnorm_d, invalid_d = snap
+        devmem.track("corpus", data_d,
+                     data_d.nbytes + sqnorm_d.nbytes + invalid_d.nbytes)
+
+    def _retrack_devmem(self) -> None:
+        # DeviceBytesLedger re-enabled on a warm index: re-register the
+        # live snapshot (disable dropped its entry)
+        with self._lock:
+            if self._device_snap is not None:
+                self._track_snapshot(self._device_snap)
 
     # ---- search -----------------------------------------------------------
 

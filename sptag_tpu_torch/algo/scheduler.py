@@ -66,8 +66,8 @@ import numpy as np
 import torch
 
 from sptag_tpu_torch.algo.engine import STATE_KEYS, capture_lock
-from sptag_tpu_torch.utils import (flightrec, hostprof, locksan, metrics,
-                                   query_bucket)
+from sptag_tpu_torch.utils import (devmem, flightrec, hostprof, locksan,
+                                   metrics, query_bucket, trace)
 
 log = logging.getLogger(__name__)
 
@@ -181,6 +181,14 @@ class _SlotPool:
         self.t_limit = torch.empty(capacity, dtype=torch.int64, device=dev)
         self.entries = [None] * capacity
         self.capacity = capacity
+        # device-memory ledger: the pool's slot-state footprint,
+        # re-tracked at every grow/compact so the gauge follows occupancy.
+        # The port keeps the slot state on the device between segments
+        # (the JAX package round-trips it through the host and marks the
+        # entry host=True), so it counts toward the device total here
+        devmem.track("slot_pool", self,
+                     sum(a.nbytes for a in self.state.values()
+                         if a is not None) + self.t_limit.nbytes)
         self._blank_rows(slice(None))
         src = [i for i, e in enumerate(old_entries) if e is not None]
         if src:
@@ -346,6 +354,7 @@ class BeamSlotScheduler:
             for pool in self._pools.values():
                 leftovers.extend(e for e in pool.entries if e is not None)
                 pool.entries = [None] * pool.capacity
+                devmem.untrack(pool)
         for item in leftovers:
             if not item.future.done():
                 item.future.set_exception(
@@ -431,6 +440,7 @@ class BeamSlotScheduler:
             pool.state = {}
             pool.t_limit = None
             pool.capacity = 0
+            devmem.untrack(pool)
 
     def _make_pool(self, key, first_t: int) -> _SlotPool:
         seg = self._segment_iters
@@ -572,7 +582,8 @@ class BeamSlotScheduler:
                 if arr is not None:
                     bufs[name].copy_(arr)
             t_in.copy_(pool.t_limit)
-            graph.replay()
+            with capture_lock:       # not while the profiler starts / stops
+                graph.replay()
             for name in STATE_KEYS:
                 pool.state[name].copy_(bufs[name])
             mode = "replayed"
@@ -594,6 +605,8 @@ class BeamSlotScheduler:
             self._graph_seen.add(key)
             return None
         entry = self._capture(pool)
+        if entry is None:
+            return None
         self._graphs[key] = entry
         while len(self._graphs) > _GRAPH_CACHE:
             self._graphs.popitem(last=False)
@@ -604,7 +617,11 @@ class BeamSlotScheduler:
     def _capture(self, pool: _SlotPool):
         """A CUDA graph of one S-iteration segment over static copies of
         the pool's state: the new state is written back into the same
-        buffers, and the alive flags into a static output."""
+        buffers, and the alive flags into a static output.  None while a
+        profile runs (utils/trace.py): the caller runs the segment
+        eagerly."""
+        if trace.tracing():
+            return None
         engine = self._engine
         dev = engine.device
         bufs = {name: arr.clone() for name, arr in pool.state.items()
@@ -628,6 +645,8 @@ class BeamSlotScheduler:
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         with capture_lock:
+            if trace.tracing():
+                return None
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 alive_out = segment()
         return graph, bufs, t_in, alive_out

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from sptag_tpu_torch.device import DeviceLike, resolve_device
-from sptag_tpu_torch.utils import locksan, round_up
+from sptag_tpu_torch.utils import devmem, locksan, round_up
 
 #: sentinel distance (core/index.py MAX_DIST)
 _MAX_DIST = np.float32(3.4e38)
@@ -89,6 +89,8 @@ class DeltaShard:
 
             data_d = torch.from_numpy(self._rows.copy()).to(self.device)
             snap = (count, data_d, dist_ops.row_sqnorms(data_d))
+            devmem.track("delta_shard", self,
+                         data_d.nbytes + snap[2].nbytes)
             self._device = snap
             return snap
 
@@ -119,10 +121,12 @@ class DeltaShard:
         """A fresh shard holding only the rows at/after `new_base` (the
         swap's handoff); None when nothing remains."""
         if tail_rows is None or tail_rows.shape[0] == 0:
+            devmem.untrack(self)
             return None
         out = DeltaShard(new_base, self._rows.shape[1], self._rows.dtype,
                          self.capacity, self.metric, self.base, self.device)
         out.append(np.asarray(tail_rows), new_base)
+        devmem.untrack(self)
         return out
 
 

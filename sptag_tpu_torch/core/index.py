@@ -35,7 +35,7 @@ import shutil
 import threading
 from concurrent.futures import Future
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple, Type, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Type, Union
 
 import numpy as np
 import torch
@@ -56,7 +56,7 @@ from sptag_tpu_torch.core.vectorset import (FileMetadataSet, MetadataSet,
 from sptag_tpu_torch.device import DeviceLike, resolve_device
 from sptag_tpu_torch.io import atomic, wal
 from sptag_tpu_torch.ops import distance as dist_ops
-from sptag_tpu_torch.utils import faultinject, locksan, metrics
+from sptag_tpu_torch.utils import devmem, faultinject, locksan, metrics
 from sptag_tpu_torch.utils.ini import IniReader
 
 log = logging.getLogger(__name__)
@@ -170,8 +170,13 @@ class VectorIndex(abc.ABC):
     def _make_params(self) -> ParamSet: ...
 
     @abc.abstractmethod
-    def _build(self, data: np.ndarray) -> None:
-        """Build the index over `data` (already normalized for cosine)."""
+    def _build(self, data: np.ndarray, checkpoint=None) -> None:
+        """Build the index over `data` (already normalized for cosine).
+
+        `checkpoint` (utils/build_ckpt.BuildCheckpoint or None): stage
+        store of a resumable build; multi-stage builds load completed
+        stages from it and save each stage as it finishes, exact
+        (single-stage) indexes ignore it."""
 
     @abc.abstractmethod
     def _search_batch(self, queries: np.ndarray, k: int,
@@ -233,6 +238,17 @@ class VectorIndex(abc.ABC):
     def set_parameter(self, name: str, value: str) -> bool:
         ok = self.params.set_param(name, value)
         low = name.lower()
+        if ok and low == "devicebytesledger":
+            # process-wide device-memory ledger flag (utils/devmem.py),
+            # applied at once for every index family
+            enabled = bool(int(getattr(self.params,
+                                       "device_bytes_ledger", 1)))
+            devmem.configure(enabled=enabled)
+            if enabled:
+                # re-enabled on a warm index: disabling dropped every
+                # entry, so re-register the live ones (slot pools re-track
+                # at their next resize)
+                self._retrack_devmem()
         if ok and low in ("timelineintervalms", "timelineevents"):
             # serving timeline (utils/timeline.py): process-wide;
             # interval > 0 arms and starts the sampler, 0 stops it; the
@@ -268,6 +284,11 @@ class VectorIndex(abc.ABC):
                         if low == "qualitywindow" else None))
         return ok
 
+    def _retrack_devmem(self) -> None:
+        """Re-register this index's live device allocations with the
+        memory ledger (subclass hook, called when DeviceBytesLedger is
+        re-enabled).  Default: nothing tracked."""
+
     def get_parameter(self, name: str) -> Optional[str]:
         return self.params.get_param(name)
 
@@ -297,25 +318,43 @@ class VectorIndex(abc.ABC):
               with_meta_index: bool = False,
               checkpoint_dir: Optional[str] = None,
               keep_checkpoint: bool = False) -> ErrorCode:
-        """Build over `vectors`.  Resumable build checkpoints
-        (`checkpoint_dir`, `keep_checkpoint` or ``SPTAG_TPU_BUILD_CKPT``)
-        are not ported: asking for one raises rather than build without
-        it."""
-        if checkpoint_dir is None:
-            checkpoint_dir = os.environ.get("SPTAG_TPU_BUILD_CKPT") or None
-        if checkpoint_dir or keep_checkpoint:
-            raise not_ported("resumable build checkpoints (checkpoint_dir, "
-                             "keep_checkpoint, SPTAG_TPU_BUILD_CKPT)",
-                             "observability")
+        """Build over `vectors`.
+
+        `checkpoint_dir` (or env ``SPTAG_TPU_BUILD_CKPT``) makes the build
+        RESUMABLE: each completed stage (tree, TPT candidate merge,
+        non-final refine pass) is checkpointed there, and a re-run over
+        the same data + params resumes at the first incomplete stage.  The
+        checkpoint is fingerprint-bound (utils/build_ckpt.py, the JAX
+        package's fingerprint) and removed on success unless
+        `keep_checkpoint`, which leaves the clear to the caller through
+        `last_checkpoint`.  `build_resumed` says whether any stage came
+        from disk."""
         data = self._prepare_vectors(vectors)
         if data.size == 0:
             return ErrorCode.EmptyData
+        if checkpoint_dir is None:
+            checkpoint_dir = os.environ.get("SPTAG_TPU_BUILD_CKPT") or None
+        ck = None
+        if checkpoint_dir:
+            from sptag_tpu_torch.utils.build_ckpt import (BuildCheckpoint,
+                                                          build_fingerprint)
+            config = (f"{type(self).__name__}:{int(self.value_type)}:"
+                      f"{sorted(self.params.__dict__.items())!r}")
+            ck = BuildCheckpoint(checkpoint_dir,
+                                 build_fingerprint(data, config))
         with self._lock:
-            self._build(data)
+            self._build(data, checkpoint=ck)
             self._reset_delta()
             self.metadata = metadata
             if with_meta_index and metadata is not None:
                 self.build_meta_mapping()
+            # flag + clear inside the lock: two concurrent builds must not
+            # interleave one's clear() with the other's stage writes
+            self.build_resumed = ck is not None and ck.resumed
+            self.last_checkpoint = ck
+            if ck is not None and not keep_checkpoint:
+                ck.clear()
+                self.last_checkpoint = None
         # index health at every structural mutation: one flag test when
         # the monitor is off; the O(n) sweep runs on its worker
         self.publish_quality_health(background=True)
@@ -353,8 +392,8 @@ class VectorIndex(abc.ABC):
         # the main tier covers its frozen snapshot, fresh rows the delta
         # shard: the two top-k lists merge here
         return self._merge_delta(
-            queries, k, self._search_batch(queries, k, max_check,
-                                           search_mode))
+            queries, k, lambda: self._search_batch(queries, k, max_check,
+                                                   search_mode))
 
     def submit_batch(self, queries: np.ndarray, k: int = 10,
                      max_check: Optional[int] = None,
@@ -400,8 +439,8 @@ class VectorIndex(abc.ABC):
         k_eff = min(k, self.num_samples)
         # both tiers are exact: an oracle blind to just-acked rows would
         # score the serving path against a stale truth
-        dists, ids = self._merge_delta(queries, k_eff,
-                                       self._exact_scan(queries, k_eff))
+        dists, ids = self._merge_delta(
+            queries, k_eff, lambda: self._exact_scan(queries, k_eff))
         return pad_results(dists, ids, k)
 
     # ---- quality health (utils/qualmon.py) --------------------------------
@@ -590,9 +629,12 @@ class VectorIndex(abc.ABC):
         self._delta = None
         if d.count:
             self._absorb_delta_impl(d.base_id, d.count)
+        devmem.untrack(d)
 
     def _reset_delta(self) -> None:
         """Discard the delta (build or load replaced the corpus)."""
+        if self._delta is not None:
+            devmem.untrack(self._delta)
         self._delta = None
 
     def _main_rows(self) -> int:
@@ -603,12 +645,15 @@ class VectorIndex(abc.ABC):
             self.num_samples
 
     def _merge_delta(self, queries: np.ndarray, k: int,
-                     main: Tuple[np.ndarray, np.ndarray]
+                     main_search: Callable[[], Tuple[np.ndarray, np.ndarray]]
                      ) -> Tuple[np.ndarray, np.ndarray]:
-        """Union the main tier's top-k with the delta scan's (queries
-        prepared).  One local reference pins the shard: a concurrent swap
-        retires it harmlessly (merge_topk dedupes a row seen twice)."""
+        """Union the main tier's top-k (`main_search()`) with the delta
+        scan's (queries prepared).  One local reference pins the shard
+        BEFORE the main tier is searched: a swap that absorbs the shard
+        in between leaves its rows in the pinned shard, or in both tiers
+        (merge_topk dedupes a row seen twice), never in neither."""
         d = self._delta
+        main = main_search()
         if d is None or not d.count:
             return main
         from sptag_tpu_torch.core.delta import merge_topk
@@ -731,7 +776,7 @@ class VectorIndex(abc.ABC):
         k = int(getattr(self.params, "cef", 32))
         k_eff = min(k, self.num_samples)
         dists, ids = self._merge_delta(
-            data, k_eff, self._search_batch(data, k_eff))
+            data, k_eff, lambda: self._search_batch(data, k_eff))
         tombstoned: List[int] = []
         seen = set()
         with self._lock:

@@ -232,3 +232,95 @@ class FlatParams(ParamSet):
         _spec("delta_shard_capacity", int, 0, "DeltaShardCapacity"),
         _spec("auto_refine_threshold", int, 0, "AutoRefineThreshold"),
     ]
+
+
+# ---------------------------------------------------------------------------
+# Live-actuation registry (the JAX package's, knob for knob)
+#
+# `VectorIndex.set_parameter` will happily store any registered name at any
+# value — that is the right contract for an operator at a REPL, but the
+# online controller (serve/controller.py) changes knobs with nobody
+# watching, so the set it may touch and the range it may use have to be
+# declared somewhere AUDITABLE.  This registry is that declaration: every
+# knob the control plane may live-apply, with hard bounds, whether the
+# value must stay a power of two (budget-shaped walks — a non-pow2
+# MaxCheck would capture a fresh CUDA graph per actuation, turning a
+# latency page into a capture storm), and whether the knob lives on the index
+# (applied through set_parameter) or on the serving tier (applied through
+# an owner-provided setter, bounds still enforced here).  Actuating a name
+# absent from the registry RAISES instead of silently no-opping: a silent
+# no-op would leave the controller believing it relieved pressure while
+# the index ignored it.
+
+
+class UnknownActuationError(KeyError):
+    """A live actuation targeted a knob that is not in the registry."""
+
+
+@dataclasses.dataclass(frozen=True)
+class ActuationSpec:
+    name: str            # canonical RepresentStr
+    lo: float            # inclusive lower bound
+    hi: float            # inclusive upper bound
+    pow2: bool = False   # quantize to a power of two (static kernel shapes)
+    scope: str = "index"  # "index": via set_parameter; "tier": owner setter
+
+
+LIVE_ACTUATIONS: Dict[str, ActuationSpec] = {
+    s.name.lower(): s
+    for s in [
+        # candidate budget: the primary latency<->recall lever; pow2 so
+        # every actuated value hits an existing walk plan
+        ActuationSpec("MaxCheck", 64, 1 << 20, pow2=True),
+        # cascade per-tier shortlists (0 = auto stays reachable: lo=0,
+        # and pow2 quantization only applies above 1)
+        ActuationSpec("TierBudgetSketch", 0, 1 << 20, pow2=True),
+        ActuationSpec("TierBudgetInt8", 0, 1 << 20, pow2=True),
+        # binned-TopK guarantee level — cheaper selection at lower target
+        ActuationSpec("ApproxRecallTarget", 0.5, 1.0),
+        # tier-scoped: admission's degraded-mode MaxCheck clamp
+        ActuationSpec("DegradeMaxCheckFloor", 64, 1 << 20, pow2=True,
+                      scope="tier"),
+        # tier-scoped: aggregator hedge trigger percentile (lower =
+        # hedge sooner = more duplicate work for a shorter tail)
+        ActuationSpec("HedgePercentile", 50.0, 99.9, scope="tier"),
+    ]
+}
+
+
+def actuation_spec(name: str) -> ActuationSpec:
+    spec = LIVE_ACTUATIONS.get(name.lower())
+    if spec is None:
+        raise UnknownActuationError(name)
+    return spec
+
+
+def clamp_actuation(name: str, value) -> float:
+    """Bound `value` to the registry range for `name`, quantizing to a
+    power of two (rounding DOWN — never exceed the requested cost) for
+    pow2 knobs.  Raises UnknownActuationError for unregistered names."""
+    spec = actuation_spec(name)
+    v = min(float(value), spec.hi)
+    if spec.pow2 and v >= 1.0:
+        v = float(1 << (int(v).bit_length() - 1))
+    return max(v, spec.lo)
+
+
+def actuate_index(index, name: str, value) -> float:
+    """Live-apply a registered INDEX-scoped knob through the index's
+    `set_parameter`, clamped per the registry; returns the value
+    actually applied.  Raises UnknownActuationError for unregistered
+    names, ValueError for tier-scoped ones, and RuntimeError when the
+    index rejects a registered name — all three are control-plane bugs,
+    not steady-state conditions, and must surface."""
+    spec = actuation_spec(name)
+    if spec.scope != "index":
+        raise ValueError(
+            "knob %s is tier-scoped; apply it through the owning tier's "
+            "setter, not index.set_parameter" % spec.name)
+    applied = clamp_actuation(name, value)
+    out = int(applied) if float(applied).is_integer() else applied
+    if not index.set_parameter(spec.name, str(out)):
+        raise RuntimeError("index rejected registered live knob %s"
+                           % spec.name)
+    return float(out)

@@ -20,7 +20,12 @@ The corpus is copied to the device once per build; gathers of candidate
 vectors happen there.  Everything that decides an edge — the generator
 streams, the chunking and padding of the refine searches, tie rules, the
 guard — is the JAX package's, so the same search function gives the same
-graph.  Resumable build checkpoints are not ported (ROADMAP.md).
+graph.
+
+A resumable build (`checkpoint`, utils/build_ckpt.py) saves the TPT
+candidate merge (throttled, always after the last tree) and every
+non-final refine pass, in the JAX package's stage names and layouts, and
+resumes at the first incomplete stage.
 """
 
 from __future__ import annotations
@@ -47,6 +52,8 @@ MAX_DIST = np.float32(3.4e38)
 _ALLPAIRS_BUDGET = 1 << 26
 # node rows per rng_select / refine chunk
 _PRUNE_CHUNK = 4096
+# min seconds between candidate-stage checkpoint rewrites (build_candidates)
+_CKPT_MIN_INTERVAL_S = 60.0
 
 # SearchFn(queries (Q, D), k) -> (dists (Q, k), ids (Q, k)), numpy
 SearchFn = Callable[[np.ndarray, int], Tuple[np.ndarray, np.ndarray]]
@@ -100,17 +107,22 @@ class RelativeNeighborhoodGraph:
 
     def build(self, data: np.ndarray, metric: int, base: int,
               search_fn_factory: Optional[Callable[..., SearchFn]] = None,
-              seed: int = 31, guard_final: bool = True) -> None:
+              seed: int = 31, checkpoint=None,
+              guard_final: bool = True) -> None:
         """Full build: TPT candidates, the wide prune, then refine passes.
 
         `search_fn_factory(graph, final=bool)` returns a SearchFn over the
         current graph (`final` marks the pass that defines the saved
-        edges); without it the build stops after the prune."""
+        edges); without it the build stops after the prune.
+        `checkpoint` (utils/build_ckpt.BuildCheckpoint): each non-final
+        refine pass saves its output graph and a resumed build skips every
+        pass a prior run completed (the candidate stage checkpoints inside
+        build_candidates)."""
         self.stage_seconds = {}
         self._upload(data)
         try:
             self._build(data, metric, base, search_fn_factory, seed,
-                        guard_final)
+                        guard_final, checkpoint)
         finally:
             self._data_d = self._data_f = None
 
@@ -121,7 +133,7 @@ class RelativeNeighborhoodGraph:
         return out
 
     def _build(self, data, metric, base, search_fn_factory, seed,
-               guard_final) -> None:
+               guard_final, checkpoint=None) -> None:
         m = self.neighborhood_size
         # RefineIterations counts SEARCH passes, like the reference's
         # m_iRefineIter (its first pass walks the raw TPT candidate rows)
@@ -129,14 +141,25 @@ class RelativeNeighborhoodGraph:
             else 0
         width_wide = min(max(m * self.neighborhood_scale, 1),
                          max(data.shape[0] - 1, 1))
-        cand_ids, cand_d = self._timed(
-            "tpt_candidates", self.build_candidates, data, metric, base,
-            seed)
-        # prune-only width: wide when refine passes will narrow it, the
-        # final width when none will (RefineIterations=0)
-        self.graph = self._timed(
-            "prune", self.prune_candidates, data, cand_ids, cand_d,
-            width_wide if passes > 0 else m, metric, base)
+        start = 0
+        if checkpoint is not None and passes > 0:
+            for it in reversed(range(passes - 1)):     # last pass not saved
+                saved = checkpoint.get_arrays(f"graph_pass{it}")
+                if saved is not None:
+                    self.graph = saved["graph"]
+                    start = it + 1
+                    log.info("build resume: refine pass %d/%d from "
+                             "checkpoint", it + 1, passes)
+                    break
+        if start == 0:
+            cand_ids, cand_d = self._timed(
+                "tpt_candidates", self.build_candidates, data, metric, base,
+                seed, checkpoint=checkpoint)
+            # prune-only width: wide when refine passes will narrow it,
+            # the final width when none will (RefineIterations=0)
+            self.graph = self._timed(
+                "prune", self.prune_candidates, data, cand_ids, cand_d,
+                width_wide if passes > 0 else m, metric, base)
         # accuracy guard: a pass that both drops the paired estimate and
         # lands below the absolute floor is rolled back and the remaining
         # passes skipped.  An engine-switch final pass (guard_final=False)
@@ -144,11 +167,11 @@ class RelativeNeighborhoodGraph:
         guard = self.refine_accuracy_guard and passes > 0 and \
             (guard_final or passes > 1)
         acc_truth = pre_acc = None
-        if guard:
+        if guard and start < passes:
             acc_truth = self.accuracy_truth(data, metric, base, width=m)
             pre_acc = self.accuracy_estimation(data, metric, base,
                                                width=m, truth=acc_truth)
-        for it in range(passes):
+        for it in range(start, passes):
             last = it == passes - 1
             width = m if last else width_wide
             before = self.graph if guard else None
@@ -183,6 +206,10 @@ class RelativeNeighborhoodGraph:
                                   if before.shape[1] > m else before)
                     break
                 pre_acc = acc
+            if checkpoint is not None and not last:
+                # the final pass is not checkpointed: the build's own save
+                # captures the finished graph
+                checkpoint.put_arrays(f"graph_pass{it}", graph=self.graph)
         self.repair_connectivity()
 
     def repair_connectivity(self) -> None:
@@ -230,23 +257,50 @@ class RelativeNeighborhoodGraph:
             log.info("connectivity repair: %d orphan nodes linked", fixed)
 
     def build_candidates(self, data: np.ndarray, metric: int, base: int,
-                         seed: int) -> Tuple[np.ndarray, np.ndarray]:
+                         seed: int, checkpoint=None
+                         ) -> Tuple[np.ndarray, np.ndarray]:
         """TPT forest -> (N, C) best-candidate lists, ascending distance.
         Each tree draws from its own ``[seed, t]``-keyed generator, as in
-        the JAX package; the running lists stay on the device."""
+        the JAX package, so a checkpointed resume (`checkpoint` stage
+        "candidates") reproduces the interrupted run's partition stream;
+        the running lists stay on the device and go to the host only to be
+        written."""
         n = data.shape[0]
         C = min(max(self.neighborhood_size * self.neighborhood_scale, 1),
                 max(n - 1, 1))
         dev = self._data_f.device
         cand_ids = torch.full((n, C), -1, dtype=torch.int32, device=dev)
         cand_d = torch.full((n, C), float(MAX_DIST), device=dev)
-        for t in range(self.tpt_number):
+        start_t = 0
+        if checkpoint is not None:
+            saved = checkpoint.get_arrays("candidates")
+            if (saved is not None
+                    and saved["cand_ids"].shape == tuple(cand_ids.shape)):
+                cand_ids = torch.from_numpy(saved["cand_ids"]).to(dev)
+                cand_d = torch.from_numpy(saved["cand_d"]).to(dev)
+                start_t = int(saved["trees_done"])
+                log.info("build resume: %d/%d TPT trees from checkpoint",
+                         start_t, self.tpt_number)
+        last_save = time.monotonic()
+        for t in range(start_t, self.tpt_number):
             rng = np.random.default_rng([seed, t])
             leaves = tpt_partition(data, self.tpt_leaf_size,
                                    self.tpt_top_dims, self.tpt_samples, rng)
             new_ids, new_d = self._tree_candidates(leaves, C, metric, base)
             cand_ids, cand_d = graph_ops.merge_candidates(
                 cand_ids, cand_d, new_ids, new_d)
+            if checkpoint is not None:
+                # throttled: the (N, C) lists can be ~100 MB, so rewriting
+                # them after every tree would put O(trees x N x C) of
+                # synchronous IO on the build; the last tree always writes
+                now = time.monotonic()
+                if (t + 1 == self.tpt_number
+                        or now - last_save >= _CKPT_MIN_INTERVAL_S):
+                    checkpoint.put_arrays(
+                        "candidates", cand_ids=cand_ids.cpu().numpy(),
+                        cand_d=cand_d.cpu().numpy(),
+                        trees_done=np.int64(t + 1))
+                    last_save = now
         return cand_ids.cpu().numpy(), cand_d.cpu().numpy()
 
     def _tree_candidates(self, leaves, C, metric, base):

@@ -1,0 +1,335 @@
+"""Admission control — overload defense for the serve tiers (copy of
+``sptag_tpu/serve/admission.py`` over the port's utils).
+
+The serve stack batches, streams, measures and triages — but before this
+module nothing DEFENDED it: offered load past capacity grew the queue to
+its cap and then answered queue-full sheds at random, one hot tenant
+could occupy every slot, and every shed had already paid request decode.
+This controller closes that gap with the classic three-state ladder:
+
+* ``normal`` — admit everything (and keep per-client accounting warm);
+* ``degrade`` — admit, but clamp the query's device budget: per-query
+  MaxCheck is clamped down toward ``DegradeMaxCheckFloor`` and oversized
+  k toward the service default, so each admitted query costs a bounded,
+  PREDICTABLE amount of device time (a MaxCheck step prices in GFLOPs,
+  which is what makes "shed compute, not queries" a principled knob).
+  Degraded responses carry the ``degraded`` marker trailer
+  (serve/wire.py) so clients KNOW recall was traded for survival;
+* ``shed`` — reject at the socket edge with a distinct status
+  (``ResultStatus.Overloaded``) BEFORE the request body is decoded —
+  under real overload, decode cost is the attack surface.
+
+Signals: the controller reads whatever its owner wires in — the search
+server feeds the fill of its own request queue (the coalescer's queue plus
+the card batches waiting on its ``sptag-serve-batch`` executor), the
+continuous-batching scheduler's slot-wait p99 and pool occupancy; the
+aggregator feeds its in-flight fraction and request p99.  Escalation
+is immediate (one bad poll can mean thousands of queued requests);
+RECOVERY steps down one state at a
+time and only after the signals have stayed calm for
+``recover_hold_ms`` — the hysteresis that stops the state from
+flapping with the queue.
+
+Fair queueing: per-client exponentially-decayed admit counts (keyed on
+the CONNECTION identity — the only identity available before decode).
+Under pressure (any non-normal state), a client holding more than
+``fair_share`` of the recent admitted traffic is shed even when the
+state would only degrade — one hot tenant cannot starve the rest, and
+the quiet tenants keep their degraded-but-alive service.
+
+Everything is observable: ``admission.state`` gauge (0/1/2), transition
+/ shed / degrade / fairness counters, and a ``snapshot()`` served as
+``GET /debug/admission`` on both tiers.  The controller is pure host
+arithmetic with an injectable clock — tests drive the state machine with
+a fake clock, no sleeps.
+
+Off by default (``[Service] AdmissionControl=0``): the serve hot path
+then performs one ``is None`` test per request and the wire bytes stay
+byte-identical (the ci_check.sh off-parity pass).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Dict, Optional
+
+from sptag_tpu_torch.utils import locksan, metrics
+
+#: admit() decisions
+ADMIT = "admit"
+DEGRADE = "degrade"
+SHED = "shed"
+
+#: states (ordered by severity; the gauge publishes the index)
+STATES = ("normal", "degrade", "shed")
+
+
+@dataclasses.dataclass
+class AdmissionConfig:
+    """Thresholds for the state machine.  Queue fractions are of the
+    owner's bounded queue (server request queue / aggregator in-flight
+    cap); slot-wait is the scheduler's p99 in milliseconds (the
+    aggregator substitutes its own request p99)."""
+
+    degrade_queue_frac: float = 0.5
+    shed_queue_frac: float = 0.9
+    degrade_slot_wait_ms: float = 50.0
+    shed_slot_wait_ms: float = 250.0
+    #: scheduler pool occupancy alone can only DEGRADE (full slots with
+    #: an empty queue is healthy continuous batching, not overload)
+    degrade_occupancy: float = 0.97
+    #: MaxCheck clamp target in degrade (power of two: budgets quantize)
+    degrade_max_check_floor: int = 512
+    #: max fraction of recent admits one client may hold under pressure
+    fair_share: float = 0.5
+    #: fairness needs at least this many recently-active clients (a
+    #: single-client deployment must not shed its only tenant)
+    fair_min_clients: int = 2
+    #: decay window for the per-client admit accounting (seconds)
+    fair_window_s: float = 10.0
+    #: signals must stay below the degrade thresholds this long before
+    #: the state steps DOWN one level
+    recover_hold_ms: float = 2000.0
+    #: minimum interval between signal polls on the admit() path
+    eval_interval_ms: float = 50.0
+    #: bound on the per-client accounting table
+    max_clients: int = 1024
+
+
+@locksan.race_track
+class AdmissionController:
+    """State machine + fair-queueing bookkeeping.
+
+    `signals` (optional) is a zero-arg callable returning the keyword
+    arguments of :meth:`observe`; when wired, :meth:`admit` refreshes the
+    state at most every ``eval_interval_ms``.  Tests drive
+    :meth:`observe` directly with a fake ``clock``."""
+
+    def __init__(self, config: Optional[AdmissionConfig] = None,
+                 signals: Optional[Callable[[], Dict]] = None,
+                 clock: Callable[[], float] = time.monotonic):
+        self.config = config or AdmissionConfig()
+        self._signals = signals
+        self._clock = clock
+        self._lock = locksan.make_lock("AdmissionController._lock")
+        self._state = 0                       # index into STATES
+        self._calm_since: Optional[float] = None
+        self._last_eval = float("-inf")
+        self._last_signals: Dict[str, float] = {}
+        # per-client decayed admit scores + the matching decayed total
+        self._clients: Dict[str, float] = {}
+        self._clients_at: Dict[str, float] = {}
+        self._total = 0.0
+        self._total_at: Optional[float] = None
+        metrics.set_gauge("admission.state", 0)
+
+    # ------------------------------------------------------------- signals
+
+    @property
+    def state(self) -> str:
+        return STATES[self._state]
+
+    def bind_signals(self, signals: Callable[[], Dict]) -> None:
+        """Attach a signal source if none was given at construction (a
+        ctor-injected controller gets the owning tier's queue/scheduler
+        reads without the test having to know them)."""
+        if self._signals is None:
+            self._signals = signals
+
+    def observe(self, queue_frac: float = 0.0,
+                slot_wait_p99_ms: float = 0.0,
+                occupancy: float = 0.0,
+                mesh_shards: float = 0.0) -> str:
+        """Feed one signal sample and recompute the state; returns the
+        (possibly new) state name.  `mesh_shards` is context, not a
+        trigger: with in-mesh serving the slot pools span the
+        shard axis, so `slot_wait_p99_ms`/`occupancy` are already
+        MESH-WIDE readings — the shard count rides along so
+        /debug/admission shows what scope a degrade decision covered."""
+        cfg = self.config
+        now = self._clock()
+        with self._lock:
+            self._last_signals = {"queue_frac": round(queue_frac, 4),
+                                  "slot_wait_p99_ms":
+                                      round(slot_wait_p99_ms, 3),
+                                  "occupancy": round(occupancy, 4)}
+            if mesh_shards:
+                self._last_signals["mesh_shards"] = int(mesh_shards)
+            if queue_frac >= cfg.shed_queue_frac or \
+                    slot_wait_p99_ms >= cfg.shed_slot_wait_ms:
+                target = 2
+            elif queue_frac >= cfg.degrade_queue_frac or \
+                    slot_wait_p99_ms >= cfg.degrade_slot_wait_ms or \
+                    occupancy >= cfg.degrade_occupancy:
+                target = 1
+            else:
+                target = 0
+            if target > self._state:
+                # escalate IMMEDIATELY — one bad poll is thousands of
+                # queued requests at production arrival rates
+                self._transition(target)
+                self._calm_since = None
+            elif target < self._state:
+                # de-escalate one level at a time, and only after the
+                # hold period of calm signals (hysteresis)
+                if self._calm_since is None:
+                    self._calm_since = now
+                elif (now - self._calm_since) * 1000.0 >= \
+                        cfg.recover_hold_ms:
+                    self._transition(self._state - 1)
+                    self._calm_since = now
+            else:
+                self._calm_since = None
+            return STATES[self._state]
+
+    def _transition(self, new: int) -> None:
+        self._state = new
+        metrics.set_gauge("admission.state", new)
+        metrics.inc("admission.transitions")
+
+    def _maybe_refresh(self, now: float) -> None:
+        if self._signals is None:
+            return
+        if (now - self._last_eval) * 1000.0 < self.config.eval_interval_ms:
+            return
+        self._last_eval = now
+        try:
+            sig = self._signals()
+        except Exception:                                # noqa: BLE001
+            # a broken signal source must degrade to stale state, never
+            # take the request path down
+            return
+        self.observe(**sig)
+
+    # --------------------------------------------------------------- admit
+
+    def admit(self, client: str, canary: bool = False) -> str:
+        """One admission decision for a request from `client` (the
+        pre-decode connection identity).  Returns ADMIT / DEGRADE /
+        SHED; all bookkeeping (state refresh, fair-share accounting,
+        counters) happens here.
+
+        `canary=True` (serve/canary.py isolation contract):
+        the request still rides the real state ladder — a shed canary
+        IS the availability signal — but is EXCLUDED from fair-share
+        accounting: probe traffic must neither distort tenant shares
+        nor be fairness-shed as the "hot client" on an idle server."""
+        now = self._clock()
+        self._maybe_refresh(now)
+        cfg = self.config
+        with self._lock:
+            state = self._state
+            if state == 2:
+                metrics.inc("admission.sheds")
+                return SHED
+            if canary:
+                if state == 1:
+                    metrics.inc("admission.degraded_queries")
+                    return DEGRADE
+                return ADMIT
+            share = self._charge(client, now)
+            if state == 1:
+                # share first (O(1)); the O(clients) active count runs
+                # only when a client is actually over its share AND the
+                # tier is under pressure — never on the normal-state path
+                if share > cfg.fair_share and \
+                        self._actives(now) >= cfg.fair_min_clients:
+                    # the hot tenant sheds so the quiet ones keep
+                    # (degraded) service — un-charge the admit we
+                    # provisionally recorded
+                    self._clients[client] -= 1.0
+                    self._total -= 1.0
+                    metrics.inc("admission.fair_sheds")
+                    metrics.inc("admission.sheds")
+                    return SHED
+                metrics.inc("admission.degraded_queries")
+                return DEGRADE
+            return ADMIT
+
+    def _charge(self, client: str, now: float) -> float:
+        """Decay + record one admit for `client`; returns the client's
+        share of recent admits.  Caller holds the lock."""
+        cfg = self.config
+        w = max(cfg.fair_window_s, 1e-3)
+        # decay the total
+        if self._total_at is not None:
+            self._total *= 2.0 ** (-(now - self._total_at) / w)
+        self._total_at = now
+        self._total += 1.0
+        # decay this client
+        score = self._clients.get(client, 0.0)
+        at = self._clients_at.get(client)
+        if at is not None:
+            score *= 2.0 ** (-(now - at) / w)
+        score += 1.0
+        self._clients[client] = score
+        self._clients_at[client] = now
+        if len(self._clients) > cfg.max_clients:
+            self._prune(now, w)
+        return score / max(self._total, 1e-9)
+
+    def _actives(self, now: float) -> int:
+        """Recently-active client count (decayed score >= 0.5) — O(n)
+        over the bounded client table, so called only on the fairness
+        path, never per admit.  Caller holds the lock."""
+        w = max(self.config.fair_window_s, 1e-3)
+        return sum(1 for c, s in self._clients.items()
+                   if s * 2.0 ** (-(now - self._clients_at[c]) / w)
+                   >= 0.5)
+
+    def _prune(self, now: float, w: float) -> None:
+        """Drop the most-decayed half of the client table (bound memory;
+        a dropped client simply re-enters with a zero score)."""
+        decayed = sorted(
+            self._clients,
+            key=lambda c: self._clients[c]
+            * 2.0 ** (-(now - self._clients_at[c]) / w))
+        for c in decayed[:len(decayed) // 2]:
+            self._clients.pop(c, None)
+            self._clients_at.pop(c, None)
+
+    # ------------------------------------------------------------ exposure
+
+    def snapshot(self) -> Dict:
+        """Plain-data view for GET /debug/admission."""
+        with self._lock:
+            now = self._clock()
+            w = max(self.config.fair_window_s, 1e-3)
+            top = sorted(
+                ((c, self._clients[c]
+                  * 2.0 ** (-(now - self._clients_at[c]) / w))
+                 for c in self._clients),
+                key=lambda cs: -cs[1])[:8]
+            return {
+                "state": STATES[self._state],
+                "signals": dict(self._last_signals),
+                "config": dataclasses.asdict(self.config),
+                "clients": len(self._clients),
+                "top_clients": [
+                    {"client": c, "recent_admits": round(s, 2)}
+                    for c, s in top],
+                "counters": {
+                    "sheds": metrics.counter_value("admission.sheds"),
+                    "fair_sheds":
+                        metrics.counter_value("admission.fair_sheds"),
+                    "degraded_queries": metrics.counter_value(
+                        "admission.degraded_queries"),
+                    "transitions":
+                        metrics.counter_value("admission.transitions"),
+                },
+            }
+
+
+def config_from_settings(s) -> AdmissionConfig:
+    """Build an AdmissionConfig from a ServiceSettings / AggregatorContext
+    (duck-typed: both carry the same admission_* attribute names)."""
+    return AdmissionConfig(
+        degrade_queue_frac=s.admission_degrade_queue_frac,
+        shed_queue_frac=s.admission_shed_queue_frac,
+        degrade_slot_wait_ms=s.admission_degrade_slot_wait_ms,
+        shed_slot_wait_ms=s.admission_shed_slot_wait_ms,
+        degrade_max_check_floor=s.degrade_max_check_floor,
+        fair_share=s.admission_fair_share,
+        recover_hold_ms=s.admission_recover_hold_ms,
+    )

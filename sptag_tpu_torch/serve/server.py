@@ -14,11 +14,11 @@ within `batch_window_ms` and executes them as one card batch
 (service.SearchExecutor.execute_batch) on the server's own executor
 thread, which `stop()` drains and joins.
 
-Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP.md
-item when a setting or constructor argument arms it: admission control,
-the SLO engine, the canary prober, the online controller and the metrics
-HTTP listener ('serving, wrappers and CLIs'), and MeshServe
-('multi-GPU').  All are off by default, so the default server runs whole.
+The control plane is the JAX server's: admission control, the SLO
+engine, the online controller, the canary prober and the metrics HTTP
+listener (serve/admission.py, slo.py, controller.py, canary.py,
+metrics_http.py), each off by default.  MeshServe is not ported yet and
+raises ``NotImplementedError`` naming ROADMAP.md's 'multi-GPU' item.
 """
 
 from __future__ import annotations
@@ -32,10 +32,15 @@ from typing import Dict, List, Optional, Tuple
 
 from sptag_tpu_torch.algo.flat import flat_scan_cost
 from sptag_tpu_torch.core.index import not_ported
+from sptag_tpu_torch.serve import admission as admission_mod
+from sptag_tpu_torch.serve import canary as canary_mod
+from sptag_tpu_torch.serve import controller as controller_mod
 from sptag_tpu_torch.serve import protocol, wire
+from sptag_tpu_torch.serve import slo as slo_mod
+from sptag_tpu_torch.serve.metrics_http import MetricsHttpServer
 from sptag_tpu_torch.serve.service import SearchExecutor, ServiceContext
 from sptag_tpu_torch.utils import (faultinject, flightrec, hostprof, locksan,
-                             metrics, qualmon, timeline, trace)
+                                   metrics, qualmon, timeline, trace)
 
 log = logging.getLogger(__name__)
 
@@ -43,33 +48,9 @@ log = logging.getLogger(__name__)
 #: body-size ceiling, shared with every framing reader (see wire.py)
 MAX_BODY_LENGTH = wire.MAX_BODY_LENGTH
 
-#: request-id prefix of the canary prober's probes (the JAX package's
-#: serve/canary.py): excluded from the live quality windows
-CANARY_RID_PREFIX = "canary-"
 
-_LATER = "serving, wrappers and CLIs"
-
-
-def is_canary_rid(rid: str) -> bool:
-    return rid.startswith(CANARY_RID_PREFIX)
-
-
-def _refuse_unported(settings, metrics_port, admission, canary_interval_ms,
-                     slo_config, controller_config) -> None:
+def _refuse_unported(settings) -> None:
     """Raise for every armed feature the port does not have yet."""
-    if admission is not None or settings.admission_control:
-        raise not_ported("admission control (AdmissionControl)", _LATER)
-    if metrics_port:
-        raise not_ported("the metrics HTTP listener (MetricsPort)", _LATER)
-    if slo_config is not None or any(
-            float(getattr(settings, a)) > 0.0 for a in (
-                "slo_availability_target", "slo_p99_ms",
-                "slo_recall_floor", "slo_qps_floor")):
-        raise not_ported("SLO objectives (Slo*)", _LATER)
-    if controller_config is not None or settings.controller:
-        raise not_ported("the online controller (Controller)", _LATER)
-    if canary_interval_ms > 0:
-        raise not_ported("the canary prober (CanaryIntervalMs)", _LATER)
     if settings.mesh_serve:
         raise not_ported("MeshServe", "multi-GPU")
 
@@ -88,28 +69,27 @@ class SearchServer:
                  flight_tier: str = "server",
                  quality_sample_rate: Optional[float] = None,
                  quality_recall_floor: Optional[float] = None,
-                 admission=None,
+                 admission: Optional[
+                     admission_mod.AdmissionController] = None,
                  fault_spec: Optional[str] = None,
                  fault_seed: Optional[int] = None,
                  host_prof_hz: Optional[float] = None,
                  host_prof_dump_on_slow_query: Optional[bool] = None,
                  timeline_interval_ms: Optional[float] = None,
                  canary_interval_ms: Optional[float] = None,
-                 slo_config=None,
-                 controller_config=None):
+                 slo_config: Optional[slo_mod.SloConfig] = None,
+                 controller_config: Optional[
+                     controller_mod.ControllerConfig] = None):
         self.context = context
         self.executor = SearchExecutor(context)
         self.batch_window = batch_window_ms / 1000.0
         self.max_batch = max_batch
+        _refuse_unported(context.settings)
         # observability overrides; None = the [Service] ini settings
-        # (SlowQueryThresholdMs 0 disables)
-        metrics_port = (metrics_port if metrics_port is not None
-                        else context.settings.metrics_port)
-        canary_interval_ms = (
-            canary_interval_ms if canary_interval_ms is not None
-            else context.settings.canary_interval_ms)
-        _refuse_unported(context.settings, metrics_port, admission,
-                         canary_interval_ms, slo_config, controller_config)
+        # (MetricsPort 0 disables, negative binds OS-ephemeral;
+        # SlowQueryThresholdMs 0 disables)
+        self.metrics_port = (metrics_port if metrics_port is not None
+                             else context.settings.metrics_port)
         self.slow_query_threshold_ms = (
             slow_query_threshold_ms if slow_query_threshold_ms is not None
             else context.settings.slow_query_threshold_ms)
@@ -134,6 +114,7 @@ class SearchServer:
         self.quality_recall_floor = (
             quality_recall_floor if quality_recall_floor is not None
             else context.settings.quality_recall_floor)
+        self._metrics_http: Optional[MetricsHttpServer] = None
         # reference parity: ConnectionManager hands out at most 256
         # connection slots (AnnService/inc/Socket/
         # ConnectionManager.h:23-67); excess clients are closed at accept
@@ -158,6 +139,9 @@ class SearchServer:
             = None
         self._io_pool: Optional[concurrent.futures.ThreadPoolExecutor] = None
         self._inflight: Optional[concurrent.futures.Future] = None
+        # queries of the card batch running on that executor (admission's
+        # queue signal counts them with the coalescer's queue)
+        self._inflight_queries = 0
         # response handoff: encoding + draining a batch's responses runs
         # in a SEPARATE task so the batcher assembles and executes batch
         # N+1 while batch N's responses drain.  The semaphore bounds
@@ -171,6 +155,21 @@ class SearchServer:
         # it a slow-reading client accumulates one task + encoded body
         # per streamed query across every batch in its drain window
         self._max_stream_tasks = max_batch
+        # overload defense (serve/admission.py): the controller reads
+        # queue fill + scheduler slot-wait p99 + pool occupancy and moves
+        # normal -> degrade -> shed; ctor override is the test surface,
+        # [Service] AdmissionControl the deployment one.  None = off: one
+        # `is None` test per request.
+        if admission is not None:
+            self.admission: Optional[
+                admission_mod.AdmissionController] = admission
+            admission.bind_signals(self._admission_signals)
+        elif context.settings.admission_control:
+            self.admission = admission_mod.AdmissionController(
+                admission_mod.config_from_settings(context.settings),
+                signals=self._admission_signals)
+        else:
+            self.admission = None
         # host sampling profiler (utils/hostprof.py): process-wide like
         # the flight recorder; ctor overrides are the test surface,
         # [Service] HostProfHz/... the deployment one
@@ -181,10 +180,29 @@ class SearchServer:
             host_prof_dump_on_slow_query
             if host_prof_dump_on_slow_query is not None
             else context.settings.host_prof_dump_on_slow_query)
-        # serving timeline (utils/timeline.py): off by default
+        # serving timeline + SLO engine + canary prober: all off by
+        # default; ctor overrides are the test surface, [Service]
+        # TimelineIntervalMs/Slo*/Canary* the deployment one
         self.timeline_interval_ms = (
             timeline_interval_ms if timeline_interval_ms is not None
             else context.settings.timeline_interval_ms)
+        self.canary_interval_ms = (
+            canary_interval_ms if canary_interval_ms is not None
+            else context.settings.canary_interval_ms)
+        self._slo_config = (slo_config if slo_config is not None
+                            else slo_mod.config_from_settings(
+                                context.settings))
+        self._controller_config = (
+            controller_config if controller_config is not None
+            else controller_mod.config_from_settings(context.settings))
+        self._controller: Optional[controller_mod.Controller] = None
+        self._slo: Optional[slo_mod.SloEngine] = None
+        self._canary: Optional[canary_mod.CanaryProber] = None
+        # connections whose decoded rids identified them as canary
+        # traffic: excluded from admission fair shares from their next
+        # request on (the canary keeps one persistent connection, so
+        # only its very first probe is share-charged)
+        self._canary_cids: set = set()
         # default per-request deadline (requests carrying their own —
         # wire trailer or $deadlinems text option — keep it)
         self.deadline_ms = context.settings.deadline_ms
@@ -201,14 +219,36 @@ class SearchServer:
         else:
             self._fault = faultinject.global_injector()
 
+    def _admission_signals(self) -> dict:
+        """Live pressure signals for the admission controller: the fill
+        of this server's own request queue (requests waiting in the
+        coalescer's queue plus the queries of the card batch running on
+        the ``sptag-serve-batch`` executor, over the queue's capacity),
+        the continuous-batching scheduler's slot-wait p99 and pool
+        occupancy (both zero for dense/FLAT-only serving; the queue
+        fraction then carries the whole signal)."""
+        inflight = self._inflight
+        running = (self._inflight_queries
+                   if inflight is not None and not inflight.done() else 0)
+        h = metrics.histogram_or_none("scheduler.slot_wait")
+        return {
+            "queue_frac": ((self._queue.qsize() + running)
+                           / max(self._queue.maxsize, 1)),
+            "slot_wait_p99_ms": (h.percentile(99) * 1000.0
+                                 if h is not None else 0.0),
+            "occupancy": metrics.gauge_value("scheduler.occupancy"),
+            "mesh_shards": metrics.gauge_value("scheduler.mesh_shards"),
+        }
+
     # ------------------------------------------------------------- lifecycle
 
     async def start(self, host: Optional[str] = None,
                     port: Optional[int] = None) -> Tuple[str, int]:
         host = host or self.context.settings.listen_addr
         port = port if port is not None else self.context.settings.listen_port
-        if self.slow_query_threshold_ms > 0:
-            # the slow-query log wants request-id-stamped records
+        if self.metrics_port or self.slow_query_threshold_ms > 0:
+            # the slow-query log wants request-id-stamped records even
+            # with the HTTP endpoint disabled
             metrics.install_request_id_logging()
         if self.flight_recorder:
             flightrec.configure(
@@ -244,11 +284,59 @@ class SearchServer:
             for name, index in self.context.indexes.items():
                 if hasattr(index, "publish_quality_health"):
                     index.publish_quality_health(shard=name)
-        if self.timeline_interval_ms > 0:
+        # serving timeline + SLO engine: the SLO engine needs history, so
+        # declaring any objective (or a canary) arms the timeline
+        # implicitly at the default cadence
+        slo_armed = slo_mod.armed(self._slo_config)
+        if self.timeline_interval_ms > 0 or slo_armed \
+                or self.canary_interval_ms > 0:
             timeline.configure(
-                enabled=True, interval_ms=self.timeline_interval_ms,
+                enabled=True,
+                interval_ms=(self.timeline_interval_ms
+                             if self.timeline_interval_ms > 0 else None),
                 capacity=self.context.settings.timeline_events or None)
             timeline.start()
+        if slo_armed:
+            self._slo = slo_mod.SloEngine(self._slo_config,
+                                          tier=self.flight_tier)
+            timeline.add_tick_listener(self._slo.evaluate)
+        if controller_mod.armed(self._controller_config):
+            # closed loop: the controller acts on the SLO engine's
+            # judgement; with no declared objective there is nothing to
+            # act on, so the loop stays open rather than actuating blind
+            if self._slo is None:
+                log.warning("Controller=1 but no SLO objective "
+                            "declared; controller stays off")
+            else:
+                self._controller = controller_mod.Controller(
+                    self._controller_config, tier=self.flight_tier)
+                self._controller.bind_slo(self._slo)
+                for name, index in self.context.indexes.items():
+                    self._controller.bind_index(name, index)
+                if self.admission is not None:
+                    adm_cfg = self.admission.config
+                    self._controller.bind_tier_knob(
+                        "DegradeMaxCheckFloor",
+                        read=lambda c=adm_cfg: float(
+                            c.degrade_max_check_floor),
+                        apply=lambda v, c=adm_cfg: setattr(
+                            c, "degrade_max_check_floor", int(v)))
+                timeline.add_tick_listener(self._controller.evaluate)
+        if self.metrics_port:
+            # bind the metrics listener FIRST: an EADDRINUSE here must
+            # fail start() before the serve socket accepts or the batcher
+            # exists — no half-started server to clean up
+            self._metrics_http = MetricsHttpServer(
+                self.metrics_port, health=self._healthz,
+                host=self.context.settings.metrics_host,
+                admission=self._admission_debug,
+                mutation=self._mutation_debug,
+                slo=self._slo_debug,
+                controller=self._controller_debug)
+            self._metrics_http.start()
+            # /debug/devicetrace profiles from a scrape thread: the
+            # profiler's CUDA side initialises here, before traffic
+            trace.prepare_device_trace()
         self._batch_pool = concurrent.futures.ThreadPoolExecutor(
             1, thread_name_prefix="sptag-serve-batch")
         self._io_pool = concurrent.futures.ThreadPoolExecutor(
@@ -257,6 +345,18 @@ class SearchServer:
         self._batcher_task = asyncio.create_task(self._batcher())
         addr = self._server.sockets[0].getsockname()
         log.info("search server listening on %s:%d", addr[0], addr[1])
+        if self.canary_interval_ms > 0:
+            # ground-truth canary (serve/canary.py): probes pinned via
+            # the oracle at (re)start, replayed through THIS server's
+            # own socket — armed after the listen socket exists
+            probes = canary_mod.probes_from_context(
+                self.context, count=self.context.settings.canary_probes,
+                k=self.context.settings.canary_k)
+            self._canary = canary_mod.CanaryProber(
+                addr[0], addr[1], probes,
+                interval_ms=self.canary_interval_ms,
+                tier=self.flight_tier)
+            self._canary.start()
         return addr[0], addr[1]
 
     async def stop(self) -> None:
@@ -264,6 +364,22 @@ class SearchServer:
         a card batch already running finish, join the executor threads and
         stop the indexes' slot-scheduler workers: no serving thread
         outlives this call."""
+        if self._canary is not None:
+            # run the (blocking, up-to-join-timeout) prober shutdown off
+            # the loop thread
+            canary_ref = self._canary
+            self._canary = None
+            await asyncio.get_event_loop().run_in_executor(
+                None, canary_ref.stop)
+        if self._controller is not None:
+            timeline.remove_tick_listener(self._controller.evaluate)
+            self._controller = None
+        if self._slo is not None:
+            timeline.remove_tick_listener(self._slo.evaluate)
+            self._slo = None
+        if self._metrics_http:
+            self._metrics_http.shutdown()
+            self._metrics_http = None
         if self._batcher_task:
             self._batcher_task.cancel()
         for task in list(self._response_tasks):
@@ -289,6 +405,80 @@ class SearchServer:
             stop_scheduler = getattr(index, "stop_scheduler", None)
             if stop_scheduler is not None:
                 stop_scheduler()
+
+    def _healthz(self) -> dict:
+        """/healthz payload: load state per registered index (sample count,
+        value type, non-default params) plus live connection/queue depth."""
+        indexes = {}
+        for name, index in self.context.indexes.items():
+            info = {"samples": int(getattr(index, "num_samples", -1))}
+            vt = getattr(index, "value_type", None)
+            if vt is not None:
+                info["value_type"] = getattr(vt, "name", str(vt))
+            params = getattr(index, "params", None)
+            if params is not None and hasattr(params, "non_default_items"):
+                info["non_default_params"] = dict(params.non_default_items())
+            ms = getattr(index, "mutation_state", None)
+            if ms is not None:
+                # swap/durability state: epoch, WAL accounting, delta
+                # occupancy, in-flight refine
+                info["mutation"] = ms()
+            indexes[name] = info
+        return {"status": "ok" if indexes else "empty",
+                "indexes": indexes,
+                "connections": len(self._conns),
+                "queue_depth": self._queue.qsize()}
+
+    def _admission_debug(self) -> dict:
+        """GET /debug/admission payload: controller state + fault-
+        injection plan + deadline accounting for this tier."""
+        out = {"enabled": self.admission is not None, "tier": "server"}
+        if self.admission is not None:
+            out.update(self.admission.snapshot())
+        out["faultinject"] = (self._fault.snapshot()
+                              if self._fault.enabled
+                              else {"enabled": False})
+        out["deadline_drops"] = metrics.counter_value(
+            "server.deadline_drops")
+        return out
+
+    def _slo_debug(self) -> dict:
+        """GET /debug/slo payload: the burn-rate engine's objectives
+        plus the canary prober's per-index picture."""
+        out = (self._slo.snapshot() if self._slo is not None
+               else {"enabled": False})
+        out["tier"] = self.flight_tier
+        if self._canary is not None:
+            out["canary"] = self._canary.snapshot()
+        return out
+
+    def _controller_debug(self) -> dict:
+        """GET /debug/controller payload: the control loop's inputs,
+        actuator positions vs baselines, and the audit ring."""
+        if self._controller is None:
+            return {"enabled": False, "tier": self.flight_tier}
+        return self._controller.snapshot()
+
+    def _mutation_debug(self) -> dict:
+        """GET /debug/mutation payload: per-index swap/durability state
+        plus the process-wide mutation counters."""
+        indexes = {}
+        for name, index in self.context.indexes.items():
+            ms = getattr(index, "mutation_state", None)
+            if ms is not None:
+                try:
+                    indexes[name] = ms()
+                except Exception:                        # noqa: BLE001
+                    log.exception("mutation_state failed for %s", name)
+                    indexes[name] = {"error": True}
+        return {
+            "tier": "server",
+            "indexes": indexes,
+            "wal_appends": metrics.counter_value("mutation.wal_appends"),
+            "swaps": metrics.counter_value("mutation.swaps"),
+            "refine_errors": metrics.counter_value(
+                "mutation.refine_errors"),
+        }
 
     # ------------------------------------------------------------ connection
 
@@ -332,6 +522,7 @@ class SearchServer:
             log.exception("cid %d: malformed packet; closing", cid)
         finally:
             self._conns.pop(cid, None)
+            self._canary_cids.discard(cid)
             metrics.set_gauge("server.connections", len(self._conns))
             writer.close()
 
@@ -391,6 +582,31 @@ class SearchServer:
             metrics.inc("server.requests")
             rec = flightrec.enabled()
             degraded = False
+            if self.admission is not None:
+                # canary isolation: admission runs pre-decode keyed by
+                # connection, so canary connections are marked at their
+                # first probe's decode (below) and exempted from
+                # fair-share accounting from then on
+                decision = self.admission.admit(
+                    str(cid), canary=cid in self._canary_cids)
+                if decision == admission_mod.SHED:
+                    # reject at the socket edge with a DISTINCT status
+                    # BEFORE decode cost is paid — under overload, body
+                    # decode is the attack surface (the body bytes were
+                    # already read to keep the stream aligned, but never
+                    # parsed)
+                    metrics.inc("server.admission_sheds")
+                    if rec:
+                        flightrec.record(self.flight_tier, "shed")
+                    shed = wire.RemoteSearchResult(
+                        wire.ResultStatus.Overloaded, []).pack()
+                    resp = wire.PacketHeader(
+                        wire.PacketType.SearchResponse,
+                        wire.PacketProcessStatus.Dropped, len(shed),
+                        cid, header.resource_id)
+                    await self._send(cid, resp.pack() + shed)
+                    return
+                degraded = decision == admission_mod.DEGRADE
             t_dec0 = time.monotonic_ns() if rec else 0
             hp = hostprof.armed()
             if hp:
@@ -413,6 +629,10 @@ class SearchServer:
                 # it rides into every log line and response — bound it
                 # like the text channel does
                 query.request_id = query.request_id[:64]
+            if query is not None and query.request_id \
+                    and canary_mod.is_canary_rid(query.request_id) \
+                    and cid not in self._canary_cids:
+                self._canary_cids.add(cid)
             if rec:
                 flightrec.record(
                     self.flight_tier, "decode",
@@ -531,6 +751,10 @@ class SearchServer:
         def on_ready(i, result):
             loop.call_soon_threadsafe(self._stream_response, batch[i],
                                       result, t_assembled, streamed, i)
+        deg_flags = [entry[5] for entry in batch]
+        deg_floor = (self.admission.config.degrade_max_check_floor
+                     if self.admission is not None and any(deg_flags)
+                     else None)
         try:
             def run_batch():
                 if hostprof.armed():
@@ -545,9 +769,12 @@ class SearchServer:
                 try:
                     with trace.span("server.execute_batch"):
                         return self.executor.execute_batch(
-                            texts, on_ready=on_ready, rids=rids)
+                            texts, on_ready=on_ready, rids=rids,
+                            degraded=deg_flags if deg_floor else None,
+                            degrade_floor=deg_floor)
                 finally:
                     hostprof.clear_stage()
+            self._inflight_queries = len(batch)
             self._inflight = self._batch_pool.submit(run_batch)
             results = await asyncio.wrap_future(self._inflight)
         except Exception:
@@ -730,6 +957,11 @@ class SearchServer:
                 sched += " gflops=%.2f" % st["gflops"]
                 if "pct_peak" in st:
                     sched += " pct_peak=%.3f" % st["pct_peak"]
+            if self._controller is not None:
+                # which controller state served this query: lines up a
+                # slow query against the actuation history at
+                # /debug/controller by epoch
+                sched += " cepoch=%d" % self._controller.epoch
             token = metrics.set_request_id(rid)
             try:
                 log.warning(
@@ -759,7 +991,7 @@ class SearchServer:
         # the canary isolation contract)
         if qualmon.enabled() and query is not None \
                 and result.status == wire.ResultStatus.Success \
-                and not is_canary_rid(rid) \
+                and not canary_mod.is_canary_rid(rid) \
                 and qualmon.maybe_sample():
             self._queue_quality_sample(rid, query.query, result)
 
@@ -884,11 +1116,24 @@ def run_interactive(context: ServiceContext) -> None:
                 print(f"  {rank}: id={vid} dist={dist:.6g}{meta}")
 
 
+async def _until_terminated() -> None:
+    """Wait for SIGTERM or SIGINT (a socket server's stop request)."""
+    import signal
+
+    stop = asyncio.Event()
+    loop = asyncio.get_running_loop()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        loop.add_signal_handler(sig, stop.set)
+    await stop.wait()
+
+
 def main(argv=None) -> int:
     """`python -m sptag_tpu_torch.serve.server -m socket -c config.ini
     [--device cpu]` — parity with the reference server CLI
     (src/Server/main.cpp); the indexes load onto the CUDA card unless
-    `--device` names another device."""
+    `--device` names another device.  In socket mode SIGTERM or SIGINT
+    stops the server (`stop()`: no serving thread outlives it) and the
+    process exits 0."""
     import argparse
 
     parser = argparse.ArgumentParser(
@@ -908,7 +1153,8 @@ def main(argv=None) -> int:
     async def serve():
         server = SearchServer(context)
         await server.start()
-        await asyncio.Event().wait()
+        await _until_terminated()
+        await server.stop()
 
     asyncio.run(serve())
     return 0

@@ -1,0 +1,127 @@
+"""IndexBuilder CLI (copy of ``sptag_tpu/tools/index_builder.py``; the
+JAX package's ``--platform`` is ``--device`` here: the CUDA card unless
+it names another device).
+
+Parity: AnnService/src/IndexBuilder/main.cpp:15-100 and
+BuilderOptions (inc/IndexBuilder/Options.h:19-33):
+
+    python -m sptag_tpu_torch.tools.index_builder \\
+        -d 128 -v Float -i vectors.tsv -o index_folder -a BKT \\
+        [-t 32] [--delimiter "|"] [--device cpu] [Index.MaxCheck=2048 ...]
+
+Input is TSV (``<meta>\\t<v1>|<v2>|...``) or ``BIN:<path>`` for the binary
+vectors.bin layout.  Trailing ``Section.Param=Value`` arguments pass through
+to `SetParameter` exactly like the reference (main.cpp:31-55).
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+import time
+from typing import List
+
+from sptag_tpu_torch.core.index import create_instance
+from sptag_tpu_torch.core.types import (ErrorCode, VectorValueType,
+                                        enum_from_string)
+from sptag_tpu_torch.io.reader import ReaderOptions, load_vectors
+
+log = logging.getLogger(__name__)
+
+
+def split_passthrough(args: List[str]):
+    """Section.Param=Value passthrough (IndexBuilder/main.cpp:31-55)."""
+    params = []
+    rest = []
+    for a in args:
+        if "=" in a and "." in a.split("=", 1)[0]:
+            section_param, value = a.split("=", 1)
+            _, param = section_param.split(".", 1)
+            params.append((param, value))
+        else:
+            rest.append(a)
+    return params, rest
+
+
+def main(argv=None) -> int:
+    logging.basicConfig(level=logging.INFO)
+    argv = list(sys.argv[1:] if argv is None else argv)
+    params, argv = split_passthrough(argv)
+
+    parser = argparse.ArgumentParser(
+        description="sptag_tpu_torch index builder")
+    parser.add_argument("-d", "--dimension", type=int, required=True)
+    parser.add_argument("-v", "--vectortype", required=True,
+                        help="Int8 | UInt8 | Int16 | Float")
+    parser.add_argument("-i", "--input", required=True,
+                        help="TSV file or BIN:<vectors.bin>")
+    parser.add_argument("-o", "--outputfolder", required=True)
+    parser.add_argument("-a", "--algo", required=True,
+                        help="BKT | KDT | FLAT")
+    parser.add_argument("-t", "--thread", type=int, default=32)
+    parser.add_argument("--delimiter", default="|")
+    parser.add_argument("--device", default=None,
+                        help="torch device of the index (e.g. cpu); "
+                        "default: the CUDA card, an error without one")
+    parser.add_argument("--trace-report", action="store_true",
+                        help="print the span report (count/total/max/"
+                        "p50/p90/p99 per build stage) as JSON on exit")
+    parser.add_argument("--flight-dump", default=None, metavar="PATH",
+                        help="enable the flight recorder and write its "
+                        "ring as Chrome-trace JSON (Perfetto-loadable; "
+                        "same artifact the serving tier exports) on exit")
+    args = parser.parse_args(argv)
+    if args.flight_dump:
+        from sptag_tpu_torch.utils import flightrec
+        flightrec.configure(enabled=True)
+
+    value_type = enum_from_string(VectorValueType, args.vectortype)
+    options = ReaderOptions(value_type=value_type,
+                            dimension=args.dimension,
+                            delimiter=args.delimiter,
+                            thread_num=args.thread)
+    t0 = time.perf_counter()
+    vectors, metadata = load_vectors(args.input, options)
+    log.info("loaded %d x %d vectors in %.1fs", vectors.count,
+             vectors.dimension, time.perf_counter() - t0)
+    if vectors.dimension != args.dimension:
+        log.error("dimension mismatch: file has %d, expected %d",
+                  vectors.dimension, args.dimension)
+        return 1
+
+    index = create_instance(args.algo, value_type, device=args.device)
+    index.set_parameter("NumberOfThreads", str(args.thread))
+    for name, value in params:
+        if not index.set_parameter(name, value):
+            log.warning("unknown parameter %s", name)
+
+    t0 = time.perf_counter()
+    code = index.build(vectors, metadata,
+                       with_meta_index=metadata is not None)
+    if code != ErrorCode.Success:
+        log.error("build failed: %s", code)
+        return 1
+    log.info("built index in %.1fs on device=%s",
+             time.perf_counter() - t0, index.device.type)
+
+    code = index.save_index(args.outputfolder)
+    if code != ErrorCode.Success:
+        log.error("save failed: %s", code)
+        return 1
+    log.info("saved index to %s", args.outputfolder)
+    if args.trace_report:
+        import json
+
+        from sptag_tpu_torch.utils import trace
+        print(json.dumps(trace.report(), indent=2, sort_keys=True))
+    if args.flight_dump:
+        from sptag_tpu_torch.utils import flightrec
+        flightrec.write_trace(args.flight_dump,
+                              other_data={"tool": "index_builder"})
+        log.info("flight trace written to %s", args.flight_dump)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

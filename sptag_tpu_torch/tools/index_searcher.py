@@ -1,0 +1,156 @@
+"""IndexSearcher CLI — offline evaluation harness (copy of
+``sptag_tpu/tools/index_searcher.py``; the JAX package's ``--platform`` is
+``--device`` here: the CUDA card unless it names another device).
+
+Parity: AnnService/src/IndexSearcher/main.cpp:66-228:
+
+    python -m sptag_tpu_torch.tools.index_searcher \\
+        -x index_folder -q queries.tsv [-r truth.txt] [-k 10] \\
+        [-m 2048,4096,8192] [-o results.txt] [--device cpu]
+        [Index.Param=Value ...]
+
+* queries: TSV like the builder input, or ``BIN:<file>``;
+* truth file: per query line, space/tab-separated true neighbor ids
+  (LoadTruth, main.cpp:50-64);
+* sweeps the ``-m`` MaxCheck list, printing
+  ``[avg] [99%] [95%] [recall] [mem]`` per setting (main.cpp:128-188);
+* recall = |topK ∩ truth| / K averaged over queries (CalcRecall,
+  main.cpp:17-48).
+
+Latency percentiles are per query batch (the card executes whole batches;
+per-query wall clock would measure host slicing, not the engine).
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+import time
+from typing import List
+
+import numpy as np
+
+from sptag_tpu_torch.core.index import load_index
+from sptag_tpu_torch.io.reader import ReaderOptions, load_vectors
+from sptag_tpu_torch.tools.index_builder import split_passthrough
+from sptag_tpu_torch.utils import trace
+
+log = logging.getLogger(__name__)
+
+
+def load_truth(path: str, k: int) -> List[set]:
+    truth = []
+    with open(path) as f:
+        for line in f:
+            ids = [int(tok) for tok in line.replace("\t", " ").split()]
+            truth.append(set(ids[:k]))
+    return truth
+
+
+def calc_recall(ids: np.ndarray, truth: List[set], k: int) -> float:
+    """Parity: CalcRecall (IndexSearcher/main.cpp:17-48).  Delegates to
+    THE canonical definition in utils/qualmon.py —
+    the CLI, bench.py and the online estimator share one recall."""
+    from sptag_tpu_torch.utils.qualmon import recall_at_k
+
+    return recall_at_k(ids, truth, k)
+
+
+def peak_rss_gb() -> float:
+    import resource
+    kb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    return kb / (1024.0 * 1024.0)
+
+
+def main(argv=None) -> int:
+    logging.basicConfig(level=logging.INFO)
+    argv = list(sys.argv[1:] if argv is None else argv)
+    params, argv = split_passthrough(argv)
+
+    parser = argparse.ArgumentParser(
+        description="sptag_tpu_torch index searcher")
+    parser.add_argument("-x", "--index", required=True)
+    parser.add_argument("-q", "--queries", required=True)
+    parser.add_argument("-r", "--truth", default=None)
+    parser.add_argument("-k", "--resultnum", type=int, default=10)
+    parser.add_argument("-m", "--maxcheck", default="8192",
+                        help="comma-separated MaxCheck sweep list")
+    parser.add_argument("-b", "--batch", type=int, default=256)
+    parser.add_argument("-o", "--output", default=None)
+    parser.add_argument("--delimiter", default="|")
+    parser.add_argument("--device", default=None,
+                        help="torch device of the index (e.g. cpu); "
+                        "default: the CUDA card, an error without one")
+    parser.add_argument("--trace-report", action="store_true",
+                        help="print the span report (count/total/max/"
+                        "p50/p90/p99) as JSON after the sweep")
+    parser.add_argument("--flight-dump", default=None, metavar="PATH",
+                        help="enable the flight recorder and write its "
+                        "ring as Chrome-trace JSON (Perfetto-loadable; "
+                        "same artifact the serving tier exports) on "
+                        "exit.  Pair with Index.FlightDeviceSampleRate "
+                        "for sampled device-time attribution")
+    args = parser.parse_args(argv)
+    if args.flight_dump:
+        from sptag_tpu_torch.utils import flightrec
+        flightrec.configure(enabled=True)
+
+    index = load_index(args.index, device=args.device)
+    log.info("loaded %s on device=%s", args.index, index.device.type)
+    for name, value in params:
+        index.set_parameter(name, value)
+
+    options = ReaderOptions(value_type=index.value_type,
+                            dimension=index.feature_dim,
+                            delimiter=args.delimiter)
+    queries, _ = load_vectors(args.queries, options)
+    q = queries.data
+    log.info("loaded %d queries", len(q))
+
+    truth = load_truth(args.truth, args.resultnum) if args.truth else None
+    k = args.resultnum
+    out_f = open(args.output, "w") if args.output else None
+
+    print(f"{'maxcheck':>9} {'avg_ms':>8} {'p99_ms':>8} {'p95_ms':>8} "
+          f"{'recall':>7} {'mem_gb':>7} {'qps':>9}")
+    for mc in (int(t) for t in args.maxcheck.split(",")):
+        index.set_parameter("MaxCheck", str(mc))
+        # warm-up/compile on the first batch shape
+        index.search_batch(q[:min(args.batch, len(q))], k)
+        batch_times = []
+        all_ids = np.full((len(q), k), -1, np.int64)
+        t_total0 = time.perf_counter()
+        for off in range(0, len(q), args.batch):
+            t0 = time.perf_counter()
+            _, ids = index.search_batch(q[off:off + args.batch], k)
+            dt = time.perf_counter() - t0
+            batch_times.append(dt)
+            trace.record("searcher.search_batch", dt)
+            all_ids[off:off + args.batch] = ids
+        total = time.perf_counter() - t_total0
+        qps = len(q) / total
+        avg = float(np.mean(batch_times)) * 1000
+        p99 = float(np.percentile(batch_times, 99)) * 1000
+        p95 = float(np.percentile(batch_times, 95)) * 1000
+        recall = calc_recall(all_ids, truth, k) if truth else float("nan")
+        print(f"{mc:>9} {avg:>8.2f} {p99:>8.2f} {p95:>8.2f} "
+              f"{recall:>7.4f} {peak_rss_gb():>7.2f} {qps:>9.1f}")
+        if out_f:
+            for row in all_ids:
+                out_f.write(" ".join(str(int(v)) for v in row) + "\n")
+    if out_f:
+        out_f.close()
+    if args.trace_report:
+        import json
+        print(json.dumps(trace.report(), indent=2, sort_keys=True))
+    if args.flight_dump:
+        from sptag_tpu_torch.utils import flightrec
+        flightrec.write_trace(args.flight_dump,
+                              other_data={"tool": "index_searcher"})
+        log.info("flight trace written to %s", args.flight_dump)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,168 @@
+"""Resumable index builds: checkpoints of build-stage outputs (copy of
+``sptag_tpu/utils/build_ckpt.py``).
+
+The reference has no counterpart: its OpenMP build either finishes or is
+re-run from scratch.  A long graph build on the card can die with its
+process (a lost machine, a preempted job), and build stages produce plain
+arrays, so the pipeline checkpoints each completed stage (the
+space-partition tree, the per-TPT-tree candidate merge, every non-final
+refine pass) and a re-run with the same data + params resumes at the
+first incomplete stage.  Stages that live on the card are brought to the
+host before they are written.
+
+A checkpoint is bound to its build by a fingerprint of (data shape/dtype/
+row sample, param repr, index class): `BuildCheckpoint(root, fp)` keys a
+subfolder of `root` by the fingerprint, so concurrent builds never
+collide and a changed corpus or config simply starts a fresh subfolder.
+The fingerprint is the JAX package's, so either package resumes the
+other's stages.  Writes are tmp+rename atomic: a crash mid-write never
+yields a readable-but-corrupt stage.  `clear()` removes the subfolder
+after a successful build.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import logging
+import os
+import shutil
+from typing import Dict, Optional
+
+import numpy as np
+
+log = logging.getLogger(__name__)
+
+
+# stage-format version, folded into every fingerprint: a checkpoint
+# written under DIFFERENT build semantics must never resume (bumped with
+# the refine-pass restructure — an old graph_pass0 held the initial-prune
+# output, which the current code would misread as a completed search pass
+# and silently skip one)
+STAGE_VERSION = 2
+
+
+def build_fingerprint(data: np.ndarray, config_repr: str) -> str:
+    """Cheap, stable identity of a build: shape + dtype + a 64-row strided
+    sample of the corpus bytes + the full param/config repr + the
+    checkpoint STAGE_VERSION."""
+    h = hashlib.sha1()
+    h.update(b"stage_v%d;" % STAGE_VERSION)
+    h.update(repr(data.shape).encode())
+    h.update(str(data.dtype).encode())
+    if data.shape[0]:
+        step = max(1, data.shape[0] // 64)
+        h.update(np.ascontiguousarray(data[::step][:64]).tobytes())
+    h.update(config_repr.encode())
+    return h.hexdigest()
+
+
+class BuildCheckpoint:
+    """Stage store under `root/<fingerprint16>/`; all writes atomic."""
+
+    # orphan GC: an interrupted build whose data/params then change leaves
+    # a subfolder no future fingerprint will ever match — prune siblings
+    # untouched for this long (stage files can total hundreds of MB).
+    # Overridable via SPTAG_TPU_BUILD_CKPT_GC_AGE_S (seconds; <= 0
+    # disables GC entirely) so a legitimately suspended build whose job
+    # is requeued after the default window does not silently lose its
+    # stages.  GC runs only from clear() — the single point
+    # where THIS build succeeded and its folder is being retired — not
+    # from every constructor, so concurrent shard builds don't each
+    # rescan the root (and a resuming constructor can never reap a
+    # sibling mid-write).
+    _GC_AGE_S = 7 * 24 * 3600.0
+
+    def __init__(self, root: str, fingerprint: str):
+        self._root = root
+        self.folder = os.path.join(root, fingerprint[:16])
+        os.makedirs(self.folder, exist_ok=True)
+        # True once any stage was served from disk — callers report it so
+        # a resumed "cold" build time is never mistaken for a full one
+        self.resumed = False
+
+    def _gc_age_s(self) -> float:
+        raw = os.environ.get("SPTAG_TPU_BUILD_CKPT_GC_AGE_S")
+        if raw is None:
+            return self._GC_AGE_S
+        try:
+            return float(raw)
+        except ValueError:
+            return self._GC_AGE_S
+
+    def _gc_orphans(self, root: str) -> None:
+        import time
+        age = self._gc_age_s()
+        if age <= 0:
+            return
+        cutoff = time.time() - age
+        try:
+            entries = os.listdir(root)
+        except OSError:
+            return
+        for name in entries:
+            sub = os.path.join(root, name)
+            if sub == self.folder or not os.path.isdir(sub):
+                continue
+            try:
+                if os.path.getmtime(sub) < cutoff:
+                    shutil.rmtree(sub, ignore_errors=True)
+                    log.info("build checkpoint GC: removed stale %s", name)
+            except OSError:
+                pass
+
+    def _path(self, stage: str, ext: str) -> str:
+        return os.path.join(self.folder, f"{stage}.{ext}")
+
+    def _commit(self, tmp: str, final: str) -> None:
+        os.replace(tmp, final)
+
+    # ---- bytes stages (serialized trees) ---------------------------------
+
+    def put_bytes(self, stage: str, payload: bytes) -> None:
+        final = self._path(stage, "bin")
+        tmp = final + ".tmp"
+        try:
+            with open(tmp, "wb") as f:
+                f.write(payload)
+            self._commit(tmp, final)
+        except OSError as e:                           # disk-full etc.
+            log.warning("build checkpoint write failed (%s): %s", stage, e)
+
+    def get_bytes(self, stage: str) -> Optional[bytes]:
+        try:
+            with open(self._path(stage, "bin"), "rb") as f:
+                payload = f.read()
+        except OSError:
+            return None
+        self.resumed = True
+        return payload
+
+    # ---- array stages (candidates, graph passes) -------------------------
+
+    def put_arrays(self, stage: str, **arrays: np.ndarray) -> None:
+        final = self._path(stage, "npz")
+        tmp = final + ".tmp.npz"            # np.savez appends .npz itself
+        try:
+            with open(tmp, "wb") as f:
+                np.savez(f, **arrays)
+            self._commit(tmp, final)
+        except OSError as e:
+            log.warning("build checkpoint write failed (%s): %s", stage, e)
+
+    def get_arrays(self, stage: str) -> Optional[Dict[str, np.ndarray]]:
+        path = self._path(stage, "npz")
+        if not os.path.exists(path):
+            return None
+        try:
+            with np.load(path) as z:
+                out = {k: z[k] for k in z.files}
+        except Exception:                              # noqa: BLE001
+            return None                 # truncated/corrupt -> stage re-runs
+        self.resumed = True
+        return out
+
+    # ----------------------------------------------------------------------
+
+    def clear(self) -> None:
+        shutil.rmtree(self.folder, ignore_errors=True)
+        self._gc_orphans(self._root)

@@ -519,7 +519,12 @@ def install_request_id_logging() -> None:
 
     def factory(*args, **kwargs):
         record = old_factory(*args, **kwargs)
-        record.request_id = _request_id.get() or "-"
+        rid = _request_id.get()
+        # a factory installed before this one (another package's
+        # request-id stamp in the same process) may have set the field:
+        # keep its id unless this package has one of its own
+        if rid or getattr(record, "request_id", "-") == "-":
+            record.request_id = rid or "-"
         return record
 
     logging.setLogRecordFactory(factory)

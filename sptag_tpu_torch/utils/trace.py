@@ -13,7 +13,19 @@ Two cooperating layers:
   ``torch.profiler.record_function`` range, so host spans line up with
   the card's kernels in the trace; `stop_trace()` ends the profile and
   writes a Chrome trace (``trace.json``, Perfetto / chrome://tracing)
-  into `logdir`.
+  into `logdir`.  ``torch.profiler`` is process-global, so one trace runs
+  at a time: `start_trace` holds a process-wide lock until `stop_trace`
+  and raises `TraceBusy` while another trace (the metrics listener's
+  ``/debug/devicetrace``, or any other caller) holds it.  The profiler
+  turns on and off while `capture_lock` is held, so no CUDA graph is
+  captured or replayed then, and no graph is captured while a trace holds
+  the profiler: a capture checks `tracing()` under the lock and the
+  caller runs eagerly instead.  A process that
+  serves traces from another thread calls `prepare_device_trace()` once
+  from its main thread first: the profiler's CUDA side (Kineto, CUPTI)
+  initialises in the first thread that profiles, and Kineto runs its
+  client's initialisation only in the thread that registered the client
+  (the one that imported torch).
 
 Used by the server batch path and the graph build.
 """
@@ -32,6 +44,21 @@ _lock = threading.Lock()
 _spans: Dict[str, list] = {}      # name -> [count, total_s, max_s]
 _profile = None                   # the live torch.profiler.profile
 _logdir: Optional[str] = None
+# held from start_trace to stop_trace (possibly by different threads, so
+# a plain Lock, never an RLock)
+_trace_lock = threading.Lock()
+# one CUDA-graph capture or replay at a time in the process, and none
+# while the profiler turns on or off: a server captures and replays from
+# its executor thread (padded walk sizes) and from the scheduler's worker
+# (capacities) while the quality monitor and background swaps launch
+# from their own threads; every capture and replay, and start_trace /
+# stop_trace around the profiler's start and stop, holds this lock
+capture_lock = threading.Lock()
+_prepared = False
+
+
+class TraceBusy(RuntimeError):
+    """Another ``torch.profiler`` trace is running in this process."""
 
 
 @contextlib.contextmanager
@@ -96,17 +123,54 @@ def start_trace(logdir: str) -> None:
     """Begin a ``torch.profiler`` trace of the host and, when CUDA is
     available, the card; `span`s become named ranges in it."""
     global _profile, _logdir
-    import torch
-    import torch.profiler
+    if not _trace_lock.acquire(blocking=False):
+        raise TraceBusy("a torch.profiler trace is already running")
+    try:
+        import torch
+        import torch.profiler
 
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    prof = torch.profiler.profile(activities=acts)
-    prof.__enter__()
-    os.makedirs(logdir, exist_ok=True)
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        with capture_lock:
+            prof.__enter__()
+        os.makedirs(logdir, exist_ok=True)
+    except BaseException:
+        _trace_lock.release()
+        raise
     _logdir = logdir
     _profile = prof
+
+
+def tracing() -> bool:
+    """True while a `start_trace` trace holds the profiler: a CUDA graph
+    capture checks it under `capture_lock` and is skipped when it is
+    true."""
+    return _trace_lock.locked()
+
+
+def prepare_device_trace() -> None:
+    """Start and stop one empty profile of the card in the calling
+    thread, once per process, when CUDA is available: the profiler's CUDA
+    side then initialises here, before any other thread profiles or
+    launches, and not in a scrape thread under load.  Call it from the
+    main thread."""
+    global _prepared
+    if _prepared:
+        return
+    import torch
+
+    if not torch.cuda.is_available():
+        return
+    import torch.profiler
+
+    with _trace_lock, capture_lock:
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]):
+            pass
+        _prepared = True
 
 
 def stop_trace() -> Optional[str]:
@@ -117,7 +181,11 @@ def stop_trace() -> Optional[str]:
     _profile = _logdir = None
     if prof is None:
         return None
-    prof.__exit__(None, None, None)
-    path = os.path.join(logdir, "trace.json")
-    prof.export_chrome_trace(path)
+    try:
+        with capture_lock:
+            prof.__exit__(None, None, None)
+        path = os.path.join(logdir, "trace.json")
+        prof.export_chrome_trace(path)
+    finally:
+        _trace_lock.release()
     return path

@@ -1,7 +1,7 @@
 """The core library API of the PyTorch port against the JAX package's:
 the reader, the native host library, blobs, FileMetadataSet, the
 estimators, per-query futures, the package exports, and the reference
-methods and the build-checkpoint refusal of the port's classes.
+methods and the resumable build checkpoints of the port's classes.
 
 Everything here is host code or small CPU indexes on integer-valued
 rows, so each result must equal the JAX package's exactly: bytes, ids,
@@ -47,15 +47,17 @@ def _rows(n, d=8, seed=0):
 
 
 def test_exports_match_jax():
-    # AnnIndex and AnnClient wait for the serving item
     want = set(jsp.__all__)
-    assert want <= set(tsp.__all__) | {"AnnIndex", "AnnClient"}
-    assert {"AnnIndex", "AnnClient"} & set(jsp.__all__) == set()
+    assert want <= set(tsp.__all__)
+    # the JAX package exposes the wrappers as attributes; the port lists
+    # them in __all__ too
+    for name in ("AnnIndex", "AnnClient"):
+        assert getattr(jsp, name).__name__ == getattr(tsp, name).__name__
     for name in tsp.__all__:
         assert getattr(tsp, name) is not None
 
 
-# ---- the reference methods and the build-checkpoint refusal ------------------
+# ---- the reference methods and the build checkpoints ------------------------
 
 def test_search_result_len_matches_jax():
     ids = np.arange(7, dtype=np.int32)
@@ -105,24 +107,59 @@ def test_threadpool_current_jobs_and_join_match_jax():
     assert out[1] == out[0] == (5, 0, [0, 1, 2, 3, 4])
 
 
+def _ckpt_index(pkg, **kw):
+    idx = pkg.create_instance("BKT", "Float", **kw)
+    for name, value in (("DistCalcMethod", "L2"), ("BKTKmeansK", "4"),
+                        ("TPTNumber", "2"), ("TPTLeafSize", "32"),
+                        ("NeighborhoodSize", "8"), ("CEF", "16"),
+                        ("MaxCheckForRefineGraph", "32"),
+                        ("FinalRefineSearchMode", "same")):
+        assert idx.set_parameter(name, value)
+    return idx
+
+
 @pytest.mark.parametrize("how", ["checkpoint_dir", "keep_checkpoint",
                                  "environment"])
-def test_build_checkpoints_raise_naming_observability(tmp_path, monkeypatch,
-                                                      how):
-    """Resumable build checkpoints are not ported: asking for one raises
-    before anything is built, naming the ROADMAP item."""
-    idx = tsp.create_instance("BKT", "Float", device="cpu")
-    kw = {}
-    if how == "checkpoint_dir":
-        kw["checkpoint_dir"] = str(tmp_path / "ck")
-    elif how == "keep_checkpoint":
-        kw["keep_checkpoint"] = True
+def test_build_checkpoints_build_like_jax(tmp_path, monkeypatch, how):
+    """Each way of asking for a resumable build builds in both packages,
+    with the same graph as a plain build; on success the checkpoint
+    subfolder is gone, unless `keep_checkpoint` keeps it for the caller,
+    under the same fingerprint name in both packages."""
+    data = _rows(200)
+    out = {}
+    for name, pkg, kw in (("jax", jsp, {}), ("port", tsp,
+                                              {"device": "cpu"})):
+        root = tmp_path / name
+        args = {}
+        if how == "checkpoint_dir":
+            args["checkpoint_dir"] = str(root)
+        elif how == "keep_checkpoint":
+            args.update(checkpoint_dir=str(root), keep_checkpoint=True)
+        else:
+            monkeypatch.setenv("SPTAG_TPU_BUILD_CKPT", str(root))
+        idx = _ckpt_index(pkg, **kw)
+        assert idx.build(data, **args) == pkg.ErrorCode.Success
+        monkeypatch.delenv("SPTAG_TPU_BUILD_CKPT", raising=False)
+        plain = _ckpt_index(pkg, **kw)
+        plain.build(data)
+        graph = idx._graph.graph if pkg is jsp else idx._graph
+        want = plain._graph.graph if pkg is jsp else plain._graph
+        assert np.array_equal(graph, want)
+        left = sorted(p.name for p in root.iterdir()) if root.exists() \
+            else []
+        files = sorted(p.name for p in (root / left[0]).iterdir()) \
+            if left else []
+        ck = idx.last_checkpoint
+        out[name] = (idx.build_resumed, left, files,
+                     None if ck is None else os.path.basename(ck.folder))
+    assert out["port"] == out["jax"]
+    resumed, left, files, kept = out["port"]
+    assert not resumed
+    if how == "keep_checkpoint":
+        assert left == [kept] and {"tree.bin", "candidates.npz"} <= \
+            set(files)
     else:
-        monkeypatch.setenv("SPTAG_TPU_BUILD_CKPT", str(tmp_path / "ck"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*observability"):
-        idx.build(_rows(50), **kw)
-    assert idx.num_samples == 0
-    assert not os.path.exists(tmp_path / "ck")
+        assert left == [] and kept is None
 
 
 # ---- the reader and the native library ---------------------------------------

@@ -713,6 +713,46 @@ def test_graph_replay_pads_to_buckets_and_bounds_its_cache(cuda):
         list(range(4, teng._GRAPH_CACHE + 4))
 
 
+@pytest.mark.cuda
+def test_walk_captures_no_graph_while_a_trace_runs(cuda, tmp_path):
+    """While a torch.profiler trace runs, a walk key asked for again runs
+    eagerly (the CPU walk's ids, nothing captured) and the trace holds
+    its kernels; after the trace the same key is captured and replayed."""
+    import json
+
+    from sptag_tpu_torch.algo import engine as teng
+    from sptag_tpu_torch.core.types import DistCalcMethod
+    from sptag_tpu_torch.utils import trace as ttrace
+
+    n = 3000
+    data = _int_rows(n, 32, seed=32)
+    q = _int_rows(16, 32, seed=33)
+    graph = _weak_graph(n, 16, seed=34)
+    pivots = np.random.default_rng(35).choice(n, 400, replace=False)
+    engines = [teng.GraphSearchEngine(data, graph, pivots, None,
+                                      DistCalcMethod.L2, 1, device=dev)
+               for dev in (cuda, "cpu")]
+
+    def both(qq):
+        out = [e.search(qq, 10, max_check=256) for e in engines]
+        np.testing.assert_array_equal(out[0][1], out[1][1])
+        np.testing.assert_array_equal(out[0][0], out[1][0])
+    both(q[:4])                        # a key's first call: eager
+    ttrace.start_trace(str(tmp_path))
+    try:
+        for i in range(3):
+            both(q[4 * i:4 * i + 4])
+    finally:
+        path = ttrace.stop_trace()
+    assert len(engines[0]._graphs) == 0
+    with open(path) as f:
+        names = {ev.get("name", "") for ev in json.load(f)["traceEvents"]}
+    assert any("walk_score_kernel" in nm for nm in names)
+    both(q[:4])
+    both(q[4:8])
+    assert len(engines[0]._graphs) == 1
+
+
 # ---- the walk's bf16 shadow, packed neighbours, segments, the scheduler ----
 
 @pytest.mark.cuda
@@ -1136,3 +1176,155 @@ def test_walk_dots_bits_do_not_depend_on_the_batch(cuda):
             d, i = eng.search(queries[lo:hi], 10, max_check=1024)
             np.testing.assert_array_equal(i, i_all[lo:hi])
             np.testing.assert_array_equal(d, d_all[lo:hi])
+
+
+# ---- card-memory ledger, resumable builds, the device trace ------------------
+
+@pytest.mark.cuda
+def test_ledger_device_bytes_within_the_allocator(cuda, tmp_path):
+    """Every component the ledger holds for an index on the card is
+    bounded by torch.cuda.memory_allocated, through build, searches (beam
+    through captured walk graphs, dense), an add and a reload."""
+    from sptag_tpu_torch.utils import devmem
+
+    devmem.reset()
+    data = _int_rows(4000, 32, seed=70)
+    idx = tsp.create_instance("BKT", "Float")
+    for name, value in [("DistCalcMethod", "L2"), ("TPTNumber", "4"),
+                        ("CEF", "64"), ("MaxCheckForRefineGraph", "256"),
+                        ("MaxCheck", "512"), ("DenseClusterSize", "64"),
+                        ("FinalRefineSearchMode", "same")]:
+        assert idx.set_parameter(name, value)
+    idx.build(data)
+    for mode in ("beam", "dense", "beam"):
+        idx.search_batch(data[:64], 10, search_mode=mode)
+    snap = devmem.snapshot()
+    assert {"corpus", "graph", "tree", "dense_blocks"} <= \
+        set(snap["components"])
+    torch.cuda.synchronize()
+    assert 0 < snap["ledger_device_bytes"] <= snap["live_arrays_bytes"]
+    assert snap["untracked_bytes"] >= 0
+    eng = idx._get_engine()
+    assert snap["components"]["graph"] == eng.graph.nbytes
+    folder = str(tmp_path / "g")
+    idx.save_index(folder)
+    idx.close()
+    del idx, eng
+    import gc
+    gc.collect()
+    again = tsp.load_index(folder)
+    again.search_batch(data[:8], 10, search_mode="beam")
+    snap = devmem.snapshot()
+    assert snap["ledger_device_bytes"] <= snap["live_arrays_bytes"]
+    assert snap["components"]["corpus"] >= data.nbytes
+    again.close()
+
+
+@pytest.mark.cuda
+def test_checkpointed_build_on_card_equals_plain_build(cuda, tmp_path,
+                                                       monkeypatch):
+    """A build on the card with checkpoint_dir, interrupted in its first
+    refine pass and resumed, equals the uninterrupted card build row for
+    row (the stages go to the host and come back)."""
+    from sptag_tpu_torch.graph.rng import RelativeNeighborhoodGraph as RNG
+
+    data = _int_rows(3000, 32, seed=71)
+
+    def make():
+        idx = tsp.create_instance("BKT", "Float")
+        for name, value in [("DistCalcMethod", "L2"), ("TPTNumber", "4"),
+                            ("CEF", "64"), ("MaxCheckForRefineGraph", "256"),
+                            ("RefineIterations", "2"),
+                            ("DenseClusterSize", "64")]:
+            assert idx.set_parameter(name, value)
+        return idx
+
+    plain = make()
+    plain.build(data)
+    ck = str(tmp_path / "ck")
+    calls = {"n": 0}
+    real = RNG.refine_once
+
+    def dying(self, *a, **kw):
+        calls["n"] += 1
+        raise RuntimeError("build process died")
+
+    monkeypatch.setattr(RNG, "refine_once", dying)
+    with pytest.raises(RuntimeError):
+        make().build(data, checkpoint_dir=ck)
+    monkeypatch.setattr(RNG, "refine_once", real)
+    resumed = make()
+    resumed.build(data, checkpoint_dir=ck)
+    assert resumed.build_resumed and calls["n"] == 1
+    np.testing.assert_array_equal(resumed._graph, plain._graph)
+    assert not [p for p in (tmp_path / "ck").iterdir() if p.is_dir()]
+    d1, i1 = plain.search_batch(data[:32], 10)
+    d2, i2 = resumed.search_batch(data[:32], 10)
+    np.testing.assert_array_equal(i1, i2)
+
+
+@pytest.mark.cuda
+def test_device_trace_route_catches_a_kernel_event(cuda, tmp_path):
+    """/debug/devicetrace under load writes a torch.profiler trace that
+    holds the walk's or the dense search's kernel; an overlapping trace
+    answers 409."""
+    import json
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from sptag_tpu_torch.serve.metrics_http import MetricsHttpServer
+    from sptag_tpu_torch.utils import trace as ttrace
+
+    data = _int_rows(4000, 32, seed=72)
+    idx = tsp.create_instance("BKT", "Float")
+    for name, value in [("DistCalcMethod", "L2"), ("TPTNumber", "4"),
+                        ("CEF", "64"), ("MaxCheckForRefineGraph", "256"),
+                        ("MaxCheck", "512"), ("DenseClusterSize", "64"),
+                        ("FinalRefineSearchMode", "same")]:
+        assert idx.set_parameter(name, value)
+    idx.build(data)
+    stop, warm = threading.Event(), threading.Event()
+
+    def load():
+        while not stop.is_set():
+            for mode in ("beam", "dense"):
+                idx.search_batch(data[:512], 10, search_mode=mode)
+            warm.set()
+
+    srv = MetricsHttpServer(-1)
+    port = srv.start()
+    worker = threading.Thread(target=load, name="test-card-load")
+    worker.start()
+    try:
+        # trace under load: after the first searches have set the index
+        # up (snapshot uploads, the dense layout), not during that
+        assert warm.wait(120)
+        out = {}
+
+        def trace():
+            url = (f"http://127.0.0.1:{port}/debug/devicetrace?"
+                   f"duration_ms=400&dir={tmp_path / 't'}")
+            with urllib.request.urlopen(url, timeout=120) as r:
+                out["body"] = json.loads(r.read())
+
+        t = threading.Thread(target=trace, name="test-card-trace")
+        t.start()
+        deadline = time.time() + 30
+        while not ttrace.tracing() and time.time() < deadline:
+            time.sleep(0.005)
+        with pytest.raises(urllib.error.HTTPError) as e:
+            urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/debug/devicetrace?duration_ms=5",
+                timeout=60)
+        assert e.value.code == 409
+        t.join(120)
+    finally:
+        stop.set()
+        worker.join(120)
+        srv.shutdown()
+        idx.close()
+    with open(tmp_path / "t" / "trace.json") as f:
+        names = {ev.get("name", "") for ev in json.load(f)["traceEvents"]}
+    assert any("walk_score_kernel" in n or "block_major_f32_kernel" in n
+               for n in names), sorted(names)[:50]

@@ -246,7 +246,13 @@ def test_sources_import_no_jax_and_no_sptag_tpu():
                 "serve/client.py", "utils/metrics.py", "utils/locksan.py",
                 "utils/flightrec.py", "utils/faultinject.py",
                 "utils/timeline.py", "utils/hostprof.py", "utils/trace.py",
-                "utils/qualmon.py", "ops/walk_dots.py"):
+                "utils/qualmon.py", "ops/walk_dots.py", "utils/devmem.py",
+                "utils/build_ckpt.py", "serve/ctlaudit.py",
+                "serve/admission.py", "serve/slo.py", "serve/canary.py",
+                "serve/controller.py", "serve/metrics_http.py",
+                "serve/aggregator.py", "wrappers.py",
+                "tools/index_builder.py", "tools/index_searcher.py",
+                "tools/flight.py", "tools/timeline.py"):
         assert os.path.join("sptag_tpu_torch", new) in names
     offenders = [f for f in files if pattern.search(open(f).read())]
     assert offenders == []

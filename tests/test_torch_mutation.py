@@ -356,6 +356,39 @@ def test_merge_index_equal_ids(jax_folder):
 
 # ---- the background swap and the tree rebuild -------------------------------
 
+@pytest.mark.parametrize("oracle", ["exact", "beam"])
+def test_a_swap_between_the_tiers_loses_no_acked_row(jax_folder,
+                                                      monkeypatch, oracle):
+    """The delta shard is pinned before the main tier is searched: a swap
+    that absorbs it in between (refine_index run inside the main tier's
+    search) leaves every added row its own nearest neighbour."""
+    b = tsp.load_index(jax_folder, device="cpu")
+    lo = N_BASE
+    try:
+        assert b.set_parameter("DeltaShardCapacity", "64")
+        b.add(DATA[lo:lo + 20])
+        assert b.mutation_state()["delta_rows"] == 20
+        name = "_exact_scan" if oracle == "exact" else "_search_batch"
+        main = getattr(b, name)
+        swaps = []
+
+        def main_then_swap(*args, **kw):
+            out = main(*args, **kw)
+            if b._delta is not None:
+                b.refine_index()                 # absorbs the delta
+                swaps.append(b.mutation_state()["delta_rows"])
+            return out
+        monkeypatch.setattr(b, name, main_then_swap)
+        if oracle == "exact":
+            _, ids = b.exact_search_batch(DATA[lo:lo + 20], 1)
+        else:
+            _, ids = b.search_batch(DATA[lo:lo + 20], 1, search_mode="beam")
+        assert swaps == [0]
+        np.testing.assert_array_equal(ids[:, 0], np.arange(lo, lo + 20))
+    finally:
+        _close(b)
+
+
 def test_background_swap_and_rebuild_while_searching(jax_folder):
     """AutoRefineThreshold links the delta in the background and swaps a
     new engine in; AddCountForRebuild rebuilds the forest on the same

@@ -71,6 +71,37 @@ def test_prometheus_text_equals_jax():
     assert _ops_metrics(tmetrics) == _ops_metrics(jmetrics)
 
 
+def test_request_id_log_factory_keeps_an_earlier_stamp(monkeypatch):
+    """Both packages stamp `record.request_id` through the process-wide
+    log-record factory.  The port's factory, installed over another one
+    that already stamped a request id (the JAX package's, when a process
+    hosts both), keeps that id unless the port has a request id of its
+    own, so neither package's stamps are lost to the other's."""
+    import logging
+
+    base = logging.getLogRecordFactory()
+
+    def outer(*a, **kw):
+        record = base(*a, **kw)
+        record.request_id = "outer-rid"
+        return record
+
+    monkeypatch.setattr(tmetrics, "_factory_installed", False)
+    logging.setLogRecordFactory(outer)
+    try:
+        tmetrics.install_request_id_logging()
+        make = logging.getLogRecordFactory()
+        args = ("t", logging.INFO, "p", 1, "m", (), None)
+        assert make(*args).request_id == "outer-rid"
+        token = tmetrics.set_request_id("port-rid")
+        try:
+            assert make(*args).request_id == "port-rid"
+        finally:
+            tmetrics.reset_request_id(token)
+    finally:
+        logging.setLogRecordFactory(base)
+
+
 def _ops_flight(f):
     f.configure(enabled=True, max_events=64)
     f.record("server", "decode", "r1", dur_ns=1500)
@@ -80,7 +111,11 @@ def _ops_flight(f):
              payload={"status": 0})
     f.record("index", "swap_publish", payload={"rows": 5, "epoch": 2})
     f.note_query_stats("r1", slot_wait_ms=0.02, segments=1)
-    trace = f.export_chrome_trace()
+    # only this thread's events: the recorder is process-wide, and a
+    # thread another test left running in this worker may record into it
+    me = threading.get_ident()
+    trace = f.export_chrome_trace(
+        events=[e for e in f.collect() if e["tid"] == me])
     for ev in trace["traceEvents"]:
         for key in ("ts", "dur", "tid"):
             if key in ev:
@@ -215,6 +250,61 @@ def test_trace_span_marks_a_torch_profile(tmp_path):
     assert "server.execute_batch" in names
     assert ttrace.report()["server.execute_batch"]["count"] == 1
     assert ttrace.stop_trace() is None
+
+
+def test_profiler_turns_on_and_off_under_the_capture_lock(tmp_path,
+                                                           monkeypatch):
+    """start_trace / stop_trace start and stop the profiler holding the
+    one capture lock the walk's graph captures take, so no capture runs
+    while the profiler's state changes."""
+    import torch.profiler
+
+    from sptag_tpu_torch.algo import engine as teng
+
+    assert teng.capture_lock is ttrace.capture_lock
+    seen = []
+
+    class Profile:
+        def __init__(self, **kw):
+            pass
+
+        def __enter__(self):
+            seen.append(("enter", ttrace.capture_lock.locked()))
+
+        def __exit__(self, *exc):
+            seen.append(("exit", ttrace.capture_lock.locked()))
+
+        def export_chrome_trace(self, path):
+            open(path, "w").close()
+
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    ttrace.start_trace(str(tmp_path))
+    assert ttrace.tracing() and not ttrace.capture_lock.locked()
+    ttrace.stop_trace()
+    assert seen == [("enter", True), ("exit", True)]
+    assert not ttrace.tracing() and not ttrace.capture_lock.locked()
+    # without CUDA there is nothing to prepare, and no lock is left held
+    ttrace.prepare_device_trace()
+    assert seen == [("enter", True), ("exit", True)]
+    assert not ttrace.tracing() and not ttrace.capture_lock.locked()
+
+
+def test_no_graph_is_captured_while_a_trace_runs(tmp_path):
+    """While a trace holds the profiler, the walk's whole-walk capture
+    and the scheduler's segment capture decline (None: the caller runs
+    eagerly) before they touch the card; after it they capture again."""
+    from sptag_tpu_torch.algo import engine as teng
+    from sptag_tpu_torch.algo import scheduler as tsched
+
+    ttrace.start_trace(str(tmp_path))
+    try:
+        assert teng.GraphSearchEngine._capture(None, None, None, None) \
+            is None
+        assert tsched.BeamSlotScheduler._capture(None, None) is None
+    finally:
+        ttrace.stop_trace()
+    with pytest.raises(AttributeError):
+        teng.GraphSearchEngine._capture(None, None, None, None)
 
 
 # ---- the crash matrix on the port's WAL (tests/test_mutation.py) ---

@@ -6,8 +6,10 @@ SearchServers, each in its own loop over the same BKT folder (integer-
 valued rows, so every distance is exact in both packages), answer the same
 request frames with byte-identical response frames: beam, dense,
 ``$resultnum``, ``$maxcheck``, metadata, the wrapper lifecycle fixture, a
-malformed packet and heartbeats.  Settings that arm a serving feature the
-port does not have yet raise NotImplementedError naming the ROADMAP item.
+malformed packet and heartbeats.  Each control-plane setting or argument
+(admission, SLO objectives, the controller, the canary, the metrics
+listener) arms the same feature in both servers, which then answer alike;
+MeshServe raises NotImplementedError naming the ROADMAP item.
 """
 
 import base64
@@ -32,6 +34,7 @@ from sptag_tpu_torch.serve import protocol as tprotocol
 from sptag_tpu_torch.serve import server as tserver
 from sptag_tpu_torch.serve import service as tservice
 from sptag_tpu_torch.serve import wire as twire
+from sptag_tpu_torch.utils import timeline as ttimeline
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(REPO, "tests", "fixtures", "wrapper_lifecycle.bytes")
@@ -43,6 +46,10 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+    # an armed SLO, canary or controller starts the port's process-wide
+    # timeline sampler; tests/conftest.py resets only the JAX package's,
+    # and a later file in the same worker counts the threads left
+    ttimeline.reset()
 
 
 # ---- the wire bodies -------------------------------------------------------
@@ -291,13 +298,9 @@ def test_servers_close_an_oversized_packet_alike(servers):
         sock.close()
 
 
-# ---- what the port does not serve yet ------------------------------
+# ---- the control plane: armed, each server starts, answers, stops -------
 
-LATER = "serving, wrappers and CLIs"
-UNPORTED = [("admission_control", True, LATER), ("metrics_port", 9100, LATER),
-            ("slo_p99_ms", 5.0, LATER), ("slo_recall_floor", 0.9, LATER),
-            ("controller", True, LATER), ("canary_interval_ms", 100.0, LATER),
-            ("mesh_serve", True, "multi-GPU")]
+UNPORTED = [("mesh_serve", True, "multi-GPU")]
 
 
 @pytest.mark.parametrize("field,value,item", UNPORTED)
@@ -308,15 +311,135 @@ def test_armed_unported_settings_raise_naming_the_roadmap(field, value, item):
         tserver.SearchServer(ctx)
 
 
-@pytest.mark.parametrize("arg", ["admission", "slo_config",
-                                 "controller_config", "metrics_port",
-                                 "canary_interval_ms"])
-def test_armed_unported_arguments_raise_naming_the_roadmap(arg):
-    ctx = tservice.ServiceContext(device="cpu")
-    value = {"metrics_port": -1, "canary_interval_ms": 50.0}.get(arg,
-                                                               object())
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{LATER}"):
-        tserver.SearchServer(ctx, **{arg: value})
+def _armed_pair(folder, settings=(), args=None):
+    """A JAX and a port SearchServer over `folder`, both armed with the
+    same [Service] settings / constructor arguments (`args(mod)` builds
+    the arguments from each package's control-plane modules)."""
+    servers = []
+    for svc, srv, pkg, kw in (
+            (jservice, jserver, jsp, {}),
+            (tservice, tserver, tsp, {"device": "cpu"})):
+        st = svc.ServiceSettings(default_max_result=5,
+                                 allow_search_mode_override="on",
+                                 **dict(settings))
+        ctx = svc.ServiceContext(st, **kw)
+        ctx.add_index("main", pkg.load_index(folder, **kw))
+        extra = args(srv) if args is not None else {}
+        servers.append(srv.SearchServer(ctx, batch_window_ms=1.0, **extra))
+    return servers
+
+
+def _drive_pair(servers):
+    """Start both servers, send the same frames to each, stop them; the
+    two response streams and the port server's state while it ran."""
+    import threading
+
+    before = set(threading.enumerate())
+    threads = [ServerThread(s) for s in servers]
+    for t in threads:
+        t.start()
+    addrs = [t.wait_ready(30) for t in threads]
+    q = _rows(3, 2)
+    frames = [_frame(jwire.PacketType.RegisterRequest)]
+    for i, v in enumerate(q):
+        frames += [_search(f"$searchmode:beam {_text(v)}", rid=10 + i),
+                   _search(f"$searchmode:dense $resultnum:7 {_text(v)}",
+                           rid=20 + i)]
+    outs = [_exchange(a, frames) for a in addrs]
+    port = servers[1]
+    state = {"admission": port.admission is not None,
+             "slo": port._slo is not None,
+             "controller": port._controller is not None,
+             "canary": port._canary is not None,
+             "metrics_http": port._metrics_http is not None,
+             "jax": {"admission": servers[0].admission is not None,
+                     "slo": servers[0]._slo is not None,
+                     "controller": servers[0]._controller is not None,
+                     "canary": servers[0]._canary is not None,
+                     "metrics_http": servers[0]._metrics_http is not None}}
+    if port._metrics_http is not None:
+        import json
+        import urllib.request
+
+        url = f"http://127.0.0.1:{port._metrics_http.port}/healthz"
+        with urllib.request.urlopen(url, timeout=30) as r:
+            state["healthz"] = json.loads(r.read())
+    if port._canary is not None:
+        # one probe through the port server's own socket, on demand
+        state["probe"] = port._canary.probe_once(port._canary.probes[0])
+    for t in threads:
+        t.stop()
+    state["left"] = [th.name for th in set(threading.enumerate()) - before
+                     if th.is_alive() and th.name.startswith(
+                         ("sptag-serve", "metrics-http", "canary"))]
+    return outs, state
+
+
+ARMED_SETTINGS = {
+    "admission_control": ({"admission_control": True}, "admission"),
+    "metrics_port": ({"metrics_port": -1}, "metrics_http"),
+    "slo_p99_ms": ({"slo_p99_ms": 5000.0}, "slo"),
+    "slo_recall_floor": ({"slo_recall_floor": 0.5}, "slo"),
+    "controller": ({"controller": True, "slo_p99_ms": 5000.0},
+                   "controller"),
+    "canary_interval_ms": ({"canary_interval_ms": 60000.0, "canary_k": 5},
+                           "canary"),
+}
+
+
+@pytest.mark.parametrize("field", sorted(ARMED_SETTINGS))
+def test_armed_settings_start_answer_and_stop_like_jax(folder, field):
+    """Each control-plane setting arms the same feature in both servers;
+    the armed servers answer the same frames with the same bytes and the
+    port server leaves no thread behind."""
+    settings, feature = ARMED_SETTINGS[field]
+    (jax_out, port_out), state = _drive_pair(
+        _armed_pair(folder, settings.items()))
+    assert port_out == jax_out
+    assert state[feature] and state["jax"][feature]
+    assert {k: state[k] for k in state["jax"]} == state["jax"]
+    assert state["left"] == []
+    if feature == "metrics_http":
+        assert state["healthz"]["status"] == "ok"
+        assert state["healthz"]["indexes"]["main"]["samples"] == N
+    if feature == "canary":
+        assert state["probe"]["ok"] and state["probe"]["status"] == 0
+        assert state["probe"]["recall"] == 1.0
+
+
+def _armed_args(arg):
+    def make(srv):
+        mods = {"admission": srv.admission_mod, "slo": srv.slo_mod,
+                "controller": srv.controller_mod}
+        if arg == "admission":
+            a = mods["admission"]
+            return {"admission": a.AdmissionController(a.AdmissionConfig())}
+        if arg == "slo_config":
+            return {"slo_config": mods["slo"].SloConfig(p99_ms=5000.0)}
+        if arg == "controller_config":
+            return {"slo_config": mods["slo"].SloConfig(p99_ms=5000.0),
+                    "controller_config":
+                        mods["controller"].ControllerConfig(enabled=True)}
+        if arg == "metrics_port":
+            return {"metrics_port": -1}
+        return {"canary_interval_ms": 60000.0}
+    return make
+
+
+ARMED_ARGS = {"admission": "admission", "slo_config": "slo",
+              "controller_config": "controller",
+              "metrics_port": "metrics_http", "canary_interval_ms": "canary"}
+
+
+@pytest.mark.parametrize("arg", sorted(ARMED_ARGS))
+def test_armed_arguments_start_answer_and_stop_like_jax(folder, arg):
+    """The constructor arguments arm the same features as the settings."""
+    (jax_out, port_out), state = _drive_pair(
+        _armed_pair(folder, args=_armed_args(arg)))
+    assert port_out == jax_out
+    feature = ARMED_ARGS[arg]
+    assert state[feature] and state["jax"][feature]
+    assert state["left"] == []
 
 
 def _ini(tmp_path, folder, extra=""):
