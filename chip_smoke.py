@@ -11,10 +11,10 @@ FLAT, online mutation (inline and delta-shard adds, the background swap,
 delete, compaction, the write-ahead log), the KDT index, the walk's bf16,
 packed and segmented options, the slot scheduler, the socket search
 server, the CLIs, resumable builds, the aggregator, the serving control
-plane and the wrappers through their public entry points at the
-repository's headline sizes, checks what comes out, and compares every
-kernel with its plain PyTorch version.  Each
-phase prints one JSON line; any failure exits non-zero.  Without a CUDA
+plane, the wrappers and the tiered corpus cascade (FLAT, dense, beam,
+KDT; device, host and host_all tiers) through their public entry points
+at the repository's headline sizes, checks what comes out, and compares
+every kernel with its plain PyTorch version.  Each phase prints one JSON line; any failure exits non-zero.  Without a CUDA
 card, or outside the repository, it exits non-zero and prints no result.
 
 Phases, in the order they run:
@@ -83,10 +83,36 @@ Phases, in the order they run:
    ``KDTNumber=2``, the graph parameters): the kd-seeded walk's and the
    dense scan's (``DenseReplicas=2``) recall@10 over 200 queries held to
    ``KDT_RECALL_MIN``, save and load, 1,000 adds and 100 deletes;
+14. the tiered corpus cascade (``CascadeSearch``): (a) FLAT over the
+   phase-3 corpus in ``bench.py``'s five capacity configurations
+   (fp_only, int8_fp, cascade, host, host_all; ``TierBudgetSketch``
+   8,192, ``TierBudgetInt8`` 1,024), 4,096 queries in batches of 1,024:
+   recall@10 against the exact truth held to ``CASCADE_RECALL_MIN``, QPS,
+   device and host bytes off the memory ledger; the host tiers' ids and
+   distance bits held equal to the device tier's, their float32 bytes
+   held host-side, host_all's device bytes held to N_pad (4W + 1) + 4D
+   plus 1 MB; ``SketchPrefilter`` calibrated and at ``SketchRerank``
+   4,096, its ``sketch_cal.bin`` reused by a loaded index (one Hamming
+   launch a chunk, the same ids); (b) the dense cascade on phase 3's
+   index, device and host tiers bit for bit equal, recall held to the
+   non-cascade recall - 0.1, and 8,192 queries grouped (G=32, union
+   factor 4) held to the same grouping without the cascade - 0.1; (c) the
+   beam cascade on phase 7's loaded folder, both tiers: recall held to
+   phase 7's exact walk - 0.1, segmented and scheduled walks equal to the
+   monolithic one, an id both tiers return carrying the same bits, and
+   1,024 lone requests through ``SearchServer`` held to ``search_batch``;
+   (d) phase 10's KDT folder, both tiers' recall held to the non-cascade
+   walk's - 0.1; (e) deletes and delta-shard adds on a FLAT cascade index
+   of 50,000 rows, every tier; (f) host_all FLAT at ``CAPACITY_N`` rows,
+   recall against its streamed exact scan, QPS and the ledger's bytes.
+   Phase 2 holds the four cascade kernels (``sketch_hamming``,
+   ``int8_gather_dots``, ``walk_score_i8``, the block-dot kernels on int8
+   blocks with float32 queries) on their first main-path calls of phase
+   14, whose launches they report;
 6. where a search batch's time goes: ``torch.profiler`` device time by
    kernel for one batch of each configuration (f32 per-query and grouped,
-   int8 grouped and per-query, f32 beam exact and binned), against its
-   untraced time; the beam rows per walk iteration, the walk kernels'
+   int8 grouped and per-query, f32 beam exact and binned, FLAT's cascade
+   on the device and host_all tiers), against its untraced time; the beam rows per walk iteration, the walk kernels'
    device time, and the former walk kernel's batch beside them;
 11. the walk's options and the slot scheduler on phase 7's index: (a)
    ``BeamScoreDtype=bf16`` over the 4,096 queries, exact and binned walk,
@@ -168,9 +194,9 @@ Phases, in the order they run:
 Launch counts are zeroed just before phase 3 and read just after phase 5
 (the walk's just before phase 7's beam searches and read after them),
 and zeroed again before each graph build of phases 7 and 7b, before the
-refine of phase 9c, before the dense searches of phase 10 and before
-phase 13b, and read after each (phase 13's after 13e; FLAT launches no
-hand-written kernel).
+refine of phase 9c, before the dense searches of phase 10, before
+phase 13b and before phase 14, and read after each (phase 13's after
+13e; FLAT launches no hand-written kernel but the cascade's).
 Each query set is searched ``PASSES`` times over for its batch times; the
 QPS and batch percentiles are smoke readings of that window, not a
 benchmark.  Phase 2's ``ms``, ``plain_ms`` and ``library_ms`` are each the
@@ -290,7 +316,7 @@ def exact_truth(dist_ops, rows: torch.Tensor, queries: torch.Tensor,
 
 
 # the CUDA sources in sptag_tpu_torch/csrc, built in phase 1
-KERNEL_SOURCES = ("block_dots", "walk_dots")
+KERNEL_SOURCES = ("block_dots", "walk_dots", "sketch_dots", "int8_dots")
 # the f32 dense-only headline index (phases 3 and 9e)
 DENSE_PARAMS = [("DistCalcMethod", "L2"), ("BuildGraph", "0"),
                 ("BKTNumber", "1"), ("BKTKmeansK", "32"), ("MaxCheck", "2048")]
@@ -2863,6 +2889,615 @@ def cluster_phase(pt, block_dots, walk_ops, data, queries, truth, workdir,
     return first_b, first_c, launches
 
 
+# ---- phase 14: the tiered corpus cascade -------------------------------------
+
+# bench.py's capacity stage (_capacity_measure): per-tier budgets
+CASCADE_B1, CASCADE_B2 = 8192, 1024
+# recall@10 floor of every cascade configuration of 14a (the JAX package
+# reached 1.000 at 50k rows)
+CASCADE_RECALL_MIN = 0.97
+# the fp re-rank budget of the dense cascade (14b), JAX's own test value
+CASCADE_DENSE_B2 = 128
+# 14f: host_all FLAT at this many rows
+CAPACITY_N = 1_000_000
+
+
+class FirstCascadeCalls:
+    """Inside the ``with`` block, records the arguments of the main path's
+    first call of each cascade kernel with at least `min_q` queries: the
+    Hamming scan, the gathered int8 tier (GATHER), the int8 walk scoring
+    (GATHER) and the block-dot kernels on int8 blocks with float32
+    queries, for phase 2 to hold each against its plain version at the
+    path's shapes.  The wrappers run unchanged and count their launches as
+    always; the large row sources are kept by reference, not copied."""
+
+    def __init__(self, min_q: int = 1024):
+        from sptag_tpu_torch.ops import (block_dots, int8_dots, sketch_dots,
+                                         walk_dots)
+
+        self.min_q = min_q
+        self.targets = [(sketch_dots, "hamming", "sketch_hamming"),
+                        (int8_dots, "int8_gather_dots", "int8_gather_dots"),
+                        (walk_dots, "walk_score", "walk_score_i8"),
+                        (block_dots, "probe_block_dots",
+                         "probe_block_dots_f32i8"),
+                        (block_dots, "group_block_dots",
+                         "group_block_dots_f32i8")]
+        self.args, self.saved = {}, []
+
+    def _take(self, name, a) -> bool:
+        if name in self.args or a[0].device.type != "cuda":
+            return False
+        if name == "sketch_hamming":
+            return a[0].shape[0] >= self.min_q
+        if name == "int8_gather_dots":
+            return a[0].shape[0] >= self.min_q and a[9] == 0
+        if name == "walk_score_i8":
+            return (a[1].dtype == torch.int8 and a[0].shape[0] >= self.min_q
+                    and a[5] == 0)
+        # block dots: a[0] blocks, a[1] queries
+        return (a[0].dtype == torch.int8 and a[1].dtype == torch.float32
+                and a[1].shape[0] >= self.min_q)
+
+    def __enter__(self):
+        keep = {"sketch_hamming": (1, 2), "int8_gather_dots": (3, 5),
+                "walk_score_i8": (1, 3), "probe_block_dots_f32i8": (0,),
+                "group_block_dots_f32i8": (0,)}
+        for module, attr, name in self.targets:
+            fn = getattr(module, attr)
+            self.saved.append((module, attr, fn))
+
+            def wrapper(*a, _fn=fn, _name=name):
+                if self._take(_name, a):
+                    self.args[_name] = tuple(
+                        t.clone() if isinstance(t, torch.Tensor)
+                        and k not in keep[_name] else t
+                        for k, t in enumerate(a))
+                return _fn(*a)
+            setattr(module, attr, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        for module, attr, fn in self.saved:
+            setattr(module, attr, fn)
+
+
+def timed_search(index, queries, batch=1024, **kw):
+    """One pass in batches: (dists, ids, per-batch wall seconds)."""
+    ds, ids, times = [], [], []
+    for lo in range(0, len(queries), batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d, i = index.search_batch(queries[lo:lo + batch], K, **kw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        ds.append(d)
+        ids.append(i)
+    return np.concatenate(ds), np.concatenate(ids), times
+
+
+def ledger_reading():
+    """(device bytes, host bytes, component bytes) off the memory ledger,
+    after a garbage collection."""
+    import gc
+
+    from sptag_tpu_torch.utils import devmem
+
+    gc.collect()
+    torch.cuda.synchronize()
+    dev = devmem.device_bytes()
+    return dev, devmem.total_bytes() - dev, devmem.component_bytes()
+
+
+def ledger_delta(before, after) -> dict:
+    comp = {c: after[2].get(c, 0) - before[2].get(c, 0)
+            for c in set(after[2]) | set(before[2])}
+    return {"device_bytes": int(after[0] - before[0]),
+            "host_bytes": int(after[1] - before[1]),
+            "components": {c: int(v) for c, v in sorted(comp.items())
+                           if v}}
+
+
+def cascade_flat_phase(pt, data, queries, truth, workdir) -> dict:
+    """14a: bench.py's capacity configurations on FLAT over the phase-3
+    corpus, and the sketch prefilter with its saved calibration."""
+    from sptag_tpu_torch.ops import sketch_dots
+
+    n, dim = data.shape
+    b1, b2 = CASCADE_B1, CASCADE_B2
+    tiers = {"CascadeSearch": "1", "TierBudgetSketch": str(b1),
+             "TierBudgetInt8": str(b2)}
+    configs = [("fp_only", {}),
+               ("int8_fp", {**tiers, "TierBudgetSketch": str(2 * n)}),
+               ("cascade", tiers),
+               ("host", {**tiers, "CorpusTier": "host"}),
+               ("host_all", {**tiers, "CorpusTier": "host_all"})]
+    n_pad = -(-n // 128) * 128
+    w = (dim + 31) // 32
+    out, res = {"n": n, "queries": len(queries), "tier_budget_sketch": b1,
+                "tier_budget_int8": b2, "rows": {}}, {}
+    for label, params in configs:
+        before = ledger_reading()
+        fidx = pt.create_instance("FLAT", "Float")
+        fidx.set_parameter("DistCalcMethod", "L2")
+        for name, value in params.items():
+            fidx.set_parameter(name, value)
+        t0 = time.perf_counter()
+        fidx.build(data)
+        fidx.search_batch(queries[:1024], K)     # materializes the tiers
+        first_s = time.perf_counter() - t0
+        d, ids, times = timed_search(fidx, queries)
+        usage = ledger_delta(before, ledger_reading())
+        res[label] = (d, ids)
+        rec = recall_at_k(ids, truth)
+        out["rows"][label] = {
+            "recall_at_10": rec, "build_and_first_batch_s": first_s,
+            **batch_stats(times, 1024), **usage,
+            "vectors_per_gb": n / max(usage["device_bytes"], 1) * 1e9}
+        del fidx
+    rows = out["rows"]
+    fp_dev = max(rows["fp_only"]["device_bytes"], 1)
+    for label in ("int8_fp", "cascade", "host", "host_all"):
+        rows[label]["capacity_ratio_vs_fp"] = (
+            fp_dev / max(rows[label]["device_bytes"], 1))
+    same = {t: bool(np.array_equal(res[t][1], res["cascade"][1])
+                    and res[t][0].tobytes() == res["cascade"][0].tobytes())
+            for t in ("host", "host_all")}
+    fp_host_side = {t: (rows[t]["host_bytes"] >= n * dim * 4
+                        and "corpus" not in rows[t]["components"])
+                    for t in ("host", "host_all")}
+    host_all_bound = n_pad * (4 * w + 1) + 4 * dim + (1 << 20)
+    out.update({"host_tiers_equal_device_bitwise": same,
+                "fp_bytes_host_side_only": fp_host_side,
+                "host_all_device_bound": host_all_bound})
+    check(all(same.values()),
+          f"14a: host tiers differ from the device tier {same}")
+    check(all(fp_host_side.values()),
+          f"14a: fp bytes not host-side only {fp_host_side}")
+    check(0 < rows["host_all"]["device_bytes"] <= host_all_bound,
+          f"14a: host_all device bytes {rows['host_all']['device_bytes']} "
+          f"above {host_all_bound}")
+    low = {t: rows[t]["recall_at_10"] for t in ("int8_fp", "cascade",
+                                                "host", "host_all")
+           if rows[t]["recall_at_10"] < CASCADE_RECALL_MIN}
+    check(not low, f"14a: cascade recall@10 below {CASCADE_RECALL_MIN}: "
+                   f"{low}")
+
+    # the sketch prefilter: calibrated, then SketchRerank=4096; the saved
+    # calibration reused by a loaded index (one Hamming launch a chunk: no
+    # calibration scan)
+    sidx = pt.create_instance("FLAT", "Float")
+    sidx.set_parameter("DistCalcMethod", "L2")
+    sidx.set_parameter("SketchPrefilter", "true")
+    sidx.build(data)
+    h0 = sketch_dots.launch_counts()["sketch_hamming"]
+    t0 = time.perf_counter()
+    _, ids_first = sidx.search_batch(queries[:1024], K)
+    first_s = time.perf_counter() - t0
+    cal_launches = sketch_dots.launch_counts()["sketch_hamming"] - h0
+    cal_r = sidx._sketch[3]
+    _, ids_s, times_s = timed_search(sidx, queries)
+    folder = os.path.join(workdir, "flat_sketch")
+    check(sidx.save_index(folder) == pt.ErrorCode.Success, "14a: save")
+    cal_file = os.path.exists(os.path.join(folder, "sketch_cal.bin"))
+    loaded = pt.load_index(folder)
+    h0 = sketch_dots.launch_counts()["sketch_hamming"]
+    _, ids_l = loaded.search_batch(queries[:1024], K)
+    load_launches = sketch_dots.launch_counts()["sketch_hamming"] - h0
+    sidx.set_parameter("SketchRerank", "4096")
+    _, ids_r, times_r = timed_search(sidx, queries)
+    out["sketch_prefilter"] = {
+        "calibrated_rerank": cal_r, "first_batch_s": first_s,
+        "hamming_launches_first_batch": cal_launches,
+        "recall_at_10": recall_at_k(ids_s, truth),
+        **batch_stats(times_s, 1024),
+        "sketch_cal_bin_written": cal_file,
+        "loaded_calibration": list(loaded._loaded_cal or ()),
+        "hamming_launches_first_batch_after_load": load_launches,
+        "ids_equal_after_load": bool(np.array_equal(ids_l, ids_first)),
+        "rerank_4096": {"recall_at_10": recall_at_k(ids_r, truth),
+                        **batch_stats(times_r, 1024)}}
+    sp_ = out["sketch_prefilter"]
+    check(cal_r and cal_r > 0 and cal_launches == 2 and cal_file
+          and load_launches == 1 and sp_["ids_equal_after_load"]
+          and sp_["loaded_calibration"][-1:] == [cal_r],
+          f"14a: sketch calibration / sketch_cal.bin {sp_}")
+    del sidx, loaded
+    return out
+
+
+def grouped_recall(idx, queries, truth) -> dict:
+    """The phase-3 queries twice over (8,192: enough a block for groups of
+    32) in one grouped call, G = 32 and U = 4 nprobe (an int8 layout
+    groups only from G = 32, and G <= U)."""
+    idx.set_parameter("DenseQueryGroup", "32")
+    idx.set_parameter("DenseUnionFactor", "4")
+    q2 = np.concatenate([queries, queries])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, ids = idx.search_batch(q2, K)
+    torch.cuda.synchronize()
+    out = {"queries": len(q2), "group": idx.last_effective_group,
+           "s": time.perf_counter() - t0,
+           "recall_at_10": recall_at_k(ids[:len(queries)], truth)}
+    idx.set_parameter("DenseQueryGroup", "0")
+    idx.set_parameter("DenseUnionFactor", "2")
+    return out
+
+
+def cascade_dense_phase(idx, queries, truth, recall_off) -> dict:
+    """14b: the dense cascade on phase 3's index, both tiers, and the
+    grouped scan (the float32 x int8 group kernel) against the same
+    grouping without the cascade."""
+    out = {"tier_budget_int8": CASCADE_DENSE_B2,
+           "grouped_off": grouped_recall(idx, queries, truth)}
+    idx.set_parameter("CascadeSearch", "1")
+    idx.set_parameter("TierBudgetInt8", str(CASCADE_DENSE_B2))
+    res = {}
+    for tier in ("device", "host"):
+        idx.set_parameter("CorpusTier", tier)
+        before = ledger_reading()
+        idx.search_batch(queries[:1024], K)          # builds the layout
+        d, ids, times = timed_search(idx, queries)
+        res[tier] = (d, ids)
+        out[tier] = {"recall_at_10": recall_at_k(ids, truth),
+                     **batch_stats(times, 1024),
+                     **ledger_delta(before, ledger_reading())}
+    same = bool(np.array_equal(res["device"][1], res["host"][1])
+                and res["device"][0].tobytes() == res["host"][0].tobytes())
+    idx.set_parameter("CorpusTier", "device")
+    out["grouped"] = grouped_recall(idx, queries, truth)
+    idx.set_parameter("CascadeSearch", "0")
+    idx.set_parameter("TierBudgetInt8", "0")
+    out.update({"recall_off": recall_off,
+                "device_host_equal_bitwise": same})
+    check(same, "14b: dense cascade device and host tiers differ")
+    check(all(out[t]["recall_at_10"] >= recall_off - 0.1
+              for t in ("device", "host")),
+          f"14b: dense cascade recall below {recall_off} - 0.1: {out}")
+    g_off = out["grouped_off"]["recall_at_10"]
+    check(out["grouped"]["group"] == 32
+          and out["grouped"]["recall_at_10"] >= g_off - 0.1,
+          f"14b: grouped dense cascade {out['grouped']} (the same grouping "
+          f"without the cascade: {g_off})")
+    return out
+
+
+def cascade_beam_phase(pt, graph_folder, queries, truth, recall_off,
+                       workdir) -> dict:
+    """14c: the beam cascade on phase 7's loaded folder: both tiers, the
+    segmented and scheduled walks against the monolithic one, and 1,024
+    lone requests through the socket server against search_batch."""
+    from sptag_tpu_torch.serve import server as sserver
+    from sptag_tpu_torch.serve import service as sservice
+
+    q = queries[:1024]
+    g = pt.load_index(graph_folder)
+    g.set_parameter("SearchMode", "beam")
+    g.set_parameter("CascadeSearch", "1")
+    out, res = {"recall_off": recall_off}, {}
+    for tier in ("device", "host"):
+        g.set_parameter("CorpusTier", tier)
+        g.search_batch(q, K)                         # builds the engine
+        d, ids, times = timed_search(g, q)
+        eng = g._get_engine()
+        parts = eng.device_bytes()
+        T = eng.walk_plan(K, int(g.get_parameter("MaxCheck")))[3]
+        g.set_parameter("BeamSegmentIters", str(max(1, T // 4)))
+        ds, ids_s = g.search_batch(q, K)
+        g.set_parameter("BeamSegmentIters", "0")
+        g.set_parameter("ContinuousBatching", "1")
+        dc, ids_c = g.search_batch(q, K)
+        g.set_parameter("ContinuousBatching", "0")
+        res[tier] = (d, ids)
+        out[tier] = {
+            "recall_at_10": recall_at_k(ids, truth), **batch_stats(times,
+                                                                   1024),
+            "engine_device_bytes": parts,
+            "host_fp_bytes": (0 if eng.fp_host is None
+                              else int(eng.fp_host.nbytes)),
+            "segmented_equal": bool(np.array_equal(ids_s, ids)
+                                    and ds.tobytes() == d.tobytes()),
+            "scheduled_equal": bool(np.array_equal(ids_c, ids)
+                                    and dc.tobytes() == d.tobytes())}
+        check(out[tier]["segmented_equal"] and out[tier]["scheduled_equal"],
+              f"14c {tier}: segmented / scheduled walks differ from the "
+              f"monolithic walk")
+        check(out[tier]["recall_at_10"] >= recall_off - 0.1,
+              f"14c {tier}: beam cascade recall "
+              f"{out[tier]['recall_at_10']} below {recall_off} - 0.1")
+    # the two tiers walk in different spaces by design (the device tier's
+    # in-loop norms are the float32 rows', the host tier's the int8
+    # rows'), so their pools may differ; the re-rank is one fixed-order
+    # kernel, so an id both return at a rank carries the same bits
+    (dd, di), (hd, hi) = res["device"], res["host"]
+    both = di == hi
+    out["device_host"] = {
+        "rows_ids_equal": int(both.all(1).sum()),
+        "slots_ids_equal": float(both.mean()),
+        "equal_ids_equal_bits": bool((dd[both] == hd[both]).all())}
+    check(out["device_host"]["equal_ids_equal_bits"],
+          "14c: an id both tiers return carries other distance bits")
+    g.close()
+
+    # lone requests through the server, cascade on (device tier)
+    ini = os.path.join(workdir, "cascade_service.ini")
+    with open(ini, "w") as f:
+        f.write("[Service]\nListenAddr=127.0.0.1\nListenPort=0\n"
+                f"[QueryConfig]\nDefaultMaxResultNumber={K}\n"
+                "[Index]\nList=main\n"
+                f"[Index_main]\nIndexFolder={graph_folder}\n")
+    ctx = sservice.ServiceContext.from_ini(ini)
+    index = ctx.indexes["main"]
+    for name, value in (("SearchMode", "beam"), ("CascadeSearch", "1")):
+        index.set_parameter(name, value)
+    ref_d, ref_i = index.search_batch(q, K)
+    run = ServerRunner(sserver.SearchServer(ctx))
+    try:
+        results, wall = pool_search(run.addr, [
+            "$indexname:main $searchmode:beam " + b64_query(v) for v in q])
+    finally:
+        run.stop()
+    d, ids, bad = served_arrays(results, K)
+    out["served"] = hold_parity("14c served", d, ids, bad, ref_d, ref_i,
+                                index._host, q)
+    out["served"].update({"wall_s": wall, "qps": len(q) / wall})
+    index.close()
+    return out
+
+
+def cascade_kdt_phase(pt, dist_ops, kfolder) -> dict:
+    """14d: the KDT walk with the cascade on phase 10's folder."""
+    kq = make_dataset(n=50_000, d=100, nq=200)[1]
+    kidx = pt.load_index(kfolder)
+    dev = kidx.device
+    truth = exact_truth(dist_ops, torch.from_numpy(kidx._host).to(dev),
+                        torch.from_numpy(kidx._prepare_query(kq)).to(dev),
+                        cosine_base=1)
+    kidx.set_parameter("SearchMode", "beam")
+    _, ids0 = kidx.search_batch(kq, K)
+    out = {"recall_off": recall_at_k(ids0, truth)}
+    kidx.set_parameter("CascadeSearch", "1")
+    for tier in ("device", "host"):
+        kidx.set_parameter("CorpusTier", tier)
+        kidx.search_batch(kq, K)
+        _, ids, times = timed_search(kidx, kq)
+        out[tier] = {"recall_at_10": recall_at_k(ids, truth),
+                     **batch_stats(times, len(kq))}
+        check(out[tier]["recall_at_10"] >= out["recall_off"] - 0.1,
+              f"14d {tier}: KDT cascade recall {out[tier]} below "
+              f"{out['recall_off']} - 0.1")
+    kidx.close()
+    return out
+
+
+def cascade_mutation_phase(pt, data, queries) -> dict:
+    """14e: deletes and delta-shard adds on a FLAT cascade index: every
+    tier hides the tombstones and finds the added rows."""
+    base_n = min(50_000, len(data))
+    rows = data[:base_n]
+    q = queries[:256]
+    out = {}
+    for tier in ("device", "host", "host_all"):
+        m = pt.create_instance("FLAT", "Float")
+        for name, value in (("DistCalcMethod", "L2"), ("CascadeSearch", "1"),
+                            ("TierBudgetSketch", str(CASCADE_B1)),
+                            ("TierBudgetInt8", str(CASCADE_B2)),
+                            ("CorpusTier", tier),
+                            ("DeltaShardCapacity", "256")):
+            m.set_parameter(name, value)
+        m.build(rows)
+        _, before = m.search_batch(q, K)
+        victims = np.unique(before[:, :3])[:200]
+        m.delete(rows[victims])
+        m.add(q[:64])
+        d, ids = m.search_batch(q[:64], K)
+        _, after = m.search_batch(q, K)
+        _, oracle = m.exact_search_batch(q, K)
+        # a row's distance to itself: 0 up to the float32 rounding of
+        # |q|^2 + |x|^2 - 2 q.x
+        qn = (q[:64].astype(np.float64) ** 2).sum(1)
+        out[tier] = {
+            "deleted": len(victims),
+            "deleted_returned": int(np.isin(after, victims).sum()),
+            "deleted_in_oracle": int(np.isin(oracle, victims).sum()),
+            "added_found_at_rank_0": float(np.mean(ids[:, 0] >= base_n)),
+            "added_self_distance_max": float(d[:, 0].max()),
+            "self_distance_within_f32": bool((d[:, 0] <= 4e-5 * qn).all())}
+        o = out[tier]
+        check(o["deleted_returned"] == 0 and o["deleted_in_oracle"] == 0
+              and o["added_found_at_rank_0"] == 1.0
+              and o["self_distance_within_f32"],
+              f"14e {tier}: mutation through the cascade {o}")
+        del m
+    return out
+
+
+def cascade_capacity_phase(pt) -> dict:
+    """14f: host_all FLAT at CAPACITY_N rows of the headline distribution:
+    recall against the index's own streamed exact scan, QPS, the ledger."""
+    big, bq = make_dataset(n=CAPACITY_N, nq=1024, seed=7)
+    before = ledger_reading()
+    c = pt.create_instance("FLAT", "Float")
+    for name, value in (("DistCalcMethod", "L2"), ("CascadeSearch", "1"),
+                        ("TierBudgetSketch", str(CASCADE_B1)),
+                        ("TierBudgetInt8", str(CASCADE_B2)),
+                        ("CorpusTier", "host_all")):
+        c.set_parameter(name, value)
+    t0 = time.perf_counter()
+    c.build(big)
+    c.search_batch(bq[:256], K)
+    build_s = time.perf_counter() - t0
+    _, ids, times = timed_search(c, bq)
+    usage = ledger_delta(before, ledger_reading())
+    t0 = time.perf_counter()
+    _, truth = c.exact_search_batch(bq, K)
+    oracle_s = time.perf_counter() - t0
+    dim = big.shape[1]
+    n_pad = -(-CAPACITY_N // 128) * 128
+    bound = n_pad * (4 * ((dim + 31) // 32) + 1) + 4 * dim + (1 << 20)
+    out = {"n": CAPACITY_N, "queries": len(bq), "build_and_warm_s": build_s,
+           "recall_at_10": recall_at_k(ids, truth), **batch_stats(times,
+                                                                  1024),
+           **usage, "fp_device_bytes_would_be": CAPACITY_N * dim * 4,
+           "oracle_s": oracle_s, "device_bound": bound}
+    check(0 < usage["device_bytes"] <= bound
+          and usage["host_bytes"] >= CAPACITY_N * dim * 4,
+          f"14f: host_all device bytes {usage['device_bytes']} (bound "
+          f"{bound}), host bytes {usage['host_bytes']}")
+    return out
+
+
+def cascade_phase(pt, dist_ops, data, queries, truth, idx, recall_off,
+                  graph_folder, beam_recall, kfolder, workdir):
+    """Phase 14.  Returns the first calls of the cascade kernels and their
+    launches over the phase."""
+    from sptag_tpu_torch.ops import (block_dots, int8_dots, sketch_dots,
+                                     walk_dots)
+
+    t_phase = time.perf_counter()
+    for module in (block_dots, int8_dots, sketch_dots, walk_dots):
+        module.reset_launch_counts()
+    first = FirstCascadeCalls()
+    with first:
+        out = {"a": cascade_flat_phase(pt, data, queries, truth, workdir),
+               "b": cascade_dense_phase(idx, queries, truth, recall_off),
+               "c": cascade_beam_phase(pt, graph_folder, queries,
+                                       truth[:1024], beam_recall, workdir),
+               "d": cascade_kdt_phase(pt, dist_ops, kfolder),
+               "e": cascade_mutation_phase(pt, data, queries),
+               "f": cascade_capacity_phase(pt)}
+    launches = {**sketch_dots.launch_counts(), **int8_dots.launch_counts(),
+                "walk_score_i8": walk_dots.launch_counts()["walk_score_i8"],
+                **{k: v for k, v in block_dots.launch_counts().items()
+                   if k.endswith("f32i8")}}
+    out["launches"] = launches
+    out["wall_s"] = time.perf_counter() - t_phase
+    for part in "abcdef":
+        emit({"phase": f"14{part}", **out.pop(part)})
+    emit({"phase": 14, **out})
+    missing = [k for k, v in launches.items() if v < 1]
+    check(not missing, f"14: cascade kernels not launched: {missing}")
+    missing = [k for k in launches if k not in first.args]
+    check(not missing, f"14: no main-path call recorded for {missing}")
+    return first, launches
+
+
+def cascade_kernel_rows(first, launches) -> list:
+    """Phase 2 for the cascade's Hamming, gathered int8 and int8 walk
+    kernels on the arguments of their first main-path call in phase 14:
+    exact against the plain versions for the integer kernels, and for
+    walk_score_i8 bit-equal to walk_score_f32 over the dequantized rows
+    (and within the float32 bound of the plain version), with times,
+    bound and the library yardstick."""
+    from sptag_tpu_torch.ops import int8_dots, sketch_dots
+    from sptag_tpu_torch.ops import distance as dist_ops
+    from sptag_tpu_torch.ops import walk_dots as wd
+
+    rows = []
+    for name in ("sketch_hamming", "int8_gather_dots", "walk_score_i8"):
+        if name not in first.args:
+            continue
+        args = first.args[name]
+        extra = {}
+        if name == "sketch_hamming":
+            qb, sk, inv = args
+            call = lambda: sketch_dots.hamming(qb, sk, inv)  # noqa: E731
+            ref = lambda: sketch_dots.hamming_reference(     # noqa: E731
+                qb, sk, inv)
+            lib = None
+            (Q, W), N = qb.shape, sk.shape[0]
+            nbytes = Q * W * 4 + N * W * 4 + N + Q * N * 4
+            ops, peak = 3.0 * Q * N * W, PEAK_OPS_S["f32"]
+            shape = {"Q": Q, "N": N, "W": W}
+            source, replaces = ("sptag_tpu_torch/csrc/sketch_dots.cu",
+                                "sptag_tpu/ops/cascade.py:151")
+            extra["library_call"] = (
+                "none: PyTorch has no popcount and no fused XOR-popcount; "
+                "the plain version counts bits with SWAR over (Q, N) int64 "
+                "tensors, one word at a time")
+            extra["peak_used"] = "float32 CUDA-core rate for the integer ops"
+        elif name == "int8_gather_dots":
+            qq, qs, qn, x, ids, inv, scale, metric, base, mode = args
+            call = lambda: int8_dots.int8_gather_dots(       # noqa: E731
+                qq, qs, qn, x, ids, inv, scale, metric, base, mode)
+            ref = lambda: int8_dots.int8_gather_dots_reference(  # noqa
+                qq, qs, qn, x, ids, inv, scale, metric, base, mode)
+            pre = x[ids.clamp_min(0).long()]
+            lib = lambda: dist_ops.int_contract(            # noqa: E731
+                "qd,qcd->qc", qq, pre)
+            (Q, C), D = ids.shape, qq.shape[1]
+            distinct = int(torch.unique(ids[ids >= 0]).numel())
+            nbytes = (distinct * (D + 1) + Q * D + Q * 8 + Q * C * 8)
+            ops, peak = 4.0 * Q * C * D, PEAK_OPS_S["i8"]
+            shape = {"Q": Q, "C": C, "D": D, "mode": mode, "metric": metric}
+            source, replaces = ("sptag_tpu_torch/csrc/int8_dots.cu",
+                                "sptag_tpu/ops/cascade.py:192")
+            extra.update({"library_call": "int_contract over the rows "
+                          "gathered beforehand (the bare dot)",
+                          "distinct_rows": distinct})
+        else:
+            q, x8, idx, xn, epi, mode, C, scale = args
+            call = lambda: wd.walk_score(                   # noqa: E731
+                q, x8, idx, xn, epi, mode, C, scale)
+            ref = lambda: wd.walk_score_i8_reference(       # noqa: E731
+                q, x8, idx, xn, epi, mode, C, scale)
+            xf = wd.dequantize(x8, scale).contiguous()
+            same = torch.equal(call(), wd.walk_score(q, xf, idx, xn, epi,
+                                                     mode, C))
+            safe = idx.clamp_min(0)
+            pre = xf[safe]
+            lib = lambda: torch.einsum("qd,qcd->qc", q, pre)  # noqa: E731
+            fresh = idx >= 0
+            Q, D = q.shape
+            distinct = int(torch.unique(idx[fresh]).numel())
+            n_fresh = int(fresh.sum().item())
+            nbytes = (distinct * (D + 4) + Q * D * 4 + Q * C * 4
+                      + idx.numel() * 8)
+            ops, peak = 2.0 * n_fresh * D, PEAK_OPS_S["f32"]
+            shape = {"Q": Q, "C": C, "D": D, "mode": mode, "epilogue": epi}
+            source, replaces = ("sptag_tpu_torch/csrc/walk_dots.cu",
+                                "sptag_tpu/algo/engine.py:636")
+            extra.update({"library_call": "einsum over the rows dequantized "
+                          "and gathered beforehand (the bare dot)",
+                          "bit_equal_to_walk_score_f32_on_dequantized": same,
+                          "fresh_share": n_fresh / idx.numel()})
+            check(same, "walk_score_i8 differs from walk_score_f32 on the "
+                        "dequantized rows")
+        got, want = call(), ref()
+        torch.cuda.synchronize()
+        err = (got.double() - want.double()).abs()
+        if name == "walk_score_i8":
+            absdot = torch.einsum("qd,qcd->qc", q.abs(), pre.abs())
+            tol = 1e-5 * ((q * q).sum(1)[:, None] + xn[safe] + 2 * absdot)
+            ok = bool((err <= tol.double() + 1e-30).all())
+        else:
+            ok = bool(torch.equal(got, want))
+        bytes_ms = nbytes / HBM_BYTES_S * 1e3
+        ops_ms = ops / peak * 1e3
+        card_ms, card_rows = device_ms(call)
+        timing = {"ms_back_to_back": median_ms(call, calls=BACK_TO_BACK),
+                  "device_ms": card_ms, "device_ms_by_kernel": card_rows,
+                  "host_ms": host_ms(call)}
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "path": "cascade",
+               "launches": launches[name],
+               "max_abs_err": float(err.max().item()), "ms": median_ms(call),
+               "plain_ms": median_ms(ref, reps=10),
+               "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "library_ms": median_ms(lib) if lib is not None else None}
+        if lib is not None:
+            timing["library_ms_back_to_back"] = median_ms(
+                lib, calls=BACK_TO_BACK)
+        emit({"phase": 2, **row, **timing, **extra, "shape": shape,
+              "bytes": nbytes, "ops": ops, "within_tolerance": ok})
+        check(ok, f"{name} (cascade): kernel disagrees with its plain "
+                  f"version (max |err| {row['max_abs_err']})")
+        rows.append(row)
+    return rows
+
+
 def block_dot_row(block_dots, kind, t, path, counts, blocks, q, ids) -> dict:
     """Phase 2 for one block-dot kernel on one path's arguments: the
     kernel against its plain version, its block reads, times, library
@@ -2882,6 +3517,7 @@ def block_dot_row(block_dots, kind, t, path, counts, blocks, q, ids) -> dict:
         ok = bool((err <= 1e-5 * scale + 1e-30).all())
     C, P, D = blocks.shape
     es = blocks.element_size()
+    qs = q.element_size()
     Q = q.shape[0]
     distinct = int(torch.unique(ids).numel())
     # blocks the block-major kernel reads: one per tile of at most
@@ -2903,7 +3539,7 @@ def block_dot_row(block_dots, kind, t, path, counts, blocks, q, ids) -> dict:
     if kind == "probe_block_dots":
         npb = ids.shape[1]
         shape = {"Q": Q, "nprobe": npb, "P": P, "D": D, "C": C}
-        nbytes = (distinct * P * D * es + Q * D * es + ids.numel() * 4
+        nbytes = (distinct * P * D * es + Q * D * qs + ids.numel() * 4
                   + Q * npb * P * 4)
         ops = 2.0 * Q * npb * P * D
         lib = ("qd,qjpd->qjp", q, blocks[ids.long()])
@@ -2911,12 +3547,13 @@ def block_dot_row(block_dots, kind, t, path, counts, blocks, q, ids) -> dict:
         NG, U = ids.shape
         G = Q // NG
         shape = {"NG": NG, "U": U, "G": G, "P": P, "D": D, "C": C}
-        nbytes = (distinct * P * D * es + Q * D * es + ids.numel() * 4
+        nbytes = (distinct * P * D * es + Q * D * qs + ids.numel() * 4
                   + NG * U * G * P * 4)
         ops = 2.0 * NG * U * G * P * D
         lib = ("gqd,gupd->guqp", q.reshape(NG, G, D), blocks[ids.long()])
     bytes_ms = nbytes / HBM_BYTES_S * 1e3
-    ops_ms = ops / PEAK_OPS_S[t] * 1e3
+    # float32 queries against int8 blocks run in float32 FFMA
+    ops_ms = ops / PEAK_OPS_S["i8" if t == "i8" else "f32"] * 1e3
     kernel_ms = median_ms(lambda: fn(blocks, q, ids))
     card_ms, card_rows = device_ms(lambda: fn(blocks, q, ids))
     timing = {"ms_back_to_back": median_ms(lambda: fn(blocks, q, ids),
@@ -2930,9 +3567,9 @@ def block_dot_row(block_dots, kind, t, path, counts, blocks, q, ids) -> dict:
     # the library yardstick: one float32 einsum over the pre-gathered
     # blocks (gather and casts outside the timing).  For int8 it is
     # exact: every partial sum is an integer of magnitude at most
-    # 128^2 * D = 2^21 < 2^24
+    # 128^2 * D = 2^21 < 2^24.  int8 blocks are widened beforehand
     eq, a, b = lib
-    if t == "i8":
+    if t != "f32":
         a, b = a.float(), b.float()
     library_ms = median_ms(lambda: torch.einsum(eq, a, b))
     timing["library_ms_back_to_back"] = median_ms(
@@ -2940,11 +3577,19 @@ def block_dot_row(block_dots, kind, t, path, counts, blocks, q, ids) -> dict:
     lib_err = float((torch.einsum(eq, a, b).double()
                      - want.double()).abs().max().item())
     del lib, a, b
+    if t == "f32i8":
+        # the JAX package's XLA branch of the dense scan (float queries
+        # against int8 blocks take no Pallas kernel there)
+        replaces = ("sptag_tpu/algo/dense.py:321"
+                    if kind == "probe_block_dots"
+                    else "sptag_tpu/algo/dense.py:433")
+    else:
+        replaces = ("sptag_tpu/ops/pallas_kernels.py:151"
+                    if kind == "probe_block_dots"
+                    else "sptag_tpu/ops/pallas_kernels.py:214")
     row = {"name": f"{kind}_{t}", "route": "cuda",
            "source": "sptag_tpu_torch/csrc/block_dots.cu",
-           "replaces": ("sptag_tpu/ops/pallas_kernels.py:151"
-                        if kind == "probe_block_dots"
-                        else "sptag_tpu/ops/pallas_kernels.py:214"),
+           "replaces": replaces,
            "path": path, "launches": counts[f"{kind}_{t}"],
            "max_abs_err": float(err.max().item()), "ms": kernel_ms,
            "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
@@ -3105,8 +3750,12 @@ def main() -> None:
     with ThreadPoolExecutor(len(KERNEL_SOURCES)) as ex:
         built = dict(zip(KERNEL_SOURCES, ex.map(_build.build,
                                                 KERNEL_SOURCES)))
+    from sptag_tpu_torch.ops import int8_dots, sketch_dots
+
     block_dots.library()
     walk_ops.library()
+    sketch_dots.library()
+    int8_dots.library()
     emit({"phase": 1, "build_s": time.perf_counter() - t0,
           **{name: {"library": os.path.relpath(so, here), "nvcc_s": secs,
                     "ptxas": [ln.strip() for ln in
@@ -3218,7 +3867,9 @@ def main() -> None:
     same = bool(np.array_equal(ids_l, ids_f32[:1024]))
     emit({"phase": 5, "save_s": save_s, "load_s": load_s, "ids_equal": same})
     check(same, "ids differ after save -> load")
-    launches = block_dots.launch_counts()
+    # the float32 x int8 variant is the cascade's (phase 14)
+    launches = {k: v for k, v in block_dots.launch_counts().items()
+                if not k.endswith("f32i8")}
     emit({"phase": "main_path_launches", **launches})
     missing = [k for k, v in launches.items() if v < 1]
     check(not missing,
@@ -3259,7 +3910,9 @@ def main() -> None:
                         "iterations_last_batch": eng.last_iterations,
                         "ids": ids_b, "times": times_b}
     walk = eng.walk_plan(K, 2048, 16, None, 3)
-    walk_launches = walk_ops.launch_counts()
+    # the int8 scoring is the cascade's (phase 14)
+    walk_launches = {k: v for k, v in walk_ops.launch_counts().items()
+                     if k != "walk_score_i8"}
     emit({"phase": 7, "n": len(data), "d": data.shape[1],
           "build_s": gbuild_s, "build_stages_s": gidx.build_stages,
           "build_launches": build_launches, "walk_launches": walk_launches,
@@ -3386,6 +4039,14 @@ def main() -> None:
     # ---- phase 10: KDT -----------------------------------------------------
     kdt_first, kdt_launches = kdt_phase(pt, block_dots, dist_ops, work.name)
 
+    # ---- phase 14: the tiered corpus cascade ------------------------------
+    # (before phase 2, which holds its kernels, and before phase 13, whose
+    # device traces leave the profiler without device rows in-process)
+    first14, launches14 = cascade_phase(
+        pt, dist_ops, data, queries, truth_f32, idx, recall, graph_folder,
+        beam["off"]["recall_at_10"],
+        os.path.join(work.name, "kdt"), work.name)
+
     # ---- phase 2: kernels against their plain versions ---------------------
     q32 = torch.from_numpy(idx._prepare_query(queries[:1024])).to(dev)
     q8 = torch.from_numpy(idx8._prepare_query(queries8[:1024])).to(dev)
@@ -3435,6 +4096,12 @@ def main() -> None:
 
     rows.extend(walk_dots_rows(walk_ops, first_walk,
                                walk_launches))
+    rows.extend(cascade_kernel_rows(first14, launches14))
+    for kind in ("probe_block_dots", "group_block_dots"):
+        args = first14.args.get(f"{kind}_f32i8")
+        if args is not None:
+            rows.append(block_dot_row(block_dots, kind, "f32i8",
+                                      "cascade_dense", launches14, *args))
 
     # ---- phase 6: where a search batch's time goes ---------------------------
     # device time from the profiler's CUDA rows (kernels and copies); the
@@ -3499,6 +4166,21 @@ def main() -> None:
                   beam[binned]["batch_ms_p50"],
                   iterations=lambda: gidx._get_engine().last_iterations,
                   former=FORMER_BEAM_BATCH[binned])
+    # the FLAT cascade's tiers (phase 14a's configuration)
+    for tier in ("device", "host_all"):
+        cflat = pt.create_instance("FLAT", "Float")
+        for name, value in (("DistCalcMethod", "L2"), ("CascadeSearch", "1"),
+                            ("TierBudgetSketch", str(CASCADE_B1)),
+                            ("TierBudgetInt8", str(CASCADE_B2)),
+                            ("CorpusTier", tier)):
+            cflat.set_parameter(name, value)
+        cflat.build(data)
+        cflat.search_batch(queries[:1024], K)      # builds the tiers
+        _, _, ctimes = timed_search(cflat, queries)
+        breakdown(f"FLAT cascade {tier}, 1024 queries",
+                  lambda: cflat.search_batch(queries[:1024], K),
+                  batch_stats(ctimes, 1024)["batch_ms_p50"])
+        del cflat
 
     # ---- phase 11: the walk's options and the slot scheduler -------------
     scheduler_phase(pt, gidx, queries, truth_f32, beam,
@@ -3519,6 +4201,7 @@ def main() -> None:
         for (kind, t), args in sorted(first.args.items()):
             rows.append(block_dot_row(block_dots, kind, t, path,
                                       launches13, *args))
+
 
     if FAILED_CHECKS:
         fail(f"{len(FAILED_CHECKS)} check(s) failed: {FAILED_CHECKS}")

@@ -52,8 +52,7 @@ from sptag_tpu_torch.algo.scheduler import (BeamSlotScheduler,
                                             pad_result_row)
 from sptag_tpu_torch.core.delta import merge_topk
 from sptag_tpu_torch.core.index import (MAX_DIST, VectorIndex, grow_rows,
-                                        not_ported, pad_results,
-                                        register_algo)
+                                        pad_results, register_algo)
 from sptag_tpu_torch.core.params import BKTParams
 from sptag_tpu_torch.core.types import (DistCalcMethod, IndexAlgoType,
                                         VectorValueType, dtype_of)
@@ -71,13 +70,17 @@ _LINK_CHUNK = 4096
 # the flight recorder's knobs, applied process-wide at set_parameter
 _FLIGHT_PARAMS = frozenset({"flightrecorder", "flightrecorderevents",
                             "flightdumponslowquery"})
+# the cascade's knobs: its int8 rows, their residency tier and the fp
+# re-rank budget are snapshot state, rebuilt on a change
+_CASCADE_PARAMS = frozenset({"cascadesearch", "corpustier",
+                             "tierbudgetint8", "tierbudgetsketch"})
 # knobs baked into the dense snapshot: a change rebuilds it
-_DENSE_PARAMS = frozenset({"densereplicas", "denseclustersize",
-                           "cascadesearch"})
+_DENSE_PARAMS = frozenset({"densereplicas", "denseclustersize"}) \
+    | _CASCADE_PARAMS
 # knobs baked into the walk's engine snapshot
 _ENGINE_PARAMS = frozenset({"beampackedneighbors", "beamscoredtype",
-                            "binnedtopk", "approxrecalltarget",
-                            "cascadesearch"})
+                            "binnedtopk", "approxrecalltarget"}) \
+    | _CASCADE_PARAMS
 
 
 def pivot_budget(params, n: int = 0) -> int:
@@ -366,18 +369,27 @@ class BKTIndex(VectorIndex):
     def _build_dense_searcher(self, replicas: Optional[int] = None,
                               cascade_ok: bool = True) -> DenseTreeSearcher:
         """Cluster-contiguous device snapshot from the current tree.  The
-        graph build's refine searcher passes replicas=1 and no cascade
-        (full precision edges)."""
-        if cascade_ok and int(getattr(self.params, "cascade_search", 0)):
-            raise not_ported("CascadeSearch=1", "cascade")
+        graph build's refine searcher passes replicas=1 and no cascade: a
+        quantized refine would bake its noise into the saved edges.  With
+        ``CascadeSearch`` on a float corpus the layout is int8 with an
+        exact fp re-rank of a ``TierBudgetInt8`` shortlist."""
         if replicas is None:
             replicas = getattr(self.params, "dense_replicas", 1)
         n = self._main_rows()
+        data = self._host[:n]
         _, clusters = self._dense_clusters()
+        cascade_cfg = None
+        if cascade_ok and int(getattr(self.params, "cascade_search", 0)) \
+                and np.issubdtype(data.dtype, np.floating):
+            cascade_cfg = {
+                "tier": str(getattr(self.params, "corpus_tier", "device")),
+                "rerank_budget": int(getattr(self.params,
+                                             "tier_budget_int8", 0)),
+            }
         return DenseTreeSearcher(
-            self._host[:n], clusters, self._deleted[:n],
-            self.dist_calc_method, self.base, replicas=replicas,
-            device=self.device)
+            data, clusters, self._deleted[:n], self.dist_calc_method,
+            self.base, replicas=replicas, device=self.device,
+            cascade_cfg=cascade_cfg)
 
     def _get_dense(self) -> DenseTreeSearcher:
         """The dense snapshot, built at first use after a change and
@@ -428,6 +440,7 @@ class BKTIndex(VectorIndex):
             binned_topk=str(getattr(p, "binned_topk", "off")),
             recall_target=float(getattr(p, "approx_recall_target", 0.99)),
             cascade_search=bool(int(getattr(p, "cascade_search", 0))),
+            corpus_tier=str(getattr(p, "corpus_tier", "device")),
             device=self.device)
 
     def _get_engine(self) -> GraphSearchEngine:

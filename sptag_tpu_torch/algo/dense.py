@@ -17,6 +17,16 @@ cap, G <= U clamp, the dtype floor on G), the chunk sizing from
 ``_GATHER_BUDGET``, the query-bucket padding, the metric algebra, the
 replica de-duplication, and ``lax.top_k``'s lowest-index-first tie rule
 (stable sorts throughout).  The chunks run as a Python loop.
+
+With ``CascadeSearch`` on a float corpus the block layout holds the int8
+quantization (a quarter of the bytes): queries ``q / scale`` in float32
+score against it through the block-dot kernels' float32 x int8 variant
+(the JAX package's XLA branch), the probe prefilter takes the place of
+the sketch tier, and the ``TierBudgetInt8``-wide shortlist is re-ranked
+exactly against the float32 rows — the resident corpus (``device``) or
+rows fetched from host memory (``host``; ``host_all`` acts as ``host``)
+— by ops/cascade.py's fixed-order re-rank, so both tiers return the same
+ids and distance bits.
 """
 
 from __future__ import annotations
@@ -30,7 +40,9 @@ import torch
 from sptag_tpu_torch.core.types import DistCalcMethod
 from sptag_tpu_torch.device import DeviceLike, resolve_device
 from sptag_tpu_torch.ops import block_dots
+from sptag_tpu_torch.ops import cascade as cascade_ops
 from sptag_tpu_torch.ops import distance as dist_ops
+from sptag_tpu_torch.ops import walk_dots as walk_ops
 from sptag_tpu_torch.ops import topk_bins
 from sptag_tpu_torch.utils import devmem, query_bucket, round_up
 
@@ -262,11 +274,20 @@ def _finalize_topk(nd: torch.Tensor, ids: torch.Tensor,
 
 def _kernel_ok(data_perm: torch.Tensor, queries: torch.Tensor) -> bool:
     """The block-dot kernels take float32 blocks, or int8 blocks with int8
-    queries; other value types score through a gather, as the JAX package's
-    XLA path does."""
+    queries or float32 ones (the cascade's quantized layout); other value
+    types score through a gather, as the JAX package's XLA path does."""
     return (data_perm.dtype == torch.float32
             or (data_perm.dtype == torch.int8
-                and queries.dtype == torch.int8))
+                and queries.dtype in (torch.int8, torch.float32)))
+
+
+def _kernel_queries(data_perm: torch.Tensor,
+                    queries: torch.Tensor) -> torch.Tensor:
+    """int8 queries against int8 blocks (exact int32 dots); float32
+    otherwise."""
+    if data_perm.dtype == torch.int8 and queries.dtype == torch.int8:
+        return queries
+    return queries.to(torch.float32)
 
 
 def probe_choice(queries, centroids, cent_sq, metric: int, nprobe: int):
@@ -290,8 +311,7 @@ def _dense_search_kernel(data_perm, member_ids, member_sq, centroids,
     ids = member_ids[topc].reshape(Q, nprobe * P)
     sq = member_sq[topc].reshape(Q, nprobe * P)
     if _kernel_ok(data_perm, queries):
-        q_in = queries if data_perm.dtype == torch.int8 \
-            else queries.to(torch.float32)
+        q_in = _kernel_queries(data_perm, queries)
         dot = block_dots.probe_block_dots(
             data_perm, q_in.contiguous(), topc.to(torch.int32).contiguous()
         ).reshape(Q, nprobe * P).to(torch.float32)
@@ -379,7 +399,7 @@ def _dense_search_grouped_kernel(data_perm, member_ids, member_sq, centroids,
     ids_u = member_ids[union_safe]                           # (NG, U, P)
     sq_u = member_sq[union_safe]
     if _kernel_ok(data_perm, queries):
-        q_in = qs if data_perm.dtype == torch.int8 else qsf
+        q_in = _kernel_queries(data_perm, qs)
         dot = block_dots.group_block_dots(
             data_perm, q_in.contiguous(), union_safe.contiguous()
         ).to(torch.float32).permute(0, 2, 1, 3)              # (NG, G, U, P)
@@ -503,11 +523,42 @@ class DenseTreeSearcher:
     def __init__(self, data: np.ndarray, clusters: List[np.ndarray],
                  deleted: Optional[np.ndarray], metric: DistCalcMethod,
                  base: int, replicas: int = 1,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 cascade_cfg: Optional[dict] = None):
+        """`cascade_cfg` ({"tier", "rerank_budget"}; ignored for integer
+        corpora): the int8 layout with the exact float32 re-rank."""
         device = resolve_device(device)
-        lay = self.build_layout(data, clusters, metric, replicas, device)
+        src = self._cascade_init(data, cascade_cfg, device)
+        lay = self.build_layout(src, clusters, metric, replicas, device)
         self._place(lay, data.shape[0], deleted, metric, base, replicas,
                     device)
+
+    def _cascade_init(self, data: np.ndarray, cfg: Optional[dict],
+                      device: torch.device) -> np.ndarray:
+        """Set the cascade's state; returns the rows the layout holds."""
+        self.cascade_cfg = None
+        self.scale = 0.0
+        self.fp_d = self.fp_sq = None
+        self.fp_host: Optional[np.ndarray] = None
+        if cfg is None or not np.issubdtype(np.asarray(data).dtype,
+                                            np.floating):
+            return data
+        tier = cascade_ops.normalize_tier(cfg.get("tier", "device"))
+        if tier == "host_all":
+            tier = "host"               # no sketch tier to keep resident
+        fp = np.ascontiguousarray(np.asarray(data, np.float32))
+        int8_np, self.scale = cascade_ops.quantize_int8(fp)
+        self.cascade_cfg = {"tier": tier, "rerank_budget":
+                            int(cfg.get("rerank_budget", 0) or 0)}
+        if tier == "device":
+            self.fp_d = torch.from_numpy(fp).to(device)
+            if device.type == "cuda":
+                # the re-rank kernel's norm table (ROWS mode computes the
+                # same bits from fetched rows)
+                self.fp_sq = walk_ops.row_sqnorms(self.fp_d)
+        else:
+            self.fp_host = fp
+        return int8_np
 
     @classmethod
     def from_layout(cls, lay: dict, deleted: Optional[np.ndarray],
@@ -519,6 +570,7 @@ class DenseTreeSearcher:
         self = cls.__new__(cls)
         n = len(deleted) if deleted is not None \
             else int(np.asarray(lay["ids"]).max()) + 1
+        self._cascade_init(lay["perm"], None, resolve_device(device))
         self._place(lay, n, deleted, metric, base, replicas,
                     resolve_device(device))
         return self
@@ -555,6 +607,14 @@ class DenseTreeSearcher:
                      + self.cent_sq.nbytes + self.deleted.nbytes)
         devmem.track("int8_blocks" if self.data_perm.dtype == torch.int8
                      else "dense_blocks", self, lay_bytes)
+        if self.fp_d is not None:
+            # the cascade's fp re-rank tier, resident (CorpusTier=device)
+            devmem.track("corpus", self, self.fp_d.nbytes + (
+                0 if self.fp_sq is None else self.fp_sq.nbytes))
+        if self.fp_host is not None:
+            # host memory: shown, excluded from the device total
+            devmem.track("host_corpus", self, self.fp_host.nbytes,
+                         host=True)
 
     def set_deleted(self, deleted: np.ndarray) -> None:
         """Swap only the tombstone mask."""
@@ -567,6 +627,14 @@ class DenseTreeSearcher:
         applies it on every platform, so it decides which path runs."""
         return 32 if self.data_perm.dtype == torch.int8 else 8
 
+    def _rerank_budget(self, k: int) -> int:
+        """The fp tier's shortlist (TierBudgetInt8 under the cascade's
+        budget rule: 0 = auto, a power of two, >= k, <= the corpus)."""
+        n = max(self.n, 1)
+        _, b2 = cascade_ops.resolve_budgets(
+            n, self.cascade_cfg.get("rerank_budget", 0), k, n)
+        return max(b2, min(k, self.n))
+
     def search(self, queries: np.ndarray, k: int, max_check: int = 2048,
                group: int = 0, union_factor: int = 2, binned: str = "off",
                recall_target: float = topk_bins.DEFAULT_RECALL_TARGET
@@ -574,7 +642,54 @@ class DenseTreeSearcher:
         """(Q, D) host queries -> ((Q, k) float32 dists, (Q, k) int32 ids)
         as numpy, MAX_DIST / -1 padded.  `binned` (BinnedTopK: off / on /
         auto) routes the final select through the bin reduction, sized by
-        `recall_target` over the scored row width."""
+        `recall_target` over the scored row width.  Under the cascade the
+        int8 scan's ``TierBudgetInt8`` shortlist is re-ranked exactly, so
+        distances are float32 exact whatever the tier."""
+        if self.cascade_cfg is None:
+            return self._scan_topk(queries, k, max_check, group,
+                                   union_factor, binned, recall_target)
+        queries = np.asarray(queries)
+        if queries.ndim == 1:
+            queries = queries[None, :]
+        nq = queries.shape[0]
+        # the int8 blocks hold x / scale: q / scale keeps every query's
+        # ordering that of the dequantized scores
+        q_scaled = queries.astype(np.float32) / np.float32(self.scale)
+        _, ids = self._scan_topk(q_scaled, self._rerank_budget(k),
+                                 max_check, group, union_factor, binned,
+                                 recall_target)
+        k_eff = min(k, ids.shape[1])
+        out_d = np.full((nq, k), np.float32(MAX_DIST), np.float32)
+        out_i = np.full((nq, k), -1, np.int32)
+        qf = np.ascontiguousarray(queries, np.float32)
+        for lo in range(0, nq, 1024):
+            hi = min(lo + 1024, nq)
+            q = torch.from_numpy(qf[lo:hi]).to(self.device)
+            cid = ids[lo:hi]
+            if self.fp_host is not None:
+                cid, _ = cascade_ops.check_host_ids(self.fp_host.shape[0],
+                                                    cid)
+                d, out = cascade_ops.rerank_gathered(
+                    q, cascade_ops.fetch_rows(self.fp_host, cid,
+                                              self.device),
+                    torch.from_numpy(cid).to(self.device), k_eff,
+                    int(self.metric), self.base, walk_ops.ROWS)
+            else:
+                d, out = cascade_ops.rerank_gathered(
+                    q, self.fp_d, torch.from_numpy(cid).to(self.device),
+                    k_eff, int(self.metric), self.base, walk_ops.GATHER,
+                    self.fp_sq)
+            out_d[lo:hi, :k_eff] = d.cpu().numpy()
+            out_i[lo:hi, :k_eff] = out.cpu().numpy()
+        return out_d, out_i
+
+    def _scan_topk(self, queries: np.ndarray, k: int, max_check: int = 2048,
+                   group: int = 0, union_factor: int = 2,
+                   binned: str = "off",
+                   recall_target: float = topk_bins.DEFAULT_RECALL_TARGET
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+        """The block scan and its masked top-k (`search` without the
+        cascade's re-rank)."""
         queries = np.asarray(queries)
         if queries.ndim == 1:
             queries = queries[None, :]

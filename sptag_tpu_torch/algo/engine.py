@@ -60,8 +60,19 @@ norms stay float32.  The bf16 dots come out as float32 (ops/distance.py).
 TPU.  ``BeamPackedNeighbors=1`` stores each node's m neighbour rows
 contiguously in the scoring dtype (``nbr_vecs`` (N, m, D), ``nbr_sq``
 (N, m)): B block reads per query instead of B*m scattered rows, at m times
-the corpus's memory.  The cascade (``CascadeSearch``) raises, naming its
-ROADMAP.md item.
+the corpus's memory.
+
+``CascadeSearch`` on a float corpus walks the int8 quantization
+(ops/cascade.py): on ``CorpusTier=device`` it replaces the bf16 shadow as
+the scoring corpus, dequantized in the load by ``walk_score_i8`` with the
+float32 corpus's norms, and the finalize re-ranks the pool against the
+resident float32 rows.  On ``host`` (``host_all`` acts as ``host``) the
+int8 rows ARE the device corpus: their norms are rescaled by scale^2, the
+pivots dequantized, KDT's seed rows dequantized in the load, and the
+finalize reads the pool's ids back once and fetches only those float32
+rows from host memory for the exact re-rank (the fixed-order kernel's
+ROWS mode); such a walk always runs segmented.  Packed neighbours turn
+off under the cascade.
 """
 
 from __future__ import annotations
@@ -75,9 +86,9 @@ import torch
 
 from sptag_tpu_torch.algo.dense import _sorted_dup_mask
 from sptag_tpu_torch.algo.flat import exact_device_scan
-from sptag_tpu_torch.core.index import not_ported
 from sptag_tpu_torch.core.types import DistCalcMethod
 from sptag_tpu_torch.device import DeviceLike, resolve_device
+from sptag_tpu_torch.ops import cascade as cascade_ops
 from sptag_tpu_torch.ops import distance as dist_ops
 from sptag_tpu_torch.ops import walk_dots as walk_ops
 from sptag_tpu_torch.ops import topk_bins
@@ -155,10 +166,13 @@ def _seed_from_pivots(pivot_ids, pivot_vecs, pivot_sqnorm, queries, L: int,
 
 
 def _seed_from_seeds(data, sqnorm, seed_ids, queries, L: int, metric: int,
-                     base: int):
+                     base: int, score_scale: float = 0.0):
     """Per-query seeding (KDT): the (Q, S) seed ids (-1 padded) are
     gathered and scored in one batched contraction; a seed reached twice
     keeps its first occurrence only, and every seed is marked visited.
+    `score_scale` > 0 with int8 `data` (the host-tier cascade, whose device
+    corpus IS the quantization) dequantizes the seed rows, so seeds live in
+    the walk's scoring space; fp `data` (the device tier) is never scaled.
     Returns (cand_ids, cand_d, visited (Q, N + 1) bool)."""
     Q, S = seed_ids.shape
     N = data.shape[0]
@@ -168,7 +182,8 @@ def _seed_from_seeds(data, sqnorm, seed_ids, queries, L: int, metric: int,
     d0 = walk_ops.walk_distance(
         queries, data, metric, base, walk_ops.GATHER,
         idx=torch.where(_sorted_dup_mask(seeds_safe), -1, seed_ids),
-        x_sqnorm=sqnorm)
+        x_sqnorm=sqnorm,
+        score_scale=score_scale if data.dtype == torch.int8 else 0.0)
     visited = torch.zeros((Q, N + 1), dtype=torch.bool,
                           device=queries.device)
     visited.scatter_(1, seeds_safe, True)
@@ -331,7 +346,8 @@ class _Walk:
             nd = walk_ops.walk_distance(self.queries_s, eng.score_src,
                                         eng.metric, eng.base,
                                         walk_ops.GATHER, idx=fresh_ids,
-                                        x_sqnorm=eng.sqnorm)
+                                        x_sqnorm=eng.sqnorm,
+                                        score_scale=eng.score_scale)
 
         # ---- inject spare pivots when the frontier falls behind the next
         # one, or the nbp counter would trip with budget left
@@ -417,8 +433,11 @@ class _Walk:
 def _finalize(eng: "GraphSearchEngine", queries, cand_ids, cand_d,
               k_eff: int, binned_bins: int = 0):
     """Exact float32 re-rank of the pool when the walk scored the bf16
-    shadow, tombstone filter and final top-k (binned when `binned_bins`
-    > 0)."""
+    shadow or the device-tier cascade's int8 rows, tombstone filter and
+    final top-k (binned when `binned_bins` > 0).  The host-tier cascade
+    finalizes through `_finalize_host` instead."""
+    if eng.fp_host is not None:
+        return _finalize_host(eng, queries, cand_ids, k_eff)
     if eng.rerank:
         cand_d = walk_ops.walk_distance(queries, eng.data, eng.metric,
                                         eng.base, walk_ops.GATHER,
@@ -434,6 +453,20 @@ def _finalize(eng: "GraphSearchEngine", queries, cand_ids, cand_d,
     return final_d, final_ids.to(torch.int32)
 
 
+def _finalize_host(eng: "GraphSearchEngine", queries, cand_ids,
+                   k_eff: int):
+    """Host-tier cascade finalize: the pool's ids read back once, their
+    float32 rows and tombstones fetched from host memory, tombstones folded
+    into the ids, and the cascade's fp re-rank (ROWS mode)."""
+    ids_np = cand_ids.cpu().numpy()
+    safe = np.clip(ids_np, 0, eng.fp_host.shape[0] - 1)
+    ids_np = np.where(eng._deleted_np[safe], -1, ids_np)
+    return cascade_ops.rerank_gathered(
+        queries, cascade_ops.fetch_rows(eng.fp_host, safe, queries.device),
+        torch.from_numpy(ids_np).to(queries.device), k_eff, int(eng.metric),
+        eng.base, walk_ops.ROWS)
+
+
 class GraphSearchEngine:
     """Device snapshot of {vectors, graph, tombstones, pivots} and the
     walk over it."""
@@ -446,10 +479,8 @@ class GraphSearchEngine:
                  binned_topk: str = "off",
                  recall_target: float = topk_bins.DEFAULT_RECALL_TARGET,
                  cascade_search: bool = False,
+                 corpus_tier: str = "device",
                  device: DeviceLike = None):
-        if cascade_search and np.issubdtype(np.asarray(data).dtype,
-                                            np.floating):
-            raise not_ported("CascadeSearch=1", "cascade")
         n = data.shape[0]
         assert graph.shape[0] == n, (graph.shape, n)
         self.device = resolve_device(device)
@@ -462,14 +493,55 @@ class GraphSearchEngine:
         def put(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-        self.data = put(data)
-        self.sqnorm = dist_ops.row_sqnorms(self.data)
-        # the bf16 shadow of a float32 corpus ("auto" is float32 here, as
-        # the JAX package resolves it off the TPU); integer corpora ignore
-        # the option
-        self.data_score = (self.data.to(torch.bfloat16)
-                           if score_dtype == "bf16"
-                           and self.data.dtype == torch.float32 else None)
+        # the cascade (integer corpora ignore it: already quantized)
+        self.cascade = bool(cascade_search) and np.issubdtype(
+            np.asarray(data).dtype, np.floating)
+        self.corpus_tier = (cascade_ops.normalize_tier(corpus_tier)
+                            if self.cascade else "device")
+        if self.corpus_tier == "host_all":
+            self.corpus_tier = "host"   # a graph engine has no sketch tier
+        #: dequantization scale of the in-loop int8 scoring (0: off)
+        self.score_scale = 0.0
+        #: the host tier's float32 rows and tombstones
+        self.fp_host: Optional[np.ndarray] = None
+        self._deleted_np: Optional[np.ndarray] = None
+        int8_np = None
+        if self.cascade:
+            int8_np, scale = cascade_ops.quantize_int8(
+                np.asarray(data, np.float32))
+            self.score_scale = cascade_ops.walk_score_scale(True, np.int8,
+                                                            scale)
+            # packed neighbours would copy the corpus in the scoring dtype
+            packed_neighbors = False
+        if self.corpus_tier == "host":
+            # the int8 rows are the device corpus; float32 stays host-side
+            self.data = put(int8_np)
+            self.fp_host = np.ascontiguousarray(np.asarray(data, np.float32))
+            self._deleted_np = np.ascontiguousarray(
+                np.zeros(n, bool) if deleted is None
+                else np.asarray(deleted[:n], bool))
+        else:
+            self.data = put(data)
+        # the device-tier cascade takes the kernels' own norm function, the
+        # bits the host tier's re-rank computes from fetched rows
+        self.sqnorm = (walk_ops.row_sqnorms(self.data)
+                       if self.corpus_tier == "device" and self.cascade
+                       else dist_ops.row_sqnorms(self.data))
+        if self.fp_host is not None:
+            # int8 norms into the dequantized space of the walk's scoring
+            self.sqnorm = self.sqnorm * cascade_ops.f32(
+                self.score_scale * self.score_scale)
+        if self.cascade and self.corpus_tier == "device":
+            # the int8 quantization replaces the bf16 shadow
+            self.data_score = put(int8_np)
+        else:
+            # the bf16 shadow of a float32 corpus ("auto" is float32 here,
+            # as the JAX package resolves it off the TPU); integer corpora
+            # ignore the option
+            self.data_score = (self.data.to(torch.bfloat16)
+                               if score_dtype == "bf16"
+                               and self.data.dtype == torch.float32
+                               else None)
         self.score_src = (self.data_score if self.data_score is not None
                           else self.data)
         #: finalize re-ranks the pool against the float32 rows
@@ -482,6 +554,10 @@ class GraphSearchEngine:
             pivot_ids = np.zeros(1, np.int64)
         self.pivot_ids = put(pivot_ids)
         self.pivot_vecs = self.data[self.pivot_ids]
+        if self.fp_host is not None:
+            # seed distances in the walk's dequantized space
+            self.pivot_vecs = walk_ops.dequantize(self.pivot_vecs,
+                                                  self.score_scale)
         # computed once a snapshot (a swap, a compaction or a load builds a
         # new engine): seeding reads them every walk
         self.pivot_sqnorm = walk_ops.row_sqnorms(self.pivot_vecs)
@@ -512,8 +588,16 @@ class GraphSearchEngine:
         captured CUDA graphs own private pools no component names: they
         show in `devmem.snapshot`'s untracked bytes."""
         parts = self.device_bytes()
-        devmem.track("corpus", self, parts["corpus"]
-                     + parts.get("bf16_shadow", 0))
+        if self.fp_host is not None:
+            # host tier: the int8 rows are the device corpus; the float32
+            # rows are host memory, excluded from the device total
+            devmem.track("int8_blocks", self, parts["corpus"])
+            devmem.track("host_corpus", self, self.fp_host.nbytes,
+                         host=True)
+        else:
+            devmem.track("corpus", self, parts["corpus"]
+                         + parts.get("bf16_shadow", 0)
+                         + parts.get("int8_shadow", 0))
         devmem.track("graph", self, parts["graph"])
         devmem.track("tree", self, parts["pivots"])
         if "packed_neighbors" in parts:
@@ -524,6 +608,8 @@ class GraphSearchEngine:
         """Swap only the tombstone mask (a delete-only change).  On the
         card the mask is copied in place: captured graphs read it there."""
         mask = torch.from_numpy(np.ascontiguousarray(deleted[:self.n], bool))
+        if self.fp_host is not None:
+            self._deleted_np = mask.numpy().copy()
         if self.device.type == "cuda":
             self.deleted.copy_(mask)
         else:
@@ -537,7 +623,8 @@ class GraphSearchEngine:
                "pivots": self.pivot_ids.nbytes + self.pivot_vecs.nbytes
                + self.pivot_sqnorm.nbytes}
         if self.data_score is not None:
-            out["bf16_shadow"] = self.data_score.nbytes
+            out["int8_shadow" if self.cascade else "bf16_shadow"] = \
+                self.data_score.nbytes
         if self.nbr_vecs is not None:
             out["packed_neighbors"] = (self.nbr_vecs.nbytes
                                        + self.nbr_sq.nbytes)
@@ -546,7 +633,12 @@ class GraphSearchEngine:
     def exact_scan(self, queries: np.ndarray, k: int
                    ) -> Tuple[np.ndarray, np.ndarray]:
         """Exact top-k over this snapshot's corpus (the FLAT scan on the
-        resident arrays): the oracle of `exact_search_batch`."""
+        resident arrays): the oracle of `exact_search_batch`.  A host-tier
+        cascade streams its host rows through the card in blocks."""
+        if self.fp_host is not None:
+            return cascade_ops.host_exact_scan(
+                self.fp_host, self._deleted_np, queries, min(k, self.n),
+                int(self.metric), self.base, device=self.device)
         return exact_device_scan(self.data, self.sqnorm, self.deleted,
                                  queries, k, int(self.metric), self.base)
 
@@ -609,7 +701,7 @@ class GraphSearchEngine:
                                spare_ids, spare_d)
         cand_ids, cand_d, visited = _seed_from_seeds(
             self.data, self.sqnorm, seeds, queries, L, int(self.metric),
-            self.base)
+            self.base, self.score_scale)
         return _init_state(queries, cand_ids, cand_d, visited)
 
     def run_segment(self, state: dict, t_limit: torch.Tensor, k_eff: int,
@@ -808,6 +900,10 @@ class GraphSearchEngine:
         chunk = self.chunk_size()
         out_d = np.full((nq, k), np.float32(MAX_DIST), np.float32)
         out_i = np.full((nq, k), -1, np.int32)
+        if self.fp_host is not None and not segment_iters:
+            # the host tier's finalize reads the pool back: one segment of
+            # the whole budget (the same walk)
+            segment_iters = T
         if segment_iters:
             d, ids = self._search_segmented(
                 queries, seeds, k_eff, L, B, T, limit, dynamic_pivots,

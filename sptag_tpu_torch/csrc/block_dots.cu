@@ -259,9 +259,74 @@ __device__ __forceinline__ void stage_dots(const float* const (&ra)[kRows],
   }
 }
 
-template <bool kSliced, int kRows>
+// Stage kBK elements of K, from column k0, of block rows 0 .. rows - 1 into
+// `dst` (kLD floats apart), zeros past D.  float32 blocks go through the
+// cp.async ring; int8 blocks (the cascade's quantized layout) are widened to
+// float32 in the load, exactly, by plain loads and shared-memory stores that
+// the ring's barriers order like the copies.
+template <int kT>
+__device__ __forceinline__ void stage_block(float* dst, const float* src,
+                                            int rows, int k0, int D, int vec,
+                                            int tid) {
+  if (vec) {
+    constexpr int kV = kBK / 4;
+    for (int c = tid; c < rows * kV; c += kT) {
+      const int row = c / kV, col = (c % kV) * 4, d = k0 + col;
+      const bool ok = d < D;
+      cp_async16(dst + row * kLD + col,
+                 ok ? src + (long long)row * D + d : src, ok);
+    }
+  } else {
+    for (int c = tid; c < rows * kBK; c += kT) {
+      const int row = c / kBK, col = c % kBK, d = k0 + col;
+      const bool ok = d < D;
+      cp_async4(dst + row * kLD + col,
+                ok ? src + (long long)row * D + d : src, ok);
+    }
+  }
+}
+
+template <int kT>
+__device__ __forceinline__ void stage_block(float* dst, const int8_t* src,
+                                            int rows, int k0, int D, int vec,
+                                            int tid) {
+  static_assert(kBK == 16, "one 16-byte load a row and stage");
+  if (vec) {
+    for (int row = tid; row < rows; row += kT) {
+      float* o = dst + row * kLD;
+      if (k0 < D) {
+        const int4 w = __ldg(
+            reinterpret_cast<const int4*>(src + (long long)row * D + k0));
+        const int words[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const char4 c = *reinterpret_cast<const char4*>(&words[j]);
+          *reinterpret_cast<float4*>(o + 4 * j) =
+              make_float4((float)c.x, (float)c.y, (float)c.z, (float)c.w);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          *reinterpret_cast<float4*>(o + 4 * j) =
+              make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+  } else {
+    for (int c = tid; c < rows * kBK; c += kT) {
+      const int row = c / kBK, col = c % kBK, d = k0 + col;
+      dst[row * kLD + col] =
+          d < D ? (float)src[(long long)row * D + d] : 0.f;
+    }
+  }
+}
+
+// TB: float (the f32 kernel) or int8_t (float32 queries against the int8
+// blocks of the cascade's dense layout; the sums are the f32 kernel's, over
+// the blocks widened exactly, so the result equals the f32 kernel's on
+// blocks.float() bit for bit)
+template <bool kSliced, int kRows, typename TB>
 __global__ void __launch_bounds__(kSR / kRows, 2)
-block_major_f32_kernel(const float* __restrict__ blocks,
+block_major_f32_kernel(const TB* __restrict__ blocks,
                        const float* __restrict__ queries,
                        const int* __restrict__ hdr,
                        const int4* __restrict__ tiles,
@@ -282,7 +347,7 @@ block_major_f32_kernel(const float* __restrict__ blocks,
   const int b = tile.x, first = tile.y, n = tile.z;
   const int tid = threadIdx.x;
   const bool live_block = b < C;             // else out-of-range ids: zeros
-  const float* bbase = blocks + (long long)(live_block ? b : 0) * P * D;
+  const TB* bbase = blocks + (long long)(live_block ? b : 0) * P * D;
   const int nk = max(1, (D + kBK - 1) / kBK);  // D = 0 stores zeros
   const int total = nk * ((P + kSR - 1) / kSR);
   const int ng = (n + 3) / 4;                // groups of 4 entries
@@ -291,24 +356,8 @@ block_major_f32_kernel(const float* __restrict__ blocks,
     const int r0 = (step / nk) * kSR, k0 = (step % nk) * kBK;
     // rows past P are left as they are: their dots are never stored
     const int rows = min(kSR, P - r0);
-    float* dst = sm + stage * kStageFloats;
-    const float* src = bbase + (long long)r0 * D;
-    if (vec) {
-      constexpr int kV = kBK / 4;
-      for (int c = tid; c < rows * kV; c += kT) {
-        const int row = c / kV, col = (c % kV) * 4, d = k0 + col;
-        const bool ok = d < D;
-        cp_async16(dst + row * kLD + col,
-                   ok ? src + (long long)row * D + d : src, ok);
-      }
-    } else {
-      for (int c = tid; c < rows * kBK; c += kT) {
-        const int row = c / kBK, col = c % kBK, d = k0 + col;
-        const bool ok = d < D;
-        cp_async4(dst + row * kLD + col,
-                  ok ? src + (long long)row * D + d : src, ok);
-      }
-    }
+    stage_block<kT>(sm + stage * kStageFloats, bbase + (long long)r0 * D,
+                    rows, k0, D, vec, tid);
   };
   auto load_queries = [&](int stage, int step) {
     // transposed: entry e, column k -> qt[k * kLDQ + e]; entries n .. 4*ng
@@ -682,20 +731,36 @@ int configure_smem(const void* kernel, int smem, bool (&done)[64]) {
   return rc;
 }
 
-template <bool kSliced, int kRows>
+template <bool kSliced, int kRows, typename TB>
 int launch_score(const void* blocks, const void* queries, const Scratch& sc,
                  void* out, int C, int P, int D, int E, int U, int G,
                  int vec, cudaStream_t s) {
   static bool done[64] = {};
   const int rc = configure_smem(
-      (const void*)block_major_f32_kernel<kSliced, kRows>, kScoreSmem, done);
+      (const void*)block_major_f32_kernel<kSliced, kRows, TB>, kScoreSmem,
+      done);
   if (rc != 0) return rc;
-  block_major_f32_kernel<kSliced, kRows><<<(unsigned)tile_bound(E, C),
-                                           kSR / kRows, kScoreSmem, s>>>(
-      static_cast<const float*>(blocks), static_cast<const float*>(queries),
+  block_major_f32_kernel<kSliced, kRows, TB><<<(unsigned)tile_bound(E, C),
+                                               kSR / kRows, kScoreSmem, s>>>(
+      static_cast<const TB*>(blocks), static_cast<const float*>(queries),
       sc.hdr, sc.tiles, sc.sorted, static_cast<float*>(out), C, P, D, U, G,
       vec);
   return (int)cudaGetLastError();
+}
+
+template <typename TB>
+int block_dots_float(const void* blocks, const void* queries, const void* ids,
+                     void* out, void* scratch, int C, int P, int D, int E,
+                     int U, int G, int vec, int sliced, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Scratch sc = carve(scratch, E, C);
+  const int rc = launch_prep(ids, sc, E, G, C, s);
+  if (rc != 0) return rc;
+  return sliced
+             ? launch_score<true, kProbeRows, TB>(blocks, queries, sc, out, C,
+                                                  P, D, E, U, G, vec, s)
+             : launch_score<false, kGroupRows, TB>(blocks, queries, sc, out,
+                                                   C, P, D, E, U, G, vec, s);
 }
 
 }  // namespace
@@ -719,14 +784,19 @@ int sptag_block_dots_f32(const void* blocks, const void* queries,
                          const void* ids, void* out, void* scratch, int C,
                          int P, int D, int E, int U, int G, int vec,
                          int sliced, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Scratch sc = carve(scratch, E, C);
-  const int rc = launch_prep(ids, sc, E, G, C, s);
-  if (rc != 0) return rc;
-  return sliced ? launch_score<true, kProbeRows>(blocks, queries, sc, out, C,
-                                                 P, D, E, U, G, vec, s)
-                : launch_score<false, kGroupRows>(blocks, queries, sc, out,
-                                                  C, P, D, E, U, G, vec, s);
+  return block_dots_float<float>(blocks, queries, ids, out, scratch, C, P, D,
+                                 E, U, G, vec, sliced, stream);
+}
+
+// The same with int8 blocks and float32 queries (the cascade's dense scan:
+// queries q / scale against the quantized blocks), float32 out; `vec`
+// means 16-byte aligned int8 rows with D % 16 == 0.
+int sptag_block_dots_f32i8(const void* blocks, const void* queries,
+                           const void* ids, void* out, void* scratch, int C,
+                           int P, int D, int E, int U, int G, int vec,
+                           int sliced, void* stream) {
+  return block_dots_float<int8_t>(blocks, queries, ids, out, scratch, C, P,
+                                  D, E, U, G, vec, sliced, stream);
 }
 
 // int8 probe_block_dots (G = 1, U = nprobe, E = Q * nprobe) and

@@ -69,6 +69,16 @@
 // D % 4 != 0 or a row pointer that is not 16-byte aligned takes the
 // template's scalar-load branch: the same order, 4-byte loads.
 //
+// Kernel 2 has an int8 variant, walk_score_i8 (the cascade's in-loop
+// scoring, algo/engine.py): the rows are the int8 quantization of the
+// corpus, and each element is dequantized in the load as float(x) * scale,
+// one float32 rounding, as the JAX package's `cvecs.astype(f32) * scale`
+// (sptag_tpu/algo/engine.py:636).  The rest is kernel 2 itself: the same
+// canonical order, fold and fused epilogue, so its output equals
+// walk_score_f32 over the dequantized rows bit for bit, and a served
+// cascade walk stays equal to search_batch's.  It reads a quarter of the
+// float32 rows' bytes.
+//
 // mode 0 (GATHER): row r of output (q, c) is x[idx[q * C + c]]
 // mode 1 (ROWS):   row r is x[q * C + c] (rows already in output order);
 //                  idx, when given, only masks (idx < 0: max_dist)
@@ -119,6 +129,46 @@ __device__ __forceinline__ float4 load4(const float* __restrict__ row, int d0,
     if (d0 + 3 < D) v.w = GLOBAL ? __ldg(row + d0 + 3) : row[d0 + 3];
   }
   return v;
+}
+
+// 4 consecutive d of an int8 row from d0, each dequantized as
+// float(x) * scale in one rounding (zeros past D or for a row not there);
+// VEC: D % 4 == 0 and the row 4-byte aligned, one 4-byte load
+template <bool VEC>
+__device__ __forceinline__ float4 load4_i8(const int8_t* __restrict__ row,
+                                           int d0, int D, bool ok,
+                                           float scale) {
+  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (!ok || d0 >= D) return v;
+  if (VEC) {
+    const char4 c = __ldg(reinterpret_cast<const char4*>(row + d0));
+    v.x = __fmul_rn(static_cast<float>(c.x), scale);
+    v.y = __fmul_rn(static_cast<float>(c.y), scale);
+    v.z = __fmul_rn(static_cast<float>(c.z), scale);
+    v.w = __fmul_rn(static_cast<float>(c.w), scale);
+  } else {
+    v.x = __fmul_rn(static_cast<float>(__ldg(row + d0)), scale);
+    if (d0 + 1 < D) v.y = __fmul_rn(static_cast<float>(__ldg(row + d0 + 1)),
+                                    scale);
+    if (d0 + 2 < D) v.z = __fmul_rn(static_cast<float>(__ldg(row + d0 + 2)),
+                                    scale);
+    if (d0 + 3 < D) v.w = __fmul_rn(static_cast<float>(__ldg(row + d0 + 3)),
+                                    scale);
+  }
+  return v;
+}
+
+// A scoring row's 4 d: float32 rows as they are, int8 rows dequantized
+template <bool VEC>
+__device__ __forceinline__ float4 load_row4(const float* row, int d0, int D,
+                                            bool ok, float) {
+  return load4<VEC, true>(row, d0, D, ok);
+}
+
+template <bool VEC>
+__device__ __forceinline__ float4 load_row4(const int8_t* row, int d0, int D,
+                                            bool ok, float scale) {
+  return load4_i8<VEC>(row, d0, D, ok, scale);
 }
 
 // One step of the canonical order: a lane's products at d .. d + 3 (those
@@ -308,12 +358,13 @@ __device__ __forceinline__ void fold(float (&p)[32], int lane) {
   }
 }
 
-template <int MODE, int EPI, bool VEC>
+template <int MODE, int EPI, bool VEC, typename T>
 __global__ void __launch_bounds__(32 * kScoreWarps, kScoreMinBlocks)
-walk_score_kernel(const float* __restrict__ q, const float* __restrict__ x,
+walk_score_kernel(const float* __restrict__ q, const T* __restrict__ x,
                   const int64_t* __restrict__ idx,
                   const float* __restrict__ xn, float* __restrict__ out,
-                  int C, int D, int groups_per_cta, float max_dist) {
+                  int C, int D, int groups_per_cta, float max_dist,
+                  float scale) {
   extern __shared__ float4 q_smem[];    // the query, zero padded per chunk
   // a warp's live slots of its current group, in lane order
   __shared__ int live_slot[kScoreWarps][32];
@@ -375,8 +426,8 @@ walk_score_kernel(const float* __restrict__ q, const float* __restrict__ x,
         for (int t = 0; t < 8; ++t) {
           const int rs = __shfl_sync(kFull, rk, s0 + t);
           const bool ok = s0 + t < n;
-          v[t] = load4<VEC, true>(
-              x + static_cast<int64_t>(ok ? rs : 0) * D, d, D, ok);
+          v[t] = load_row4<VEC>(
+              x + static_cast<int64_t>(ok ? rs : 0) * D, d, D, ok, scale);
         }
         if (in) {
 #pragma unroll
@@ -456,12 +507,13 @@ extern "C" int sptag_walk_seed(const void* q, const void* x, const void* xn,
   return static_cast<int>(cudaGetLastError());
 }
 
-// out (Q, C) = epilogue of each slot's dot, max_dist where the slot is
-// masked.
-extern "C" int sptag_walk_score(const void* q, const void* x, const void* idx,
-                                const void* xn, void* out, int Q, int C,
-                                int D, int mode, int epi, float max_dist,
-                                void* stream) {
+namespace {
+
+// Kernel 2's launch, float32 or int8 rows (`scale` dequantizes int8 rows).
+template <typename T>
+int launch_score(const void* q, const void* x, const void* idx,
+                 const void* xn, void* out, int Q, int C, int D, int mode,
+                 int epi, float scale, float max_dist, void* stream) {
   if (Q <= 0 || C <= 0) return 0;
   if (D <= 0) return -1;
   const int groups = (C + 31) / 32;
@@ -474,20 +526,22 @@ extern "C" int sptag_walk_score(const void* q, const void* x, const void* idx,
   if (smem > 48 * 1024) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* qf = static_cast<const float*>(q);
-  const float* xf = static_cast<const float*>(x);
+  const T* xt = static_cast<const T*>(x);
   const int64_t* ix = static_cast<const int64_t*>(idx);
   const float* nf = static_cast<const float*>(xn);
   float* o = static_cast<float*>(out);
-  const bool vec = D % 4 == 0 && aligned16(x);
+  // float rows: 16-byte loads; int8 rows: 4-byte loads
+  const bool vec = D % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(x) & (4 * sizeof(T) - 1)) == 0;
   const dim3 block(32 * kScoreWarps);
 #define SPTAG_SCORE(M)                                                      \
   SPTAG_EPI_SWITCH(epi,                                                     \
     if (vec) {                                                              \
-      walk_score_kernel<M, E, true><<<grid, block, smem, s>>>(              \
-          qf, xf, ix, nf, o, C, D, per_cta, max_dist);                      \
+      walk_score_kernel<M, E, true, T><<<grid, block, smem, s>>>(           \
+          qf, xt, ix, nf, o, C, D, per_cta, max_dist, scale);               \
     } else {                                                                \
-      walk_score_kernel<M, E, false><<<grid, block, smem, s>>>(             \
-          qf, xf, ix, nf, o, C, D, per_cta, max_dist);                      \
+      walk_score_kernel<M, E, false, T><<<grid, block, smem, s>>>(          \
+          qf, xt, ix, nf, o, C, D, per_cta, max_dist, scale);               \
     })
   switch (mode) {
     case kGather: SPTAG_SCORE(kGather) break;
@@ -496,6 +550,29 @@ extern "C" int sptag_walk_score(const void* q, const void* x, const void* idx,
   }
 #undef SPTAG_SCORE
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// out (Q, C) = epilogue of each slot's dot, max_dist where the slot is
+// masked.
+extern "C" int sptag_walk_score(const void* q, const void* x, const void* idx,
+                                const void* xn, void* out, int Q, int C,
+                                int D, int mode, int epi, float max_dist,
+                                void* stream) {
+  return launch_score<float>(q, x, idx, xn, out, Q, C, D, mode, epi, 1.0f,
+                             max_dist, stream);
+}
+
+// walk_score_i8: the same over int8 rows x, each element dequantized as
+// float(x) * scale.
+extern "C" int sptag_walk_score_i8(const void* q, const void* x,
+                                   const void* idx, const void* xn, void* out,
+                                   int Q, int C, int D, int mode, int epi,
+                                   float scale, float max_dist,
+                                   void* stream) {
+  return launch_score<int8_t>(q, x, idx, xn, out, Q, C, D, mode, epi, scale,
+                              max_dist, stream);
 }
 
 // out (N,) = each row's squared norm by warp_sqnorm.

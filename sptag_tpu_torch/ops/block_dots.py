@@ -72,6 +72,19 @@ int8 scoring: tensor cores
     bit.  Unaligned queries or blocks, or D % 16 != 0, stage with byte loads
     instead of 16-byte copies.
 
+float32 queries against int8 blocks
+    The cascade (``CascadeSearch``, algo/dense.py) keeps the dense layout
+    as the int8 quantization of a float corpus and scores float32 queries
+    ``q / scale`` against it: the JAX package's XLA branch
+    (``sptag_tpu/algo/dense.py:311`` and ``:436``), which widens the
+    gathered int8 blocks to float32 and contracts in float32.  The float32
+    kernel takes such blocks as they are (``sptag_block_dots_f32i8``): each
+    stage widens its 16 int8 elements a row to float32 on the way into
+    shared memory, exactly, and everything else — tiles, order of every
+    sum, output — is the float32 kernel's, so the result equals the float32
+    kernel's on ``blocks.float()`` bit for bit, at a quarter of the block
+    bytes.  Counted as ``*_block_dots_f32i8``.
+
 float32 scoring: FFMA
     16 floats of D per stage: thread t owns block row t of a 256-row pass
     (rows t and t + 128 in the group kernel) and all of the tile's entries
@@ -125,6 +138,8 @@ probe_f32_launches = 0
 probe_i8_launches = 0
 group_f32_launches = 0
 group_i8_launches = 0
+probe_f32i8_launches = 0
+group_f32i8_launches = 0
 _count_lock = threading.Lock()
 
 _P = ctypes.c_void_p
@@ -133,6 +148,7 @@ _I = ctypes.c_int
 # [sliced: float32 only,] stream); prep: (ids, scratch, E, G, C, stream)
 _SIGNATURES = {
     "sptag_block_dots_f32": (_I, (_P,) * 5 + (_I,) * 8 + (_P,)),
+    "sptag_block_dots_f32i8": (_I, (_P,) * 5 + (_I,) * 8 + (_P,)),
     "sptag_block_dots_i8": (_I, (_P,) * 5 + (_I,) * 7 + (_P,)),
     "sptag_block_major_prep": (_I, (_P,) * 2 + (_I,) * 3 + (_P,)),
     "sptag_block_major_tile_entries": (_I, ()),
@@ -143,15 +159,27 @@ def launch_counts() -> dict:
     return {"probe_block_dots_f32": probe_f32_launches,
             "probe_block_dots_i8": probe_i8_launches,
             "group_block_dots_f32": group_f32_launches,
-            "group_block_dots_i8": group_i8_launches}
+            "group_block_dots_i8": group_i8_launches,
+            "probe_block_dots_f32i8": probe_f32i8_launches,
+            "group_block_dots_f32i8": group_f32i8_launches}
 
 
 def reset_launch_counts() -> None:
     global probe_f32_launches, probe_i8_launches
     global group_f32_launches, group_i8_launches
+    global probe_f32i8_launches, group_f32i8_launches
     with _count_lock:
         probe_f32_launches = probe_i8_launches = 0
         group_f32_launches = group_i8_launches = 0
+        probe_f32i8_launches = group_f32i8_launches = 0
+
+
+def variant(blocks: torch.Tensor, queries: torch.Tensor) -> str:
+    """The kernel a call takes: "f32", "i8" or "f32i8" (float32 queries
+    against int8 blocks)."""
+    if blocks.dtype == torch.int8:
+        return "f32i8" if queries.dtype == torch.float32 else "i8"
+    return "f32"
 
 
 _lib = None
@@ -250,7 +278,7 @@ def _block_dots(blocks, queries, ids, shape, U: int, G: int,
     the output and, behind it, the prep's scratch."""
     C, P, D = blocks.shape
     E = ids.numel() * G
-    is_i8 = blocks.dtype == torch.int8
+    is_i8 = variant(blocks, queries) == "i8"
     dev = blocks.device
     if E * P == 0:
         return torch.empty(shape, dtype=torch.int32 if is_i8
@@ -273,7 +301,8 @@ def _block_dots(blocks, queries, ids, shape, U: int, G: int,
     if is_i8:
         fn = lib.sptag_block_dots_i8
     else:
-        fn = lib.sptag_block_dots_f32
+        fn = (lib.sptag_block_dots_f32i8 if blocks.dtype == torch.int8
+              else lib.sptag_block_dots_f32)
         args += (int(what == "probe_block_dots"),)
     # the current stream's raw handle: building a Stream object for it
     # costs host time on every call
@@ -295,10 +324,11 @@ def probe_block_dots_reference(blocks: torch.Tensor, queries: torch.Tensor,
                                topc: torch.Tensor) -> torch.Tensor:
     """Plain version: gather the probed blocks, then one einsum."""
     gathered = blocks[topc.long()]                       # (Q, nprobe, P, D)
-    if blocks.dtype == torch.int8:
+    if variant(blocks, queries) == "i8":
         return dist_ops.int_contract("qd,qjpd->qjp", queries,
                                      gathered).to(torch.int32)
-    return torch.einsum("qd,qjpd->qjp", queries, gathered)
+    return torch.einsum("qd,qjpd->qjp", queries,
+                        gathered.to(torch.float32))
 
 
 def group_block_dots_reference(blocks: torch.Tensor, queries: torch.Tensor,
@@ -308,10 +338,10 @@ def group_block_dots_reference(blocks: torch.Tensor, queries: torch.Tensor,
     G = queries.shape[0] // NG
     gathered = blocks[union.long()]                      # (NG, U, P, D)
     qg = queries.reshape(NG, G, queries.shape[1])
-    if blocks.dtype == torch.int8:
+    if variant(blocks, queries) == "i8":
         return dist_ops.int_contract("gqd,gupd->guqp", qg,
                                      gathered).to(torch.int32)
-    return torch.einsum("gqd,gupd->guqp", qg, gathered)
+    return torch.einsum("gqd,gupd->guqp", qg, gathered.to(torch.float32))
 
 
 def _check(blocks, queries, ids, what: str) -> None:
@@ -323,10 +353,10 @@ def _check(blocks, queries, ids, what: str) -> None:
         raise ValueError(f"{what}: query dim {queries.shape[1]} != block "
                          f"dim {blocks.shape[2]}")
     if blocks.dtype not in (torch.float32, torch.int8) \
-            or queries.dtype != blocks.dtype:
+            or queries.dtype not in (blocks.dtype, torch.float32):
         raise TypeError(f"{what}: takes float32 or int8 blocks with queries "
-                        f"of the same type, got {blocks.dtype} / "
-                        f"{queries.dtype}")
+                        f"of the same type (or float32 queries against int8 "
+                        f"blocks), got {blocks.dtype} / {queries.dtype}")
     if ids.dtype != torch.int32:
         raise TypeError(f"{what}: block ids must be int32, got {ids.dtype}")
     devs = {blocks.device, queries.device, ids.device}
@@ -349,9 +379,10 @@ def _vec_ok(row_bytes: int, align: int, *tensors) -> int:
 def probe_block_dots(blocks: torch.Tensor, queries: torch.Tensor,
                      topc: torch.Tensor) -> torch.Tensor:
     """(C, P, D) blocks, (Q, D) queries, (Q, nprobe) int32 block ids ->
-    (Q, nprobe, P) dots: float32 for float32 blocks, exact int32 for int8
-    blocks (int8 queries).  Block ids must lie in [0, C)."""
-    global probe_f32_launches, probe_i8_launches
+    (Q, nprobe, P) dots: float32 for float32 queries (float32 or int8
+    blocks), exact int32 for int8 blocks with int8 queries.  Block ids must
+    lie in [0, C)."""
+    global probe_f32_launches, probe_i8_launches, probe_f32i8_launches
     _check(blocks, queries, topc, "probe_block_dots")
     if topc.shape[0] != queries.shape[0]:
         raise ValueError("probe_block_dots: topc rows != query rows")
@@ -360,9 +391,12 @@ def probe_block_dots(blocks: torch.Tensor, queries: torch.Tensor,
     Q, nprobe = topc.shape
     out = _block_dots(blocks, queries, topc, (Q, nprobe, blocks.shape[1]),
                       nprobe, 1, "probe_block_dots")
+    v = variant(blocks, queries)
     with _count_lock:
-        if blocks.dtype == torch.int8:
+        if v == "i8":
             probe_i8_launches += 1
+        elif v == "f32i8":
+            probe_f32i8_launches += 1
         else:
             probe_f32_launches += 1
     return out
@@ -372,8 +406,9 @@ def group_block_dots(blocks: torch.Tensor, queries: torch.Tensor,
                      union: torch.Tensor) -> torch.Tensor:
     """(C, P, D) blocks, (Q, D) queries sorted into NG groups of G = Q/NG,
     (NG, U) int32 per-group block ids -> (NG, U, G, P) dots (float32, or
-    exact int32 for int8).  Block ids must lie in [0, C)."""
-    global group_f32_launches, group_i8_launches
+    exact int32 for int8 blocks with int8 queries).  Block ids must lie in
+    [0, C)."""
+    global group_f32_launches, group_i8_launches, group_f32i8_launches
     _check(blocks, queries, union, "group_block_dots")
     NG, U = union.shape
     Q = queries.shape[0]
@@ -385,9 +420,12 @@ def group_block_dots(blocks: torch.Tensor, queries: torch.Tensor,
     G = Q // NG
     out = _block_dots(blocks, queries, union, (NG, U, G, blocks.shape[1]),
                       U, G, "group_block_dots")
+    v = variant(blocks, queries)
     with _count_lock:
-        if blocks.dtype == torch.int8:
+        if v == "i8":
             group_i8_launches += 1
+        elif v == "f32i8":
+            group_f32i8_launches += 1
         else:
             group_f32_launches += 1
     return out

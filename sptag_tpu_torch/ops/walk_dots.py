@@ -17,6 +17,11 @@ eager or replayed in a CUDA graph:
 * ``walk_score`` (kernel 2, GATHER / ROWS): the in-loop scoring, KDT's
   seeds and the re-rank, one CTA a query, the rows gathered by id inside
   the kernel; a slot whose id is -1 loads nothing and scores MAX_DIST;
+* ``walk_score_i8`` (kernel 2 over int8 rows): the cascade's in-loop
+  scoring (``CascadeSearch``), each element dequantized as
+  ``float(x) * scale`` in one rounding, then kernel 2's order and
+  epilogue: bit for bit ``walk_score_f32`` over the dequantized rows, at a
+  quarter of their bytes;
 * ``row_sqnorms``: the squared norms by the kernels' own norm function
   (the engine caches the pivots' once).
 
@@ -52,7 +57,8 @@ L2, COSINE, DOT = 0, 1, 2
 
 #: kernel -> launches (the CPU path never counts); the walk runs on
 #: readers' threads, a scheduler's worker and background swaps
-KERNELS = ("walk_seed_f32", "walk_score_f32", "walk_sqnorm_f32")
+KERNELS = ("walk_seed_f32", "walk_score_f32", "walk_score_i8",
+           "walk_sqnorm_f32")
 _launches = dict.fromkeys(KERNELS, 0)
 _count_lock = threading.Lock()
 
@@ -66,6 +72,10 @@ _SIGNATURES = {
     "sptag_walk_score": (ctypes.c_int, (ctypes.c_void_p,) * 5
                          + (ctypes.c_int,) * 5
                          + (ctypes.c_float, ctypes.c_void_p)),
+    "sptag_walk_score_i8": (ctypes.c_int, (ctypes.c_void_p,) * 5
+                            + (ctypes.c_int,) * 5
+                            + (ctypes.c_float, ctypes.c_float,
+                               ctypes.c_void_p)),
     "sptag_walk_sqnorms": (ctypes.c_int, (ctypes.c_void_p, ctypes.c_void_p,
                                           ctypes.c_longlong, ctypes.c_int,
                                           ctypes.c_void_p)),
@@ -119,14 +129,23 @@ def _check_ids(name: str, device, idx: Optional[torch.Tensor], Q: int,
 
 # ---- plain versions ---------------------------------------------------------
 
+def dequantize(rows: torch.Tensor, score_scale: float) -> torch.Tensor:
+    """int8 rows as the cascade scores them: ``float(x) * scale``, one
+    float32 rounding an element."""
+    return rows.to(torch.float32) * float(np.float32(score_scale))
+
+
 def walk_distance_reference(q: torch.Tensor, x: torch.Tensor, metric,
                             base: int, mode: int,
                             idx: Optional[torch.Tensor] = None,
                             x_sqnorm: Optional[torch.Tensor] = None,
-                            C: Optional[int] = None) -> torch.Tensor:
+                            C: Optional[int] = None,
+                            score_scale: float = 0.0) -> torch.Tensor:
     """What ``ops/distance.py`` computes for the walk, with the -1 slots of
     `idx` MAX_DIST (they score row 0 first, as the walk did).  Any dtype;
-    the plain version of both kernels' L2 and cosine epilogues."""
+    the plain version of both kernels' L2 and cosine epilogues.  With
+    `score_scale` > 0 the int8 rows are dequantized after the gather (the
+    cascade's in-loop scoring)."""
     metric = int(metric)
     if mode == SHARED:
         return dist_ops.pairwise_distance(q, x, DistCalcMethod(metric),
@@ -140,6 +159,8 @@ def walk_distance_reference(q: torch.Tensor, x: torch.Tensor, metric,
         C = idx.shape[1] if C is None else C
         rows = x.view(Q, C, -1)
         sq = None if x_sqnorm is None else x_sqnorm.reshape(Q, C)
+    if score_scale:
+        rows = dequantize(rows, score_scale)
     d = dist_ops.batched_gathered_distance(q, rows, metric, base, sq)
     return d if idx is None else torch.where(idx >= 0, d, MAX_DIST)
 
@@ -211,61 +232,94 @@ def walk_seed(q: torch.Tensor, x: torch.Tensor,
     return out
 
 
+def walk_score_i8_reference(q: torch.Tensor, x: torch.Tensor,
+                            idx: Optional[torch.Tensor],
+                            x_sqnorm: Optional[torch.Tensor], epi: int,
+                            mode: int, C: int,
+                            score_scale: float) -> torch.Tensor:
+    """Plain version of kernel 2 over int8 rows: the rows dequantized,
+    then ``walk_score_reference``."""
+    return walk_score_reference(q, dequantize(x, score_scale), idx,
+                                x_sqnorm, epi, mode, C)
+
+
 def walk_score(q: torch.Tensor, x: torch.Tensor,
                idx: Optional[torch.Tensor],
                x_sqnorm: Optional[torch.Tensor], epi: int, mode: int,
-               C: int) -> torch.Tensor:
+               C: int, score_scale: float = 0.0) -> torch.Tensor:
     """(Q, D) float32 queries -> (Q, C) float32 against the rows of `x`
     that `mode` names (GATHER: ``idx`` (Q, C) int64 ids; ROWS: x is
     (Q * C, D) in output order and ``idx``, if given, masks); -1 ids score
-    MAX_DIST.  L2 reads `x_sqnorm` by row of x.  A CPU tensor runs the
-    plain version; on the card kernel 2."""
+    MAX_DIST.  L2 reads `x_sqnorm` by row of x.  int8 rows `x` with
+    `score_scale` > 0 are dequantized in the load (``walk_score_i8``).  A
+    CPU tensor runs the plain version; on the card kernel 2."""
+    i8 = x.dtype == torch.int8
     if q.device.type == "cpu":
+        if i8:
+            return walk_score_i8_reference(q, x, idx, x_sqnorm, epi, mode,
+                                           C, score_scale)
         return walk_score_reference(q, x, idx, x_sqnorm, epi, mode, C)
-    _check_f32("walk_score_f32", q.device, q, x)
+    name = "walk_score_i8" if i8 else "walk_score_f32"
+    if i8:
+        _check_f32(name, q.device, q)
+        if not x.is_contiguous() or x.device != q.device or not score_scale:
+            raise TypeError(f"{name}: takes contiguous int8 rows on the "
+                            f"queries' device and a scale")
+    else:
+        _check_f32(name, q.device, q, x)
     Q, D = q.shape
     if mode not in (GATHER, ROWS) or x.shape[1] != D:
-        raise ValueError("walk_score_f32: mode or shapes")
+        raise ValueError(f"{name}: mode or shapes")
     if mode == GATHER or idx is not None:
-        _check_ids("walk_score_f32", q.device, idx, Q, C)
+        _check_ids(name, q.device, idx, Q, C)
     if mode == ROWS and x.shape[0] != Q * C:
-        raise ValueError("walk_score_f32: ROWS takes (Q * C, D) rows")
+        raise ValueError(f"{name}: ROWS takes (Q * C, D) rows")
     if D > MAX_SCORE_D or x.shape[0] > _INT32_MAX or Q * C > _INT32_MAX:
-        raise ValueError(f"walk_score_f32: D <= {MAX_SCORE_D}, fewer than "
-                         f"2^31 rows and outputs")
+        raise ValueError(f"{name}: D <= {MAX_SCORE_D}, fewer than 2^31 rows "
+                         f"and outputs")
     if epi == L2:
-        _check_f32("walk_score_f32", q.device, x_sqnorm)
+        _check_f32(name, q.device, x_sqnorm)
         if x_sqnorm.numel() != x.shape[0]:
-            raise ValueError("walk_score_f32: x_sqnorm must hold one norm "
-                             "a row of x")
+            raise ValueError(f"{name}: x_sqnorm must hold one norm a row "
+                             f"of x")
     out = torch.empty((Q, C), dtype=torch.float32, device=q.device)
     if Q * C == 0:
         return out
-    _launch("sptag_walk_score", "walk_score_f32", q.device, q.data_ptr(),
-            x.data_ptr(), None if idx is None else idx.data_ptr(),
+    args = (q.data_ptr(), x.data_ptr(),
+            None if idx is None else idx.data_ptr(),
             x_sqnorm.data_ptr() if epi == L2 else None, out.data_ptr(),
-            Q, C, D, mode, epi, MAX_DIST)
+            Q, C, D, mode, epi)
+    if i8:
+        _launch("sptag_walk_score_i8", name, q.device, *args,
+                float(np.float32(score_scale)), MAX_DIST)
+    else:
+        _launch("sptag_walk_score", name, q.device, *args, MAX_DIST)
     return out
 
 
 def walk_distance(q: torch.Tensor, x: torch.Tensor, metric, base: int,
                   mode: int, idx: Optional[torch.Tensor] = None,
-                  x_sqnorm: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  x_sqnorm: Optional[torch.Tensor] = None,
+                  score_scale: float = 0.0) -> torch.Tensor:
     """(Q, D) queries -> (Q, C) float32 distances (L2 or cosine) against
     the rows of `x` that `mode` names; a slot whose id in `idx` is -1
     scores MAX_DIST.  `x_sqnorm` holds one squared norm a row of `x` (the
     corpus's table for GATHER, (Q * C,) in output order for ROWS, (P,) for
-    SHARED; None: computed).  On the card a float32 query against float32
-    rows takes the fixed-order kernels; every other case
-    `walk_distance_reference`."""
+    SHARED; None: computed).  `score_scale` > 0 with int8 rows: the rows
+    are the cascade's quantization, dequantized as ``float(x) * scale``.
+    On the card a float32 query against float32 rows, or against such int8
+    rows in GATHER / ROWS mode, takes the fixed-order kernels; every other
+    case `walk_distance_reference`."""
     metric = int(metric)
     Q = q.shape[0]
     C = idx.shape[1] if idx is not None else (
         x.shape[0] if mode == SHARED else x.shape[0] // max(Q, 1))
+    i8 = bool(score_scale) and x.dtype == torch.int8 and mode != SHARED
     if not (q.device.type == "cuda" and q.dtype == torch.float32
-            and x.dtype == torch.float32):
+            and (x.dtype == torch.float32 or i8)):
         return walk_distance_reference(q, x, metric, base, mode, idx,
-                                       x_sqnorm, C)
+                                       x_sqnorm, C,
+                                       score_scale if i8 else 0.0)
     if metric == int(DistCalcMethod.Cosine):
         if base != 1:
             raise ValueError("walk_distance: float cosine has base 1")
@@ -273,11 +327,14 @@ def walk_distance(q: torch.Tensor, x: torch.Tensor, metric, base: int,
     else:
         epi = L2
         if x_sqnorm is None:
-            x_sqnorm = row_sqnorms(x.contiguous())
+            x_sqnorm = row_sqnorms(dequantize(x, score_scale) if i8
+                                   else x.contiguous())
         x_sqnorm = x_sqnorm.reshape(-1).contiguous()
     q = q.contiguous()
     if mode == SHARED:
         return walk_seed(q, x.contiguous(), x_sqnorm, epi)
-    return walk_score(q, x.contiguous(),
-                      None if idx is None else idx.contiguous(), x_sqnorm,
-                      epi, mode, C)
+    idx = None if idx is None else idx.contiguous()
+    if i8:
+        return walk_score(q, x.contiguous(), idx, x_sqnorm, epi, mode, C,
+                          score_scale)
+    return walk_score(q, x.contiguous(), idx, x_sqnorm, epi, mode, C)

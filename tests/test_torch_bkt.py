@@ -200,9 +200,9 @@ def test_search_contract_padding_and_modes():
 
 def test_not_ported_paths_raise_naming_the_roadmap():
     """The library defaults (BuildGraph=1, FinalRefineSearchMode=beam)
-    build and serve beam, auto and dense with BinnedTopK, and take adds,
-    deletes and a refine; what is left out raises NotImplementedError
-    naming its ROADMAP.md item."""
+    build and serve beam, auto and dense with BinnedTopK, take adds,
+    deletes and a refine, and serve the walk's options and the cascade:
+    nothing of this slice raises NotImplementedError any more."""
     data, _ = _corpus(200, 8, 1, seed=7)
     idx = tsp.create_instance("BKT", "Float", device="cpu")
     idx.set_parameter("DistCalcMethod", "L2")
@@ -230,11 +230,13 @@ def test_not_ported_paths_raise_naming_the_roadmap():
         assert idx.search(data[5], 3, search_mode="beam").ids[0] == want
         idx.set_parameter(name, default)
     idx.close()
+    # the cascade, once refused, serves both modes on every tier
     idx.set_parameter("CascadeSearch", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        idx.search(data[0], 3, search_mode="beam")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        idx.search(data[0], 3, search_mode="dense")
+    for tier in ("device", "host", "host_all"):
+        idx.set_parameter("CorpusTier", tier)
+        for mode in ("beam", "dense"):
+            assert idx.search(data[5], 3, search_mode=mode).ids[0] == want
+    idx.close()
 
 
 # ---- the RNG graph and the beam walk ----------------------------------------

@@ -1328,3 +1328,259 @@ def test_device_trace_route_catches_a_kernel_event(cuda, tmp_path):
         names = {ev.get("name", "") for ev in json.load(f)["traceEvents"]}
     assert any("walk_score_kernel" in n or "block_major_f32_kernel" in n
                for n in names), sorted(names)[:50]
+
+
+# ---- the cascade's kernels (sketch Hamming, gathered int8, the int8 walk
+# scoring, float32 queries against int8 blocks) ------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 3, 4, 5, 9])
+def test_sketch_hamming_matches_plain_version(cuda, W):
+    """Exact: the kernel's Hamming matrix equals the plain SWAR count bit
+    for bit, bit-31 words and invalid rows included, at ragged Q and N."""
+    from sptag_tpu_torch.ops import sketch_dots
+
+    gen = torch.Generator().manual_seed(W)
+    for Q, N in ((1, 3000), (33, 257), (70, 1000)):
+        qb = torch.randint(-2 ** 31, 2 ** 31, (Q, W), generator=gen,
+                           dtype=torch.int64).to(torch.int32).to(cuda)
+        sk = torch.randint(-2 ** 31, 2 ** 31, (N, W), generator=gen,
+                           dtype=torch.int64).to(torch.int32).to(cuda)
+        inv = (torch.rand(N, generator=gen) < 0.1).to(cuda)
+        before = sketch_dots.launch_counts()["sketch_hamming"]
+        got = sketch_dots.hamming(qb, sk, inv)
+        want = sketch_dots.hamming_reference(qb, sk, inv)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert sketch_dots.launch_counts()["sketch_hamming"] == before + 1
+        assert bool((got[:, inv] == sketch_dots.INVALID).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [128, 100, 48])
+@pytest.mark.parametrize("metric", [0, 1])
+def test_int8_gather_dots_matches_plain_version(cuda, metric, D):
+    """Exact: the fused-gather int8 tier equals the plain version bit for
+    bit in GATHER and ROWS mode; -1 ids and tombstones give MAX_DIST."""
+    from sptag_tpu_torch.ops import cascade as tc
+    from sptag_tpu_torch.ops import int8_dots
+
+    gen = torch.Generator().manual_seed(D + metric)
+    R, Q, C = 3000, 37, 700
+    x = torch.randint(-127, 128, (R, D), generator=gen).to(torch.int8)
+    q = torch.randn((Q, D), generator=gen)
+    ids = torch.randint(-1, R, (Q, C), generator=gen).to(torch.int32)
+    inv = torch.rand(R, generator=gen) < 0.05
+    x, q, ids, inv = x.to(cuda), q.to(cuda), ids.to(cuda), inv.to(cuda)
+    qq, qs = tc.quantize_queries(q)
+    qn = (q * q).sum(1)
+    scale = 0.0371
+    before = int8_dots.launch_counts()["int8_gather_dots"]
+    got = int8_dots.int8_gather_dots(qq, qs, qn, x, ids, inv, scale, metric,
+                                     1)
+    want = int8_dots.int8_gather_dots_reference(qq, qs, qn, x, ids, inv,
+                                                scale, metric, 1)
+    rows = x[ids.clamp_min(0).long()].reshape(-1, D).contiguous()
+    masked = torch.where(inv[ids.clamp_min(0).long()], -1, ids).contiguous()
+    got_rows = int8_dots.int8_gather_dots(qq, qs, qn, rows, masked, None,
+                                          scale, metric, 1, int8_dots.ROWS)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got_rows, got)
+    assert int8_dots.launch_counts()["int8_gather_dots"] == before + 2
+    dead = (ids < 0) | inv[ids.clamp_min(0).long()]
+    assert bool((got[dead] == int8_dots.MAX_DIST).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [128, 100, 33])
+@pytest.mark.parametrize("metric", ["l2", "cosine"])
+@pytest.mark.parametrize("mode", ["gather", "rows"])
+def test_walk_score_i8_equals_f32_kernel_on_dequantized_rows(cuda, mode,
+                                                             metric, D):
+    """walk_score_i8 dequantizes in the load and then is kernel 2: its
+    output equals walk_score_f32 over the dequantized rows bit for bit, and
+    the plain version within the walk kernels' float32 bound."""
+    from sptag_tpu_torch.ops import walk_dots as wd
+
+    gen = torch.Generator().manual_seed(D)
+    m = wd.GATHER if mode == "gather" else wd.ROWS
+    epi = wd.L2 if metric == "l2" else wd.COSINE
+    scale = 0.0213
+    for Q, C in WALK_SHAPES:
+        q, _, idx = _walk_inputs(gen, Q, 500, C, D, cuda)
+        x8 = torch.randint(-127, 128, (500, D), generator=gen).to(
+            torch.int8).to(cuda)
+        if m == wd.ROWS:
+            x8 = x8[idx.clamp_min(0)].reshape(-1, D).contiguous()
+        xf = wd.dequantize(x8, scale).contiguous()
+        sq = wd.row_sqnorms(xf)
+        before = wd.launch_counts()
+        got = wd.walk_score(q, x8, idx, sq, epi, m, C, scale)
+        assert wd.launch_counts()["walk_score_i8"] == \
+            before["walk_score_i8"] + 1
+        same = wd.walk_score(q, xf, idx, sq, epi, m, C)
+        want = wd.walk_score_i8_reference(q, x8, idx, sq, epi, m, C, scale)
+        torch.cuda.synchronize()
+        assert torch.equal(got, same)
+        rows = xf[idx.clamp_min(0)] if m == wd.GATHER else xf.view(Q, C, D)
+        absdot = torch.einsum("qd,qcd->qc", q.abs(), rows.abs())
+        xn = sq[idx.clamp_min(0)] if m == wd.GATHER else sq.view(Q, C)
+        tol = 1e-5 * ((q * q).sum(1)[:, None] + xn + 2 * absdot)
+        err = (got.double() - want.double()).abs()
+        assert bool((err <= tol.double()).all()), float(err.max())
+
+
+@pytest.mark.cuda
+def test_walk_score_i8_and_block_variant_bits_do_not_depend_on_the_batch(
+        cuda):
+    """The int8 walk scoring and the float32 x int8 block kernel give a
+    query the same bits alone, in small batches and in a batch of 1,024."""
+    from sptag_tpu_torch.ops import walk_dots as wd
+
+    gen = torch.Generator().manual_seed(11)
+    q, _, idx = _walk_inputs(gen, 1024, 4000, 300, 64, cuda)
+    x8 = torch.randint(-127, 128, (4000, 64), generator=gen).to(
+        torch.int8).to(cuda)
+    sq = wd.row_sqnorms(wd.dequantize(x8, 0.05).contiguous())
+    full = wd.walk_score(q, x8, idx, sq, wd.L2, wd.GATHER, 300, 0.05)
+    blocks = torch.randint(-127, 128, (40, 96, 64), generator=gen).to(
+        torch.int8).to(cuda)
+    topc = torch.randint(0, 40, (1024, 6), generator=gen).to(
+        torch.int32).to(cuda)
+    probe = block_dots.probe_block_dots(blocks, q, topc)
+    for lo, hi in ((0, 1), (5, 12), (100, 116), (300, 429)):
+        qs, ids = q[lo:hi].contiguous(), idx[lo:hi].contiguous()
+        assert torch.equal(
+            wd.walk_score(qs, x8, ids, sq, wd.L2, wd.GATHER, 300, 0.05),
+            full[lo:hi])
+        assert torch.equal(
+            block_dots.probe_block_dots(blocks, qs, topc[lo:hi].contiguous()),
+            probe[lo:hi])
+
+
+@pytest.mark.cuda
+def test_block_dots_float_queries_on_int8_blocks(cuda):
+    """The float32 x int8 variant equals the float32 kernel on the widened
+    blocks bit for bit (probe and group forms, aligned and narrow D), the
+    plain version within 1e-5 * sum |q_d x_d|, and counts as f32i8."""
+    gen = torch.Generator().manual_seed(5)
+    block_dots.reset_launch_counts()
+    for C, P, D, Q, nprobe in PROBE:
+        blocks = torch.randint(-127, 128, (C, P, D), generator=gen).to(
+            torch.int8).to(cuda)
+        q = torch.randn((Q, D), generator=gen).to(cuda)
+        topc = torch.randint(0, C, (Q, nprobe), generator=gen).to(
+            torch.int32).to(cuda)
+        got = block_dots.probe_block_dots(blocks, q, topc)
+        assert got.dtype == torch.float32
+        assert torch.equal(got, block_dots.probe_block_dots(
+            blocks.float(), q, topc))
+        want = block_dots.probe_block_dots_reference(blocks, q, topc)
+        bound = block_dots.probe_block_dots_reference(blocks.abs(), q.abs(),
+                                                      topc)
+        assert bool(((got - want).abs() <= 1e-5 * bound + 1e-30).all())
+    for C, P, D, NG, U, G in GROUP:
+        blocks = torch.randint(-127, 128, (C, P, D), generator=gen).to(
+            torch.int8).to(cuda)
+        q = torch.randn((NG * G, D), generator=gen).to(cuda)
+        union = torch.randint(0, C, (NG, U), generator=gen).to(
+            torch.int32).to(cuda)
+        got = block_dots.group_block_dots(blocks, q, union)
+        assert torch.equal(got, block_dots.group_block_dots(
+            blocks.float(), q, union))
+        want = block_dots.group_block_dots_reference(blocks, q, union)
+        bound = block_dots.group_block_dots_reference(blocks.abs(), q.abs(),
+                                                      union)
+        assert bool(((got - want).abs() <= 1e-5 * bound + 1e-30).all())
+    counts = block_dots.launch_counts()
+    assert counts["probe_block_dots_f32i8"] == len(PROBE)
+    assert counts["group_block_dots_f32i8"] == len(GROUP)
+
+
+def _cascade_corpus(n=3000, d=32, nq=64, seed=9):
+    """Integer rows with max |x| = 127: the int8 scale is 1, so every
+    stage is exact and the card must give the CPU's ids and distances."""
+    rng = np.random.default_rng(seed)
+    centers = rng.integers(-90, 90, (16, d))
+    data = centers[rng.integers(0, 16, n)] + rng.integers(-30, 31, (n, d))
+    data[0, 0] = 127
+    q = centers[rng.integers(0, 16, nq)] + rng.integers(-30, 31, (nq, d))
+    return (np.clip(data, -127, 127).astype(np.float32),
+            np.clip(q, -127, 127).astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["device", "host", "host_all"])
+def test_flat_cascade_on_card_matches_cpu(cuda, tier):
+    """FLAT's cascade and sketch prefilter on the card: the CPU's ids and
+    distances, every cascade kernel launched."""
+    from sptag_tpu_torch.ops import int8_dots, sketch_dots
+    from sptag_tpu_torch.ops import walk_dots as wd
+
+    data, q = _cascade_corpus()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        idx = tsp.create_instance("FLAT", "Float", device=dev)
+        for k, v in (("DistCalcMethod", "L2"), ("CascadeSearch", "1"),
+                     ("TierBudgetSketch", "512"), ("TierBudgetInt8", "128"),
+                     ("CorpusTier", tier)):
+            idx.set_parameter(k, v)
+        idx.build(data)
+        sketch_dots.reset_launch_counts()
+        int8_dots.reset_launch_counts()
+        wd.reset_launch_counts()
+        out[dev] = idx.search_batch(q, 10)
+        if dev == "cuda":
+            assert sketch_dots.launch_counts()["sketch_hamming"] >= 1
+            assert int8_dots.launch_counts()["int8_gather_dots"] >= 1
+            assert wd.launch_counts()["walk_score_f32"] >= 1
+    np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
+    np.testing.assert_array_equal(out["cuda"][0], out["cpu"][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dense", "beam"])
+def test_graph_cascade_on_card_matches_cpu(cuda, mode):
+    """The dense cascade (float32 x int8 blocks) and the cascade walk
+    (walk_score_i8) on the card, both tiers: the CPU's ids and distances;
+    the host tier's segmented and scheduled walks equal its monolithic
+    one."""
+    from sptag_tpu_torch.ops import walk_dots as wd
+
+    data, q = _cascade_corpus()
+    built = tsp.create_instance("BKT", "Float", device="cpu")
+    for k, v in (("DistCalcMethod", "L2"), ("TPTNumber", "2"),
+                 ("CEF", "64"), ("MaxCheckForRefineGraph", "128"),
+                 ("FinalRefineSearchMode", "same"), ("BKTKmeansK", "8")):
+        built.set_parameter(k, v)
+    built.build(data)
+    pair = {"cpu": built,
+            "cuda": tsp.load_index_blobs(*built.save_index_blobs(),
+                                         device="cuda")}
+    for tier in ("device", "host"):
+        got = {}
+        for dev, idx in pair.items():
+            for k, v in (("SearchMode", mode), ("CascadeSearch", "1"),
+                         ("TierBudgetInt8", "128"), ("CorpusTier", tier)):
+                idx.set_parameter(k, v)
+            block_dots.reset_launch_counts()
+            wd.reset_launch_counts()
+            got[dev] = idx.search_batch(q, 10, max_check=512)
+            if dev == "cuda" and mode == "dense":
+                counts = block_dots.launch_counts()
+                assert counts["probe_block_dots_f32i8"] \
+                    + counts["group_block_dots_f32i8"] >= 1, counts
+            if dev == "cuda" and mode == "beam":
+                assert wd.launch_counts()["walk_score_i8"] >= 1
+        np.testing.assert_array_equal(got["cuda"][1], got["cpu"][1])
+        np.testing.assert_array_equal(got["cuda"][0], got["cpu"][0])
+        if mode == "beam" and tier == "host":
+            idx = pair["cuda"]
+            idx.set_parameter("ContinuousBatching", "1")
+            d3, i3 = idx.search_batch(q, 10, max_check=512)
+            idx.set_parameter("ContinuousBatching", "0")
+            np.testing.assert_array_equal(i3, got["cuda"][1])
+            assert d3.tobytes() == got["cuda"][0].tobytes()
+    for idx in pair.values():
+        idx.close()

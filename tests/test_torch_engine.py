@@ -183,14 +183,26 @@ def test_seeded_walk_ids_equal_jax(kind, binned, S, k, mc):
 
 
 def test_not_ported_options_raise():
-    """The cascade is the one walk option still left out; the bf16
-    shadow, packed neighbours and the segmented walk run (their parity is
+    """Every walk option runs now, the cascade included: on both tiers
+    its walk returns the JAX package's ids (its distances within float32),
+    and its host tier runs segmented; the bf16 shadow, packed neighbours
+    and the segmented walk run (their parity is
     tests/test_torch_scheduler.py's)."""
     data, q, graph, pivots, deleted, metric, base = _setup("l2", n=100,
                                                            pivots=50)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*cascade"):
-        teng.GraphSearchEngine(data, graph, pivots, None, metric, base,
-                               device="cpu", cascade_search=True)
+    for tier in ("device", "host", "host_all"):
+        j = jeng.GraphSearchEngine(data, graph, pivots, deleted, metric,
+                                   base, cascade_search=True,
+                                   corpus_tier=tier)
+        c = teng.GraphSearchEngine(data, graph, pivots, deleted, metric,
+                                   base, device="cpu", cascade_search=True,
+                                   corpus_tier=tier)
+        assert c.score_scale == j.score_scale > 0
+        assert (c.fp_host is None) == (tier == "device")
+        jd, ji = j.search(q[:8], 3)
+        cd, ci = c.search(q[:8], 3)
+        np.testing.assert_array_equal(ci, ji)
+        np.testing.assert_allclose(cd, jd, rtol=1e-5, atol=1e-4)
     t = teng.GraphSearchEngine(data, graph, pivots, None, metric, base,
                                device="cpu")
     want = t.search(q[:2], 3)

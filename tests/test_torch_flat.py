@@ -126,15 +126,154 @@ def test_flat_deletes_from_a_jax_folder(tmp_path):
 
 
 def test_flat_not_ported_knobs_raise():
-    data, q = _data("Float", 400, 2, 8, seed=6)
+    """SketchPrefilter and CascadeSearch, once refused, now serve: the same
+    ids as the JAX package's index, and nothing raises."""
+    data, q = _data("Float", 400, 6, 8, seed=6)
+    ref = jsp.create_instance("FLAT", "Float")
     idx = tsp.create_instance("FLAT", "Float", device="cpu")
-    idx.build(data)
+    for index in (ref, idx):
+        index.set_parameter("DistCalcMethod", "L2")
+        index.build(data)
     for name, value in (("SketchPrefilter", "true"), ("CascadeSearch", "1")):
-        idx.set_parameter(name, value)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            idx.search_batch(q, 3)
-        idx.set_parameter(name, "0" if name == "CascadeSearch" else "false")
+        for index in (ref, idx):
+            index.set_parameter(name, value)
+        d_ref, i_ref = ref.search_batch(q, 3)
+        d_got, i_got = idx.search_batch(q, 3)
+        assert_same_neighbors(d_ref, i_ref, d_got, i_got, exact=True)
+        for index in (ref, idx):
+            index.set_parameter(name,
+                                "0" if name == "CascadeSearch" else "false")
     # mutation is ported (tests/test_torch_mutation.py): an add is found
     assert idx.add(data[:2] + 0.25) == tsp.ErrorCode.Success
     assert idx.search_batch(data[:2] + 0.25, 1)[1][:, 0].tolist() == \
         [400, 401]
+
+
+# ---- the sketch prefilter and its calibration -------------------------------
+
+def _clustered(n, nq, d, seed):
+    """The JAX package's sketch test corpus: clustered float rows."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((16, d)).astype(np.float32) * 2.0
+    data = centers[rng.integers(0, 16, n)] \
+        + rng.standard_normal((n, d)).astype(np.float32)
+    q = centers[rng.integers(0, 16, nq)] \
+        + rng.standard_normal((nq, d)).astype(np.float32)
+    return data.astype(np.float32), q.astype(np.float32)
+
+
+def _sketch_pair(data, **params):
+    ref = jsp.create_instance("FLAT", "Float")
+    got = tsp.create_instance("FLAT", "Float", device="cpu")
+    for index in (ref, got):
+        index.set_parameter("DistCalcMethod", "L2")
+        index.set_parameter("SketchPrefilter", "true")
+        for k, v in params.items():
+            index.set_parameter(k, str(v))
+        index.build(data)
+    return ref, got
+
+
+@pytest.mark.parametrize("rerank", [0, 300])
+def test_flat_sketch_prefilter_matches_jax(rerank):
+    """Auto calibration (the same R as the JAX package's: 64 rows drawn by
+    default_rng(0xC0FFEE), 95th percentile, a power of two) and an
+    explicit SketchRerank: the same ids, distances within float32."""
+    data, q = _clustered(1500, 24, 48, seed=3)
+    ref, got = _sketch_pair(data, SketchRerank=rerank)
+    d_ref, i_ref = ref.search_batch(q, 10)
+    d_got, i_got = got.search_batch(q, 10)
+    np.testing.assert_array_equal(i_got, i_ref)
+    np.testing.assert_allclose(d_got, d_ref, rtol=1e-5, atol=1e-4)
+    with ref._lock:
+        cal_ref = ref._sketch[3]
+    assert got._sketch[3] == cal_ref
+    if rerank:
+        assert cal_ref is None           # an explicit R never calibrates
+    else:
+        assert cal_ref > 0 and cal_ref & (cal_ref - 1) == 0
+    # a deletion rebuilds the sketches; both still agree
+    for index in (ref, got):
+        index.delete(data[i_ref[0, :2]])
+    np.testing.assert_array_equal(got.search_batch(q, 10)[1],
+                                  ref.search_batch(q, 10)[1])
+
+
+def test_flat_sketch_calibration_failure_cached():
+    """Fewer than 8 live rows: the calibration fails once, is cached as -1
+    and the N/32 heuristic serves."""
+    data, q = _clustered(300, 4, 16, seed=4)
+    _, got = _sketch_pair(data)
+    got.delete(data[7:])
+    calls = []
+    orig = type(got)._calibrate
+
+    def spy(self, *a):
+        calls.append(1)
+        return orig(self, *a)
+
+    type(got)._calibrate = spy
+    try:
+        got.search_batch(q, 3)
+        got.search_batch(q, 3)
+    finally:
+        type(got)._calibrate = orig
+    assert calls == [1] and got._sketch[3] == -1
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_sketch_cal_file_crosses_packages(tmp_path, writer):
+    """sketch_cal.bin (SPTSCAL1, "<8sqqi") written by either package is
+    read by the other: the loaded index reuses the calibration without the
+    scan, returns the writer's ids, and a mutation drops it.  The two
+    packages write the same bytes."""
+    from sptag_tpu.algo.flat import FlatIndex as JaxFlat
+    from sptag_tpu_torch.algo.flat import FlatIndex as PortFlat
+
+    data, q = _clustered(1500, 8, 48, seed=5)
+    ref, got = _sketch_pair(data)
+    _, i_ref = ref.search_batch(q, 10)
+    _, i_got = got.search_batch(q, 10)
+    folders = {}
+    for name, index in (("jax", ref), ("port", got)):
+        folders[name] = str(tmp_path / name)
+        assert index.save_index(folders[name]) == tsp.ErrorCode.Success
+    blobs = [open(os.path.join(f, "sketch_cal.bin"), "rb").read()
+             for f in folders.values()]
+    assert blobs[0] == blobs[1] and blobs[0][:8] == b"SPTSCAL1"
+    # the folder's manifest checksums it like every blob
+    with open(os.path.join(folders["port"], "manifest.json")) as f:
+        assert "sketch_cal.bin" in f.read()
+    reader = "port" if writer == "jax" else "jax"
+    loaded = (tsp.load_index(folders[writer], device="cpu")
+              if reader == "port" else jsp.load_index(folders[writer]))
+    cls = PortFlat if reader == "port" else JaxFlat
+    assert loaded._loaded_cal[2] == ref._sketch[3]
+    calls = []
+    orig = cls._calibrate
+
+    def spy(self, *a, **kw):
+        calls.append(1)
+        return orig(self, *a, **kw)
+
+    cls._calibrate = spy
+    try:
+        _, ids = loaded.search_batch(q, 10)
+        assert not calls
+        np.testing.assert_array_equal(ids, i_ref if reader == "jax"
+                                      else i_got)
+        assert loaded.add(q[:1]) == tsp.ErrorCode.Success
+        assert loaded._loaded_cal is None
+        loaded.search_batch(q, 10)
+        assert calls
+    finally:
+        cls._calibrate = orig
+
+
+def test_sketch_cal_file_absent_by_default(tmp_path):
+    data, _ = _clustered(1200, 4, 16, seed=6)
+    idx = tsp.create_instance("FLAT", "Float", device="cpu")
+    idx.build(data)
+    folder = str(tmp_path / "plain")
+    assert idx.save_index(folder) == tsp.ErrorCode.Success
+    assert not os.path.exists(os.path.join(folder, "sketch_cal.bin"))
