@@ -20,8 +20,8 @@ card, or outside the repository, it exits non-zero and prints no result.
 Phases, in the order they run:
 
 0. environment: ``nvidia-smi`` name and power limit, versions, sm_90 check;
-1. build the kernels (``block_dots.cu`` and ``walk_dots.cu``, one
-   ``nvcc`` each, started together);
+1. build the kernels (every source of ``sptag_tpu_torch/csrc`` and the
+   L2 read probe, one ``nvcc`` each, started together);
 3. f32 headline: BKT Float L2, BuildGraph=0, BKTKmeansK=32, MaxCheck=2048,
    n=200,000 x d=128 (seed 7); 4,096 queries in batches of 1,024 through
    ``probe_block_dots``; then the same queries in one grouped call
@@ -83,37 +83,13 @@ Phases, in the order they run:
    ``KDTNumber=2``, the graph parameters): the kd-seeded walk's and the
    dense scan's (``DenseReplicas=2``) recall@10 over 200 queries held to
    ``KDT_RECALL_MIN``, save and load, 1,000 adds and 100 deletes;
-14. the tiered corpus cascade (``CascadeSearch``): (a) FLAT over the
-   phase-3 corpus in ``bench.py``'s five capacity configurations
-   (fp_only, int8_fp, cascade, host, host_all; ``TierBudgetSketch``
-   8,192, ``TierBudgetInt8`` 1,024), 4,096 queries in batches of 1,024:
-   recall@10 against the exact truth held to ``CASCADE_RECALL_MIN``, QPS,
-   device and host bytes off the memory ledger; the host tiers' ids and
-   distance bits held equal to the device tier's, their float32 bytes
-   held host-side, host_all's device bytes held to N_pad (4W + 1) + 4D
-   plus 1 MB; ``SketchPrefilter`` calibrated and at ``SketchRerank``
-   4,096, its ``sketch_cal.bin`` reused by a loaded index (one Hamming
-   launch a chunk, the same ids); (b) the dense cascade on phase 3's
-   index, device and host tiers bit for bit equal, recall held to the
-   non-cascade recall - 0.1, and 8,192 queries grouped (G=32, union
-   factor 4) held to the same grouping without the cascade - 0.1; (c) the
-   beam cascade on phase 7's loaded folder, both tiers: recall held to
-   phase 7's exact walk - 0.1, segmented and scheduled walks equal to the
-   monolithic one, an id both tiers return carrying the same bits, and
-   1,024 lone requests through ``SearchServer`` held to ``search_batch``;
-   (d) phase 10's KDT folder, both tiers' recall held to the non-cascade
-   walk's - 0.1; (e) deletes and delta-shard adds on a FLAT cascade index
-   of 50,000 rows, every tier; (f) host_all FLAT at ``CAPACITY_N`` rows,
-   recall against its streamed exact scan, QPS and the ledger's bytes.
-   Phase 2 holds the four cascade kernels (``sketch_hamming``,
-   ``int8_gather_dots``, ``walk_score_i8``, the block-dot kernels on int8
-   blocks with float32 queries) on their first main-path calls of phase
-   14, whose launches they report;
 6. where a search batch's time goes: ``torch.profiler`` device time by
    kernel for one batch of each configuration (f32 per-query and grouped,
    int8 grouped and per-query, f32 beam exact and binned, FLAT's cascade
-   on the device and host_all tiers), against its untraced time; the beam rows per walk iteration, the walk kernels'
-   device time, and the former walk kernel's batch beside them;
+   on the device and host_all tiers, the beam cascade on the device and
+   host tiers), against its untraced time; the beam rows per walk
+   iteration, the walk kernels' device time, and the former walk kernel's
+   batch beside them;
 11. the walk's options and the slot scheduler on phase 7's index: (a)
    ``BeamScoreDtype=bf16`` over the 4,096 queries, exact and binned walk,
    recall@10 held within 0.01 of the f32 walk's and every distance held
@@ -189,7 +165,37 @@ Phases, in the order they run:
    trip with the same ids; (f) every subprocess exited 0 and no serving,
    canary, listener or scheduler thread is left.  Phase 2 holds the
    block-dot kernels again on the first calls of (b)'s build and (c)'s
-   dense requests, with the launches counted over (b)-(e).
+   dense requests, with the launches counted over (b)-(e);
+14. the tiered corpus cascade (``CascadeSearch``): (a) FLAT over the
+   phase-3 corpus in ``bench.py``'s five capacity configurations
+   (fp_only, int8_fp, cascade, host, host_all; ``TierBudgetSketch``
+   8,192, ``TierBudgetInt8`` 1,024), 4,096 queries in batches of 1,024:
+   recall@10 against the exact truth held to ``CASCADE_RECALL_MIN``, QPS,
+   device and host bytes off the memory ledger; the host tiers' ids and
+   distance bits held equal to the device tier's, their float32 bytes
+   held host-side, host_all's device bytes held to N_pad (4W + 1) + 4D
+   plus 1 MB; ``SketchPrefilter`` calibrated and at ``SketchRerank``
+   4,096, its ``sketch_cal.bin`` reused by a loaded index (one Hamming
+   launch a chunk, the same ids); (b) the dense cascade on phase 3's
+   index, device and host tiers bit for bit equal, recall held to the
+   non-cascade recall - 0.1, and 8,192 queries grouped (G=32, union
+   factor 4) held to the same grouping without the cascade - 0.1; (c) the
+   beam cascade on phase 7's loaded folder, both tiers: recall held to
+   phase 7's exact walk - 0.1, segmented and scheduled walks equal to the
+   monolithic one, an id both tiers return carrying the same bits, and
+   1,024 lone requests through ``SearchServer`` held to ``search_batch``;
+   (d) phase 10's KDT folder, both tiers' recall held to the non-cascade
+   walk's - 0.1; (e) deletes and delta-shard adds on a FLAT cascade index
+   of 50,000 rows, every tier; (f) host_all FLAT at ``CAPACITY_N`` rows,
+   recall against its streamed exact scan, QPS and the ledger's bytes.
+   Phase 2 holds the four cascade kernels (``sketch_hamming``,
+   ``int8_gather_dots``, ``walk_score_i8``, the block-dot kernels on int8
+   blocks with float32 queries) on their first main-path calls of phase
+   14, whose launches they report, every int8 kernel variant phase 14 ran
+   (mode, epilogue, D) on its first call bit for bit, and the two int8
+   gathers beside an estimate of their time were every row read from L2
+   at the card's L2 read rate, which a read probe over an L2-resident
+   buffer measures (past L1, so rows that hit L1 can beat it).
 
 Launch counts are zeroed just before phase 3 and read just after phase 5
 (the walk's just before phase 7's beam searches and read after them),
@@ -317,6 +323,75 @@ def exact_truth(dist_ops, rows: torch.Tensor, queries: torch.Tensor,
 
 # the CUDA sources in sptag_tpu_torch/csrc, built in phase 1
 KERNEL_SOURCES = ("block_dots", "walk_dots", "sketch_dots", "int8_dots")
+
+# A read kernel over an L2-resident buffer: the card's L2 -> SM read rate,
+# for an estimate of a gather whose rows all come from L2 (the int8
+# kernels' rows of phase 2).  A measuring tool of this script, not a
+# kernel of the port.
+L2_PROBE_CU = r"""
+#include <cuda_runtime.h>
+__global__ void l2_read(const int4* __restrict__ p, long long n, int reps,
+                        int* out) {
+  int acc = 0;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (int r = 0; r < reps; ++r) {
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         i < n; i += stride) {
+      const int4 v = __ldcg(p + i);          // L2, not L1
+      acc ^= v.x ^ v.y ^ v.z ^ v.w;
+    }
+  }
+  if (acc == 0x7fffffff) out[0] = acc;     // keeps the loads
+}
+extern "C" int sptag_l2_read(const void* p, long long n16, int reps,
+                             void* out, void* stream) {
+  l2_read<<<132 * 8, 256, 0, (cudaStream_t)stream>>>(
+      (const int4*)p, n16, reps, (int*)out);
+  return (int)cudaGetLastError();
+}
+"""
+# bytes of the buffer the probe reads (a third of L2) and its passes
+L2_PROBE_BYTES = 16 << 20
+L2_PROBE_REPS = 64
+
+
+def build_l2_probe(workdir: str) -> str:
+    """nvcc the L2 read probe into `workdir`; the library's path."""
+    from sptag_tpu_torch import _build
+
+    src = os.path.join(workdir, "l2_probe.cu")
+    with open(src, "w") as f:
+        f.write(L2_PROBE_CU)
+    so = os.path.join(workdir, "libl2_probe.so")
+    res = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", so,
+                          src], capture_output=True, text=True)
+    if res.returncode != 0:
+        fail(f"nvcc failed on the L2 probe:\n{res.stdout}{res.stderr}")
+    return so
+
+
+def l2_read_gbs(so: str) -> float:
+    """The card's L2 read rate in GB/s: the probe's reads of an L2-resident
+    buffer, timed between CUDA events (median of 5 launches after a
+    warm-up)."""
+    import ctypes
+
+    lib = ctypes.CDLL(so)
+    lib.sptag_l2_read.restype = ctypes.c_int
+    lib.sptag_l2_read.argtypes = [ctypes.c_void_p, ctypes.c_longlong,
+                                  ctypes.c_int, ctypes.c_void_p,
+                                  ctypes.c_void_p]
+    buf = torch.ones(L2_PROBE_BYTES // 4, dtype=torch.int32, device="cuda")
+    out = torch.zeros(1, dtype=torch.int32, device="cuda")
+
+    def run():
+        rc = lib.sptag_l2_read(buf.data_ptr(), L2_PROBE_BYTES // 16,
+                               L2_PROBE_REPS, out.data_ptr(),
+                               torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            fail(f"the L2 probe did not launch ({rc})")
+    ms = median_ms(run, reps=5)
+    return L2_PROBE_BYTES * L2_PROBE_REPS / (ms * 1e-3) / 1e9
 # the f32 dense-only headline index (phases 3 and 9e)
 DENSE_PARAMS = [("DistCalcMethod", "L2"), ("BuildGraph", "0"),
                 ("BKTNumber", "1"), ("BKTKmeansK", "32"), ("MaxCheck", "2048")]
@@ -1768,6 +1843,10 @@ def open_loop_ramp(addr, queries, batch_sizes, label,
         if profiled:
             prof = profile(activities=[ProfilerActivity.CUDA])
             prof.__enter__()
+            # CUPTI initialises at the session's first launch: here, before
+            # the step's clock starts, not in its first requests
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
         rids = []
         t0 = time.perf_counter()
         for j in range(n_req):
@@ -2916,6 +2995,10 @@ class FirstCascadeCalls:
                                          walk_dots)
 
         self.min_q = min_q
+        # the first call of each int8 kernel variant the main path runs
+        # ((kernel, mode, epilogue, D, ids or mask) -> arguments), for
+        # phase 2 to hold each bit for bit
+        self.variants = {}
         self.targets = [(sketch_dots, "hamming", "sketch_hamming"),
                         (int8_dots, "int8_gather_dots", "int8_gather_dots"),
                         (walk_dots, "walk_score", "walk_score_i8"),
@@ -2939,6 +3022,17 @@ class FirstCascadeCalls:
         return (a[0].dtype == torch.int8 and a[1].dtype == torch.float32
                 and a[1].shape[0] >= self.min_q)
 
+    @staticmethod
+    def _variant(name, a):
+        """The int8 kernels' variant key of a card call, else None."""
+        if a[0].device.type != "cuda":
+            return None
+        if name == "int8_gather_dots":
+            return (name, a[9], a[7], a[0].shape[1], a[5] is not None)
+        if name == "walk_score_i8" and a[1].dtype == torch.int8:
+            return (name, a[5], a[4], a[0].shape[1], a[2] is not None)
+        return None
+
     def __enter__(self):
         keep = {"sketch_hamming": (1, 2), "int8_gather_dots": (3, 5),
                 "walk_score_i8": (1, 3), "probe_block_dots_f32i8": (0,),
@@ -2948,11 +3042,17 @@ class FirstCascadeCalls:
             self.saved.append((module, attr, fn))
 
             def wrapper(*a, _fn=fn, _name=name):
-                if self._take(_name, a):
-                    self.args[_name] = tuple(
+                key = self._variant(_name, a)
+                if self._take(_name, a) or (key is not None
+                                            and key not in self.variants):
+                    args = tuple(
                         t.clone() if isinstance(t, torch.Tensor)
                         and k not in keep[_name] else t
                         for k, t in enumerate(a))
+                    if self._take(_name, a):
+                        self.args[_name] = args
+                    if key is not None:
+                        self.variants.setdefault(key, args)
                 return _fn(*a)
             setattr(module, attr, wrapper)
         return self
@@ -3383,18 +3483,60 @@ def cascade_phase(pt, dist_ops, data, queries, truth, idx, recall_off,
     return first, launches
 
 
-def cascade_kernel_rows(first, launches) -> list:
+def l2_estimate(l2_bytes: int, l2_gbs) -> dict:
+    """An estimate, not a floor: the time to move `l2_bytes` from L2 to
+    the SMs at the measured L2 read rate (GB/s), in a model where every
+    byte comes from L2.  The probe reads past L1 (``__ldcg``); a kernel
+    whose rows hit L1 can beat it."""
+    return {"l2_bytes": int(l2_bytes), "l2_read_gbs": l2_gbs,
+            "l2_only_estimate_ms": (l2_bytes / (l2_gbs * 1e9) * 1e3
+                                    if l2_gbs else None)}
+
+
+def int8_variant_rows(first) -> list:
+    """Every int8 kernel variant phase 14's main path ran (kernel, mode,
+    epilogue, D, ids or mask): walk_score_i8 held bit for bit to
+    walk_score_f32 over the dequantized rows, int8_gather_dots to its
+    plain version, on the variant's first call."""
+    from sptag_tpu_torch.ops import int8_dots
+    from sptag_tpu_torch.ops import walk_dots as wd
+
+    out = []
+    for key, args in sorted(first.variants.items(), key=str):
+        if key[0] == "walk_score_i8":
+            q, x8, idx, xn, epi, mode, C, scale = args
+            got = wd.walk_score(q, x8, idx, xn, epi, mode, C, scale)
+            want = wd.walk_score(q, wd.dequantize(x8, scale).contiguous(),
+                                 idx, xn, epi, mode, C)
+        else:
+            got = int8_dots.int8_gather_dots(*args)
+            want = int8_dots.int8_gather_dots_reference(*args)
+        torch.cuda.synchronize()
+        out.append({"kernel": key[0], "mode": int(key[1]),
+                    "epilogue": int(key[2]), "D": int(key[3]),
+                    "ids_or_mask": bool(key[4]), "Q": int(args[0].shape[0]),
+                    "bit_equal": bool(torch.equal(got, want))})
+    emit({"phase": "2_int8_variants", "variants": out})
+    check(all(v["bit_equal"] for v in out) and len(out) >= 2,
+          f"2: int8 kernel variants differ from their references: {out}")
+    return out
+
+
+def cascade_kernel_rows(first, launches, l2_gbs) -> list:
     """Phase 2 for the cascade's Hamming, gathered int8 and int8 walk
     kernels on the arguments of their first main-path call in phase 14:
     exact against the plain versions for the integer kernels, and for
     walk_score_i8 bit-equal to walk_score_f32 over the dequantized rows
     (and within the float32 bound of the plain version), with times,
-    bound and the library yardstick."""
+    bound and the library yardstick; the two int8 gathers also with an
+    estimate of their time were every row read from L2 at the measured L2
+    read rate."""
     from sptag_tpu_torch.ops import int8_dots, sketch_dots
     from sptag_tpu_torch.ops import distance as dist_ops
     from sptag_tpu_torch.ops import walk_dots as wd
 
     rows = []
+    int8_variant_rows(first)
     for name in ("sketch_hamming", "int8_gather_dots", "walk_score_i8"):
         if name not in first.args:
             continue
@@ -3427,15 +3569,21 @@ def cascade_kernel_rows(first, launches) -> list:
             lib = lambda: dist_ops.int_contract(            # noqa: E731
                 "qd,qcd->qc", qq, pre)
             (Q, C), D = ids.shape, qq.shape[1]
-            distinct = int(torch.unique(ids[ids >= 0]).numel())
-            nbytes = (distinct * (D + 1) + Q * D + Q * 8 + Q * C * 8)
+            live = ids >= 0
+            distinct = int(torch.unique(ids[live]).numel())
+            n_live = int(live.sum().item())
+            nbytes = distinct * (D + 1) + Q * D + Q * 8 + Q * C * 8
             ops, peak = 4.0 * Q * C * D, PEAK_OPS_S["i8"]
             shape = {"Q": Q, "C": C, "D": D, "mode": mode, "metric": metric}
             source, replaces = ("sptag_tpu_torch/csrc/int8_dots.cu",
                                 "sptag_tpu/ops/cascade.py:192")
+            # what a gather moves from L2: every live slot's row, the ids,
+            # the output
+            l2_bytes = n_live * D + Q * C * 8
             extra.update({"library_call": "int_contract over the rows "
                           "gathered beforehand (the bare dot)",
-                          "distinct_rows": distinct})
+                          "distinct_rows": distinct,
+                          **l2_estimate(l2_bytes, l2_gbs)})
         else:
             q, x8, idx, xn, epi, mode, C, scale = args
             call = lambda: wd.walk_score(                   # noqa: E731
@@ -3461,7 +3609,9 @@ def cascade_kernel_rows(first, launches) -> list:
             extra.update({"library_call": "einsum over the rows dequantized "
                           "and gathered beforehand (the bare dot)",
                           "bit_equal_to_walk_score_f32_on_dequantized": same,
-                          "fresh_share": n_fresh / idx.numel()})
+                          "fresh_share": n_fresh / idx.numel(),
+                          **l2_estimate(n_fresh * D + Q * C * 12,
+                                        l2_gbs)})
             check(same, "walk_score_i8 differs from walk_score_f32 on the "
                         "dequantized rows")
         got, want = call(), ref()
@@ -3714,6 +3864,11 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a CUDA "
              "card")
+    # every torch.profiler session of the run (and of the processes it
+    # starts) tears CUPTI down at its end: kept alive, the later sessions
+    # of a busy process lose the card's kernels (sptag_tpu_torch/utils/
+    # trace.py); a value already in the environment wins
+    os.environ.setdefault("TEARDOWN_CUPTI", "1")
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "sptag_tpu_torch")):
         fail("run from a checkout of the repository (sptag_tpu_torch/ "
@@ -3747,9 +3902,11 @@ def main() -> None:
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as ex:
+    with ThreadPoolExecutor(len(KERNEL_SOURCES) + 1) as ex:
+        probe_so = ex.submit(build_l2_probe, work.name)
         built = dict(zip(KERNEL_SOURCES, ex.map(_build.build,
                                                 KERNEL_SOURCES)))
+        probe_so = probe_so.result()
     from sptag_tpu_torch.ops import int8_dots, sketch_dots
 
     block_dots.library()
@@ -4039,14 +4196,6 @@ def main() -> None:
     # ---- phase 10: KDT -----------------------------------------------------
     kdt_first, kdt_launches = kdt_phase(pt, block_dots, dist_ops, work.name)
 
-    # ---- phase 14: the tiered corpus cascade ------------------------------
-    # (before phase 2, which holds its kernels, and before phase 13, whose
-    # device traces leave the profiler without device rows in-process)
-    first14, launches14 = cascade_phase(
-        pt, dist_ops, data, queries, truth_f32, idx, recall, graph_folder,
-        beam["off"]["recall_at_10"],
-        os.path.join(work.name, "kdt"), work.name)
-
     # ---- phase 2: kernels against their plain versions ---------------------
     q32 = torch.from_numpy(idx._prepare_query(queries[:1024])).to(dev)
     q8 = torch.from_numpy(idx8._prepare_query(queries8[:1024])).to(dev)
@@ -4096,12 +4245,6 @@ def main() -> None:
 
     rows.extend(walk_dots_rows(walk_ops, first_walk,
                                walk_launches))
-    rows.extend(cascade_kernel_rows(first14, launches14))
-    for kind in ("probe_block_dots", "group_block_dots"):
-        args = first14.args.get(f"{kind}_f32i8")
-        if args is not None:
-            rows.append(block_dot_row(block_dots, kind, "f32i8",
-                                      "cascade_dense", launches14, *args))
 
     # ---- phase 6: where a search batch's time goes ---------------------------
     # device time from the profiler's CUDA rows (kernels and copies); the
@@ -4181,6 +4324,19 @@ def main() -> None:
                   lambda: cflat.search_batch(queries[:1024], K),
                   batch_stats(ctimes, 1024)["batch_ms_p50"])
         del cflat
+    # the beam cascade's tiers (phase 14c's configuration)
+    for tier in ("device", "host"):
+        cg = pt.load_index(graph_folder)
+        for name, value in (("SearchMode", "beam"), ("CascadeSearch", "1"),
+                            ("CorpusTier", tier)):
+            cg.set_parameter(name, value)
+        cg.search_batch(queries[:1024], K)         # builds the engine
+        _, _, ctimes = timed_search(cg, queries)
+        breakdown(f"beam cascade {tier}, 1024 queries",
+                  lambda: cg.search_batch(queries[:1024], K),
+                  batch_stats(ctimes, 1024)["batch_ms_p50"],
+                  iterations=lambda: cg._get_engine().last_iterations)
+        cg.close()
 
     # ---- phase 11: the walk's options and the slot scheduler -------------
     scheduler_phase(pt, gidx, queries, truth_f32, beam,
@@ -4202,6 +4358,21 @@ def main() -> None:
             rows.append(block_dot_row(block_dots, kind, t, path,
                                       launches13, *args))
 
+    # ---- phase 14: the tiered corpus cascade ------------------------------
+    first14, launches14 = cascade_phase(
+        pt, dist_ops, data, queries, truth_f32, idx, recall, graph_folder,
+        beam["off"]["recall_at_10"],
+        os.path.join(work.name, "kdt"), work.name)
+    # phase 2 for its kernels, with the card's L2 read rate
+    l2_gbs = l2_read_gbs(probe_so)
+    emit({"phase": "2_l2_read", "gb_per_s": l2_gbs,
+          "buffer_bytes": L2_PROBE_BYTES, "passes": L2_PROBE_REPS})
+    rows.extend(cascade_kernel_rows(first14, launches14, l2_gbs))
+    for kind in ("probe_block_dots", "group_block_dots"):
+        args = first14.args.get(f"{kind}_f32i8")
+        if args is not None:
+            rows.append(block_dot_row(block_dots, kind, "f32i8",
+                                      "cascade_dense", launches14, *args))
 
     if FAILED_CHECKS:
         fail(f"{len(FAILED_CHECKS)} check(s) failed: {FAILED_CHECKS}")

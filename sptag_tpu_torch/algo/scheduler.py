@@ -46,11 +46,11 @@ serving layer reads (slot wait, occupancy, pending, submitted, segments,
 retired, worker errors, leaked workers), the flight recorder's
 ``scheduler`` events and per-rid stats for the slow-query log, the host
 profiler's execute-stage pin, and the lock sanitizer (``SanLock``,
-``race_track``).  Left out, each with its ROADMAP.md item: the
-device-memory ledger (``devmem.py``, observability, host half), the
-recompile guard's hot sections and the roofline attribution of slow
-queries (observability, device half), and the mesh shard-skew telemetry
-(multi-GPU).
+``race_track``), and the device-memory ledger (the slot pool as the
+``slot_pool`` component, ``utils/devmem.py``).  Left out, each with its
+ROADMAP.md item: the recompile guard's hot sections and the roofline
+attribution of slow queries (observability, device half), and the mesh
+shard-skew telemetry (multi-GPU).
 """
 
 from __future__ import annotations

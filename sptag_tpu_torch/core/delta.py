@@ -19,8 +19,9 @@ a bounded side index that is scanned exactly on every search:
   arrived meanwhile to a fresh shard.
 
 The scan is the port's `algo.flat.exact_device_scan`; the class is under
-the lock sanitizer like the JAX package's.  The device-memory ledger is
-left out (ROADMAP.md, observability).
+the lock sanitizer like the JAX package's, and its rows are on the
+device-memory ledger (``utils/devmem.py``) as the ``delta_shard``
+component, as in the JAX package.
 """
 
 from __future__ import annotations

@@ -17,7 +17,10 @@ the ``mutation.*`` metrics, the lock sanitizer (the writer lock is a
 ``SanLock`` and the class is ``race_track``ed when armed), the storage
 crash points of ``save_index``, the live-applied quality-monitor and
 timeline knobs, and `publish_quality_health`.  The device-memory ledger
-belongs to ROADMAP.md's observability item and is left out.
+(``utils/devmem.py``) holds the card arrays of an index's snapshots (the
+walk engine, the dense layout, FLAT's corpus, the cascade's tiers, the
+delta shard, the scheduler's slot pool) under the JAX package's
+component names.
 
 Every index also serializes to memory buffers (`save_index_blobs`,
 `load_index_blobs`), hands out per-query futures (`submit_batch`) and

@@ -69,15 +69,30 @@
 // D % 4 != 0 or a row pointer that is not 16-byte aligned takes the
 // template's scalar-load branch: the same order, 4-byte loads.
 //
-// Kernel 2 has an int8 variant, walk_score_i8 (the cascade's in-loop
-// scoring, algo/engine.py): the rows are the int8 quantization of the
-// corpus, and each element is dequantized in the load as float(x) * scale,
-// one float32 rounding, as the JAX package's `cvecs.astype(f32) * scale`
-// (sptag_tpu/algo/engine.py:636).  The rest is kernel 2 itself: the same
-// canonical order, fold and fused epilogue, so its output equals
-// walk_score_f32 over the dequantized rows bit for bit, and a served
-// cascade walk stays equal to search_batch's.  It reads a quarter of the
-// float32 rows' bytes.
+// Kernel 3, walk_score_i8_kernel: kernel 2's function over int8 rows (the
+// cascade's in-loop scoring, algo/engine.py), each element dequantized as
+// float(x) * scale in one float32 rounding, as the JAX package's
+// `cvecs.astype(f32) * scale` (sptag_tpu/algo/engine.py:636).  Its output
+// equals walk_score_f32 over the dequantized rows bit for bit (so a served
+// cascade walk stays equal to search_batch's) at a quarter of their bytes.
+// Kernel 2's lane layout would give each lane a 4-byte piece of every row,
+// so a warp load instruction moved 128 bytes and the group's fixed work
+// (ids, ballot, 32 partials, 31-shuffle fold) was paid for 128-byte rows;
+// it was bound by instructions, at about 1 TB/s.  The canonical order says
+// which LOGICAL lane owns a d, not which thread holds it, so here 8
+// physical lanes share a row: lane p of an 8-lane group loads the 16 bytes
+// d = 128 c + 16 p .. + 15 with one 16-byte load and holds logical lanes
+// 4p .. 4p + 3 (4 partials), so one warp load brings 4 whole rows.  An
+// 8-lane group scores 8 of the warp's 32 live slots (position 4 t + group),
+// each element converted exactly by a byte permute into 2^23 + (x + 128)
+// and one subtraction (full FP32 rate, where I2F runs at a quarter), then
+// __fmul_rn(., scale) and fmaf in d order.  The logical butterfly stages
+// 16, 8, 4 are physical lanes xor 4, 2, 1 inside the group, folded
+// transposing over its 8 rows (28 shuffles for 32 dots); stages 2 and 1
+// are two adds inside the thread over its 4 partials: the same pairs in
+// the same tree, so the same bits.  xn comes from the norm table, qn from
+// warp_sqnorm, the epilogue is kernel 2's.  D % 16 != 0 or a row pointer
+// that is not 16-byte aligned takes 4-byte or byte loads in the same order.
 //
 // mode 0 (GATHER): row r of output (q, c) is x[idx[q * C + c]]
 // mode 1 (ROWS):   row r is x[q * C + c] (rows already in output order);
@@ -88,6 +103,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "int8_rows.cuh"
 
 namespace {
 
@@ -129,46 +146,6 @@ __device__ __forceinline__ float4 load4(const float* __restrict__ row, int d0,
     if (d0 + 3 < D) v.w = GLOBAL ? __ldg(row + d0 + 3) : row[d0 + 3];
   }
   return v;
-}
-
-// 4 consecutive d of an int8 row from d0, each dequantized as
-// float(x) * scale in one rounding (zeros past D or for a row not there);
-// VEC: D % 4 == 0 and the row 4-byte aligned, one 4-byte load
-template <bool VEC>
-__device__ __forceinline__ float4 load4_i8(const int8_t* __restrict__ row,
-                                           int d0, int D, bool ok,
-                                           float scale) {
-  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  if (!ok || d0 >= D) return v;
-  if (VEC) {
-    const char4 c = __ldg(reinterpret_cast<const char4*>(row + d0));
-    v.x = __fmul_rn(static_cast<float>(c.x), scale);
-    v.y = __fmul_rn(static_cast<float>(c.y), scale);
-    v.z = __fmul_rn(static_cast<float>(c.z), scale);
-    v.w = __fmul_rn(static_cast<float>(c.w), scale);
-  } else {
-    v.x = __fmul_rn(static_cast<float>(__ldg(row + d0)), scale);
-    if (d0 + 1 < D) v.y = __fmul_rn(static_cast<float>(__ldg(row + d0 + 1)),
-                                    scale);
-    if (d0 + 2 < D) v.z = __fmul_rn(static_cast<float>(__ldg(row + d0 + 2)),
-                                    scale);
-    if (d0 + 3 < D) v.w = __fmul_rn(static_cast<float>(__ldg(row + d0 + 3)),
-                                    scale);
-  }
-  return v;
-}
-
-// A scoring row's 4 d: float32 rows as they are, int8 rows dequantized
-template <bool VEC>
-__device__ __forceinline__ float4 load_row4(const float* row, int d0, int D,
-                                            bool ok, float) {
-  return load4<VEC, true>(row, d0, D, ok);
-}
-
-template <bool VEC>
-__device__ __forceinline__ float4 load_row4(const int8_t* row, int d0, int D,
-                                            bool ok, float scale) {
-  return load4_i8<VEC>(row, d0, D, ok, scale);
 }
 
 // One step of the canonical order: a lane's products at d .. d + 3 (those
@@ -358,13 +335,12 @@ __device__ __forceinline__ void fold(float (&p)[32], int lane) {
   }
 }
 
-template <int MODE, int EPI, bool VEC, typename T>
+template <int MODE, int EPI, bool VEC>
 __global__ void __launch_bounds__(32 * kScoreWarps, kScoreMinBlocks)
-walk_score_kernel(const float* __restrict__ q, const T* __restrict__ x,
+walk_score_kernel(const float* __restrict__ q, const float* __restrict__ x,
                   const int64_t* __restrict__ idx,
                   const float* __restrict__ xn, float* __restrict__ out,
-                  int C, int D, int groups_per_cta, float max_dist,
-                  float scale) {
+                  int C, int D, int groups_per_cta, float max_dist) {
   extern __shared__ float4 q_smem[];    // the query, zero padded per chunk
   // a warp's live slots of its current group, in lane order
   __shared__ int live_slot[kScoreWarps][32];
@@ -426,8 +402,8 @@ walk_score_kernel(const float* __restrict__ q, const T* __restrict__ x,
         for (int t = 0; t < 8; ++t) {
           const int rs = __shfl_sync(kFull, rk, s0 + t);
           const bool ok = s0 + t < n;
-          v[t] = load_row4<VEC>(
-              x + static_cast<int64_t>(ok ? rs : 0) * D, d, D, ok, scale);
+          v[t] = load4<VEC, true>(
+              x + static_cast<int64_t>(ok ? rs : 0) * D, d, D, ok);
         }
         if (in) {
 #pragma unroll
@@ -448,6 +424,162 @@ walk_score_kernel(const float* __restrict__ q, const T* __restrict__ x,
     if (lane < n) {
       out[base + g * 32 + src] = epilogue<EPI>(part[0], qn, xk);
     }
+    if (c < C && r < 0) out[base + c] = max_dist;
+    __syncwarp();                     // live_slot is rewritten next group
+  }
+}
+
+// ---- kernel 3: in-loop scoring over int8 rows ----------------------------
+
+constexpr int kI8Rows = 8;        // rows an 8-lane group scores a pass
+// CTAs an SM (at most 80 registers); a macro that
+// tools/cuda_kernel_sweep.py sets (-D) to time other values on the card
+#ifndef SPTAG_WALK_I8_MIN_BLOCKS
+#define SPTAG_WALK_I8_MIN_BLOCKS 3
+#endif
+constexpr int kI8MinBlocks = SPTAG_WALK_I8_MIN_BLOCKS;
+
+// Byte k of `flipped` (an int8 word with every sign bit flipped) as the
+// float of the int8 value, exactly: the permute builds 2^23 + (x + 128).
+__device__ __forceinline__ float i8_to_f32(unsigned flipped, int k) {
+  return __int_as_float(static_cast<int>(
+             __byte_perm(flipped, 0x4B000000u, 0x7440u | k))) -
+         8388736.0f;                                  // 2^23 + 128
+}
+
+// Joins the 8 lanes of a group over 2S of its rows (4 partials each) into
+// S: lane p keeps the rows whose bit log2(S) equals its own and adds its
+// partner's (lane p ^ S) partials of them, the logical lanes' pairs.
+template <int S>
+__device__ __forceinline__ void fold_rows(float (&p)[kI8Rows][4], int lane) {
+  const bool hi = (lane & S) != 0;
+#pragma unroll
+  for (int t = 0; t < S; ++t) {
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const float send = hi ? p[t][m] : p[t + S][m];
+      const float keep = hi ? p[t + S][m] : p[t][m];
+      p[t][m] = keep + __shfl_xor_sync(kFull, send, S);
+    }
+  }
+}
+
+template <int MODE, int EPI, int LOAD>
+__global__ void __launch_bounds__(32 * kScoreWarps, kI8MinBlocks)
+walk_score_i8_kernel(const float* __restrict__ q,
+                     const int8_t* __restrict__ x,
+                     const int64_t* __restrict__ idx,
+                     const float* __restrict__ xn, float* __restrict__ out,
+                     int C, int D, int groups_per_cta, float max_dist,
+                     float scale) {
+  extern __shared__ float4 q_smem[];    // the query, zero padded per chunk
+  __shared__ int live_slot[kScoreWarps][32];
+  float* qs = reinterpret_cast<float*>(q_smem);
+  const int row = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int grp = lane >> 3;            // the lane's group of 8
+  const int p = lane & 7;               // its place in the group
+  const int dpad = (D + kChunk - 1) / kChunk * kChunk;
+  const float* qr = q + static_cast<int64_t>(row) * D;
+  for (int d = threadIdx.x; d < dpad; d += blockDim.x) {
+    qs[d] = d < D ? qr[d] : 0.0f;
+  }
+  __syncthreads();
+  // the canonical order with guarded loads: kernel 2's bits for any D
+  const float qn = EPI == kEpiL2 ? warp_sqnorm<false, false>(qs, D, lane)
+                                 : 0.0f;
+  const int64_t base = static_cast<int64_t>(row) * C;
+
+  auto row_of = [&](int g) -> int {
+    const int c = g * 32 + lane;
+    if (c >= C) return -1;
+    if (MODE == kGather) {
+      const int64_t id = idx[base + c];
+      return id < 0 ? -1 : static_cast<int>(id);
+    }
+    return (idx == nullptr || idx[base + c] >= 0)
+               ? static_cast<int>(base + c) : -1;
+  };
+
+  const int groups = (C + 31) / 32;
+  const int g_begin = static_cast<int>(blockIdx.y) * groups_per_cta;
+  const int g_end = min(groups, g_begin + groups_per_cta);
+  int r_next = g_begin + warp < g_end ? row_of(g_begin + warp) : -1;
+  for (int g = g_begin + warp; g < g_end; g += kScoreWarps) {
+    const int c = g * 32 + lane;
+    const int r = r_next;
+    if (g + kScoreWarps < g_end) r_next = row_of(g + kScoreWarps);
+    const float xv = (EPI == kEpiL2 && r >= 0) ? __ldg(xn + r) : 0.0f;
+    const unsigned live = __ballot_sync(kFull, r >= 0);
+    const int n = __popc(live);
+    if (r >= 0) live_slot[warp][__popc(live & ((1u << lane) - 1u))] = lane;
+    __syncwarp();
+    const int src = lane < n ? live_slot[warp][lane] : lane;
+    const int rk = __shfl_sync(kFull, r, src);        // position lane's row
+    // this group's rows: live positions 4 t + grp
+    int rows[kI8Rows];
+#pragma unroll
+    for (int t = 0; t < kI8Rows; ++t) {
+      rows[t] = __shfl_sync(kFull, rk, 4 * t + grp);
+    }
+    float part[kI8Rows][4];
+#pragma unroll
+    for (int t = 0; t < kI8Rows; ++t) {
+#pragma unroll
+      for (int m = 0; m < 4; ++m) part[t][m] = 0.0f;
+    }
+    for (int d0 = 0; d0 < D; d0 += kChunk) {
+      const int d = d0 + 16 * p;
+      const bool in = d < D;
+      // elements of this lane's 16 below D (LOAD 16: all 16 when in)
+      const int lim = LOAD == 16 ? 16 : D - d;
+      int4 v[kI8Rows];
+#pragma unroll
+      for (int t = 0; t < kI8Rows; ++t) {
+        const bool ok = 4 * t + grp < n;
+        v[t] = sptag_int8_rows::load16<sptag_int8_rows::kPlain, LOAD>(
+            x + static_cast<int64_t>(ok ? rows[t] : 0) * D, d, D, ok, 0);
+      }
+      if (in) {
+        float qv[16];
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const float4 f = *reinterpret_cast<const float4*>(qs + d + 4 * m);
+          qv[4 * m + 0] = f.x; qv[4 * m + 1] = f.y;
+          qv[4 * m + 2] = f.z; qv[4 * m + 3] = f.w;
+        }
+#pragma unroll
+        for (int t = 0; t < kI8Rows; ++t) {
+          if (4 * t >= n) break;                      // whole warps
+          const unsigned w[4] = {
+              static_cast<unsigned>(v[t].x) ^ 0x80808080u,
+              static_cast<unsigned>(v[t].y) ^ 0x80808080u,
+              static_cast<unsigned>(v[t].z) ^ 0x80808080u,
+              static_cast<unsigned>(v[t].w) ^ 0x80808080u};
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              if (LOAD == 16 || 4 * m + j < lim) {
+                const float xd = __fmul_rn(i8_to_f32(w[m], j), scale);
+                part[t][m] = fmaf(qv[4 * m + j], xd, part[t][m]);
+              }
+            }
+          }
+        }
+      }
+    }
+    // logical stages 16, 8, 4 across the group, then 2 and 1 in the thread
+    fold_rows<4>(part, lane);
+    fold_rows<2>(part, lane);
+    fold_rows<1>(part, lane);
+    const float dot = (part[0][0] + part[0][2]) + (part[0][1] + part[0][3]);
+    // lane p of group grp holds live position 4 p + grp
+    const int k = 4 * p + grp;
+    const int ks = k < n ? live_slot[warp][k] : lane;
+    const float xk = __shfl_sync(kFull, xv, ks);
+    if (k < n) out[base + g * 32 + ks] = epilogue<EPI>(dot, qn, xk);
     if (c < C && r < 0) out[base + c] = max_dist;
     __syncwarp();                     // live_slot is rewritten next group
   }
@@ -509,47 +641,24 @@ extern "C" int sptag_walk_seed(const void* q, const void* x, const void* xn,
 
 namespace {
 
-// Kernel 2's launch, float32 or int8 rows (`scale` dequantizes int8 rows).
-template <typename T>
-int launch_score(const void* q, const void* x, const void* idx,
-                 const void* xn, void* out, int Q, int C, int D, int mode,
-                 int epi, float scale, float max_dist, void* stream) {
-  if (Q <= 0 || C <= 0) return 0;
+// The scoring kernels' grid: one row of CTAs a query, its 32-slot groups
+// split over CTAs when Q is small.
+struct ScoreGrid {
+  dim3 grid;
+  int per_cta;
+  size_t smem;
+};
+
+int score_grid(int Q, int C, int D, ScoreGrid* g) {
   if (D <= 0) return -1;
   const int groups = (C + 31) / 32;
   const int splits = max(1, min((groups + kScoreWarps - 1) / kScoreWarps,
                                 (kScoreCtas + Q - 1) / Q));
-  const int per_cta = (groups + splits - 1) / splits;
-  const dim3 grid(Q, (groups + per_cta - 1) / per_cta);
-  const size_t smem = static_cast<size_t>((D + kChunk - 1) / kChunk) *
-                      kChunk * sizeof(float);
-  if (smem > 48 * 1024) return -1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* qf = static_cast<const float*>(q);
-  const T* xt = static_cast<const T*>(x);
-  const int64_t* ix = static_cast<const int64_t*>(idx);
-  const float* nf = static_cast<const float*>(xn);
-  float* o = static_cast<float*>(out);
-  // float rows: 16-byte loads; int8 rows: 4-byte loads
-  const bool vec = D % 4 == 0 &&
-                   (reinterpret_cast<uintptr_t>(x) & (4 * sizeof(T) - 1)) == 0;
-  const dim3 block(32 * kScoreWarps);
-#define SPTAG_SCORE(M)                                                      \
-  SPTAG_EPI_SWITCH(epi,                                                     \
-    if (vec) {                                                              \
-      walk_score_kernel<M, E, true, T><<<grid, block, smem, s>>>(           \
-          qf, xt, ix, nf, o, C, D, per_cta, max_dist, scale);               \
-    } else {                                                                \
-      walk_score_kernel<M, E, false, T><<<grid, block, smem, s>>>(          \
-          qf, xt, ix, nf, o, C, D, per_cta, max_dist, scale);               \
-    })
-  switch (mode) {
-    case kGather: SPTAG_SCORE(kGather) break;
-    case kRows: SPTAG_SCORE(kRows) break;
-    default: return -2;
-  }
-#undef SPTAG_SCORE
-  return static_cast<int>(cudaGetLastError());
+  g->per_cta = (groups + splits - 1) / splits;
+  g->grid = dim3(Q, (groups + g->per_cta - 1) / g->per_cta);
+  g->smem = static_cast<size_t>((D + kChunk - 1) / kChunk) * kChunk *
+            sizeof(float);
+  return g->smem > 48 * 1024 ? -1 : 0;
 }
 
 }  // namespace
@@ -560,19 +669,71 @@ extern "C" int sptag_walk_score(const void* q, const void* x, const void* idx,
                                 const void* xn, void* out, int Q, int C,
                                 int D, int mode, int epi, float max_dist,
                                 void* stream) {
-  return launch_score<float>(q, x, idx, xn, out, Q, C, D, mode, epi, 1.0f,
-                             max_dist, stream);
+  if (Q <= 0 || C <= 0) return 0;
+  ScoreGrid g;
+  if (score_grid(Q, C, D, &g) != 0) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* qf = static_cast<const float*>(q);
+  const float* xf = static_cast<const float*>(x);
+  const int64_t* ix = static_cast<const int64_t*>(idx);
+  const float* nf = static_cast<const float*>(xn);
+  float* o = static_cast<float*>(out);
+  const bool vec = D % 4 == 0 && aligned16(x);
+  const dim3 block(32 * kScoreWarps);
+#define SPTAG_SCORE(M)                                                      \
+  SPTAG_EPI_SWITCH(epi,                                                     \
+    if (vec) {                                                              \
+      walk_score_kernel<M, E, true><<<g.grid, block, g.smem, s>>>(          \
+          qf, xf, ix, nf, o, C, D, g.per_cta, max_dist);                    \
+    } else {                                                                \
+      walk_score_kernel<M, E, false><<<g.grid, block, g.smem, s>>>(         \
+          qf, xf, ix, nf, o, C, D, g.per_cta, max_dist);                    \
+    })
+  switch (mode) {
+    case kGather: SPTAG_SCORE(kGather) break;
+    case kRows: SPTAG_SCORE(kRows) break;
+    default: return -2;
+  }
+#undef SPTAG_SCORE
+  return static_cast<int>(cudaGetLastError());
 }
 
 // walk_score_i8: the same over int8 rows x, each element dequantized as
-// float(x) * scale.
+// float(x) * scale (kernel 3).
 extern "C" int sptag_walk_score_i8(const void* q, const void* x,
                                    const void* idx, const void* xn, void* out,
                                    int Q, int C, int D, int mode, int epi,
                                    float scale, float max_dist,
                                    void* stream) {
-  return launch_score<int8_t>(q, x, idx, xn, out, Q, C, D, mode, epi, scale,
-                              max_dist, stream);
+  if (Q <= 0 || C <= 0) return 0;
+  ScoreGrid g;
+  if (score_grid(Q, C, D, &g) != 0) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* qf = static_cast<const float*>(q);
+  const int8_t* x8 = static_cast<const int8_t*>(x);
+  const int64_t* ix = static_cast<const int64_t*>(idx);
+  const float* nf = static_cast<const float*>(xn);
+  float* o = static_cast<float*>(out);
+  const int load = sptag_int8_rows::load_width(x, D);
+  const dim3 block(32 * kScoreWarps);
+#define SPTAG_SCORE_I8(M, L)                                                \
+  SPTAG_EPI_SWITCH(epi,                                                     \
+    walk_score_i8_kernel<M, E, L><<<g.grid, block, g.smem, s>>>(            \
+        qf, x8, ix, nf, o, C, D, g.per_cta, max_dist, scale))
+#define SPTAG_SCORE_I8_LOAD(M)                                              \
+  switch (load) {                                                           \
+    case 16: SPTAG_SCORE_I8(M, 16) break;                                   \
+    case 4: SPTAG_SCORE_I8(M, 4) break;                                     \
+    default: SPTAG_SCORE_I8(M, 1) break;                                    \
+  }
+  switch (mode) {
+    case kGather: SPTAG_SCORE_I8_LOAD(kGather) break;
+    case kRows: SPTAG_SCORE_I8_LOAD(kRows) break;
+    default: return -2;
+  }
+#undef SPTAG_SCORE_I8_LOAD
+#undef SPTAG_SCORE_I8
+  return static_cast<int>(cudaGetLastError());
 }
 
 // out (N,) = each row's squared norm by warp_sqnorm.

@@ -122,7 +122,7 @@ def int8_gather_dots(qq: torch.Tensor, qs: torch.Tensor, qn: torch.Tensor,
     if (x.shape[1] != D or ids.shape[0] != Q or qs.numel() != Q
             or qn.numel() != Q or mode not in (GATHER, ROWS)
             or (mode == ROWS and x.shape[0] != Q * C)
-            or Q > 65535 or Q * C >= 2 ** 31 or D > 48 * 1024):
+            or Q > 65535 or Q * C >= 2 ** 31):
         raise ValueError("int8_gather_dots: shapes")
     out = torch.empty((Q, C), dtype=torch.float32, device=dev)
     if Q * C == 0:

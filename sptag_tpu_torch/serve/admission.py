@@ -23,7 +23,9 @@ Signals: the controller reads whatever its owner wires in — the search
 server feeds the fill of its own request queue (the coalescer's queue plus
 the card batches waiting on its ``sptag-serve-batch`` executor), the
 continuous-batching scheduler's slot-wait p99 and pool occupancy; the
-aggregator feeds its in-flight fraction and request p99.  Escalation
+aggregator feeds its in-flight fraction and request p99.  Both p99s cover
+the last ``SIGNAL_WINDOW_S`` seconds (the JAX package's cover the
+process's lifetime and latch: see ``SIGNAL_WINDOW_S``).  Escalation
 is immediate (one bad poll can mean thousands of queued requests);
 RECOVERY steps down one state at a
 time and only after the signals have stayed calm for
@@ -63,6 +65,13 @@ SHED = "shed"
 
 #: states (ordered by severity; the gauge publishes the index)
 STATES = ("normal", "degrade", "shed")
+
+#: seconds of latency the tiers' p99 signals cover (metrics.
+#: WindowedPercentile).  The JAX package reads lifetime p99s, and a shed
+#: request records no latency, so there one slow spell past the shed
+#: threshold sheds every later request until the process restarts; over a
+#: window the tier admits again once the spell has left it.
+SIGNAL_WINDOW_S = 10.0
 
 
 @dataclasses.dataclass
@@ -129,6 +138,10 @@ class AdmissionController:
     @property
     def state(self) -> str:
         return STATES[self._state]
+
+    @property
+    def clock(self) -> Callable[[], float]:
+        return self._clock
 
     def bind_signals(self, signals: Callable[[], Dict]) -> None:
         """Attach a signal source if none was given at construction (a

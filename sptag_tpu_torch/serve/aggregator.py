@@ -645,6 +645,11 @@ class AggregatorService:
                 signals=self._admission_signals)
         else:
             self._admission = None
+        # the request p99 admission reads, over its window
+        self._request_p99 = metrics.WindowedPercentile(
+            "aggregator.request", admission_mod.SIGNAL_WINDOW_S,
+            self._admission.clock if self._admission is not None
+            else time.monotonic)
         self._inflight = 0
         self._next_client = 1
         # hedge budget accounting: hedges issued vs fan-out requests seen
@@ -667,13 +672,12 @@ class AggregatorService:
     def _admission_signals(self) -> dict:
         """Aggregator pressure signals: in-flight fraction of the
         admission cap, plus this tier's own request p99 (there is no
-        scheduler here — end-to-end latency IS the congestion signal)."""
-        h = metrics.histogram_or_none("aggregator.request")
+        scheduler here — end-to-end latency IS the congestion signal),
+        over the last ``admission.SIGNAL_WINDOW_S`` seconds."""
         return {
             "queue_frac": self._inflight / max(self.context.max_inflight,
                                                1),
-            "slot_wait_p99_ms": (h.percentile(99) * 1000.0
-                                 if h is not None else 0.0),
+            "slot_wait_p99_ms": self._request_p99.percentile(99) * 1000.0,
             "occupancy": 0.0,
         }
 

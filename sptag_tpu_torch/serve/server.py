@@ -170,6 +170,11 @@ class SearchServer:
                 signals=self._admission_signals)
         else:
             self.admission = None
+        # the slot-wait p99 admission reads, over its window
+        self._slot_wait_p99 = metrics.WindowedPercentile(
+            "scheduler.slot_wait", admission_mod.SIGNAL_WINDOW_S,
+            self.admission.clock if self.admission is not None
+            else time.monotonic)
         # host sampling profiler (utils/hostprof.py): process-wide like
         # the flight recorder; ctor overrides are the test surface,
         # [Service] HostProfHz/... the deployment one
@@ -230,12 +235,10 @@ class SearchServer:
         inflight = self._inflight
         running = (self._inflight_queries
                    if inflight is not None and not inflight.done() else 0)
-        h = metrics.histogram_or_none("scheduler.slot_wait")
         return {
             "queue_frac": ((self._queue.qsize() + running)
                            / max(self._queue.maxsize, 1)),
-            "slot_wait_p99_ms": (h.percentile(99) * 1000.0
-                                 if h is not None else 0.0),
+            "slot_wait_p99_ms": self._slot_wait_p99.percentile(99) * 1000.0,
             "occupancy": metrics.gauge_value("scheduler.occupancy"),
             "mesh_shards": metrics.gauge_value("scheduler.mesh_shards"),
         }

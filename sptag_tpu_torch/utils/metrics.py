@@ -32,10 +32,12 @@ tests/test_metrics.py hammering from a thread pool).
 from __future__ import annotations
 
 import bisect
+import collections
 import contextvars
 import logging
 import re
 import threading
+import time
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 log = logging.getLogger(__name__)
@@ -139,20 +141,13 @@ class Histogram:
 
     def percentile(self, p: float) -> float:
         """Estimated p-th percentile (0 < p <= 100); 0.0 when empty."""
+        counts, mx = self.counts()
+        return _percentile(counts, p, mx)
+
+    def counts(self) -> Tuple[List[int], float]:
+        """(per-bucket counts, overflow last; the observed max)."""
         with self._lock:
-            total = self._count
-            counts = list(self._counts)
-            mx = self._max
-        if total == 0:
-            return 0.0
-        rank = max(1, int(-(-p * total // 100)))        # ceil(p% of total)
-        seen = 0
-        for i, c in enumerate(counts):
-            seen += c
-            if seen >= rank:
-                return mx if i >= len(BUCKET_BOUNDS) \
-                    else min(BUCKET_BOUNDS[i], mx)
-        return mx
+            return list(self._counts), self._max
 
     def bucket_counts(self) -> List[Tuple[float, int]]:
         """(upper_bound, CUMULATIVE count) for every non-empty bucket plus
@@ -170,6 +165,67 @@ class Histogram:
         if not out or out[-1][0] != float("inf"):
             out.append((float("inf"), cum))
         return out
+
+
+def _percentile(counts: List[int], p: float, mx: float) -> float:
+    """The crossing bucket's upper bound (the observed max past the last
+    bound) of per-bucket `counts`; 0.0 when they are empty."""
+    total = sum(counts)
+    if total == 0:
+        return 0.0
+    rank = max(1, int(-(-p * total // 100)))            # ceil(p% of total)
+    seen = 0
+    for i, c in enumerate(counts):
+        seen += c
+        if seen >= rank:
+            return mx if i >= len(BUCKET_BOUNDS) \
+                else min(BUCKET_BOUNDS[i], mx)
+    return mx
+
+
+class WindowedPercentile:
+    """Percentiles of one registry histogram over a trailing window of
+    about `window_s` seconds: the difference between its bucket counts now
+    and at a mark at least `window_s` old (at most `window_s` / MARKS
+    older), counting only what was recorded after this object was made.
+    The admission signals read it: a shed request records no latency, so a
+    lifetime percentile past its threshold would shed every request until
+    the process restarts, while this one forgets a slow spell within the
+    window.  Marks are taken when it is read, at most MARKS a window, so
+    its memory is bounded; a histogram made or reset after the last mark
+    counts whole."""
+
+    MARKS = 8
+
+    def __init__(self, name: str, window_s: float,
+                 clock: Callable[[], float] = time.monotonic):
+        self.name = name
+        self.window_s = float(window_s)
+        self.clock = clock
+        self._lock = threading.Lock()
+        # (t, histogram instance, per-bucket counts)
+        self._marks: collections.deque = collections.deque()
+        h = histogram_or_none(name)
+        if h is not None:
+            self._marks.append((clock(), h, h.counts()[0]))
+
+    def percentile(self, p: float) -> float:
+        h = histogram_or_none(self.name)
+        if h is None:
+            return 0.0
+        now = self.clock()
+        counts, mx = h.counts()
+        with self._lock:
+            marks = self._marks
+            if not marks or marks[-1][1] is not h:
+                marks.clear()
+                marks.append((now, h, [0] * len(counts)))
+            elif now - marks[-1][0] >= self.window_s / self.MARKS:
+                marks.append((now, h, counts))
+            while len(marks) > 1 and marks[1][0] <= now - self.window_s:
+                marks.popleft()
+            base = marks[0][2]
+        return _percentile([c - b for c, b in zip(counts, base)], p, mx)
 
 
 # ---------------------------------------------------------------------------

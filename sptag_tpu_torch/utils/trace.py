@@ -27,6 +27,23 @@ Two cooperating layers:
   client's initialisation only in the thread that registered the client
   (the one that imported torch).
 
+CUPTI between sessions.  ``torch.profiler`` (Kineto) keeps CUPTI
+initialised from one profiling session to the next unless
+``TEARDOWN_CUPTI=1``.  Kept alive, it loses the card: on the H100 (torch
+2.11, CUDA 12.8), in a process whose card kept working between sessions,
+a session around three kernel launches recorded all three at first and
+none about a minute later, whatever thread had profiled before
+(``tests/test_torch_cuda.py``
+``test_profiler_sees_the_card_a_minute_after_its_first_session``).  Torn
+down at each session's end, CUPTI initialises afresh at the next
+(lazily, which torch allows beside CUDA graphs from CUDA 12.6 on), and
+every session saw all three.  So the port's own device traces
+(`prepare_device_trace`, `start_trace`) set ``TEARDOWN_CUPTI=1``, unless
+the environment already names a value, before their profile starts; from
+then on every ``torch.profiler`` session of the process tears CUPTI down.
+A process that never asks the port for a device trace keeps torch's
+default.
+
 Used by the server batch path and the graph build.
 """
 
@@ -59,6 +76,13 @@ _prepared = False
 
 class TraceBusy(RuntimeError):
     """Another ``torch.profiler`` trace is running in this process."""
+
+
+def _teardown_cupti() -> None:
+    """Every later ``torch.profiler`` session of the process ends by
+    tearing CUPTI down (see the module docstring); an operator's own
+    setting wins."""
+    os.environ.setdefault("TEARDOWN_CUPTI", "1")
 
 
 @contextlib.contextmanager
@@ -132,6 +156,7 @@ def start_trace(logdir: str) -> None:
         acts = [torch.profiler.ProfilerActivity.CPU]
         if torch.cuda.is_available():
             acts.append(torch.profiler.ProfilerActivity.CUDA)
+            _teardown_cupti()
         prof = torch.profiler.profile(activities=acts)
         with capture_lock:
             prof.__enter__()
@@ -165,6 +190,7 @@ def prepare_device_trace() -> None:
         return
     import torch.profiler
 
+    _teardown_cupti()
     with _trace_lock, capture_lock:
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,

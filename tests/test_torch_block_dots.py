@@ -304,10 +304,17 @@ def test_block_major_prep_on_the_cpu_is_the_plain_version():
 
 
 def test_library_key_follows_the_source(tmp_path, monkeypatch):
-    """Editing a kernel source must not reuse a stale library."""
+    """Editing a kernel source, or a header of csrc/ it may include, must
+    not reuse a stale library."""
     monkeypatch.setattr(_build, "CSRC_DIR", str(tmp_path))
     (tmp_path / "k.cu").write_text("#define X 1\n")
     first = _build.library_path("k")
     assert _build.library_path("k") == first
     (tmp_path / "k.cu").write_text("#define X 2\n")
-    assert _build.library_path("k") != first
+    second = _build.library_path("k")
+    assert second != first
+    (tmp_path / "h.cuh").write_text("#define Y 1\n")
+    third = _build.library_path("k")
+    assert third != second
+    (tmp_path / "h.cuh").write_text("#define Y 2\n")
+    assert _build.library_path("k") != third

@@ -180,6 +180,26 @@ def test_int8_tier_stages_match_jax(metric):
     assert rows_mode.tobytes() == got.tobytes()
 
 
+@pytest.mark.parametrize("metric", [L2, COS])
+def test_int8_gathered_scores_equal_the_full_scan_at_their_ids(metric):
+    """The gathered int8 tier sums each row's squares itself; with the
+    full scan's norm table (``int8_row_norms``) both give the same bits
+    for every live slot, and MAX_DIST for -1 ids and tombstones."""
+    data, q, i8, scale, inv = _state_inputs()
+    x2 = tc.int8_row_norms(_t(i8), float(scale))
+    full = tc.int8_full_scores(_t(q), _t(i8), x2, float(scale), metric,
+                               1).numpy()
+    rng = np.random.default_rng(2)
+    short = rng.integers(-1, len(data), (len(q), 80)).astype(np.int32)
+    got = tc.int8_gathered_scores(_t(q), _t(i8), _t(short), _t(inv),
+                                  float(scale), metric, 1).numpy()
+    safe = np.maximum(short, 0)
+    dead = (short < 0) | inv[safe]
+    want = np.where(dead, np.float32(tc.MAX_DIST),
+                    np.take_along_axis(full, safe, axis=1))
+    assert got.tobytes() == want.tobytes()
+
+
 @pytest.mark.parametrize("b1,b2", [(256, 64), (128, 128)])
 def test_shortlists_match_jax(b1, b2):
     data, q, i8, scale, inv = _state_inputs()
@@ -282,6 +302,24 @@ def test_flat_host_tier_bit_identical_to_device(tier):
     jd, ji = _flat(jsp, data, CorpusTier=tier, **params).search_batch(q, 10)
     np.testing.assert_array_equal(i1, ji)
     _close(d1, jd, 4 * np.abs(jd) + 100.0)
+
+
+@pytest.mark.parametrize("tier", ["device", "host"])
+def test_flat_cosine_cascade_matches_jax(tier):
+    """A cosine FLAT cascade returns the JAX package's ids on the device and
+    host tiers at the same budgets, distances within float32 tolerance;
+    the host tier returns the device tier's bits."""
+    data, q = _dataset(n=2000, nq=32)
+    params = dict(DistCalcMethod="Cosine", CascadeSearch=1,
+                  TierBudgetSketch=512, TierBudgetInt8=128)
+    d, ids = _flat(tsp, data, CorpusTier=tier, **params).search_batch(q, 10)
+    jd, ji = _flat(jsp, data, CorpusTier=tier, **params).search_batch(q, 10)
+    np.testing.assert_array_equal(ids, ji)
+    _close(d, jd, np.abs(jd) + 2.0)
+    if tier == "host":
+        d0, i0 = _flat(tsp, data, **params).search_batch(q, 10)
+        np.testing.assert_array_equal(i0, ids)
+        assert d0.tobytes() == d.tobytes()
 
 
 def test_flat_host_tiers_keep_fp_off_the_device():
@@ -437,6 +475,47 @@ def test_graph_cascade_matches_jax_on_both_tiers(graph_folders, algo, mode):
             assert out["device"][0].tobytes() == out["host"][0].tobytes()
         # the host tier's oracle streams and stays exact
         np.testing.assert_array_equal(t.exact_search_batch(q, 10)[1], truth)
+    finally:
+        j.close()
+        t.close()
+
+
+@pytest.fixture(scope="module")
+def cosine_folder(tmp_path_factory):
+    """A cosine BKT folder built by the JAX package on the cascade
+    corpus."""
+    data, q = _dataset(n=1200, d=32, nq=16, seed=9)
+    idx = jsp.create_instance("BKT", "Float")
+    for k, v in {"DistCalcMethod": "Cosine", "BKTKmeansK": "8",
+                 "TPTNumber": "2", "RefineIterations": "1",
+                 "FinalRefineSearchMode": "dense"}.items():
+        idx.set_parameter(k, v)
+    idx.build(data)
+    folder = str(tmp_path_factory.mktemp("bkt_cosine"))
+    idx.save_index(folder)
+    idx.close()
+    return folder, q
+
+
+@pytest.mark.parametrize("mode", ["dense", "beam"])
+def test_graph_cosine_cascade_matches_jax_on_both_tiers(cosine_folder, mode):
+    """The cosine BKT cascade (the dense scan over int8 blocks, the walk
+    over int8 rows) returns the JAX package's ids on the device and host
+    tiers at the same budgets, distances within float32 tolerance."""
+    folder, q = cosine_folder
+    j, t = _pair(folder)
+    try:
+        for index in (j, t):
+            index.set_parameter("SearchMode", mode)
+        for tier in ("device", "host"):
+            for index in (j, t):
+                index.set_parameter("CascadeSearch", "1")
+                index.set_parameter("TierBudgetInt8", "128")
+                index.set_parameter("CorpusTier", tier)
+            jd, ji = j.search_batch(q, 10, max_check=512)
+            d, ids = t.search_batch(q, 10, max_check=512)
+            np.testing.assert_array_equal(ids, ji)
+            _close(d, jd, np.abs(jd) + 2.0)
     finally:
         j.close()
         t.close()

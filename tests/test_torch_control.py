@@ -174,6 +174,58 @@ def test_admission_decisions_equal_jax(scenario):
         assert "probe" not in port_rec["clients"]
 
 
+def _slow_spell(ns, tier):
+    """A tier with admission whose p99 signal saw a slow spell past the
+    shed threshold: the admit decisions over the next 30 s, in which no
+    request is admitted (so none records a latency), then after fast
+    traffic."""
+    from sptag_tpu.serve import aggregator as jagg, server as jserver
+    from sptag_tpu_torch.serve import aggregator as tagg, server as tserver
+
+    srv_mod, agg_mod = ((jserver, jagg) if ns is JAX else (tserver, tagg))
+    clock = FakeClock()
+    ctl = ns.admission.AdmissionController(
+        ns.admission.AdmissionConfig(recover_hold_ms=1000.0), clock=clock)
+    if tier == "server":
+        srv_mod.SearchServer(ns.service.ServiceContext(
+            ns.service.ServiceSettings(), **ns.kw), admission=ctl)
+        name = "scheduler.slot_wait"
+    else:
+        agg_mod.AggregatorService(agg_mod.AggregatorContext(),
+                                  admission=ctl)
+        name = "aggregator.request"
+    for _ in range(50):
+        ns.metrics.observe(name, 0.5)      # 500 ms: past the 250 ms shed
+    decisions = [ctl.admit("client")]
+    for _ in range(30):
+        clock.advance(1.0)
+        decisions.append(ctl.admit("client"))
+    for _ in range(50):
+        ns.metrics.observe(name, 0.001)
+    clock.advance(1.0)
+    decisions.append(ctl.admit("client"))
+    return decisions
+
+
+@pytest.mark.parametrize("tier", ["server", "aggregator"])
+def test_admission_recovers_after_a_slow_spell_where_jax_latches(tier):
+    """The port's tiers read their p99 over admission.SIGNAL_WINDOW_S: after
+    a slow spell they admit again once it has left the window (one state a
+    recovery hold), and fast traffic keeps them admitting.  The JAX
+    package's tiers read lifetime p99s and, since a shed request records
+    no latency, shed every request from the spell on (its public API
+    only; no JAX file changes)."""
+    jax_dec, port_dec = _both(lambda ns: _slow_spell(ns, tier))
+    window = int(tadmission.SIGNAL_WINDOW_S)
+    assert jax_dec == ["shed"] * len(jax_dec)
+    assert port_dec[0] == "shed"
+    # the spell leaves the window, then two recovery holds of 1 s
+    assert "admit" in port_dec[:window + 6]
+    first = port_dec.index("admit")
+    assert set(port_dec[first:]) == {"admit"}
+    assert "degrade" in port_dec[:first]
+
+
 # ---- the SLO engine -----------------------------------------------------------
 
 def _flight(ns, kind):

@@ -1263,6 +1263,127 @@ def test_checkpointed_build_on_card_equals_plain_build(cuda, tmp_path,
     np.testing.assert_array_equal(i1, i2)
 
 
+def _profiled_kernel_events(cuda):
+    """CUDA events of a torch.profiler session around one kernel launch
+    (a walk scoring call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sptag_tpu_torch.ops import walk_dots as wd
+
+    gen = torch.Generator().manual_seed(5)
+    q, x, idx = _walk_inputs(gen, 16, 500, 64, 32, cuda)
+    sq = wd.row_sqnorms(x)
+    wd.walk_score(q, x, idx, sq, wd.L2, wd.GATHER, 64)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wd.walk_score(q, x, idx, sq, wd.L2, wd.GATHER, 64)
+        torch.cuda.synchronize()
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.cuda
+def test_profiler_sees_the_card_after_a_trace_from_another_thread(
+        cuda, tmp_path):
+    """A device trace started and stopped in a thread that is not the main
+    one (a metrics listener's scrape thread) leaves the process's next
+    torch.profiler session seeing the card: at least one device event
+    around one kernel launch."""
+    import threading
+
+    from sptag_tpu_torch.utils import trace as ttrace
+
+    def scrape():
+        ttrace.start_trace(str(tmp_path))
+        x = torch.ones(1024, device=cuda) * 2
+        torch.cuda.synchronize()
+        paths.append(ttrace.stop_trace())
+
+    paths = []
+    t = threading.Thread(target=scrape, name="trace-scrape")
+    t.start()
+    t.join()
+    assert paths and paths[0] is not None and not ttrace.tracing()
+    events = _profiled_kernel_events(cuda)
+    assert any("walk_score_kernel" in e.name for e in events), \
+        [e.name for e in events]
+
+
+# One process: a torch.profiler session around three kernel launches every
+# 14 s while the card runs other work, six sessions; prints each session's
+# device events.  "port" first takes one device trace through the port
+# (start_trace / stop_trace from another thread, as a metrics listener's
+# scrape does) into the folder argv[2]; "bare" does not.
+_SESSIONS = """
+import sys, threading, time
+import torch
+from torch.profiler import ProfilerActivity, profile
+if sys.argv[1] == "port":
+    from sptag_tpu_torch.utils import trace
+    def scrape():
+        trace.start_trace(sys.argv[2])
+        torch.ones(1024, device="cuda").mul_(2)
+        torch.cuda.synchronize()
+        trace.stop_trace()
+    t = threading.Thread(target=scrape)
+    t.start()
+    t.join()
+def session():
+    x = torch.randn(1 << 20, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            x = x * 2
+        torch.cuda.synchronize()
+    return sum(e.device_type == torch.autograd.DeviceType.CUDA
+               for e in prof.events())
+seen = []
+for i in range(6):
+    seen.append(session())
+    y = torch.randn(1 << 22, device="cuda")
+    t_end = time.time() + 14
+    while time.time() < t_end:
+        y = y * 1.0000001
+    torch.cuda.synchronize()
+print(*seen, flush=True)
+"""
+
+
+@pytest.mark.cuda
+def test_profiler_sees_the_card_a_minute_after_its_first_session(cuda,
+                                                                 tmp_path):
+    """Kineto left CUPTI initialised between sessions, and with the card
+    busy in between a session recorded fewer kernels the later it came,
+    none about a minute after the process's first (the blind profiler
+    phase 13 of chip_smoke.py met): reproduced here in a process with
+    TEARDOWN_CUPTI=0.  A process that took a device trace through the
+    port (which sets TEARDOWN_CUPTI=1 where the environment names no
+    value) sees every kernel in every later session, and both exit."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    base = {k: v for k, v in os.environ.items() if k != "TEARDOWN_CUPTI"}
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _SESSIONS, kind, str(tmp_path)], cwd=root,
+        env=env, stdout=subprocess.PIPE, text=True)
+        for kind, env in (("bare", dict(base, TEARDOWN_CUPTI="0")),
+                          ("port", base))]
+    try:
+        bare, port = ([int(v) for v in p.communicate(timeout=300)[0].split()]
+                      for p in procs)
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    assert [p.returncode for p in procs] == [0, 0]
+    assert bare[0] == 3 and bare[-1] == 0, bare
+    assert port == [3] * 6, port
+
+
 @pytest.mark.cuda
 def test_device_trace_route_catches_a_kernel_event(cuda, tmp_path):
     """/debug/devicetrace under load writes a torch.profiler trace that
@@ -1356,51 +1477,81 @@ def test_sketch_hamming_matches_plain_version(cuda, W):
         assert bool((got[:, inv] == sketch_dots.INVALID).all())
 
 
+# the int8 kernels' widths: several 128-byte chunks, ragged, 16-byte loads,
+# 4-byte words and bytes
+I8_WIDTHS = [16, 33, 48, 100, 128, 256, 384]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [128, 100, 48])
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "sliced"])
+@pytest.mark.parametrize("D", I8_WIDTHS)
 @pytest.mark.parametrize("metric", [0, 1])
-def test_int8_gather_dots_matches_plain_version(cuda, metric, D):
+def test_int8_gather_dots_matches_plain_version(cuda, metric, D, aligned):
     """Exact: the fused-gather int8 tier equals the plain version bit for
-    bit in GATHER and ROWS mode; -1 ids and tombstones give MAX_DIST."""
+    bit in GATHER mode (with and without a tombstone mask) and in ROWS
+    mode (masked ids and all ids live), at C not a multiple of 32 or of a
+    CTA's slots, on a query whose slots are all dead and on a source whose
+    rows are not 16-byte aligned; -1 ids and tombstones give MAX_DIST."""
     from sptag_tpu_torch.ops import cascade as tc
     from sptag_tpu_torch.ops import int8_dots
 
     gen = torch.Generator().manual_seed(D + metric)
-    R, Q, C = 3000, 37, 700
+    R, scale = 3000, 0.0371
     x = torch.randint(-127, 128, (R, D), generator=gen).to(torch.int8)
-    q = torch.randn((Q, D), generator=gen)
-    ids = torch.randint(-1, R, (Q, C), generator=gen).to(torch.int32)
-    inv = torch.rand(R, generator=gen) < 0.05
-    x, q, ids, inv = x.to(cuda), q.to(cuda), ids.to(cuda), inv.to(cuda)
-    qq, qs = tc.quantize_queries(q)
-    qn = (q * q).sum(1)
-    scale = 0.0371
-    before = int8_dots.launch_counts()["int8_gather_dots"]
-    got = int8_dots.int8_gather_dots(qq, qs, qn, x, ids, inv, scale, metric,
-                                     1)
-    want = int8_dots.int8_gather_dots_reference(qq, qs, qn, x, ids, inv,
-                                                scale, metric, 1)
-    rows = x[ids.clamp_min(0).long()].reshape(-1, D).contiguous()
-    masked = torch.where(inv[ids.clamp_min(0).long()], -1, ids).contiguous()
-    got_rows = int8_dots.int8_gather_dots(qq, qs, qn, rows, masked, None,
-                                          scale, metric, 1, int8_dots.ROWS)
-    torch.cuda.synchronize()
-    assert torch.equal(got, want)
-    assert torch.equal(got_rows, got)
-    assert int8_dots.launch_counts()["int8_gather_dots"] == before + 2
-    dead = (ids < 0) | inv[ids.clamp_min(0).long()]
-    assert bool((got[dead] == int8_dots.MAX_DIST).all())
+    inv = (torch.rand(R, generator=gen) < 0.05).to(cuda)
+    x = x.to(cuda)
+    if not aligned:
+        x = _misaligned(x)
+    for Q, C in ((37, 700), (3, 1025), (1, 31)):
+        q = torch.randn((Q, D), generator=gen).to(cuda)
+        ids = torch.randint(-1, R, (Q, C), generator=gen).to(torch.int32)
+        ids[0] = -1                                   # a query all dead
+        ids = ids.to(cuda)
+        qq, qs = tc.quantize_queries(q)
+        qn = (q * q).sum(1)
+        before = int8_dots.launch_counts()["int8_gather_dots"]
+        want = int8_dots.int8_gather_dots_reference(qq, qs, qn, x, ids, inv,
+                                                    scale, metric, 1)
+        got = int8_dots.int8_gather_dots(qq, qs, qn, x, ids, inv, scale,
+                                         metric, 1)
+        got_open = int8_dots.int8_gather_dots(qq, qs, qn, x, ids, None,
+                                              scale, metric, 1)
+        rows = x[ids.clamp_min(0).long()].reshape(-1, D).contiguous()
+        masked = torch.where(inv[ids.clamp_min(0).long()], -1,
+                             ids).contiguous()
+        got_rows = int8_dots.int8_gather_dots(qq, qs, qn, rows, masked, None,
+                                              scale, metric, 1,
+                                              int8_dots.ROWS)
+        live = ids.clamp_min(0)
+        got_live = int8_dots.int8_gather_dots(
+            qq, qs, qn, x[live.long()].reshape(-1, D).contiguous(), live,
+            None, scale, metric, 1, int8_dots.ROWS)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert torch.equal(got_rows, want)
+        assert torch.equal(got_open, int8_dots.int8_gather_dots_reference(
+            qq, qs, qn, x, ids, None, scale, metric, 1))
+        assert torch.equal(got_live, int8_dots.int8_gather_dots_reference(
+            qq, qs, qn, x, live, None, scale, metric, 1))
+        assert int8_dots.launch_counts()["int8_gather_dots"] == before + 4
+        dead = (ids < 0) | inv[ids.clamp_min(0).long()]
+        assert bool((got[dead] == int8_dots.MAX_DIST).all())
+        assert bool((got[0] == int8_dots.MAX_DIST).all())
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [128, 100, 33])
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "sliced"])
+@pytest.mark.parametrize("D", I8_WIDTHS)
 @pytest.mark.parametrize("metric", ["l2", "cosine"])
-@pytest.mark.parametrize("mode", ["gather", "rows"])
+@pytest.mark.parametrize("mode", ["gather", "rows", "rows_unmasked"])
 def test_walk_score_i8_equals_f32_kernel_on_dequantized_rows(cuda, mode,
-                                                             metric, D):
-    """walk_score_i8 dequantizes in the load and then is kernel 2: its
-    output equals walk_score_f32 over the dequantized rows bit for bit, and
-    the plain version within the walk kernels' float32 bound."""
+                                                             metric, D,
+                                                             aligned):
+    """walk_score_i8 equals walk_score_f32 over the dequantized rows bit for
+    bit, and the plain version within the walk kernels' float32 bound: in
+    GATHER and ROWS mode (with ids that mask, and with no ids), at ragged
+    Q and C, with a query whose slots are all dead, on rows whose pointer
+    is not 16-byte aligned."""
     from sptag_tpu_torch.ops import walk_dots as wd
 
     gen = torch.Generator().manual_seed(D)
@@ -1409,10 +1560,16 @@ def test_walk_score_i8_equals_f32_kernel_on_dequantized_rows(cuda, mode,
     scale = 0.0213
     for Q, C in WALK_SHAPES:
         q, _, idx = _walk_inputs(gen, Q, 500, C, D, cuda)
+        if Q > 1:
+            idx[1] = -1                               # a query all dead
         x8 = torch.randint(-127, 128, (500, D), generator=gen).to(
             torch.int8).to(cuda)
         if m == wd.ROWS:
             x8 = x8[idx.clamp_min(0)].reshape(-1, D).contiguous()
+        if mode == "rows_unmasked":
+            idx = None
+        if not aligned:
+            x8 = _misaligned(x8)
         xf = wd.dequantize(x8, scale).contiguous()
         sq = wd.row_sqnorms(xf)
         before = wd.launch_counts()
@@ -1423,12 +1580,71 @@ def test_walk_score_i8_equals_f32_kernel_on_dequantized_rows(cuda, mode,
         want = wd.walk_score_i8_reference(q, x8, idx, sq, epi, m, C, scale)
         torch.cuda.synchronize()
         assert torch.equal(got, same)
-        rows = xf[idx.clamp_min(0)] if m == wd.GATHER else xf.view(Q, C, D)
+        safe = idx.clamp_min(0) if idx is not None else None
+        rows = xf[safe] if m == wd.GATHER else xf.view(Q, C, D)
         absdot = torch.einsum("qd,qcd->qc", q.abs(), rows.abs())
-        xn = sq[idx.clamp_min(0)] if m == wd.GATHER else sq.view(Q, C)
+        xn = sq[safe] if m == wd.GATHER else sq.view(Q, C)
         tol = 1e-5 * ((q * q).sum(1)[:, None] + xn + 2 * absdot)
         err = (got.double() - want.double()).abs()
         assert bool((err <= tol.double()).all()), float(err.max())
+        if idx is not None and Q > 1:
+            assert bool((got[1] == wd.MAX_DIST).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["walk_i8_min_blocks_2",
+                                     "gather_passes_1",
+                                     "gather_no_evict_last"])
+def test_kernel_sweep_variant_builds_and_keeps_the_bits(cuda, tmp_path,
+                                                        monkeypatch,
+                                                        variant):
+    """tools/cuda_kernel_sweep.py builds a kernel source with one of its
+    tuning macros set (-D), reports its registers, and the variant's
+    library gives the package library's bits."""
+    import importlib.util
+    import os
+
+    from sptag_tpu_torch.ops import cascade as tc
+    from sptag_tpu_torch.ops import int8_dots
+    from sptag_tpu_torch.ops import walk_dots as wd
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "cuda_kernel_sweep", os.path.join(root, "tools",
+                                          "cuda_kernel_sweep.py"))
+    sweep = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sweep)
+    lib, regs = sweep.build(variant, str(tmp_path))
+    assert regs
+    gen = torch.Generator().manual_seed(31)
+    N, D, scale = 2000, 128, 0.0213
+    x8 = torch.randint(-127, 128, (N, D), generator=gen).to(torch.int8)
+    x8 = x8.to(cuda)
+    if variant.startswith("walk"):
+        q, _, idx = _walk_inputs(gen, 9, N, 700, D, cuda)
+        sq = wd.row_sqnorms(wd.dequantize(x8, scale).contiguous())
+
+        def call():
+            return wd.walk_score(q, x8, idx, sq, wd.L2, wd.GATHER, 700,
+                                 scale)
+        module = wd
+    else:
+        q = torch.randn((9, D), generator=gen).to(cuda)
+        qq, qs = tc.quantize_queries(q)
+        qn = (q * q).sum(1)
+        ids = torch.randint(-1, N, (9, 1500), generator=gen)
+        ids = ids.to(torch.int32).to(cuda)
+        inv = (torch.rand(N, generator=gen) < 0.05).to(cuda)
+
+        def call():
+            return int8_dots.int8_gather_dots(qq, qs, qn, x8, ids, inv,
+                                              scale, 0, 1)
+        module = int8_dots
+    want = call()
+    monkeypatch.setattr(module, "library", lambda: lib)
+    got = call()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
