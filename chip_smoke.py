@@ -578,6 +578,31 @@ def device_ms(fn, calls: int = BACK_TO_BACK):
     return sum(rows.values()) or None, rows
 
 
+def graph_ms(fn, calls: int = 20, reps: int = 10) -> float:
+    """The card's elapsed time per call with no host in the way: `calls`
+    calls captured in one CUDA graph, median over `reps` replays between
+    CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b) / calls)
+    del graph
+    return statistics.median(ts)
+
+
 def host_ms(fn, reps: int = 30, calls: int = BACK_TO_BACK) -> float:
     """Median over `reps` runs of the host's wall time per call of `calls`
     calls queued without waiting for the card."""
@@ -3724,10 +3749,29 @@ def block_dot_row(block_dots, kind, t, path, counts, blocks, q, ids) -> dict:
     library_ms = median_ms(lambda: torch.einsum(eq, a, b))
     timing["library_ms_back_to_back"] = median_ms(
         lambda: torch.einsum(eq, a, b), calls=BACK_TO_BACK)
+    # the card's own time of the einsum, beside the kernel's device_ms
+    timing["library_device_ms"], timing["library_device_ms_by_kernel"] = \
+        device_ms(lambda: torch.einsum(eq, a, b))
     lib_err = float((torch.einsum(eq, a, b).double()
                      - want.double()).abs().max().item())
     del lib, a, b
+    # the card's elapsed time per call with no host in the way: calls
+    # replayed from one CUDA graph (the prep and the launch gaps included)
+    timing["graph_ms"] = graph_ms(lambda: fn(blocks, q, ids))
     if t == "f32i8":
+        # the float32 kernel at the same arguments on the widened blocks:
+        # bit for bit the same dots, and the time of the float32 staging
+        wide = blocks.float()
+        same = bool(torch.equal(got, fn(wide, q, ids)))
+        timing["bit_equal_to_f32_kernel_on_widened_blocks"] = same
+        timing["f32_control_ms"] = median_ms(lambda: fn(wide, q, ids))
+        timing["f32_control_device_ms"], \
+            timing["f32_control_device_ms_by_kernel"] = device_ms(
+                lambda: fn(wide, q, ids))
+        timing["f32_control_graph_ms"] = graph_ms(lambda: fn(wide, q, ids))
+        del wide
+        check(same, f"{kind} f32i8 ({path}): not the float32 kernel's bits "
+                    f"on the widened blocks")
         # the JAX package's XLA branch of the dense scan (float queries
         # against int8 blocks take no Pallas kernel there)
         replaces = ("sptag_tpu/algo/dense.py:321"
@@ -4337,6 +4381,38 @@ def main() -> None:
                   batch_stats(ctimes, 1024)["batch_ms_p50"],
                   iterations=lambda: cg._get_engine().last_iterations)
         cg.close()
+    # the dense cascade (phase 14b's configuration) on phase 3's index, on
+    # the device tier: per query at 1,024 queries, and grouped G = 32 at
+    # 8,192 (the phase-3 queries twice over, 14b's grouped call: a group
+    # of 32 needs about 9 queries a block of 894, so a batch of 1,024
+    # demotes to per-query)
+    group_was = idx.get_parameter("DenseQueryGroup")
+    cascade_knobs = (("CascadeSearch", "1"),
+                     ("TierBudgetInt8", str(CASCADE_DENSE_B2)),
+                     ("CorpusTier", "device"), ("DenseQueryGroup", "0"))
+    for name, value in cascade_knobs:
+        idx.set_parameter(name, value)
+    idx.search_batch(queries[:1024], K)            # builds the layout
+    _, _, ctimes = timed_search(idx, queries)
+    breakdown("dense cascade device, per query, 1024 queries",
+              lambda: idx.search_batch(queries[:1024], K),
+              batch_stats(ctimes, 1024)["batch_ms_p50"])
+    q2 = np.concatenate([queries, queries])
+    idx.set_parameter("DenseQueryGroup", "32")
+    idx.set_parameter("DenseUnionFactor", "4")
+    idx.search_batch(q2, K)
+    ctimes = [t for _ in range(3)
+              for t in timed_search(idx, q2, batch=len(q2))[2]]
+    check(idx.last_effective_group == 32,
+          f"6: the grouped dense cascade ran G = "
+          f"{idx.last_effective_group}, not 32")
+    breakdown("dense cascade device, grouped G=32, 8192 queries",
+              lambda: idx.search_batch(q2, K),
+              batch_stats(ctimes, len(q2))["batch_ms_p50"])
+    for name, value in (("CascadeSearch", "0"), ("TierBudgetInt8", "0"),
+                        ("DenseUnionFactor", "2"),
+                        ("DenseQueryGroup", group_was)):
+        idx.set_parameter(name, value)
 
     # ---- phase 11: the walk's options and the slot scheduler -------------
     scheduler_phase(pt, gidx, queries, truth_f32, beam,

@@ -9,10 +9,10 @@
 //
 // Layouts (all row-major, contiguous):
 //   blocks  (C, P, D)   float32 or int8
-//   queries (Q, D)      same type as blocks
+//   queries (Q, D)      same type as blocks, or float32 against int8
 //   topc    (Q, nprobe) int32 block ids        -> out (Q, nprobe, P)
 //   uni     (NG, U)     int32 block ids        -> out (NG * U, G, P), Q = NG*G
-//   out     float32 for float32 blocks, exact int32 for int8 blocks.
+//   out     float32 for float32 queries, exact int32 for int8 queries.
 // A block id outside [0, C) scores as an all-zero block (no memory access).
 //
 // Both functions, both types, run block-major: entry e is output row e; it
@@ -21,7 +21,8 @@
 // the entries by block id (counting sort) and cuts each block's list into
 // tiles of at most kNT entries; one CTA per tile streams its block through
 // shared memory once and multiplies it with the tile's query rows: float32
-// in FFMA, int8 on the tensor cores (mma.sync s8 x s8 -> s32, exact).
+// in FFMA, int8 on the tensor cores (mma.sync s8 x s8 -> s32, exact), and
+// float32 queries against int8 blocks in FFMA on the raw int8 rows.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,6 +67,9 @@ block_major_prep_kernel(const int* __restrict__ ids, int E, int G, int C,
                         int* __restrict__ counts_global) {
   extern __shared__ int counts_smem[];
   __shared__ int wsum[2][kPrepThreads / 32];
+  // a scoring grid launched as this grid's programmatic dependent may start
+  // now; it waits for this grid's results (griddepcontrol.wait)
+  asm volatile("griddepcontrol.launch_dependents;");
   int* cnt = kSmem ? counts_smem : counts_global;
   const int nb = C + 1;
   const int S = E / G;
@@ -260,10 +264,7 @@ __device__ __forceinline__ void stage_dots(const float* const (&ra)[kRows],
 }
 
 // Stage kBK elements of K, from column k0, of block rows 0 .. rows - 1 into
-// `dst` (kLD floats apart), zeros past D.  float32 blocks go through the
-// cp.async ring; int8 blocks (the cascade's quantized layout) are widened to
-// float32 in the load, exactly, by plain loads and shared-memory stores that
-// the ring's barriers order like the copies.
+// `dst` (kLD floats apart) through the cp.async ring, zeros past D.
 template <int kT>
 __device__ __forceinline__ void stage_block(float* dst, const float* src,
                                             int rows, int k0, int D, int vec,
@@ -286,47 +287,9 @@ __device__ __forceinline__ void stage_block(float* dst, const float* src,
   }
 }
 
-template <int kT>
-__device__ __forceinline__ void stage_block(float* dst, const int8_t* src,
-                                            int rows, int k0, int D, int vec,
-                                            int tid) {
-  static_assert(kBK == 16, "one 16-byte load a row and stage");
-  if (vec) {
-    for (int row = tid; row < rows; row += kT) {
-      float* o = dst + row * kLD;
-      if (k0 < D) {
-        const int4 w = __ldg(
-            reinterpret_cast<const int4*>(src + (long long)row * D + k0));
-        const int words[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const char4 c = *reinterpret_cast<const char4*>(&words[j]);
-          *reinterpret_cast<float4*>(o + 4 * j) =
-              make_float4((float)c.x, (float)c.y, (float)c.z, (float)c.w);
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          *reinterpret_cast<float4*>(o + 4 * j) =
-              make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-    }
-  } else {
-    for (int c = tid; c < rows * kBK; c += kT) {
-      const int row = c / kBK, col = c % kBK, d = k0 + col;
-      dst[row * kLD + col] =
-          d < D ? (float)src[(long long)row * D + d] : 0.f;
-    }
-  }
-}
-
-// TB: float (the f32 kernel) or int8_t (float32 queries against the int8
-// blocks of the cascade's dense layout; the sums are the f32 kernel's, over
-// the blocks widened exactly, so the result equals the f32 kernel's on
-// blocks.float() bit for bit)
-template <bool kSliced, int kRows, typename TB>
+template <bool kSliced, int kRows>
 __global__ void __launch_bounds__(kSR / kRows, 2)
-block_major_f32_kernel(const TB* __restrict__ blocks,
+block_major_f32_kernel(const float* __restrict__ blocks,
                        const float* __restrict__ queries,
                        const int* __restrict__ hdr,
                        const int4* __restrict__ tiles,
@@ -347,7 +310,7 @@ block_major_f32_kernel(const TB* __restrict__ blocks,
   const int b = tile.x, first = tile.y, n = tile.z;
   const int tid = threadIdx.x;
   const bool live_block = b < C;             // else out-of-range ids: zeros
-  const TB* bbase = blocks + (long long)(live_block ? b : 0) * P * D;
+  const float* bbase = blocks + (long long)(live_block ? b : 0) * P * D;
   const int nk = max(1, (D + kBK - 1) / kBK);  // D = 0 stores zeros
   const int total = nk * ((P + kSR - 1) / kSR);
   const int ng = (n + 3) / 4;                // groups of 4 entries
@@ -447,6 +410,342 @@ block_major_f32_kernel(const TB* __restrict__ blocks,
         }
 #pragma unroll
         for (int i = 0; i < kNT; ++i) acc[j][i] = 0.f;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// float32 queries x int8 blocks: one CTA per tile.  The cascade's dense
+// scan (sptag_tpu/algo/dense.py:321 probe, :433 group: the JAX package's
+// XLA branch, which widens the gathered int8 blocks and contracts in
+// float32).  Its result equals the float32 kernel's on blocks.float() bit
+// for bit: every int8 value is an exact float32, and each dot runs the
+// float32 kernel's FFMA order — `sliced` (probe) one chain per 16-wide slice
+// of K from zero, the slices added in ascending order; otherwise (group) one
+// chain over all of D.
+//
+// Staging.  The block's int8 rows go into a kF8Stages-deep cp.async ring as
+// they are, kF8K bytes of K a stage (a quarter of the bytes of widened
+// rows); at D = 128 the first kF8Stages - 1 stages hold all of K, so a pass
+// waits once.  A row's 16-byte piece c sits at f8_pos(row, c), so the
+// 16-byte loads of any 8 consecutive rows hit distinct banks with no
+// padding.  The tile's query rows stage transposed (kF8LDQ floats per k) by
+// 4-byte copies: one warp-wide broadcast 16-byte load gives 4 entries at one
+// k.  Without 16-byte alignment or D % 16 == 0 (`vec` = 0) the rows are
+// packed from byte loads into plain shared-memory stores, which the ring's
+// barriers order like the copies.
+//
+// Scoring.  Lane l of a warp owns rows l, l + 32, ... (RT of them) of a
+// 32 RT-row strip of the pass and the warp's ET entries (a warp whose entries
+// all lie past the tile's count idles): 2 x 16, 256 threads, 2 CTAs an SM,
+// both forms.  Per 16-wide slice a thread loads its rows' 16 bytes once and
+// widens each byte just before its FFMAs (byte permute and one FADD, exact);
+// per k it makes ET / 4 broadcast query loads for 4 RT FFMAs each.  The
+// tile's entry count picks an unrolled, branch-free routine for its groups
+// of 4 entries; a probe slice starts with products instead of FFMAs on
+// zeros.  At the end of a pass each entry's dots go out as 128-byte lines
+// (32 lanes, 32 consecutive rows).
+//
+// Bound on the H100 (phase 14's shapes, P = 256, D = 128, C = 894): the
+// group call (NG 32, U 32, G 32) does 2.15 GFLOP, 32 us at the 67 TFLOP/s
+// float32 FFMA rate, against at most 29 MB of int8 blocks and 33.5 MB of
+// output (19 us at 3.35 TB/s): operations.  Each widened byte costs two
+// instructions beside its ET FFMAs, so a thread issues about 80% FFMAs.
+// The probe call (Q 1,024, nprobe 8) does 0.54 GFLOP (8 us) against 29 MB
+// of blocks and 8.4 MB of output (11 us): bytes, with ~9 entries a tile.
+// On the card the FFMAs run at about half the float32 rate and the block
+// and output traffic does not hide behind them (PERF.md, section 6).
+//
+// The scoring grid is launched as a programmatic dependent of the prep
+// (`SPTAG_F32I8_PDL`): its CTAs start while the prep runs and wait at
+// griddepcontrol.wait for the tile table.
+//
+// Tuning constants are macros that tools/cuda_kernel_sweep.py sets (-D) to
+// time other values on the card; these defaults are what the package builds.
+// ---------------------------------------------------------------------------
+#ifndef SPTAG_F32I8_K
+#define SPTAG_F32I8_K 64              // bytes of K a stage (a power of two)
+#endif
+#ifndef SPTAG_F32I8_STAGES
+#define SPTAG_F32I8_STAGES 2
+#endif
+#ifndef SPTAG_F32I8_ROWS
+#define SPTAG_F32I8_ROWS 2            // block rows a thread
+#endif
+#ifndef SPTAG_F32I8_ENTRIES
+#define SPTAG_F32I8_ENTRIES 16        // entries a warp
+#endif
+#ifndef SPTAG_F32I8_MIN_BLOCKS
+#define SPTAG_F32I8_MIN_BLOCKS 2      // CTAs an SM (at most 128 registers)
+#endif
+#ifndef SPTAG_F32I8_UNROLL_W
+#define SPTAG_F32I8_UNROLL_W 4        // 4-byte words of a slice unrolled
+#endif
+#ifndef SPTAG_F32I8_PDL
+#define SPTAG_F32I8_PDL 1
+#endif
+// times each stage's FFMAs run: 1 in the package; the sweep's measuring
+// variants set 0 (staging, waits and stores alone) or 2 (twice the FFMAs),
+// whose dots are wrong by design
+#ifndef SPTAG_F32I8_COMPUTE_REPS
+#define SPTAG_F32I8_COMPUTE_REPS 1
+#endif
+
+constexpr int kF8K = SPTAG_F32I8_K;
+constexpr int kF8Pieces = kF8K / 16;              // 16-byte pieces a row
+constexpr int kF8Stages = SPTAG_F32I8_STAGES;
+constexpr int kF8LDQ = kNT + 4;                   // staged query k-row
+constexpr int kF8RowBytes = kSR * kF8K;
+constexpr int kF8StageBytes = kF8RowBytes + kF8K * kF8LDQ * (int)sizeof(float);
+constexpr int kF8Smem = kF8Stages * kF8StageBytes;
+constexpr int kF8UnrollW = SPTAG_F32I8_UNROLL_W;
+static_assert(kF8K >= 16 && (kF8Pieces & (kF8Pieces - 1)) == 0,
+              "whole, power-of-two 16-byte pieces a staged row");
+static_assert(kF8Stages >= 2, "a ring of at least two stages");
+
+template <int RT, int ET>
+struct F8Shape {
+  static_assert(kSR % (32 * RT) == 0 && kNT % ET == 0 && ET % 4 == 0,
+                "row strips tile the pass, entry groups tile the tile");
+  static constexpr int kRW = kSR / (32 * RT);     // row strips
+  static constexpr int kT = 32 * kRW * (kNT / ET);
+};
+
+// Position of row r's 16-byte piece c in its staged row: 8 consecutive rows
+// reading one piece hit 8 distinct 16-byte bank groups.
+__device__ __forceinline__ int f8_pos(int r, int c) {
+  return c ^ (kF8Pieces >= 8 ? (r & 7) : ((r * kF8Pieces / 8) % kF8Pieces));
+}
+
+// Byte k of `flipped` (an int8 word with every sign bit flipped) as the
+// float of the int8 value, exactly: the permute builds 2^23 + (x + 128)
+// (walk_dots.cu's conversion, with the constant as the permute's register
+// operand so that its selector is an immediate).
+__device__ __forceinline__ float f8_widen(unsigned flipped, int k) {
+  return __int_as_float(static_cast<int>(
+             __byte_perm(0x4B000000u, flipped, 0x3104u + k))) -
+         8388736.0f;                                  // 2^23 + 128
+}
+
+// One 16-wide slice of K: the thread's RT rows (`raw`, 16 bytes each)
+// against entries 0 .. 4 NG - 1 of the transposed queries `q`, in ascending
+// k, into `a`; with kFresh the slice's first k writes the products (a chain
+// from zero: only the sign of a zero product can differ from an FFMA on
+// +0, and the slice sums that follow make it +0).  Each byte is widened
+// just before its FFMAs, so only the raw words stay live; `raw` is used up
+// (its words rotate through .x).
+template <int NG, int RT, int ET, bool kFresh>
+__device__ __forceinline__ void f8_slice(int4 (&raw)[RT], const float* q,
+                                         float (&a)[RT][ET]) {
+  constexpr int kFlip = static_cast<int>(0x80808080u);
+#pragma unroll
+  for (int j = 0; j < RT; ++j)
+    raw[j] = make_int4(raw[j].x ^ kFlip, raw[j].y ^ kFlip, raw[j].z ^ kFlip,
+                       raw[j].w ^ kFlip);
+#pragma unroll kF8UnrollW
+  for (int w = 0; w < 4; ++w) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float4 qv[NG];
+#pragma unroll
+      for (int g = 0; g < NG; ++g)
+        qv[g] = *reinterpret_cast<const float4*>(
+            q + (4 * w + kk) * kF8LDQ + 4 * g);
+      const bool fresh = kFresh && w == 0 && kk == 0;
+#pragma unroll
+      for (int j = 0; j < RT; ++j) {
+        const float x = f8_widen(static_cast<unsigned>(raw[j].x), kk);
+#pragma unroll
+        for (int g = 0; g < NG; ++g) {
+          float* d = &a[j][4 * g];
+          d[0] = fresh ? __fmul_rn(x, qv[g].x) : fmaf(x, qv[g].x, d[0]);
+          d[1] = fresh ? __fmul_rn(x, qv[g].y) : fmaf(x, qv[g].y, d[1]);
+          d[2] = fresh ? __fmul_rn(x, qv[g].z) : fmaf(x, qv[g].z, d[2]);
+          d[3] = fresh ? __fmul_rn(x, qv[g].w) : fmaf(x, qv[g].w, d[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < RT; ++j)
+      raw[j] = make_int4(raw[j].y, raw[j].z, raw[j].w, raw[j].x);
+  }
+}
+
+#define SPTAG_F8_CASE(N)                                       \
+  case N:                                                      \
+    if constexpr (N <= ET / 4) f8_slice<N, RT, ET, kFresh>(raw, q, a); \
+    break;
+
+// The slice for `ng` (1 .. ET / 4) groups of 4 entries, uniform per warp.
+template <int RT, int ET, bool kFresh>
+__device__ __forceinline__ void f8_slice_dispatch(int ng, int4 (&raw)[RT],
+                                                  const float* q,
+                                                  float (&a)[RT][ET]) {
+  switch (ng) {
+    SPTAG_F8_CASE(1)
+    SPTAG_F8_CASE(2)
+    SPTAG_F8_CASE(3)
+    SPTAG_F8_CASE(4)
+    SPTAG_F8_CASE(5)
+    SPTAG_F8_CASE(6)
+    SPTAG_F8_CASE(7)
+    default: f8_slice<ET / 4, RT, ET, kFresh>(raw, q, a); break;
+  }
+}
+#undef SPTAG_F8_CASE
+
+template <bool kSliced, int RT, int ET, int kMinBlocks>
+__global__ void __launch_bounds__(F8Shape<RT, ET>::kT, kMinBlocks)
+block_major_f32i8_kernel(const int8_t* __restrict__ blocks,
+                         const float* __restrict__ queries,
+                         const int* __restrict__ hdr,
+                         const int4* __restrict__ tiles,
+                         const int* __restrict__ sorted,
+                         float* __restrict__ out, int C, int P, int D, int U,
+                         int G, int vec) {
+  constexpr int kT = F8Shape<RT, ET>::kT;
+  extern __shared__ int4 smem_f8[];
+  int8_t* sm = reinterpret_cast<int8_t*>(smem_f8);
+  __shared__ long long s_qoff[kNT];          // query row, in floats
+  __shared__ long long s_ooff[kNT];          // output row, in floats
+
+  // launched as a dependent of the prep: wait for its tile table
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const int ntiles = hdr[0];
+  const int4 tile = tiles[blockIdx.x];       // read beside the count
+  if ((int)blockIdx.x >= ntiles) return;     // past the real tile count
+  const int b = tile.x, first = tile.y, n = tile.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool live_block = b < C;             // else out-of-range ids: zeros
+  const int8_t* bbase = blocks + (long long)(live_block ? b : 0) * P * D;
+  const int nk = max(1, (D + kF8K - 1) / kF8K);  // D = 0 stores zeros
+  const int total = nk * ((P + kSR - 1) / kSR);
+  const int nq = 4 * ((n + 3) / 4);          // staged entries, zeros past n
+  // the thread's first row of a pass, its warp's strip, its entries
+  const int strip = (warp % F8Shape<RT, ET>::kRW) * 32 * RT;
+  const int row0 = strip + lane;
+  const int e0 = (warp / F8Shape<RT, ET>::kRW) * ET;
+  const int nl = min(ET, n - e0);            // live entries (<= 0: idle)
+  const int ng = nl > 0 ? (nl + 3) / 4 : 0;
+
+  auto load_rows = [&](int step) {
+    const int r0 = (step / nk) * kSR, k0 = (step % nk) * kF8K;
+    int8_t* dst = sm + (step % kF8Stages) * kF8StageBytes;
+    const int8_t* src = bbase + (long long)r0 * D;
+    // rows past P are left as they are: their dots are never stored
+    const int rows = min(kSR, P - r0);
+    if (vec) {
+      for (int c = tid; c < rows * kF8Pieces; c += kT) {
+        const int r = c / kF8Pieces, piece = c % kF8Pieces;
+        const int d = k0 + 16 * piece;
+        const bool ok = d < D;
+        cp_async16(dst + r * kF8K + 16 * f8_pos(r, piece),
+                   ok ? src + (long long)r * D + d : src, ok);
+      }
+    } else {
+      constexpr int kW = kF8K / 4;           // 4-byte words a staged row
+      for (int c = tid; c < rows * kW; c += kT) {
+        const int r = c / kW, w = c % kW, d = k0 + 4 * w;
+        const int8_t* row = src + (long long)r * D;
+        unsigned word = 0;
+        for (int i = 0; i < 4 && d + i < D; ++i)
+          word |= (unsigned)(uint8_t)row[d + i] << (8 * i);
+        *reinterpret_cast<unsigned*>(dst + r * kF8K +
+                                     16 * f8_pos(r, w >> 2) +
+                                     4 * (w & 3)) = word;
+      }
+    }
+  };
+  auto load_queries = [&](int step) {
+    // transposed: entry e, column k -> qt[k * kF8LDQ + e]
+    const int k0 = (step % nk) * kF8K;
+    float* qt = reinterpret_cast<float*>(
+        sm + (step % kF8Stages) * kF8StageBytes + kF8RowBytes);
+    for (int c = tid; c < nq * kF8K; c += kT) {
+      const int e = c / kF8K, k = c % kF8K, d = k0 + k;
+      const bool ok = e < n && d < D;
+      cp_async4(qt + k * kF8LDQ + e, ok ? queries + s_qoff[e] + d : queries,
+                ok);
+    }
+  };
+
+  // the block's first stages go out before the entry list is read
+  if (live_block)
+    for (int s = 0; s < kF8Stages - 1 && s < total; ++s) load_rows(s);
+  if (tid < n) {
+    const int e = sorted[first + tid];
+    const int slot = e / G;
+    s_qoff[tid] = ((long long)(slot / U) * G + (e - slot * G)) * D;
+    s_ooff[tid] = (long long)e * P;
+  }
+  __syncthreads();
+  if (!live_block) {
+    for (int i = tid; i < n * P; i += kT) out[s_ooff[i / P] + i % P] = 0.f;
+    return;
+  }
+  // group s holds stage s's queries (group 0 also the prologue's rows)
+  for (int s = 0; s < kF8Stages - 1; ++s) {
+    if (s < total) load_queries(s);
+    cp_async_commit();
+  }
+
+  float acc[RT][ET], part[RT][ET];
+#pragma unroll
+  for (int j = 0; j < RT; ++j)
+#pragma unroll
+    for (int i = 0; i < ET; ++i) acc[j][i] = 0.f;
+
+  for (int step = 0; step < total; ++step) {
+    cp_async_wait<kF8Stages - 2>();
+    __syncthreads();
+    const int nxt = step + kF8Stages - 1;
+    if (nxt < total) {
+      load_rows(nxt);
+      load_queries(nxt);
+    }
+    cp_async_commit();
+
+    const int r0 = (step / nk) * kSR, k0 = (step % nk) * kF8K;
+    if (ng > 0 && r0 + strip < P) {          // warp-uniform
+      const int8_t* st = sm + (step % kF8Stages) * kF8StageBytes;
+      const float* qt =
+          reinterpret_cast<const float*>(st + kF8RowBytes) + e0;
+      // the stage's slices that hold some K < D
+      const int ns = min(kF8Pieces, (D - k0 + 15) / 16);
+#pragma unroll 1
+      for (int c = 0; c < ns * SPTAG_F32I8_COMPUTE_REPS; ++c) {
+        const int sl = SPTAG_F32I8_COMPUTE_REPS == 1 ? c : c % ns;
+        int4 raw[RT];
+#pragma unroll
+        for (int j = 0; j < RT; ++j) {
+          const int r = row0 + 32 * j;
+          raw[j] = *reinterpret_cast<const int4*>(st + r * kF8K +
+                                                  16 * f8_pos(r, sl));
+        }
+        const float* q = qt + 16 * sl * kF8LDQ;
+        if (kSliced) {
+          f8_slice_dispatch<RT, ET, true>(ng, raw, q, part);
+#pragma unroll
+          for (int j = 0; j < RT; ++j)
+#pragma unroll
+            for (int i = 0; i < ET; ++i) acc[j][i] = acc[j][i] + part[j][i];
+        } else {
+          f8_slice_dispatch<RT, ET, false>(ng, raw, q, acc);
+        }
+      }
+    }
+    if (step % nk == nk - 1) {               // end of a pass
+#pragma unroll
+      for (int j = 0; j < RT; ++j) {
+        const int r = r0 + row0 + 32 * j;
+        if (r < P) {
+#pragma unroll
+          for (int i = 0; i < ET; ++i)
+            if (i < nl) out[s_ooff[e0 + i] + r] = acc[j][i];
+        }
+#pragma unroll
+        for (int i = 0; i < ET; ++i) acc[j][i] = 0.f;
       }
     }
   }
@@ -731,36 +1030,51 @@ int configure_smem(const void* kernel, int smem, bool (&done)[64]) {
   return rc;
 }
 
-template <bool kSliced, int kRows, typename TB>
+template <bool kSliced, int kRows>
 int launch_score(const void* blocks, const void* queries, const Scratch& sc,
                  void* out, int C, int P, int D, int E, int U, int G,
                  int vec, cudaStream_t s) {
   static bool done[64] = {};
   const int rc = configure_smem(
-      (const void*)block_major_f32_kernel<kSliced, kRows, TB>, kScoreSmem,
-      done);
+      (const void*)block_major_f32_kernel<kSliced, kRows>, kScoreSmem, done);
   if (rc != 0) return rc;
-  block_major_f32_kernel<kSliced, kRows, TB><<<(unsigned)tile_bound(E, C),
-                                               kSR / kRows, kScoreSmem, s>>>(
-      static_cast<const TB*>(blocks), static_cast<const float*>(queries),
+  block_major_f32_kernel<kSliced, kRows><<<(unsigned)tile_bound(E, C),
+                                           kSR / kRows, kScoreSmem, s>>>(
+      static_cast<const float*>(blocks), static_cast<const float*>(queries),
       sc.hdr, sc.tiles, sc.sorted, static_cast<float*>(out), C, P, D, U, G,
       vec);
   return (int)cudaGetLastError();
 }
 
-template <typename TB>
-int block_dots_float(const void* blocks, const void* queries, const void* ids,
-                     void* out, void* scratch, int C, int P, int D, int E,
-                     int U, int G, int vec, int sliced, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Scratch sc = carve(scratch, E, C);
-  const int rc = launch_prep(ids, sc, E, G, C, s);
+// The float32 x int8 scoring grid, a programmatic dependent of the prep
+// launched just before it on `s` (unless SPTAG_F32I8_PDL is 0).
+template <bool kSliced>
+int launch_score_f32i8(const void* blocks, const void* queries,
+                       const Scratch& sc, void* out, int C, int P, int D,
+                       int E, int U, int G, int vec, cudaStream_t s) {
+  constexpr int RT = SPTAG_F32I8_ROWS, ET = SPTAG_F32I8_ENTRIES;
+  auto* kernel =
+      block_major_f32i8_kernel<kSliced, RT, ET, SPTAG_F32I8_MIN_BLOCKS>;
+  static bool done[64] = {};
+  int rc = configure_smem((const void*)kernel, kF8Smem, done);
   if (rc != 0) return rc;
-  return sliced
-             ? launch_score<true, kProbeRows, TB>(blocks, queries, sc, out, C,
-                                                  P, D, E, U, G, vec, s)
-             : launch_score<false, kGroupRows, TB>(blocks, queries, sc, out,
-                                                   C, P, D, E, U, G, vec, s);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)tile_bound(E, C));
+  cfg.blockDim = dim3(F8Shape<RT, ET>::kT);
+  cfg.dynamicSmemBytes = kF8Smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = SPTAG_F32I8_PDL ? 1 : 0;
+  rc = (int)cudaLaunchKernelEx(&cfg, kernel,
+                               static_cast<const int8_t*>(blocks),
+                               static_cast<const float*>(queries),
+                               (const int*)sc.hdr, (const int4*)sc.tiles,
+                               (const int*)sc.sorted, static_cast<float*>(out),
+                               C, P, D, U, G, vec);
+  return rc != 0 ? rc : (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -784,19 +1098,32 @@ int sptag_block_dots_f32(const void* blocks, const void* queries,
                          const void* ids, void* out, void* scratch, int C,
                          int P, int D, int E, int U, int G, int vec,
                          int sliced, void* stream) {
-  return block_dots_float<float>(blocks, queries, ids, out, scratch, C, P, D,
-                                 E, U, G, vec, sliced, stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Scratch sc = carve(scratch, E, C);
+  const int rc = launch_prep(ids, sc, E, G, C, s);
+  if (rc != 0) return rc;
+  return sliced ? launch_score<true, kProbeRows>(blocks, queries, sc, out, C,
+                                                 P, D, E, U, G, vec, s)
+                : launch_score<false, kGroupRows>(blocks, queries, sc, out,
+                                                  C, P, D, E, U, G, vec, s);
 }
 
 // The same with int8 blocks and float32 queries (the cascade's dense scan:
-// queries q / scale against the quantized blocks), float32 out; `vec`
-// means 16-byte aligned int8 rows with D % 16 == 0.
+// queries q / scale against the quantized blocks), float32 out, equal to
+// sptag_block_dots_f32 on the blocks widened; `vec` means 16-byte aligned
+// int8 rows and queries with D % 16 == 0.
 int sptag_block_dots_f32i8(const void* blocks, const void* queries,
                            const void* ids, void* out, void* scratch, int C,
                            int P, int D, int E, int U, int G, int vec,
                            int sliced, void* stream) {
-  return block_dots_float<int8_t>(blocks, queries, ids, out, scratch, C, P,
-                                  D, E, U, G, vec, sliced, stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Scratch sc = carve(scratch, E, C);
+  const int rc = launch_prep(ids, sc, E, G, C, s);
+  if (rc != 0) return rc;
+  return sliced ? launch_score_f32i8<true>(blocks, queries, sc, out, C, P, D,
+                                           E, U, G, vec, s)
+                : launch_score_f32i8<false>(blocks, queries, sc, out, C, P,
+                                            D, E, U, G, vec, s);
 }
 
 // int8 probe_block_dots (G = 1, U = nprobe, E = Q * nprobe) and

@@ -76,14 +76,25 @@ float32 queries against int8 blocks
     The cascade (``CascadeSearch``, algo/dense.py) keeps the dense layout
     as the int8 quantization of a float corpus and scores float32 queries
     ``q / scale`` against it: the JAX package's XLA branch
-    (``sptag_tpu/algo/dense.py:311`` and ``:436``), which widens the
-    gathered int8 blocks to float32 and contracts in float32.  The float32
-    kernel takes such blocks as they are (``sptag_block_dots_f32i8``): each
-    stage widens its 16 int8 elements a row to float32 on the way into
-    shared memory, exactly, and everything else — tiles, order of every
-    sum, output — is the float32 kernel's, so the result equals the float32
-    kernel's on ``blocks.float()`` bit for bit, at a quarter of the block
-    bytes.  Counted as ``*_block_dots_f32i8``.
+    (``sptag_tpu/algo/dense.py:321`` and ``:433``), which widens the
+    gathered int8 blocks to float32 and contracts in float32.  Its kernel
+    (``sptag_block_dots_f32i8``: the same prep, then
+    ``block_major_f32i8_kernel``) keeps the float32 kernel's tiles and the
+    order of every sum, so the result equals the float32 kernel's on
+    ``blocks.float()`` bit for bit, but stages the blocks as they are: raw
+    int8 rows in a 2-stage ``cp.async`` ring (64 bytes of K a stage, each
+    row's 16-byte pieces swizzled so 8 consecutive rows read distinct
+    banks; all of K at D = 128 in flight at once), a quarter of the shared
+    memory of widened rows.  Each thread owns 2 block rows x 16 entries in
+    registers (256 threads, 2 CTAs an SM, both functions) and widens each
+    byte just before its FFMAs (byte permute and one add, exact); the
+    entry count picks an unrolled routine per 4 entries.  The group form is bound by operations at the cascade's
+    G = 32 (full 32-entry tiles), the probe form by bytes (about 9 entries
+    a tile).  Its scoring grid is launched as a programmatic dependent of
+    the prep, so its CTAs are resident when the tile table lands.  Tuning
+    macros (``SPTAG_F32I8_*``) are what ``tools/cuda_kernel_sweep.py``
+    varies.
+    Counted as ``*_block_dots_f32i8``.
 
 float32 scoring: FFMA
     16 floats of D per stage: thread t owns block row t of a 256-row pass

@@ -318,3 +318,88 @@ def test_library_key_follows_the_source(tmp_path, monkeypatch):
     assert third != second
     (tmp_path / "h.cuh").write_text("#define Y 2\n")
     assert _build.library_path("k") != third
+
+
+# ---- the cascade's dense scans: float32 queries q / scale against the
+# int8 quantization of a float corpus, through the JAX package's XLA branch
+# (sptag_tpu/algo/dense.py:321, :433; use_pallas=False) and the port's
+# counterparts on the CPU (the f32i8 block dots' plain versions).  Ids
+# equal at every rank whose exact distance is separated from its
+# neighbours' by more than their two float32 bounds; every distance within
+# 1e-5 * (|q|^2 + |x|^2 + 2 sum |q_d x_d|) (L2) or 1e-5 * sum |q_d x_d|
+# (cosine, 1 - q.x) of its id's exact distance in float64.
+
+def _cascade_scan_inputs(metric):
+    from sptag_tpu_torch.ops.cascade import quantize_int8
+
+    rng = np.random.default_rng(41 + metric)
+    C, P, D, Q = 16, 32, 64, 64
+    cent = rng.standard_normal((C, D)).astype(np.float32) * 4
+    data = np.repeat(cent, P, 0) + rng.standard_normal((C * P, D))
+    q = cent[rng.integers(0, C, Q)] + rng.standard_normal((Q, D))
+    if metric == 1:                           # cosine: unit rows, base 1
+        data /= np.linalg.norm(data, axis=1, keepdims=True)
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+    x8, scale = quantize_int8(data.astype(np.float32))
+    perm = x8.reshape(C, P, D)
+    xf = perm.astype(np.float32)
+    cents = xf.mean(1)
+    return {"data_perm": perm,
+            "member_ids": np.arange(C * P, dtype=np.int32).reshape(C, P),
+            "member_sq": (xf * xf).sum(-1),
+            "centroids": cents, "cent_sq": (cents * cents).sum(1),
+            "deleted": np.zeros(C * P, bool),
+            "queries": (q.astype(np.float32) / np.float32(scale))}
+
+
+def _exact_and_bound(inp, metric, ids):
+    x = inp["data_perm"].reshape(-1, inp["data_perm"].shape[-1]) \
+        .astype(np.float64)[ids]                       # (Q, k, D)
+    q = inp["queries"].astype(np.float64)[:, None, :]
+    dot, mag = (q * x).sum(-1), np.abs(q * x).sum(-1)
+    if metric == 1:
+        return 1.0 - dot, 1e-5 * mag + 1e-6
+    qn, xn = (q * q).sum(-1), (x * x).sum(-1)
+    return qn + xn - 2 * dot, 1e-5 * (qn + xn + 2 * mag)
+
+
+@pytest.mark.parametrize("metric", [0, 1], ids=["l2", "cosine"])
+@pytest.mark.parametrize("grouped", [False, True],
+                         ids=["probe", "grouped"])
+def test_cascade_dense_scan_matches_jax_xla_branch(grouped, metric):
+    import jax.numpy as jnp
+
+    from sptag_tpu.algo import dense as jdense
+    from sptag_tpu_torch.algo import dense as tdense
+
+    inp = _cascade_scan_inputs(metric)
+    keys = ("data_perm", "member_ids", "member_sq", "centroids", "cent_sq",
+            "deleted", "queries")
+    Q, k, nprobe = inp["queries"].shape[0], 10, 2
+    if grouped:
+        U, G = 8, 8
+        d_ref, i_ref = jdense._dense_search_grouped_kernel(
+            *(jnp.asarray(inp[n]) for n in keys), jnp.int32(Q), k, nprobe,
+            U, G, metric, 1, use_pallas=False)
+        d_got, i_got = tdense._dense_search_grouped_kernel(
+            *(torch.from_numpy(inp[n]) for n in keys), Q, k, nprobe, U, G,
+            metric, 1)
+    else:
+        d_ref, i_ref = jdense._dense_search_kernel(
+            *(jnp.asarray(inp[n]) for n in keys), k, nprobe, metric, 1,
+            use_pallas=False)
+        d_got, i_got = tdense._dense_search_kernel(
+            *(torch.from_numpy(inp[n]) for n in keys), k, nprobe, metric, 1)
+    d_ref, i_ref = np.asarray(d_ref), np.asarray(i_ref)
+    d_got, i_got = d_got.numpy(), i_got.numpy()
+    assert i_ref.shape == i_got.shape == (Q, k) and (i_ref >= 0).all()
+    for d, i in ((d_ref, i_ref), (d_got, i_got)):
+        exact, bound = _exact_and_bound(inp, metric, i)
+        assert (np.abs(d - exact) <= bound).all()
+    exact, bound = _exact_and_bound(inp, metric, i_ref)
+    gap = np.abs(np.diff(exact, axis=1)) > bound[:, 1:] + bound[:, :-1]
+    sep = np.ones_like(exact, dtype=bool)
+    sep[:, 1:] &= gap
+    sep[:, :-1] &= gap
+    assert sep.mean() > 0.5, "too few separated ranks to compare"
+    np.testing.assert_array_equal(i_got[sep], i_ref[sep])

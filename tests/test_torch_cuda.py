@@ -1594,7 +1594,9 @@ def test_walk_score_i8_equals_f32_kernel_on_dequantized_rows(cuda, mode,
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["walk_i8_min_blocks_2",
                                      "gather_passes_1",
-                                     "gather_no_evict_last"])
+                                     "gather_no_evict_last",
+                                     "f32i8_4x8",
+                                     "f32i8_8x8"])
 def test_kernel_sweep_variant_builds_and_keeps_the_bits(cuda, tmp_path,
                                                         monkeypatch,
                                                         variant):
@@ -1620,6 +1622,26 @@ def test_kernel_sweep_variant_builds_and_keeps_the_bits(cuda, tmp_path,
     N, D, scale = 2000, 128, 0.0213
     x8 = torch.randint(-127, 128, (N, D), generator=gen).to(torch.int8)
     x8 = x8.to(cuda)
+    if variant.startswith("f32i8"):
+        # both forms, a hot block and ragged P: the float32 x int8 kernels
+        blocks = torch.randint(-127, 128, (7, 300, D), generator=gen).to(
+            torch.int8).to(cuda)
+        q = torch.randn((64, D), generator=gen).to(cuda)
+        topc = torch.randint(0, 7, (64, 3), generator=gen)
+        topc[:, 0] = 2
+        topc = topc.to(torch.int32).to(cuda)
+        union = torch.randint(0, 7, (4, 5), generator=gen).to(
+            torch.int32).to(cuda)
+
+        def call():
+            return (block_dots.probe_block_dots(blocks, q, topc),
+                    block_dots.group_block_dots(blocks, q, union))
+        want = call()
+        monkeypatch.setattr(block_dots, "library", lambda: lib)
+        got = call()
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        return
     if variant.startswith("walk"):
         q, _, idx = _walk_inputs(gen, 9, N, 700, D, cuda)
         sq = wd.row_sqnorms(wd.dequantize(x8, scale).contiguous())
@@ -1675,11 +1697,49 @@ def test_walk_score_i8_and_block_variant_bits_do_not_depend_on_the_batch(
             probe[lo:hi])
 
 
+def _f32i8_edge_ids(gen, case, C):
+    """Block ids of one float32 x int8 edge case: (kind, ids, G)."""
+    if case == "tiles":
+        # one probe each: tiles of 1, 9, 31 and 32 entries, and a hot block
+        # of 70 entries over three tiles
+        b = torch.cat([torch.full((n,), blk) for blk, n in
+                       ((0, 1), (1, 9), (2, 31), (3, 32), (4, 70))])
+        return "probe", b[torch.randperm(len(b), generator=gen)][:, None], 1
+    if case == "probe_out_of_range":
+        return "probe", torch.randint(-3, C + 3, (40, 4), generator=gen), 1
+    if case == "group_out_of_range":
+        return "group", torch.randint(-3, C + 3, (5, 4), generator=gen), 8
+    kind, rows, cols, G = {"probe": ("probe", 37, 3, 1),
+                           "group_g1": ("group", 5, 3, 1),
+                           "group_g8": ("group", 4, 4, 8),
+                           "group_g32": ("group", 2, 3, 32)}[case]
+    ids = torch.randint(0, C, (rows, cols), generator=gen)
+    if G == 8:
+        ids[:, 0] = 1                         # a block shared by every group
+    return kind, ids, G
+
+
+# (case, C, P, D, misaligned): tiles of 1 to 32 entries and a hot block, P
+# not a multiple of the 32-row strip, D = 100 and 8 and unaligned rows or
+# queries (vec = 0), out-of-range ids, G = 1, 8 and 32
+F32I8_EDGES = [("tiles", 6, 100, 128, None), ("probe", 5, 257, 100, None),
+               ("probe", 4, 64, 8, None), ("probe", 4, 40, 128, "blocks"),
+               ("probe", 4, 40, 128, "queries"),
+               ("probe_out_of_range", 6, 33, 64, None),
+               ("group_g1", 6, 257, 128, None),
+               ("group_g8", 6, 100, 64, "blocks"),
+               ("group_g8", 5, 40, 8, None),
+               ("group_g32", 5, 257, 100, None),
+               ("group_g32", 4, 256, 128, None),
+               ("group_out_of_range", 6, 48, 32, None)]
+
+
 @pytest.mark.cuda
 def test_block_dots_float_queries_on_int8_blocks(cuda):
     """The float32 x int8 variant equals the float32 kernel on the widened
-    blocks bit for bit (probe and group forms, aligned and narrow D), the
-    plain version within 1e-5 * sum |q_d x_d|, and counts as f32i8."""
+    blocks bit for bit (probe and group forms, aligned and narrow D, and
+    the edge cases of F32I8_EDGES), the plain version within 1e-5 * sum
+    |q_d x_d|, and counts as f32i8."""
     gen = torch.Generator().manual_seed(5)
     block_dots.reset_launch_counts()
     for C, P, D, Q, nprobe in PROBE:
@@ -1712,6 +1772,29 @@ def test_block_dots_float_queries_on_int8_blocks(cuda):
     counts = block_dots.launch_counts()
     assert counts["probe_block_dots_f32i8"] == len(PROBE)
     assert counts["group_block_dots_f32i8"] == len(GROUP)
+    calls = {"probe": 0, "group": 0}
+    for case, C, P, D, misaligned in F32I8_EDGES:
+        kind, ids, G = _f32i8_edge_ids(gen, case, C)
+        ids = ids.to(torch.int32).to(cuda)
+        blocks = torch.randint(-127, 128, (C, P, D), generator=gen).to(
+            torch.int8).to(cuda)
+        q = torch.randn((ids.shape[0] * G, D), generator=gen).to(cuda)
+        if misaligned == "blocks":
+            blocks = _misaligned(blocks)
+        elif misaligned == "queries":
+            q = _misaligned(q)
+        fn = getattr(block_dots, f"{kind}_block_dots")
+        got = fn(blocks, q, ids)
+        calls[kind] += 1
+        assert torch.equal(got, fn(blocks.float(), q.contiguous(), ids)), \
+            case
+        want = _plain(kind, blocks, q, ids)
+        bound = _plain(kind, blocks.abs(), q.abs(), ids)
+        assert bool(((got - want).abs() <= 1e-5 * bound + 1e-30).all()), \
+            case
+    counts = block_dots.launch_counts()
+    assert counts["probe_block_dots_f32i8"] == len(PROBE) + calls["probe"]
+    assert counts["group_block_dots_f32i8"] == len(GROUP) + calls["group"]
 
 
 def _cascade_corpus(n=3000, d=32, nq=64, seed=9):
