@@ -196,6 +196,25 @@ Phases, in the order they run:
    gathers beside an estimate of their time were every row read from L2
    at the card's L2 read rate, which a read probe over an L2-resident
    buffer measures (past L1, so rows that hit L1 can beat it).
+15. observability (device half) and the mesh: (a) the card's capability
+   from ``sptag_tpu_torch.utils.roofline``'s table (whose peaks phase 2's
+   bounds use), the measured probe on a fresh cache held to at most 1.05x
+   each table peak, and ``tools/perf_report`` rendered from phase 2's
+   rows; (b) a server over phase 7's folder with ``[Service]
+   TraceSanitizer`` armed, the slot scheduler and
+   ``FlightDeviceSampleRate=1``: after a warm-up, 1,024 requests with
+   every family's compile budget at its warm-up count, held to 0 budget
+   trips and 0 flagged transfers, the engine's roofline gauges set
+   (``pct_peak`` at most 100) and a forced slow query's log line carrying
+   ``gflops=`` and ``pct_peak=``; (c) phase 13c's two serve-shard folders
+   as a 2-shard mesh on ``[cuda:0, cuda:0]``: beam recall at least 13c's
+   merged recall - 0.01, the mesh scheduler equal to the monolithic walk
+   bit for bit, the dense scan launching ``probe_block_dots`` a shard,
+   the ids equal to 13c's in-process merge at every separated rank, and a
+   ``MeshServe=1`` server's 256 answers equal to the mesh's
+   ``search_batch``; (d) two processes on ``cuda:0`` over gloo, each
+   building 2 of the 4 shards of a 50,000-row slice of the headline, equal
+   to a one-process 4-shard mesh over the same shard folders.
 
 Launch counts are zeroed just before phase 3 and read just after phase 5
 (the walk's just before phase 7's beam searches and read after them),
@@ -234,10 +253,10 @@ import torch
 
 T_START = time.perf_counter()
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, float32 outside
-# the tensor cores, int8 tensor-core ops
-HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"f32": 67e12, "i8": 1979e12}
+# the card's peaks, from sptag_tpu_torch.utils.roofline's table (phase 0):
+# HBM bytes/s, float32 outside the tensor cores, int8 tensor-core ops
+HBM_BYTES_S = None
+PEAK_OPS_S = None
 K = 10
 PASSES = 16          # timed passes over each query set
 # recall@10 of the f32 headline (per-query, grouped G=8) on the H100 with
@@ -2823,7 +2842,8 @@ def cluster_phase(pt, block_dots, walk_ops, data, queries, truth, workdir,
     aggregator with MergeTopK, (d) the control plane under the open-loop
     ramp, (e) AnnIndex, (f) a clean stop.  Returns the first block-dot
     calls of 13b's build and of 13c's dense requests and the launches of
-    13b-13e (in-process), for phase 2's rows."""
+    13b-13e (in-process), for phase 2's rows, and 13c's shard folders,
+    merged beam recall and in-process merge (phase 15c's mesh)."""
     import contextlib
     import threading
 
@@ -2892,6 +2912,10 @@ def cluster_phase(pt, block_dots, walk_ops, data, queries, truth, workdir,
     for r in runs:
         r.stop()
     emit({"phase": "13c", "clients": CLUSTER_CLIENTS, **out_c})
+    # for phase 15c's mesh over the same two folders
+    out13 = {"serve_folders": serve_folders,
+             "beam_recall": out_c["beam"]["recall_at_10"],
+             "beam_merge": in_process_merge(refs["beam"])}
 
     # ---- 13d: the control plane under the ramp -----------------------------
     # a restart: each tier its own process, so that no tier reads the
@@ -2990,7 +3014,7 @@ def cluster_phase(pt, block_dots, walk_ops, data, queries, truth, workdir,
     check(not left and subprocesses_ok and not trace_mod.tracing(),
           f"13f: threads left {left}, subprocesses exit 0 "
           f"{subprocesses_ok}")
-    return first_b, first_c, launches
+    return first_b, first_c, launches, out13
 
 
 # ---- phase 14: the tiered corpus cascade -------------------------------------
@@ -3904,6 +3928,360 @@ def walk_dots_rows(walk_ops, first, launches: dict) -> list:
     return rows
 
 
+# ---- phase 15: observability (device half) and the mesh --------------------
+
+# the probe's readings may exceed the data sheet by timer noise at most
+PROBE_MAX_RATIO = 1.05
+SENTINEL_REQUESTS = 1024
+# the sentinel server's slot pools (BeamSlots) and per-family compile
+# budget while it warms up
+SENTINEL_SLOTS = 256
+TRACESAN_WARM_BUDGET = 64
+MESH_SERVE_REQUESTS = 256
+# 15d: a slice of the headline cut into 4 shards, 2 a process
+MH_ROWS, MH_SHARDS, MH_PROCS = 50_000, 4, 2
+MH_QUERIES = 1024
+
+
+def roofline_phase(rows, card) -> dict:
+    """15a: the card's capability from the table, the measured probe on a
+    fresh cache against it, and perf_report over phase 2's rows."""
+    from sptag_tpu_torch.tools import perf_report
+    from sptag_tpu_torch.utils import roofline
+
+    cap = roofline.capability()
+    emit({"roofline": perf_report.capability_dict(cap)})
+    with tempfile.TemporaryDirectory() as cache:
+        os.environ["SPTAG_TPU_ROOFLINE_CACHE"] = cache
+        try:
+            t0 = time.perf_counter()
+            probed = roofline.probe_capability()
+            probe_s = time.perf_counter() - t0
+        finally:
+            os.environ.pop("SPTAG_TPU_ROOFLINE_CACHE", None)
+    if probed is None:
+        fail("15a: the roofline probe failed")
+    out = {"nvidia_smi": card, "device": cap.device_kind,
+           "source": cap.source, "hbm_gbps": cap.hbm_gbps,
+           "peak_flops_f32": cap.peak_flops_f32,
+           "peak_flops_bf16": cap.peak_flops_bf16,
+           "peak_flops_int8": cap.peak_flops_int8,
+           "probe_s": probe_s,
+           "probe_flops_f32": probed.peak_flops_f32,
+           "probe_gbps": probed.hbm_gbps,
+           "probe_f32_over_table": probed.peak_flops_f32
+           / cap.peak_flops_f32,
+           "probe_gbps_over_table": probed.hbm_gbps / cap.hbm_gbps}
+    check(cap.source == "table", f"15a: capability source {cap.source}")
+    check(out["probe_f32_over_table"] <= PROBE_MAX_RATIO
+          and out["probe_gbps_over_table"] <= PROBE_MAX_RATIO,
+          f"15a: the probe exceeds the table: {out}")
+    for line in perf_report.render_kernels(
+            rows, perf_report.capability_dict(cap)):
+        print(line, flush=True)
+    return out
+
+
+def sentinel_phase(pt, graph_folder, queries, workdir) -> dict:
+    """15b: a port server over phase 7's folder with [Service]
+    TraceSanitizer armed, the slot scheduler and FlightDeviceSampleRate=1:
+    warm-up, then 1,024 requests in steady state with every family's
+    compile budget at its warm-up count; the roofline gauges, and a
+    forced slow query's log line."""
+    import logging as logging_mod
+
+    from sptag_tpu_torch.serve import server as sserver
+    from sptag_tpu_torch.serve import service as sservice
+    from sptag_tpu_torch.utils import metrics
+    from sptag_tpu_torch.utils import recompile_guard as rg
+
+    ini = os.path.join(workdir, "sentinel.ini")
+    write_shard_ini(ini, graph_folder,
+                    "TraceSanitizer=1\n"
+                    f"TraceSanCompileBudget={TRACESAN_WARM_BUDGET}\n"
+                    "SlowQueryThresholdMs=1000000\n")
+    ctx = sservice.ServiceContext.from_ini(ini)
+    if not rg.tracesan_enabled():
+        fail("15b: [Service] TraceSanitizer did not arm the sentinel")
+    index = ctx.indexes["main"]
+    for name, value in (("SearchMode", "beam"), ("ContinuousBatching", "1"),
+                        ("BeamSlots", str(SENTINEL_SLOTS)),
+                        ("FlightDeviceSampleRate", "1")):
+        if not index.set_parameter(name, value):
+            fail(f"15b: set_parameter {name}")
+    server = sserver.SearchServer(ctx)
+    run = ServerRunner(server)
+    texts = [f"$resultnum:{K} " + b64_query(v)
+             for v in queries[:SENTINEL_REQUESTS]]
+    try:
+        with rg.track_compiles("15b.warm") as warm:
+            # the load and a lone request (the forced slow query's
+            # shape), each twice: a graph is captured at a key's second
+            # sighting
+            for _ in range(2):
+                pool_search(run.addr, texts)
+                pool_search(run.addr, texts[:1], connections=1)
+        warm_counts = rg.compile_counts()
+        # steady state: no family may compile again
+        for family, count in warm_counts.items():
+            rg.set_compile_budget(family, count)
+        trips0 = rg.tracesan_counters()["budget_trips"]
+        flagged0 = rg.violation_count()
+        with rg.track_compiles("15b.steady") as steady:
+            res, wall = pool_search(run.addr, texts)
+        d, ids, bad = served_arrays(res, K)
+        trips = rg.tracesan_counters()["budget_trips"] - trips0
+        flagged = rg.violation_count() - flagged0
+        gflops = metrics.gauge_value("engine.achieved_gflops")
+        gbps = metrics.gauge_value("engine.achieved_gbps")
+        pct = metrics.gauge_value("engine.roofline_pct_peak")
+        h = metrics.histogram_or_none("engine.segment_device_ns")
+        # a forced slow query: its log line carries the attribution
+        lines = []
+
+        class Catch(logging_mod.Handler):
+            def emit(self, record):
+                lines.append(record.getMessage())
+        catch = Catch()
+        srv_log = logging_mod.getLogger(sserver.__name__)
+        srv_log.addHandler(catch)
+        server.slow_query_threshold_ms = 1e-6
+        try:
+            pool_search(run.addr, texts[:1], connections=1)
+        finally:
+            server.slow_query_threshold_ms = 1e6
+            srv_log.removeHandler(catch)
+        slow = [ln for ln in lines if ln.startswith("slow query")]
+        trips_after = rg.tracesan_counters()["budget_trips"] - trips0
+        stats = index._scheduler.stats() if index._scheduler else {}
+    finally:
+        run.stop()
+        index.close()
+    out = {"requests": len(texts), "steady_wall_s": wall,
+           "steady_qps": len(texts) / wall, "unanswered": bad,
+           "warm": {"compiles": warm.count, "kinds": warm.kinds,
+                    "by_family": warm_counts},
+           "steady": {"compiles": steady.count, "kinds": steady.kinds,
+                      "budget_trips": trips, "flagged_transfers": flagged},
+           "budget_trips_with_the_slow_query": trips_after,
+           "violations": rg.violations()[:5],
+           "engine_achieved_gflops": gflops,
+           "engine_achieved_gbps": gbps,
+           "engine_roofline_pct_peak": pct,
+           "segment_device_ns_samples": h.count if h is not None else 0,
+           "scheduler": {k: stats.get(k) for k in (
+               "retired", "segments_eager", "segments_replayed",
+               "graphs_captured")},
+           "slow_query_line": slow[0] if slow else None}
+    rg.disable_tracesan()
+    check(bad == 0, f"15b: {bad} unanswered requests")
+    check(trips == 0 and trips_after == 0 and flagged == 0,
+          f"15b: steady state {trips} budget trips ({trips_after} with "
+          f"the slow query), {flagged} flagged transfers "
+          f"({rg.violations()[:5]})")
+    check(gflops > 0 and 0 < pct <= 100,
+          f"15b: engine gauges gflops {gflops}, pct_peak {pct}")
+    check(bool(slow) and "gflops=" in slow[0] and "pct_peak=" in slow[0],
+          f"15b: the forced slow query's log line {slow[:1]}")
+    return out
+
+
+def mesh_phase(pt, block_dots, data, queries, truth, out13,
+               workdir) -> dict:
+    """15c: phase 13c's two serve-shard folders as a 2-shard mesh on
+    [cuda:0, cuda:0]: the monolithic and scheduled beam walks, the dense
+    scan (probe_block_dots launched a shard), the agreement with 13c's
+    in-process merge, and a MeshServe=1 server."""
+    from sptag_tpu_torch.parallel import sharded
+    from sptag_tpu_torch.serve import server as sserver
+    from sptag_tpu_torch.serve import service as sservice
+
+    folder = os.path.join(workdir, "mesh2")
+    os.makedirs(folder)
+    for s, shard in enumerate(out13["serve_folders"]):
+        os.symlink(shard, os.path.join(folder, f"shard_{s:03d}"))
+    sharded.write_manifest(folder, len(SHARDS), SHARDS[-1][1], data.shape[1],
+                           0, [])
+    mesh = sharded.Mesh(["cuda:0"] * len(SHARDS))
+    t0 = time.perf_counter()
+    m = sharded.ShardedBKTIndex.load(folder, mesh=mesh, dense=True)
+    load_s = time.perf_counter() - t0
+    q = queries[:CLUSTER_QUERIES]
+    tq = truth[:len(q)]
+    m.search(q, K)                                  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d_b, i_b = m.search(q, K)
+    mesh_ms = (time.perf_counter() - t0) * 1e3
+    # the two shards' separate batches, back to back, at the same plan
+    shard_ms = []
+    for eng in m.engines:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.search(q, m._merge_k_local(K), m.max_check, m.beam_width, None,
+                   m.nbp_limit)
+        torch.cuda.synchronize()
+        shard_ms.append((time.perf_counter() - t0) * 1e3)
+    recall_b = recall_at_k(i_b, tq)
+    # the mesh scheduler
+    m.enable_continuous_batching()
+    try:
+        futs = m.submit_batch(q, K)
+        got = [f.result(timeout=300) for f in futs]
+    finally:
+        m.retire_scheduler()
+    d_s = np.stack([g[0] for g in got])
+    i_s = np.stack([g[1] for g in got])
+    sched_equal = bool(np.array_equal(i_s, i_b)
+                       and d_s.tobytes() == d_b.tobytes())
+    # the dense scan: probe_block_dots on the card in each shard
+    block_dots.reset_launch_counts()
+    d_d, i_d = m.search_dense(q, K)
+    dense_launches = block_dots.launch_counts()
+    recall_d = recall_at_k(i_d, tq)
+    # 13c's in-process merge of the shards' own beam searches
+    ref_d, ref_i = out13["beam_merge"]
+    tol = 2e-5 * float(np.abs(d_b).max())
+    same_rows = [not separated_ids_equal(i_b[r:r + 1], ref_i[r:r + 1],
+                                         ref_d[r:r + 1], tol)
+                 for r in range(len(q))]
+    # a MeshServe=1 server over the mesh
+    ctx = sservice.ServiceContext(sservice.ServiceSettings(
+        listen_addr="127.0.0.1", default_max_result=K, mesh_serve=True))
+    ctx.add_index("mesh", sharded.ServingAdapter(m, data.shape[1]))
+    run = ServerRunner(sserver.SearchServer(ctx))
+    try:
+        texts = [f"$resultnum:{K} " + b64_query(v)
+                 for v in q[:MESH_SERVE_REQUESTS]]
+        res, wall = pool_search(run.addr, texts)
+        armed = m._scheduler is not None
+    finally:
+        run.stop()
+        m.retire_scheduler()
+    sd, si, bad = served_arrays(res, K)
+    want_d, want_i = m.search(q[:MESH_SERVE_REQUESTS], K)
+    served_ids = bool(np.array_equal(si, want_i))
+    served_d = bool(np.array_equal(sd.astype(np.float32), want_d))
+    served_equal = bad == 0 and served_ids and served_d
+    out = {"load_s": load_s, "queries": len(q),
+           "beam_recall_at_10": recall_b,
+           "phase_13c_merged_recall": out13["beam_recall"],
+           "mesh_batch_ms": mesh_ms, "shard_batch_ms": shard_ms,
+           "scheduled_equals_monolithic": sched_equal,
+           "dense_recall_at_10": recall_d,
+           "dense_launches": dense_launches,
+           "rows_equal_13c_merge_at_separated_ranks": float(
+               np.mean(same_rows)),
+           "mesh_serve": {"armed": armed, "requests": len(texts),
+                          "wall_s": wall, "unanswered": bad,
+                          "ids_equal_search_batch": served_ids,
+                          "distances_equal_search_batch": served_d}}
+    check(recall_b >= out13["beam_recall"] - 0.01,
+          f"15c: mesh beam recall {recall_b} below 13c's "
+          f"{out13['beam_recall']} - 0.01")
+    check(sched_equal, "15c: the mesh scheduler differs from the "
+                       "monolithic mesh walk")
+    check(dense_launches.get("probe_block_dots_f32", 0) >= len(SHARDS),
+          f"15c: the dense mesh launched {dense_launches}")
+    check(out["rows_equal_13c_merge_at_separated_ranks"] == 1.0,
+          f"15c: mesh ids differ from 13c's merge: "
+          f"{out['rows_equal_13c_merge_at_separated_ranks']}")
+    check(armed and served_equal,
+          f"15c: MeshServe armed {armed}, answers equal {served_equal}, "
+          f"unanswered {bad}")
+    return out
+
+
+MH_WORKER = r"""
+import sys
+import numpy as np
+import torch
+sys.path.insert(0, sys.argv[4])
+import chip_smoke as cs
+from sptag_tpu_torch.parallel import multihost
+from sptag_tpu_torch.parallel.sharded import Mesh
+rank, port, folder = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+multihost.initialize(f"127.0.0.1:{port}", num_processes=cs.MH_PROCS,
+                     process_id=rank)
+data, queries = cs.make_dataset(n=200_000, nq=4096, seed=7)
+data = data[:cs.MH_ROWS]
+per = cs.MH_ROWS // cs.MH_SHARDS
+local = cs.MH_SHARDS // cs.MH_PROCS
+params = dict(cs.GRAPH_PARAMS)
+idx = multihost.build_process_sharded(
+    lambda s: data[s * per:(s + 1) * per], cs.MH_ROWS, data.shape[1], 0,
+    mesh=Mesh(["cuda:0"] * local), params=params, save_to=folder)
+d, i = idx.search(queries[:cs.MH_QUERIES], cs.K)
+np.savez(f"{folder}/rank{rank}.npz", d=d, i=i)
+import torch.distributed as dist
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+def multiprocess_phase(queries, workdir, here) -> dict:
+    """15d: two processes on cuda:0 over gloo, each building 2 of the 4
+    shards of a 50,000-row slice of the headline; their ids against a
+    one-process 4-shard mesh over the same shard folders."""
+    from sptag_tpu_torch.parallel import sharded
+
+    folder = os.path.join(workdir, "mesh_mp")
+    os.makedirs(folder)
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MH_WORKER, str(r), str(port), folder, here],
+        cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(MH_PROCS)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0].decode(
+                errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    rcs = [p.returncode for p in procs]
+    if any(rcs):
+        for r, o in enumerate(outs):
+            print(f"15d rank {r} (rc {rcs[r]}):\n{o[-3000:]}",
+                  file=sys.stderr, flush=True)
+        fail(f"15d: the processes exited {rcs}")
+    got = [np.load(os.path.join(folder, f"rank{r}.npz"))
+           for r in range(MH_PROCS)]
+    one = sharded.ShardedBKTIndex.load(
+        folder, mesh=sharded.Mesh(["cuda:0"] * MH_SHARDS))
+    q = queries[:MH_QUERIES]
+    d1, i1 = one.search(q, K)
+    ranks_agree = all(np.array_equal(g["i"], got[0]["i"]) for g in got)
+    ids_equal = bool(np.array_equal(got[0]["i"], i1))
+    out = {"rows": MH_ROWS, "shards": MH_SHARDS, "processes": MH_PROCS,
+           "wall_s": wall, "ranks_agree": ranks_agree,
+           "ids_equal_one_process": ids_equal,
+           "distances_equal": bool(np.array_equal(got[0]["d"], d1))}
+    check(ranks_agree and ids_equal,
+          f"15d: ranks agree {ranks_agree}, ids equal the one-process "
+          f"mesh {ids_equal}")
+    return out
+
+
+def observability_mesh_phase(pt, block_dots, data, queries, truth, rows,
+                             card, graph_folder, out13, workdir,
+                             here) -> None:
+    """Phase 15: 15a-15d, each its own JSON line."""
+    t_phase = time.perf_counter()
+    emit({"phase": "15a", **roofline_phase(rows, card)})
+    emit({"phase": "15b", **sentinel_phase(pt, graph_folder, queries,
+                                           workdir)})
+    emit({"phase": "15c", **mesh_phase(pt, block_dots, data, queries, truth,
+                                       out13, workdir)})
+    emit({"phase": "15d", **multiprocess_phase(queries, workdir, here),
+          "phase_15_wall_s": time.perf_counter() - t_phase})
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a CUDA "
@@ -3940,6 +4318,16 @@ def main() -> None:
     if tuple(cap) != (9, 0):
         fail(f"needs compute capability 9.0 (Hopper), got {cap}")
     dev = torch.device("cuda")
+    # the bounds of phase 2 against the card's table peaks
+    global HBM_BYTES_S, PEAK_OPS_S
+    from sptag_tpu_torch.utils import roofline
+
+    peaks = roofline.capability()
+    if peaks.source != "table":
+        fail(f"the roofline table has no entry for {peaks.device_kind!r}")
+    HBM_BYTES_S = peaks.hbm_gbps * 1e9
+    PEAK_OPS_S = {"f32": peaks.peak_flops_f32,
+                  "i8": peaks.peak_flops_int8}
 
     # ---- phase 1: build -----------------------------------------------------
     # one nvcc per source, all started together
@@ -4424,7 +4812,7 @@ def main() -> None:
 
     # ---- phase 13: the CLIs, a resumable build, the aggregator, the ------
     # control plane and AnnIndex on two shards of the headline
-    first13b, first13c, launches13 = cluster_phase(
+    first13b, first13c, launches13, out13 = cluster_phase(
         pt, block_dots, walk_ops, data, queries, truth_f32, work.name, here)
     for path, first in (("phase13_resumed_build", first13b),
                         ("phase13_aggregator_dense", first13c)):
@@ -4449,6 +4837,10 @@ def main() -> None:
         if args is not None:
             rows.append(block_dot_row(block_dots, kind, "f32i8",
                                       "cascade_dense", launches14, *args))
+
+    # ---- phase 15: observability (device half) and the mesh -------------
+    observability_mesh_phase(pt, block_dots, data, queries, truth_f32, rows,
+                             card, graph_folder, out13, work.name, here)
 
     if FAILED_CHECKS:
         fail(f"{len(FAILED_CHECKS)} check(s) failed: {FAILED_CHECKS}")

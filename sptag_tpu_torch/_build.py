@@ -75,6 +75,9 @@ def build(name: str) -> Tuple[str, float]:
                            f"{res.stdout}{res.stderr}")
     os.replace(tmp, so)            # atomic: concurrent builds agree
     build_log[name] = res.stdout + res.stderr
+    # a build is the port's compile (utils/recompile_guard.py)
+    from sptag_tpu_torch.utils import recompile_guard
+    recompile_guard.note_compile(recompile_guard.BUILD, seconds)
     return so, seconds
 
 

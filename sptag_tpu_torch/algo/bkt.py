@@ -79,7 +79,9 @@ _DENSE_PARAMS = frozenset({"densereplicas", "denseclustersize"}) \
     | _CASCADE_PARAMS
 # knobs baked into the walk's engine snapshot
 _ENGINE_PARAMS = frozenset({"beampackedneighbors", "beamscoredtype",
-                            "binnedtopk", "approxrecalltarget"}) \
+                            "binnedtopk", "approxrecalltarget",
+                            # baked into the engine at _make_engine
+                            "flightdevicesamplerate", "rooflineprobe"}) \
     | _CASCADE_PARAMS
 
 
@@ -441,7 +443,10 @@ class BKTIndex(VectorIndex):
             recall_target=float(getattr(p, "approx_recall_target", 0.99)),
             cascade_search=bool(int(getattr(p, "cascade_search", 0))),
             corpus_tier=str(getattr(p, "corpus_tier", "device")),
-            device=self.device)
+            device=self.device,
+            device_sample_rate=float(getattr(
+                p, "flight_device_sample_rate", 0.0)),
+            roofline_probe=bool(int(getattr(p, "roofline_probe", 0))))
 
     def _get_engine(self) -> GraphSearchEngine:
         """Pin the current engine snapshot: readers take one unlocked

@@ -44,7 +44,7 @@ from sptag_tpu_torch.ops import cascade as cascade_ops
 from sptag_tpu_torch.ops import distance as dist_ops
 from sptag_tpu_torch.ops import walk_dots as walk_ops
 from sptag_tpu_torch.ops import topk_bins
-from sptag_tpu_torch.utils import devmem, query_bucket, round_up
+from sptag_tpu_torch.utils import costmodel, devmem, query_bucket, round_up
 
 log = logging.getLogger(__name__)
 
@@ -290,24 +290,31 @@ def _kernel_queries(data_perm: torch.Tensor,
     return queries.to(torch.float32)
 
 
-def probe_choice(queries, centroids, cent_sq, metric: int, nprobe: int):
+def probe_choice(queries, centroids, cent_sq, metric: int, nprobe: int,
+                 cent_valid: Optional[torch.Tensor] = None):
     """(Q, D) queries -> (ascending block-mean distances, block ids), both
     (Q, nprobe).  Block means are float32 even for integer corpora, so they
-    are scored with float queries."""
+    are scored with float queries.  `cent_valid` (C,) masks the padding
+    blocks of a mesh shard's layout (`DenseTreeSearcher.pad_layout`) out of
+    the ranking."""
     d0 = dist_ops.pairwise_distance(queries.to(torch.float32), centroids,
                                     DistCalcMethod(metric), x_sqnorm=cent_sq)
+    if cent_valid is not None:
+        d0 = torch.where(cent_valid[None, :], d0, MAX_DIST)
     return dist_ops.smallest_k(d0, nprobe)
 
 
 def _dense_search_kernel(data_perm, member_ids, member_sq, centroids,
                          cent_sq, deleted, queries, k: int, nprobe: int,
                          metric: int, base: int, dedup: bool = False,
-                         binned_bins: int = 0):
+                         binned_bins: int = 0,
+                         cent_valid: Optional[torch.Tensor] = None):
     """(Q, C) block scores -> top-nprobe blocks -> (Q, nprobe*P) candidate
-    scores -> masked top-k."""
+    scores -> masked top-k.  `cent_valid`: see `probe_choice`."""
     Q = queries.shape[0]
     C, P, D = data_perm.shape
-    _, topc = probe_choice(queries, centroids, cent_sq, metric, nprobe)
+    _, topc = probe_choice(queries, centroids, cent_sq, metric, nprobe,
+                           cent_valid)
     ids = member_ids[topc].reshape(Q, nprobe * P)
     sq = member_sq[topc].reshape(Q, nprobe * P)
     if _kernel_ok(data_perm, queries):
@@ -519,6 +526,30 @@ class DenseTreeSearcher:
         cent_sq = (means ** 2).sum(1, dtype=np.float32)
         return dict(perm=perm, ids=mids, sq=sq.reshape(C, P), cent=means,
                     cent_sq=cent_sq, cluster_size=P, num_clusters=C)
+
+    @staticmethod
+    def pad_layout(lay: dict, C: int, Pb: int, dim: int) -> dict:
+        """Pad one `build_layout` result to an agreed (C, Pb) geometry
+        (shared by the mesh packer, parallel/sharded.py, and the
+        multi-process build, parallel/multihost.py, so the padding cannot
+        diverge): -1 ids, zero vectors and norms, and a centroid-validity
+        mask over the real blocks."""
+        c, p = lay["perm"].shape[:2]
+        out = dict(
+            dense_perm=np.zeros((C, Pb, dim), lay["perm"].dtype),
+            dense_ids=np.full((C, Pb), -1, np.int32),
+            dense_sq=np.zeros((C, Pb), np.float32),
+            dense_cent=np.zeros((C, dim), np.float32),
+            dense_cent_sq=np.zeros((C,), np.float32),
+            dense_cent_valid=np.zeros((C,), bool),
+        )
+        out["dense_perm"][:c, :p] = lay["perm"]
+        out["dense_ids"][:c, :p] = lay["ids"]
+        out["dense_sq"][:c, :p] = lay["sq"]
+        out["dense_cent"][:c] = lay["cent"]
+        out["dense_cent_sq"][:c] = lay["cent_sq"]
+        out["dense_cent_valid"][:c] = True
+        return out
 
     def __init__(self, data: np.ndarray, clusters: List[np.ndarray],
                  deleted: Optional[np.ndarray], metric: DistCalcMethod,
@@ -785,3 +816,86 @@ class DenseTreeSearcher:
             out_d[lo:hi, :d.shape[1]] = d[:hi - lo]
             out_i[lo:hi, :ids.shape[1]] = ids[:hi - lo]
         return out_d, out_i
+
+
+# ---------------------------------------------------------------------------
+# cost-ledger entries (utils/costmodel.py; the JAX package's formulas).
+# The JAX package compiles a chunked program (``lax.map`` over query
+# chunks) apart from the one-chunk kernels; the port loops over chunks in
+# `DenseTreeSearcher._search_impl`, which stands for both chunked families.
+# ---------------------------------------------------------------------------
+
+def _dense_scan_cost(Q, C, P, D, nprobe, k, itemsize=4, binned_bins=0,
+                     **_):
+    """Per-query kernel: (Q, C) center matmul, top-nprobe cut, block
+    gather, (Q, nprobe*P) candidate contraction, masked top-k.  Bytes:
+    the gathered (Q, nprobe, P, D) candidate tensor is written then
+    re-read by the scoring einsum (2x), plus the full block-layout
+    operand of the gather and the (Q, nprobe*P) score-matrix traffic.
+    With `binned_bins` the final select is the bin reduction: the
+    top-k ensemble term is replaced by the O(M) reduction + the
+    bins-wide shortlist sort (ops/topk_bins.binned_select_cost)."""
+    M = Q * nprobe * P
+    if binned_bins:
+        sel_f, sel_b = topk_bins.binned_select_cost(Q, nprobe * P, k, binned_bins)
+        sel_f += 6.0 * M                          # mask/where epilogue
+        sel_b += 4.0 * M * 4
+    else:
+        sel_f, sel_b = 10.0 * M, 8.0 * M * 4      # mask/top-k ensemble
+    flops = (costmodel.matmul_flops(Q, C, D)      # center scoring
+             + 2.0 * M * D                        # candidate scoring
+             + sel_f
+             + 2.0 * D * (Q + C))                 # norms
+    nbytes = (2.0 * M * D * itemsize              # gather out + einsum read
+              + C * P * D * itemsize              # gather operand
+              + C * D * 4 + C * 4                 # centroids
+              + Q * D * itemsize
+              + sel_b                             # ids/sq/mask/select traffic
+              + Q * k * 8)
+    return flops, nbytes
+
+
+def _dense_chunked_cost(M_chunks, Q, C, P, D, nprobe, k, itemsize=4,
+                        binned_bins=0, **_):
+    f, b = _dense_scan_cost(Q, C, P, D, nprobe, k, itemsize,
+                            binned_bins=binned_bins)
+    return M_chunks * f, M_chunks * b
+
+
+def _dense_grouped_cost(Q, C, P, D, nprobe, U, G, k, itemsize=4,
+                        binned_bins=0, **_):
+    """Grouped kernel: every query scores its group's U-block union —
+    (Q/G)*U grid steps of (G, D) x (D, P) contractions.  With
+    `binned_bins` the final (Q, U*P)-wide select is the bin reduction
+    (same substitution as _dense_scan_cost)."""
+    NG = max(1, Q // max(G, 1))
+    M = NG * U * P * G                            # scored candidates
+    if binned_bins:
+        sel_f, sel_b = topk_bins.binned_select_cost(Q, U * P, k, binned_bins)
+        sel_f += 8.0 * M                          # union rank/scan/mask
+        sel_b += 4.0 * M * 4
+    else:
+        sel_f, sel_b = 12.0 * M, 8.0 * M * 4      # union rank/scan/top-k
+    flops = (costmodel.matmul_flops(Q, C, D)
+             + 2.0 * M * D
+             + sel_f
+             + 2.0 * D * (Q + C))
+    nbytes = (2.0 * NG * U * P * D * itemsize + C * P * D * itemsize
+              + C * D * 4 + Q * D * itemsize + sel_b + Q * k * 8)
+    return flops, nbytes
+
+
+def _dense_grouped_chunked_cost(M_chunks, Q, C, P, D, nprobe, U, G, k,
+                                itemsize=4, binned_bins=0, **_):
+    f, b = _dense_grouped_cost(Q, C, P, D, nprobe, U, G, k, itemsize,
+                               binned_bins=binned_bins)
+    return M_chunks * f, M_chunks * b
+
+
+costmodel.register("dense.scan", _dense_search_kernel, _dense_scan_cost)
+costmodel.register("dense.scan_chunked", DenseTreeSearcher._search_impl,
+                   _dense_chunked_cost)
+costmodel.register("dense.grouped", _dense_search_grouped_kernel,
+                   _dense_grouped_cost)
+costmodel.register("dense.grouped_chunked", DenseTreeSearcher._search_impl,
+                   _dense_grouped_chunked_cost)

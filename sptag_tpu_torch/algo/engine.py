@@ -79,6 +79,7 @@ from __future__ import annotations
 
 import collections
 import threading
+import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -92,7 +93,9 @@ from sptag_tpu_torch.ops import cascade as cascade_ops
 from sptag_tpu_torch.ops import distance as dist_ops
 from sptag_tpu_torch.ops import walk_dots as walk_ops
 from sptag_tpu_torch.ops import topk_bins
-from sptag_tpu_torch.utils import devmem, query_bucket, trace
+from sptag_tpu_torch.utils import (costmodel, devmem, flightrec, metrics,
+                                   query_bucket, recompile_guard, roofline,
+                                   trace)
 
 MAX_DIST = walk_ops.MAX_DIST
 
@@ -121,6 +124,12 @@ _GRAPH_CACHE = 32
 #: the walk state's per-row tensors that a segment changes
 STATE_KEYS = ("cand_ids", "cand_d", "expanded", "visited", "no_better",
               "ptr", "it")
+
+
+def _num_words(n: int) -> int:
+    """The JAX package's packed-bitset word count over ids [0, n]: the
+    ledger's visited-set term (the port keeps a (Q, n + 1) bool table)."""
+    return (n + 1 + 31) // 32
 
 
 def beam_width_for(beam_width: int, max_check: int, L: int) -> int:
@@ -160,7 +169,9 @@ def _seed_from_pivots(pivot_ids, pivot_vecs, pivot_sqnorm, queries, L: int,
         sorted_d, cols = dist_ops.smallest_k(d0, d0.shape[1])
     sorted_ids = torch.where(sorted_d < MAX_DIST, seed_ids[cols], -1)
     visited = torch.zeros((Q, n + 1), dtype=torch.bool, device=dev)
-    visited.index_fill_(1, pivot_ids, True)
+    # a -1 pivot (a mesh shard's padding, parallel/sharded.py) marks the
+    # dump column only
+    visited.index_fill_(1, torch.where(pivot_ids >= 0, pivot_ids, n), True)
     return (sorted_ids[:, :L], sorted_d[:, :L], visited,
             sorted_ids[:, L:], sorted_d[:, L:])
 
@@ -417,7 +428,9 @@ class _Walk:
         """At most `max_iters` bodies, ending early once no row is alive;
         returns the bodies run."""
         for step in range(max_iters):
-            if step % _ALIVE_CHECK == 0 and not bool(self.row_alive().any()):
+            # the body's one intended sync: a blessed readback
+            if step % _ALIVE_CHECK == 0 and not bool(
+                    recompile_guard.device_get(self.row_alive().any())):
                 return step
             self.body()
         return max_iters
@@ -458,7 +471,7 @@ def _finalize_host(eng: "GraphSearchEngine", queries, cand_ids,
     """Host-tier cascade finalize: the pool's ids read back once, their
     float32 rows and tombstones fetched from host memory, tombstones folded
     into the ids, and the cascade's fp re-rank (ROWS mode)."""
-    ids_np = cand_ids.cpu().numpy()
+    ids_np = recompile_guard.device_get(cand_ids)
     safe = np.clip(ids_np, 0, eng.fp_host.shape[0] - 1)
     ids_np = np.where(eng._deleted_np[safe], -1, ids_np)
     return cascade_ops.rerank_gathered(
@@ -480,7 +493,14 @@ class GraphSearchEngine:
                  recall_target: float = topk_bins.DEFAULT_RECALL_TARGET,
                  cascade_search: bool = False,
                  corpus_tier: str = "device",
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 device_sample_rate: float = 0.0,
+                 roofline_probe: bool = False,
+                 quantized: Optional[Tuple[np.ndarray, float]] = None):
+        """`quantized` (int8 rows, scale): the cascade's quantization when
+        the caller made it over a larger corpus (a mesh quantizes all its
+        shards with one scale, parallel/sharded.py); None quantizes
+        `data`."""
         n = data.shape[0]
         assert graph.shape[0] == n, (graph.shape, n)
         self.device = resolve_device(device)
@@ -507,8 +527,9 @@ class GraphSearchEngine:
         self._deleted_np: Optional[np.ndarray] = None
         int8_np = None
         if self.cascade:
-            int8_np, scale = cascade_ops.quantize_int8(
-                np.asarray(data, np.float32))
+            int8_np, scale = (quantized if quantized is not None else
+                              cascade_ops.quantize_int8(
+                                  np.asarray(data, np.float32)))
             self.score_scale = cascade_ops.walk_score_scale(True, np.int8,
                                                             scale)
             # packed neighbours would copy the corpus in the scoring dtype
@@ -553,7 +574,9 @@ class GraphSearchEngine:
         if len(pivot_ids) == 0:
             pivot_ids = np.zeros(1, np.int64)
         self.pivot_ids = put(pivot_ids)
-        self.pivot_vecs = self.data[self.pivot_ids]
+        # a mesh shard pads its pivot list with -1 (parallel/sharded.py):
+        # those score row 0, as the JAX mesh's padded pivot vectors do
+        self.pivot_vecs = self.data[self.pivot_ids.clamp_min(0)]
         if self.fp_host is not None:
             # seed distances in the walk's dequantized space
             self.pivot_vecs = walk_ops.dequantize(self.pivot_vecs,
@@ -575,6 +598,16 @@ class GraphSearchEngine:
         self._graphs = collections.OrderedDict()
         self._graph_lock = threading.Lock()
         self._graph_seen = set()        # keys asked for once
+        # FlightDeviceSampleRate: the fraction of segment dispatches whose
+        # device time is read (CUDA events around the dispatch or the
+        # graph replay) and turned into the roofline gauges
+        self.device_sample_rate = max(0.0, float(device_sample_rate))
+        self._seg_dispatches = 0
+        try:
+            self._capability = roofline.capability(
+                probe=bool(roofline_probe))
+        except Exception:                               # noqa: BLE001
+            self._capability = None
         # device-memory ledger: every resident tensor of this snapshot,
         # owned by the engine (a swap retires the entry when the
         # superseded engine is collected)
@@ -717,11 +750,91 @@ class GraphSearchEngine:
         walk = _Walk(self, state, t_limit, k_eff, L, B, nbp_limit,
                      inject if state.get("spare_ids") is not None else 0,
                      self.merge_bins_for(L, B))
+        timer = self.segment_timer() if check_alive else None
         if check_alive:
             walk.run(S)
         else:
             walk.run_all(S)
-        return walk.state(), walk.row_alive()
+        alive = walk.row_alive()
+        if timer is not None:
+            self.publish_segment_sample(int(state["queries"].shape[0]), B,
+                                        L, S, timer())
+        return walk.state(), alive
+
+    # ---- roofline attribution -----------------------------------------------
+
+    def score_itemsize(self) -> int:
+        """Bytes per element of the in-loop scoring corpus: the ledger's
+        byte scale."""
+        return int(self.score_src.element_size())
+
+    def score_dtype_name(self) -> str:
+        """Peak-selection dtype for the roofline, the JAX package's rule:
+        a scoring shadow reads as bf16, an integer corpus as int8."""
+        if self.data_score is not None:
+            return "bf16"
+        return "f32" if self.data.dtype.is_floating_point else "int8"
+
+    def walk_iter_cost(self, rows: int, B: int, L: int = 0):
+        """Ledger estimate of ONE walk-body iteration at batch `rows` (the
+        ``beam.segment`` unit), shared by the sampled roofline gauges and
+        the scheduler's per-query attribution.  `L` prices the binned body
+        when the engine runs BinnedTopK."""
+        return costmodel.estimate(
+            "beam.segment", Q=rows, X=B * self.graph.shape[1],
+            D=self.data.shape[1], W=_num_words(self.n),
+            score_itemsize=self.score_itemsize(),
+            merge_bins=self.merge_bins_for(L, B) if L else 0, L=L,
+            N=self.n, score_scale=self.score_scale)
+
+    def segment_timer(self):
+        """None unless this segment dispatch is sampled
+        (FlightDeviceSampleRate); else a callable that returns the
+        nanoseconds since the call, read between CUDA events on the card
+        (waiting for the end event: the sampled dispatch's one sync) and
+        on the host clock on the CPU."""
+        if self.device_sample_rate <= 0:
+            return None
+        self._seg_dispatches += 1
+        every = (1 if self.device_sample_rate >= 1.0
+                 else max(1, int(round(1.0 / self.device_sample_rate))))
+        if self._seg_dispatches % every:
+            return None
+        if self.device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+
+            def elapsed_ns() -> int:
+                end.record()
+                end.synchronize()
+                return int(start.elapsed_time(end) * 1e6)
+            return elapsed_ns
+        t0 = time.monotonic_ns()
+        return lambda: time.monotonic_ns() - t0
+
+    def publish_segment_sample(self, rows: int, B: int, L: int, S: int,
+                               dev_ns: int) -> None:
+        """The roofline gauges of one sampled segment: the ledger's work
+        of S iterations at `rows` over the sampled device time.  S is the
+        segment's iteration cap, so near a drain tail the estimate bounds
+        the work from above."""
+        metrics.observe("engine.segment_device_ns", dev_ns)
+        est = self.walk_iter_cost(rows, B, L)
+        flops = est.flops * S
+        nbytes = est.hbm_bytes * S
+        dev_s = max(dev_ns, 1) / 1e9
+        metrics.set_gauge("engine.achieved_gflops", flops / dev_s / 1e9)
+        metrics.set_gauge("engine.achieved_gbps", nbytes / dev_s / 1e9)
+        pct = (self._capability.pct_of_peak(
+            flops / dev_s, nbytes / dev_s, self.score_dtype_name())
+            if self._capability is not None else None)
+        if pct is not None:
+            metrics.set_gauge("engine.roofline_pct_peak", pct)
+        flightrec.record("engine", "segment_device", dur_ns=dev_ns,
+                         payload={"rows": rows, "iters": S,
+                                  "flops": int(flops),
+                                  "bytes": int(nbytes)})
 
     def finalize(self, state: dict, k_eff: int
                  ) -> Tuple[np.ndarray, np.ndarray]:
@@ -731,7 +844,7 @@ class GraphSearchEngine:
                            state["cand_d"], k_eff,
                            self.finalize_bins_for(
                                k_eff, int(state["cand_ids"].shape[1])))
-        return d.cpu().numpy(), ids.cpu().numpy()
+        return recompile_guard.device_get((d, ids))
 
     def _search_segmented(self, queries: np.ndarray,
                           seeds: Optional[np.ndarray], k_eff: int, L: int,
@@ -770,7 +883,8 @@ class GraphSearchEngine:
                 state, alive = self.run_segment(state, t_limit, k_eff, L,
                                                 B, limit, S, inject=inject)
                 self.last_iterations += S
-                if not bool(alive.any()):
+                # the segment loop's continue flag: its intended sync
+                if not bool(recompile_guard.device_get(alive.any())):
                     break
             d, ids = self.finalize(state, k_eff)
             out_d[start:start + nqc] = d[:nqc]
@@ -805,7 +919,7 @@ class GraphSearchEngine:
                 return out
         d, ids, its = self._walk_chunk(queries, s, plan)
         self.last_iterations += its
-        return d.cpu().numpy(), ids.cpu().numpy()
+        return recompile_guard.device_get((d, ids))
 
     def _replay_chunk(self, queries, seeds, plan
                       ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
@@ -839,9 +953,13 @@ class GraphSearchEngine:
         with self._graph_lock:
             entry = self._graphs.get(key)
             if entry is None:
+                t0 = time.perf_counter()
                 entry = self._capture(queries, seeds, plan)
                 if entry is None:
                     return None
+                # a capture is the port's compile (recompile_guard)
+                recompile_guard.note_compile(recompile_guard.CAPTURE,
+                                             time.perf_counter() - t0)
                 self._graphs[key] = entry
                 while len(self._graphs) > _GRAPH_CACHE:
                     self._graphs.popitem(last=False)
@@ -855,7 +973,7 @@ class GraphSearchEngine:
             with capture_lock:       # not while the profiler starts / stops
                 graph.replay()
             self.last_iterations += plan[3]
-            return d_out[:nq].cpu().numpy(), i_out[:nq].cpu().numpy()
+            return recompile_guard.device_get((d_out[:nq], i_out[:nq]))
 
     def _capture(self, queries, seeds, plan):
         """The graph and its static buffers, or None while a profile runs
@@ -904,20 +1022,154 @@ class GraphSearchEngine:
             # the host tier's finalize reads the pool back: one segment of
             # the whole budget (the same walk)
             segment_iters = T
-        if segment_iters:
-            d, ids = self._search_segmented(
-                queries, seeds, k_eff, L, B, T, limit, dynamic_pivots,
-                chunk, int(segment_iters))
-            out_d[:, :k_eff] = d
-            out_i[:, :k_eff] = ids
-            return out_d, out_i
-        plan = (k_eff, L, B, T, limit, dynamic_pivots,
-                self.merge_bins_for(L, B), self.finalize_bins_for(k_eff, L),
-                self.seed_keep_for(L))
-        self.last_iterations = 0
-        for lo in range(0, nq, chunk):
-            s = None if seeds is None else seeds[lo:lo + chunk]
-            d, ids = self._search_chunk(queries[lo:lo + chunk], s, *plan)
-            out_d[lo:lo + chunk, :d.shape[1]] = d
-            out_i[lo:lo + chunk, :ids.shape[1]] = ids
+        # the trace sentinel's hot section (utils/recompile_guard.py): the
+        # walk's readbacks are blessed, any other sync is a violation, and
+        # a whole-walk graph's capture is charged to "engine.walk"
+        with recompile_guard.hot_section("engine.walk"):
+            if segment_iters:
+                d, ids = self._search_segmented(
+                    queries, seeds, k_eff, L, B, T, limit, dynamic_pivots,
+                    chunk, int(segment_iters))
+                out_d[:, :k_eff] = d
+                out_i[:, :k_eff] = ids
+                return out_d, out_i
+            plan = (k_eff, L, B, T, limit, dynamic_pivots,
+                    self.merge_bins_for(L, B),
+                    self.finalize_bins_for(k_eff, L), self.seed_keep_for(L))
+            self.last_iterations = 0
+            for lo in range(0, nq, chunk):
+                s = None if seeds is None else seeds[lo:lo + chunk]
+                d, ids = self._search_chunk(queries[lo:lo + chunk], s,
+                                            *plan)
+                out_d[lo:lo + chunk, :d.shape[1]] = d
+                out_i[lo:lo + chunk, :ids.shape[1]] = ids
         return out_d, out_i
+
+
+# ---------------------------------------------------------------------------
+# cost-ledger entries (utils/costmodel.py; the JAX package's formulas).
+# The walk formulas follow the count-body-once rule: ``beam.segment`` is ONE
+# iteration of the body; runtime consumers scale by their iteration counts.
+# The JAX package compiles a program per entry point; the port's walk is
+# Python over the same body, so one function stands for several families:
+# `GraphSearchEngine._walk_chunk` is the whole walk of one chunk (seeded by
+# pivots or per-query seeds: ``beam.walk`` / ``beam.walk_seeded``; on the
+# card a chunk of at most _GRAPH_MAX_Q queries replays it as one CUDA
+# graph), and `GraphSearchEngine.search` loops it over chunks
+# (``beam.walk_chunked`` / ``beam.walk_seeded_chunked``).
+# ---------------------------------------------------------------------------
+
+def _walk_iter_cost(Q, X, D, W, score_itemsize=4, merge_bins=0, L=0, N=0,
+                    score_scale=0, **_):
+    """One walk-body iteration at batch Q: the B*m = X candidate gather +
+    scoring contraction dominates; the WALK_SORT_* constants carry the
+    argsort/segmented-scan/top-k ensemble (fitted in the JAX package
+    against its compiler's cost analysis).
+
+    `merge_bins` > 0 prices the BINNED body instead: the X-wide sort
+    ensemble is gone — what remains is the (L + X)-wide bin reduction +
+    shortlist top-L (WALK_BINNED_* constants, per merged-row element)
+    and the L-wide lazy-mark sort ensemble (the WALK_SORT_* constants at
+    width L)."""
+    # int8 cascade scoring (score_scale > 0): the dequantize cast +
+    # multiply is another 2·Q·X·D elementwise ops, and the dequantized
+    # f32 copy doubles the post-gather traffic words
+    deq_f = 2.0 * Q * X * D if score_scale else 0.0
+    deq_b = Q * X * D * 4.0 if score_scale else 0.0
+    if merge_bins:
+        wall = X + max(L, 1)
+        flops = (2.0 * Q * X * D + deq_f
+                 + costmodel.WALK_BINNED_FLOPS * Q * wall
+                 + costmodel.WALK_SORT_FLOPS * Q * max(L, 1))
+        nbytes = (2.0 * Q * X * D * score_itemsize + deq_b
+                  + N * D * score_itemsize       # corpus gather operand
+                  + costmodel.WALK_BINNED_TRAFFIC * Q * wall * 4
+                  + costmodel.WALK_SORT_TRAFFIC * Q * max(L, 1) * 4
+                  + 2.0 * Q * W * 4)
+        return flops, nbytes
+    flops = 2.0 * Q * X * D + deq_f + costmodel.WALK_SORT_FLOPS * Q * X
+    nbytes = (2.0 * Q * X * D * score_itemsize + deq_b
+              + costmodel.WALK_SORT_TRAFFIC * Q * X * 4
+              + 2.0 * Q * W * 4)
+    return flops, nbytes
+
+
+def _seed_pivot_cost(Q, P, D, L, W, **_):
+    flops = (costmodel.matmul_flops(Q, P, D) + 32.0 * Q * P
+             + 2.0 * D * (Q + P))
+    nbytes = (P * D * 4 + Q * D * 4 + 8.0 * Q * P * 4 + Q * W * 4
+              + Q * L * 8)
+    return flops, nbytes
+
+
+def _seed_seeded_cost(Q, S, D, N, L, W, itemsize=4, **_):
+    flops = 2.0 * Q * S * D + 64.0 * Q * S + 2.0 * D * Q
+    nbytes = (2.0 * Q * S * D * itemsize + N * D * itemsize
+              + 16.0 * Q * S * 4 + Q * W * 4 + Q * L * 8)
+    return flops, nbytes
+
+
+def _finalize_cost(Q, L, D, N, rerank=True, itemsize=4, **_):
+    flops = (2.0 * Q * L * D if rerank else 0.0) + 4.0 * Q * L
+    nbytes = ((2.0 * Q * L * D * itemsize + N * D * itemsize) * rerank
+              + 6.0 * Q * L * 4 + N)
+    return flops, nbytes
+
+
+def _segment_cost(Q, X, D, W, score_itemsize=4, merge_bins=0, L=0, N=0,
+                  score_scale=0, **_):
+    return _walk_iter_cost(Q, X, D, W, score_itemsize,
+                           merge_bins=merge_bins, L=L, N=N,
+                           score_scale=score_scale)
+
+
+def _walk_full_cost(Q, P, X, D, L, W, N, score_itemsize=4, merge_bins=0,
+                    **_):
+    """Monolithic seed + walk + finalize, body counted once."""
+    fs, bs = _seed_pivot_cost(Q, P, D, L, W)
+    fi, bi = _walk_iter_cost(Q, X, D, W, score_itemsize,
+                             merge_bins=merge_bins, L=L, N=N)
+    ff, bf = _finalize_cost(Q, L, D, N, rerank=False)
+    return fs + fi + ff, bs + bi + bf
+
+
+def _walk_seeded_cost(Q, S, X, D, L, W, N, score_itemsize=4, itemsize=4,
+                      merge_bins=0, **_):
+    fs, bs = _seed_seeded_cost(Q, S, D, N, L, W, itemsize)
+    fi, bi = _walk_iter_cost(Q, X, D, W, score_itemsize,
+                             merge_bins=merge_bins, L=L, N=N)
+    ff, bf = _finalize_cost(Q, L, D, N, rerank=False)
+    return fs + fi + ff, bs + bi + bf
+
+
+def _walk_chunked_cost(M_chunks, **shape):
+    f, b = _walk_full_cost(**shape)
+    return M_chunks * f, M_chunks * b
+
+
+def _walk_seeded_chunked_cost(M_chunks, **shape):
+    f, b = _walk_seeded_cost(**shape)
+    return M_chunks * f, M_chunks * b
+
+
+def _finalize_gathered_cost(Q, L, D, itemsize=4, **_):
+    flops = 2.0 * Q * L * D + 3.0 * Q * L * D / 2.0 + 4.0 * Q * L
+    nbytes = 2.0 * Q * L * D * itemsize + 6.0 * Q * L * 4
+    return flops, nbytes
+
+
+costmodel.register("beam.finalize_gathered", _finalize_host,
+                   _finalize_gathered_cost)
+costmodel.register("beam.seed", _seed_from_pivots, _seed_pivot_cost)
+costmodel.register("beam.seed_seeded", _seed_from_seeds, _seed_seeded_cost)
+costmodel.register("beam.segment", GraphSearchEngine.run_segment,
+                   _segment_cost)
+costmodel.register("beam.finalize", _finalize, _finalize_cost)
+costmodel.register("beam.walk", GraphSearchEngine._walk_chunk,
+                   _walk_full_cost)
+costmodel.register("beam.walk_seeded", GraphSearchEngine._walk_chunk,
+                   _walk_seeded_cost)
+costmodel.register("beam.walk_chunked", GraphSearchEngine.search,
+                   _walk_chunked_cost)
+costmodel.register("beam.walk_seeded_chunked", GraphSearchEngine.search,
+                   _walk_seeded_chunked_cost)

@@ -52,30 +52,11 @@ from sptag_tpu_torch.ops import cascade
 from sptag_tpu_torch.ops import distance as dist_ops
 from sptag_tpu_torch.ops import topk_bins
 from sptag_tpu_torch.ops import walk_dots as walk_ops
-from sptag_tpu_torch.utils import devmem, round_up
+from sptag_tpu_torch.utils import costmodel, devmem, round_up
 
 _ROW_PAD = 128      # corpus rows are padded to a multiple of this
 # score-matrix elements per query chunk (Q_chunk * Npad)
 _SCAN_BUDGET = 1 << 28
-# passes over the materialized (Q, N) score matrix in the exact scan (mask,
-# negate, top-k): the JAX package's costmodel.SCAN_MATRIX_TRAFFIC
-_SCAN_MATRIX_TRAFFIC = 3.2
-
-
-def flat_scan_cost(Q: int, N: int, D: int, k: int,
-                   itemsize: int = 4) -> Tuple[float, float]:
-    """(flops, bytes) of one exact scan of Q queries over N rows of width
-    D: the contraction, the norms and the masked top-k; bytes are the
-    corpus, queries, norms and tombstones read, the results written and
-    the score matrix's passes.  The JAX package's ``flat.scan``
-    cost-ledger formula (its unbinned branch); the quality monitor's
-    shadow budget charges each replay by it."""
-    flops = 2.0 * Q * N * D + 2.0 * D * (Q + N) + 2.0 * Q * N
-    nbytes = (N * D * itemsize + Q * D * itemsize + N * 4 + N + Q * k * 8
-              + _SCAN_MATRIX_TRAFFIC * Q * N * 4)
-    return flops, nbytes
-
-
 def _flat_search_kernel(data, sqnorm, invalid, queries, k: int, metric: int,
                         base: int, binned_bins: int = 0):
     """Distance matrix -> mask -> top-k (binned when `binned_bins` > 0).
@@ -566,3 +547,60 @@ class FlatIndex(VectorIndex):
                 self._loaded_cal = (int(n), int(ndel), int(cal_r))
         except Exception:                              # noqa: BLE001
             self._loaded_cal = None        # a corrupt file: recalibrate
+
+
+# ---------------------------------------------------------------------------
+# cost-ledger entries (utils/costmodel.py; the JAX package's formulas)
+# ---------------------------------------------------------------------------
+
+def _flat_scan_cost(Q, N, D, k, itemsize=4, binned_bins=0, **_):
+    """Exact scan: one (Q, D) x (N, D) contraction + norms + masked top-k.
+    Bytes: corpus + queries + norms/tombstones in, results out, plus the
+    materialised (Q, N) score matrix's mask/neg/top-k traffic.  With
+    `binned_bins` the selection is the bin reduction."""
+    flops = (costmodel.matmul_flops(Q, N, D) + 2.0 * D * (Q + N)
+             + 2.0 * Q * N)
+    if binned_bins:
+        sel_f, sel_b = topk_bins.binned_select_cost(Q, N, k, binned_bins)
+        nbytes = (N * D * itemsize + Q * D * itemsize + N * 4 + N
+                  + Q * k * 8
+                  + costmodel.SCAN_MATRIX_TRAFFIC * Q * N * 4
+                  + sel_b)
+        return flops + sel_f, nbytes
+    nbytes = (N * D * itemsize + Q * D * itemsize + N * 4 + N + Q * k * 8
+              + costmodel.SCAN_MATRIX_TRAFFIC * Q * N * 4)
+    return flops, nbytes
+
+
+def _flat_sketch_cost(Q, N, W, R, D, k, itemsize=4, **_):
+    """Sketch prefilter: XOR+popcount Hamming scan over (N, W) packed
+    words, top-R shortlist, exact re-rank of the gathered R rows."""
+    flops = (3.0 * Q * N * W                    # xor + popcount + add
+             + costmodel.topk_flops(Q, N)       # shortlist top-R
+             + costmodel.matmul_flops(Q, R, D)  # exact re-rank
+             + costmodel.topk_flops(Q, R))
+    nbytes = (N * W * 4 + Q * W * 4
+              + costmodel.SCAN_MATRIX_TRAFFIC * Q * N * 4
+              + 2.0 * Q * R * D * itemsize      # gather out + re-read
+              + N * D * itemsize                # gather operand
+              + Q * k * 8)
+    return flops, nbytes
+
+
+def _sketch_cal_cost(S, N, W, D, k, itemsize=4, **_):
+    """Calibration = one exact scan + one Hamming scan over S samples."""
+    f1, b1 = _flat_scan_cost(S, N, D, k, itemsize)
+    flops = f1 + 3.0 * S * N * W
+    nbytes = b1 + N * W * 4 + costmodel.SCAN_MATRIX_TRAFFIC * S * N * 4
+    return flops, nbytes
+
+
+def _pack_bits_cost(R, D, **_):
+    return 3.0 * R * D, R * D * 4 + R * ((D + 31) // 32) * 4
+
+
+costmodel.register("flat.scan", _flat_search_kernel, _flat_scan_cost)
+costmodel.register("flat.sketch_scan", _sketch_search, _flat_sketch_cost)
+costmodel.register("flat.sketch_cal", FlatIndex._calibrate, _sketch_cal_cost)
+# the sketch pack is the cascade's sign-bit packer (ops/cascade.py)
+costmodel.register("flat.pack_bits", cascade.pack_sign_bits, _pack_bits_cost)

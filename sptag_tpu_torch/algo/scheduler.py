@@ -47,10 +47,16 @@ retired, worker errors, leaked workers), the flight recorder's
 ``scheduler`` events and per-rid stats for the slow-query log, the host
 profiler's execute-stage pin, and the lock sanitizer (``SanLock``,
 ``race_track``), and the device-memory ledger (the slot pool as the
-``slot_pool`` component, ``utils/devmem.py``).  Left out, each with its
-ROADMAP.md item: the recompile guard's hot sections and the roofline
-attribution of slow queries (observability, device half), and the mesh
-shard-skew telemetry (multi-GPU).
+``slot_pool`` component, ``utils/devmem.py``).  The trace sentinel's hot
+sections (``scheduler.seed`` / ``scheduler.cycle`` /
+``scheduler.finalize``, utils/recompile_guard.py) guard the worker's device
+work and its readbacks are blessed; a segment graph's capture counts as a
+compile there.  Each retired query's slow-query stats carry its roofline
+attribution (``gflops`` / ``pct_peak``: the ledger's ``beam.segment`` work
+of its iterations over its resident time), and a mesh engine
+(parallel/mesh_engine.py, state ``(slots, n_shards, ...)``) adds the
+shard-skew telemetry: per-shard iterations, the straggler and each query's
+shard imbalance.
 """
 
 from __future__ import annotations
@@ -66,8 +72,9 @@ import numpy as np
 import torch
 
 from sptag_tpu_torch.algo.engine import STATE_KEYS, capture_lock
-from sptag_tpu_torch.utils import (devmem, flightrec, hostprof, locksan,
-                                   metrics, query_bucket, trace)
+from sptag_tpu_torch.utils import (costmodel, devmem, flightrec, hostprof,
+                                   locksan, metrics, query_bucket,
+                                   recompile_guard, trace)
 
 log = logging.getLogger(__name__)
 
@@ -80,6 +87,59 @@ _GRAPH_MAX_SLOTS = 256
 # captured segments kept per scheduler (each holds its own memory pool
 # and a copy of its pool's state); the least recently replayed goes first
 _GRAPH_CACHE = 8
+
+
+# ---------------------------------------------------------------------------
+# mesh shard-skew telemetry: per-shard work from a mesh pool's (cap,
+# n_shards) iteration counters, published as a labeled family so /metrics
+# shows ``scheduler_shard_iters{shard=}`` and the timeline its history
+# ---------------------------------------------------------------------------
+
+_skew_lock = locksan.make_lock("scheduler._skew_lock")
+#: shard -> mean resident iterations per live row (last cycle)
+_shard_iters: Dict[int, float] = {}
+
+
+def _publish_shard_skew(it: np.ndarray, shards: int) -> None:
+    """Per-shard work and skew gauges from the live rows' (live,
+    n_shards) iteration counters; once per cycle."""
+    if not it.shape[0]:
+        return
+    per_shard = it.reshape(-1, shards).sum(axis=0).astype(np.float64)
+    mean = float(per_shard.mean())
+    with _skew_lock:
+        _shard_iters.clear()
+        for s in range(shards):
+            _shard_iters[s] = round(float(per_shard[s]) / it.shape[0], 3)
+    if mean > 0:
+        # skew: the straggler's excess over the mesh mean (0 = balanced);
+        # the straggler's sub-walks converge last and hold every slot row
+        metrics.set_gauge("scheduler.shard_skew",
+                          float(per_shard.max()) / mean - 1.0)
+        metrics.set_gauge("scheduler.straggler_shard",
+                          int(per_shard.argmax()))
+
+
+def _shard_iter_families() -> List[metrics.Family]:
+    with _skew_lock:
+        if not _shard_iters:
+            return []
+        fam = metrics.Family(
+            "scheduler.shard_iters",
+            help="mean resident walk iterations per live slot row, "
+                 "per mesh shard (straggler telemetry)")
+        for s, v in sorted(_shard_iters.items()):
+            fam.samples.append(({"shard": str(s)}, v))
+    return [fam]
+
+
+def reset_shard_skew() -> None:
+    """Drop the published per-shard series (test isolation)."""
+    with _skew_lock:
+        _shard_iters.clear()
+
+
+metrics.register_family_provider("mesh_skew", _shard_iter_families)
 
 
 class SchedulerStopped(RuntimeError):
@@ -143,6 +203,23 @@ class _SlotPool:
         self.entries: List[Optional[_Item]] = []
         self.state: Dict[str, Optional[torch.Tensor]] = {}
         self.t_limit: Optional[torch.Tensor] = None
+        self._iter_cost1 = None
+
+    def iter_cost1(self):
+        """Ledger cost of ONE walk iteration for ONE query of this pool
+        (the slow-query roofline attribution), or None.  Estimated at the
+        pool's slot count and divided down: the binned body's bytes carry
+        a per-dispatch corpus term a one-row estimate would charge in full
+        to every query."""
+        if self._iter_cost1 is None:
+            try:
+                rows = max(int(self.max_slots), 1)
+                est = self.engine.walk_iter_cost(rows, self.B, self.L)
+                self._iter_cost1 = costmodel.CostEstimate(
+                    est.family, est.flops / rows, est.hbm_bytes / rows)
+            except Exception:                             # noqa: BLE001
+                self._iter_cost1 = False
+        return self._iter_cost1 or None
 
     def live_count(self) -> int:
         return sum(e is not None for e in self.entries)
@@ -155,7 +232,7 @@ class _SlotPool:
         s["cand_ids"][idx] = -1
         s["cand_d"][idx] = float(MAX_DIST)
         s["expanded"][idx] = True
-        s["expanded"][idx, self.L] = False
+        s["expanded"][idx, ..., self.L] = False     # the dump column
         s["visited"][idx] = False
         s["no_better"][idx] = 0
         s["ptr"][idx] = 0
@@ -498,8 +575,22 @@ class BeamSlotScheduler:
         if not pool.live_count():
             return
         t_seg0 = time.monotonic_ns() if rec else 0
-        alive = self._segment(pool)
+        # hot section: implicit syncs in here are the sentinel's
+        # violations; the segment's readbacks are blessed
+        with recompile_guard.hot_section("scheduler.cycle"):
+            alive = self._segment(pool)
         metrics.inc("scheduler.segments")
+        # a mesh segment advances the walk on every shard at once: the
+        # device-work counter scales by the shard count
+        shards = int(getattr(engine, "n_shards", 1))
+        if shards > 1:
+            metrics.inc("scheduler.shard_segments", shards)
+            metrics.set_gauge("scheduler.mesh_shards", shards)
+            live = [i for i, e in enumerate(pool.entries) if e is not None]
+            with recompile_guard.hot_section("scheduler.cycle"):
+                it_live = recompile_guard.device_get(pool.state["it"][
+                    torch.tensor(live, device=engine.device)])
+            _publish_shard_skew(it_live, shards)
         live_now = 0
         for e in pool.entries:
             if e is not None:
@@ -521,11 +612,19 @@ class BeamSlotScheduler:
         Rb = query_bucket(len(done), pool.capacity)
         rows = torch.tensor(done + [done[0]] * (Rb - len(done)),
                             device=engine.device)
-        sub = {name: pool.state[name][rows]
-               for name in ("queries", "cand_ids", "cand_d")}
-        d, ids = engine.finalize(sub, pool.k_eff)
+        with recompile_guard.hot_section("scheduler.finalize"):
+            sub = {name: pool.state[name][rows]
+                   for name in ("queries", "cand_ids", "cand_d")}
+            d, ids = engine.finalize(sub, pool.k_eff)
+            row_it = recompile_guard.device_get(
+                pool.state["it"][rows[:len(done)]])
         t_done = time.perf_counter()
-        iters = pool.state["it"][rows[:len(done)]].cpu().tolist()
+        # a mesh row holds one counter a shard: device residency follows
+        # the slowest shard's walk
+        row_it = row_it.reshape(len(done), -1)
+        iters = [int(v) for v in row_it.max(axis=1)]
+        cost1 = pool.iter_cost1()
+        cap = getattr(engine, "_capability", None)
         items = [pool.entries[i] for i in done]
         for i in done:
             pool.entries[i] = None
@@ -539,6 +638,9 @@ class BeamSlotScheduler:
         # any future resolves: a caller reading metrics or flight stats
         # at result time finds its own query's numbers
         metrics.inc("scheduler.retired", len(done))
+        if shards > 1:
+            # retire frees one slot row per shard
+            metrics.inc("scheduler.shard_retired", len(done) * shards)
         for j, item in enumerate(items):
             metrics.observe("scheduler.query_s", t_done - item.t_enq)
             if rec:
@@ -552,11 +654,34 @@ class BeamSlotScheduler:
                 # triage input (qualmon.classify_low_recall); retire owns
                 # the query's lifecycle, so it replaces a reused rid's
                 # stats
-                flightrec.note_query_stats(
-                    item.rid, _replace=True,
+                stats = dict(
+                    _replace=True,
                     slot_wait_ms=round(item.slot_wait * 1000.0, 3),
                     segments=item.segments, refills=item.refills,
                     iters=int(iters[j]), t_budget=int(item.t_limit))
+                if row_it.shape[1] > 1:
+                    # per-query shard skew: qualmon names a straggler-
+                    # dominated budget exhaustion after the slow shard
+                    row_mean = float(row_it[j].mean())
+                    if row_mean > 0:
+                        stats["shard_imbalance"] = round(
+                            float(row_it[j].max()) / row_mean, 3)
+                        stats["slow_shard"] = int(row_it[j].argmax())
+                if cost1 is not None:
+                    # roofline attribution: the row's iterations x the
+                    # one-row ledger cost over its resident time
+                    exec_s = max(t_done - item.t_enq - item.slot_wait,
+                                 1e-9)
+                    q_flops = cost1.flops * iters[j]
+                    q_bytes = cost1.hbm_bytes * iters[j]
+                    stats["gflops"] = round(q_flops / exec_s / 1e9, 3)
+                    if cap is not None:
+                        pct = cap.pct_of_peak(q_flops / exec_s,
+                                              q_bytes / exec_s,
+                                              engine.score_dtype_name())
+                        if pct is not None:
+                            stats["pct_peak"] = round(pct, 4)
+                flightrec.note_query_stats(item.rid, **stats)
         for j, item in enumerate(items):
             if not item.future.done():
                 item.future.set_result((d[j].copy(), ids[j].copy()))
@@ -582,12 +707,16 @@ class BeamSlotScheduler:
                 if arr is not None:
                     bufs[name].copy_(arr)
             t_in.copy_(pool.t_limit)
+            timer = self._engine.segment_timer()
             with capture_lock:       # not while the profiler starts / stops
                 graph.replay()
+            if timer is not None:
+                self._engine.publish_segment_sample(
+                    pool.capacity, pool.B, pool.L, pool.seg_iters, timer())
             for name in STATE_KEYS:
                 pool.state[name].copy_(bufs[name])
             mode = "replayed"
-        alive_np = alive.cpu().numpy()
+        alive_np = recompile_guard.device_get(alive)
         with self._lock:
             self._counts[f"segments_{mode}"] += 1
             self._counts[f"segment_s_{mode}"] += time.perf_counter() - t0
@@ -604,9 +733,13 @@ class BeamSlotScheduler:
         if key not in self._graph_seen:
             self._graph_seen.add(key)
             return None
+        t0 = time.perf_counter()
         entry = self._capture(pool)
         if entry is None:
             return None
+        # a capture is the port's compile (utils/recompile_guard.py)
+        recompile_guard.note_compile(recompile_guard.CAPTURE,
+                                     time.perf_counter() - t0)
         self._graphs[key] = entry
         while len(self._graphs) > _GRAPH_CACHE:
             self._graphs.popitem(last=False)
@@ -668,8 +801,9 @@ class BeamSlotScheduler:
             for i, item in enumerate(incoming):
                 s[i] = item.seeds
             seeds = torch.from_numpy(s).to(engine.device)
-        return engine.seed_state(torch.from_numpy(q).to(engine.device),
-                                 pool.L, seeds=seeds)
+        with recompile_guard.hot_section("scheduler.seed"):
+            return engine.seed_state(torch.from_numpy(q).to(engine.device),
+                                     pool.L, seeds=seeds)
 
     @staticmethod
     def _insert(pool: _SlotPool, incoming: List[_Item],

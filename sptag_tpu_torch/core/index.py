@@ -75,12 +75,6 @@ DELETE_EPS = 1e-6
 _NEAR_EPS = 1e-2
 
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to sptag_tpu_torch yet (ROADMAP.md, "
-        f"'What the port still lacks': {item})")
-
-
 @dataclass
 class SearchResult:
     """One query's results."""
@@ -1118,10 +1112,27 @@ def load_index(folder: str, device: DeviceLike = None,
     (None: the CUDA card).  The manifest, when present, is verified first;
     a ``WalEnabled`` folder's log is replayed over the snapshot.
     `lazy_metadata` loads the metadata as a FileMetadataSet (offsets
-    resident, payloads read per lookup)."""
-    device = resolve_device(device)
+    resident, payloads read per lookup).
+
+    A mesh folder (``sharded.json``, parallel/sharded.py) loads as a
+    `ServingAdapter` over its shards: with no `device` one shard a CUDA
+    card (the JAX package's default mesh; fewer cards than shards raise),
+    with a `device` every shard on it (``cuda:0`` runs a mesh on one
+    card)."""
     if os.path.exists(os.path.join(folder, "sharded.json")):
-        raise not_ported("a sharded (mesh) index folder", "multi-GPU")
+        from sptag_tpu_torch.parallel.sharded import (Mesh, ServingAdapter,
+                                                      ShardedBKTIndex)
+
+        mesh = None
+        if device is not None:
+            import json
+
+            with open(os.path.join(folder, "sharded.json")) as f:
+                n_shards = int(json.load(f)["n_shards"])
+            mesh = Mesh([resolve_device(device)] * n_shards)
+        sharded = ShardedBKTIndex.load(folder, mesh=mesh)
+        return ServingAdapter(sharded, feature_dim=int(sharded.dim))
+    device = resolve_device(device)
     _recover_interrupted_save(folder)
     atomic.verify_manifest(folder)
     reader = IniReader.load(os.path.join(folder, "indexloader.ini"))

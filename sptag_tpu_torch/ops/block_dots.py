@@ -137,6 +137,7 @@ import torch
 
 from sptag_tpu_torch import _build
 from sptag_tpu_torch.ops import distance as dist_ops
+from sptag_tpu_torch.utils import costmodel
 
 #: entries (query rows) per tile of the block-major kernels: the
 #: plain prep's default, replaced by the library's own tile when it loads
@@ -440,3 +441,30 @@ def group_block_dots(blocks: torch.Tensor, queries: torch.Tensor,
         else:
             group_f32_launches += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# cost-ledger entries (utils/costmodel.py): the JAX package's
+# ``pallas.*_block_dots`` families, bound to the wrappers of the Hopper
+# kernels that replace the two Pallas kernels.  Bytes are the true block
+# traffic (no materialised intermediate), as there.
+# ---------------------------------------------------------------------------
+
+def _probe_block_cost(Q, nprobe, P, D, itemsize=4, **_):
+    flops = 2.0 * Q * nprobe * P * D
+    nbytes = (Q * nprobe * P * D * itemsize + Q * D * itemsize
+              + Q * nprobe * P * 4)
+    return flops, nbytes
+
+
+def _group_block_cost(NG, U, G, P, D, itemsize=4, **_):
+    flops = 2.0 * NG * U * G * P * D
+    nbytes = (NG * U * P * D * itemsize + NG * G * D * itemsize
+              + NG * U * G * P * 4)
+    return flops, nbytes
+
+
+costmodel.register("pallas.probe_block_dots", probe_block_dots,
+                   _probe_block_cost)
+costmodel.register("pallas.group_block_dots", group_block_dots,
+                   _group_block_cost)

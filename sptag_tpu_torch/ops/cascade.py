@@ -36,8 +36,8 @@ the JAX package leaves it to one XLA dot.  Every top-k keeps
 ``smallest_k``): Hamming distances take at most 32 W + 1 values, so almost
 every shortlist boundary is a tie.
 
-The JAX package registers each program with its cost ledger; the port
-keeps the formulas as plain functions (``*_cost``) until it has a ledger.
+Each stage registers the JAX package's cost-ledger family
+(utils/costmodel.py) at the end of this module.
 All knobs default off: with ``CascadeSearch=0`` nothing here is built.
 """
 
@@ -55,7 +55,7 @@ from sptag_tpu_torch.ops import int8_dots
 from sptag_tpu_torch.ops import sketch_dots
 from sptag_tpu_torch.ops import walk_dots as walk_ops
 from sptag_tpu_torch.ops.topk_bins import pow2ceil
-from sptag_tpu_torch.utils import devmem, locksan, metrics
+from sptag_tpu_torch.utils import costmodel, devmem, locksan, metrics
 
 MAX_DIST = float(np.float32(3.4e38))
 
@@ -257,88 +257,107 @@ def exact_masked_scan(fp, fp_sq, invalid, queries, k: int, metric: int,
 
 
 # ---------------------------------------------------------------------------
-# cost formulas (the JAX package's ledger entries, fitted there)
+# cost-ledger formulas (utils/costmodel.py; the JAX package's, fitted
+# there against its compiler's cost analysis at D >= 64)
 # ---------------------------------------------------------------------------
 
+#: per-(Q·N·W) flops of one Hamming word pass plus the per-(Q·N) sort
+#: ensemble of the sketch shortlist; per-(Q·N) word traffic of both
 SKETCH_WORD_FLOPS = 5.0
 SKETCH_SELECT_FLOPS = 12.75
 SKETCH_TRAFFIC = 18.0
+#: per-element flops / bytes of the gathered int8 re-rank (cast copies
+#: included) and of the gathered exact fp re-rank
 INT8_RERANK_FLOPS = 6.25
 INT8_RERANK_TRAFFIC = 18.5
 FP_RERANK_FLOPS = 4.2
 FP_RERANK_TRAFFIC = 20.7
 
 
-def _matmul_flops(m, n, k) -> float:
-    return 2.0 * m * n * k
-
-
-def sketch_stage_cost(Q, N, W, b1):
+def _sketch_stage_cost(Q, N, W, b1):
     flops = Q * N * (SKETCH_WORD_FLOPS * W + SKETCH_SELECT_FLOPS)
     nbytes = SKETCH_TRAFFIC * Q * N + N * W * 4 + Q * b1 * 4
     return flops, nbytes
 
 
-def int8_gather_stage_cost(Q, D, b1, b2):
+def _int8_gather_stage_cost(Q, D, b1, b2):
     flops = INT8_RERANK_FLOPS * Q * b1 * D
     nbytes = INT8_RERANK_TRAFFIC * Q * b1 * D + Q * b2 * 4
     return flops, nbytes
 
 
-def int8_full_stage_cost(Q, N, D, b2):
-    flops = _matmul_flops(Q, N, D) + 16.0 * Q * N
+def _int8_full_stage_cost(Q, N, D, b2):
+    flops = costmodel.matmul_flops(Q, N, D) + 16.0 * Q * N
     nbytes = 13.0 * Q * N + 19.0 * N * D + Q * b2 * 4
     return flops, nbytes
 
 
-def fp_stage_cost(Q, D, b2, k):
+def _fp_stage_cost(Q, D, b2, k):
     flops = FP_RERANK_FLOPS * Q * b2 * D
     nbytes = FP_RERANK_TRAFFIC * Q * b2 * D + Q * k * 8
     return flops, nbytes
 
 
-def host_scan_block_cost(Q, R, D, k, **_):
-    flops = _matmul_flops(Q, R, D) + 10.0 * Q * R
-    nbytes = 16.0 * Q * R + 19.0 * R * D + Q * k * 8
-    return flops, nbytes
-
-
-def cascade_search_cost(Q, N, W, D, b1, b2, k, use_sketch=True,
-                        use_int8=True, **_):
+def _cascade_search_cost(Q, N, W, D, b1, b2, k, use_sketch=True,
+                         use_int8=True, **_):
     """The device tier's whole search: the composed stages plus the int8
     and fp corpora the gathers read."""
     flops = nbytes = 0.0
     if use_sketch:
-        f, b = sketch_stage_cost(Q, N, W, b1)
+        f, b = _sketch_stage_cost(Q, N, W, b1)
         flops, nbytes = flops + f, nbytes + b
         if use_int8:
-            f, b = int8_gather_stage_cost(Q, D, b1, b2)
+            f, b = _int8_gather_stage_cost(Q, D, b1, b2)
             flops, nbytes = flops + f, nbytes + b + N * D
     elif use_int8:
-        f, b = int8_full_stage_cost(Q, N, D, b2)
+        f, b = _int8_full_stage_cost(Q, N, D, b2)
         flops, nbytes = flops + f, nbytes + b
     else:
-        f, b = host_scan_block_cost(Q, N, D, k)
+        f, b = _host_scan_block_cost(Q, N, D, k)
         return f, b + 3.0 * N * D
     r = b2 if use_int8 else b1
-    f, b = fp_stage_cost(Q, D, r, k)
+    f, b = _fp_stage_cost(Q, D, r, k)
     return flops + f, nbytes + b + 4.0 * N * D
 
 
-def cascade_shortlist_cost(Q, N, W, D, b1, b2, use_sketch=True, **_):
+def _cascade_shortlist_cost(Q, N, W, D, b1, b2, use_sketch=True, **_):
     if use_sketch:
-        f1, n1 = sketch_stage_cost(Q, N, W, b1)
-        f2, n2 = int8_gather_stage_cost(Q, D, b1, b2)
+        f1, n1 = _sketch_stage_cost(Q, N, W, b1)
+        f2, n2 = _int8_gather_stage_cost(Q, D, b1, b2)
         return f1 + f2, n1 + n2 + N * D
-    return int8_full_stage_cost(Q, N, D, b2)
+    return _int8_full_stage_cost(Q, N, D, b2)
 
 
-def fp_rerank_resident_cost(Q, N, D, b2, k, **_):
-    f, b = fp_stage_cost(Q, D, b2, k)
+def _sketch_shortlist_cost(Q, N, W, b1, **_):
+    return _sketch_stage_cost(Q, N, W, b1)
+
+
+def _int8_rerank_cost(Q, D, b1, b2, **_):
+    return _int8_gather_stage_cost(Q, D, b1, b2)
+
+
+def _fp_rerank_cost(Q, D, b2, k, **_):
+    return _fp_stage_cost(Q, D, b2, k)
+
+
+def _fp_rerank_resident_cost(Q, N, D, b2, k, **_):
+    f, b = _fp_stage_cost(Q, D, b2, k)
     return f, b + 4.0 * N * D + 4.0 * Q * b2 * D
 
 
-def pack_sketches_cost(N, D, **_):
+def _cascade_tiers_cost(Q, N, W, D, b1, b2, use_sketch=True,
+                        use_int8=True, **_):
+    return _cascade_shortlist_cost(Q, N, W, D, b1, b2,
+                                   use_sketch=use_sketch)
+
+
+def _host_scan_block_cost(Q, R, D, k, **_):
+    flops = costmodel.matmul_flops(Q, R, D) + 10.0 * Q * R
+    nbytes = 16.0 * Q * R + 19.0 * R * D + Q * k * 8
+    return flops, nbytes
+
+
+def _pack_sketches_cost(N, D, **_):
     return 5.0 * N * D, N * D + N * ((D + 31) // 32) * 4 + D * 4
 
 
@@ -735,3 +754,31 @@ def walk_score_scale(cascade_on: bool, data_dtype, scale: float) -> float:
     if np.dtype(data_dtype) != np.dtype(np.int8):
         return 0.0
     return float(scale)
+
+
+# ---------------------------------------------------------------------------
+# cost-ledger entries: each JAX program's family, bound to the port
+# function doing its work.  The port has one re-rank function for the
+# host-fetched (``cascade.rerank``) and the resident (``cascade.rerank_
+# resident``) forms, one sketch pack for the build, and the int8 shortlist
+# of ``cascade.shortlist`` is `shortlist_int8_from` after a sketch tier and
+# `shortlist_int8_full` without one.
+# ---------------------------------------------------------------------------
+
+costmodel.register("cascade.search", CascadeState._device_search,
+                   _cascade_search_cost)
+costmodel.register("cascade.shortlist", shortlist_int8_from,
+                   _cascade_shortlist_cost)
+costmodel.register("cascade.sketch_shortlist", shortlist_sketch,
+                   _sketch_shortlist_cost)
+costmodel.register("cascade.int8_rerank", int8_gathered_scores,
+                   _int8_rerank_cost)
+costmodel.register("cascade.rerank", rerank_gathered, _fp_rerank_cost)
+costmodel.register("cascade.rerank_resident", rerank_gathered,
+                   _fp_rerank_resident_cost)
+costmodel.register("cascade.tiers", CascadeState.tier_membership,
+                   _cascade_tiers_cost)
+costmodel.register("cascade.host_scan", exact_masked_scan,
+                   _host_scan_block_cost)
+costmodel.register("cascade.pack_sketches", pack_sign_bits,
+                   _pack_sketches_cost)

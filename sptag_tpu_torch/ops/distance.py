@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from sptag_tpu_torch.core.types import DistCalcMethod, VectorValueType, base_of
+from sptag_tpu_torch.utils import costmodel
 
 # every int16 partial sum fits int32 below this D (sum(lo*lo) <= D*255^2)
 _INT16_EXACT_MAX_D = 16384
@@ -250,3 +251,21 @@ def batch_topk(dists: torch.Tensor, k: int
     """(Q, N) distances -> ((Q, k) dists ascending, (Q, k) int32 indices)."""
     vals, pos = smallest_k(dists, k)
     return vals, pos.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# cost-ledger entries (utils/costmodel.py)
+# ---------------------------------------------------------------------------
+
+def _batch_topk_cost(Q, N, k, **_):
+    flops = costmodel.topk_flops(Q, N) + 2.0 * Q * N     # two negations
+    nbytes = 3.0 * Q * N * 4 + Q * k * 8
+    return flops, nbytes
+
+
+def _row_sqnorms_cost(N, D, itemsize=4, **_):
+    return 2.0 * N * D, N * D * itemsize + N * 4
+
+
+costmodel.register("distance.batch_topk", batch_topk, _batch_topk_cost)
+costmodel.register("distance.row_sqnorms", row_sqnorms, _row_sqnorms_cost)

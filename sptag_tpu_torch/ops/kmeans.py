@@ -24,6 +24,8 @@ from __future__ import annotations
 
 import torch
 
+from sptag_tpu_torch.utils import costmodel
+
 MAX_DIST = 3.4e38
 
 
@@ -122,3 +124,27 @@ def kmeans_final_assign(data: torch.Tensor, valid: torch.Tensor,
     medoid_pos = torch.where(counts > 0, medoid_pos, -1)
     labels = torch.where(valid, labels.to(torch.int32), -1)
     return labels, counts, medoid_pos
+
+
+# ---------------------------------------------------------------------------
+# cost-ledger entries (utils/costmodel.py): build-time kernels, the Lloyd
+# loop's body counted once (the JAX package's formulas)
+# ---------------------------------------------------------------------------
+
+def _kmeans_fit_cost(B, P, D, K, restarts, **_):
+    assign = 2.0 * B * P * K * D + 4.0 * B * P * K
+    flops = (restarts + 1.0) * assign + 2.0 * B * K * D
+    nbytes = (restarts + 2.0) * (B * P * D * 4 + B * P * K * 4) \
+        + 2.0 * B * K * D * 4
+    return flops, nbytes
+
+
+def _kmeans_assign_cost(B, P, D, K, **_):
+    flops = 2.0 * B * P * K * D + 6.0 * B * P * K
+    nbytes = B * P * D * 4 + B * K * D * 4 + 5.0 * B * P * K * 4
+    return flops, nbytes
+
+
+costmodel.register("kmeans.fit", kmeans_fit, _kmeans_fit_cost)
+costmodel.register("kmeans.final_assign", kmeans_final_assign,
+                   _kmeans_assign_cost)

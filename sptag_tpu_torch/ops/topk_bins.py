@@ -21,6 +21,7 @@ from typing import Tuple
 import torch
 
 from sptag_tpu_torch.ops import distance as dist_ops
+from sptag_tpu_torch.utils import costmodel
 
 MAX_DIST = float(3.4e38)
 
@@ -150,3 +151,25 @@ def binned_topk(d: torch.Tensor, k: int, bins: int
     vals, cols = bin_shortlist(d, bins)
     out, pos = dist_ops.smallest_k(vals, min(k, bins))
     return out, torch.gather(cols, 1, pos)
+
+
+# ---------------------------------------------------------------------------
+# cost-ledger entry (utils/costmodel.py)
+# ---------------------------------------------------------------------------
+
+def binned_select_cost(Q, W, k, bins, **_):
+    """One bin reduction + the bins-wide exact top-k: the O(W) min/argmin
+    pass, the winner-column arithmetic and `topk_flops` over the
+    shortlist; bytes: the padded row read twice, the (Q, bins) winner
+    row's traffic and the (Q, k) result."""
+    W_pad = (-(-W // bins)) * bins
+    flops = (2.0 * Q * W_pad                    # min + argmin reductions
+             + 2.0 * Q * bins                   # column arithmetic
+             + costmodel.topk_flops(Q, bins))
+    nbytes = (2.0 * Q * W_pad * 4               # row read by both reductions
+              + 6.0 * Q * bins * 4              # winners written + re-read
+              + Q * k * 8)
+    return flops, nbytes
+
+
+costmodel.register("ops.binned_topk", binned_topk, binned_select_cost)

@@ -24,11 +24,11 @@ lists into ONE globally sorted top-K list per index name (`merge_top_k`)
 — the merge the reference leaves to every client.  Off by default for
 reference parity.
 
-Same-host shards are served by this fan-out until the port has in-process
-multi-GPU serving (ROADMAP.md, 'multi-GPU'); `start()` logs an advisory
-when a config fans out to multiple loopback backends.  The trace
-sanitizer ([Service] TraceSanitizer) counts JAX compiles and is refused,
-naming the 'observability, device half' item.
+`start()` logs an advisory when a config fans out to several loopback
+backends: the in-mesh serve path (``[Service] MeshServe=1`` over a sharded
+mesh index, parallel/sharded.py) serves same-host shards in one process.
+``[Service] TraceSanitizer`` arms the trace sentinel
+(utils/recompile_guard.py) as the shard tier does.
 """
 
 from __future__ import annotations
@@ -42,7 +42,6 @@ import time
 import weakref
 from typing import List, Optional, Tuple
 
-from sptag_tpu_torch.core.index import not_ported
 from sptag_tpu_torch.serve import admission as admission_mod
 from sptag_tpu_torch.serve import canary as canary_mod
 from sptag_tpu_torch.serve import controller as controller_mod
@@ -558,8 +557,11 @@ class AggregatorContext:
                     "Service", "RaceSanitizer", "0").lower() == "strict"),
                 sample_rate=ctx.racesan_sample_rate)
         if ctx.trace_sanitizer:
-            raise not_ported("TraceSanitizer (recompile_guard)",
-                             "observability, device half")
+            from sptag_tpu_torch.utils import recompile_guard
+            recompile_guard.enable_tracesan(
+                strict=(reader.get_parameter(
+                    "Service", "TraceSanitizer", "0").lower() == "strict"),
+                compile_budget=(ctx.tracesan_compile_budget or None))
         count = int(reader.get_parameter("Servers", "Number", "0"))
         for i in range(count):
             section = f"Server_{i}"
@@ -740,8 +742,10 @@ class AggregatorService:
             locksan.enable_racesan(
                 sample_rate=self.context.racesan_sample_rate)
         if self.context.trace_sanitizer:
-            raise not_ported("TraceSanitizer (recompile_guard)",
-                             "observability, device half")
+            from sptag_tpu_torch.utils import recompile_guard
+            recompile_guard.enable_tracesan(
+                compile_budget=(self.context.tracesan_compile_budget
+                                or None))
         if self.context.host_prof_hz > 0:
             # host sampler (utils/hostprof.py): process-wide;
             # never started at the default HostProfHz=0
@@ -814,18 +818,19 @@ class AggregatorService:
                 controller=self._controller_debug)
             self._metrics_http.start()
         # same-host advisory: socket fan-out between processes on one
-        # machine pays framing + host merge that in-process multi-GPU
-        # serving would not; the port does not have that path yet
-        # (ROADMAP.md, 'multi-GPU'), so this only counts and logs
-        # (behavior unchanged).
+        # machine pays framing + host merge that the in-process mesh
+        # (parallel/sharded.py) does not; flag configs still fanning out
+        # to several loopback backends (count only; behavior unchanged)
         local = sum(1 for s in self.context.servers
                     if s.address in ("127.0.0.1", "localhost", "::1"))
         if local > 1:
             metrics.set_gauge("aggregator.same_host_backends", local)
             log.warning(
-                "aggregator fans out to %d same-host backends; in-process "
-                "multi-GPU serving is not ported yet (ROADMAP.md, "
-                "'What the port still lacks': multi-GPU)", local)
+                "aggregator fans out to %d same-host backends — the "
+                "in-mesh serve path ([Service] MeshServe=1 over a "
+                "sharded mesh index) replaces same-host fan-out with one "
+                "process's shard search and merge; keep this tier for "
+                "cross-host", local)
         await self._connect_all()
         self._reconnect_task = asyncio.create_task(self._reconnect_loop())
         host = host or self.context.listen_addr

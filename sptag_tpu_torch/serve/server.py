@@ -17,8 +17,8 @@ thread, which `stop()` drains and joins.
 The control plane is the JAX server's: admission control, the SLO
 engine, the online controller, the canary prober and the metrics HTTP
 listener (serve/admission.py, slo.py, controller.py, canary.py,
-metrics_http.py), each off by default.  MeshServe is not ported yet and
-raises ``NotImplementedError`` naming ROADMAP.md's 'multi-GPU' item.
+metrics_http.py), each off by default.  ``[Service] MeshServe=1`` arms
+the mesh-wide slot scheduler of every mesh index (parallel/sharded.py).
 """
 
 from __future__ import annotations
@@ -30,8 +30,6 @@ import logging
 import time
 from typing import Dict, List, Optional, Tuple
 
-from sptag_tpu_torch.algo.flat import flat_scan_cost
-from sptag_tpu_torch.core.index import not_ported
 from sptag_tpu_torch.serve import admission as admission_mod
 from sptag_tpu_torch.serve import canary as canary_mod
 from sptag_tpu_torch.serve import controller as controller_mod
@@ -39,20 +37,14 @@ from sptag_tpu_torch.serve import protocol, wire
 from sptag_tpu_torch.serve import slo as slo_mod
 from sptag_tpu_torch.serve.metrics_http import MetricsHttpServer
 from sptag_tpu_torch.serve.service import SearchExecutor, ServiceContext
-from sptag_tpu_torch.utils import (faultinject, flightrec, hostprof, locksan,
-                                   metrics, qualmon, timeline, trace)
+from sptag_tpu_torch.utils import (costmodel, faultinject, flightrec, hostprof,
+                                   locksan, metrics, qualmon, timeline, trace)
 
 log = logging.getLogger(__name__)
 
 
 #: body-size ceiling, shared with every framing reader (see wire.py)
 MAX_BODY_LENGTH = wire.MAX_BODY_LENGTH
-
-
-def _refuse_unported(settings) -> None:
-    """Raise for every armed feature the port does not have yet."""
-    if settings.mesh_serve:
-        raise not_ported("MeshServe", "multi-GPU")
 
 
 class SearchServer:
@@ -84,7 +76,6 @@ class SearchServer:
         self.executor = SearchExecutor(context)
         self.batch_window = batch_window_ms / 1000.0
         self.max_batch = max_batch
-        _refuse_unported(context.settings)
         # observability overrides; None = the [Service] ini settings
         # (MetricsPort 0 disables, negative binds OS-ephemeral;
         # SlowQueryThresholdMs 0 disables)
@@ -275,6 +266,24 @@ class SearchServer:
                 dump_on_slow_query=self.host_prof_dump_on_slow_query
                 or None)
             hostprof.start()
+        if self.context.settings.mesh_serve:
+            # in-mesh sharded serving: arm the mesh-wide continuous-
+            # batching spine on every registered mesh index
+            # (parallel/sharded.py ServingAdapter): responses stream in
+            # retire order.  Off, mesh adapters serve whole batches
+            for name, index in self.context.indexes.items():
+                enable = getattr(index, "enable_mesh_serve", None)
+                if enable is None:
+                    continue
+                kw = {}
+                if self.context.settings.mesh_serve_slots > 0:
+                    kw["slots"] = self.context.settings.mesh_serve_slots
+                if self.context.settings.mesh_serve_segment_iters > 0:
+                    kw["segment_iters"] = (
+                        self.context.settings.mesh_serve_segment_iters)
+                if enable(**kw):
+                    metrics.inc("server.mesh_serve_indexes")
+                    log.info("MeshServe armed on index %s", name)
         if self.quality_sample_rate > 0:
             qualmon.configure(
                 sample_rate=self.quality_sample_rate,
@@ -1005,7 +1014,7 @@ class SearchServer:
         captures only host data (query text + served ids/dists); the
         exact-scan device work is charged against QualityShadowBudget
         via the exact scan's FLOP estimate at the real shapes
-        (algo/flat.py flat_scan_cost)."""
+        (the ledger's ``flat.scan`` family, utils/costmodel.py)."""
         served = [(r.index_name, [int(v) for v in r.ids],
                    [float(d) for d in r.dists]) for r in result.results]
         if not served:
@@ -1016,9 +1025,9 @@ class SearchServer:
             if index is None:
                 continue
             try:
-                est += flat_scan_cost(1, index.num_samples,
-                                      index.feature_dim,
-                                      max(1, len(ids)))[0]
+                est += costmodel.estimate(
+                    "flat.scan", Q=1, N=index.num_samples,
+                    D=index.feature_dim, k=max(1, len(ids))).flops
             except Exception:                            # noqa: BLE001
                 # estimate failure degrades to an unbudgeted (but still
                 # queue-bounded) submit — visible, never fatal

@@ -23,7 +23,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from sptag_tpu_torch.core.index import VectorIndex, load_index, not_ported
+from sptag_tpu_torch.core.index import VectorIndex, load_index
 from sptag_tpu_torch.core.vectorset import metas_for
 from sptag_tpu_torch.serve.protocol import (
     DEFAULT_SEPARATOR,
@@ -179,14 +179,16 @@ class ServiceSettings:
     # fraction of tracked attribute writes the sanitizer records
     # (deterministic per-thread 1-in-round(1/rate)); 1.0 = every write
     racesan_sample_rate: float = 1.0
-    # trace/transfer sentinel (the JAX package's utils/recompile_guard.py):
-    # not ported (ROADMAP 'observability, device half'); arming it raises.
+    # trace/transfer sentinel (utils/recompile_guard.py): implicit
+    # device-to-host syncs in the engine's and scheduler's hot sections
+    # are flagged, CUDA-graph captures and nvcc builds counted against the
+    # per-family compile budget
     trace_sanitizer: bool = False
     # default per-family compile budget while armed; 0 = unlimited
     tracesan_compile_budget: int = 0
-    # in-mesh sharded serving: not ported (ROADMAP 'multi-GPU'); the
-    # server raises when MeshServe=1.  MeshServeSlots / MeshServeSegmentIters
-    # size its slot pools and segments.
+    # in-mesh sharded serving (parallel/sharded.py ServingAdapter): the
+    # server arms the mesh-wide slot scheduler on every mesh index;
+    # MeshServeSlots / MeshServeSegmentIters size its pools and segments
     mesh_serve: bool = False
     mesh_serve_slots: int = 0
     mesh_serve_segment_iters: int = 0
@@ -429,8 +431,14 @@ class ServiceContext:
                     "Service", "RaceSanitizer", "0").lower() == "strict"),
                 sample_rate=s.racesan_sample_rate)
         if s.trace_sanitizer:
-            raise not_ported("TraceSanitizer (recompile_guard)",
-                             "observability, device half")
+            # arm BEFORE index load, like the other sanitizers: the
+            # warm-up searches load_index runs are charged to their
+            # hot-section compile families
+            from sptag_tpu_torch.utils import recompile_guard
+            recompile_guard.enable_tracesan(
+                strict=(reader.get_parameter(
+                    "Service", "TraceSanitizer", "0").lower() == "strict"),
+                compile_budget=(s.tracesan_compile_budget or None))
         ctx = cls(s, device)
         index_list = reader.get_parameter("Index", "List", "")
         for name in (t.strip() for t in index_list.split(",")):

@@ -292,19 +292,31 @@ def test_aggregators_with_a_backend_down_answer_alike(backends, down):
     assert metas and all(int(m) < N // 2 for m in metas)
 
 
-def test_aggregator_trace_sanitizer_is_refused(tmp_path):
+def test_aggregator_trace_sanitizer_is_refused(tmp_path, monkeypatch):
+    """Once refused, [Service] TraceSanitizer arms the port's trace
+    sentinel at the aggregator, from the ini and at start()."""
+    from sptag_tpu_torch.utils import recompile_guard as trg
+
     path = tmp_path / "agg.ini"
     path.write_text("[Service]\nListenPort=0\nTraceSanitizer=1\n"
-                    "[Servers]\nNumber=0\n")
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.*observability, device half"):
-        tagg.AggregatorContext.from_ini(str(path))
-    ctx = tagg.AggregatorContext(trace_sanitizer=True)
-    t = ServerThread(tagg.AggregatorService(ctx))
-    t.start()
-    with pytest.raises(AssertionError):
-        t.wait_ready(2)           # start() raised before it listened
-    t.stop()
+                    "TraceSanCompileBudget=3\n[Servers]\nNumber=0\n")
+    monkeypatch.setenv("SPTAG_TRACESAN", "")
+    try:
+        trg.reset_tracesan()
+        ctx = tagg.AggregatorContext.from_ini(str(path))
+        assert ctx.trace_sanitizer and ctx.tracesan_compile_budget == 3
+        assert trg.tracesan_enabled()
+        trg.reset_tracesan()
+        t = ServerThread(tagg.AggregatorService(
+            tagg.AggregatorContext(trace_sanitizer=True)))
+        t.start()
+        try:
+            t.wait_ready(30)
+            assert trg.tracesan_enabled()
+        finally:
+            t.stop()
+    finally:
+        trg.reset_tracesan()
 
 
 # ---- the metrics listener ---------------------------------------------------

@@ -572,13 +572,28 @@ def test_graph_cascade_ledger_and_off_parity(graph_folders):
                                   "host_scan_block_cost",
                                   "pack_sketches_cost"])
 def test_cost_formulas_equal_jax_ledger_entries(name):
-    """The formulas the JAX package registers with its cost ledger, kept
-    as plain functions until the port has one."""
+    """The port's cost ledger evaluates each cascade family exactly as the
+    JAX package's ledger does."""
+    from sptag_tpu.utils import costmodel as jcm
+    from sptag_tpu_torch.utils import costmodel as tcm
+
+    family = {"cascade_search_cost": "cascade.search",
+              "cascade_shortlist_cost": "cascade.shortlist",
+              "fp_rerank_resident_cost": "cascade.rerank_resident",
+              "host_scan_block_cost": "cascade.host_scan",
+              "pack_sketches_cost": "cascade.pack_sketches"}[name]
     shape = dict(Q=1024, N=200064, W=4, D=128, b1=8192, b2=1024, k=10,
                  R=65536)
-    port, ref = getattr(tc, name), getattr(jc, "_" + name)
-    assert port(**shape) == ref(**shape)
+    def both(**kw):
+        t, j = tcm.estimate(family, **kw), jcm.estimate(family, **kw)
+        return (t.flops, t.hbm_bytes), (j.flops, j.hbm_bytes)
+
+    port, ref = both(**shape)
+    assert port == ref
+    assert getattr(tc, "_" + name)(**shape) == \
+        getattr(jc, "_" + name)(**shape)
     if name in ("cascade_search_cost", "cascade_shortlist_cost"):
         for flags in ({"use_sketch": False}, {"use_int8": False},
                       {"use_sketch": False, "use_int8": False}):
-            assert port(**shape, **flags) == ref(**shape, **flags)
+            port, ref = both(**shape, **flags)
+            assert port == ref

@@ -18,6 +18,7 @@ integer-valued data, so the card must give the CPU's ids and distances
 exactly.
 """
 
+import os
 import time
 
 import numpy as np
@@ -1883,3 +1884,115 @@ def test_graph_cascade_on_card_matches_cpu(cuda, mode):
             assert d3.tobytes() == got["cuda"][0].tobytes()
     for idx in pair.values():
         idx.close()
+
+
+# ---- the device half of observability and the mesh --------------------------
+
+@pytest.mark.cuda
+def test_sentinel_flags_a_card_sync_in_a_hot_section(cuda, monkeypatch):
+    """An implicit .item() of a CUDA tensor inside a hot section is a
+    violation (strict: it raises); device_get inside the section and any
+    sync outside one are not; the shims go with reset_tracesan()."""
+    from sptag_tpu_torch.utils import recompile_guard as rg
+
+    monkeypatch.setenv("SPTAG_TRACESAN", "")
+    rg.reset_tracesan()
+    t = torch.arange(6, device=cuda)
+    try:
+        rg.enable_tracesan(strict=False)
+        with rg.hot_section("scheduler.cycle"):
+            t[1].item()
+            host = rg.device_get(t)
+        assert rg.violation_count() == 1
+        assert rg.violations()[0]["kind"] == "item"
+        np.testing.assert_array_equal(host, np.arange(6))
+        t[2].item()
+        float(t[3])
+        assert rg.violation_count() == 1
+        rg.enable_tracesan(strict=True)
+        with rg.hot_section("engine.walk"):
+            with pytest.raises(rg.TransferSyncError):
+                bool(t[0])
+            rg.device_get(t.sum())
+    finally:
+        rg.reset_tracesan()
+    assert not rg.shims_installed()
+
+
+@pytest.mark.cuda
+def test_graph_capture_and_nvcc_build_are_counted(cuda, monkeypatch,
+                                                  tmp_path):
+    """A whole-walk CUDA graph is captured once per key and counted as a
+    compile (then replayed without one); a kernel library's nvcc build is
+    counted too."""
+    from sptag_tpu_torch import _build
+    from sptag_tpu_torch.utils import recompile_guard as rg
+
+    data = _int_rows(2000, 16, seed=70)
+    q = _int_rows(8, 16, seed=71)
+    idx = tsp.create_instance("BKT", "Float", device="cpu")
+    for name, value in [("DistCalcMethod", "L2"), ("TPTNumber", "2"),
+                        ("CEF", "64"), ("MaxCheckForRefineGraph", "128"),
+                        ("FinalRefineSearchMode", "same"),
+                        ("SearchMode", "beam")]:
+        assert idx.set_parameter(name, value)
+    idx.build(data)
+    card = tsp.load_index_blobs(*idx.save_index_blobs(), device="cuda")
+    card.set_parameter("SearchMode", "beam")
+    try:
+        want = card.search_batch(q, 5)             # first sighting: eager
+        with rg.track_compiles("capture") as log:
+            got = card.search_batch(q, 5)          # second: captured
+        assert log.kinds.get(rg.CAPTURE, 0) >= 1, log.kinds
+        with rg.no_recompiles("replay"):
+            again = card.search_batch(q, 5)
+        np.testing.assert_array_equal(got[1], want[1])
+        assert again[0].tobytes() == got[0].tobytes()
+    finally:
+        card.close()
+        idx.close()
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    with rg.track_compiles("build") as log:
+        so, seconds = _build.build("sketch_dots")
+    assert os.path.exists(so) and seconds > 0
+    assert log.kinds == {rg.BUILD: 1}
+
+
+@pytest.mark.cuda
+def test_two_shard_mesh_on_one_card_equals_the_plain_merge(cuda, tmp_path):
+    """A 2-shard mesh on [cuda:0, cuda:0] returns the merge of its shards'
+    own beam searches (concatenated in shard order, stable top-k) and the
+    CPU mesh's ids and distances (integer rows); its dense scan launches
+    probe_block_dots on the card in each shard."""
+    from sptag_tpu_torch.parallel import sharded
+
+    data = _int_rows(3000, 16, seed=72)
+    q = _int_rows(32, 16, seed=73)
+    params = {"TPTNumber": 2, "CEF": 64, "MaxCheckForRefineGraph": 128,
+              "FinalRefineSearchMode": "same", "MaxCheck": 512}
+    folder = str(tmp_path / "mesh")
+    sharded.ShardedBKTIndex.build(data, 0, mesh=sharded.Mesh(["cpu"] * 2),
+                                  params=params, save_to=folder)
+    on_cpu = sharded.ShardedBKTIndex.load(
+        folder, mesh=sharded.Mesh(["cpu"] * 2), dense=True)
+    m = sharded.ShardedBKTIndex.load(
+        folder, mesh=sharded.Mesh(["cuda:0", "cuda:0"]), dense=True)
+    d, ids = m.search(q, 10)
+    parts_d, parts_i = [], []
+    for s, eng in enumerate(m.engines):
+        sd, si = eng.search(q, 10, m.max_check, m.beam_width, None,
+                            m.nbp_limit)
+        parts_d.append(sd)
+        parts_i.append(np.where(si >= 0, si + s * m.n_local, -1))
+    all_d = np.concatenate(parts_d, 1)
+    order = np.argsort(all_d, axis=1, kind="stable")[:, :10]
+    np.testing.assert_array_equal(
+        ids, np.take_along_axis(np.concatenate(parts_i, 1), order, 1))
+    np.testing.assert_array_equal(d, np.take_along_axis(all_d, order, 1))
+    cd, ci = on_cpu.search(q, 10)
+    np.testing.assert_array_equal(ids, ci)
+    np.testing.assert_array_equal(d, cd)
+    block_dots.reset_launch_counts()
+    dd, di = m.search_dense(q, 10)
+    assert block_dots.launch_counts()["probe_block_dots_f32"] >= 2
+    np.testing.assert_array_equal(di, on_cpu.search_dense(q, 10)[1])

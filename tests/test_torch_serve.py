@@ -9,7 +9,9 @@ request frames with byte-identical response frames: beam, dense,
 malformed packet and heartbeats.  Each control-plane setting or argument
 (admission, SLO objectives, the controller, the canary, the metrics
 listener) arms the same feature in both servers, which then answer alike;
-MeshServe raises NotImplementedError naming the ROADMAP item.
+MeshServe and TraceSanitizer arm the port's mesh spine and trace sentinel
+(their own tests: tests/test_torch_mesh_serve.py,
+tests/test_torch_recompile.py).
 """
 
 import base64
@@ -35,6 +37,7 @@ from sptag_tpu_torch.serve import server as tserver
 from sptag_tpu_torch.serve import service as tservice
 from sptag_tpu_torch.serve import wire as twire
 from sptag_tpu_torch.utils import timeline as ttimeline
+from sptag_tpu_torch.utils import metrics as tmetrics
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(REPO, "tests", "fixtures", "wrapper_lifecycle.bytes")
@@ -304,11 +307,22 @@ UNPORTED = [("mesh_serve", True, "multi-GPU")]
 
 
 @pytest.mark.parametrize("field,value,item", UNPORTED)
-def test_armed_unported_settings_raise_naming_the_roadmap(field, value, item):
+def test_armed_unported_settings_raise_naming_the_roadmap(field, value, item,
+                                                          folder):
+    """Once refused, MeshServe is ported: a server armed with it starts
+    and answers over a single-index folder (no mesh index to arm, so the
+    mesh-serve counter stays 0)."""
     s = tservice.ServiceSettings(**{field: value})
     ctx = tservice.ServiceContext(s, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        tserver.SearchServer(ctx)
+    ctx.add_index("main", tsp.load_index(folder, device="cpu"))
+    before = tmetrics.counter_value("server.mesh_serve_indexes")
+    t = ServerThread(tserver.SearchServer(ctx, batch_window_ms=1.0))
+    t.start()
+    try:
+        t.wait_ready(30)
+        assert tmetrics.counter_value("server.mesh_serve_indexes") == before
+    finally:
+        t.stop()
 
 
 def _armed_pair(folder, settings=(), args=None):
@@ -456,10 +470,17 @@ def test_from_ini_loads_on_the_device_and_refuses_the_trace_sanitizer(
                                            device="cpu")
     assert ctx.indexes["main"].device.type == "cpu"
     assert ctx.indexes["main"].num_samples == N
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.*observability, device half"):
+    # TraceSanitizer, once refused, arms the port's trace sentinel
+    from sptag_tpu_torch.utils import recompile_guard as trg
+    try:
+        trg.reset_tracesan()
+        monkeypatch.setenv("SPTAG_TRACESAN", "")
+        assert not trg.tracesan_enabled()
         tservice.ServiceContext.from_ini(
             _ini(tmp_path, folder, "TraceSanitizer=1\n"), device="cpu")
+        assert trg.tracesan_enabled()
+    finally:
+        trg.reset_tracesan()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr("sys.stdin", io.StringIO(""))
     with pytest.raises(RuntimeError, match="device='cpu'"):
