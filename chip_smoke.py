@@ -215,13 +215,35 @@ Phases, in the order they run:
    ``search_batch``; (d) two processes on ``cuda:0`` over gloo, each
    building 2 of the 4 shards of a 50,000-row slice of the headline, equal
    to a one-process 4-shard mesh over the same shard folders.
+16. the mesh across the cards (on a machine with at least 2 cards; on one
+   card it prints one line saying that it did not run, and the cards it
+   saw): 1,000,000 x 128 rows (``make_dataset`` seed 7) in 4 shards of
+   250,000 at the graph parameters, one shard a card: (a) built with
+   every shard on its card at once and saved, loaded on the cards and
+   on ``[cuda:0] x 4``, exact truth from FLAT over the cards (held to one
+   card's exact scan); beam (exact, binned) and dense batches of 1,024
+   with ids and distance bits of the two placements held equal, beam
+   recall@10 held to the band's floor, ``probe_block_dots`` f32,
+   ``walk_seed_f32`` and ``walk_score_f32`` launched on every card, one
+   beam batch's wall time on the cards against one card (in turns), each
+   shard alone, the bytes between cards, each card's bytes and a
+   per-card profile; (b) a ``MeshServe=1`` server over the cards, 1,024
+   requests held to ``search_batch``, the bytes between cards per
+   segment by kind (only seated queries, ``t_limit``, alive flags and
+   the finalize's candidates may cross), the segment graphs captured and
+   replayed on each card; (c) four processes over NCCL, one a card, each
+   loading its shard of (a)'s folder: ids and bits held to (a), the
+   beam batch held to at most half the one-card time, the all-gather's
+   time.  ``--require-cards N`` fails the run on fewer than N cards:
+   ``python3 chip_smoke.py --require-cards 4`` on a four-card machine.
 
 Launch counts are zeroed just before phase 3 and read just after phase 5
 (the walk's just before phase 7's beam searches and read after them),
 and zeroed again before each graph build of phases 7 and 7b, before the
 refine of phase 9c, before the dense searches of phase 10, before
-phase 13b and before phase 14, and read after each (phase 13's after
-13e; FLAT launches no hand-written kernel but the cascade's).
+phase 13b, before phase 14 and before phase 16a's searches on the
+cards, and read after each (phase 13's after 13e, phase 16a's card by
+card; FLAT launches no hand-written kernel but the cascade's).
 Each query set is searched ``PASSES`` times over for its batch times; the
 QPS and batch percentiles are smoke readings of that window, not a
 benchmark.  Phase 2's ``ms``, ``plain_ms`` and ``library_ms`` are each the
@@ -4282,10 +4304,457 @@ def observability_mesh_phase(pt, block_dots, data, queries, truth, rows,
           "phase_15_wall_s": time.perf_counter() - t_phase})
 
 
+# ---- phase 16: the mesh across the cards ----------------------------------
+
+# 1,000,000 x 128 rows (make_dataset seed 7) in 4 shards of 250,000 at
+# GRAPH_PARAMS: four times the headline's rows a card
+MESH_CARDS = 4
+MESH_ROWS = 1_000_000
+MESH_QUERIES = 4096
+MESH_BATCH = 1024
+MESH_SERVE_REQUESTS16 = 1024
+# timed beam batches a mesh, in turns (4 cards, 1 card, 1 card, 4 cards)
+MESH_TIMED_ROUNDS = 2
+# 16c: the NCCL ranks' batch against the 4 shards on one card
+MESH_NCCL_MAX_RATIO = 0.5
+# every collective of the 16c ranks, and the ranks themselves
+MESH_COLLECTIVE_TIMEOUT_S = 300
+MESH_PROCESS_TIMEOUT_S = 900
+
+
+def sync_cards() -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def mesh_batches(m, queries, mode):
+    """Every query through the mesh in batches of MESH_BATCH: beam exact,
+    beam binned (the shard engines' BinnedTopK) or dense."""
+    from sptag_tpu_torch.ops import topk_bins
+
+    binned = topk_bins.normalize_mode("on" if mode == "beam_binned"
+                                      else "off")
+    for eng in m.engines:
+        eng.binned_mode = binned
+    d, ids = [], []
+    for lo in range(0, len(queries), MESH_BATCH):
+        q = queries[lo:lo + MESH_BATCH]
+        dd, ii = (m.search_dense(q, K) if mode == "dense"
+                  else m.search(q, K))
+        d.append(dd)
+        ids.append(ii)
+    for eng in m.engines:
+        eng.binned_mode = topk_bins.normalize_mode("off")
+    return np.concatenate(d), np.concatenate(ids)
+
+
+def card_trace(m, q) -> dict:
+    """One beam batch of the mesh under torch.profiler: each card's kernel
+    time and launches, against the batch's untraced wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    m.search(q, K)
+    sync_cards()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        m.search(q, K)
+        sync_cards()
+        wall = time.perf_counter() - t0
+    busy, launches = {}, {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        card = f"cuda:{e.device_index}"
+        busy[card] = busy.get(card, 0.0) + e.time_range.elapsed_us() / 1e3
+        launches[card] = launches.get(card, 0) + 1
+    return {"traced_wall_ms": wall * 1e3,
+            "cards": {c: {"device_ms": busy[c], "launches": launches[c],
+                          "busy_share": busy[c] / (wall * 1e3)}
+                      for c in sorted(busy)}}
+
+
+def mesh_cards_16a(pt, block_dots, walk_ops, dist_ops, workdir, devs):
+    """16a: the 1M-row mesh built on its cards, loaded on them and on
+    the first card alone; beam (exact, binned) and dense ids and distance bits of
+    the two placements equal, beam recall, launches per card, one batch's
+    wall time on the cards against one card, the bytes between cards."""
+    from sptag_tpu_torch.parallel import sharded
+    from sptag_tpu_torch.utils import devmem
+
+    n_cards = torch.cuda.device_count()
+    data, queries = make_dataset(n=MESH_ROWS, nq=MESH_QUERIES, seed=7)
+    folder = os.path.join(workdir, "mesh16")
+    peer = {f"cuda:{a}->cuda:{b}": sharded.peer_access(a, b)
+            for a in range(n_cards) for b in range(n_cards) if a != b}
+    t0 = time.perf_counter()
+    built = sharded.ShardedBKTIndex.build(
+        data, 0, mesh=sharded.Mesh(devs), params=dict(GRAPH_PARAMS),
+        save_to=folder)
+    sync_cards()
+    build_s = time.perf_counter() - t0
+    del built
+    t0 = time.perf_counter()
+    m4 = sharded.ShardedBKTIndex.load(folder, mesh=sharded.Mesh(devs),
+                                      dense=True)
+    sync_cards()
+    load4_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m1 = sharded.ShardedBKTIndex.load(
+        folder, mesh=sharded.Mesh([devs[0]] * MESH_CARDS), dense=True)
+    sync_cards()
+    load1_s = time.perf_counter() - t0
+    # the exact truth: FLAT over the cards, held to one card's exact scan
+    flat = sharded.ShardedFlatIndex(data, 0, 1, mesh=sharded.Mesh(devs))
+    parts = [flat.search(queries[lo:lo + 512], K)
+             for lo in range(0, len(queries), 512)]
+    truth = np.concatenate([p[1] for p in parts])
+    del flat
+    ref_ids, ref_d = exact_truth(dist_ops, torch.from_numpy(data).to(
+        devs[0]), torch.from_numpy(queries).to(devs[0]), with_dists=True)
+    flat_diff = separated_ids_equal(truth, ref_ids, ref_d,
+                                    2e-5 * float(np.abs(ref_d).max()))
+    # the cards' own path: counts zeroed just before, read just after
+    walk_ops.reset_launch_counts()
+    block_dots.reset_launch_counts()
+    got4 = {mode: mesh_batches(m4, queries, mode)
+            for mode in ("beam_exact", "beam_binned", "dense")}
+    walk_cards = walk_ops.launch_counts_by_card()
+    block_cards = block_dots.launch_counts_by_card()
+    got1 = {mode: mesh_batches(m1, queries, mode) for mode in got4}
+    equal = {mode: bool(np.array_equal(got4[mode][1], got1[mode][1])
+                        and got4[mode][0].tobytes()
+                        == got1[mode][0].tobytes())
+             for mode in got4}
+    recall = {mode: recall_at_k(got4[mode][1], truth) for mode in got4}
+    launches = {card: {
+        "probe_block_dots_f32": block_cards.get(card, {}).get(
+            "probe_block_dots_f32", 0),
+        "walk_seed_f32": walk_cards.get(card, {}).get("walk_seed_f32", 0),
+        "walk_score_f32": walk_cards.get(card, {}).get("walk_score_f32", 0)}
+        for card in sorted(set(str(torch.device(d)) for d in devs))}
+    # one beam batch on the cards against the same mesh on one card, in
+    # turns; each shard alone on its card
+    q = queries[:MESH_BATCH]
+    times = {"cards": [], "one_card": []}
+    for _ in range(MESH_TIMED_ROUNDS):
+        for label, m in (("cards", m4), ("one_card", m1), ("one_card", m1),
+                         ("cards", m4)):
+            sync_cards()
+            t0 = time.perf_counter()
+            m.search(q, K)
+            sync_cards()
+            times[label].append((time.perf_counter() - t0) * 1e3)
+    alone = []
+    for eng in m4.engines:
+        sync_cards()
+        t0 = time.perf_counter()
+        eng.search_tensors(q, m4._merge_k_local(K), m4.max_check,
+                           m4.beam_width, None, m4.nbp_limit)
+        sync_cards()
+        alone.append((time.perf_counter() - t0) * 1e3)
+    sharded.reset_card_transfer_bytes()
+    m4.search(q, K)
+    batch_bytes = sharded.card_transfer_bytes()
+    trace = card_trace(m4, q)
+    ms4 = statistics.median(times["cards"])
+    ms1 = statistics.median(times["one_card"])
+    out = {"rows": MESH_ROWS, "shards": MESH_CARDS, "devices": devs,
+           "queries": len(queries), "peer_access": peer,
+           "build_s": build_s,
+           "build": "shard after shard, each on its card",
+           "load_cards_s": load4_s, "load_one_card_s": load1_s,
+           "flat_truth_differing_at_separated_ranks": flat_diff,
+           "recall_at_10": recall,
+           "cards_equal_one_card_bits": equal,
+           "launches_by_card": launches,
+           "beam_batch_ms_cards": times["cards"],
+           "beam_batch_ms_one_card": times["one_card"],
+           "beam_batch_ms_cards_p50": ms4,
+           "beam_batch_ms_one_card_p50": ms1,
+           "cards_over_one_card": ms4 / ms1,
+           "shard_alone_ms": alone,
+           "bytes_between_cards_per_batch": batch_bytes,
+           "device_bytes_by_card": m4.device_bytes(),
+           "ledger_by_card": devmem.snapshot().get("cards"),
+           "memory_allocated_by_card": {
+               f"cuda:{i}": torch.cuda.memory_allocated(i)
+               for i in range(n_cards)},
+           "card_trace": trace}
+    check(flat_diff == 0, f"16a: the cards' FLAT truth differs from one "
+                          f"card's exact scan at {flat_diff} slots")
+    check(all(equal.values()), f"16a: the cards' ids or distance bits "
+                               f"differ from one card's: {equal}")
+    check(recall["beam_exact"] >= BEAM_RECALL_BAND[0],
+          f"16a: beam recall@10 {recall['beam_exact']} below "
+          f"{BEAM_RECALL_BAND[0]}")
+    check(all(min(v.values()) >= 1 for v in launches.values()),
+          f"16a: a card launched no kernel of its path: {launches}")
+    check(set(batch_bytes) <= {"candidates"},
+          f"16a: a beam batch moved {batch_bytes} between cards")
+    return out, m4, got4, ms1, queries
+
+
+class TimedLock:
+    """A lock that keeps how long its acquires waited and how long it was
+    held (phase 16b's reading of the process-wide capture lock)."""
+
+    def __init__(self, lock):
+        self.lock = lock
+        self.acquires = 0
+        self.wait_ns = self.max_wait_ns = 0
+        self.held_ns = self.max_held_ns = 0
+        self._t = 0
+
+    def __enter__(self):
+        t0 = time.perf_counter_ns()
+        self.lock.acquire()
+        self._t = time.perf_counter_ns()
+        wait = self._t - t0
+        self.acquires += 1
+        self.wait_ns += wait
+        self.max_wait_ns = max(self.max_wait_ns, wait)
+        return self
+
+    def __exit__(self, *exc):
+        held = time.perf_counter_ns() - self._t
+        self.held_ns += held
+        self.max_held_ns = max(self.max_held_ns, held)
+        self.lock.release()
+
+    def reading(self) -> dict:
+        return {"acquires": self.acquires, "wait_ms": self.wait_ns / 1e6,
+                "max_wait_ms": self.max_wait_ns / 1e6,
+                "held_ms": self.held_ns / 1e6,
+                "max_held_ms": self.max_held_ns / 1e6}
+
+
+def mesh_cards_16b(pt, m4, queries, dim) -> dict:
+    """16b: a MeshServe=1 server over the mesh on the cards: 1,024
+    requests answered as search_batch answers them, the bytes between
+    cards per segment by kind, and the segment graphs captured and
+    replayed on each card."""
+    from sptag_tpu_torch.algo import engine as teng
+    from sptag_tpu_torch.parallel import sharded
+    from sptag_tpu_torch.serve import server as sserver
+    from sptag_tpu_torch.serve import service as sservice
+
+    q = queries[:MESH_SERVE_REQUESTS16]
+    ctx = sservice.ServiceContext(sservice.ServiceSettings(
+        listen_addr="127.0.0.1", default_max_result=K, mesh_serve=True))
+    ctx.add_index("mesh", sharded.ServingAdapter(m4, dim))
+    teng.reset_graph_stats()
+    sharded.reset_card_transfer_bytes()
+    # the capture lock's waits and holds: the captures (engine) and the
+    # replays of the segment graphs (scheduler), over the whole run
+    from sptag_tpu_torch.algo import scheduler as tsched
+
+    timed_lock = TimedLock(teng.capture_lock)
+    saved_locks = (teng.capture_lock, tsched.capture_lock)
+    teng.capture_lock = tsched.capture_lock = timed_lock
+    run = ServerRunner(sserver.SearchServer(ctx))
+    try:
+        texts = [f"$resultnum:{K} " + b64_query(v) for v in q]
+        res, wall = pool_search(run.addr, texts)
+        armed = m4._scheduler is not None
+        stats = m4._scheduler.stats() if armed else {}
+        # where each slot-state value's shard slices live
+        placement = sorted({
+            tuple(str(d) for d in v.devices())
+            for pool in m4._scheduler._pools.values()
+            for v in pool.state.values() if v is not None}) if armed else []
+    finally:
+        run.stop()
+        m4.retire_scheduler()
+        teng.capture_lock, tsched.capture_lock = saved_locks
+    xfer = sharded.card_transfer_bytes()
+    graphs = teng.graph_stats()
+    sd, si, bad = served_arrays(res, K)
+    want_d, want_i = sharded.ServingAdapter(m4, dim).search_batch(q, K)
+    ids_equal = bool(np.array_equal(si, want_i))
+    d_equal = bool(np.array_equal(sd.astype(np.float32), want_d))
+    segments = stats.get("segments_eager", 0) \
+        + stats.get("segments_replayed", 0)
+    per_segment = {kind: b / max(segments, 1) for kind, b in xfer.items()
+                   if kind in ("t_limit", "alive")}
+    out = {"requests": len(texts), "wall_s": wall, "qps": len(texts) / wall,
+           "unanswered": bad, "armed": armed,
+           "ids_equal_search_batch": ids_equal,
+           "distances_equal_search_batch": d_equal,
+           "scheduler": {k: stats.get(k) for k in (
+               "retired", "segments_eager", "segments_replayed",
+               "graphs_captured")},
+           "bytes_between_cards": xfer,
+           "bytes_between_cards_per_segment": per_segment,
+           "state_placement": placement,
+           "graphs_by_card": graphs,
+           "capture_lock": timed_lock.reading()}
+    check(armed and bad == 0 and ids_equal and d_equal,
+          f"16b: MeshServe armed {armed}, unanswered {bad}, ids equal "
+          f"{ids_equal}, distances equal {d_equal}")
+    check(set(xfer) <= {"queries", "t_limit", "alive", "candidates"},
+          f"16b: state crossed between cards: {xfer}")
+    check(placement == [tuple(map(str, m4.mesh.devices))],
+          f"16b: the slot state's shard slices sit on {placement}, not on "
+          f"their shards' cards")
+    return out
+
+
+MC_WORKER = r"""
+import json
+import sys
+import time
+import numpy as np
+import torch
+sys.path.insert(0, sys.argv[4])
+import chip_smoke as cs
+from sptag_tpu_torch.parallel import multihost
+rank, port, folder = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+multihost.initialize(f"127.0.0.1:{port}", num_processes=cs.MESH_CARDS,
+                     process_id=rank,
+                     timeout_s=cs.MESH_COLLECTIVE_TIMEOUT_S)
+import torch.distributed as dist
+_, queries = cs.make_dataset(n=cs.MESH_ROWS, nq=cs.MESH_QUERIES, seed=7)
+t0 = time.perf_counter()
+idx = multihost.load_process_sharded(folder, dense=True)
+load_s = time.perf_counter() - t0
+out = {}
+for mode in ("beam_exact", "dense"):
+    d, i = cs.mesh_batches(idx, queries, mode)
+    out[mode + "_d"], out[mode + "_i"] = d, i
+q = queries[:cs.MESH_BATCH]
+times, gathers = [], []
+for _ in range(2 * cs.MESH_TIMED_ROUNDS):
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx.search(q, cs.K)
+    torch.cuda.synchronize()
+    times.append((time.perf_counter() - t0) * 1e3)
+    gathers.append(idx.last_all_gather_ms())
+np.savez(f"{folder}/nccl_rank{rank}.npz", **out)
+with open(f"{folder}/nccl_rank{rank}.json", "w") as f:
+    json.dump({"rank": rank, "card": str(idx.mesh.devices[0]),
+               "current": torch.cuda.current_device(),
+               "backend": str(dist.get_backend()),
+               "device_merge": bool(idx.device_merge),
+               "load_s": load_s, "beam_batch_ms": times,
+               "all_gather_ms": gathers}, f)
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+def mesh_cards_16c(got4, ms1, folder, here) -> dict:
+    """16c: one process a card over NCCL, each loading its shard of 16a's
+    folder: ids and bits of 16a's mesh, the batch's wall time against the
+    same four shards on one card, and the all-gather's time."""
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MC_WORKER, str(r), str(port), folder, here],
+        cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(MESH_CARDS)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MESH_PROCESS_TIMEOUT_S)[0]
+                        .decode(errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    rcs = [p.returncode for p in procs]
+    if any(rcs):
+        for r, o in enumerate(outs):
+            print(f"16c rank {r} (rc {rcs[r]}):\n{o[-3000:]}",
+                  file=sys.stderr, flush=True)
+        fail(f"16c: the NCCL ranks exited {rcs}")
+    ranks = []
+    for r in range(MESH_CARDS):
+        with open(os.path.join(folder, f"nccl_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    got = [np.load(os.path.join(folder, f"nccl_rank{r}.npz"))
+           for r in range(MESH_CARDS)]
+    equal = {mode: all(np.array_equal(g[mode + "_i"], got4[mode][1])
+                       and g[mode + "_d"].tobytes()
+                       == got4[mode][0].tobytes() for g in got)
+             for mode in ("beam_exact", "dense")}
+    # the slowest rank's batch is the mesh's
+    batch_ms = statistics.median(
+        max(r["beam_batch_ms"][i] for r in ranks)
+        for i in range(len(ranks[0]["beam_batch_ms"])))
+    out = {"processes": MESH_CARDS, "wall_s": wall,
+           "ranks": [{k: r[k] for k in ("rank", "card", "current", "backend",
+                                        "device_merge", "load_s")}
+                     for r in ranks],
+           "ids_and_bits_equal_16a": equal,
+           "beam_batch_ms_by_rank": [r["beam_batch_ms"] for r in ranks],
+           "beam_batch_ms_p50": batch_ms,
+           "one_card_batch_ms_p50": ms1,
+           "over_one_card": batch_ms / ms1,
+           "all_gather_ms_by_rank": [r["all_gather_ms"] for r in ranks]}
+    check(all(equal.values()), f"16c: the NCCL ranks differ from 16a: "
+                               f"{equal}")
+    check(all(r["device_merge"] and "nccl" in r["backend"]
+              and r["card"] == f"cuda:{r['rank']}" for r in ranks),
+          f"16c: not one rank a card over NCCL: {out['ranks']}")
+    check(batch_ms <= MESH_NCCL_MAX_RATIO * ms1,
+          f"16c: a beam batch took {batch_ms} ms on the ranks, above "
+          f"{MESH_NCCL_MAX_RATIO} x the one-card {ms1} ms")
+    return out
+
+
+def mesh_cards_phase(pt, block_dots, walk_ops, dist_ops, workdir,
+                     here) -> None:
+    """Phase 16: 16a-16c on a machine with at least two cards (shards
+    round-robin over fewer than four); one line saying why it did not run
+    otherwise."""
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        emit({"phase": 16, "ran": False, "cards": n_cards,
+              "reason": f"the mesh across cards needs at least 2 cards; "
+                        f"this machine has {n_cards}"})
+        return
+    t_phase = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=index,name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    devs = [f"cuda:{s % n_cards}" for s in range(MESH_CARDS)]
+    out16a, m4, got4, ms1, queries = mesh_cards_16a(
+        pt, block_dots, walk_ops, dist_ops, workdir, devs)
+    emit({"phase": "16a", "nvidia_smi_by_card":
+          smi.stdout.strip().splitlines(), **out16a})
+    emit({"phase": "16b", **mesh_cards_16b(pt, m4, queries, 128)})
+    del m4
+    if MESH_CARDS % n_cards == 0 and n_cards == MESH_CARDS:
+        out16c = mesh_cards_16c(got4, ms1, os.path.join(workdir, "mesh16"),
+                                here)
+    else:
+        out16c = {"ran": False, "reason": f"one rank a card needs "
+                                          f"{MESH_CARDS} cards"}
+    emit({"phase": "16c", **out16c,
+          "phase_16_wall_s": time.perf_counter() - t_phase})
+
+
 def main() -> None:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--require-cards", type=int, default=0,
+                        help="fail when the machine has fewer CUDA cards")
+    parser.add_argument("--only-mesh-cards", action="store_true",
+                        help="run phases 0, 1 and 16 only (the mesh across "
+                             "the cards); prints no contract line")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a CUDA "
              "card")
+    if torch.cuda.device_count() < args.require_cards:
+        fail(f"--require-cards {args.require_cards}: this machine has "
+             f"{torch.cuda.device_count()} CUDA card(s)")
     # every torch.profiler session of the run (and of the processes it
     # starts) tears CUPTI down at its end: kept alive, the later sessions
     # of a busy process lose the card's kernels (sptag_tpu_torch/utils/
@@ -4351,6 +4820,14 @@ def main() -> None:
                               _build.build_log.get(name, "").splitlines()
                               if "registers" in ln or "spill" in ln]}
              for name, (so, secs) in built.items()}})
+
+    if args.only_mesh_cards:
+        mesh_cards_phase(pt, block_dots, walk_ops, dist_ops, work.name, here)
+        if FAILED_CHECKS:
+            fail(f"{len(FAILED_CHECKS)} check(s) failed: {FAILED_CHECKS}")
+        emit({"phase": "end", "wall_s": time.perf_counter() - T_START,
+              "only": [0, 1, 16]})
+        return
 
     # ---- main path ----------------------------------------------------------
     block_dots.reset_launch_counts()
@@ -4841,6 +5318,9 @@ def main() -> None:
     # ---- phase 15: observability (device half) and the mesh -------------
     observability_mesh_phase(pt, block_dots, data, queries, truth_f32, rows,
                              card, graph_folder, out13, work.name, here)
+
+    # ---- phase 16: the mesh across the cards, one shard a card -----------
+    mesh_cards_phase(pt, block_dots, walk_ops, dist_ops, work.name, here)
 
     if FAILED_CHECKS:
         fail(f"{len(FAILED_CHECKS)} check(s) failed: {FAILED_CHECKS}")

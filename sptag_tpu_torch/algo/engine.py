@@ -37,6 +37,13 @@ whose bits do not depend on the batch's shape, so a server that coalesces
 requests answers a query alike in any batch.  ``chunk_size`` keeps the
 JAX package's formula all the same.
 
+Every capture, replay, CUDA event and stream of the walk runs under
+``torch.cuda.device(self.device)`` and names that card's stream, so an
+engine on ``cuda:1`` in a process whose current card is ``cuda:0``
+captures, replays and times its own card's work (a mesh places one shard
+a card, parallel/sharded.py).  ``search_tensors`` is ``search`` without
+the readback: the (Q, k) distances and ids stay on the engine's card.
+
 The walk's state is the JAX package's (``seed_state``): ``run_segment``
 advances it by at most S iterations and ``finalize`` retires it, so
 ``BeamSegmentIters`` (``_search_segmented``) and the slot scheduler
@@ -124,6 +131,70 @@ _GRAPH_CACHE = 32
 #: the walk state's per-row tensors that a segment changes
 STATE_KEYS = ("cand_ids", "cand_d", "expanded", "visited", "no_better",
               "ptr", "it")
+
+# captures and replays of CUDA graphs, per card: the whole-walk graphs of
+# small chunks and the scheduler's segment graphs
+_graph_stats_lock = threading.Lock()
+_graph_stats: Dict[str, Dict[str, int]] = {}
+_GRAPH_STAT_KINDS = ("walk_captures", "walk_replays", "segment_captures",
+                     "segment_replays")
+
+
+def _note_graph(device, kind: str) -> None:
+    with _graph_stats_lock:
+        row = _graph_stats.setdefault(
+            str(device), dict.fromkeys(_GRAPH_STAT_KINDS, 0))
+        row[kind] += 1
+
+
+def graph_stats() -> Dict[str, Dict[str, int]]:
+    """Captures and replays of CUDA graphs since the last reset, by card
+    (``str(device)``): ``walk_*`` the whole-walk graphs of small chunks,
+    ``segment_*`` the scheduler's segment graphs (one a card for a mesh,
+    parallel/mesh_engine.py)."""
+    with _graph_stats_lock:
+        return {dev: dict(row) for dev, row in _graph_stats.items()}
+
+
+def reset_graph_stats() -> None:
+    with _graph_stats_lock:
+        _graph_stats.clear()
+
+
+class DeviceGraph:
+    """A captured CUDA graph and its card: `replay` counts each replay
+    in `graph_stats`.  The caller holds `capture_lock`."""
+
+    __slots__ = ("graph", "device", "kind")
+
+    def __init__(self, graph, device, kind: str):
+        self.graph, self.device, self.kind = graph, device, kind
+
+    def replay(self) -> None:
+        self.graph.replay()
+        _note_graph(self.device, self.kind)
+
+
+def capture_on(device, fn):
+    """Warm `fn` up on a side stream of `device`, then capture it into a
+    CUDA graph on that stream, with `device` current throughout: the
+    graph and `fn`'s outputs, or (None, None) while a profile runs
+    (utils/trace.py).  The capture holds `capture_lock`, so it holds back
+    other cards' replays for as long as it lasts."""
+    with torch.cuda.device(device):
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            fn()                                             # warm-up
+        torch.cuda.current_stream(device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with capture_lock:
+            if trace.tracing():
+                return None, None
+            with torch.cuda.graph(graph, stream=side,
+                                  capture_error_mode="thread_local"):
+                out = fn()
+        return graph, out
 
 
 def _num_words(n: int) -> int:
@@ -621,21 +692,29 @@ class GraphSearchEngine:
         captured CUDA graphs own private pools no component names: they
         show in `devmem.snapshot`'s untracked bytes."""
         parts = self.device_bytes()
+        card = str(self.device)
+
+        def on_card(nbytes):
+            return {card: nbytes}
         if self.fp_host is not None:
             # host tier: the int8 rows are the device corpus; the float32
             # rows are host memory, excluded from the device total
-            devmem.track("int8_blocks", self, parts["corpus"])
+            devmem.track("int8_blocks", self, parts["corpus"],
+                         cards=on_card(parts["corpus"]))
             devmem.track("host_corpus", self, self.fp_host.nbytes,
                          host=True)
         else:
-            devmem.track("corpus", self, parts["corpus"]
-                         + parts.get("bf16_shadow", 0)
-                         + parts.get("int8_shadow", 0))
-        devmem.track("graph", self, parts["graph"])
-        devmem.track("tree", self, parts["pivots"])
+            corpus = (parts["corpus"] + parts.get("bf16_shadow", 0)
+                      + parts.get("int8_shadow", 0))
+            devmem.track("corpus", self, corpus, cards=on_card(corpus))
+        devmem.track("graph", self, parts["graph"],
+                     cards=on_card(parts["graph"]))
+        devmem.track("tree", self, parts["pivots"],
+                     cards=on_card(parts["pivots"]))
         if "packed_neighbors" in parts:
             devmem.track("packed_neighbors", self,
-                         parts["packed_neighbors"])
+                         parts["packed_neighbors"],
+                         cards=on_card(parts["packed_neighbors"]))
 
     def set_deleted(self, deleted: np.ndarray) -> None:
         """Swap only the tombstone mask (a delete-only change).  On the
@@ -801,12 +880,13 @@ class GraphSearchEngine:
         if self._seg_dispatches % every:
             return None
         if self.device.type == "cuda":
+            # both events on this card's stream, whatever card is current
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
-            start.record()
+            start.record(torch.cuda.current_stream(self.device))
 
             def elapsed_ns() -> int:
-                end.record()
+                end.record(torch.cuda.current_stream(self.device))
                 end.synchronize()
                 return int(start.elapsed_time(end) * 1e6)
             return elapsed_ns
@@ -840,24 +920,62 @@ class GraphSearchEngine:
                  ) -> Tuple[np.ndarray, np.ndarray]:
         """Re-rank, tombstone filter and top-k over the state's pools, the
         monolithic walk's epilogue: ((Q, k') dists, (Q, k') int32 ids)."""
-        d, ids = _finalize(self, state["queries"], state["cand_ids"],
-                           state["cand_d"], k_eff,
-                           self.finalize_bins_for(
-                               k_eff, int(state["cand_ids"].shape[1])))
-        return recompile_guard.device_get((d, ids))
+        return recompile_guard.device_get(self._finalize_state(state,
+                                                               k_eff))
+
+    def _finalize_state(self, state: dict, k_eff: int):
+        return _finalize(self, state["queries"], state["cand_ids"],
+                         state["cand_d"], k_eff, self.finalize_bins_for(
+                             k_eff, int(state["cand_ids"].shape[1])))
+
+    def capture_segment(self, state: dict, t_limit: torch.Tensor,
+                        k_eff: int, L: int, B: int, nbp_limit: int, S: int,
+                        inject: int = 0):
+        """A CUDA graph of one S-iteration segment (the slot scheduler's,
+        algo/scheduler.py) over static copies of `state` and `t_limit` on
+        this engine's card: (graph, state buffers, t_limit buffer, alive
+        output), the new state written back into the same buffers; None
+        while a profile runs."""
+        bufs = {name: arr.clone() for name, arr in state.items()
+                if arr is not None}
+        t_in = t_limit.clone()
+
+        def segment():
+            st = {name: bufs.get(name) for name in state}
+            new, alive = self.run_segment(st, t_in, k_eff, L, B, nbp_limit,
+                                          S, inject=inject,
+                                          check_alive=False)
+            for name in STATE_KEYS:
+                if new[name] is not bufs[name]:
+                    bufs[name].copy_(new[name])
+            return alive
+
+        graph, alive_out = capture_on(self.device, segment)
+        if graph is None:
+            return None
+        _note_graph(self.device, "segment_captures")
+        return (DeviceGraph(graph, self.device, "segment_replays"), bufs,
+                t_in, alive_out)
+
+    @property
+    def index_device(self) -> torch.device:
+        """Where the slot scheduler builds its row indices."""
+        return self.device
 
     def _search_segmented(self, queries: np.ndarray,
                           seeds: Optional[np.ndarray], k_eff: int, L: int,
                           B: int, T: int, limit: int, inject: int,
                           chunk: int, S: int
-                          ) -> Tuple[np.ndarray, np.ndarray]:
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
         """search() as repeated segments of at most S iterations
         (BeamSegmentIters), the results of the monolithic walk bit for
         bit.  Chunks pad to `utils.query_bucket` with zero rows whose
         `t_limit` is 0: never alive, bit-frozen no-ops."""
         nq, D = queries.shape
-        out_d = np.zeros((nq, k_eff), np.float32)
-        out_i = np.zeros((nq, k_eff), np.int32)
+        out_d = torch.zeros((nq, k_eff), dtype=torch.float32,
+                            device=self.device)
+        out_i = torch.zeros((nq, k_eff), dtype=torch.int32,
+                            device=self.device)
         self.last_iterations = 0
         for start in range(0, nq, chunk):
             q = queries[start:start + chunk]
@@ -886,7 +1004,7 @@ class GraphSearchEngine:
                 # the segment loop's continue flag: its intended sync
                 if not bool(recompile_guard.device_get(alive.any())):
                     break
-            d, ids = self.finalize(state, k_eff)
+            d, ids = self._finalize_state(state, k_eff)
             out_d[start:start + nqc] = d[:nqc]
             out_i[start:start + nqc] = ids[:nqc]
         return out_d, out_i
@@ -909,7 +1027,8 @@ class GraphSearchEngine:
         return d, ids, its
 
     def _search_chunk(self, q: np.ndarray, seeds: Optional[np.ndarray],
-                      *plan) -> Tuple[np.ndarray, np.ndarray]:
+                      *plan) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One chunk's ((Q, k') dists, (Q, k') int32 ids), on the card."""
         queries = torch.from_numpy(np.ascontiguousarray(q)).to(self.device)
         s = None if seeds is None else \
             torch.from_numpy(np.asarray(seeds, np.int64)).to(self.device)
@@ -919,10 +1038,10 @@ class GraphSearchEngine:
                 return out
         d, ids, its = self._walk_chunk(queries, s, plan)
         self.last_iterations += its
-        return recompile_guard.device_get((d, ids))
+        return d, ids
 
     def _replay_chunk(self, queries, seeds, plan
-                      ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+                      ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
         """A small chunk on the card replays a CUDA graph of the whole
         walk — seeding, all T iterations, finalize — captured per (padded
         shape, plan) on this snapshot: one launch instead of ~3,500 small
@@ -966,14 +1085,16 @@ class GraphSearchEngine:
             else:
                 self._graphs.move_to_end(key)
         graph, q_in, s_in, d_out, i_out, lock = entry
-        with lock:
+        with lock, torch.cuda.device(self.device):
             q_in.copy_(queries)
             if s_in is not None:
                 s_in.copy_(seeds)
             with capture_lock:       # not while the profiler starts / stops
                 graph.replay()
             self.last_iterations += plan[3]
-            return recompile_guard.device_get((d_out[:nq], i_out[:nq]))
+            # the static outputs are the next replay's: copies leave with
+            # the caller
+            return d_out[:nq].clone(), i_out[:nq].clone()
 
     def _capture(self, queries, seeds, plan):
         """The graph and its static buffers, or None while a profile runs
@@ -982,19 +1103,14 @@ class GraphSearchEngine:
             return None
         q_in = queries.clone()
         s_in = None if seeds is None else seeds.clone()
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            self._walk_chunk(q_in, s_in, plan, check_alive=False)  # warm-up
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with capture_lock:
-            if trace.tracing():
-                return None
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                d_out, i_out, _ = self._walk_chunk(q_in, s_in, plan,
-                                                   check_alive=False)
-        return graph, q_in, s_in, d_out, i_out, threading.Lock()
+        graph, out = capture_on(self.device, lambda: self._walk_chunk(
+            q_in, s_in, plan, check_alive=False))
+        if graph is None:
+            return None
+        _note_graph(self.device, "walk_captures")
+        d_out, i_out, _ = out
+        return (DeviceGraph(graph, self.device, "walk_replays"), q_in, s_in,
+                d_out, i_out, threading.Lock())
 
     def search(self, queries: np.ndarray, k: int, max_check: int = 2048,
                beam_width: int = 16, pool_size: Optional[int] = None,
@@ -1009,6 +1125,20 @@ class GraphSearchEngine:
         per-query seed ids (KDT).  `segment_iters` > 0 runs the walk as
         segments of that many iterations (state kept between them), with
         the same results bit for bit."""
+        return recompile_guard.device_get(self.search_tensors(
+            queries, k, max_check, beam_width, pool_size, nbp_limit, seeds,
+            dynamic_pivots, segment_iters))
+
+    def search_tensors(self, queries: np.ndarray, k: int,
+                       max_check: int = 2048, beam_width: int = 16,
+                       pool_size: Optional[int] = None, nbp_limit: int = 3,
+                       seeds: Optional[np.ndarray] = None,
+                       dynamic_pivots: int = 4,
+                       segment_iters: Optional[int] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """`search` without the readback: the (Q, k) float32 distances and
+        int32 ids as tensors on this engine's card (a mesh merges its
+        shards' there, parallel/sharded.py)."""
         queries = np.asarray(queries)
         if queries.ndim == 1:
             queries = queries[None, :]
@@ -1016,8 +1146,10 @@ class GraphSearchEngine:
         k_eff, L, B, T, limit = self.walk_plan(k, max_check, beam_width,
                                                pool_size, nbp_limit)
         chunk = self.chunk_size()
-        out_d = np.full((nq, k), np.float32(MAX_DIST), np.float32)
-        out_i = np.full((nq, k), -1, np.int32)
+        out_d = torch.full((nq, k), float(MAX_DIST), dtype=torch.float32,
+                           device=self.device)
+        out_i = torch.full((nq, k), -1, dtype=torch.int32,
+                           device=self.device)
         if self.fp_host is not None and not segment_iters:
             # the host tier's finalize reads the pool back: one segment of
             # the whole budget (the same walk)

@@ -37,7 +37,9 @@ On the card a segment at a capacity of at most ``graph_max_slots``
 replays a CUDA graph, captured per ``(pool, capacity, S)`` the second
 time that key runs (static state buffers the pool's state is copied in
 and out of; ``capture_error_mode="thread_local"``, since the worker is
-not the main thread; at most ``_GRAPH_CACHE`` kept).  There the host's
+not the main thread; at most ``_GRAPH_CACHE`` kept).  The engine
+captures it on its own card (``capture_segment``); a mesh engine
+captures one graph a shard, each on its shard's card.  There the host's
 launches bound an eager segment; at 1,024 slots the card does, and a
 replay did not pay (PERF.md), so larger capacities run eagerly.
 
@@ -54,9 +56,13 @@ work and its readbacks are blessed; a segment graph's capture counts as a
 compile there.  Each retired query's slow-query stats carry its roofline
 attribution (``gflops`` / ``pct_peak``: the ledger's ``beam.segment`` work
 of its iterations over its resident time), and a mesh engine
-(parallel/mesh_engine.py, state ``(slots, n_shards, ...)``) adds the
-shard-skew telemetry: per-shard iterations, the straggler and each query's
-shard imbalance.
+(parallel/mesh_engine.py) adds the shard-skew telemetry: per-shard
+iterations, the straggler and each query's shard imbalance.  A mesh
+engine's state values hold one tensor a shard on that shard's card
+(``ShardSlices``): the pool's row bookkeeping indexes them as it indexes
+a tensor, with row indices built where the engine asks
+(``index_device``), and allocates, reads back and tracks them through
+`_empty_rows`, `_readback` and `_card_bytes`.
 """
 
 from __future__ import annotations
@@ -140,6 +146,37 @@ def reset_shard_skew() -> None:
 
 
 metrics.register_family_provider("mesh_skew", _shard_iter_families)
+
+
+def _empty_rows(arr, capacity: int):
+    """Uninitialised slot rows shaped like `arr`'s rows (a mesh state
+    value allocates one tensor a shard, each on its card)."""
+    new_rows = getattr(arr, "new_rows", None)
+    if new_rows is not None:
+        return new_rows(capacity)
+    return torch.empty((capacity,) + tuple(arr.shape[1:]), dtype=arr.dtype,
+                       device=arr.device)
+
+
+def _readback(arr) -> np.ndarray:
+    """A blessed readback of slot rows; a mesh state value stacks its
+    shards' rows along axis 1."""
+    to_host = getattr(arr, "to_host", None)
+    if to_host is not None:
+        return to_host()
+    return recompile_guard.device_get(arr)
+
+
+def _card_bytes(state: dict, t_limit) -> Dict[str, int]:
+    """Resident bytes of a pool's slot state by card."""
+    out: Dict[str, int] = {}
+    for arr in list(state.values()) + [t_limit]:
+        if arr is None:
+            continue
+        for part in getattr(arr, "parts", (arr,)):
+            out[str(part.device)] = out.get(str(part.device), 0) \
+                + part.nbytes
+    return out
 
 
 class SchedulerStopped(RuntimeError):
@@ -250,11 +287,9 @@ class _SlotPool:
         old_state, old_entries, old_tl = self.state, self.entries, \
             self.t_limit
         dev = self.engine.device
-        self.state = {
-            name: (None if arr is None else
-                   torch.empty((capacity,) + tuple(arr.shape[1:]),
-                               dtype=arr.dtype, device=dev))
-            for name, arr in like.items()}
+        self.state = {name: (None if arr is None
+                             else _empty_rows(arr, capacity))
+                      for name, arr in like.items()}
         self.t_limit = torch.empty(capacity, dtype=torch.int64, device=dev)
         self.entries = [None] * capacity
         self.capacity = capacity
@@ -263,14 +298,14 @@ class _SlotPool:
         # The port keeps the slot state on the device between segments
         # (the JAX package round-trips it through the host and marks the
         # entry host=True), so it counts toward the device total here
-        devmem.track("slot_pool", self,
-                     sum(a.nbytes for a in self.state.values()
-                         if a is not None) + self.t_limit.nbytes)
+        cards = _card_bytes(self.state, self.t_limit)
+        devmem.track("slot_pool", self, sum(cards.values()), cards=cards)
         self._blank_rows(slice(None))
         src = [i for i, e in enumerate(old_entries) if e is not None]
         if src:
-            dst = torch.arange(len(src), device=dev)
-            src_t = torch.tensor(src, device=dev)
+            idx_dev = self.engine.index_device
+            dst = torch.arange(len(src), device=idx_dev)
+            src_t = torch.tensor(src, device=idx_dev)
             for name, arr in old_state.items():
                 if arr is not None:
                     self.state[name][dst] = arr[src_t]
@@ -588,8 +623,8 @@ class BeamSlotScheduler:
             metrics.set_gauge("scheduler.mesh_shards", shards)
             live = [i for i, e in enumerate(pool.entries) if e is not None]
             with recompile_guard.hot_section("scheduler.cycle"):
-                it_live = recompile_guard.device_get(pool.state["it"][
-                    torch.tensor(live, device=engine.device)])
+                it_live = _readback(pool.state["it"][
+                    torch.tensor(live, device=engine.index_device)])
             _publish_shard_skew(it_live, shards)
         live_now = 0
         for e in pool.entries:
@@ -611,13 +646,12 @@ class BeamSlotScheduler:
         # bucketed sub-batch
         Rb = query_bucket(len(done), pool.capacity)
         rows = torch.tensor(done + [done[0]] * (Rb - len(done)),
-                            device=engine.device)
+                            device=engine.index_device)
         with recompile_guard.hot_section("scheduler.finalize"):
             sub = {name: pool.state[name][rows]
                    for name in ("queries", "cand_ids", "cand_d")}
             d, ids = engine.finalize(sub, pool.k_eff)
-            row_it = recompile_guard.device_get(
-                pool.state["it"][rows[:len(done)]])
+            row_it = _readback(pool.state["it"][rows[:len(done)]])
         t_done = time.perf_counter()
         # a mesh row holds one counter a shard: device residency follows
         # the slowest shard's walk
@@ -685,7 +719,7 @@ class BeamSlotScheduler:
         for j, item in enumerate(items):
             if not item.future.done():
                 item.future.set_result((d[j].copy(), ids[j].copy()))
-        pool._blank_rows(torch.tensor(done, device=engine.device))
+        pool._blank_rows(torch.tensor(done, device=engine.index_device))
         metrics.set_gauge("scheduler.occupancy",
                           pool.live_count() / max(pool.capacity, 1))
 
@@ -749,40 +783,15 @@ class BeamSlotScheduler:
 
     def _capture(self, pool: _SlotPool):
         """A CUDA graph of one S-iteration segment over static copies of
-        the pool's state: the new state is written back into the same
-        buffers, and the alive flags into a static output.  None while a
-        profile runs (utils/trace.py): the caller runs the segment
-        eagerly."""
+        the pool's state, captured by the engine on its card(s): (graph,
+        state buffers, t_limit buffer, alive output); the new state is
+        written back into the same buffers.  None while a profile runs
+        (utils/trace.py): the caller runs the segment eagerly."""
         if trace.tracing():
             return None
-        engine = self._engine
-        dev = engine.device
-        bufs = {name: arr.clone() for name, arr in pool.state.items()
-                if arr is not None}
-        t_in = pool.t_limit.clone()
-
-        def segment():
-            state = {name: bufs.get(name) for name in pool.state}
-            new, alive = engine.run_segment(
-                state, t_in, pool.k_eff, pool.L, pool.B, pool.nbp_limit,
-                pool.seg_iters, inject=pool.inject, check_alive=False)
-            for name in STATE_KEYS:
-                if new[name] is not bufs[name]:
-                    bufs[name].copy_(new[name])
-            return alive
-
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            segment()                                        # warm-up
-        torch.cuda.current_stream(dev).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with capture_lock:
-            if trace.tracing():
-                return None
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                alive_out = segment()
-        return graph, bufs, t_in, alive_out
+        return self._engine.capture_segment(
+            pool.state, pool.t_limit, pool.k_eff, pool.L, pool.B,
+            pool.nbp_limit, pool.seg_iters, inject=pool.inject)
 
     def _seed_bucket(self, pool: _SlotPool,
                      incoming: List[_Item]) -> Dict[str, torch.Tensor]:
@@ -813,7 +822,7 @@ class BeamSlotScheduler:
             raise RuntimeError("scheduler intake exceeded the free slots")
         R = len(incoming)
         dev = pool.engine.device
-        dst = torch.tensor(free[:R], device=dev)
+        dst = torch.tensor(free[:R], device=pool.engine.index_device)
         for name, arr in pool.state.items():
             if arr is not None:
                 arr[dst] = seeded[name][:R]

@@ -153,6 +153,8 @@ group_i8_launches = 0
 probe_f32i8_launches = 0
 group_f32i8_launches = 0
 _count_lock = threading.Lock()
+#: the same launches by card: (kernel name, str(device)) -> launches
+_card_launches: dict = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -176,6 +178,16 @@ def launch_counts() -> dict:
             "group_block_dots_f32i8": group_f32i8_launches}
 
 
+def launch_counts_by_card() -> dict:
+    """`launch_counts` split by card: ``str(device)`` -> {kernel:
+    launches}, the cards that launched only."""
+    with _count_lock:
+        out: dict = {}
+        for (name, card), n in _card_launches.items():
+            out.setdefault(card, {})[name] = n
+    return out
+
+
 def reset_launch_counts() -> None:
     global probe_f32_launches, probe_i8_launches
     global group_f32_launches, group_i8_launches
@@ -184,6 +196,12 @@ def reset_launch_counts() -> None:
         probe_f32_launches = probe_i8_launches = 0
         group_f32_launches = group_i8_launches = 0
         probe_f32i8_launches = group_f32i8_launches = 0
+        _card_launches.clear()
+
+
+def _count_card(name: str, device) -> None:
+    key = (name, str(device))
+    _card_launches[key] = _card_launches.get(key, 0) + 1
 
 
 def variant(blocks: torch.Tensor, queries: torch.Tensor) -> str:
@@ -411,6 +429,7 @@ def probe_block_dots(blocks: torch.Tensor, queries: torch.Tensor,
             probe_f32i8_launches += 1
         else:
             probe_f32_launches += 1
+        _count_card(f"probe_block_dots_{v}", blocks.device)
     return out
 
 
@@ -440,6 +459,7 @@ def group_block_dots(blocks: torch.Tensor, queries: torch.Tensor,
             group_f32i8_launches += 1
         else:
             group_f32_launches += 1
+        _count_card(f"group_block_dots_{v}", blocks.device)
     return out
 
 

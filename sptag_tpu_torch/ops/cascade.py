@@ -696,7 +696,7 @@ def _to_host(t: torch.Tensor):
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t, non_blocking=True)
     ev = torch.cuda.Event()
-    ev.record()
+    ev.record(torch.cuda.current_stream(t.device))     # the tensor's card
     return host, ev.synchronize
 
 

@@ -60,6 +60,8 @@ L2, COSINE, DOT = 0, 1, 2
 KERNELS = ("walk_seed_f32", "walk_score_f32", "walk_score_i8",
            "walk_sqnorm_f32")
 _launches = dict.fromkeys(KERNELS, 0)
+#: the same launches by card: (kernel, str(device)) -> launches
+_card_launches: dict = {}
 _count_lock = threading.Lock()
 
 # a scoring CTA holds the query in up to 48 KB of shared memory
@@ -87,15 +89,28 @@ def launch_counts() -> dict:
         return dict(_launches)
 
 
+def launch_counts_by_card() -> dict:
+    """`launch_counts` split by card: ``str(device)`` -> {kernel:
+    launches}, the cards that launched only."""
+    with _count_lock:
+        out: dict = {}
+        for (name, card), n in _card_launches.items():
+            out.setdefault(card, {})[name] = n
+    return out
+
+
 def reset_launch_counts() -> None:
     with _count_lock:
         for name in KERNELS:
             _launches[name] = 0
+        _card_launches.clear()
 
 
-def _count(name: str) -> None:
+def _count(name: str, device) -> None:
+    key = (name, str(device))
     with _count_lock:
         _launches[name] += 1
+        _card_launches[key] = _card_launches.get(key, 0) + 1
 
 
 def library() -> ctypes.CDLL:
@@ -108,7 +123,7 @@ def _launch(fn: str, kernel: str, device, *args) -> None:
             *args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed ({rc})")
-    _count(kernel)
+    _count(kernel, device)
 
 
 def _check_f32(name: str, device, *tensors) -> None:

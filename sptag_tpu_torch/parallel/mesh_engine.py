@@ -4,29 +4,36 @@ of ``sptag_tpu/parallel/mesh_engine.py``).
 `ShardedBKTIndex.search` walks every shard of a mesh to the end of the
 batch.  This module gives the mesh the engine surface the slot scheduler
 (algo/scheduler.py) drives — `walk_plan` / `seed_state` / `run_segment` /
-`finalize` / `chunk_size` — over the shards' own engines:
+`capture_segment` / `finalize` / `chunk_size` — over the shards' own
+engines:
 
 * **seed**: every shard seeds the query batch from its own pivot set;
 * **segment**: every shard advances its rows by at most S iterations of
-  the single engine's walk body; shards converge independently, and a
-  query stays resident until every shard's row is done;
+  the single engine's walk body, each on its card (parallel/sharded.py
+  `Mesh.map`); shards converge independently, and a query stays resident
+  until every shard's row is done;
 * **finalize**: every shard re-ranks / tombstone-filters its pool to
   k_local, its ids become global, and the shards merge
   (parallel/sharded.py `_gather_merge`), the monolithic mesh search's
   merge.
 
-State is QUERY-major with the shard axis second — ``cand_ids (Q,
-n_shards, L)``, ``visited (Q, n_shards, N_local + 1)``, ``it (Q,
-n_shards)`` ... — so the scheduler's slot bookkeeping (insert, blank,
-compact and retire index axis 0) works unchanged: one slot row is one
-query's residency across the whole mesh.  The state lives on the mesh's
-first device; each shard's slice moves to its device for the segment (no
-copy when the mesh repeats one card).
+The state is QUERY-major like the single engine's, and each shard's slice
+of it lives on that shard's card for the whole residency, as the JAX
+package's specs ``P(None, SHARD_AXIS, ...)`` place it: a state value is a
+`ShardSlices`, one tensor a shard with the slot rows on axis 0, which the
+scheduler's row bookkeeping (insert, blank, compact and retire index axis
+0) indexes as it indexes one tensor, every shard's slice taking the same
+rows.  What crosses between cards is counted by kind
+(`sharded.card_transfer_bytes`): the newly seated queries (``queries``),
+each segment's ``t_limit`` and ``alive`` flags, and the candidates at
+finalize (``candidates``); row indices are built on the host, so none
+cross.  On the card a segment the scheduler replays is one CUDA graph a
+shard, captured and replayed on the shard's card.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,12 +50,99 @@ from sptag_tpu_torch.algo.engine import (
     beam_width_for,
 )
 from sptag_tpu_torch.parallel.sharded import (_gather_merge, _global_ids,
-                                              _sharded_merge_cost)
+                                              _sharded_merge_cost, to_card)
 from sptag_tpu_torch.utils import costmodel, recompile_guard, roofline
 
-#: the loop-carried state keys with a shard axis (queries have none)
+#: the loop-carried state keys with a shard axis (queries are seated on
+#: every shard's card too)
 _SHARDED_KEYS = ("cand_ids", "cand_d", "expanded", "visited", "no_better",
                  "ptr", "it", "spare_ids", "spare_d")
+
+
+def _key_on(key, device, cache: dict):
+    """`key` with its tensors on `device` (a host index moves there once
+    a call; an index on another card is a transfer of kind ``index``)."""
+    if isinstance(key, tuple):
+        return tuple(_key_on(k, device, cache) for k in key)
+    if not isinstance(key, torch.Tensor) or key.device == device:
+        return key
+    moved = cache.get(device)
+    if moved is None:
+        moved = cache[device] = to_card(key, device, "index")
+    return moved
+
+
+class ShardSlices:
+    """One slot-state array of the mesh scheduler: a tensor a shard, each
+    on its shard's card, slot rows on axis 0.  Indexing and assignment
+    act on every shard's slice with the same key; a plain tensor assigned
+    or copied in goes to every card (a scalar to each)."""
+
+    __slots__ = ("parts",)
+
+    def __init__(self, parts: List[torch.Tensor]):
+        self.parts = list(parts)
+
+    @property
+    def nbytes(self) -> int:
+        return sum(p.nbytes for p in self.parts)
+
+    def devices(self) -> list:
+        return [p.device for p in self.parts]
+
+    def new_rows(self, capacity: int) -> "ShardSlices":
+        return ShardSlices([
+            torch.empty((capacity,) + tuple(p.shape[1:]), dtype=p.dtype,
+                        device=p.device) for p in self.parts])
+
+    def clone(self) -> "ShardSlices":
+        return ShardSlices([p.clone() for p in self.parts])
+
+    def _value(self, value, s: int, kind: str):
+        if isinstance(value, ShardSlices):
+            return value.parts[s]
+        if isinstance(value, torch.Tensor):
+            return to_card(value, self.parts[s].device, kind)
+        return value
+
+    def copy_(self, src) -> "ShardSlices":
+        for s, p in enumerate(self.parts):
+            p.copy_(self._value(src, s, "t_limit"))
+        return self
+
+    def __getitem__(self, key) -> "ShardSlices":
+        cache: dict = {}
+        return ShardSlices([p[_key_on(key, p.device, cache)]
+                            for p in self.parts])
+
+    def __setitem__(self, key, value) -> None:
+        cache: dict = {}
+        for s, p in enumerate(self.parts):
+            p[_key_on(key, p.device, cache)] = self._value(value, s, "state")
+
+    def to_host(self) -> np.ndarray:
+        """The rows read back, shards on axis 1 (a blessed readback)."""
+        return np.stack(recompile_guard.device_get(self.parts), axis=1)
+
+
+class _MeshSegmentGraph:
+    """The scheduler's replay of a mesh segment: every shard's captured
+    graph replayed on its card, then the shards' alive flags merged on the
+    mesh's first card into one static output.  The scheduler holds
+    `capture_lock` around `replay`."""
+
+    def __init__(self, graphs, alive_parts, alive_out, device):
+        self.graphs = graphs
+        self.alive_parts = alive_parts
+        self.alive_out = alive_out
+        self.device = device
+
+    def replay(self) -> None:
+        for g in self.graphs:
+            g.replay()
+        self.alive_out.copy_(torch.stack(
+            [to_card(a, self.device, "alive") for a in self.alive_parts],
+            1).any(1))
 
 
 # ---------------------------------------------------------------------------
@@ -111,6 +205,10 @@ class MeshGraphEngine:
         except Exception:                               # noqa: BLE001
             self._capability = None
 
+    #: the scheduler builds its row indices on the host: each card copies
+    #: them in, and none crosses between cards
+    index_device = torch.device("cpu")
+
     # ---- scheduler surface (GraphSearchEngine contract) -------------------
 
     def walk_plan(self, k: int, max_check: int, beam_width: int = 16,
@@ -161,69 +259,104 @@ class MeshGraphEngine:
             merge_bins=self.merge_bins_for(L, B) if L else 0, L=L,
             N=self.n_local, score_scale=self.score_scale)
 
+    @staticmethod
+    def _shard(state: dict, s: int) -> dict:
+        """Shard `s`'s slice of a mesh state: tensors on its card."""
+        return {key: None if v is None else v.parts[s]
+                for key, v in state.items()}
+
+    @staticmethod
+    def _join(states: List[dict]) -> dict:
+        return {key: (None if states[0].get(key) is None else
+                      ShardSlices([st[key] for st in states]))
+                for key in ("queries",) + _SHARDED_KEYS}
+
     def seed_state(self, queries: torch.Tensor, L: int,
                    seeds: Optional[torch.Tensor] = None) -> dict:
+        """The batch seated on every shard's card (its copy of the
+        queries, ``queries`` bytes between cards) and seeded there."""
         if seeds is not None:
             raise NotImplementedError(
                 "the mesh scheduler seeds from per-shard pivots only")
-        states = [eng.seed_state(queries.to(eng.device), L)
-                  for eng in self.engines]
-        return self._stack(queries, states)
 
-    def _stack(self, queries, states) -> dict:
-        out = {"queries": queries}
-        for key in _SHARDED_KEYS:
-            vals = [st.get(key) for st in states]
-            out[key] = (None if vals[0] is None else
-                        torch.stack([v.to(self.device) for v in vals], 1))
-        return out
-
-    def _shard_state(self, state: dict, s: int, dev) -> dict:
-        sub = {"queries": state["queries"].to(dev)}
-        for key in _SHARDED_KEYS:
-            v = state.get(key)
-            sub[key] = None if v is None else v[:, s].to(dev).contiguous()
-        return sub
+        def seed(s):
+            eng = self.engines[s]
+            return eng.seed_state(to_card(queries, eng.device, "queries"), L)
+        return self._join(self.mesh.map(seed))
 
     def run_segment(self, state: dict, t_limit: torch.Tensor, k_eff: int,
                     L: int, B: int, nbp_limit: int, S: int,
                     inject: int = 0, check_alive: bool = True
                     ) -> Tuple[dict, torch.Tensor]:
-        """Every shard advances its rows by at most S iterations; a query
-        stays alive while any shard's row is."""
+        """Every shard advances its rows by at most S iterations on its
+        card (an eager segment checks convergence on each card in turn; a
+        replayed one queues on every card before any wait); a query stays
+        alive while any shard's row is.  Only `t_limit` goes out to the
+        cards and the alive flags come back."""
         timer = self.segment_timer() if check_alive else None
         k_local = self._k_local(k_eff)
-        outs, alive = [], []
-        for s, eng in enumerate(self.engines):
-            new, a = eng.run_segment(
-                self._shard_state(state, s, eng.device),
-                t_limit.to(eng.device), k_local, L, B, nbp_limit, S,
-                inject=inject, check_alive=check_alive)
-            outs.append(new)
-            alive.append(a.to(self.device))
-        out = self._stack(state["queries"], outs)
-        any_alive = torch.stack(alive, 1).any(1)
+
+        def segment(s):
+            eng = self.engines[s]
+            return eng.run_segment(
+                self._shard(state, s), to_card(t_limit, eng.device,
+                                               "t_limit"),
+                k_local, L, B, nbp_limit, S, inject=inject,
+                check_alive=check_alive)
+        outs = self.mesh.map(segment)
+        new = self._join([o[0] for o in outs])
+        any_alive = torch.stack(
+            [to_card(a, self.device, "alive") for _, a in outs], 1).any(1)
         if timer is not None:
-            self.publish_segment_sample(int(state["queries"].shape[0]), B,
-                                        L, S, timer())
-        return out, any_alive
+            self.publish_segment_sample(int(t_limit.shape[0]), B, L, S,
+                                        timer())
+        return new, any_alive
+
+    def capture_segment(self, state: dict, t_limit: torch.Tensor,
+                        k_eff: int, L: int, B: int, nbp_limit: int, S: int,
+                        inject: int = 0):
+        """The scheduler's captured segment as one CUDA graph a shard, each
+        captured on its shard's card over static copies of its slice:
+        (graph, state buffers, t_limit buffers, alive output on the first
+        card); None while a profile runs."""
+        k_local = self._k_local(k_eff)
+        graphs, bufs, t_ins, alives = [], [], [], []
+        for s, eng in enumerate(self.engines):
+            got = eng.capture_segment(
+                self._shard(state, s), to_card(t_limit, eng.device,
+                                               "t_limit"),
+                k_local, L, B, nbp_limit, S, inject=inject)
+            if got is None:
+                return None
+            graph, buf, t_in, alive = got
+            graphs.append(graph)
+            bufs.append(buf)
+            t_ins.append(t_in)
+            alives.append(alive)
+        alive_out = torch.zeros(t_limit.shape[0], dtype=torch.bool,
+                                device=self.device)
+        joined = {key: (None if state.get(key) is None else
+                        ShardSlices([b[key] for b in bufs]))
+                  for key in state}
+        return (_MeshSegmentGraph(graphs, alives, alive_out, self.device),
+                joined, ShardSlices(t_ins), alive_out)
 
     def finalize(self, state: dict, k_eff: int
                  ) -> Tuple[np.ndarray, np.ndarray]:
-        """Per-shard re-rank / tombstone filter / top-k_local, global ids,
-        the merge: ((Q, k_eff) dists, (Q, k_eff) int32 ids)."""
+        """Per-shard re-rank / tombstone filter / top-k_local on each
+        card, global ids, the merge (the candidates are what crosses):
+        ((Q, k_eff) dists, (Q, k_eff) int32 ids)."""
         k_local = self._k_local(k_eff)
-        parts = []
-        for s, eng in enumerate(self.engines):
-            dev = eng.device
-            cand_ids = state["cand_ids"][:, s].to(dev).contiguous()
+
+        def shard_top(s):
+            eng = self.engines[s]
+            sub = self._shard(state, s)
             d, ids = _finalize(
-                eng, state["queries"].to(dev), cand_ids,
-                state["cand_d"][:, s].to(dev).contiguous(), k_local,
-                binned_bins=eng.finalize_bins_for(
-                    k_local, int(cand_ids.shape[1])))
-            parts.append((d, _global_ids(ids, s, self.n_local)))
-        d, ids = _gather_merge(parts, k_eff, self.device)
+                eng, sub["queries"], sub["cand_ids"], sub["cand_d"],
+                k_local, binned_bins=eng.finalize_bins_for(
+                    k_local, int(sub["cand_ids"].shape[1])))
+            return d, _global_ids(ids, s, self.n_local)
+        d, ids = _gather_merge(self.mesh.map(shard_top), k_eff, self.device)
         return recompile_guard.device_get((d, ids))
 
 

@@ -7,9 +7,18 @@ The JAX package runs that as ONE compiled program over a device mesh:
 every shard's (distance, global id) top-k and a final ``lax.top_k``.
 
 Here a mesh is an ordered list of torch devices, one per shard, and it may
-repeat a device: NCCL puts no two ranks on one card, so on one H100 the
-shards of a mesh run side by side on ``cuda:0`` in one process, and a
-CPU mesh (``["cpu", "cpu"]``) runs the same code in the tests.  Each shard
+repeat a device: the default mesh puts one shard on each card of the host
+(``cuda:0`` ... ``cuda:3`` on a four-card host), ``[cuda:0, cuda:0]`` runs
+two shards side by side on one card, and a CPU mesh (``["cpu", "cpu"]``)
+runs the same code in the tests.  A shard's state (its rows, graph,
+pivots, dense layout and walk state) lives on its own card for the whole
+residency.  A mesh call issues every shard's work from one thread, shard
+after shard, before it reads anything back: the dense and FLAT scans
+queue on all the cards at once, while the beam walk asks its card every
+few iterations whether a row is still alive, so one shard's walk ends
+before the next one's starts.  The walk is host-bound (PERF.md, phase
+16), so in one process the cards share one host's launch rate;
+processes (parallel/multihost.py) give each card its own.  Each shard
 searches through the port's single-index machinery over its own block of
 the corpus:
 
@@ -23,17 +32,21 @@ the corpus:
 * FLAT's exact scan (algo/flat.py ``_flat_search_kernel``).
 
 The merge is `_gather_merge`: the shards' (Q, k_local) distances and
-global ids concatenated in shard order on the mesh's first device and one
-stable top-k — ``all_gather`` + ``lax.top_k`` with the lowest index winning
-a tie.  Across processes the same merge runs over a ``torch.distributed``
-all-gather (parallel/multihost.py).
+global ids copied peer to peer to the mesh's first card (`to_card`, which
+counts the bytes that cross between cards and raises where two cards have
+no peer access: nothing is staged through the host), concatenated in shard
+order and reduced by one stable top-k — ``all_gather`` + ``lax.top_k``
+with the lowest index winning a tie.  Across processes the same merge runs
+over a ``torch.distributed`` all-gather, NCCL on the cards
+(parallel/multihost.py).
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import List, Optional, Sequence, Tuple
+import threading
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,8 +56,8 @@ from sptag_tpu_torch.core.index import MAX_DIST
 from sptag_tpu_torch.core.types import DistCalcMethod
 from sptag_tpu_torch.ops import distance as dist_ops
 from sptag_tpu_torch.ops import topk_bins
-from sptag_tpu_torch.utils import (costmodel, devmem, locksan, metrics,
-                                   recompile_guard, round_up)
+from sptag_tpu_torch.utils import (costmodel, devmem, locksan,
+                                   metrics, recompile_guard, round_up)
 
 # queries per dense-scan dispatch a shard (rows are independent)
 _DENSE_CHUNK = 1024
@@ -55,7 +68,7 @@ class Mesh:
     appear more than once (several shards on one card)."""
 
     def __init__(self, devices: Sequence):
-        self.devices = tuple(torch.device(d) for d in devices)
+        self.devices = tuple(_card(torch.device(d)) for d in devices)
         if not self.devices:
             raise ValueError("a mesh needs at least one device")
 
@@ -66,11 +79,77 @@ class Mesh:
     def __repr__(self) -> str:
         return f"Mesh({[str(d) for d in self.devices]})"
 
+    def map(self, fn: Callable[[int], object]) -> list:
+        """``[fn(s) for s in range(size)]``, shard after shard from the
+        caller's thread.  Work queued on one card runs while the next
+        shard's is issued; only a shard that reads back (the walk's
+        convergence test) holds the next one."""
+        return [fn(s) for s in range(self.size)]
+
+
+def _card(device: torch.device) -> torch.device:
+    """A CUDA device without an index names the current card: pin it, so
+    shards that name ``cuda`` and ``cuda:0`` are seen on one card."""
+    if device.type == "cuda" and device.index is None \
+            and torch.cuda.is_available():
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+# bytes copied between two cards, by what they carry (the merge's
+# candidates, the mesh scheduler's seated queries, t_limit and alive flags)
+_xfer_lock = threading.Lock()
+_xfer_bytes: Dict[str, int] = {}
+_peer: Dict[Tuple[int, int], bool] = {}
+
+
+def card_transfer_bytes() -> Dict[str, int]:
+    """Bytes copied card to card by `to_card` since the last reset, by
+    kind."""
+    with _xfer_lock:
+        return dict(_xfer_bytes)
+
+
+def reset_card_transfer_bytes() -> None:
+    with _xfer_lock:
+        _xfer_bytes.clear()
+
+
+def peer_access(src: int, dst: int) -> bool:
+    """Whether card `dst` can read card `src`'s memory (cached)."""
+    key = (src, dst)
+    with _xfer_lock:
+        ok = _peer.get(key)
+    if ok is None:
+        ok = bool(torch.cuda.can_device_access_peer(dst, src))
+        with _xfer_lock:
+            _peer[key] = ok
+    return ok
+
+
+def to_card(t: torch.Tensor, device: torch.device, kind: str
+            ) -> torch.Tensor:
+    """`t` on `device`.  A copy from one card to another goes peer to
+    peer and counts its bytes under `kind`; two cards without peer access
+    raise (the mesh stages nothing through the host)."""
+    if t.device == device:
+        return t
+    if t.device.type == "cuda" and device.type == "cuda":
+        if not peer_access(t.device.index, device.index):
+            raise RuntimeError(
+                f"{device} has no peer access to {t.device}: a mesh copies "
+                "between its cards peer to peer and stages nothing through "
+                "the host")
+        with _xfer_lock:
+            _xfer_bytes[kind] = _xfer_bytes.get(kind, 0) + t.nbytes
+    return t.to(device)
+
 
 def make_mesh(devices=None) -> Mesh:
     """A mesh over `devices` (torch devices or their names); by default
-    every CUDA card of the host, one shard each, and without CUDA a
-    RuntimeError: nothing moves to the CPU on its own."""
+    every CUDA card of the host, one shard each (four on a four-card
+    host), and without CUDA a RuntimeError: nothing moves to the CPU on
+    its own."""
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -104,11 +183,14 @@ def _gather_merge(parts: List[Tuple[torch.Tensor, torch.Tensor]],
                   k_final: int, device: torch.device
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The global merge: every shard's (Q, k_local) distances and global
-    ids concatenated in shard order on `device`, one stable top-k_final
-    (the lowest index wins a tie, as ``lax.top_k`` over the JAX mesh's
-    tiled all-gather), sentinel rows -> -1."""
-    all_d = torch.cat([d.to(device, torch.float32) for d, _ in parts], 1)
-    all_i = torch.cat([i.to(device, torch.int64) for _, i in parts], 1)
+    ids copied to `device` (peer to peer from another card) and
+    concatenated in shard order, one stable top-k_final (the lowest index
+    wins a tie, as ``lax.top_k`` over the JAX mesh's tiled all-gather),
+    sentinel rows -> -1."""
+    all_d = torch.cat([to_card(d, device, "candidates").to(torch.float32)
+                       for d, _ in parts], 1)
+    all_i = torch.cat([to_card(i, device, "candidates").to(torch.int64)
+                       for _, i in parts], 1)
     gd, gpos = dist_ops.smallest_k(all_d, k_final)
     gi = torch.gather(all_i, 1, gpos)
     return gd, torch.where(gd >= MAX_DIST, -1, gi).to(torch.int32)
@@ -139,9 +221,9 @@ class ShardedFlatIndex:
         self.n_local = n_pad // n_dev
         self.dtype = padded.dtype
         self.dim = int(padded.shape[1])
-        self.shards = []
-        nbytes = 0
-        for s, dev in enumerate(self.mesh.devices):
+
+        def place(s):
+            dev = self.mesh.devices[s]
             rows = slice(s * self.n_local, (s + 1) * self.n_local)
             blk = torch.from_numpy(np.ascontiguousarray(padded[rows])).to(dev)
             inv = torch.from_numpy(np.ascontiguousarray(invalid[rows])).to(
@@ -151,9 +233,14 @@ class ShardedFlatIndex:
                   if self.metric == DistCalcMethod.L2
                   else torch.zeros(self.n_local, dtype=torch.float32,
                                    device=dev))
-            self.shards.append((blk, sq, inv))
-            nbytes += blk.nbytes + sq.nbytes + inv.nbytes
-        devmem.track("shard_blocks", self, nbytes)
+            return blk, sq, inv
+        self.shards = self.mesh.map(place)
+        cards: Dict[str, int] = {}
+        for blk, sq, inv in self.shards:
+            card = str(blk.device)
+            cards[card] = cards.get(card, 0) + blk.nbytes + sq.nbytes \
+                + inv.nbytes
+        devmem.track("shard_blocks", self, sum(cards.values()), cards=cards)
 
     def search(self, queries: np.ndarray, k: int = 10,
                normalized: bool = False, max_check: Optional[int] = None
@@ -170,12 +257,14 @@ class ShardedFlatIndex:
         k_local = min(k, self.n_local)
         k_final = min(k, k_local * n_dev)
         qn = np.ascontiguousarray(queries)
-        parts = []
-        for s, (blk, sq, inv) in enumerate(self.shards):
+
+        def scan(s):
+            blk, sq, inv = self.shards[s]
             q = torch.from_numpy(qn).to(blk.device)
             d, ids = _flat_search_kernel(blk, sq, inv, q, k_local,
                                          int(self.metric), self.base)
-            parts.append((d, _global_ids(ids, s, self.n_local)))
+            return d, _global_ids(ids, s, self.n_local)
+        parts = self.mesh.map(scan)
         d, ids = _gather_merge(parts, k_final, self.mesh.devices[0])
         return _pad_to_k(*recompile_guard.device_get((d, ids)), k, k_final)
 
@@ -612,9 +701,9 @@ class ShardedBKTIndex:
             raise ValueError(
                 f"mesh has {mesh.size} devices but the saved index has "
                 f"{meta['n_shards']} shards")
-        subs = [load_index(os.path.join(folder, f"shard_{s:03d}"),
-                           device=mesh.devices[s])
-                for s in range(meta["n_shards"])]
+        # each shard loads onto its card, shard after shard
+        subs = mesh.map(lambda s: load_index(
+            os.path.join(folder, f"shard_{s:03d}"), device=mesh.devices[s]))
         self = cls._assemble(subs, meta["n"], meta["dim"],
                              DistCalcMethod(meta["metric"]), mesh,
                              meta.get("empty_shards", []), dense)
@@ -665,14 +754,13 @@ class ShardedBKTIndex:
         metric = DistCalcMethod(metric)
         if value_type is None:
             value_type = value_type_of(np.asarray(data).dtype)
-        shard_indexes = []
-        empty_shards = []
-        for s in range(n_dev):
+        empty_shards = [s for s in range(n_dev) if s * n_local >= n]
+
+        def build_shard(s):
             block = np.asarray(data[s * n_local:(s + 1) * n_local])
             if block.shape[0] == 0:
                 # a ceil-division tail shard with no rows: one tombstoned
                 # placeholder row keeps it in the mesh
-                empty_shards.append(s)
                 block = np.zeros((1, data.shape[1]), data.dtype)
             sub = create_instance(algo, value_type, device=mesh.devices[s])
             sub.set_parameter("DistCalcMethod",
@@ -681,7 +769,10 @@ class ShardedBKTIndex:
             for name, value in (params or {}).items():
                 sub.set_parameter(name, str(value))
             sub.build(block, keep_checkpoint=True)
-            shard_indexes.append(sub)
+            return sub
+        # every shard builds on its card, shard after shard (the build
+        # reads back between its stages)
+        shard_indexes = mesh.map(build_shard)
         for sub in shard_indexes:
             ck = getattr(sub, "last_checkpoint", None)
             if ck is not None:
@@ -755,14 +846,32 @@ class ShardedBKTIndex:
                                                             scale)
             quant = [(int8_np[s * self.n_local:(s + 1) * self.n_local],
                       scale) for s in range(len(packed))]
-        self.engines = [
-            _shard_engine(p, self.metric, self.base, self.params,
-                          self.mesh.devices[s], quantized=quant[s])
-            for s, p in enumerate(packed)]
-        # the walk engines register their own devmem components; the
-        # placement's aggregate is the JAX package's shard_blocks entry
-        devmem.track("shard_blocks", self, sum(
-            sum(eng.device_bytes().values()) for eng in self.engines))
+        self.engines = self.mesh.map(lambda s: _shard_engine(
+            packed[s], self.metric, self.base, self.params,
+            self.mesh.devices[s], quantized=quant[s]))
+        # the walk engines register their own devmem components, card by
+        # card; the placement's aggregate is the JAX package's
+        # shard_blocks entry
+        devmem.track("shard_blocks", self,
+                     sum(self._engine_card_bytes().values()))
+
+    def _engine_card_bytes(self) -> Dict[str, int]:
+        cards: Dict[str, int] = {}
+        for eng in self.engines:
+            card = str(eng.device)
+            cards[card] = cards.get(card, 0) + sum(
+                eng.device_bytes().values())
+        return cards
+
+    def device_bytes(self) -> Dict[str, int]:
+        """Resident bytes of this placement by card (``str(device)``):
+        each card's share of the walk engines and the dense layouts."""
+        cards = self._engine_card_bytes()
+        for ds in self.dense_shards:
+            card = str(ds["dense_perm"].device)
+            cards[card] = cards.get(card, 0) + sum(
+                t.nbytes for t in ds.values())
+        return dict(sorted(cards.items()))
 
     def _place_dense(self, shard_indexes) -> None:
         """Pad every shard's dense layout to one (C, P) geometry (host-
@@ -770,37 +879,47 @@ class ShardedBKTIndex:
         each on its shard's device."""
         from sptag_tpu_torch.algo.dense import DenseTreeSearcher
 
-        host = []
-        for sub in shard_indexes:
-            _, clusters = sub._dense_clusters()
-            host.append(DenseTreeSearcher.build_layout(
-                sub._host[:sub._n], clusters, self.metric, replicas=1,
-                device="cpu"))
+        host = self._dense_layouts(shard_indexes)
         C = max(h["perm"].shape[0] for h in host)
         Pb = max(h["perm"].shape[1] for h in host)
         self._place_dense_padded(
             [DenseTreeSearcher.pad_layout(h, C, Pb, self.dim)
              for h in host], C, Pb)
 
-    def _place_dense_padded(self, padded: List[dict], C: int, Pb: int):
-        self.dense_shards = []
-        nbytes = 0
-        for s, lay in enumerate(padded):
-            dev = self.mesh.devices[s]
+    def _dense_layouts(self, shard_indexes) -> List[dict]:
+        """Each shard's host-side dense layout, unpadded."""
+        from sptag_tpu_torch.algo.dense import DenseTreeSearcher
 
-            def put(a, dev=dev):
+        def layout(s):
+            sub = shard_indexes[s]
+            _, clusters = sub._dense_clusters()
+            return DenseTreeSearcher.build_layout(
+                sub._host[:sub._n], clusters, self.metric, replicas=1,
+                device="cpu")
+        return self.mesh.map(layout)
+
+    def _place_dense_padded(self, padded: List[dict], C: int, Pb: int):
+        def place(s):
+            lay, dev = padded[s], self.mesh.devices[s]
+
+            def put(a):
                 return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
             shard = {name: put(lay[name]) for name in (
                 "dense_perm", "dense_ids", "dense_sq", "dense_cent",
                 "dense_cent_sq", "dense_cent_valid")}
             shard["deleted"] = self.engines[s].deleted.clone() \
                 if self.engines else put(np.zeros(self.n_local, bool))
-            nbytes += sum(t.nbytes for t in shard.values())
-            self.dense_shards.append(shard)
+            return shard
+        self.dense_shards = self.mesh.map(place)
         self.dense_cluster_size = Pb
         self.dense_num_clusters = C
         # a second mesh-resident corpus copy: its own ledger component
-        devmem.track("dense_blocks", self, nbytes)
+        cards: Dict[str, int] = {}
+        for shard in self.dense_shards:
+            card = str(shard["dense_perm"].device)
+            cards[card] = cards.get(card, 0) + sum(
+                t.nbytes for t in shard.values())
+        devmem.track("dense_blocks", self, sum(cards.values()), cards=cards)
 
     # ---- dense ---------------------------------------------------------------
 
@@ -853,8 +972,8 @@ class ShardedBKTIndex:
         qn = np.ascontiguousarray(queries)
         out_d, out_i = [], []
         for lo in range(0, qn.shape[0], _DENSE_CHUNK):
-            parts = []
-            for s, ds in enumerate(self.dense_shards):
+            def scan(s, lo=lo):
+                ds = self.dense_shards[s]
                 q = torch.from_numpy(qn[lo:lo + _DENSE_CHUNK]).to(
                     ds["dense_perm"].device)
                 # dedup off: shards are packed replica-free
@@ -863,8 +982,10 @@ class ShardedBKTIndex:
                     ds["dense_cent"], ds["dense_cent_sq"], ds["deleted"], q,
                     k_local, nprobe, int(self.metric), self.base, False,
                     bins, cent_valid=ds["dense_cent_valid"])
-                parts.append((d, _global_ids(ids, self._shard_base + s,
-                                             self.n_local)))
+                return d, _global_ids(ids, self._shard_base + s,
+                                      self.n_local)
+            # every shard scans on its card before anything is read back
+            parts = self.mesh.map(scan)
             d, ids = self._merge(parts, k_final)
             d, ids = recompile_guard.device_get((d, ids))
             out_d.append(d)
@@ -981,17 +1102,17 @@ class ShardedBKTIndex:
                     ) -> Tuple[np.ndarray, np.ndarray]:
         """Every shard walks with its engine at the shard plan (the
         engine's walk_plan at n_local rows is the JAX mesh's plan: the
-        same pool, width, budget and limit), and the shards merge."""
+        same pool, width, budget and limit), each on its card, its results
+        left there; then the shards merge."""
         k_local = self._merge_k_local(k)
         k_final = min(k, self.n, k_local * self.n_shards)
-        parts = []
-        for s, eng in enumerate(self.engines):
-            d, ids = eng.search(queries, k_local, max_check, beam_width,
-                                pool_size, self.nbp_limit)
-            dev = self.mesh.devices[0]
-            parts.append((torch.from_numpy(d).to(dev),
-                          _global_ids(torch.from_numpy(ids).to(dev),
-                                      self._shard_base + s, self.n_local)))
+
+        def walk(s):
+            d, ids = self.engines[s].search_tensors(
+                queries, k_local, max_check, beam_width, pool_size,
+                self.nbp_limit)
+            return d, _global_ids(ids, self._shard_base + s, self.n_local)
+        parts = self.mesh.map(walk)
         d, ids = self._merge(parts, k_final)
         return _pad_to_k(*recompile_guard.device_get((d, ids)), k, k_final)
 

@@ -28,6 +28,11 @@ graphs the port captures (the walk's graph cache of up to 32 plans, the
 slot scheduler's segment graphs), which no component owns.  The gap is
 reported as ``untracked_bytes``.
 
+An entry may name the cards its bytes live on (``cards``: card name ->
+bytes; a mesh places one shard a card, parallel/sharded.py):
+`card_bytes()` and the snapshot's ``cards`` read the ledger card by card,
+each beside that card's allocator.
+
 `configure(enabled=False)` (the ``DeviceBytesLedger=0`` parameter) turns
 `track` into a no-op; the serve wire bytes are identical either way (the
 ledger never touches the request path).
@@ -47,7 +52,7 @@ from sptag_tpu_torch.utils import metrics
 # self-deadlock the thread building a new snapshot
 _lock = threading.RLock()
 _enabled = True
-#: (component, id(owner)) -> (nbytes, host_resident); the paired
+#: (component, id(owner)) -> (nbytes, host_resident, cards); the paired
 #: finalizer removes the key
 _entries: Dict[tuple, tuple] = {}
 _finalizers: Dict[tuple, object] = {}
@@ -73,13 +78,15 @@ def enabled() -> bool:
     return _enabled
 
 
-def track(component: str, owner, nbytes: int, host: bool = False) -> None:
+def track(component: str, owner, nbytes: int, host: bool = False,
+          cards: Optional[Dict[str, int]] = None) -> None:
     """Register `nbytes` of residency under `component`, owned by
     `owner`.  Re-tracking the same (component, owner) replaces the size
     (a pool growing/compacting).  `host=True` marks buffers that live in
     HOST memory between device round trips (scheduler slot pools) —
     they appear in the component gauges but are excluded from the
     device-total that cross-checks against the allocator.
+    `cards` splits the bytes by card (``str(device)`` -> bytes).
     Component names must be string literals at the call site (the GL6xx
     cardinality rule: the ledger never expires a component name, only
     its entries)."""
@@ -96,7 +103,8 @@ def track(component: str, owner, nbytes: int, host: bool = False) -> None:
         old = _finalizers.pop(key, None)
         if old is not None:
             old.detach()
-        _entries[key] = (int(nbytes), bool(host))
+        _entries[key] = (int(nbytes), bool(host),
+                         {str(c): int(b) for c, b in (cards or {}).items()})
         if ref is not None:
             _finalizers[key] = ref
 
@@ -124,22 +132,35 @@ def component_bytes() -> Dict[str, int]:
     """Live per-component totals, component-sorted."""
     with _lock:
         out: Dict[str, int] = {}
-        for (component, _), (nbytes, _host) in _entries.items():
+        for (component, _), (nbytes, _host, _cards) in _entries.items():
             out[component] = out.get(component, 0) + nbytes
     return dict(sorted(out.items()))
 
 
 def total_bytes() -> int:
     with _lock:
-        return sum(nbytes for nbytes, _host in _entries.values())
+        return sum(entry[0] for entry in _entries.values())
 
 
 def device_bytes() -> int:
     """Total of device-resident entries only: the number that must be
     bounded by the allocator's ``memory_allocated``."""
     with _lock:
-        return sum(nbytes for nbytes, host in _entries.values()
+        return sum(nbytes for nbytes, host, _cards in _entries.values()
                    if not host)
+
+
+def card_bytes() -> Dict[str, int]:
+    """Device-resident bytes of the entries that name their cards, by
+    card."""
+    with _lock:
+        out: Dict[str, int] = {}
+        for nbytes, host, cards in _entries.values():
+            if host:
+                continue
+            for card, b in cards.items():
+                out[card] = out.get(card, 0) + b
+    return dict(sorted(out.items()))
 
 
 def live_arrays_bytes(device=None) -> Dict[str, float]:
@@ -179,6 +200,15 @@ def snapshot(with_live_arrays: bool = True) -> dict:
             # blocks; the delta is what no component owns (transient
             # batches, workspaces, CUDA graphs' private pools)
             out["untracked_bytes"] = int(live["bytes"]) - dev
+            # card by card: the ledger's entries that name their card
+            # beside that card's allocator
+            cards = {card: {"ledger_bytes": nbytes,
+                            "live_arrays_bytes": int(
+                                live_arrays_bytes(card)["bytes"])}
+                     for card, nbytes in card_bytes().items()
+                     if card.startswith("cuda")}
+            if cards:
+                out["cards"] = cards
     return out
 
 

@@ -69,7 +69,11 @@ _trace_lock = threading.Lock()
 # its executor thread (padded walk sizes) and from the scheduler's worker
 # (capacities) while the quality monitor and background swaps launch
 # from their own threads; every capture and replay, and start_trace /
-# stop_trace around the profiler's start and stop, holds this lock
+# stop_trace around the profiler's start and stop, holds this lock.  It is
+# one lock for every card of the process (the profiler is process-wide):
+# a capture on one card holds back the other cards' replays for as long
+# as the capture itself (the warm-up before it runs outside the lock), and
+# a replay holds it only while the graph is launched
 capture_lock = threading.Lock()
 _prepared = False
 

@@ -1996,3 +1996,228 @@ def test_two_shard_mesh_on_one_card_equals_the_plain_merge(cuda, tmp_path):
     dd, di = m.search_dense(q, 10)
     assert block_dots.launch_counts()["probe_block_dots_f32"] >= 2
     np.testing.assert_array_equal(di, on_cpu.search_dense(q, 10)[1])
+
+
+# ---- several cards: an engine on a card that is not the current one, and
+# the mesh with one shard a card ---------------------------------------------
+
+@pytest.fixture
+def two_cards(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA cards (on a machine with several: "
+                    "python -m pytest --noconftest -m cuda "
+                    "tests/test_torch_cuda.py -k 'second_card or own_card "
+                    "or its_cards')")
+    torch.cuda.set_device(0)
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+def _engines_on(devices, binned="off", seed=81):
+    from sptag_tpu_torch.algo import engine as teng
+    from sptag_tpu_torch.core.types import DistCalcMethod
+
+    n = 3000
+    data = _int_rows(n, 32, seed=seed)
+    graph = _weak_graph(n, 16, seed=seed + 1)
+    pivots = np.random.default_rng(seed + 2).choice(n, 400, replace=False)
+    return [teng.GraphSearchEngine(data, graph, pivots, None,
+                                   DistCalcMethod.L2, 1, binned_topk=binned,
+                                   device=dev) for dev in devices]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("binned", ["off", "on"])
+def test_walk_on_a_second_card_equals_the_first_cards(two_cards, binned):
+    """With cuda:0 current, an engine on cuda:1 returns the bits of the
+    same engine on cuda:0 and of the CPU: the eager walk (more than
+    _GRAPH_MAX_Q queries) and the small chunks' walk graph, asked for
+    three times (eager, captured, replayed), on fresh queries each time:
+    a graph captured off its card would replay stale outputs."""
+    q = _int_rows(300, 32, seed=84)
+    engines = _engines_on(list(two_cards) + ["cpu"], binned)
+    assert torch.cuda.current_device() == 0
+
+    def all_equal(qq, **kw):
+        out = [e.search(qq, 10, max_check=512, **kw) for e in engines]
+        for d, ids in out[:2]:
+            np.testing.assert_array_equal(ids, out[2][1])
+            assert d.tobytes() == out[2][0].tobytes()
+    all_equal(q)                                   # eager
+    for lo in (0, 4, 8, 12):                       # eager, capture, replays
+        all_equal(q[lo:lo + 4])
+    assert len(engines[1]._graphs) == 1
+    assert torch.cuda.current_device() == 0
+
+
+@pytest.mark.cuda
+def test_scheduler_segments_on_a_second_card_replay_its_graphs(two_cards):
+    """With cuda:0 current, a slot scheduler over an engine on cuda:1
+    captures and replays its segments as CUDA graphs on cuda:1 and
+    returns the monolithic walk's ids and distances."""
+    from sptag_tpu_torch.algo.scheduler import BeamSlotScheduler
+
+    q = _int_rows(200, 32, seed=85)
+    e1, cpu = _engines_on([two_cards[1], "cpu"])
+    want = cpu.search(q, 10, max_check=1024)
+    sched = BeamSlotScheduler(e1, slots=32, segment_iters=2)
+    try:
+        for _ in range(2):
+            got = sched.search_batch(q, 10, 1024)
+            np.testing.assert_array_equal(got[1], want[1])
+            assert got[0].tobytes() == want[0].tobytes()
+        stats = sched.stats()
+    finally:
+        sched.stop()
+    assert stats["graphs_captured"] >= 1 and stats["segments_replayed"] > 0
+    assert torch.cuda.current_device() == 0
+
+
+@pytest.mark.cuda
+def test_segment_timer_times_its_own_card(two_cards):
+    """The sampled segment timer's events sit on its engine's card: work
+    queued on cuda:1 between its start and its end shows in its reading
+    while cuda:0 is current and idle."""
+    _, e1 = _engines_on(two_cards)
+    e1.device_sample_rate = 1.0
+    a = torch.randn(4096, 4096, device=two_cards[1])
+    a = a @ a / 64.0                      # cuBLAS's first call, untimed
+    torch.cuda.synchronize(two_cards[1])
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    stream = torch.cuda.current_stream(two_cards[1])
+    start.record(stream)
+    for _ in range(8):
+        a = a @ a / 64.0
+    end.record(stream)
+    end.synchronize()
+    work_ms = start.elapsed_time(end)
+    timer = e1.segment_timer()
+    for _ in range(8):
+        a = a @ a / 64.0
+    ns = timer()
+    assert ns >= 0.5 * work_ms * 1e6, (ns, work_ms)
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_on_a_second_card_equal_the_first(two_cards):
+    """Every kernel wrapper launched on cuda:1 while cuda:0 is current
+    returns the bits it returns on cuda:0 (block dots f32 / int8, the
+    walk's seeding and scoring, the gathered int8 tier, the Hamming
+    scan), and counts its launches on the card it ran on."""
+    from sptag_tpu_torch.ops import cascade as tc
+    from sptag_tpu_torch.ops import int8_dots, sketch_dots
+    from sptag_tpu_torch.ops import walk_dots as wd
+
+    gen = torch.Generator().manual_seed(86)
+    blocks = torch.randn((9, 32, 128), generator=gen)
+    blocks8 = torch.randint(-128, 128, (9, 32, 128), generator=gen).to(
+        torch.int8)
+    q = torch.randn((16, 128), generator=gen)
+    q8 = torch.randint(-128, 128, (16, 128), generator=gen).to(torch.int8)
+    topc = torch.randint(0, 9, (16, 3), generator=gen).to(torch.int32)
+    union = torch.randint(0, 9, (2, 4), generator=gen).to(torch.int32)
+    rows = torch.randn((500, 128), generator=gen)
+    idx = torch.randint(-1, 500, (16, 64), generator=gen)
+    x8 = torch.randint(-127, 128, (500, 128), generator=gen).to(torch.int8)
+    qb = torch.randint(-2 ** 31, 2 ** 31, (16, 4), generator=gen,
+                       dtype=torch.int64).to(torch.int32)
+    sk = torch.randint(-2 ** 31, 2 ** 31, (700, 4), generator=gen,
+                       dtype=torch.int64).to(torch.int32)
+    inv = torch.rand(700, generator=gen) < 0.1
+
+    def run(dev):
+        t = {k: v.to(dev) for k, v in dict(
+            blocks=blocks, blocks8=blocks8, q=q, q8=q8, topc=topc,
+            union=union, rows=rows, idx=idx, x8=x8, qb=qb, sk=sk,
+            inv=inv).items()}
+        sq = wd.row_sqnorms(t["rows"])
+        qq, qs = tc.quantize_queries(t["q"])
+        return [
+            block_dots.probe_block_dots(t["blocks"], t["q"], t["topc"]),
+            block_dots.probe_block_dots(t["blocks8"], t["q8"], t["topc"]),
+            block_dots.group_block_dots(t["blocks"], t["q"], t["union"]),
+            block_dots.group_block_dots(t["blocks8"], t["q8"], t["union"]),
+            sq,
+            wd.walk_seed(t["q"], t["rows"], sq, wd.L2),
+            wd.walk_score(t["q"], t["rows"], t["idx"], sq, wd.L2, wd.GATHER,
+                          64),
+            int8_dots.int8_gather_dots(qq, qs, (t["q"] * t["q"]).sum(1),
+                                       t["x8"], t["idx"].to(torch.int32),
+                                       None, 0.03, 0, 1),
+            sketch_dots.hamming(t["qb"], t["sk"], t["inv"])]
+    block_dots.reset_launch_counts()
+    wd.reset_launch_counts()
+    on0, on1 = run(two_cards[0]), run(two_cards[1])
+    assert torch.cuda.current_device() == 0
+    for a, b in zip(on0, on1):
+        assert b.device == two_cards[1]
+        assert torch.equal(a.cpu(), b.cpu())
+    by_card = block_dots.launch_counts_by_card()
+    assert by_card["cuda:0"] == by_card["cuda:1"]
+    assert by_card["cuda:1"]["probe_block_dots_f32"] == 1
+    walk = wd.launch_counts_by_card()
+    assert walk["cuda:1"]["walk_seed_f32"] == 1
+    assert walk["cuda:1"]["walk_score_f32"] == 1
+
+
+@pytest.mark.cuda
+def test_mesh_on_its_cards_equals_the_mesh_on_one_card(two_cards, tmp_path):
+    """One shard a card (up to four cards) returns the bits of the same
+    folder loaded as [cuda:0] x n: the beam walk, the dense scan and the
+    mesh scheduler (its segment graphs captured and replayed on every
+    card); each card launches its shard's kernels, and only candidates,
+    seated queries, t_limit and alive flags cross between cards."""
+    from sptag_tpu_torch.algo import engine as teng
+    from sptag_tpu_torch.ops import walk_dots as wd
+    from sptag_tpu_torch.parallel import sharded
+
+    n = min(4, torch.cuda.device_count())
+    data = _int_rows(4000, 16, seed=87)
+    q = _int_rows(64, 16, seed=88)
+    params = {"TPTNumber": 2, "CEF": 64, "MaxCheckForRefineGraph": 128,
+              "FinalRefineSearchMode": "same", "MaxCheck": 512}
+    folder = str(tmp_path / "mesh")
+    sharded.ShardedBKTIndex.build(data, 0, mesh=sharded.Mesh(["cpu"] * n),
+                                  params=params, save_to=folder)
+    cards = sharded.ShardedBKTIndex.load(
+        folder, mesh=sharded.Mesh([f"cuda:{i}" for i in range(n)]),
+        dense=True)
+    one = sharded.ShardedBKTIndex.load(
+        folder, mesh=sharded.Mesh(["cuda:0"] * n), dense=True)
+    block_dots.reset_launch_counts()
+    wd.reset_launch_counts()
+    sharded.reset_card_transfer_bytes()
+    got = [cards.search(q, 10), cards.search_dense(q, 10)]
+    walk = wd.launch_counts_by_card()
+    dense = block_dots.launch_counts_by_card()
+    assert set(sharded.card_transfer_bytes()) == {"candidates"}
+    want = [one.search(q, 10), one.search_dense(q, 10)]
+    for (d, ids), (wd_, wi) in zip(got, want):
+        np.testing.assert_array_equal(ids, wi)
+        assert d.tobytes() == wd_.tobytes()
+    for i in range(n):
+        assert walk[f"cuda:{i}"]["walk_seed_f32"] >= 1
+        assert walk[f"cuda:{i}"]["walk_score_f32"] >= 1
+        assert dense[f"cuda:{i}"]["probe_block_dots_f32"] >= 1
+    teng.reset_graph_stats()
+    sharded.reset_card_transfer_bytes()
+    sched = cards.enable_continuous_batching(slots=64, segment_iters=2)
+    try:
+        for _ in range(2):
+            futs = cards.submit_batch(q, 10)
+            res = [f.result(timeout=120) for f in futs]
+            np.testing.assert_array_equal(np.stack([r[1] for r in res]),
+                                          want[0][1])
+            assert np.stack([r[0] for r in res]).tobytes() == \
+                want[0][0].tobytes()
+        stats = sched.stats()
+    finally:
+        cards.retire_scheduler()
+    assert stats["segments_replayed"] > 0
+    graphs = teng.graph_stats()
+    for i in range(n):
+        assert graphs[f"cuda:{i}"]["segment_captures"] >= 1
+        assert graphs[f"cuda:{i}"]["segment_replays"] >= 1
+    assert set(sharded.card_transfer_bytes()) <= {
+        "queries", "t_limit", "alive", "candidates"}
+    assert torch.cuda.current_device() == 0
