@@ -60,7 +60,7 @@ from sptag_tpu_torch.graph.rng import RelativeNeighborhoodGraph
 from sptag_tpu_torch.io import format as fmt
 from sptag_tpu_torch.ops import graph as graph_ops
 from sptag_tpu_torch.trees.bktree import BKTree
-from sptag_tpu_torch.utils import flightrec, metrics
+from sptag_tpu_torch.utils import flightrec, metrics, recompile_guard, trace
 
 log = logging.getLogger(__name__)
 
@@ -83,6 +83,15 @@ _ENGINE_PARAMS = frozenset({"beampackedneighbors", "beamscoredtype",
                             # baked into the engine at _make_engine
                             "flightdevicesamplerate", "rooflineprobe"}) \
     | _CASCADE_PARAMS
+
+
+def _wait_for_card(result) -> None:
+    """Block until the card's stream has done the work behind `result`'s
+    tensors; numpy answers are back already."""
+    for x in result:
+        if isinstance(x, torch.Tensor) and x.is_cuda:
+            torch.cuda.current_stream(x.device).synchronize()
+            return
 
 
 def pivot_budget(params, n: int = 0) -> int:
@@ -238,26 +247,29 @@ class BKTIndex(VectorIndex):
         self._adds_since_rebuild = 0
         self._structure_gen += 1
         self._dirty = True
-        t0 = time.perf_counter()
-        # resumable build (utils/build_ckpt.py): the tree stage is loaded
-        # from the checkpoint when a prior run already finished it
-        self._tree = None
-        if checkpoint is not None:
-            raw = checkpoint.get_bytes("tree")
-            if raw is not None:
-                try:
-                    self._tree = self._load_tree(io.BytesIO(raw))
-                    log.info("build resume: tree stage from checkpoint")
-                except Exception:                      # noqa: BLE001
-                    self._tree = None                  # corrupt -> rebuild
-        if self._tree is None:
-            self._tree = self._new_tree()
-            self._tree.build(self._host)
+        # each stage is a span (utils/trace.py) whose duration build_stages
+        # keeps too; the graph's stages are rng.stage_seconds'
+        with trace.span("build.bkt_tree") as tree_span:
+            # resumable build (utils/build_ckpt.py): the tree stage is
+            # loaded from the checkpoint when a prior run already
+            # finished it
+            self._tree = None
             if checkpoint is not None:
-                buf = io.BytesIO()
-                self._tree.save(buf)
-                checkpoint.put_bytes("tree", buf.getvalue())
-        self.build_stages = {"tree": time.perf_counter() - t0}
+                raw = checkpoint.get_bytes("tree")
+                if raw is not None:
+                    try:
+                        self._tree = self._load_tree(io.BytesIO(raw))
+                        log.info("build resume: tree stage from checkpoint")
+                    except Exception:                  # noqa: BLE001
+                        self._tree = None              # corrupt -> rebuild
+            if self._tree is None:
+                self._tree = self._new_tree()
+                self._tree.build(self._host)
+                if checkpoint is not None:
+                    buf = io.BytesIO()
+                    self._tree.save(buf)
+                    checkpoint.put_bytes("tree", buf.getvalue())
+        self.build_stages = {"tree": tree_span.seconds}
         p = self.params
         if not getattr(p, "build_graph", 1):
             # dense-only build: the saved graph stays shape-correct
@@ -271,9 +283,10 @@ class BKTIndex(VectorIndex):
         same_engine = fmode == "same" or \
             fmode == getattr(p, "refine_search_mode", "beam")
         try:
-            rng.build(self._host, int(self.dist_calc_method), self.base,
-                      self._refine_search_factory, checkpoint=checkpoint,
-                      guard_final=same_engine)
+            with trace.span("build.rng_graph"):
+                rng.build(self._host, int(self.dist_calc_method), self.base,
+                          self._refine_search_factory,
+                          checkpoint=checkpoint, guard_final=same_engine)
         finally:
             self._refine_dense = None       # free the build's snapshot
         self._graph = rng.graph
@@ -507,6 +520,24 @@ class BKTIndex(VectorIndex):
                       max_check: Optional[int] = None,
                       search_mode: Optional[str] = None
                       ) -> Tuple[np.ndarray, np.ndarray]:
+        """The mode's search and the front end's end of it, each a span
+        (utils/trace.py): ``search.dispatch`` launching the work,
+        ``search.wait`` the host blocked on the card's stream,
+        ``search.readback`` the copy back and the padding."""
+        with trace.span("search.dispatch"):
+            out = self._search_launch(queries, k, max_check, search_mode)
+        with trace.span("search.wait"):
+            _wait_for_card(out)
+        with trace.span("search.readback"):
+            d, ids = recompile_guard.device_get(out)
+            return pad_results(d, ids, k)
+
+    def _search_launch(self, queries: np.ndarray, k: int,
+                       max_check: Optional[int] = None,
+                       search_mode: Optional[str] = None):
+        """The mode's (Q, k') dists and ids, unpadded: numpy (the dense
+        scan) or tensors on the card, possibly still in flight (the
+        walk)."""
         if self._n == 0:
             raise RuntimeError("index is empty")
         p = self.params
@@ -516,25 +547,25 @@ class BKTIndex(VectorIndex):
             raise ValueError(f"unknown search mode {mode!r}")
         mode = self.resolve_search_mode(mode, mc)
         if mode == "dense":
-            d, ids = self._get_dense().search(
+            return self._get_dense().search(
                 queries, min(k, self._n), max_check=mc,
                 group=getattr(p, "dense_query_group", 0),
                 union_factor=getattr(p, "dense_union_factor", 2),
                 binned=str(getattr(p, "binned_topk", "off")),
                 recall_target=float(
                     getattr(p, "approx_recall_target", 0.99)))
-        else:
-            if not getattr(p, "build_graph", 1):
-                raise RuntimeError(
-                    "beam search needs the RNG graph, but this index was "
-                    "built with BuildGraph=0 (dense-only); use "
-                    "SearchMode=dense or rebuild with BuildGraph=1")
-            d, ids = self._engine_search(queries, min(k, self._n), mc)
-        return pad_results(d, ids, k)
+        if not getattr(p, "build_graph", 1):
+            raise RuntimeError(
+                "beam search needs the RNG graph, but this index was "
+                "built with BuildGraph=0 (dense-only); use "
+                "SearchMode=dense or rebuild with BuildGraph=1")
+        return self._engine_search(queries, min(k, self._n), mc)
 
-    def _engine_search(self, queries: np.ndarray, k: int, max_check: int
-                       ) -> Tuple[np.ndarray, np.ndarray]:
-        """The beam-walk branch of _search_batch."""
+    def _engine_search(self, queries: np.ndarray, k: int, max_check: int):
+        """The beam-walk branch of _search_launch: the walk's (Q, k)
+        dists and ids as tensors on the card, still in flight (numpy
+        through the slot scheduler, whose futures are waited for here).
+        The walk's bodies count into ``search.walk_bodies``."""
         p = self.params
         if int(getattr(p, "continuous_batching", 0)):
             # the same results, continuously batched with concurrent
@@ -542,12 +573,22 @@ class BKTIndex(VectorIndex):
             return gather_futures(
                 self._scheduler_submit(queries, k, max_check), k)
         seg = int(getattr(p, "beam_segment_iters", 0))
-        return self._get_engine().search(
+        engine = self._get_engine()
+        out = engine.search_tensors(
             queries, k, max_check=max_check,
             beam_width=getattr(p, "beam_width", 16),
             nbp_limit=p.no_better_propagation_limit,
+            seeds=self._walk_seeds(queries, max_check),
             dynamic_pivots=p.other_dynamic_pivots,
             segment_iters=seg or None)
+        metrics.inc("search.walk_bodies", engine.last_iterations)
+        return out
+
+    def _walk_seeds(self, queries: np.ndarray, max_check: int
+                    ) -> Optional[np.ndarray]:
+        """Per-query seeds of the walk (KDT's kd-tree descent); None
+        seeds every query from the shared pivots."""
+        return None
 
     def _get_scheduler(self) -> BeamSlotScheduler:
         """The slot scheduler over the current engine snapshot, made at
@@ -1066,24 +1107,24 @@ class BKTIndex(VectorIndex):
             self.metadata = self.metadata.refine(keep.tolist())
         if self._meta_to_vec is not None:
             self.build_meta_mapping()
-        t0 = time.perf_counter()
-        self._tree = self._new_tree()
-        self._tree.build(self._host[:self._n])
-        self.build_stages = {"tree": time.perf_counter() - t0}
+        with trace.span("build.bkt_tree") as tree_span:
+            self._tree = self._new_tree()
+            self._tree.build(self._host[:self._n])
+        self.build_stages = {"tree": tree_span.seconds}
         if getattr(self.params, "build_graph", 1):
             rng = self._new_graph()
             rng.graph = g
-            t0 = time.perf_counter()
-            try:
-                rng.refine_once(
-                    self._host[:self._n],
-                    self._refine_search_factory(g, final=True), g.shape[1],
-                    int(self.dist_calc_method), self.base)
-            finally:
-                self._refine_dense = None   # free the refine snapshot
-            rng.repair_connectivity()
+            with trace.span("build.refine_pass") as refine_span:
+                try:
+                    rng.refine_once(
+                        self._host[:self._n],
+                        self._refine_search_factory(g, final=True),
+                        g.shape[1], int(self.dist_calc_method), self.base)
+                finally:
+                    self._refine_dense = None   # free the refine snapshot
+                rng.repair_connectivity()
             self._graph = rng.graph
-            self.build_stages["refine_pass"] = time.perf_counter() - t0
+            self.build_stages["refine_pass"] = refine_span.seconds
         self._adds_since_rebuild = 0
         self._dirty = True
 

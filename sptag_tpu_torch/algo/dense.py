@@ -16,7 +16,9 @@ kept from the JAX package: the P alignment, the grouping rules (adaptive
 cap, G <= U clamp, the dtype floor on G), the chunk sizing from
 ``_GATHER_BUDGET``, the query-bucket padding, the metric algebra, the
 replica de-duplication, and ``lax.top_k``'s lowest-index-first tie rule
-(stable sorts throughout).  The chunks run as a Python loop.
+(stable sorts throughout).  The chunks run as a Python loop; each
+chunk's ``dense.upload``, ``dense.scan`` and ``dense.readback`` are spans
+while a profiler session is live (utils/trace.py ``fine_span``).
 
 With ``CascadeSearch`` on a float corpus the block layout holds the int8
 quantization (a quarter of the bytes): queries ``q / scale`` in float32
@@ -44,7 +46,8 @@ from sptag_tpu_torch.ops import cascade as cascade_ops
 from sptag_tpu_torch.ops import distance as dist_ops
 from sptag_tpu_torch.ops import walk_dots as walk_ops
 from sptag_tpu_torch.ops import topk_bins
-from sptag_tpu_torch.utils import costmodel, devmem, query_bucket, round_up
+from sptag_tpu_torch.utils import (costmodel, devmem, query_bucket, round_up,
+                                   trace)
 
 log = logging.getLogger(__name__)
 
@@ -770,19 +773,24 @@ class DenseTreeSearcher:
 
     def _run_chunk(self, q: np.ndarray, nq_valid: int, k_eff: int,
                    nprobe: int, G: int, U: int, bins: int):
-        qd = torch.from_numpy(np.ascontiguousarray(q)).to(self.device)
-        args = (self.data_perm, self.member_ids, self.member_sq,
-                self.centroids, self.cent_sq, self.deleted, qd)
-        dedup = self.replicas > 1
-        if G > 1:
-            d, ids = _dense_search_grouped_kernel(
-                *args, nq_valid, k_eff, nprobe, U, G, int(self.metric),
-                self.base, dedup, bins)
-        else:
-            d, ids = _dense_search_kernel(
-                *args, k_eff, nprobe, int(self.metric), self.base, dedup,
-                bins)
-        return d.cpu().numpy(), ids.cpu().numpy()
+        """One chunk's scan: its stages are spans under a profiler
+        session (utils/trace.py `fine_span`)."""
+        with trace.fine_span("dense.upload"):
+            qd = torch.from_numpy(np.ascontiguousarray(q)).to(self.device)
+        with trace.fine_span("dense.scan"):
+            args = (self.data_perm, self.member_ids, self.member_sq,
+                    self.centroids, self.cent_sq, self.deleted, qd)
+            dedup = self.replicas > 1
+            if G > 1:
+                d, ids = _dense_search_grouped_kernel(
+                    *args, nq_valid, k_eff, nprobe, U, G, int(self.metric),
+                    self.base, dedup, bins)
+            else:
+                d, ids = _dense_search_kernel(
+                    *args, k_eff, nprobe, int(self.metric), self.base,
+                    dedup, bins)
+        with trace.fine_span("dense.readback"):
+            return d.cpu().numpy(), ids.cpu().numpy()
 
     def _search_impl(self, queries, nq, k, k_eff, nprobe, chunk, D, G, U,
                      bins):

@@ -44,6 +44,18 @@ captures, replays and times its own card's work (a mesh places one shard
 a card, parallel/sharded.py).  ``search_tensors`` is ``search`` without
 the readback: the (Q, k) distances and ids stay on the engine's card.
 
+The walk's stages are spans (utils/trace.py), which every live
+``torch.profiler`` session sees: per chunk ``walk.upload`` and either
+``walk.seed``, ``walk.iterate`` and ``walk.finalize`` (the eager walk)
+or ``walk.replay`` (a graph's copy-in, replay and clones); every
+``_ALIVE_CHECK`` eager bodies ``walk.alive_check``; and per eager body,
+while a ``torch.profiler`` session is live, ``walk.pop``, ``walk.expand``
+(the neighbour gather and the visited test), ``walk.score`` and
+``walk.merge`` (spares, merge, top-L, counters): outside a session their
+registry updates measured 1-3% of a host-paced walk.  A walk being
+captured records none (`_Walk.run_all`); its capture is the port's
+compile (``cuda.compile[graph_capture]``, utils/recompile_guard.py).
+
 The walk's state is the JAX package's (``seed_state``): ``run_segment``
 advances it by at most S iterations and ``finalize`` retires it, so
 ``BeamSegmentIters`` (``_search_segmented``) and the slot scheduler
@@ -85,6 +97,7 @@ off under the cascade.
 from __future__ import annotations
 
 import collections
+import contextlib
 import threading
 import time
 from typing import Dict, Optional, Tuple
@@ -195,6 +208,11 @@ def capture_on(device, fn):
                                   capture_error_mode="thread_local"):
                 out = fn()
         return graph, out
+
+
+def _unmarked(name: str):
+    """No span: what a walk captured into a CUDA graph records."""
+    return contextlib.nullcontext()
 
 
 def _num_words(n: int) -> int:
@@ -389,48 +407,63 @@ class _Walk:
         self.expanded.scatter_(1, torch.where(sel_ok, spos, L), True)
         return sel_ok, sel_ids, best_pop_d
 
-    def body(self) -> None:
-        eng, L = self.eng, self.L
+    def body(self, mark=_unmarked) -> None:
+        """One walk iteration; `mark` (trace.fine_span in the eager walk)
+        marks its phases, and a walk captured into a CUDA graph marks
+        none."""
+        eng = self.eng
         N = eng.n
         Q = self.queries.shape[0]
-        # a row past its own budget is frozen exactly like an nbp-tripped
-        # one: rows with different budgets share one batch
-        active = self._active() & (self.it < self.t_limit)
-        sel_ok, sel_ids, best_pop_d = self._pop(active)
-        frontier_worse = best_pop_d > self.cand_d[:, self.k_eff - 1]
+        with mark("walk.pop"):
+            # a row past its own budget is frozen exactly like an
+            # nbp-tripped one: rows with different budgets share one batch
+            active = self._active() & (self.it < self.t_limit)
+            sel_ok, sel_ids, best_pop_d = self._pop(active)
+            frontier_worse = best_pop_d > self.cand_d[:, self.k_eff - 1]
 
-        # ---- gather neighbours, drop the visited ones
-        nbrs = eng.graph[sel_ids.clamp_min(0)].to(torch.int64)   # (Q, B, m)
-        nbrs = torch.where(sel_ok[..., None], nbrs, -1)
-        flat = nbrs.reshape(Q, -1)
-        flat_safe = torch.where(flat >= 0, flat, N)
-        seen = torch.gather(self.visited, 1, flat_safe)
-        fresh = (flat >= 0) & ~seen
-        if not self.merge_bins:
-            # a node reached from two parents in one iteration: keep the
-            # first copy; mark every valid candidate visited
-            fresh = fresh & ~_sorted_dup_mask(flat_safe)
-            self.visited.scatter_(1, flat_safe, True)
+        with mark("walk.expand"):
+            # ---- gather neighbours, drop the visited ones
+            nbrs = eng.graph[sel_ids.clamp_min(0)].to(torch.int64)
+            nbrs = torch.where(sel_ok[..., None], nbrs, -1)  # (Q, B, m)
+            flat = nbrs.reshape(Q, -1)
+            flat_safe = torch.where(flat >= 0, flat, N)
+            seen = torch.gather(self.visited, 1, flat_safe)
+            fresh = (flat >= 0) & ~seen
+            if not self.merge_bins:
+                # a node reached from two parents in one iteration: keep
+                # the first copy; mark every valid candidate visited
+                fresh = fresh & ~_sorted_dup_mask(flat_safe)
+                self.visited.scatter_(1, flat_safe, True)
 
-        # ---- score the fresh candidates (one launch: the slots that are
-        # not fresh are -1 and score MAX_DIST)
-        fresh_ids = torch.where(fresh, flat, -1)
-        if eng.nbr_vecs is not None:
-            # packed neighbours: B block reads of (m, D) per query, in the
-            # order of `flat`
-            sel_safe = sel_ids.clamp_min(0)
-            cvecs = eng.nbr_vecs[sel_safe].reshape(Q * flat.shape[1], -1)
-            nd = walk_ops.walk_distance(self.queries_s, cvecs, eng.metric,
-                                        eng.base, walk_ops.ROWS,
-                                        idx=fresh_ids,
-                                        x_sqnorm=eng.nbr_sq[sel_safe])
-        else:
-            nd = walk_ops.walk_distance(self.queries_s, eng.score_src,
-                                        eng.metric, eng.base,
-                                        walk_ops.GATHER, idx=fresh_ids,
-                                        x_sqnorm=eng.sqnorm,
-                                        score_scale=eng.score_scale)
+        with mark("walk.score"):
+            # ---- score the fresh candidates (one launch: the slots that
+            # are not fresh are -1 and score MAX_DIST)
+            fresh_ids = torch.where(fresh, flat, -1)
+            if eng.nbr_vecs is not None:
+                # packed neighbours: B block reads of (m, D) per query, in
+                # the order of `flat`
+                sel_safe = sel_ids.clamp_min(0)
+                cvecs = eng.nbr_vecs[sel_safe].reshape(Q * flat.shape[1],
+                                                       -1)
+                nd = walk_ops.walk_distance(self.queries_s, cvecs,
+                                            eng.metric, eng.base,
+                                            walk_ops.ROWS, idx=fresh_ids,
+                                            x_sqnorm=eng.nbr_sq[sel_safe])
+            else:
+                nd = walk_ops.walk_distance(self.queries_s, eng.score_src,
+                                            eng.metric, eng.base,
+                                            walk_ops.GATHER, idx=fresh_ids,
+                                            x_sqnorm=eng.sqnorm,
+                                            score_scale=eng.score_scale)
 
+        with mark("walk.merge"):
+            self._merge(active, best_pop_d, frontier_worse, flat, nd)
+
+    def _merge(self, active, best_pop_d, frontier_worse, flat, nd) -> None:
+        """Spare injection, the merge of beam and candidates into the top
+        L, and the counters: the body's last phase."""
+        L, N = self.L, self.eng.n
+        Q = self.queries.shape[0]
         # ---- inject spare pivots when the frontier falls behind the next
         # one, or the nbp counter would trip with budget left
         flat_m = flat
@@ -497,18 +530,23 @@ class _Walk:
 
     def run(self, max_iters: int) -> int:
         """At most `max_iters` bodies, ending early once no row is alive;
-        returns the bodies run."""
+        returns the bodies run.  Each body's phases are spans while a
+        profiler session is live (`trace.fine_span`)."""
         for step in range(max_iters):
-            # the body's one intended sync: a blessed readback
-            if step % _ALIVE_CHECK == 0 and not bool(
-                    recompile_guard.device_get(self.row_alive().any())):
-                return step
-            self.body()
+            if step % _ALIVE_CHECK == 0:
+                # the body's one intended sync: a blessed readback
+                with trace.span("walk.alive_check"):
+                    alive = bool(recompile_guard.device_get(
+                        self.row_alive().any()))
+                if not alive:
+                    return step
+            self.body(trace.fine_span)
         return max_iters
 
     def run_all(self, iters: int) -> int:
         """`iters` bodies with no host sync: the same pools as `run` (a
-        dead row is an absorbing no-op), capturable in a graph."""
+        dead row is an absorbing no-op), capturable in a graph, and with
+        no spans (a captured walk's replay is one ``walk.replay``)."""
         for _ in range(iters):
             self.body()
         return iters
@@ -983,28 +1021,36 @@ class GraphSearchEngine:
             q_pad = query_bucket(nqc, chunk)
             if q_pad != nqc:
                 q = np.concatenate([q, np.zeros((q_pad - nqc, D), q.dtype)])
-            s = None
-            if seeds is not None:
-                s = np.asarray(seeds[start:start + nqc], np.int64)
-                if q_pad != nqc:
-                    s = np.concatenate(
-                        [s, np.full((q_pad - nqc, s.shape[1]), -1,
-                                    np.int64)])
-                s = torch.from_numpy(s).to(self.device)
-            state = self.seed_state(
-                torch.from_numpy(np.ascontiguousarray(q)).to(self.device),
-                L, seeds=s)
-            t_limit = torch.zeros(q_pad, dtype=torch.int64,
-                                  device=self.device)
-            t_limit[:nqc] = T
-            while True:
-                state, alive = self.run_segment(state, t_limit, k_eff, L,
-                                                B, limit, S, inject=inject)
-                self.last_iterations += S
-                # the segment loop's continue flag: its intended sync
-                if not bool(recompile_guard.device_get(alive.any())):
-                    break
-            d, ids = self._finalize_state(state, k_eff)
+            with trace.span("walk.upload"):
+                s = None
+                if seeds is not None:
+                    s = np.asarray(seeds[start:start + nqc], np.int64)
+                    if q_pad != nqc:
+                        s = np.concatenate(
+                            [s, np.full((q_pad - nqc, s.shape[1]), -1,
+                                        np.int64)])
+                    s = torch.from_numpy(s).to(self.device)
+                qd = torch.from_numpy(np.ascontiguousarray(q)).to(
+                    self.device)
+            with trace.span("walk.seed"):
+                state = self.seed_state(qd, L, seeds=s)
+                t_limit = torch.zeros(q_pad, dtype=torch.int64,
+                                      device=self.device)
+                t_limit[:nqc] = T
+            with trace.span("walk.iterate"):
+                while True:
+                    state, alive = self.run_segment(state, t_limit, k_eff,
+                                                    L, B, limit, S,
+                                                    inject=inject)
+                    self.last_iterations += S
+                    # the segment loop's continue flag: its intended sync
+                    with trace.span("walk.alive_check"):
+                        any_alive = bool(recompile_guard.device_get(
+                            alive.any()))
+                    if not any_alive:
+                        break
+            with trace.span("walk.finalize"):
+                d, ids = self._finalize_state(state, k_eff)
             out_d[start:start + nqc] = d[:nqc]
             out_i[start:start + nqc] = ids[:nqc]
         return out_d, out_i
@@ -1014,24 +1060,31 @@ class GraphSearchEngine:
     def _walk_chunk(self, queries, seeds, plan, check_alive: bool = True):
         """Seed, walk and finalize one chunk on the device: ((Q, k') dists,
         (Q, k') int32 ids, iterations run).  `seeds` is None or a (Q, S)
-        int64 tensor."""
+        int64 tensor.  The eager walk's stages are spans; a walk being
+        captured (`check_alive` False) records none."""
+        mark = trace.span if check_alive else _unmarked
         k_eff, L, B, T, limit, inject, mb, fb, sk = plan
-        state = self.seed_state(queries, L, seeds)
-        t_limit = torch.full((queries.shape[0],), T, dtype=torch.int64,
-                             device=queries.device)
-        walk = _Walk(self, state, t_limit, k_eff, L, B, limit,
-                     inject if seeds is None else 0, mb)
-        its = walk.run(T) if check_alive else walk.run_all(T)
-        d, ids = _finalize(self, queries, walk.cand_ids, walk.cand_d,
-                           min(k_eff, L), binned_bins=fb)
+        with mark("walk.seed"):
+            state = self.seed_state(queries, L, seeds)
+            t_limit = torch.full((queries.shape[0],), T, dtype=torch.int64,
+                                 device=queries.device)
+            walk = _Walk(self, state, t_limit, k_eff, L, B, limit,
+                         inject if seeds is None else 0, mb)
+        with mark("walk.iterate"):
+            its = walk.run(T) if check_alive else walk.run_all(T)
+        with mark("walk.finalize"):
+            d, ids = _finalize(self, queries, walk.cand_ids, walk.cand_d,
+                               min(k_eff, L), binned_bins=fb)
         return d, ids, its
 
     def _search_chunk(self, q: np.ndarray, seeds: Optional[np.ndarray],
                       *plan) -> Tuple[torch.Tensor, torch.Tensor]:
         """One chunk's ((Q, k') dists, (Q, k') int32 ids), on the card."""
-        queries = torch.from_numpy(np.ascontiguousarray(q)).to(self.device)
-        s = None if seeds is None else \
-            torch.from_numpy(np.asarray(seeds, np.int64)).to(self.device)
+        with trace.span("walk.upload"):
+            queries = torch.from_numpy(np.ascontiguousarray(q)).to(
+                self.device)
+            s = None if seeds is None else \
+                torch.from_numpy(np.asarray(seeds, np.int64)).to(self.device)
         if self.device.type == "cuda" and q.shape[0] <= _GRAPH_MAX_Q:
             out = self._replay_chunk(queries, s, plan)
             if out is not None:
@@ -1085,7 +1138,8 @@ class GraphSearchEngine:
             else:
                 self._graphs.move_to_end(key)
         graph, q_in, s_in, d_out, i_out, lock = entry
-        with lock, torch.cuda.device(self.device):
+        with trace.span("walk.replay"), lock, \
+                torch.cuda.device(self.device):
             q_in.copy_(queries)
             if s_in is not None:
                 s_in.copy_(seeds)

@@ -6,7 +6,7 @@ forest (trees/kdtree.py, host numpy, the JAX package's draws) replaces the
 k-means forest, the same RNG graph is built over the corpus, and a search
 descends the kd-trees per query — the greedy leaf plus the ``backtrack``
 lowest-bound other branches of each tree — and seeds the walk with those
-leaves (``engine.search(seeds=...)``).  ``SearchMode=dense`` runs the
+leaves (`_walk_seeds`, ``engine.search(seeds=...)``).  ``SearchMode=dense`` runs the
 block-dot kernels over a kd-cell partition (`partition_from_kdtree`).
 Storage, mutation, the delta shard, persistence and the slot scheduler
 are BKTIndex's; with ``ContinuousBatching=1`` each query rides the
@@ -15,13 +15,12 @@ scheduler with its kd-tree seeds.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional
 
 import numpy as np
 
 from sptag_tpu_torch.algo.bkt import BKTIndex
 from sptag_tpu_torch.algo.dense import partition_from_kdtree
-from sptag_tpu_torch.algo.scheduler import gather_futures
 from sptag_tpu_torch.core.index import register_algo
 from sptag_tpu_torch.core.params import KDTParams
 from sptag_tpu_torch.core.types import IndexAlgoType
@@ -67,8 +66,8 @@ class KDTIndex(BKTIndex):
         per_tree = max(max_check // 10, p.initial_dynamic_pivots) // trees
         return int(np.clip(per_tree, _MIN_BACKTRACK, 64))
 
-    def _seeds_for(self, queries: np.ndarray,
-                   max_check: Optional[int] = None) -> np.ndarray:
+    def _walk_seeds(self, queries: np.ndarray,
+                    max_check: Optional[int] = None) -> np.ndarray:
         backtrack = self._backtrack_for(
             max_check if max_check is not None else self.params.max_check)
         return self._tree.collect_seeds(queries, backtrack=backtrack)
@@ -86,20 +85,6 @@ class KDTIndex(BKTIndex):
         p = self.params
         return self._submit_each(
             queries, k, max_check, rids,
-            seeds=self._seeds_for(queries, max_check),
+            seeds=self._walk_seeds(queries, max_check),
             beam_width=getattr(p, "beam_width", 16),
             nbp_limit=p.no_better_propagation_limit)
-
-    def _engine_search(self, queries: np.ndarray, k: int, max_check: int
-                       ) -> Tuple[np.ndarray, np.ndarray]:
-        p = self.params
-        if int(getattr(p, "continuous_batching", 0)):
-            return gather_futures(
-                self._scheduler_submit(queries, k, max_check), k)
-        seeds = self._seeds_for(queries, max_check)
-        seg = int(getattr(p, "beam_segment_iters", 0))
-        return self._get_engine().search(
-            queries, k, max_check=max_check,
-            beam_width=getattr(p, "beam_width", 16),
-            nbp_limit=p.no_better_propagation_limit, seeds=seeds,
-            segment_iters=seg or None)

@@ -59,7 +59,7 @@ from sptag_tpu_torch.core.vectorset import (FileMetadataSet, MetadataSet,
 from sptag_tpu_torch.device import DeviceLike, resolve_device
 from sptag_tpu_torch.io import atomic, wal
 from sptag_tpu_torch.ops import distance as dist_ops
-from sptag_tpu_torch.utils import devmem, faultinject, locksan, metrics
+from sptag_tpu_torch.utils import devmem, faultinject, locksan, metrics, trace
 from sptag_tpu_torch.utils.ini import IniReader
 
 log = logging.getLogger(__name__)
@@ -378,19 +378,29 @@ class VectorIndex(abc.ABC):
                      ) -> Tuple[np.ndarray, np.ndarray]:
         """(Q, D) host queries -> ((Q, k) float32 dists, (Q, k) int32 ids)
         as numpy.  `max_check` / `search_mode` override MaxCheck /
-        SearchMode for this call only."""
-        queries = np.asarray(queries)
-        if queries.ndim == 1:
-            queries = queries[None, :]
-        if queries.shape[1] != self.feature_dim:
-            raise ValueError(
-                f"query dim {queries.shape[1]} != index dim {self.feature_dim}")
-        queries = self._prepare_query(queries)
-        # the main tier covers its frozen snapshot, fresh rows the delta
-        # shard: the two top-k lists merge here
-        return self._merge_delta(
-            queries, k, lambda: self._search_batch(queries, k, max_check,
-                                                   search_mode))
+        SearchMode for this call only.
+
+        The front end's phases are spans (utils/trace.py): ``search.call``
+        all of it, ``search.prepare`` the cast, cosine normalisation and
+        contiguity; the graph indexes mark ``search.dispatch``,
+        ``search.wait`` and ``search.readback`` inside their search
+        (algo/bkt.py), and the delta merge is a ``search.readback`` of its
+        own."""
+        with trace.span("search.call"):
+            with trace.span("search.prepare"):
+                queries = np.asarray(queries)
+                if queries.ndim == 1:
+                    queries = queries[None, :]
+                if queries.shape[1] != self.feature_dim:
+                    raise ValueError(
+                        f"query dim {queries.shape[1]} != index dim "
+                        f"{self.feature_dim}")
+                queries = self._prepare_query(queries)
+            # the main tier covers its frozen snapshot, fresh rows the
+            # delta shard: the two top-k lists merge here
+            return self._merge_delta(
+                queries, k, lambda: self._search_batch(queries, k, max_check,
+                                                       search_mode))
 
     def submit_batch(self, queries: np.ndarray, k: int = 10,
                      max_check: Optional[int] = None,
@@ -655,8 +665,10 @@ class VectorIndex(abc.ABC):
             return main
         from sptag_tpu_torch.core.delta import merge_topk
 
-        dd, di = d.search(queries, min(k, d.count), self._tombstone_mask())
-        return merge_topk(main[0], main[1], dd, di, k)
+        with trace.span("search.readback"):
+            dd, di = d.search(queries, min(k, d.count),
+                              self._tombstone_mask())
+            return merge_topk(main[0], main[1], dd, di, k)
 
     def _maybe_auto_refine(self) -> None:
         """Schedule an absorb once the delta reaches AutoRefineThreshold."""

@@ -42,7 +42,7 @@ from sptag_tpu_torch.graph.tptree import tpt_partition
 from sptag_tpu_torch.io import format as fmt
 from sptag_tpu_torch.ops import distance as dist_ops
 from sptag_tpu_torch.ops import graph as graph_ops
-from sptag_tpu_torch.utils import round_up
+from sptag_tpu_torch.utils import round_up, trace
 
 log = logging.getLogger(__name__)
 
@@ -126,10 +126,12 @@ class RelativeNeighborhoodGraph:
         finally:
             self._data_d = self._data_f = None
 
-    def _timed(self, name: str, fn, *args, **kwargs):
-        t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        self.stage_seconds[name] = time.perf_counter() - t0
+    def _timed(self, stage: str, span_name: str, fn, *args, **kwargs):
+        """`fn(...)` under the span `span_name` (utils/trace.py), whose
+        duration `stage_seconds[stage]` keeps."""
+        with trace.span(span_name) as s:
+            out = fn(*args, **kwargs)
+        self.stage_seconds[stage] = s.seconds
         return out
 
     def _build(self, data, metric, base, search_fn_factory, seed,
@@ -153,13 +155,15 @@ class RelativeNeighborhoodGraph:
                     break
         if start == 0:
             cand_ids, cand_d = self._timed(
-                "tpt_candidates", self.build_candidates, data, metric, base,
-                seed, checkpoint=checkpoint)
+                "tpt_candidates", "build.tpt_candidates",
+                self.build_candidates, data, metric, base, seed,
+                checkpoint=checkpoint)
             # prune-only width: wide when refine passes will narrow it,
             # the final width when none will (RefineIterations=0)
             self.graph = self._timed(
-                "prune", self.prune_candidates, data, cand_ids, cand_d,
-                width_wide if passes > 0 else m, metric, base)
+                "prune", "build.rng_prune", self.prune_candidates, data,
+                cand_ids, cand_d, width_wide if passes > 0 else m, metric,
+                base)
         # accuracy guard: a pass that both drops the paired estimate and
         # lands below the absolute floor is rolled back and the remaining
         # passes skipped.  An engine-switch final pass (guard_final=False)
@@ -175,13 +179,12 @@ class RelativeNeighborhoodGraph:
             last = it == passes - 1
             width = m if last else width_wide
             before = self.graph if guard else None
-            t0 = time.perf_counter()
-            fn = search_fn_factory(self.graph, final=last)
-            self.refine_once(data, fn, width, metric, base,
-                             cef=(self.cef if last
-                                  else self.cef * self.cef_scale))
-            self.stage_seconds[f"refine_pass_{it + 1}"] = \
-                time.perf_counter() - t0
+            with trace.span("build.refine_pass") as s:
+                fn = search_fn_factory(self.graph, final=last)
+                self.refine_once(data, fn, width, metric, base,
+                                 cef=(self.cef if last
+                                      else self.cef * self.cef_scale))
+            self.stage_seconds[f"refine_pass_{it + 1}"] = s.seconds
             if guard or log.isEnabledFor(logging.INFO):
                 acc = self.accuracy_estimation(data, metric, base,
                                                width=(m if guard else None),

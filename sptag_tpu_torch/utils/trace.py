@@ -7,20 +7,30 @@ Two cooperating layers:
   name plus p50/p90/p99 from the log-bucketed histogram every `record()`
   also feeds (utils/metrics.py, so the Prometheus text exports span
   latencies with no extra wiring).  Cheap enough for production paths: a
-  perf_counter pair, a dict update and a histogram bucket increment.
-* device tracing — while `start_trace(logdir)` has a
-  ``torch.profiler.profile`` running, the same `span` also opens a
-  ``torch.profiler.record_function`` range, so host spans line up with
-  the card's kernels in the trace; `stop_trace()` ends the profile and
-  writes a Chrome trace (``trace.json``, Perfetto / chrome://tracing)
-  into `logdir`.  ``torch.profiler`` is process-global, so one trace runs
-  at a time: `start_trace` holds a process-wide lock until `stop_trace`
-  and raises `TraceBusy` while another trace (the metrics listener's
-  ``/debug/devicetrace``, or any other caller) holds it.  The profiler
-  turns on and off while `capture_lock` is held, so no CUDA graph is
-  captured or replayed then, and no graph is captured while a trace holds
-  the profiler: a capture checks `tracing()` under the lock and the
-  caller runs eagerly instead.  A process that
+  perf_counter pair, a dict update and a histogram bucket increment (a
+  hot loop's finest phases use `fine_span`, recorded only while a
+  profiler session is live).  A span keeps its duration
+  (`span.seconds`) for a caller that reports it elsewhere too (the
+  build's stage timings).
+* profiler ranges — while any ``torch.profiler`` session is live in the
+  process (torch's own flag, ``torch.autograd.profiler.
+  _is_profiler_enabled``), the same `span` also opens a
+  ``torch.profiler.record_function`` range: the caller's own profile, the
+  benchmark's windows or `start_trace`'s, each sees the port's spans on
+  the clock of the card's kernels, so an idle gap of the card is named by
+  the span the host was in.  With no session live no range is entered
+  (entering one costs microseconds even then).  `start_trace(logdir)`
+  runs the port's own ``torch.profiler.profile`` and `stop_trace()` ends
+  it and writes a Chrome trace (``trace.json``, Perfetto /
+  chrome://tracing) into `logdir`.  ``torch.profiler`` is
+  process-global, so one trace runs at a time: `start_trace` holds a
+  process-wide lock until `stop_trace` and raises `TraceBusy` while
+  another trace (the metrics listener's ``/debug/devicetrace``, or any
+  other caller) holds it.  The profiler turns on and off while
+  `capture_lock` is held, so no CUDA graph is captured or replayed then,
+  and no graph is captured while a trace holds the profiler: a capture
+  checks `tracing()` under the lock and the caller runs eagerly instead.
+  A process that
   serves traces from another thread calls `prepare_device_trace()` once
   from its main thread first: the profiler's CUDA side (Kineto, CUPTI)
   initialises in the first thread that profiles, and Kineto runs its
@@ -44,7 +54,10 @@ then on every ``torch.profiler`` session of the process tears CUPTI down.
 A process that never asks the port for a device trace keeps torch's
 default.
 
-Used by the server batch path and the graph build.
+Used by the server batch path, the search front end
+(core/index.py), the walk (algo/engine.py), the dense scan
+(algo/dense.py) and the build (algo/bkt.py, graph/rng.py); their names
+are in docs/TELEMETRY.md.
 """
 
 from __future__ import annotations
@@ -53,7 +66,10 @@ import contextlib
 import os
 import threading
 import time
-from typing import Dict, Iterator, Optional
+from typing import Dict, Optional
+
+import torch.profiler
+from torch.autograd import profiler as _autograd_profiler
 
 from sptag_tpu_torch.utils import metrics
 
@@ -76,6 +92,7 @@ _trace_lock = threading.Lock()
 # a replay holds it only while the graph is launched
 capture_lock = threading.Lock()
 _prepared = False
+_NO_SPAN = contextlib.nullcontext()
 
 
 class TraceBusy(RuntimeError):
@@ -89,22 +106,43 @@ def _teardown_cupti() -> None:
     os.environ.setdefault("TEARDOWN_CUPTI", "1")
 
 
-@contextlib.contextmanager
-def span(name: str) -> Iterator[None]:
-    """Record one host span; mark the device trace when one is live."""
-    ann = None
-    if _profile is not None:
-        import torch.profiler
-        ann = torch.profiler.record_function(name)
-        ann.__enter__()
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        dt = time.perf_counter() - t0
-        if ann is not None:
-            ann.__exit__(None, None, None)
-        record(name, dt)
+class span:
+    """Record one host span: ``with span("name") as s:``, recorded when it
+    closes, its duration then in ``s.seconds``; a ``record_function``
+    range of the same name while any ``torch.profiler`` session is
+    live (a class, like ``contextlib.suppress``)."""
+
+    __slots__ = ("name", "seconds", "_t0", "_range")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.seconds = 0.0
+        self._range = None
+
+    def __enter__(self) -> "span":
+        if _autograd_profiler._is_profiler_enabled:
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.seconds = time.perf_counter() - self._t0
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
+        record(self.name, self.seconds)
+
+
+def fine_span(name: str):
+    """A span for a hot loop's finest phases (the walk's body, the dense
+    scan's chunks): `span(name)` while a ``torch.profiler`` session is
+    live, and nothing otherwise.  Outside a session a span's registry
+    update costs several microseconds: on an H100's host these phases'
+    spans took 1-3% of a host-paced search call."""
+    if _autograd_profiler._is_profiler_enabled:
+        return span(name)
+    return _NO_SPAN
 
 
 def record(name: str, seconds: float) -> None:
@@ -149,14 +187,12 @@ def reset() -> None:
 
 def start_trace(logdir: str) -> None:
     """Begin a ``torch.profiler`` trace of the host and, when CUDA is
-    available, the card; `span`s become named ranges in it."""
+    available, the card; `span`s are named ranges in it, as in any live
+    session."""
     global _profile, _logdir
     if not _trace_lock.acquire(blocking=False):
         raise TraceBusy("a torch.profiler trace is already running")
     try:
-        import torch
-        import torch.profiler
-
         acts = [torch.profiler.ProfilerActivity.CPU]
         if torch.cuda.is_available():
             acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -188,12 +224,8 @@ def prepare_device_trace() -> None:
     global _prepared
     if _prepared:
         return
-    import torch
-
     if not torch.cuda.is_available():
         return
-    import torch.profiler
-
     _teardown_cupti()
     with _trace_lock, capture_lock:
         with torch.profiler.profile(activities=[

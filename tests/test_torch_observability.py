@@ -114,8 +114,23 @@ def _ops_flight(f):
     # only this thread's events: the recorder is process-wide, and a
     # thread another test left running in this worker may record into it
     me = threading.get_ident()
+    events = f.collect()
+    others = {e["tid"] for e in events} - {me}
     trace = f.export_chrome_trace(
-        events=[e for e in f.collect() if e["tid"] == me])
+        events=[e for e in events if e["tid"] == me])
+    # this thread's own accounting, from its buffer: all it recorded,
+    # nothing dropped
+    mine = f._tls.buf
+    assert (mine.recorded, mine.dropped) == (5, 0)
+    counts = trace["otherData"]["counters"]
+    if others:
+        # another thread recorded during the window: the export's
+        # accounting counts its events too, so it is read as this
+        # thread's alone, like the events above; none may be dropped
+        assert counts["dropped"] == 0
+        assert counts["recorded"] >= len(events)
+        assert 1 <= counts["threads"] <= 1 + len(others)
+        counts.update(recorded=mine.recorded, threads=1)
     for ev in trace["traceEvents"]:
         for key in ("ts", "dur", "tid"):
             if key in ev:
@@ -475,3 +490,225 @@ def test_scheduler_metrics_and_quality_health_match_jax():
     assert out["port"] == out["jax"]
     assert all(out["port"][0].values())
     assert "scheduler.slot_wait" in out["port"][2]
+
+
+# ---- the port's spans in a caller's own profiler session -----------------
+
+SPAN_DATA = np.round(np.random.default_rng(17).standard_normal((600, 8))
+                     * 3).astype(np.float32)
+FRONT_END = ("search.prepare", "search.dispatch", "search.wait",
+             "search.readback")
+BODY = ("walk.pop", "walk.expand", "walk.score", "walk.merge")
+
+
+def _span_index(**params):
+    """A small port BKT index on the CPU whose build walks the graph in
+    its refine passes (RefineSearchMode beam)."""
+    idx = tsp.create_instance("BKT", "Float", device="cpu")
+    settings = {"DistCalcMethod": "L2", "TPTNumber": "2",
+                "TPTLeafSize": "200", "CEF": "32",
+                "MaxCheckForRefineGraph": "64", "NeighborhoodSize": "8",
+                "BKTKmeansK": "4", "MaxCheck": "256",
+                "RefineIterations": "2", "RefineSearchMode": "beam",
+                "FinalRefineSearchMode": "same", "SearchMode": "beam"}
+    settings.update(params)
+    for name, value in settings.items():
+        assert idx.set_parameter(name, value)
+    assert idx.build(SPAN_DATA) == tsp.ErrorCode.Success
+    return idx
+
+
+@pytest.fixture(scope="module")
+def span_index():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    idx = _span_index()
+    yield idx
+    idx.close()
+    torch.set_num_threads(threads)
+
+
+def _annotations(prof):
+    """(name, start_ns, end_ns, thread) of the session's host ranges."""
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        if e.activity_type() == "user_annotation":
+            out.append((e.name(), e.start_ns(), e.end_ns(),
+                        e.start_thread_id()))
+    return sorted(out, key=lambda r: (r[1], -r[2]))
+
+
+def _inside(child, parent):
+    return parent[1] <= child[1] and child[2] <= parent[2]
+
+
+@pytest.mark.parametrize("mode,inner", [
+    ("beam", ("walk.upload", "walk.seed", "walk.iterate", "walk.finalize")),
+    ("dense", ("dense.upload", "dense.scan", "dense.readback"))])
+def test_a_callers_profile_sees_the_search_spans_nested(span_index, mode,
+                                                        inner):
+    """A caller's own torch.profiler session, which the port did not
+    start, records the front end's spans around the mode's own, nested,
+    on the calling thread."""
+    import torch.profiler as tp
+
+    with tp.profile(activities=[tp.ProfilerActivity.CPU]) as prof:
+        with tp.record_function("caller"):
+            span_index.search_batch(SPAN_DATA[:8], 5, search_mode=mode)
+    ranges = _annotations(prof)
+    caller = next(r for r in ranges if r[0] == "caller")
+    ours = [r for r in ranges if r[0] != "caller"]
+    assert ours and all(r[3] == caller[3] and _inside(r, caller)
+                        for r in ours)
+    by_name = {}
+    for r in ours:
+        by_name.setdefault(r[0], []).append(r)
+    (call,) = by_name["search.call"]
+    for name in FRONT_END:
+        (r,) = by_name[name]
+        assert _inside(r, call)
+    # the front end's phases follow one another
+    starts = [by_name[name][0][1] for name in FRONT_END]
+    assert starts == sorted(starts)
+    (dispatch,) = by_name["search.dispatch"]
+    for name in inner:
+        assert by_name[name] and all(_inside(r, dispatch)
+                                     for r in by_name[name])
+    if mode == "beam":
+        (iterate,) = by_name["walk.iterate"]
+        for name in BODY + ("walk.alive_check",):
+            assert by_name[name] and all(_inside(r, iterate)
+                                         for r in by_name[name])
+        assert len(by_name["walk.pop"]) == span_index._engine.last_iterations
+    else:
+        assert not [n for n in by_name if n.startswith("walk.")]
+
+
+def test_no_record_function_without_a_live_profiler(span_index,
+                                                    monkeypatch):
+    """With no profiler session live a span enters no record_function
+    range (entering one costs microseconds even then), and the hot loops'
+    finest phases (the walk's body, the dense scan's chunks) record
+    nothing; inside a session every span does."""
+    import torch.profiler as tp
+
+    entered = []
+
+    class Counting(tp.record_function):
+        def __enter__(self):
+            entered.append(self.name)
+            return super().__enter__()
+
+    monkeypatch.setattr(tp, "record_function", Counting)
+    for mode in ("beam", "dense"):
+        span_index.search_batch(SPAN_DATA[:4], 5, search_mode=mode)
+    assert entered == []
+    rep = ttrace.report()
+    assert rep["search.call"]["count"] == 2
+    assert rep["walk.iterate"]["count"] >= 1
+    assert not [n for n in rep
+                if n in BODY or n.startswith("dense.")]
+    with tp.profile(activities=[tp.ProfilerActivity.CPU]):
+        span_index.search_batch(SPAN_DATA[:4], 5, search_mode="beam")
+    assert entered[0] == "search.call" and "walk.pop" in entered
+
+
+def test_no_walk_span_is_recorded_during_a_capture(span_index,
+                                                   monkeypatch):
+    """A walk being captured into a CUDA graph (the whole walk of a small
+    chunk, the scheduler's segment) records no walk span, even under a
+    live profiler session: the captured walk is one `walk.replay` a
+    replay.  Captures are rehearsed with a stand-in for `capture_on` that
+    runs the closure as a capture does (its warm-up, then the capture).
+    The same walk run eagerly marks its bodies under the session, and
+    outside one only its chunk-level spans."""
+    import torch.profiler as tp
+
+    from sptag_tpu_torch.algo import engine as teng
+
+    class FakeGraph:
+        def replay(self):
+            pass
+
+    def capture_on(device, fn):
+        fn()
+        return FakeGraph(), fn()
+
+    monkeypatch.setattr(teng, "capture_on", capture_on)
+    eng = span_index._engine
+    queries = torch.from_numpy(SPAN_DATA[:4])
+    plan = (5, 64, 4, 8, 3, 4, eng.merge_bins_for(64, 4),
+            eng.finalize_bins_for(5, 64), eng.seed_keep_for(64))
+    ttrace.reset()
+    with tp.profile(activities=[tp.ProfilerActivity.CPU]):
+        assert eng._capture(queries, None, plan) is not None
+        state = eng.seed_state(queries, 64)
+        t_limit = torch.full((4,), 8, dtype=torch.int64)
+        assert eng.capture_segment(state, t_limit, 5, 64, 4, 3, 2) \
+            is not None
+        assert not [n for n in ttrace.report() if n.startswith("walk.")]
+        # the same walk run eagerly records its body
+        eng._walk_chunk(queries, None, plan)
+    rep = ttrace.report()
+    assert rep["walk.pop"]["count"] > 0
+    ttrace.reset()
+    eng._walk_chunk(queries, None, plan)
+    rep = ttrace.report()
+    assert rep["walk.iterate"]["count"] == 1
+    assert rep["walk.alive_check"]["count"] > 0
+    assert not [n for n in rep if n in BODY]
+
+
+def test_build_records_each_stage_span_once_and_its_stages_read_them():
+    torch.set_num_threads(1)
+    idx = _span_index()
+    try:
+        rep = ttrace.report()
+        stages = idx.build_stages
+        passes = sorted(k for k in stages if k.startswith("refine_pass_"))
+        assert passes
+        for name in ("build.bkt_tree", "build.rng_graph",
+                     "build.tpt_candidates", "build.rng_prune"):
+            assert rep[name]["count"] == 1, name
+        assert rep["build.refine_pass"]["count"] == len(passes)
+        # one clock: each stage timing is its span's duration
+        for stage, name in (("tree", "build.bkt_tree"),
+                            ("tpt_candidates", "build.tpt_candidates"),
+                            ("prune", "build.rng_prune")):
+            assert rep[name]["total_s"] == round(stages[stage], 6)
+        assert rep["build.refine_pass"]["total_s"] == pytest.approx(
+            sum(stages[k] for k in passes), abs=2e-6)
+        assert rep["build.rng_graph"]["total_s"] >= \
+            rep["build.tpt_candidates"]["total_s"] + \
+            rep["build.rng_prune"]["total_s"] + \
+            rep["build.refine_pass"]["total_s"]
+        # the refine passes walked the graph, but no front-end call ran
+        assert rep["walk.iterate"]["count"] > 0
+        assert "search.call" not in rep
+        assert tmetrics.counter_value("search.walk_bodies") == 0
+        idx.search_batch(SPAN_DATA[:3], 5)
+        assert ttrace.report()["search.call"]["count"] == 1
+        assert tmetrics.counter_value("search.walk_bodies") == \
+            idx._engine.last_iterations > 0
+    finally:
+        idx.close()
+
+
+def test_a_dense_only_build_records_no_graph_stage():
+    import torch.profiler as tp
+
+    torch.set_num_threads(1)
+    idx = _span_index(BuildGraph="0", SearchMode="dense")
+    try:
+        rep = ttrace.report()
+        assert rep["build.bkt_tree"]["count"] == 1
+        assert not [n for n in rep if n.startswith(("build.rng",
+                                                    "build.tpt",
+                                                    "build.refine"))]
+        assert set(idx.build_stages) == {"tree"}
+        with tp.profile(activities=[tp.ProfilerActivity.CPU]):
+            idx.search_batch(SPAN_DATA[:3], 5)
+        assert tmetrics.counter_value("search.walk_bodies") == 0
+        assert ttrace.report()["dense.scan"]["count"] >= 1
+    finally:
+        idx.close()
