@@ -363,7 +363,8 @@ def exact_truth(dist_ops, rows: torch.Tensor, queries: torch.Tensor,
 
 
 # the CUDA sources in sptag_tpu_torch/csrc, built in phase 1
-KERNEL_SOURCES = ("block_dots", "walk_dots", "sketch_dots", "int8_dots")
+KERNEL_SOURCES = ("block_dots", "walk_dots", "sketch_dots", "int8_dots",
+                  "walk_body")
 
 # A read kernel over an L2-resident buffer: the card's L2 -> SM read rate,
 # for an estimate of a gather whose rows all come from L2 (the int8
@@ -3950,6 +3951,104 @@ def walk_dots_rows(walk_ops, first, launches: dict) -> list:
     return rows
 
 
+# bodies held kernel against plain version, and timed, from a seeded state
+WALK_BODY_BODIES = 8
+
+
+def walk_body_row(walk_body, eng, queries, launches: dict) -> dict:
+    """Phase 2 for the exact walk body's kernels (ops/walk_body.py): on
+    phase 7's engine at the main path's plan and 1,024 queries, the fused
+    body (pop + expand, scoring, merge: three launches) against the plain
+    body (the PyTorch glue around the same scoring launch) on every state
+    tensor after each of WALK_BODY_BODIES bodies from the seeded state;
+    then each path's device time and kernels a body over those bodies
+    (``torch.profiler``), its host time, and the bytes bound of the glue
+    (each row's beam read and written, its B * m graph ids, visited bytes
+    and candidate slots moved once)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sptag_tpu_torch.algo import engine as teng
+
+    k_eff, L, B, T, limit = eng.walk_plan(K, 2048, 16, None, 3)
+    m = int(eng.graph.shape[1])
+    Q = 1024
+    q = torch.from_numpy(np.ascontiguousarray(queries[:Q])).to(eng.device)
+    seeded = eng.seed_state(q, L)
+    t_limit = torch.full((Q,), T, dtype=torch.int64, device=eng.device)
+
+    def clone():
+        return {k: v.clone() if isinstance(v, torch.Tensor) else v
+                for k, v in seeded.items()}
+
+    def walk(state, fused):
+        w = teng._Walk(eng, state, t_limit, k_eff, L, B, limit, 4, 0)
+        if not fused:
+            w.fused = False
+        return w
+
+    walk_body.reset_launch_counts()
+    plain, fused = walk(clone(), False), walk(clone(), True)
+    unequal = []
+    for step in range(WALK_BODY_BODIES):
+        plain.body()
+        fused.body()
+        a, b = plain.state(), fused.state()
+        for key in teng.STATE_KEYS:
+            x, y = a[key], b[key]
+            if x.dtype == torch.float32:
+                x, y = x.view(torch.int32), y.view(torch.int32)
+            if not torch.equal(x, y):
+                unequal.append(f"{key}@{step}")
+    torch.cuda.synchronize()
+    body_launches = walk_body.launch_counts()
+    del plain, fused
+    timing = {}
+    for mode in ("fused", "plain"):
+        w = walk(clone(), mode == "fused")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(WALK_BODY_BODIES):
+                w.body()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        by_kernel = {}
+        for e in events:
+            by_kernel[e.name[:60]] = by_kernel.get(e.name[:60], 0.0) \
+                + e.time_range.elapsed_us() / 1e3 / WALK_BODY_BODIES
+        w = walk(clone(), mode == "fused")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(WALK_BODY_BODIES):
+            w.body()
+        host = (time.perf_counter() - t0) / WALK_BODY_BODIES * 1e3
+        torch.cuda.synchronize()
+        timing[mode] = {"device_ms_per_body": sum(by_kernel.values()),
+                        "kernels_per_body": len(events) / WALK_BODY_BODIES,
+                        "host_ms_per_body": host,
+                        "device_ms_by_kernel": by_kernel}
+        del w
+    C = B * m
+    nbytes = Q * (2 * L * (8 + 4 + 1) + C * (4 + 1 + 8 + 4 + 8))
+    row = {"name": "walk_body", "route": "cuda",
+           "source": "sptag_tpu_torch/csrc/walk_body.cu",
+           "replaces": "sptag_tpu/algo/engine.py:540 (XLA glue, no Pallas)",
+           "path": "walk_body",
+           "launches": {k: launches.get(k, 0) for k in walk_body.KERNELS},
+           "launches_held": body_launches,
+           "plan": {"Q": Q, "L": L, "B": B, "m": m, "inject": 4},
+           "bodies_equal": not unequal, "unequal": unequal[:20],
+           "bound_ms": nbytes / HBM_BYTES_S * 1e3, "bound_by": "bytes",
+           "bytes": nbytes, **timing}
+    emit({"phase": 2, **row})
+    check(not unequal, f"walk_body: the fused body differs from the plain "
+                       f"body at {unequal[:20]}")
+    check(body_launches == dict.fromkeys(walk_body.KERNELS,
+                                         WALK_BODY_BODIES),
+          f"walk_body: launches {body_launches}")
+    return row
+
+
 # ---- phase 15: observability (device half) and the mesh --------------------
 
 # the probe's readings may exceed the data sheet by timer noise at most
@@ -4771,6 +4870,7 @@ def main() -> None:
     from sptag_tpu_torch.algo import dense
     from sptag_tpu_torch.ops import block_dots
     from sptag_tpu_torch.ops import distance as dist_ops
+    from sptag_tpu_torch.ops import walk_body
     from sptag_tpu_torch.ops import walk_dots as walk_ops
 
     # ---- phase 0: environment ---------------------------------------------
@@ -4812,6 +4912,7 @@ def main() -> None:
 
     block_dots.library()
     walk_ops.library()
+    walk_body.library()
     sketch_dots.library()
     int8_dots.library()
     emit({"phase": 1, "build_s": time.perf_counter() - t0,
@@ -4959,8 +5060,10 @@ def main() -> None:
     indeg = np.bincount(graph[graph >= 0].ravel(), minlength=len(graph))
     gidx.set_parameter("SearchMode", "beam")
     beam = {}
-    # the walk's fixed-order kernels: zeroed just before the beam searches
+    # the walk's fixed-order kernels and the exact body's: zeroed just
+    # before the beam searches
     walk_ops.reset_launch_counts()
+    walk_body.reset_launch_counts()
     first_walk = FirstWalkDots(walk_ops, 1024)
     for binned in ("off", "on"):
         gidx.set_parameter("BinnedTopK", binned)
@@ -4979,6 +5082,7 @@ def main() -> None:
     # the int8 scoring is the cascade's (phase 14)
     walk_launches = {k: v for k, v in walk_ops.launch_counts().items()
                      if k != "walk_score_i8"}
+    walk_launches.update(walk_body.launch_counts())
     emit({"phase": 7, "n": len(data), "d": data.shape[1],
           "build_s": gbuild_s, "build_stages_s": gidx.build_stages,
           "build_launches": build_launches, "walk_launches": walk_launches,
@@ -5008,6 +5112,11 @@ def main() -> None:
     check(abs(r_on - r_off) <= 0.01,
           f"binned beam recall@10 {r_on} more than 0.01 from the exact "
           f"walk's {r_off}")
+    # the exact body's kernels against its plain version, for phase 2
+    gidx.set_parameter("BinnedTopK", "off")
+    body_row = walk_body_row(walk_body, gidx._get_engine(), queries,
+                             walk_launches)
+    gidx.set_parameter("BinnedTopK", "on")
     # the saved folder stays for phase 9, which mutates a loaded copy
     graph_folder = os.path.join(work.name, "bkt_graph")
     if gidx.save_index(graph_folder) != pt.ErrorCode.Success:
@@ -5154,6 +5263,7 @@ def main() -> None:
 
     rows.extend(walk_dots_rows(walk_ops, first_walk,
                                walk_launches))
+    rows.append(body_row)
 
     # ---- phase 6: where a search batch's time goes ---------------------------
     # device time from the profiler's CUDA rows (kernels and copies); the

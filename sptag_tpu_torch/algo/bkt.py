@@ -565,7 +565,9 @@ class BKTIndex(VectorIndex):
         """The beam-walk branch of _search_launch: the walk's (Q, k)
         dists and ids as tensors on the card, still in flight (numpy
         through the slot scheduler, whose futures are waited for here).
-        The walk's bodies count into ``search.walk_bodies``."""
+        The walk's bodies count into ``search.walk_bodies``, those that
+        ran the exact body's kernels (ops/walk_body.py) also into
+        ``search.walk_fused_bodies``."""
         p = self.params
         if int(getattr(p, "continuous_batching", 0)):
             # the same results, continuously batched with concurrent
@@ -582,6 +584,7 @@ class BKTIndex(VectorIndex):
             dynamic_pivots=p.other_dynamic_pivots,
             segment_iters=seg or None)
         metrics.inc("search.walk_bodies", engine.last_iterations)
+        metrics.inc("search.walk_fused_bodies", engine.last_fused_iterations)
         return out
 
     def _walk_seeds(self, queries: np.ndarray, max_check: int

@@ -52,7 +52,10 @@ or ``walk.replay`` (a graph's copy-in, replay and clones); every
 while a ``torch.profiler`` session is live, ``walk.pop``, ``walk.expand``
 (the neighbour gather and the visited test), ``walk.score`` and
 ``walk.merge`` (spares, merge, top-L, counters): outside a session their
-registry updates measured 1-3% of a host-paced walk.  A walk being
+registry updates measured 1-3% of a host-paced walk.  On the card the
+exact body's glue is ops/walk_body.py's two kernels around the scoring
+launch: ``walk.pop`` wraps the pop-and-expand launch and ``walk.expand``
+is entered empty.  A walk being
 captured records none (`_Walk.run_all`); its capture is the port's
 compile (``cuda.compile[graph_capture]``, utils/recompile_guard.py).
 
@@ -111,6 +114,7 @@ from sptag_tpu_torch.core.types import DistCalcMethod
 from sptag_tpu_torch.device import DeviceLike, resolve_device
 from sptag_tpu_torch.ops import cascade as cascade_ops
 from sptag_tpu_torch.ops import distance as dist_ops
+from sptag_tpu_torch.ops import walk_body
 from sptag_tpu_torch.ops import walk_dots as walk_ops
 from sptag_tpu_torch.ops import topk_bins
 from sptag_tpu_torch.utils import (costmodel, devmem, flightrec, metrics,
@@ -318,7 +322,12 @@ def _init_state(queries, cand_ids, cand_d, visited, spare_ids=None,
 class _Walk:
     """The walk body over one state, the PyTorch form of the JAX package's
     ``_walk_machine``.  `t_limit` is the (Q,) per-row iteration budget;
-    `visited` and `expanded` are updated in place, the rest replaced."""
+    `visited` and `expanded` are updated in place, the rest replaced.
+
+    The exact body (``merge_bins`` 0) is ops/walk_body.py's glue around
+    the scoring launch: on the card its kernels (`fused`: two launches a
+    body besides the scoring), on the CPU their plain versions.  The
+    binned body (``BinnedTopK``) keeps its PyTorch form here."""
 
     def __init__(self, eng: "GraphSearchEngine", state: dict, t_limit,
                  k: int, L: int, B: int, nbp_limit: int, inject: int,
@@ -351,9 +360,24 @@ class _Walk:
         self.n_spare = (spare_ids >= 0).sum(1) if self.use_spares else None
         for key in STATE_KEYS:
             setattr(self, key, state[key])
-        self._arange_L = torch.arange(L, device=dev)
-        self._arange_inject = torch.arange(max(inject, 1), device=dev)
-        self._zero_col = torch.zeros((Q, 1), dtype=torch.bool, device=dev)
+        #: the exact body runs ops/walk_body.py's kernels
+        self.fused = eng.fused_body(dev, merge_bins)
+        if self.fused:
+            # the kernels read row-contiguous state (a seeded beam is a
+            # slice of the seeding's sort); visited and expanded are
+            # updated in place and must be contiguous already
+            for key in ("cand_ids", "cand_d", "no_better", "ptr", "it"):
+                setattr(self, key, getattr(self, key).contiguous())
+            self.t_limit = t_limit.contiguous()
+            if self.use_spares:
+                self.spare_ids = spare_ids.contiguous()
+                self.spare_d = self.spare_d.contiguous()
+        if merge_bins:
+            # the binned body's constants
+            self._arange_L = torch.arange(L, device=dev)
+            self._arange_inject = torch.arange(max(inject, 1), device=dev)
+            self._zero_col = torch.zeros((Q, 1), dtype=torch.bool,
+                                         device=dev)
 
     def state(self) -> dict:
         """The walk's state, in seed_state's layout."""
@@ -363,12 +387,8 @@ class _Walk:
         return out
 
     def _active(self):
-        # nbp-tripped rows stay active while real spare pivots remain (the
-        # injection resets the counter), as SPTAG re-enters its trees
-        act = self.no_better < self.nbp_limit
-        if self.use_spares:
-            act = act | (self.ptr < self.n_spare)
-        return act
+        return walk_body.row_active(self.no_better, self.ptr, self.n_spare,
+                                    self.nbp_limit)
 
     def row_alive(self) -> torch.Tensor:
         """True while the next body could still change the row's pool."""
@@ -378,10 +398,74 @@ class _Walk:
             has_work = has_work | (self.ptr < self.n_spare)
         return self._active() & has_work & (self.it < self.t_limit)
 
-    def _pop(self, active):
-        """Best B unexpanded entries -> (sel_ok, sel_ids, best_pop_d)."""
-        L, B = self.L, self.B
+    def body(self, mark=_unmarked) -> None:
+        """One walk iteration; `mark` (trace.fine_span in the eager walk)
+        marks its phases, and a walk captured into a CUDA graph marks
+        none."""
         if self.merge_bins:
+            self._binned_body(mark)
+            return
+        eng = self.eng
+        spares = self.n_spare, self.spare_ids, self.spare_d
+        if self.fused:
+            with mark("walk.pop"):
+                sel_ids, fresh_ids, ctl = walk_body.walk_pop_expand(
+                    self.cand_ids, self.cand_d, self.expanded, self.visited,
+                    self.no_better, self.ptr, self.it, self.t_limit,
+                    self.n_spare, eng.graph, self.k_eff, self.B,
+                    self.nbp_limit)
+            with mark("walk.expand"):
+                pass                           # in the pop's launch
+            merge = walk_body.walk_merge
+        else:
+            with mark("walk.pop"):
+                sel_ok, sel_ids, ctl = walk_body.pop_reference(
+                    self.cand_ids, self.cand_d, self.expanded,
+                    self.no_better, self.ptr, self.it, self.t_limit,
+                    self.n_spare, self.k_eff, self.B, self.nbp_limit)
+            with mark("walk.expand"):
+                fresh_ids = walk_body.expand_reference(
+                    eng.graph, sel_ok, sel_ids, self.visited)
+            merge = walk_body.merge_reference
+        with mark("walk.score"):
+            nd = self._score(sel_ids, fresh_ids)
+        with mark("walk.merge"):
+            (self.cand_ids, self.cand_d, self.expanded, self.no_better,
+             self.ptr, self.it) = merge(
+                self.cand_ids, self.cand_d, self.expanded, nd, fresh_ids,
+                ctl, self.no_better, self.ptr, self.it, *spares,
+                self.inject, self.nbp_limit)
+
+    def _score(self, sel_ids, fresh_ids) -> torch.Tensor:
+        """The fresh candidates' distances (Q, B * m), one launch: the
+        slots that are not fresh are -1 and score MAX_DIST."""
+        eng = self.eng
+        if eng.nbr_vecs is not None:
+            # packed neighbours: B block reads of (m, D) per query, in the
+            # order of `flat`
+            sel_safe = sel_ids.clamp_min(0)
+            cvecs = eng.nbr_vecs[sel_safe].reshape(fresh_ids.numel(), -1)
+            return walk_ops.walk_distance(self.queries_s, cvecs, eng.metric,
+                                          eng.base, walk_ops.ROWS,
+                                          idx=fresh_ids,
+                                          x_sqnorm=eng.nbr_sq[sel_safe])
+        return walk_ops.walk_distance(self.queries_s, eng.score_src,
+                                      eng.metric, eng.base, walk_ops.GATHER,
+                                      idx=fresh_ids, x_sqnorm=eng.sqnorm,
+                                      score_scale=eng.score_scale)
+
+    def _binned_body(self, mark) -> None:
+        """The BinnedTopK body: the rank-select pop over the sorted pool,
+        the bin shortlist merge and lazy visited marking (beam entrants
+        only), as the JAX package's binned body."""
+        eng = self.eng
+        N = eng.n
+        Q = self.queries.shape[0]
+        L, B = self.L, self.B
+        with mark("walk.pop"):
+            # a row past its own budget is frozen exactly like an
+            # nbp-tripped one: rows with different budgets share one batch
+            active = self._active() & (self.it < self.t_limit)
             # exact rank-select over the sorted pool: the first B eligible
             # positions are the best B
             elig = (~self.expanded[:, :L]) & (self.cand_d < MAX_DIST)
@@ -396,94 +480,40 @@ class _Walk:
             sel_d = torch.where(sel_ok, torch.gather(self.cand_d, 1, spos),
                                 MAX_DIST)
             best_pop_d = sel_d[:, 0]
-        else:
-            sel_score = torch.where(self.expanded[:, :L], MAX_DIST,
-                                    self.cand_d)
-            sel_d, spos = dist_ops.smallest_k(sel_score, B)
-            sel_ok = (sel_d < MAX_DIST) & active[:, None]
-            best_pop_d = sel_d[:, 0]
-        sel_ids = torch.where(sel_ok, torch.gather(self.cand_ids, 1, spos),
-                              -1)
-        self.expanded.scatter_(1, torch.where(sel_ok, spos, L), True)
-        return sel_ok, sel_ids, best_pop_d
-
-    def body(self, mark=_unmarked) -> None:
-        """One walk iteration; `mark` (trace.fine_span in the eager walk)
-        marks its phases, and a walk captured into a CUDA graph marks
-        none."""
-        eng = self.eng
-        N = eng.n
-        Q = self.queries.shape[0]
-        with mark("walk.pop"):
-            # a row past its own budget is frozen exactly like an
-            # nbp-tripped one: rows with different budgets share one batch
-            active = self._active() & (self.it < self.t_limit)
-            sel_ok, sel_ids, best_pop_d = self._pop(active)
+            sel_ids = torch.where(sel_ok,
+                                  torch.gather(self.cand_ids, 1, spos), -1)
+            self.expanded.scatter_(1, torch.where(sel_ok, spos, L), True)
             frontier_worse = best_pop_d > self.cand_d[:, self.k_eff - 1]
 
         with mark("walk.expand"):
-            # ---- gather neighbours, drop the visited ones
+            # ---- gather neighbours, drop the visited ones (marked lazily,
+            # at the merge)
             nbrs = eng.graph[sel_ids.clamp_min(0)].to(torch.int64)
             nbrs = torch.where(sel_ok[..., None], nbrs, -1)  # (Q, B, m)
             flat = nbrs.reshape(Q, -1)
             flat_safe = torch.where(flat >= 0, flat, N)
             seen = torch.gather(self.visited, 1, flat_safe)
             fresh = (flat >= 0) & ~seen
-            if not self.merge_bins:
-                # a node reached from two parents in one iteration: keep
-                # the first copy; mark every valid candidate visited
-                fresh = fresh & ~_sorted_dup_mask(flat_safe)
-                self.visited.scatter_(1, flat_safe, True)
 
         with mark("walk.score"):
-            # ---- score the fresh candidates (one launch: the slots that
-            # are not fresh are -1 and score MAX_DIST)
-            fresh_ids = torch.where(fresh, flat, -1)
-            if eng.nbr_vecs is not None:
-                # packed neighbours: B block reads of (m, D) per query, in
-                # the order of `flat`
-                sel_safe = sel_ids.clamp_min(0)
-                cvecs = eng.nbr_vecs[sel_safe].reshape(Q * flat.shape[1],
-                                                       -1)
-                nd = walk_ops.walk_distance(self.queries_s, cvecs,
-                                            eng.metric, eng.base,
-                                            walk_ops.ROWS, idx=fresh_ids,
-                                            x_sqnorm=eng.nbr_sq[sel_safe])
-            else:
-                nd = walk_ops.walk_distance(self.queries_s, eng.score_src,
-                                            eng.metric, eng.base,
-                                            walk_ops.GATHER, idx=fresh_ids,
-                                            x_sqnorm=eng.sqnorm,
-                                            score_scale=eng.score_scale)
+            nd = self._score(sel_ids, torch.where(fresh, flat, -1))
 
         with mark("walk.merge"):
-            self._merge(active, best_pop_d, frontier_worse, flat, nd)
+            self._binned_merge(active, best_pop_d, frontier_worse, flat, nd)
 
-    def _merge(self, active, best_pop_d, frontier_worse, flat, nd) -> None:
-        """Spare injection, the merge of beam and candidates into the top
-        L, and the counters: the body's last phase."""
+    def _binned_merge(self, active, best_pop_d, frontier_worse, flat,
+                      nd) -> None:
+        """Spare injection, the binned merge of beam and candidates into
+        the top L, and the counters: the binned body's last phase."""
         L, N = self.L, self.eng.n
         Q = self.queries.shape[0]
-        # ---- inject spare pivots when the frontier falls behind the next
-        # one, or the nbp counter would trip with budget left
         flat_m = flat
         trigger = None
         if self.use_spares:
-            Ps = self.Ps
-            ptr = self.ptr
-            next_d = torch.gather(self.spare_d, 1,
-                                  ptr.clamp_max(Ps - 1)[:, None])[:, 0]
-            stalled = self.no_better + 1 >= self.nbp_limit
-            trigger = active & (ptr < self.n_spare) & (
-                (best_pop_d > next_d) | stalled)
-            idxs = ptr[:, None] + self._arange_inject[None, :self.inject]
-            ok = trigger[:, None] & (idxs < Ps)
-            safe = idxs.clamp_max(Ps - 1)
-            inj_ids = torch.where(ok, torch.gather(self.spare_ids, 1, safe),
-                                  -1)
-            inj_d = torch.where(ok & (inj_ids >= 0),
-                                torch.gather(self.spare_d, 1, safe), MAX_DIST)
-            self.ptr = torch.where(trigger, ptr + self.inject, ptr)
+            trigger, inj_ids, inj_d, self.ptr = walk_body.spare_injection(
+                self.spare_ids, self.spare_d, self.n_spare, self.ptr,
+                self.no_better, active, best_pop_d, self.nbp_limit,
+                self._arange_inject[:self.inject])
             nd = torch.cat([nd, inj_d], dim=1)
             flat_m = torch.cat([flat, inj_ids], dim=1)
 
@@ -494,30 +524,22 @@ class _Walk:
             [self.expanded[:, :L],
              torch.zeros((Q, all_d.shape[1] - L), dtype=torch.bool,
                          device=all_d.device)], dim=1)
-        if self.merge_bins:
-            vals, cols = topk_bins.bin_shortlist(all_d, self.merge_bins)
-            sh_ids = torch.gather(all_ids, 1, cols)
-            sh_exp = torch.gather(all_exp, 1, cols)
-            cand_d, mpos = dist_ops.smallest_k(vals, L)
-            cand_ids = torch.gather(sh_ids, 1, mpos)
-            cand_ids = torch.where(cand_d < MAX_DIST, cand_ids, -1)
-            new_exp = torch.gather(sh_exp, 1, mpos)
-            # copies from several parents of one iteration carry equal
-            # distances: keep the better-ranked one, void the rest
-            safe_ids = torch.where(cand_ids >= 0, cand_ids, N)
-            dup = _sorted_dup_mask(safe_ids) & (cand_ids >= 0)
-            self.cand_ids = torch.where(dup, -1, cand_ids)
-            self.cand_d = torch.where(dup, MAX_DIST, cand_d)
-            self.expanded = torch.cat([new_exp | dup, self._zero_col], dim=1)
-            # lazy marking: beam entrants only
-            self.visited.scatter_(1, safe_ids, True)
-        else:
-            cand_d, mpos = dist_ops.smallest_k(all_d, L)
-            self.cand_d = cand_d
-            self.cand_ids = torch.where(cand_d < MAX_DIST,
-                                        torch.gather(all_ids, 1, mpos), -1)
-            self.expanded = torch.cat(
-                [torch.gather(all_exp, 1, mpos), self._zero_col], dim=1)
+        vals, cols = topk_bins.bin_shortlist(all_d, self.merge_bins)
+        sh_ids = torch.gather(all_ids, 1, cols)
+        sh_exp = torch.gather(all_exp, 1, cols)
+        cand_d, mpos = dist_ops.smallest_k(vals, L)
+        cand_ids = torch.gather(sh_ids, 1, mpos)
+        cand_ids = torch.where(cand_d < MAX_DIST, cand_ids, -1)
+        new_exp = torch.gather(sh_exp, 1, mpos)
+        # copies from several parents of one iteration carry equal
+        # distances: keep the better-ranked one, void the rest
+        safe_ids = torch.where(cand_ids >= 0, cand_ids, N)
+        dup = _sorted_dup_mask(safe_ids) & (cand_ids >= 0)
+        self.cand_ids = torch.where(dup, -1, cand_ids)
+        self.cand_d = torch.where(dup, MAX_DIST, cand_d)
+        self.expanded = torch.cat([new_exp | dup, self._zero_col], dim=1)
+        # lazy marking: beam entrants only
+        self.visited.scatter_(1, safe_ids, True)
 
         # non-live rows freeze their counter
         nb = torch.where(active,
@@ -703,6 +725,8 @@ class GraphSearchEngine:
         #: replayed graph runs all T: a finished row is a no-op there; a
         #: segmented search counts S per segment)
         self.last_iterations = 0
+        #: of those, the iterations that ran the exact body's kernels
+        self.last_fused_iterations = 0
         # CUDA graphs of small-chunk walks, by (shapes, plan), oldest first
         self._graphs = collections.OrderedDict()
         self._graph_lock = threading.Lock()
@@ -818,6 +842,12 @@ class GraphSearchEngine:
         exact), by the shared rule topk_bins.walk_merge_bins."""
         return topk_bins.walk_merge_bins(
             self.binned_mode, L, L + B * int(self.graph.shape[1]))
+
+    @staticmethod
+    def fused_body(device, merge_bins: int) -> bool:
+        """Whether a walk on `device` runs the exact body's kernels
+        (ops/walk_body.py): on the card and not binned."""
+        return torch.device(device).type == "cuda" and not merge_bins
 
     def seed_keep_for(self, L: int) -> int:
         """Spare-queue depth of the binned seeding (0 = exact seeding)."""
@@ -1014,7 +1044,8 @@ class GraphSearchEngine:
                             device=self.device)
         out_i = torch.zeros((nq, k_eff), dtype=torch.int32,
                             device=self.device)
-        self.last_iterations = 0
+        self.last_iterations = self.last_fused_iterations = 0
+        fused = self.fused_body(self.device, self.merge_bins_for(L, B))
         for start in range(0, nq, chunk):
             q = queries[start:start + chunk]
             nqc = q.shape[0]
@@ -1042,7 +1073,7 @@ class GraphSearchEngine:
                     state, alive = self.run_segment(state, t_limit, k_eff,
                                                     L, B, limit, S,
                                                     inject=inject)
-                    self.last_iterations += S
+                    self._count_iterations(S, fused)
                     # the segment loop's continue flag: its intended sync
                     with trace.span("walk.alive_check"):
                         any_alive = bool(recompile_guard.device_get(
@@ -1056,6 +1087,11 @@ class GraphSearchEngine:
         return out_d, out_i
 
     # ---- search -------------------------------------------------------------
+
+    def _count_iterations(self, n: int, fused: bool) -> None:
+        self.last_iterations += n
+        if fused:
+            self.last_fused_iterations += n
 
     def _walk_chunk(self, queries, seeds, plan, check_alive: bool = True):
         """Seed, walk and finalize one chunk on the device: ((Q, k') dists,
@@ -1090,15 +1126,17 @@ class GraphSearchEngine:
             if out is not None:
                 return out
         d, ids, its = self._walk_chunk(queries, s, plan)
-        self.last_iterations += its
+        self._count_iterations(its, self.fused_body(self.device, plan[6]))
         return d, ids
 
     def _replay_chunk(self, queries, seeds, plan
                       ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
         """A small chunk on the card replays a CUDA graph of the whole
         walk — seeding, all T iterations, finalize — captured per (padded
-        shape, plan) on this snapshot: one launch instead of ~3,500 small
-        ones, which bound such searches (phase 9 of chip_smoke.py).  The
+        shape, plan) on this snapshot: one launch instead of ~150 small
+        ones (three a body: pop and expand, scoring, merge; ~3,100 before
+        the body's glue became ops/walk_body.py's kernels), which bound
+        such searches (phase 9 of chip_smoke.py).  The
         chunk is padded to its bucket with copies of its first row (rows
         walk independently).  A key is captured the second time it is
         asked for (None the first time: the caller walks eagerly), so a
@@ -1145,7 +1183,8 @@ class GraphSearchEngine:
                 s_in.copy_(seeds)
             with capture_lock:       # not while the profiler starts / stops
                 graph.replay()
-            self.last_iterations += plan[3]
+            self._count_iterations(plan[3],
+                                   self.fused_body(self.device, plan[6]))
             # the static outputs are the next replay's: copies leave with
             # the caller
             return d_out[:nq].clone(), i_out[:nq].clone()
@@ -1222,7 +1261,7 @@ class GraphSearchEngine:
             plan = (k_eff, L, B, T, limit, dynamic_pivots,
                     self.merge_bins_for(L, B),
                     self.finalize_bins_for(k_eff, L), self.seed_keep_for(L))
-            self.last_iterations = 0
+            self.last_iterations = self.last_fused_iterations = 0
             for lo in range(0, nq, chunk):
                 s = None if seeds is None else seeds[lo:lo + chunk]
                 d, ids = self._search_chunk(queries[lo:lo + chunk], s,
