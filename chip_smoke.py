@@ -82,7 +82,13 @@ Phases, in the order they run:
 10. KDT (``bench.py``'s ``build_headline_kdt``: 50,000 x 100 cosine,
    ``KDTNumber=2``, the graph parameters): the kd-seeded walk's and the
    dense scan's (``DenseReplicas=2``) recall@10 over 200 queries held to
-   ``KDT_RECALL_MIN``, save and load, 1,000 adds and 100 deletes;
+   ``KDT_RECALL_MIN``, save and load, 1,000 adds and 100 deletes; the
+   kd descent on the card (``ops/kd_descent.py``): the kernel's seeds
+   equal to the plain version's, each (query, tree) the host descent's
+   leaves, the walk seeded on the card returning the host-seeded walk's
+   ids eager and replayed, single queries replayed with the descent
+   inside the graph (no launch from the host) and
+   ``search.kd_node_reads`` read once from the card;
 6. where a search batch's time goes: ``torch.profiler`` device time by
    kernel for one batch of each configuration (f32 per-query and grouped,
    int8 grouped and per-query, f32 beam exact and binned, FLAT's cascade
@@ -1099,6 +1105,62 @@ def dense_add_phase(pt, data, queries):
     didx.close()
 
 
+KD_SINGLE_CALLS = 10      # single KDT queries replayed in phase 10
+
+
+def kd_descent_checks(kidx, kq) -> dict:
+    """Phase 10's kd descent on the card, on the built KDT index."""
+    from sptag_tpu_torch.algo import engine as teng
+    from sptag_tpu_torch.ops import kd_descent
+    from sptag_tpu_torch.utils import metrics
+
+    eng = kidx._get_engine()
+    p = kidx.params
+    bt = kidx._backtrack_for(p.max_check)
+    trees = int(eng.kd_starts.shape[0])
+    qp = kidx._prepare_query(kq)
+    qd = torch.from_numpy(qp).to(eng.device)
+    card = eng.kd_seeds(qd, bt).cpu()
+    plain = kd_descent.kd_seeds(qd.cpu(), eng.kd_nodes.cpu(),
+                                eng.kd_starts.cpu(), bt)
+    host = kidx._tree.collect_seeds(qp, backtrack=bt)
+
+    def groups(x):
+        return np.sort(np.asarray(x).reshape(len(x), trees, 1 + bt), axis=2)
+    kw = dict(max_check=p.max_check, beam_width=getattr(p, "beam_width", 16),
+              nbp_limit=p.no_better_propagation_limit)
+    want = eng.search(qp, K, seeds=host, **kw)
+    old = teng._GRAPH_MAX_Q
+    teng._GRAPH_MAX_Q = 0                   # the eager walk
+    try:
+        eager = eng.search(qp, K, kd_backtrack=bt, **kw)
+    finally:
+        teng._GRAPH_MAX_Q = old
+    replayed = [eng.search(qp[:64], K, kd_backtrack=bt, **kw)
+                for _ in range(3)]          # eager, capture, replay
+    for _ in range(2):                      # a single query's key
+        kidx.search_batch(kq[:1], K)
+    teng.reset_graph_stats()
+    kd_descent.reset_launch_counts()
+    torch.cuda.synchronize()
+    before = int(eng.kd_reads.cpu()[0])
+    for _ in range(KD_SINGLE_CALLS):
+        kidx.search_batch(kq[:1], K)
+    single_reads = int(eng.kd_reads.cpu()[0]) - before
+    return {"backtrack": bt, "trees": trees, "depth": eng.kd_depth,
+            "seeds_equal_plain": bool(torch.equal(card, plain)),
+            "groups_equal_host": bool(np.array_equal(groups(card),
+                                                     groups(host))),
+            "eager_ids_equal": bool(np.array_equal(eager[1], want[1])),
+            "replayed_ids_equal": all(
+                np.array_equal(r[1], want[1][:64]) for r in replayed),
+            "single_replays": teng.graph_stats().get(
+                str(eng.device), {}).get("walk_replays", 0),
+            "single_host_launches": kd_descent.launch_counts()["kd_descent"],
+            "single_reads": single_reads,
+            "node_reads": metrics.counter_value("search.kd_node_reads")}
+
+
 def kdt_phase(pt, block_dots, dist_ops, workdir):
     """Phase 10: bench.py's KDT configuration (build_headline_kdt): 50,000
     x 100 float cosine, KDTNumber=2, the graph parameters; the kd-seeded
@@ -1127,6 +1189,7 @@ def kdt_phase(pt, block_dots, dist_ops, workdir):
     kidx.search_batch(kq, K)                         # builds the engine
     ids_b, times_b = timed_batches(kidx, kq, len(kq), BEAM_PASSES * 4)
     recall_b = recall_at_k(ids_b, truth)
+    kd_card = kd_descent_checks(kidx, kq)
     kidx.set_parameter("SearchMode", "dense")
     kidx.set_parameter("DenseReplicas", "2")
     block_dots.reset_launch_counts()
@@ -1160,6 +1223,7 @@ def kdt_phase(pt, block_dots, dist_ops, workdir):
                                "first_batch_s": first_dense_s,
                                **batch_stats(times_d, len(kq)),
                                "launches": dense_launches},
+          "kd_descent": kd_card,
           "jax_recall": JAX_KDT_RECALL, "save_load_ids_equal": same,
           "add_delete_s": mutate_s, "deleted": len(dead),
           "added_found_by_beam": found,
@@ -1169,6 +1233,14 @@ def kdt_phase(pt, block_dots, dist_ops, workdir):
     check(recall_d >= KDT_RECALL_MIN,
           f"10: KDT dense recall@10 {recall_d} < {KDT_RECALL_MIN}")
     check(same, "10: KDT beam ids differ after save -> load")
+    check(kd_card["seeds_equal_plain"] and kd_card["groups_equal_host"],
+          f"10: the kd descent kernel's seeds differ {kd_card}")
+    check(kd_card["eager_ids_equal"] and kd_card["replayed_ids_equal"],
+          f"10: the card-seeded walk's ids differ {kd_card}")
+    check(kd_card["single_replays"] == KD_SINGLE_CALLS
+          and kd_card["single_host_launches"] == 0
+          and kd_card["node_reads"] >= kd_card["single_reads"] > 0,
+          f"10: single KDT queries did not replay the descent {kd_card}")
     check(len(dead) >= 90 and not np.isin(ids_k, dead).any(),
           f"10: {len(dead)} of 100 deleted, or deleted ids returned")
     check(dense_launches["probe_block_dots_f32"]

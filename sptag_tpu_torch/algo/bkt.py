@@ -459,7 +459,13 @@ class BKTIndex(VectorIndex):
             device=self.device,
             device_sample_rate=float(getattr(
                 p, "flight_device_sample_rate", 0.0)),
-            roofline_probe=bool(int(getattr(p, "roofline_probe", 0))))
+            roofline_probe=bool(int(getattr(p, "roofline_probe", 0))),
+            kd_forest=self._kd_forest())
+
+    def _kd_forest(self):
+        """The (nodes, tree starts) a snapshot's engine puts on its device
+        to seed from (KDT's kd forest); None seeds from the pivots."""
+        return None
 
     def _get_engine(self) -> GraphSearchEngine:
         """Pin the current engine snapshot: readers take one unlocked
@@ -576,13 +582,14 @@ class BKTIndex(VectorIndex):
                 self._scheduler_submit(queries, k, max_check), k)
         seg = int(getattr(p, "beam_segment_iters", 0))
         engine = self._get_engine()
+        kd = self._kd_backtrack(engine, max_check)
         out = engine.search_tensors(
             queries, k, max_check=max_check,
             beam_width=getattr(p, "beam_width", 16),
             nbp_limit=p.no_better_propagation_limit,
-            seeds=self._walk_seeds(queries, max_check),
+            seeds=None if kd else self._walk_seeds(queries, max_check),
             dynamic_pivots=p.other_dynamic_pivots,
-            segment_iters=seg or None)
+            segment_iters=seg or None, kd_backtrack=kd)
         metrics.inc("search.walk_bodies", engine.last_iterations)
         metrics.inc("search.walk_fused_bodies", engine.last_fused_iterations)
         return out
@@ -592,6 +599,13 @@ class BKTIndex(VectorIndex):
         """Per-query seeds of the walk (KDT's kd-tree descent); None
         seeds every query from the shared pivots."""
         return None
+
+    def _kd_backtrack(self, engine: GraphSearchEngine,
+                      max_check: int) -> int:
+        """Other branches a tree that `engine` descends its kd forest for
+        on its device, the walk's first step (KDT); 0 seeds as
+        `_walk_seeds` says."""
+        return 0
 
     def _get_scheduler(self) -> BeamSlotScheduler:
         """The slot scheduler over the current engine snapshot, made at

@@ -8,10 +8,13 @@ improve the top-k.  Here a query batch walks together:
 * seeding: one (Q, P) distance matrix against the pivot set collected
   from the BKT forest; the top-L pivots fill each query's beam, the rest
   form a sorted spare queue injected mid-walk when the frontier falls
-  behind it or stalls (SPTAG's SearchTrees refill).  KDT passes per-query
-  ``seeds`` instead (its kd-tree descent, trees/kdtree.py): they are
-  de-duplicated, marked visited and scored as one batched contraction,
-  and the walk runs without spares;
+  behind it or stalls (SPTAG's SearchTrees refill).  KDT seeds per
+  query instead, from its kd forest: host ``seeds`` (trees/kdtree.py's
+  descent), or, on an engine made with the forest (``kd_forest``) and a
+  search given ``kd_backtrack``, the descent on the engine's device
+  (ops/kd_descent.py) as the walk's first step, inside a captured graph
+  too.  The seeds are de-duplicated, marked visited and scored as one
+  batched contraction, and the walk runs without spares;
 * each iteration pops the best B unexpanded beam entries at once, gathers
   their B*m neighbours, drops those already visited, scores the rest as
   one batched contraction and merges beam + candidates into the top-L;
@@ -47,7 +50,9 @@ the readback: the (Q, k) distances and ids stay on the engine's card.
 The walk's stages are spans (utils/trace.py), which every live
 ``torch.profiler`` session sees: per chunk ``walk.upload`` and either
 ``walk.seed``, ``walk.iterate`` and ``walk.finalize`` (the eager walk)
-or ``walk.replay`` (a graph's copy-in, replay and clones); every
+or ``walk.replay`` (a graph's copy-in, replay and clones), and
+``walk.kd_seeds`` before ``walk.seed`` when the eager walk descends the
+kd forest; every
 ``_ALIVE_CHECK`` eager bodies ``walk.alive_check``; and per eager body,
 while a ``torch.profiler`` session is live, ``walk.pop``, ``walk.expand``
 (the neighbour gather and the visited test), ``walk.score`` and
@@ -114,6 +119,7 @@ from sptag_tpu_torch.core.types import DistCalcMethod
 from sptag_tpu_torch.device import DeviceLike, resolve_device
 from sptag_tpu_torch.ops import cascade as cascade_ops
 from sptag_tpu_torch.ops import distance as dist_ops
+from sptag_tpu_torch.ops import kd_descent
 from sptag_tpu_torch.ops import walk_body
 from sptag_tpu_torch.ops import walk_dots as walk_ops
 from sptag_tpu_torch.ops import topk_bins
@@ -627,11 +633,14 @@ class GraphSearchEngine:
                  device: DeviceLike = None,
                  device_sample_rate: float = 0.0,
                  roofline_probe: bool = False,
-                 quantized: Optional[Tuple[np.ndarray, float]] = None):
+                 quantized: Optional[Tuple[np.ndarray, float]] = None,
+                 kd_forest: Optional[Tuple[np.ndarray, np.ndarray]] = None):
         """`quantized` (int8 rows, scale): the cascade's quantization when
         the caller made it over a larger corpus (a mesh quantizes all its
         shards with one scale, parallel/sharded.py); None quantizes
-        `data`."""
+        `data`.  `kd_forest` (KDTNode records, tree starts): a KDT index's
+        forest, put on the device beside the rows and the graph, from
+        which a search given ``kd_backtrack`` seeds its walk."""
         n = data.shape[0]
         assert graph.shape[0] == n, (graph.shape, n)
         self.device = resolve_device(device)
@@ -715,6 +724,23 @@ class GraphSearchEngine:
         # computed once a snapshot (a swap, a compaction or a load builds a
         # new engine): seeding reads them every walk
         self.pivot_sqnorm = walk_ops.row_sqnorms(self.pivot_vecs)
+        #: the kd forest on the device: (M, 4) int32 node words, (trees,)
+        #: int32 roots, its depth, and the (1,) int64 count of node
+        #: records its descents read (``search.kd_node_reads``)
+        self.kd_nodes = self.kd_starts = self.kd_reads = None
+        self.kd_depth = 0
+        if kd_forest is not None:
+            words = kd_descent.forest_words(kd_forest[0])
+            starts = np.asarray(kd_forest[1], np.int32)
+            self.kd_nodes, self.kd_starts = put(words), put(starts)
+            self.kd_depth = kd_descent.forest_depth(words, starts)
+            self.kd_reads = torch.zeros(1, dtype=torch.int64,
+                                        device=self.device)
+            kd_reads = self.kd_reads
+            # read when the registry is: no sync of its own a search
+            metrics.register_source(
+                "search.kd_node_reads", self,
+                lambda: int(recompile_guard.device_get(kd_reads)[0]))
         # packed neighbours in the scoring dtype; a -1 slot points at row 0
         self.nbr_vecs = self.nbr_sq = None
         if packed_neighbors:
@@ -771,8 +797,8 @@ class GraphSearchEngine:
             devmem.track("corpus", self, corpus, cards=on_card(corpus))
         devmem.track("graph", self, parts["graph"],
                      cards=on_card(parts["graph"]))
-        devmem.track("tree", self, parts["pivots"],
-                     cards=on_card(parts["pivots"]))
+        tree = parts["pivots"] + parts.get("kd_forest", 0)
+        devmem.track("tree", self, tree, cards=on_card(tree))
         if "packed_neighbors" in parts:
             devmem.track("packed_neighbors", self,
                          parts["packed_neighbors"],
@@ -802,6 +828,9 @@ class GraphSearchEngine:
         if self.nbr_vecs is not None:
             out["packed_neighbors"] = (self.nbr_vecs.nbytes
                                        + self.nbr_sq.nbytes)
+        if self.kd_nodes is not None:
+            out["kd_forest"] = (self.kd_nodes.nbytes + self.kd_starts.nbytes
+                                + self.kd_reads.nbytes)
         return out
 
     def exact_scan(self, queries: np.ndarray, k: int
@@ -883,6 +912,15 @@ class GraphSearchEngine:
             self.data, self.sqnorm, seeds, queries, L, int(self.metric),
             self.base, self.score_scale)
         return _init_state(queries, cand_ids, cand_d, visited)
+
+    def kd_seeds(self, queries: torch.Tensor, backtrack: int
+                 ) -> torch.Tensor:
+        """The (Q, trees * (1 + backtrack)) int64 seeds of the (Q, D)
+        device `queries` from this snapshot's kd forest, on its device
+        (ops/kd_descent.py); the node records read add into `kd_reads`."""
+        return kd_descent.kd_seeds(queries, self.kd_nodes, self.kd_starts,
+                                   backtrack, depth=self.kd_depth,
+                                   reads=self.kd_reads)
 
     def run_segment(self, state: dict, t_limit: torch.Tensor, k_eff: int,
                     L: int, B: int, nbp_limit: int, S: int,
@@ -1033,12 +1071,13 @@ class GraphSearchEngine:
     def _search_segmented(self, queries: np.ndarray,
                           seeds: Optional[np.ndarray], k_eff: int, L: int,
                           B: int, T: int, limit: int, inject: int,
-                          chunk: int, S: int
+                          chunk: int, S: int, kd_backtrack: int = 0
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
         """search() as repeated segments of at most S iterations
         (BeamSegmentIters), the results of the monolithic walk bit for
         bit.  Chunks pad to `utils.query_bucket` with zero rows whose
-        `t_limit` is 0: never alive, bit-frozen no-ops."""
+        `t_limit` is 0: never alive, bit-frozen no-ops.  `kd_backtrack` > 0
+        (with `seeds` None) seeds each chunk from the kd forest."""
         nq, D = queries.shape
         out_d = torch.zeros((nq, k_eff), dtype=torch.float32,
                             device=self.device)
@@ -1063,6 +1102,9 @@ class GraphSearchEngine:
                     s = torch.from_numpy(s).to(self.device)
                 qd = torch.from_numpy(np.ascontiguousarray(q)).to(
                     self.device)
+            if kd_backtrack:
+                with trace.span("walk.kd_seeds"):
+                    s = self.kd_seeds(qd, kd_backtrack)
             with trace.span("walk.seed"):
                 state = self.seed_state(qd, L, seeds=s)
                 t_limit = torch.zeros(q_pad, dtype=torch.int64,
@@ -1093,13 +1135,18 @@ class GraphSearchEngine:
         if fused:
             self.last_fused_iterations += n
 
-    def _walk_chunk(self, queries, seeds, plan, check_alive: bool = True):
+    def _walk_chunk(self, queries, seeds, plan, check_alive: bool = True,
+                    kd_backtrack: int = 0):
         """Seed, walk and finalize one chunk on the device: ((Q, k') dists,
         (Q, k') int32 ids, iterations run).  `seeds` is None or a (Q, S)
-        int64 tensor.  The eager walk's stages are spans; a walk being
+        int64 tensor; with None, `kd_backtrack` > 0 descends the kd forest
+        for them first.  The eager walk's stages are spans; a walk being
         captured (`check_alive` False) records none."""
         mark = trace.span if check_alive else _unmarked
         k_eff, L, B, T, limit, inject, mb, fb, sk = plan
+        if seeds is None and kd_backtrack:
+            with mark("walk.kd_seeds"):
+                seeds = self.kd_seeds(queries, kd_backtrack)
         with mark("walk.seed"):
             state = self.seed_state(queries, L, seeds)
             t_limit = torch.full((queries.shape[0],), T, dtype=torch.int64,
@@ -1114,7 +1161,8 @@ class GraphSearchEngine:
         return d, ids, its
 
     def _search_chunk(self, q: np.ndarray, seeds: Optional[np.ndarray],
-                      *plan) -> Tuple[torch.Tensor, torch.Tensor]:
+                      *plan, kd_backtrack: int = 0
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One chunk's ((Q, k') dists, (Q, k') int32 ids), on the card."""
         with trace.span("walk.upload"):
             queries = torch.from_numpy(np.ascontiguousarray(q)).to(
@@ -1122,14 +1170,15 @@ class GraphSearchEngine:
             s = None if seeds is None else \
                 torch.from_numpy(np.asarray(seeds, np.int64)).to(self.device)
         if self.device.type == "cuda" and q.shape[0] <= _GRAPH_MAX_Q:
-            out = self._replay_chunk(queries, s, plan)
+            out = self._replay_chunk(queries, s, plan, kd_backtrack)
             if out is not None:
                 return out
-        d, ids, its = self._walk_chunk(queries, s, plan)
+        d, ids, its = self._walk_chunk(queries, s, plan,
+                                       kd_backtrack=kd_backtrack)
         self._count_iterations(its, self.fused_body(self.device, plan[6]))
         return d, ids
 
-    def _replay_chunk(self, queries, seeds, plan
+    def _replay_chunk(self, queries, seeds, plan, kd_backtrack: int = 0
                       ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
         """A small chunk on the card replays a CUDA graph of the whole
         walk — seeding, all T iterations, finalize — captured per (padded
@@ -1148,7 +1197,8 @@ class GraphSearchEngine:
         nq, dim = queries.shape
         size = next(b for b in _GRAPH_BUCKETS + (nq,) if b >= nq)
         key = ((size, dim), queries.dtype,
-               None if seeds is None else (size, seeds.shape[1]), plan)
+               None if seeds is None else (size, seeds.shape[1]), plan,
+               kd_backtrack)
         with self._graph_lock:
             entry = self._graphs.get(key)
             if entry is None and key not in self._graph_seen:
@@ -1164,7 +1214,7 @@ class GraphSearchEngine:
             entry = self._graphs.get(key)
             if entry is None:
                 t0 = time.perf_counter()
-                entry = self._capture(queries, seeds, plan)
+                entry = self._capture(queries, seeds, plan, kd_backtrack)
                 if entry is None:
                     return None
                 # a capture is the port's compile (recompile_guard)
@@ -1189,15 +1239,18 @@ class GraphSearchEngine:
             # the caller
             return d_out[:nq].clone(), i_out[:nq].clone()
 
-    def _capture(self, queries, seeds, plan):
+    def _capture(self, queries, seeds, plan, kd_backtrack: int = 0):
         """The graph and its static buffers, or None while a profile runs
-        (the caller walks eagerly; the key is captured on a later call)."""
+        (the caller walks eagerly; the key is captured on a later call).
+        With `kd_backtrack` > 0 the kd descent is the graph's first
+        kernel."""
         if trace.tracing():
             return None
         q_in = queries.clone()
         s_in = None if seeds is None else seeds.clone()
         graph, out = capture_on(self.device, lambda: self._walk_chunk(
-            q_in, s_in, plan, check_alive=False))
+            q_in, s_in, plan, check_alive=False,
+            kd_backtrack=kd_backtrack))
         if graph is None:
             return None
         _note_graph(self.device, "walk_captures")
@@ -1209,29 +1262,36 @@ class GraphSearchEngine:
                beam_width: int = 16, pool_size: Optional[int] = None,
                nbp_limit: int = 3, seeds: Optional[np.ndarray] = None,
                dynamic_pivots: int = 4,
-               segment_iters: Optional[int] = None
-               ) -> Tuple[np.ndarray, np.ndarray]:
+               segment_iters: Optional[int] = None,
+               kd_backtrack: int = 0) -> Tuple[np.ndarray, np.ndarray]:
         """Batched search -> ((Q, k) dists, (Q, k) int32 ids), ascending,
         -1 / MAX_DIST padded.  `dynamic_pivots` spare pivots are injected
         per mid-walk re-seed (NumberOfOtherDynamicPivots; 0 disables).
         `seeds` (Q, S), -1 padded, replaces the shared pivot seeding with
-        per-query seed ids (KDT).  `segment_iters` > 0 runs the walk as
-        segments of that many iterations (state kept between them), with
-        the same results bit for bit."""
+        per-query seed ids (KDT); so does `kd_backtrack` > 0 on an engine
+        made with its kd forest, the seeds then descended on the engine's
+        device with that many other branches a tree.  `segment_iters` > 0
+        runs the walk as segments of that many iterations (state kept
+        between them), with the same results bit for bit."""
         return recompile_guard.device_get(self.search_tensors(
             queries, k, max_check, beam_width, pool_size, nbp_limit, seeds,
-            dynamic_pivots, segment_iters))
+            dynamic_pivots, segment_iters, kd_backtrack))
 
     def search_tensors(self, queries: np.ndarray, k: int,
                        max_check: int = 2048, beam_width: int = 16,
                        pool_size: Optional[int] = None, nbp_limit: int = 3,
                        seeds: Optional[np.ndarray] = None,
                        dynamic_pivots: int = 4,
-                       segment_iters: Optional[int] = None
+                       segment_iters: Optional[int] = None,
+                       kd_backtrack: int = 0
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """`search` without the readback: the (Q, k) float32 distances and
         int32 ids as tensors on this engine's card (a mesh merges its
         shards' there, parallel/sharded.py)."""
+        kd = int(kd_backtrack) if seeds is None else 0
+        if kd and self.kd_nodes is None:
+            raise ValueError("kd_backtrack: this engine was made without "
+                             "a kd forest")
         queries = np.asarray(queries)
         if queries.ndim == 1:
             queries = queries[None, :]
@@ -1254,7 +1314,7 @@ class GraphSearchEngine:
             if segment_iters:
                 d, ids = self._search_segmented(
                     queries, seeds, k_eff, L, B, T, limit, dynamic_pivots,
-                    chunk, int(segment_iters))
+                    chunk, int(segment_iters), kd_backtrack=kd)
                 out_d[:, :k_eff] = d
                 out_i[:, :k_eff] = ids
                 return out_d, out_i
@@ -1265,7 +1325,7 @@ class GraphSearchEngine:
             for lo in range(0, nq, chunk):
                 s = None if seeds is None else seeds[lo:lo + chunk]
                 d, ids = self._search_chunk(queries[lo:lo + chunk], s,
-                                            *plan)
+                                            *plan, kd_backtrack=kd)
                 out_d[lo:lo + chunk, :d.shape[1]] = d
                 out_i[lo:lo + chunk, :ids.shape[1]] = ids
         return out_d, out_i

@@ -6,11 +6,19 @@ forest (trees/kdtree.py, host numpy, the JAX package's draws) replaces the
 k-means forest, the same RNG graph is built over the corpus, and a search
 descends the kd-trees per query — the greedy leaf plus the ``backtrack``
 lowest-bound other branches of each tree — and seeds the walk with those
-leaves (`_walk_seeds`, ``engine.search(seeds=...)``).  ``SearchMode=dense`` runs the
-block-dot kernels over a kd-cell partition (`partition_from_kdtree`).
-Storage, mutation, the delta shard, persistence and the slot scheduler
-are BKTIndex's; with ``ContinuousBatching=1`` each query rides the
-scheduler with its kd-tree seeds.
+leaves.  On the card the descent is the walk's first kernel
+(ops/kd_descent.py): each engine snapshot on a card holds the forest
+there (`_kd_forest`), and a search passes ``kd_backtrack``
+(`_kd_backtrack`),
+so a small batch's captured walk holds it and the search uploads only its
+queries.  On the CPU the walk takes the host descent's seeds
+(`_walk_seeds`, ``engine.search(seeds=...)``), in the order the JAX
+package's descent gives them, which its parity tests hold on tied rows.
+``SearchMode=dense`` runs the block-dot kernels over a kd-cell partition
+(`partition_from_kdtree`).  Storage, mutation, the delta shard,
+persistence and the slot scheduler are BKTIndex's; with
+``ContinuousBatching=1`` each query rides the scheduler with its host
+kd-tree seeds.
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
 from sptag_tpu_torch.algo.bkt import BKTIndex
 from sptag_tpu_torch.algo.dense import partition_from_kdtree
@@ -65,6 +74,19 @@ class KDTIndex(BKTIndex):
         trees = max(p.tree_number, 1)
         per_tree = max(max_check // 10, p.initial_dynamic_pivots) // trees
         return int(np.clip(per_tree, _MIN_BACKTRACK, 64))
+
+    def _kd_forest(self):
+        # the card descends the forest; the CPU seeds on the host
+        tree = self._tree
+        if (torch.device(self.device).type != "cuda" or tree is None
+                or tree.num_nodes == 0):
+            return None
+        return tree.nodes, tree.tree_starts
+
+    def _kd_backtrack(self, engine, max_check: int) -> int:
+        if engine.kd_nodes is None:
+            return 0
+        return self._backtrack_for(max_check)
 
     def _walk_seeds(self, queries: np.ndarray,
                     max_check: Optional[int] = None) -> np.ndarray:

@@ -12,6 +12,10 @@ accounting.  This module is the process-wide registry everything feeds:
   bounds grow by a factor of ~1.3 from 1 µs, so any quantile estimate is
   within 30% of the true value while `observe()` stays one bisect + one
   locked array increment (cheap enough for per-request paths);
+* counter sources (`register_source`) — counts kept elsewhere, such as
+  an accumulator on the card that kernels add into, folded into their
+  counter when the registry is read, so counting costs the hot path no
+  device sync;
 * `render_prometheus()` — the text exposition format served by
   `serve/metrics_http.py`;
 * request-id context: a `contextvars.ContextVar` + `RequestIdLogFilter`
@@ -36,8 +40,10 @@ import collections
 import contextvars
 import logging
 import re
+import itertools
 import threading
 import time
+import weakref
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 log = logging.getLogger(__name__)
@@ -304,7 +310,54 @@ def observe(name: str, value: float) -> None:
     histogram(name).observe(value)
 
 
+# counter sources: id -> [counter name, read(), total already folded]
+_src_lock = threading.Lock()
+_sources: Dict[int, list] = {}
+_retired: List[list] = []
+_source_ids = itertools.count()
+
+
+def register_source(name: str, owner, read: Callable[[], int]) -> None:
+    """Fold the running total `read()` returns into the counter `name`:
+    its growth since the last fold, whenever the registry is read
+    (`counter_value` of `name`, `snapshot`, `render_prometheus`).  When
+    `owner` is collected the source is folded once more at the next read,
+    or the next registration, and dropped; `read` must not hold `owner`
+    (it may hold a device tensor, which then lives until that fold)."""
+    _fold_sources(live=False)
+    key = next(_source_ids)
+    with _src_lock:
+        _sources[key] = [name, read, 0]
+    weakref.finalize(owner, _retire_source, key).atexit = False
+
+
+def _retire_source(key: int) -> None:
+    # a finalizer: no device work here (it may run inside a capture)
+    with _src_lock:
+        entry = _sources.pop(key, None)
+        if entry is not None:
+            _retired.append(entry)
+
+
+def _fold_sources(name: Optional[str] = None, live: bool = True) -> None:
+    """Fold the sources of counter `name` (all when None); with `live`
+    False only those whose owner was collected."""
+    with _src_lock:
+        current = [e for e in _sources.values()
+                   if live and name in (None, e[0])]
+        done = [e for e in _retired if name in (None, e[0])]
+        _retired[:] = [e for e in _retired if name not in (None, e[0])]
+    for entry in current + done:
+        total = int(entry[1]())
+        with _src_lock:            # totals only grow; a later read wins
+            delta = max(total - entry[2], 0)
+            entry[2] = max(total, entry[2])
+        if delta:
+            inc(entry[0], delta)
+
+
 def counter_value(name: str) -> int:
+    _fold_sources(name)
     with _reg_lock:
         c = _counters.get(name)
     return c.value if c is not None else 0
@@ -329,6 +382,7 @@ def reset() -> None:
 
 def snapshot() -> Dict[str, Dict]:
     """Plain-data view of the whole registry."""
+    _fold_sources()
     with _reg_lock:
         counters = dict(_counters)
         gauges = dict(_gauges)
@@ -367,6 +421,7 @@ def render_prometheus(prefix: str = "sptag_tpu") -> str:
     """Registry in Prometheus text format 0.0.4.  Histograms export the
     standard cumulative `_bucket{le=...}` / `_sum` / `_count` triple with
     a `_seconds` unit suffix (every histogram here is a latency)."""
+    _fold_sources()
     with _reg_lock:
         counters = sorted(_counters.items())
         gauges = sorted(_gauges.items())
