@@ -45,7 +45,15 @@ Phases, in the order they run:
    (``block_reads``: tiles of at most ``TILE_ENTRIES`` entries, from the
    ids on the host and from the CUDA prep's tile table) beside the distinct
    blocks and a probe-major design's reads, and times the entry-list prep
-   alone (``prep_ms_back_to_back``);
+   alone (``prep_ms_back_to_back``); the ``walk_resident`` row holds the
+   resident walk (one launch for all of a captured walk's bodies) and T
+   three-launch bodies against T plain bodies at the single-query cell's
+   plan on phase 7's engine, bit for bit, with the kernels' device and
+   elapsed times a walk, each cluster size's (1, 2, 4, 8 CTAs a row, at
+   4, 16 and 256 rows), the size the rule picks, and ptxas's registers,
+   shared memory and spills, then a single query on phase 7's index
+   through ``search_batch``: from its capturing call on, two resident
+   launches, no body kernel, and every body walked resident;
 7. f32 graph headline: the same corpus and queries, BKT with the RNG graph
    (``BuildGraph=1``) at ``bench.py``'s graph parameters; the build's stage
    seconds and block-dot launches, mean degree and orphans; beam search in
@@ -87,7 +95,8 @@ Phases, in the order they run:
    equal to the plain version's, each (query, tree) the host descent's
    leaves, the walk seeded on the card returning the host-seeded walk's
    ids eager and replayed, single queries replayed with the descent
-   inside the graph (no launch from the host) and
+   inside the graph (no launch from the host) and their walk's bodies all
+   resident (two resident launches, none of a body kernel), and
    ``search.kd_node_reads`` read once from the card;
 6. where a search batch's time goes: ``torch.profiler`` device time by
    kernel for one batch of each configuration (f32 per-query and grouped,
@@ -1111,7 +1120,7 @@ KD_SINGLE_CALLS = 10      # single KDT queries replayed in phase 10
 def kd_descent_checks(kidx, kq) -> dict:
     """Phase 10's kd descent on the card, on the built KDT index."""
     from sptag_tpu_torch.algo import engine as teng
-    from sptag_tpu_torch.ops import kd_descent
+    from sptag_tpu_torch.ops import kd_descent, walk_body
     from sptag_tpu_torch.utils import metrics
 
     eng = kidx._get_engine()
@@ -1138,15 +1147,20 @@ def kd_descent_checks(kidx, kq) -> dict:
         teng._GRAPH_MAX_Q = old
     replayed = [eng.search(qp[:64], K, kd_backtrack=bt, **kw)
                 for _ in range(3)]          # eager, capture, replay
-    for _ in range(2):                      # a single query's key
-        kidx.search_batch(kq[:1], K)
-    teng.reset_graph_stats()
-    kd_descent.reset_launch_counts()
-    torch.cuda.synchronize()
-    before = int(eng.kd_reads.cpu()[0])
-    for _ in range(KD_SINGLE_CALLS):
-        kidx.search_batch(kq[:1], K)
-    single_reads = int(eng.kd_reads.cpu()[0]) - before
+    kidx.search_batch(kq[:1], K)            # eager: the key is seen
+    with CapturedWalkCounts(walk_body) as captured:
+        kidx.search_batch(kq[:1], K)        # captured and replayed
+        kd_descent.reset_launch_counts()
+        torch.cuda.synchronize()
+        replays = teng.graph_stats().get(str(eng.device), {}).get(
+            "walk_replays", 0)
+        before = int(eng.kd_reads.cpu()[0])
+        for _ in range(KD_SINGLE_CALLS):
+            kidx.search_batch(kq[:1], K)
+        single_reads = int(eng.kd_reads.cpu()[0]) - before
+        replays = teng.graph_stats().get(str(eng.device), {}).get(
+            "walk_replays", 0) - replays
+    captured.check("10: KDT")
     return {"backtrack": bt, "trees": trees, "depth": eng.kd_depth,
             "seeds_equal_plain": bool(torch.equal(card, plain)),
             "groups_equal_host": bool(np.array_equal(groups(card),
@@ -1154,10 +1168,10 @@ def kd_descent_checks(kidx, kq) -> dict:
             "eager_ids_equal": bool(np.array_equal(eager[1], want[1])),
             "replayed_ids_equal": all(
                 np.array_equal(r[1], want[1][:64]) for r in replayed),
-            "single_replays": teng.graph_stats().get(
-                str(eng.device), {}).get("walk_replays", 0),
+            "single_replays": replays,
             "single_host_launches": kd_descent.launch_counts()["kd_descent"],
             "single_reads": single_reads,
+            "single_resident": captured.row(),
             "node_reads": metrics.counter_value("search.kd_node_reads")}
 
 
@@ -4115,9 +4129,218 @@ def walk_body_row(walk_body, eng, queries, launches: dict) -> dict:
     emit({"phase": 2, **row})
     check(not unequal, f"walk_body: the fused body differs from the plain "
                        f"body at {unequal[:20]}")
-    check(body_launches == dict.fromkeys(walk_body.KERNELS,
-                                         WALK_BODY_BODIES),
+    check(body_launches == {**dict.fromkeys(walk_body.BODY_KERNELS,
+                                            WALK_BODY_BODIES),
+                            "walk_resident": 0},
           f"walk_body: launches {body_launches}")
+    return row
+
+
+# the resident walk's cluster sizes and row counts timed by phase 2
+RESIDENT_CLUSTERS = (1, 2, 4, 8)
+RESIDENT_ROWS = (4, 16, 256)
+# replays of a single query's captured walk counted by phases 2 and 10
+RESIDENT_REPLAYS = 10
+
+
+class CapturedWalkCounts:
+    """The walk body's kernel launches and the bodies walked (all, and
+    those that ran as one resident launch: ``search.walk_bodies``,
+    ``search.walk_resident_bodies``) over a ``with`` block, which starts
+    at a single query's capturing call on the main path (search_batch:
+    the key's first call walks eagerly, its second captures the walk and
+    replays it).  `check` holds the block to the resident walk: one
+    capture, the resident kernel launched twice (the capture's warm-up and
+    the capture itself), no body kernel launched, and every body walked
+    resident."""
+
+    def __init__(self, walk_body):
+        self.walk_body = walk_body
+
+    @staticmethod
+    def read() -> list:
+        from sptag_tpu_torch.algo import engine as teng
+        from sptag_tpu_torch.utils import metrics
+
+        return [metrics.counter_value("search.walk_bodies"),
+                metrics.counter_value("search.walk_resident_bodies"),
+                sum(row.get("walk_captures", 0)
+                    for row in teng.graph_stats().values())]
+
+    def __enter__(self):
+        torch.cuda.synchronize()
+        self.walk_body.reset_launch_counts()
+        self.before = self.read()
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize()
+        self.launches = self.walk_body.launch_counts()
+        self.bodies, self.resident_bodies, self.captures = (
+            a - b for a, b in zip(self.read(), self.before))
+        return False
+
+    def row(self) -> dict:
+        return {"launches": self.launches, "walk_captures": self.captures,
+                "walk_bodies": self.bodies,
+                "walk_resident_bodies": self.resident_bodies}
+
+    def check(self, where: str) -> None:
+        check(self.captures == 1
+              and self.launches == {**dict.fromkeys(
+                  self.walk_body.BODY_KERNELS, 0), "walk_resident": 2}
+              and self.resident_bodies == self.bodies > 0,
+              f"{where}: a single query's captured walk did not run as one "
+              f"resident launch {self.row()}")
+
+
+def ptxas_lines(source: str, kernel: str) -> list:
+    """ptxas's lines (registers, shared memory, spills) for the entry
+    functions of `source` whose names hold `kernel`: from this process's
+    build, or, where an earlier process built the library, from a build
+    of the source into a scratch directory."""
+    from sptag_tpu_torch import _build
+
+    log = _build.build_log.get(source, "")
+    if not log:
+        with tempfile.TemporaryDirectory() as scratch:
+            res = subprocess.run(
+                [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
+                 os.path.join(scratch, "lib.so"),
+                 os.path.join(_build.CSRC_DIR, source + ".cu")],
+                capture_output=True, text=True)
+            log = res.stdout + res.stderr
+    out, on = [], False
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            on = kernel in ln
+            if on:
+                out.append(ln.strip())
+        elif on and ("registers" in ln or "spill" in ln):
+            out.append(ln.strip())
+    return out
+
+
+def walk_resident_row(walk_body, index, queries) -> dict:
+    """Phase 2 for the resident walk (ops/walk_body.py's walk_resident):
+    on `eng` at the single-query cell's plan (k 10, MaxCheck 2048) with a
+    single query's replay bucket (the query and three copies, as a replay
+    pads it), and at 16 and 256 distinct queries, the resident kernel's T
+    bodies in one launch and T three-launch bodies (pop + expand, scoring,
+    merge) each against T plain bodies (the PyTorch glue around the same
+    scoring) from the same seeded state, every state tensor bit for bit;
+    each path's device time a walk (``torch.profiler``, the walk's
+    kernels) and elapsed time a walk (``graph_ms``: a CUDA graph of 20
+    walks, each from a copy of the seeded state, the copies included on
+    both sides), at every cluster size; the resident kernel's launches, the
+    cluster size the rule picks, and its ptxas lines; then a single query
+    through `index.search_batch` (CapturedWalkCounts), replayed
+    RESIDENT_REPLAYS times."""
+    from sptag_tpu_torch.algo import engine as teng
+
+    eng = index._get_engine()
+    k_eff, L, B, T, limit = eng.walk_plan(K, 2048, 16, None, 3)
+    m = int(eng.graph.shape[1])
+    D = int(eng.data.shape[1])
+    sms = torch.cuda.get_device_properties(eng.device).multi_processor_count
+    cluster_for = walk_body.cluster_for
+
+    def seeded_for(Q):
+        if Q == 4:
+            q = np.repeat(queries[:1], 4, axis=0)
+        else:
+            q = queries[:Q]
+        q = torch.from_numpy(np.ascontiguousarray(q)).to(eng.device)
+        state = eng.seed_state(q, L)
+        t_limit = torch.full((Q,), T, dtype=torch.int64, device=eng.device)
+        return state, t_limit
+
+    def run(seeded, t_limit, body):
+        """T bodies of `body`: "plain", "three" (launches) or "resident"."""
+        state = {k: v.clone() if isinstance(v, torch.Tensor) else v
+                 for k, v in seeded.items()}
+        w = teng._Walk(eng, state, t_limit, k_eff, L, B, limit,
+                       4 if state.get("spare_ids") is not None else 0, 0)
+        if body != "resident":
+            w.resident = False
+            w.fused = body == "three"
+        elif not w.resident:
+            raise RuntimeError("walk_resident: the rule refuses the plan")
+        w.run_all(T)
+        return w.state()
+
+    def differ(want, got, where):
+        for key in teng.STATE_KEYS:
+            x, y = want[key], got[key]
+            if x.dtype == torch.float32:
+                x, y = x.view(torch.int32), y.view(torch.int32)
+            if not torch.equal(x, y):
+                unequal.append(f"{key}@Q{Q}/{where}")
+
+    def walk_ms(fn):
+        _, rows = device_ms(fn)
+        walk_rows = {k: v for k, v in rows.items() if "walk_" in k}
+        return sum(walk_rows.values()), walk_rows
+
+    unequal, sweep = [], {}
+    three = {}
+    for Q in RESIDENT_ROWS:
+        seeded, t_limit = seeded_for(Q)
+        want = run(seeded, t_limit, "plain")
+        differ(want, run(seeded, t_limit, "three"), "three")
+        dev_ms, by_kernel = walk_ms(lambda: run(seeded, t_limit, "three"))
+        three[Q] = {"device_ms": dev_ms,
+                    "elapsed_ms": graph_ms(
+                        lambda: run(seeded, t_limit, "three")),
+                    "device_ms_by_kernel": by_kernel}
+        sweep[Q] = {}
+        for cl in RESIDENT_CLUSTERS:
+            walk_body.cluster_for = lambda Q, sms, cl=cl: cl
+            try:
+                differ(want, run(seeded, t_limit, "resident"),
+                       f"cluster{cl}")
+                sweep[Q][cl] = {
+                    "device_ms": walk_ms(lambda: run(seeded, t_limit,
+                                                     "resident"))[0],
+                    "elapsed_ms": graph_ms(lambda: run(seeded, t_limit,
+                                                       "resident"))}
+            finally:
+                walk_body.cluster_for = cluster_for
+        torch.cuda.synchronize()
+    walk_body.reset_launch_counts()
+    seeded, t_limit = seeded_for(4)
+    for _ in range(3):
+        run(seeded, t_limit, "resident")
+    torch.cuda.synchronize()
+    launches = walk_body.launch_counts()
+    index.search_batch(queries[:1], K)          # eager: the key is seen
+    with CapturedWalkCounts(walk_body) as single:
+        for _ in range(1 + RESIDENT_REPLAYS):
+            index.search_batch(queries[:1], K)
+    chosen = cluster_for(4, sms)
+    smem = walk_body.resident_smem(L, B, m, 4, eng.n, D)
+    row = {"name": "walk_resident", "route": "cuda",
+           "source": "sptag_tpu_torch/csrc/walk_body.cu",
+           "replaces": "the walk body's three launches of a captured walk "
+                       "(walk_pop_expand, walk_score_f32, walk_merge)",
+           "path": "walk_resident",
+           "plan": {"L": L, "B": B, "m": m, "T": T, "N": eng.n, "D": D,
+                    "inject": 4},
+           "bits_equal": not unequal, "unequal": unequal[:20],
+           "cluster_chosen_at_4_rows": chosen, "sms": sms,
+           "smem_bytes": smem,
+           "ptxas": ptxas_lines("walk_body", "walk_resident_kernel"),
+           "launches_3_walks": launches, "single_query": single.row(),
+           "three_launch": {str(q): v for q, v in three.items()},
+           "resident": {str(q): {str(c): v for c, v in by.items()}
+                        for q, by in sweep.items()}}
+    emit({"phase": 2, **row})
+    check(not unequal, f"walk_resident: differs from the plain body at "
+                       f"{unequal[:20]}")
+    check(launches == {**dict.fromkeys(walk_body.BODY_KERNELS, 0),
+                       "walk_resident": 3},
+          f"walk_resident: launches {launches}")
+    single.check("walk_resident")
     return row
 
 
@@ -5154,7 +5377,9 @@ def main() -> None:
     # the int8 scoring is the cascade's (phase 14)
     walk_launches = {k: v for k, v in walk_ops.launch_counts().items()
                      if k != "walk_score_i8"}
-    walk_launches.update(walk_body.launch_counts())
+    # a captured walk's resident kernel runs in no batch of 1,024
+    walk_launches.update({k: v for k, v in walk_body.launch_counts().items()
+                          if k != "walk_resident"})
     emit({"phase": 7, "n": len(data), "d": data.shape[1],
           "build_s": gbuild_s, "build_stages_s": gidx.build_stages,
           "build_launches": build_launches, "walk_launches": walk_launches,
@@ -5188,6 +5413,7 @@ def main() -> None:
     gidx.set_parameter("BinnedTopK", "off")
     body_row = walk_body_row(walk_body, gidx._get_engine(), queries,
                              walk_launches)
+    resident_row = walk_resident_row(walk_body, gidx, queries)
     gidx.set_parameter("BinnedTopK", "on")
     # the saved folder stays for phase 9, which mutates a loaded copy
     graph_folder = os.path.join(work.name, "bkt_graph")
@@ -5336,6 +5562,7 @@ def main() -> None:
     rows.extend(walk_dots_rows(walk_ops, first_walk,
                                walk_launches))
     rows.append(body_row)
+    rows.append(resident_row)
 
     # ---- phase 6: where a search batch's time goes ---------------------------
     # device time from the profiler's CUDA rows (kernels and copies); the

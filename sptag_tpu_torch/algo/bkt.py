@@ -573,7 +573,9 @@ class BKTIndex(VectorIndex):
         through the slot scheduler, whose futures are waited for here).
         The walk's bodies count into ``search.walk_bodies``, those that
         ran the exact body's kernels (ops/walk_body.py) also into
-        ``search.walk_fused_bodies``."""
+        ``search.walk_fused_bodies``, and those of them that ran as one
+        resident launch (a captured walk) into
+        ``search.walk_resident_bodies``."""
         p = self.params
         if int(getattr(p, "continuous_batching", 0)):
             # the same results, continuously batched with concurrent
@@ -592,6 +594,8 @@ class BKTIndex(VectorIndex):
             segment_iters=seg or None, kd_backtrack=kd)
         metrics.inc("search.walk_bodies", engine.last_iterations)
         metrics.inc("search.walk_fused_bodies", engine.last_fused_iterations)
+        metrics.inc("search.walk_resident_bodies",
+                    engine.last_resident_iterations)
         return out
 
     def _walk_seeds(self, queries: np.ndarray, max_check: int

@@ -62,7 +62,11 @@ exact body's glue is ops/walk_body.py's two kernels around the scoring
 launch: ``walk.pop`` wraps the pop-and-expand launch and ``walk.expand``
 is entered empty.  A walk being
 captured records none (`_Walk.run_all`); its capture is the port's
-compile (``cuda.compile[graph_capture]``, utils/recompile_guard.py).
+compile (``cuda.compile[graph_capture]``, utils/recompile_guard.py).  Such
+a walk (a whole-walk graph, a captured segment) runs all its bodies as
+one ``walk_resident`` launch where `walk_body.resident_walk` allows: one
+cluster of CTAs a query row, the row's state in shared memory throughout
+(``search.walk_resident_bodies`` counts its bodies).
 
 The walk's state is the JAX package's (``seed_state``): ``run_segment``
 advances it by at most S iterations and ``finalize`` retires it, so
@@ -332,8 +336,9 @@ class _Walk:
 
     The exact body (``merge_bins`` 0) is ops/walk_body.py's glue around
     the scoring launch: on the card its kernels (`fused`: two launches a
-    body besides the scoring), on the CPU their plain versions.  The
-    binned body (``BinnedTopK``) keeps its PyTorch form here."""
+    body besides the scoring), on the CPU their plain versions; `run_all`
+    runs all its bodies as one resident launch where `resident` holds.
+    The binned body (``BinnedTopK``) keeps its PyTorch form here."""
 
     def __init__(self, eng: "GraphSearchEngine", state: dict, t_limit,
                  k: int, L: int, B: int, nbp_limit: int, inject: int,
@@ -378,6 +383,11 @@ class _Walk:
             if self.use_spares:
                 self.spare_ids = spare_ids.contiguous()
                 self.spare_d = self.spare_d.contiguous()
+        #: `run_all` is one walk_body.walk_resident launch
+        self.resident = self.fused and walk_body.resident_walk(
+            dev, merge_bins, eng.f32_gather_scoring(self.queries_s), L, B,
+            int(eng.graph.shape[1]), inject if self.use_spares else 0,
+            eng.n, int(queries.shape[1]))
         if merge_bins:
             # the binned body's constants
             self._arange_L = torch.arange(L, device=dev)
@@ -574,7 +584,20 @@ class _Walk:
     def run_all(self, iters: int) -> int:
         """`iters` bodies with no host sync: the same pools as `run` (a
         dead row is an absorbing no-op), capturable in a graph, and with
-        no spans (a captured walk's replay is one ``walk.replay``)."""
+        no spans (a captured walk's replay is one ``walk.replay``); one
+        resident launch where `resident` holds."""
+        if self.resident:
+            eng = self.eng
+            spares = ((self.n_spare, self.spare_ids, self.spare_d)
+                      if self.use_spares else (None, None, None))
+            (self.cand_ids, self.cand_d, self.expanded, self.no_better,
+             self.ptr, self.it) = walk_body.walk_resident(
+                self.queries_s, eng.score_src, eng.sqnorm, eng.metric,
+                eng.base, self.cand_ids, self.cand_d, self.expanded,
+                self.visited, self.no_better, self.ptr, self.it,
+                self.t_limit, *spares, eng.graph, self.k_eff, self.B,
+                self.nbp_limit, self.inject, iters)
+            return iters
         for _ in range(iters):
             self.body()
         return iters
@@ -753,6 +776,8 @@ class GraphSearchEngine:
         self.last_iterations = 0
         #: of those, the iterations that ran the exact body's kernels
         self.last_fused_iterations = 0
+        #: of those, the iterations that ran as one resident launch
+        self.last_resident_iterations = 0
         # CUDA graphs of small-chunk walks, by (shapes, plan), oldest first
         self._graphs = collections.OrderedDict()
         self._graph_lock = threading.Lock()
@@ -877,6 +902,17 @@ class GraphSearchEngine:
         """Whether a walk on `device` runs the exact body's kernels
         (ops/walk_body.py): on the card and not binned."""
         return torch.device(device).type == "cuda" and not merge_bins
+
+    def f32_gather_scoring(self, queries: torch.Tensor) -> bool:
+        """Whether the walk scores float32 `queries` against the float32
+        corpus by gather (what the resident kernel scores): no packed
+        neighbours, no bf16 shadow, no int8 cascade, float cosine at base
+        1."""
+        return (queries.dtype == torch.float32
+                and self.score_src.dtype == torch.float32
+                and self.nbr_vecs is None and not self.score_scale
+                and (self.metric != DistCalcMethod.Cosine
+                     or self.base == 1))
 
     def seed_keep_for(self, L: int) -> int:
         """Spare-queue depth of the binned seeding (0 = exact seeding)."""
@@ -1084,6 +1120,7 @@ class GraphSearchEngine:
         out_i = torch.zeros((nq, k_eff), dtype=torch.int32,
                             device=self.device)
         self.last_iterations = self.last_fused_iterations = 0
+        self.last_resident_iterations = 0
         fused = self.fused_body(self.device, self.merge_bins_for(L, B))
         for start in range(0, nq, chunk):
             q = queries[start:start + chunk]
@@ -1130,18 +1167,22 @@ class GraphSearchEngine:
 
     # ---- search -------------------------------------------------------------
 
-    def _count_iterations(self, n: int, fused: bool) -> None:
+    def _count_iterations(self, n: int, fused: bool,
+                          resident: bool = False) -> None:
         self.last_iterations += n
         if fused:
             self.last_fused_iterations += n
+        if resident:
+            self.last_resident_iterations += n
 
     def _walk_chunk(self, queries, seeds, plan, check_alive: bool = True,
                     kd_backtrack: int = 0):
         """Seed, walk and finalize one chunk on the device: ((Q, k') dists,
-        (Q, k') int32 ids, iterations run).  `seeds` is None or a (Q, S)
-        int64 tensor; with None, `kd_backtrack` > 0 descends the kd forest
-        for them first.  The eager walk's stages are spans; a walk being
-        captured (`check_alive` False) records none."""
+        (Q, k') int32 ids, iterations run, whether they ran as one
+        resident launch).  `seeds` is None or a (Q, S) int64 tensor; with
+        None, `kd_backtrack` > 0 descends the kd forest for them first.
+        The eager walk's stages are spans; a walk being captured
+        (`check_alive` False) records none."""
         mark = trace.span if check_alive else _unmarked
         k_eff, L, B, T, limit, inject, mb, fb, sk = plan
         if seeds is None and kd_backtrack:
@@ -1158,7 +1199,7 @@ class GraphSearchEngine:
         with mark("walk.finalize"):
             d, ids = _finalize(self, queries, walk.cand_ids, walk.cand_d,
                                min(k_eff, L), binned_bins=fb)
-        return d, ids, its
+        return d, ids, its, walk.resident and not check_alive
 
     def _search_chunk(self, q: np.ndarray, seeds: Optional[np.ndarray],
                       *plan, kd_backtrack: int = 0
@@ -1173,8 +1214,8 @@ class GraphSearchEngine:
             out = self._replay_chunk(queries, s, plan, kd_backtrack)
             if out is not None:
                 return out
-        d, ids, its = self._walk_chunk(queries, s, plan,
-                                       kd_backtrack=kd_backtrack)
+        d, ids, its, _ = self._walk_chunk(queries, s, plan,
+                                          kd_backtrack=kd_backtrack)
         self._count_iterations(its, self.fused_body(self.device, plan[6]))
         return d, ids
 
@@ -1225,7 +1266,7 @@ class GraphSearchEngine:
                     self._graphs.popitem(last=False)
             else:
                 self._graphs.move_to_end(key)
-        graph, q_in, s_in, d_out, i_out, lock = entry
+        graph, q_in, s_in, d_out, i_out, lock, resident = entry
         with trace.span("walk.replay"), lock, \
                 torch.cuda.device(self.device):
             q_in.copy_(queries)
@@ -1234,7 +1275,8 @@ class GraphSearchEngine:
             with capture_lock:       # not while the profiler starts / stops
                 graph.replay()
             self._count_iterations(plan[3],
-                                   self.fused_body(self.device, plan[6]))
+                                   self.fused_body(self.device, plan[6]),
+                                   resident)
             # the static outputs are the next replay's: copies leave with
             # the caller
             return d_out[:nq].clone(), i_out[:nq].clone()
@@ -1254,9 +1296,9 @@ class GraphSearchEngine:
         if graph is None:
             return None
         _note_graph(self.device, "walk_captures")
-        d_out, i_out, _ = out
+        d_out, i_out, _, resident = out
         return (DeviceGraph(graph, self.device, "walk_replays"), q_in, s_in,
-                d_out, i_out, threading.Lock())
+                d_out, i_out, threading.Lock(), resident)
 
     def search(self, queries: np.ndarray, k: int, max_check: int = 2048,
                beam_width: int = 16, pool_size: Optional[int] = None,
@@ -1322,6 +1364,7 @@ class GraphSearchEngine:
                     self.merge_bins_for(L, B),
                     self.finalize_bins_for(k_eff, L), self.seed_keep_for(L))
             self.last_iterations = self.last_fused_iterations = 0
+            self.last_resident_iterations = 0
             for lo in range(0, nq, chunk):
                 s = None if seeds is None else seeds[lo:lo + chunk]
                 d, ids = self._search_chunk(queries[lo:lo + chunk], s,

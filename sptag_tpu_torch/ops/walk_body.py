@@ -15,7 +15,14 @@ that glue as two kernels a body, one CTA a query row:
   pop's per-row control values for the merge;
 * ``walk_merge`` (``walk_merge_kernel``): the spare trigger and injection,
   the top-L merge by rank over the candidates that can enter, and the
-  counters; returns a new state.
+  counters; returns a new state;
+* ``walk_resident`` (``walk_resident_kernel``): every body of a walk run
+  with no host sync between bodies (``_Walk.run_all``: a captured walk or
+  segment) in one launch, one cluster of CTAs a query row, the row's state
+  in the leader CTA's shared memory from the first body to the last, the
+  scoring of each body's fresh ids split over the cluster; returns the
+  state the two kernels and the scoring would leave after those bodies
+  (`visited` updated in place).  `resident_walk` is the rule that picks it.
 
 A CPU tensor runs the plain versions (`pop_reference`, `expand_reference`,
 `merge_reference`): the PyTorch body the port ran before the kernels, so
@@ -25,12 +32,16 @@ give the same state tensors bit for bit (tests/test_torch_cuda.py).  The
 three (Q,) tensors in the plain versions, one (Q, 3) int32 tensor on the
 card (the float's bits in column 1).  A CTA's work area grows with L,
 B * m and the spares injected at once; a plan too wide for the card's
-227 KB of shared memory a CTA takes a device scratch (`work_area`).
+227 KB of shared memory a CTA takes a device scratch (`work_area`).  The
+resident kernel's area adds the visited set, one bit a corpus row, and
+has no scratch form: a plan or corpus too wide for it keeps the two
+kernels a body.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from typing import Optional, Tuple
 
@@ -38,11 +49,15 @@ import torch
 
 from sptag_tpu_torch import _build
 from sptag_tpu_torch.algo.dense import _sorted_dup_mask
+from sptag_tpu_torch.core.types import DistCalcMethod
 from sptag_tpu_torch.ops import distance as dist_ops
+from sptag_tpu_torch.ops import walk_dots as walk_ops
 from sptag_tpu_torch.ops.walk_dots import MAX_DIST
 
 #: kernel -> launches (the CPU path never counts)
-KERNELS = ("walk_pop_expand", "walk_merge")
+KERNELS = ("walk_pop_expand", "walk_merge", "walk_resident")
+#: the kernels of one body launched on its own (two a body)
+BODY_KERNELS = KERNELS[:2]
 _launches = dict.fromkeys(KERNELS, 0)
 _count_lock = threading.Lock()
 
@@ -57,7 +72,13 @@ _SIGNATURES = {
                               + (_L, _I, _L, _F, _I, _P, _L, _I, _P)),
     "sptag_walk_merge": (_I, (_P,) * 18 + (_I,) * 5
                          + (_L, _F, _P, _L, _I, _P)),
+    "sptag_walk_resident": (_I, (_P,) * 21 + (_I,) * 4 + (_L, _I, _I, _L)
+                            + (_I,) * 4 + (_F,) + (_I,) * 3 + (_P,)),
+    "sptag_walk_resident_smem": (_L, (_I,) * 4 + (_L, _I, _I)),
 }
+
+# the resident kernel's counters and barrier scratch (csrc/walk_body.cu)
+_MISC_BYTES = 256
 
 
 def launch_counts() -> dict:
@@ -100,8 +121,69 @@ def pop_expand_smem(L: int, B: int, m: int) -> int:
 
 
 def merge_smem(L: int, C: int, inject: int) -> int:
-    # the beam's keys and ids, the candidates' keys, the beam's flags
-    return 8 * (2 * L + _pow2(C + inject)) + L
+    # the beam's keys and ids, the candidates' keys and their sort's second
+    # buffer (whole runs of 32), the beam's flags
+    return 8 * (2 * L + 2 * max(_pow2(C + inject), 32)) + L
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def resident_layout(L: int, B: int, m: int, inject: int, N: int,
+                    D: int) -> dict:
+    """The resident kernel's shared memory a CTA by part, each rounded up
+    to 16 bytes, in csrc/walk_body.cu's `resident_layout` order: the query;
+    the row's counters and barrier scratch; two beam buffers (keys,
+    distances, ids, flags: 17 bytes an entry); the hash table, whose room
+    the merge's candidate keys and its sort's second buffer reuse; the
+    slots; the pops; the fresh list (ids, distances, slots); the
+    compaction's counts (8 warps a round of 256 slots); the next
+    injection's spares; the visited bitset of the N + 1 columns."""
+    C = B * m
+    table = 8 * max(1 << _hash_log2(C), 2 * (-(-(C + inject) // 32) * 32))
+    parts = {"query": 4 * (-(-D // 128) * 128), "misc": _MISC_BYTES,
+             "beam0": 17 * L, "beam1": 17 * L, "hash": table,
+             "slots": 4 * C, "pops": 8 * B, "fresh": 12 * C,
+             "rounds": 32 * -(-C // 256), "spares": 12 * inject,
+             "bits": 4 * (-(-(N + 1) // 32))}
+    return {k: _align16(v) for k, v in parts.items()}
+
+
+def resident_smem(L: int, B: int, m: int, inject: int, N: int,
+                  D: int) -> int:
+    """The resident kernel's shared memory a CTA in bytes: the sum of
+    `resident_layout`."""
+    return sum(resident_layout(L, B, m, inject, N, D).values())
+
+
+def cluster_for(Q: int, sms: int) -> int:
+    """CTAs a row's cluster at Q rows on a card of `sms` SMs: the most (of
+    8, 4, 2, 1) whose clusters take at most half the SMs (on the H100 the
+    fastest at 4, 16 and 256 rows, chip_smoke.py's walk_resident row)."""
+    c = 8
+    while c > 1 and 2 * Q * c > sms:
+        c //= 2
+    return c
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def resident_walk(device, merge_bins: int, f32_gather: bool, L: int, B: int,
+                  m: int, inject: int, N: int, D: int) -> bool:
+    """Whether a walk run whole (``_Walk.run_all``, no host sync between
+    bodies) runs as one ``walk_resident`` launch: on the card, the exact
+    body (not binned), float32 queries scored against the float32 corpus
+    by gather (`f32_gather`: no packed neighbours, no bf16 shadow, no int8
+    cascade), and the row's work area with its visited bitset within one
+    CTA's shared memory.  `inject` is the spares injected at once (0
+    without spares)."""
+    return (torch.device(device).type == "cuda" and not merge_bins
+            and f32_gather and D <= walk_ops.MAX_SCORE_D
+            and resident_smem(L, B, m, inject, N, D) <= MAX_SMEM)
 
 
 def work_area(nbytes: int, Q: int, device):
@@ -332,4 +414,93 @@ def walk_merge(cand_ids, cand_d, expanded, nd, fresh_ids, ctl, no_better,
                 nb.data_ptr(), new_ptr.data_ptr(), new_it.data_ptr(), Q, L,
                 C, Ps, inj, nbp_limit, MAX_DIST,
                 None if scratch is None else scratch.data_ptr(), row, smem)
+    return out_ids, out_d, out_exp, nb, new_ptr, new_it
+
+
+def walk_resident(queries, x, x_sqnorm, metric, base: int, cand_ids, cand_d,
+                  expanded, visited, no_better, ptr, it, t_limit,
+                  n_spare: Optional[torch.Tensor],
+                  spare_ids: Optional[torch.Tensor],
+                  spare_d: Optional[torch.Tensor], graph, k_eff: int, B: int,
+                  nbp_limit: int, inject: int, iters: int):
+    """`iters` exact bodies: (cand_ids, cand_d, expanded, no_better, ptr,
+    it), new tensors, and `visited` updated in place; the input `expanded`
+    is left as it was.  The (Q, D) float32 `queries` score against the
+    float32 rows `x` by gather (L2 reads `x_sqnorm`, one norm a row; cosine
+    takes base 1).  The spares are None without spares.  A CPU tensor runs
+    the plain body `iters` times; on the card one launch of Q clusters of
+    `cluster_for` CTAs."""
+    metric = int(metric)
+    cosine = metric == int(DistCalcMethod.Cosine)
+    if cosine and base != 1:
+        raise ValueError("walk_resident: float cosine has base 1")
+    spares = n_spare is not None
+    if cand_d.device.type == "cpu":
+        expanded = expanded.clone()
+        for _ in range(iters):
+            sel_ok, sel_ids, ctl = pop_reference(
+                cand_ids, cand_d, expanded, no_better, ptr, it, t_limit,
+                n_spare, k_eff, B, nbp_limit)
+            fresh = expand_reference(graph, sel_ok, sel_ids, visited)
+            nd = walk_ops.walk_distance_reference(
+                queries, x, metric, base, walk_ops.GATHER, idx=fresh,
+                x_sqnorm=x_sqnorm)
+            cand_ids, cand_d, expanded, no_better, ptr, it = \
+                merge_reference(cand_ids, cand_d, expanded, nd, fresh, ctl,
+                                no_better, ptr, it, n_spare, spare_ids,
+                                spare_d, inject, nbp_limit)
+        return cand_ids, cand_d, expanded, no_better, ptr, it
+    dev = cand_d.device
+    Q, L = cand_d.shape
+    N1 = visited.shape[1]
+    m = graph.shape[1]
+    D = queries.shape[1]
+    Ps = spare_ids.shape[1] if spares else 0
+    inj = inject if spares else 0
+    if not 1 <= B <= L or not 1 <= k_eff <= L or B * m >= _INT32_MAX // 4 \
+            or (spares and (Ps < 1 or inject < 0)) or Q < 1 or iters < 1:
+        raise ValueError(f"walk_resident: B {B} and k {k_eff} within L "
+                         f"{L}, B * m {B * m} slots below 2^29, a spare "
+                         f"queue, a row and a body")
+    smem = resident_smem(L, B, m, inj, N1 - 1, D)
+    if smem > MAX_SMEM or D > walk_ops.MAX_SCORE_D:
+        raise ValueError(f"walk_resident: {smem} bytes of shared memory "
+                         f"(at most {MAX_SMEM}), D {D}")
+    specs = [("queries", queries, torch.float32, (Q, D)),
+             ("x", x, torch.float32, (N1 - 1, D)),
+             ("cand_ids", cand_ids, torch.int64, (Q, L)),
+             ("cand_d", cand_d, torch.float32, (Q, L)),
+             ("expanded", expanded, torch.bool, (Q, L + 1)),
+             ("visited", visited, torch.bool, (Q, N1)),
+             ("graph", graph, torch.int32, (N1 - 1, m))]
+    if not cosine:
+        specs.append(("x_sqnorm", x_sqnorm, torch.float32, (N1 - 1,)))
+    specs += [(key, t, torch.int64, (Q,)) for key, t in (
+        ("no_better", no_better), ("ptr", ptr), ("it", it),
+        ("t_limit", t_limit), ("n_spare", n_spare)) if t is not None]
+    if spares:
+        specs += [("spare_ids", spare_ids, torch.int64, (Q, Ps)),
+                  ("spare_d", spare_d, torch.float32, (Q, Ps))]
+    _check("walk_resident", dev, specs)
+    out_ids = torch.empty((Q, L), dtype=torch.int64, device=dev)
+    out_d = torch.empty((Q, L), dtype=torch.float32, device=dev)
+    out_exp = torch.empty((Q, L + 1), dtype=torch.bool, device=dev)
+    counters = torch.empty((3, Q), dtype=torch.int64, device=dev)
+    nb, new_ptr, new_it = counters.unbind(0)
+    cluster = cluster_for(Q, _sm_count(dev.index if dev.index is not None
+                                       else torch.cuda.current_device()))
+    _launch("sptag_walk_resident", "walk_resident", dev,
+            cand_ids.data_ptr(), cand_d.data_ptr(), expanded.data_ptr(),
+            visited.data_ptr(), no_better.data_ptr(), ptr.data_ptr(),
+            it.data_ptr(), t_limit.data_ptr(),
+            n_spare.data_ptr() if spares else None,
+            spare_ids.data_ptr() if spares else None,
+            spare_d.data_ptr() if spares else None, graph.data_ptr(),
+            queries.data_ptr(), x.data_ptr(),
+            None if cosine else x_sqnorm.data_ptr(), out_ids.data_ptr(),
+            out_d.data_ptr(), out_exp.data_ptr(), nb.data_ptr(),
+            new_ptr.data_ptr(), new_it.data_ptr(), Q, L, B, m, N1 - 1, D,
+            k_eff, nbp_limit, Ps, inj, iters,
+            walk_ops.COSINE if cosine else walk_ops.L2, MAX_DIST,
+            _hash_log2(B * m), int(cluster), smem)
     return out_ids, out_d, out_exp, nb, new_ptr, new_it

@@ -8,8 +8,11 @@ every merge, which the kernels' prefix pop relies on.  On the card
 (marker ``cuda``; this file imports neither jax nor sptag_tpu, so on the
 card: ``python -m pytest --noconftest -m cuda tests/test_torch_walk_body.py``)
 the kernels must give every state tensor of the plain body bit for bit
-after every body, eager and replayed from a captured graph.  The corpus
-is integer-valued, so distances tie often.
+after every body, eager and replayed from a captured graph, and the
+resident kernel (all of a captured walk's bodies in one launch) the state
+of as many three-launch bodies.  The corpus is integer-valued, so
+distances tie often; the resident kernel's card tests also walk the
+single-query cell's plan on float rows.
 """
 
 import numpy as np
@@ -323,7 +326,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(bad):
 def test_work_area_and_the_engine_choice():
     # the benchmark's plan: both kernels' areas in shared memory
     assert wb.pop_expand_smem(320, 64, 32) == 4 * (2 * 4096 + 2048 + 128)
-    assert wb.merge_smem(320, 2048, 4) == 8 * (2 * 320 + 4096) + 320
+    assert wb.merge_smem(320, 2048, 4) == 8 * (2 * 320 + 2 * 4096) + 320
     assert wb.work_area(wb.merge_smem(320, 2048, 4), 6, "meta") == \
         (None, 0, wb.merge_smem(320, 2048, 4))
     # a plan too wide for a CTA: a 16-byte-aligned device area a row
@@ -335,6 +338,88 @@ def test_work_area_and_the_engine_choice():
     assert not teng.GraphSearchEngine.fused_body("cpu", 0)
     assert teng.GraphSearchEngine.fused_body("cuda", 0)
     assert not teng.GraphSearchEngine.fused_body("cuda", 128)   # binned
+
+
+# (L, B, m, spares injected at once, N, D): the single-query cell's plan
+# (BKT, KDT), a wide beam, odd widths, and corpora past the bitset's room
+RESIDENT_PLANS = {
+    "cell_bkt": (320, 64, 32, 4, 90_000, 100),
+    "cell_kdt": (320, 64, 32, 0, 90_000, 100),
+    "wide_beam": (1024, 128, 64, 4, 200_000, 128),
+    "odd": (77, 63, 33, 4, 2_999, 5),
+    "corpus_1m": (320, 64, 32, 4, 1_000_000, 128),
+    "corpus_2m": (320, 64, 32, 4, 2_000_000, 100),
+}
+
+
+# the cell's plan (BKT) part by part, in bytes
+CELL_LAYOUT = {"query": 512, "misc": 256, "beam0": 5_440, "beam1": 5_440,
+               "hash": 33_280, "slots": 8_192, "pops": 512, "fresh": 24_576,
+               "rounds": 256, "spares": 48, "bits": 11_264}
+
+
+@pytest.mark.parametrize("plan", list(RESIDENT_PLANS))
+def test_resident_rule_and_its_shared_memory(plan):
+    L, B, m, inject, N, D = RESIDENT_PLANS[plan]
+    n = wb.resident_smem(L, B, m, inject, N, D)
+    parts = wb.resident_layout(L, B, m, inject, N, D)
+    assert n == sum(parts.values()) and n % 16 == 0
+    assert all(v % 16 == 0 for v in parts.values())
+    # one bit a column of the N + 1, 17 bytes a beam entry, 12 a slot
+    assert parts["bits"] == -(-(N + 1) // 128) * 16
+    assert parts["beam0"] == parts["beam1"] == -(-17 * L // 16) * 16
+    assert parts["fresh"] == -(-12 * B * m // 16) * 16
+    if plan == "cell_bkt":
+        # the hash table holds the merge's two candidate buffers
+        assert parts == CELL_LAYOUT and n == 89_776
+    fits = n <= wb.MAX_SMEM
+    assert fits == (plan not in ("wide_beam", "corpus_2m"))
+    # one bit a corpus row: 128 more rows are 16 more bytes
+    assert wb.resident_smem(L, B, m, inject, N + 128, D) == n + 16
+    assert wb.resident_walk("cuda", 0, True, L, B, m, inject, N, D) == fits
+    assert not wb.resident_walk("cpu", 0, True, L, B, m, inject, N, D)
+    assert not wb.resident_walk("cuda", 512, True, L, B, m, inject, N, D)
+    assert not wb.resident_walk("cuda", 0, False, L, B, m, inject, N, D)
+
+
+@pytest.mark.parametrize("Q, sms, want", [(1, 132, 8), (8, 132, 8),
+                                          (9, 132, 4), (16, 132, 4),
+                                          (17, 132, 2), (33, 132, 2),
+                                          (34, 132, 1), (256, 132, 1)])
+def test_resident_cluster_rule(Q, sms, want):
+    assert wb.cluster_for(Q, sms) == want
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_resident_plain_version_gives_the_plain_bodies(case):
+    """walk_resident on CPU tensors is T plain bodies: the state of the
+    walk's own plain body after T bodies, the input state untouched but for
+    `visited`; the engine takes it in run_all where `resident` is set."""
+    c = CASES[case]
+    eng, state, t_limit = _engine(c, "cpu")
+    want = _walk(eng, _clone(state), t_limit, c, fused=False)
+    assert not want.resident                  # never on the CPU
+    want.run_all(c["T"])
+    w = _walk(eng, _clone(state), t_limit, c, fused=False)
+    before = _clone(w.state())
+    spares = ((w.n_spare, w.spare_ids, w.spare_d) if w.use_spares
+              else (None, None, None))
+    out = wb.walk_resident(
+        w.queries_s, eng.score_src, eng.sqnorm, eng.metric, eng.base,
+        w.cand_ids, w.cand_d, w.expanded, w.visited, w.no_better, w.ptr,
+        w.it, w.t_limit, *spares, eng.graph, w.k_eff, w.B, w.nbp_limit,
+        w.inject, c["T"])
+    got = dict(zip(("cand_ids", "cand_d", "expanded", "no_better", "ptr",
+                    "it"), out), visited=w.visited)
+    _assert_same(got, want.state(), f"{case} walk_resident")
+    for key in teng.STATE_KEYS:
+        if key != "visited":
+            assert torch.equal(getattr(w, key), before[key]), key
+    # the engine's run_all through the resident branch
+    r = _walk(eng, _clone(state), t_limit, c, fused=False)
+    r.resident = True
+    assert r.run_all(c["T"]) == c["T"]
+    _assert_same(r.state(), want.state(), f"{case} run_all resident")
 
 
 @pytest.mark.parametrize("binned", ["off", "on"])
@@ -354,10 +439,14 @@ def test_fused_body_counter_is_zero_on_the_cpu(binned):
     try:
         bodies = metrics.counter_value("search.walk_bodies")
         fused = metrics.counter_value("search.walk_fused_bodies")
+        resident = metrics.counter_value("search.walk_resident_bodies")
         idx.search_batch(data[:4] + 0.5, 5, search_mode="beam")
         assert metrics.counter_value("search.walk_bodies") > bodies
         assert metrics.counter_value("search.walk_fused_bodies") == fused
+        assert metrics.counter_value("search.walk_resident_bodies") \
+            == resident
         assert idx._get_engine().last_fused_iterations == 0
+        assert idx._get_engine().last_resident_iterations == 0
     finally:
         idx.close()
 
@@ -408,16 +497,23 @@ def test_fused_body_equals_the_plain_body_on_card(cuda, monkeypatch, case,
             _scheduler_edit(step, plain, c["L"], donor)
             _scheduler_edit(step, got, c["L"], donor)
     launches = wb.launch_counts()
-    # eager: one launch of each a body; captured: the warm-up and the
-    # capture
-    want = 2 if captured else c["T"]
-    assert launches == dict.fromkeys(wb.KERNELS, want)
+    # eager: one launch of each body kernel a body; captured: the warm-up
+    # and the capture, of the resident kernel where its rule allows
+    resident = captured and _walk(eng, _clone(state), t_limit, c,
+                                  fused=True).resident
+    assert resident == (captured and case != "scratch_area")
+    want = {**dict.fromkeys(wb.BODY_KERNELS,
+                            0 if resident else 2 if captured else c["T"]),
+            "walk_resident": 2 if resident else 0}
+    assert launches == want
 
 
 @pytest.mark.cuda
 def test_fused_walk_search_on_card_counts_fused_bodies(cuda):
     """An exact beam search on the card runs every body fused (and the
-    CPU's answers); a binned one runs none."""
+    CPU's answers); a binned one runs none.  A batch past the graph
+    buckets walks eagerly and runs no resident body; a single query
+    replayed from its captured walk runs every body resident."""
     import sptag_tpu_torch as tsp
     from sptag_tpu_torch.utils import metrics
 
@@ -431,15 +527,157 @@ def test_fused_walk_search_on_card_counts_fused_bodies(cuda):
         assert idx.set_parameter(name, value)
     idx.build(data)
     try:
+        def counted(queries):
+            names = ("search.walk_bodies", "search.walk_fused_bodies",
+                     "search.walk_resident_bodies")
+            before = [metrics.counter_value(n) for n in names]
+            idx.search_batch(queries, 10, search_mode="beam")
+            return [metrics.counter_value(n) - b
+                    for n, b in zip(names, before)]
+
         for binned in ("off", "on"):
             idx.set_parameter("BinnedTopK", binned)
-            bodies = metrics.counter_value("search.walk_bodies")
-            fused = metrics.counter_value("search.walk_fused_bodies")
-            idx.search_batch(q, 10, search_mode="beam")
-            d_bodies = metrics.counter_value("search.walk_bodies") - bodies
-            d_fused = (metrics.counter_value("search.walk_fused_bodies")
-                       - fused)
+            d_bodies, d_fused, d_resident = counted(q)
             assert d_bodies > 0
             assert d_fused == (d_bodies if binned == "off" else 0)
+            assert d_resident == 0
+        idx.set_parameter("BinnedTopK", "off")
+        counted(q[:1])                    # seen once: walked eagerly
+        for _ in range(2):                # captured, then replayed
+            d_bodies, d_fused, d_resident = counted(q[:1])
+            assert d_bodies > 0 and d_resident == d_fused == d_bodies
     finally:
         idx.close()
+
+
+# ---- the resident walk on the card ------------------------------------------
+
+_CELL = dict(n=90_000, m=32, D=100, k=10, L=320, B=64, nbp=3, inject=4,
+             T=32)
+
+
+@pytest.fixture(scope="module")
+def cell_engine():
+    """An engine at the single-query cell's widths: 90,000 x 100 float
+    rows in blobs, a random 32-wide graph with some -1 slots, 8,192
+    pivots."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the card: python -m pytest "
+                    "--noconftest -m cuda tests/test_torch_walk_body.py)")
+    rng = np.random.default_rng(20)
+    c = _CELL
+    centres = rng.normal(0, 4, (1000, c["D"]))
+    data = (centres[rng.integers(0, 1000, c["n"])]
+            + rng.normal(0, 1, (c["n"], c["D"]))).astype(np.float32)
+    graph = rng.integers(0, c["n"], (c["n"], c["m"])).astype(np.int32)
+    graph[rng.random(graph.shape) < 0.03] = -1
+    piv = rng.choice(c["n"], 8192, replace=False)
+    eng = teng.GraphSearchEngine(data, graph, piv, None, DistCalcMethod.L2,
+                                 1, device="cuda")
+    return eng, data, rng
+
+
+def _cell_state(eng, data, rng, Q, seeded):
+    """Q rows: queries near the corpus, the last two rows copies of the
+    first (a replay's padding), a row dead at the start (t_limit 0) and
+    mixed budgets; KDT-like per-query seeds when `seeded`."""
+    c = _CELL
+    q = data[rng.integers(0, c["n"], Q)] + rng.normal(0, 0.5, (Q, c["D"]))
+    if Q > 2:
+        q[-2:] = q[0]
+    q = torch.from_numpy(q.astype(np.float32)).to("cuda")
+    seeds = None
+    if seeded:
+        seeds = torch.from_numpy(rng.integers(-1, c["n"], (Q, 65))).to(
+            "cuda")
+    state = eng.seed_state(q, c["L"], seeds=seeds)
+    t_limit = torch.full((Q,), c["T"], dtype=torch.int64, device="cuda")
+    if Q > 1:
+        t_limit[1::3] = c["T"] // 3
+        t_limit[-3 if Q > 3 else -1] = 0
+    return state, t_limit
+
+
+def _cell_walk(eng, state, t_limit, resident):
+    c = _CELL
+    w = teng._Walk(eng, state, t_limit, c["k"], c["L"], c["B"], c["nbp"],
+                   c["inject"] if state.get("spare_ids") is not None else 0,
+                   0)
+    assert w.fused
+    if not resident:
+        w.resident = False
+    return w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q", [1, 4, 16, 256])
+@pytest.mark.parametrize("seeded", [False, True], ids=["bkt", "kdt"])
+def test_resident_walk_equals_three_launch_bodies_on_card(cell_engine,
+                                                          monkeypatch, Q,
+                                                          seeded):
+    """At the cell's plan the resident kernel's T bodies give the state of
+    T three-launch bodies (and of T plain bodies) bit for bit, at every
+    cluster size, with pivot spares (BKT) and seeded with none (KDT)."""
+    eng, data, rng = cell_engine
+    state, t_limit = _cell_state(eng, data, rng, Q, seeded)
+    want = _cell_walk(eng, _clone(state), t_limit, False)
+    want.run_all(_CELL["T"])
+    want = want.state()
+    # the three-launch body is the plain body's (the first bodies merge
+    # hundreds of candidates)
+    plain = _cell_walk(eng, _clone(state), t_limit, False)
+    plain.fused = False
+    plain.run_all(_CELL["T"])
+    _assert_same(want, plain.state(), f"Q {Q} three-launch")
+    for cl in (1, 2, 4, 8):
+        wb.reset_launch_counts()
+        monkeypatch.setattr(wb, "cluster_for", lambda Q, sms, cl=cl: cl)
+        w = _cell_walk(eng, _clone(state), t_limit, True)
+        assert w.resident
+        w.run_all(_CELL["T"])
+        got = w.state()
+        torch.cuda.synchronize()
+        _assert_same(got, want, f"Q {Q} cluster {cl}")
+        assert wb.launch_counts() == {**dict.fromkeys(wb.BODY_KERNELS, 0),
+                                      "walk_resident": 1}
+
+
+@pytest.mark.cuda
+def test_resident_smem_agrees_with_the_kernel_layout(cuda):
+    lib = wb.library()
+    for plan in RESIDENT_PLANS.values():
+        L, B, m, inject, N, D = plan
+        assert lib.sptag_walk_resident_smem(
+            L, B, m, inject, N, D, wb._hash_log2(B * m)) == \
+            wb.resident_smem(*plan), plan
+
+
+@pytest.mark.cuda
+def test_plan_past_the_bitset_room_keeps_three_launches_on_card(cuda):
+    """A corpus whose visited bitset does not fit a CTA's shared memory:
+    a captured segment runs the three-launch body, with its bits."""
+    rng = np.random.default_rng(21)
+    n, m, D, L, B, T = 1_900_000, 8, 4, 64, 8, 4
+    data = rng.integers(-4, 5, (n, D)).astype(np.float32)
+    graph = rng.integers(0, n, (n, m)).astype(np.int32)
+    eng = teng.GraphSearchEngine(data, graph, rng.choice(n, 256, False),
+                                 None, DistCalcMethod.L2, 1, device=cuda)
+    assert wb.resident_smem(L, B, m, 4, n, D) > wb.MAX_SMEM
+    q = torch.from_numpy(data[:4] + 0.5).to(cuda)
+    state = eng.seed_state(q, L)
+    t_limit = torch.full((4,), T, dtype=torch.int64, device=cuda)
+    plain = teng._Walk(eng, _clone(state), t_limit, 10, L, B, 3, 4, 0)
+    plain.fused = False
+    plain.run_all(T)
+    wb.reset_launch_counts()
+    graph_, bufs, t_in, _ = eng.capture_segment(_clone(state), t_limit, 10,
+                                                L, B, 3, T, 4)
+    for key, v in state.items():
+        if v is not None:
+            bufs[key].copy_(v)
+    t_in.copy_(t_limit)
+    graph_.replay()
+    torch.cuda.synchronize()
+    _assert_same(bufs, plain.state(), "past the bitset room")
+    assert wb.launch_counts() == {**dict.fromkeys(wb.BODY_KERNELS, 2 * T),
+                                  "walk_resident": 0}
